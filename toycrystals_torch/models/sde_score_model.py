@@ -1,0 +1,417 @@
+"""VP-SDE score model: conditional tiny U-Net and its samplers, in PyTorch.
+
+Counterpart of toycrystals_tpu/models/sde_score_model.py for serving:
+
+- `timestep_embedding_continuous`, `ConditionEmbedding` and `CondUNetTiny`
+  (stems "none", "s2d" and "s2dr"). Public tensors keep the JAX layout (images
+  [B, H, W, 1]); the network runs NCHW inside. Every conv block runs the fused
+  GroupNorm+SiLU(+halo) op of ops/groupnorm.py, as the JAX `_ConvBlock` does
+  with gn_impl="pallas". Submodules carry the flax names, so the weight
+  bridge (utils/params.py) is a rename and a transpose per leaf.
+- `VPSDE`, `eps_apply_from_v`, `predict_eps_cfg` and the samplers
+  `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode` and
+  `sample_ddim`. The step loop is a Python loop. Each sampler draws its noise
+  from the `torch.Generator` it is given, or takes it from `noise=`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from toycrystals_torch.ops.attention import SelfAttention2d, gn_groups, linear
+from toycrystals_torch.ops.conv import CircularConv, Conv2d
+from toycrystals_torch.ops.groupnorm import GroupNormSiLU
+
+ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def timestep_embedding_continuous(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """[cos, sin] sinusoidal embedding of t in [0, 1]: [B] -> [B, dim] f32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=t.device)
+                      / max(half - 1, 1))
+    args = (2.0 * math.pi) * t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+class ConditionEmbedding(nn.Module):
+    """(y_cat, y_cont) -> conditioning vector; index n_types is the CFG null
+    token, and theta (y_cont[:, 1]) becomes (sin, cos) at indices 1, 2."""
+
+    def __init__(self, n_types: int, y_cont_dim: int, emb_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if y_cont_dim < 3:
+            raise ValueError("theta_sincos requires y_cont_dim >= 3 (needs indices 1 and 2).")
+        self.n_types, self.dtype = n_types, dtype
+        self.cat_emb = nn.Embedding(n_types + 1, emb_dim)
+        self.Dense_0 = nn.Linear(y_cont_dim, emb_dim)
+        self.Dense_1 = nn.Linear(emb_dim, emb_dim)
+        self.out = nn.Linear(2 * emb_dim, emb_dim)
+
+    def forward(self, y_cat: torch.Tensor, y_cont: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y_cat = y_cat.clamp(0, self.n_types).long()
+        y = y_cont.float().clone()
+        theta = y[:, 1].clone()
+        y[:, 1] = torch.sin(theta)
+        y[:, 2] = torch.cos(theta)
+        e_cat = self.cat_emb.weight.to(dt)[y_cat]
+        h = linear(y, self.Dense_0, dt)
+        e_cont = linear(F.silu(h), self.Dense_1, dt)
+        fused = F.silu(torch.cat([e_cat, e_cont], dim=1))
+        return linear(fused, self.out, dt)
+
+
+class _ConvBlock(nn.Module):
+    """conv0 (circular) -> gn0 with halo -> conv1 (VALID) -> gn1: the fused
+    layout of the JAX `_ConvBlock(gn_impl="pallas")`."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        g = gn_groups(out_ch)
+        self.conv0 = CircularConv(in_ch, out_ch, 3, 1, dtype)
+        self.gn0 = GroupNormSiLU(out_ch, g, pad=True)
+        self.conv1 = Conv2d(out_ch, out_ch, 3, 1, dtype)
+        self.gn1 = GroupNormSiLU(out_ch, g, pad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gn1(self.conv1(self.gn0(self.conv0(x))))
+
+
+def _space_to_depth2(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] -> [B, 4C, H/2, W/2], channels packed (dy, dx, c) as in
+    JAX (F.pixel_unshuffle packs (c, dy, dx), which is not the same)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, 4 * c, h // 2, w // 2)
+
+
+def _depth_to_space2(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of _space_to_depth2: [B, 4C, H, W] -> [B, C, 2H, 2W]."""
+    b, c4, h, w = x.shape
+    c = c4 // 4
+    x = x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c, 2 * h, 2 * w)
+
+
+def _bilinear_up2(x: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample with half-pixel centres (jax.image.resize). Not
+    circular, unlike every conv."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+class CondUNetTiny(nn.Module):
+    """Tiny conditional U-Net, eps_hat = eps_theta(x_t, t, c).
+
+    forward(x_t [B, H, W, 1], t [B], y_cat [B], y_cont [B, D]) -> [B, H, W, 1] f32.
+    Parameters stay f32; `dtype` is the compute type each layer casts to.
+    """
+
+    def __init__(self, n_types: int, y_cont_dim: int, base_ch: int = 32, emb_dim: int = 128,
+                 cond_ch: int = 8, time_ch: int = 8, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto", stem: str = "none"):
+        super().__init__()
+        if stem not in ("none", "s2d", "s2dr"):
+            raise ValueError(f"stem must be none|s2d|s2dr, got {stem!r}")
+        self.emb_dim, self.dtype, self.stem = emb_dim, dtype, stem
+        bc = base_ch
+        in_ch = 1 + time_ch + cond_ch
+        trunk_in = 4 * in_ch if stem != "none" else in_ch
+        self.Dense_0 = nn.Linear(emb_dim, emb_dim)
+        self.Dense_1 = nn.Linear(emb_dim, emb_dim)
+        self.ConditionEmbedding_0 = ConditionEmbedding(n_types, y_cont_dim, emb_dim, dtype)
+        self.to_time_map = nn.Linear(emb_dim, time_ch)
+        self.to_cond_map = nn.Linear(emb_dim, cond_ch)
+        self.down1 = _ConvBlock(trunk_in, bc, dtype)
+        self.ds1 = CircularConv(bc, bc, 4, 2, dtype)
+        self.down2 = _ConvBlock(bc, 2 * bc, dtype)
+        self.ds2 = CircularConv(2 * bc, 2 * bc, 4, 2, dtype)
+        self.mid = _ConvBlock(2 * bc, 2 * bc, dtype)
+        self.attn = SelfAttention2d(2 * bc, num_heads=4, dtype=dtype, attn_impl=attn_impl)
+        self.us2_conv = CircularConv(2 * bc, 2 * bc, 3, 1, dtype)
+        self.up2 = _ConvBlock(4 * bc, bc, dtype)
+        self.us1_conv = CircularConv(bc, bc, 3, 1, dtype)
+        self.up1 = _ConvBlock(2 * bc, bc, dtype)
+        self.out = CircularConv(bc, 4 if stem != "none" else 1, 3, 1, dtype)
+        if stem == "s2dr":
+            self.refine1 = CircularConv(1 + in_ch, bc // 2, 3, 1, dtype)
+            self.refine2 = CircularConv(bc // 2, 1, 3, 1, dtype)
+
+    def forward(self, x_t: torch.Tensor, t: torch.Tensor, y_cat: torch.Tensor,
+                y_cont: torch.Tensor) -> torch.Tensor:
+        b, h, w, _ = x_t.shape
+        dt = self.dtype
+        t_emb = timestep_embedding_continuous(t, self.emb_dim).to(dt)
+        t_emb = linear(t_emb, self.Dense_0, dt)
+        t_emb = linear(F.silu(t_emb), self.Dense_1, dt)
+        c_emb = self.ConditionEmbedding_0(y_cat, y_cont)
+        maps = torch.cat([linear(t_emb, self.to_time_map, dt),
+                          linear(c_emb, self.to_cond_map, dt)], dim=-1)
+        maps = maps[:, :, None, None].expand(b, maps.shape[1], h, w)
+        x = torch.cat([x_t.to(dt).permute(0, 3, 1, 2), maps], dim=1)
+        x_full = x
+        if self.stem != "none":
+            x = _space_to_depth2(x)
+
+        h1 = self.down1(x)
+        h2 = self.down2(self.ds1(h1))
+        hh = self.attn(self.mid(self.ds2(h2)))
+        hh = self.up2(torch.cat([self.us2_conv(_bilinear_up2(hh)), h2], dim=1))
+        hh = self.up1(torch.cat([self.us1_conv(_bilinear_up2(hh)), h1], dim=1))
+
+        out = self.out(hh)
+        if self.stem != "none":
+            out = _depth_to_space2(out)
+            if self.stem == "s2dr":
+                r = self.refine1(torch.cat([out.to(dt), x_full], dim=1))
+                out = out + self.refine2(F.silu(r))
+        return out.float().permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# SDE and samplers
+# ---------------------------------------------------------------------------
+
+
+class VPSDE:
+    """VP SDE with linear beta on [0, 1] and an optional log-SNR shift
+    (see the JAX `VPSDE` for the shifted-schedule identities)."""
+
+    def __init__(self, beta_min: float = 0.1, beta_max: float = 20.0,
+                 logsnr_shift: float = 0.0):
+        self.beta_min, self.beta_max, self.logsnr_shift = beta_min, beta_max, logsnr_shift
+
+    def _base_beta(self, t):
+        return self.beta_min + t * (self.beta_max - self.beta_min)
+
+    def int_beta(self, t):
+        return self.beta_min * t + 0.5 * (self.beta_max - self.beta_min) * t**2
+
+    def _d(self, t):
+        neg_i = -self.int_beta(t)
+        return torch.exp(neg_i + self.logsnr_shift) - torch.expm1(neg_i)
+
+    def beta(self, t):
+        return self._base_beta(t) / self._d(t)
+
+    def alpha(self, t):
+        return torch.sqrt(torch.exp(-self.int_beta(t) + self.logsnr_shift) / self._d(t))
+
+    def sigma(self, t):
+        s2 = -torch.expm1(-self.int_beta(t)) / self._d(t)
+        return torch.sqrt(s2.clamp(min=1e-8))
+
+
+def eps_apply_from_v(sde: VPSDE, apply_fn: ApplyFn) -> ApplyFn:
+    """Wrap a v-prediction model as eps: eps = sigma * x_t + alpha * v."""
+
+    def eps_apply(x_t, t, y_cat, y_cont):
+        v = apply_fn(x_t, t, y_cat, y_cont)
+        return sde.sigma(t).reshape(-1, 1, 1, 1) * x_t + sde.alpha(t).reshape(-1, 1, 1, 1) * v
+
+    return eps_apply
+
+
+def predict_eps_cfg(apply_fn: ApplyFn, x_t, t, y_cat, y_cont, guidance_scale: float,
+                    n_types: int) -> torch.Tensor:
+    """eps_u + s (eps_c - eps_u) from one doubled batch in [uncond; cond]
+    order (uncond: null token, zero y_cont); cfg <= 0 is one conditional pass."""
+    if guidance_scale <= 0.0:
+        return apply_fn(x_t, t, y_cat, y_cont)
+    b = x_t.shape[0]
+    eps2 = apply_fn(torch.cat([x_t, x_t]), torch.cat([t, t]),
+                    torch.cat([torch.full_like(y_cat, n_types), y_cat]),
+                    torch.cat([torch.zeros_like(y_cont), y_cont]))
+    eps_u, eps_c = eps2[:b], eps2[b:]
+    return eps_u + guidance_scale * (eps_c - eps_u)
+
+
+def _quadratic_grid(n_steps: int, t_end: float, device=None) -> torch.Tensor:
+    """ts[0] = 1 .. ts[-1] = t_end, concentrated near t_end (f32)."""
+    u = torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32, device=device)
+    return t_end + (1.0 - t_end) * (1.0 - u) ** 2
+
+
+def _check_t_end(t_end: float) -> float:
+    t_end = float(t_end)
+    if not 0.0 < t_end < 1.0:
+        raise ValueError(f"t_end must be in (0,1), got {t_end}")
+    return t_end
+
+
+def _x0_projection(apply_fn, sde, x, t_final, y_cat, y_cont, gs, n_types):
+    """Final x0 projection, mapped to [0, 1]."""
+    tb = t_final.expand(x.shape[0])
+    a = sde.alpha(tb).reshape(-1, 1, 1, 1)
+    s = sde.sigma(tb).reshape(-1, 1, 1, 1)
+    eps_hat = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+    x0_hat = (x - s * eps_hat) / a.clamp(min=1e-6)
+    return ((x0_hat + 1.0) * 0.5).clamp(0.0, 1.0)
+
+
+def _maybe_clip_eps(eps_hat, x, a, s, clip_x0: bool):
+    """Static x0 thresholding: clip the implied x0 to [-1, 1], re-derive eps."""
+    if not clip_x0:
+        return eps_hat
+    x0 = ((x - s * eps_hat) / a.clamp(min=1e-6)).clamp(-1.0, 1.0)
+    return (x - a * x0) / s
+
+
+def _shape(img_shape) -> tuple[int, int, int, int]:
+    b, h, w, c = (int(v) for v in img_shape)
+    if c != 1:
+        raise ValueError(f"img_shape must be NHWC with C == 1, got {tuple(img_shape)}")
+    return b, h, w, c
+
+
+def _initial_x(noise, shape, generator, device) -> torch.Tensor:
+    if noise is not None:
+        x = torch.tensor(np.asarray(noise, np.float32), device=device)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"injected x has shape {tuple(x.shape)}, expected {shape}")
+        return x
+    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+def sample_reverse_sde_euler_maruyama(
+    apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
+    generator: torch.Generator | None = None, n_steps: int = 200,
+    guidance_scale: float = 0.0, t_end: float = 1e-3, n_types: int = 4,
+    clip_x0: bool = False, noise=None,
+) -> torch.Tensor:
+    """Reverse-time SDE by Euler-Maruyama, t: 1 -> t_end, then the x0
+    projection; returns [B, H, W, 1] in [0, 1].
+
+    noise: optional (x_init [B, H, W, 1], z [n_steps, B, H, W, 1]) replacing
+    the generator's draws (tests inject JAX's)."""
+    t_end = _check_t_end(t_end)
+    shape = _shape(img_shape)
+    dev = y_cat.device
+    gs = float(guidance_scale)
+    ts = _quadratic_grid(n_steps, t_end, dev)
+    x = _initial_x(None if noise is None else noise[0], shape, generator, dev)
+    z_all = None
+    if noise is not None:
+        z_all = torch.tensor(np.asarray(noise[1], np.float32), device=dev)
+        if tuple(z_all.shape) != (n_steps, *shape):
+            raise ValueError(f"injected z has shape {tuple(z_all.shape)}, "
+                             f"expected {(n_steps, *shape)}")
+    b = shape[0]
+    for i in range(n_steps):
+        t, dt = ts[i], ts[i + 1] - ts[i]  # dt < 0
+        tb = t.expand(b)
+        beta_t = sde.beta(tb).reshape(b, 1, 1, 1)
+        sigma_t = sde.sigma(tb).reshape(b, 1, 1, 1)
+        alpha_t = sde.alpha(tb).reshape(b, 1, 1, 1)
+        g = torch.sqrt(beta_t)
+        eps_hat = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+        eps_hat = _maybe_clip_eps(eps_hat, x, alpha_t, sigma_t, clip_x0)
+        score = -eps_hat / sigma_t
+        drift = (-0.5 * beta_t * x) - (beta_t * score)
+        z = (z_all[i] if z_all is not None else
+             torch.randn(shape, generator=generator, device=dev, dtype=torch.float32))
+        x = x + drift * dt + g * torch.sqrt(torch.abs(dt)) * z
+    return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
+
+
+def sample_probability_flow_ode(
+    apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
+    generator: torch.Generator | None = None, n_steps: int = 200,
+    guidance_scale: float = 0.0, t_end: float = 1e-3, n_types: int = 4,
+    clip_x0: bool = False, noise=None,
+) -> torch.Tensor:
+    """Probability-flow ODE with Heun steps, then the x0 projection.
+    noise: optional initial x [B, H, W, 1]."""
+    t_end = _check_t_end(t_end)
+    shape = _shape(img_shape)
+    dev = y_cat.device
+    b = shape[0]
+    gs = float(guidance_scale)
+    ts = _quadratic_grid(n_steps, t_end, dev)
+    x = _initial_x(noise, shape, generator, dev)
+
+    def drift(x, tb):
+        beta_t = sde.beta(tb).reshape(b, 1, 1, 1)
+        sigma_t = sde.sigma(tb).reshape(b, 1, 1, 1)
+        alpha_t = sde.alpha(tb).reshape(b, 1, 1, 1)
+        eps_hat = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+        eps_hat = _maybe_clip_eps(eps_hat, x, alpha_t, sigma_t, clip_x0)
+        score = -eps_hat / sigma_t
+        return -0.5 * beta_t * x - 0.5 * beta_t * score
+
+    for i in range(n_steps):
+        t, t_next = ts[i], ts[i + 1]
+        dt = t_next - t
+        d1 = drift(x, t.expand(b))
+        d2 = drift(x + d1 * dt, t_next.expand(b))
+        x = x + 0.5 * (d1 + d2) * dt
+    return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
+
+
+def sample_ddim(
+    apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
+    generator: torch.Generator | None = None, n_steps: int = 4,
+    guidance_scale: float = 0.0, t_end: float = 1e-3, n_types: int = 4,
+    clip_x0: bool = False, prediction: str = "eps", noise=None,
+) -> torch.Tensor:
+    """Deterministic DDIM on the quadratic grid, exactly `n_steps` model
+    evaluations; the last one returns x0_hat directly (the few-step sampler
+    of distilled students). noise: optional initial x [B, H, W, 1]."""
+    t_end = _check_t_end(t_end)
+    if prediction not in ("eps", "v"):
+        raise ValueError(f"prediction must be eps|v, got {prediction}")
+    shape = _shape(img_shape)
+    dev = y_cat.device
+    b = shape[0]
+    gs = float(guidance_scale)
+    ts = _quadratic_grid(n_steps, t_end, dev)
+    x = _initial_x(noise, shape, generator, dev)
+
+    def x0_eps(x, tb):
+        a = sde.alpha(tb).reshape(b, 1, 1, 1)
+        s = sde.sigma(tb).reshape(b, 1, 1, 1)
+        raw = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+        if prediction == "v":
+            x0, eps = a * x - s * raw, s * x + a * raw
+        else:
+            eps = raw
+            x0 = (x - s * eps) / a.clamp(min=1e-6)
+        if clip_x0:
+            x0 = x0.clamp(-1.0, 1.0)
+            eps = (x - a * x0) / s
+        return x0, eps
+
+    for i in range(n_steps - 1):
+        tb, tn = ts[i].expand(b), ts[i + 1].expand(b)
+        x0, eps = x0_eps(x, tb)
+        a_n = sde.alpha(tn).reshape(b, 1, 1, 1)
+        s_n = sde.sigma(tn).reshape(b, 1, 1, 1)
+        if prediction == "v" or clip_x0:
+            x = a_n * x0 + s_n * eps
+        else:
+            # alpha-ratio form: no ill-conditioned x0 division at large t
+            a_t = sde.alpha(tb).reshape(b, 1, 1, 1)
+            s_t = sde.sigma(tb).reshape(b, 1, 1, 1)
+            x = (a_n / a_t.clamp(min=1e-6)) * (x - s_t * eps) + s_n * eps
+    x0, _ = x0_eps(x, ts[-2].expand(b))
+    return ((x0 + 1.0) * 0.5).clamp(0.0, 1.0)
+
+
+def sample_grid_conditions(n: int, n_types: int, y_cont_dim: int,
+                           theta_max: float = math.pi / 3.0, device=None):
+    """The 6x6 figure-grid convention: cycle lattice types, sweep theta."""
+    y_cat = torch.arange(n, dtype=torch.int32, device=device) % n_types
+    y_cont = torch.zeros((n, y_cont_dim), dtype=torch.float32, device=device)
+    y_cont[:, 1] = torch.linspace(0.0, theta_max, n, device=device)
+    return y_cat, y_cont

@@ -1,0 +1,250 @@
+"""Serving runtime for the VP-SDE score model, in PyTorch.
+
+Counterpart of toycrystals_tpu/serve.py:ScoreModelService. The weights go
+onto the device once; each request is padded on the host to the nearest
+batch bucket, sampled in one call and trimmed. Settings left `None` resolve
+from the checkpoint config exactly as the JAX service does: a distilled
+student serves with DDIM at its trained steps and t_end with its baked-in
+guidance, a v-prediction model is wrapped to eps, and anything else serves
+the reference settings (reverse SDE, 300 steps, CFG 1.5, t_end 0.005).
+
+Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
+the dpm and rf samplers, int8 convs, meshes, requests beyond the top bucket,
+reading msgpack checkpoints, the MicroBatcher and the HTTP front end.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from toycrystals_torch.models.sde_score_model import (
+    VPSDE,
+    CondUNetTiny,
+    eps_apply_from_v,
+    sample_ddim,
+    sample_probability_flow_ode,
+    sample_reverse_sde_euler_maruyama,
+)
+from toycrystals_torch.utils.params import load_flax_params
+
+DEFAULT_BUCKETS = (1, 4, 16, 64)
+
+_REFERENCE_SERVE = {"sampler": "sde", "steps": 300,
+                    "guidance_scale": 1.5, "t_end": 0.005}
+
+_SAMPLERS = {"sde": sample_reverse_sde_euler_maruyama,
+             "ode": sample_probability_flow_ode,
+             "ddim": sample_ddim}
+
+_DEFERRED = "ROADMAP.md, 'Deferred from the serving slice'"
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on; a CUDA device with no GPU raises
+    (nothing moves to the CPU unless the caller asks for it)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but torch.cuda.is_available() is "
+                           "False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def load_score_payload(ckpt_path: str) -> dict[str, Any]:
+    raise NotImplementedError(
+        f"reading score checkpoints ({ckpt_path}) is not ported yet ({_DEFERRED}); "
+        "pass the config and the flax param tree to ScoreModelService")
+
+
+class ScoreModelService:
+    """Device-resident sampling service with fixed batch buckets.
+
+    config: the checkpoint's config dict (n_types, y_cont_dim, base_ch,
+    emb_dim, cond_ch, time_ch, and optionally stem, dtype, img_size, param,
+    beta_min/beta_max/logsnr_shift, distilled/distill_steps/distill_t_end).
+    params / ema_params: flax-layout CondUNetTiny param trees (numpy leaves);
+    the EMA tree serves when `use_ema` and it is given.
+    """
+
+    def __init__(
+        self,
+        config: Mapping[str, Any],
+        params: Mapping[str, Any],
+        *,
+        ema_params: Mapping[str, Any] | None = None,
+        device: str | torch.device = "cuda",
+        use_ema: bool = True,
+        sampler: str | None = None,
+        steps: int | None = None,
+        guidance_scale: float | None = None,
+        t_end: float | None = None,
+        clip_x0: bool = False,
+        dtype: str = "auto",
+        attn_impl: str = "auto",
+        quantize: str = "none",
+        out_dtype: str = "float32",
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        mesh=None,
+    ):
+        self.device = resolve_device(device)
+        cfg = dict(config)
+        self.config = cfg
+        if use_ema and ema_params is not None:
+            params = ema_params
+
+        distilled = bool(cfg.get("distilled"))
+        param = str(cfg.get("param", "eps"))
+        if sampler is None:
+            sampler = ("ddim" if distilled else
+                       "rf" if param == "fm" else _REFERENCE_SERVE["sampler"])
+        if sampler in ("dpm", "rf") or param == "fm":
+            raise NotImplementedError(
+                f"sampler {sampler!r} (param {param!r}) is not ported yet ({_DEFERRED})")
+        if sampler not in _SAMPLERS:
+            raise ValueError(f"sampler must be one of {sorted(_SAMPLERS)}, got {sampler!r}")
+        if quantize == "int8":
+            raise NotImplementedError(f"quantize='int8' is not ported yet ({_DEFERRED})")
+        if quantize != "none":
+            raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
+        if mesh is not None:
+            raise NotImplementedError(f"serving on a mesh is not ported yet ({_DEFERRED})")
+        if out_dtype not in ("float32", "uint8"):
+            raise ValueError(f"out_dtype must be 'float32' or 'uint8', got {out_dtype!r}")
+        if steps is None:
+            steps = int(cfg["distill_steps"]) if distilled else _REFERENCE_SERVE["steps"]
+        if t_end is None:
+            t_end = float(cfg["distill_t_end"]) if distilled else _REFERENCE_SERVE["t_end"]
+        if guidance_scale is None:
+            # distilled students bake their guidance in
+            guidance_scale = 0.0 if distilled else _REFERENCE_SERVE["guidance_scale"]
+        self.sampler_name = str(sampler)
+        self.steps = int(steps)
+        self.guidance_scale = float(guidance_scale)
+        self.t_end = float(t_end)
+        self.clip_x0 = bool(clip_x0)
+        self.quantize = str(quantize)
+        self.out_dtype = str(out_dtype)
+
+        dtype_name = str(cfg.get("dtype", "float32")) if dtype == "auto" else dtype
+        self.n_types = int(cfg["n_types"])
+        self.y_cont_dim = int(cfg["y_cont_dim"])
+        self.img_size = int(cfg.get("img_size", 64))
+        model = CondUNetTiny(
+            n_types=self.n_types, y_cont_dim=self.y_cont_dim,
+            base_ch=int(cfg["base_ch"]), emb_dim=int(cfg["emb_dim"]),
+            cond_ch=int(cfg["cond_ch"]), time_ch=int(cfg["time_ch"]),
+            dtype=torch.bfloat16 if dtype_name == "bfloat16" else torch.float32,
+            attn_impl=attn_impl, stem=str(cfg.get("stem", "none")),
+        )
+        load_flax_params(model, params)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.sde = VPSDE(
+            beta_min=float(cfg.get("beta_min", 0.1)),
+            beta_max=float(cfg.get("beta_max", 30.0)),
+            logsnr_shift=float(cfg.get("logsnr_shift", 0.0)),
+        )
+        apply_fn = self.model
+        self._extra_kw: dict[str, Any] = {}
+        if self.sampler_name == "ddim":
+            # ddim reads the raw net output itself (v is its well-conditioned route)
+            self._extra_kw["prediction"] = param
+        elif param == "v":
+            apply_fn = eps_apply_from_v(self.sde, apply_fn)
+        self._apply_fn = apply_fn
+        self._sampler_fn = _SAMPLERS[self.sampler_name]
+
+        self.buckets = tuple(sorted({max(1, int(b)) for b in buckets}))
+        self._lock = threading.Lock()  # one sampling call at a time per device
+        self._stats_lock = threading.Lock()
+        self._stats = {"requests": 0, "images": 0, "dispatches": 0}
+
+    @property
+    def stats(self) -> dict[str, Any]:
+        with self._stats_lock:
+            s = dict(self._stats)
+        s.update(buckets=list(self.buckets), sampler=self.sampler_name,
+                 steps=self.steps, guidance_scale=self.guidance_scale,
+                 t_end=self.t_end, img_size=self.img_size,
+                 distilled=bool(self.config.get("distilled")),
+                 quantize=self.quantize, out_dtype=self.out_dtype,
+                 device=str(self.device))
+        return s
+
+    def _pick_bucket(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        raise NotImplementedError(
+            f"a request of {n} images exceeds the top bucket {self.buckets[-1]}; "
+            f"chunking is not ported yet ({_DEFERRED})")
+
+    def conditions(self, types, thetas=None):
+        """(y_cat, y_cont) rows from lattice types and rotation angles, in
+        numpy. Scalars broadcast; theta lands at index 1 of y_cont."""
+        y_cat = np.atleast_1d(np.asarray(types, np.int32))
+        if thetas is None:
+            thetas = np.zeros((y_cat.shape[0],), np.float32)
+        th = np.atleast_1d(np.asarray(thetas, np.float32))
+        n = max(y_cat.shape[0], th.shape[0])
+        if y_cat.shape[0] == 1:
+            y_cat = np.repeat(y_cat, n, axis=0)
+        if th.shape[0] == 1:
+            th = np.repeat(th, n, axis=0)
+        if y_cat.shape[0] != th.shape[0]:
+            raise ValueError(f"types ({y_cat.shape[0]}) and thetas "
+                             f"({th.shape[0]}) do not broadcast")
+        if n == 0:
+            raise ValueError("empty request: need at least one lattice type")
+        if int(y_cat.max()) >= self.n_types or int(y_cat.min()) < 0:
+            raise ValueError(f"lattice type out of range [0, {self.n_types})")
+        y_cont = np.zeros((n, self.y_cont_dim), np.float32)
+        y_cont[:, 1] = th
+        return y_cat, y_cont
+
+    def sample(self, y_cat, y_cont, *, seed: int = 0) -> np.ndarray:
+        """One image per condition row: (n, H, W, 1) float32 in [0, 1], or
+        uint8 in [0, 255] (quantised on the device) with out_dtype="uint8".
+        The request is padded to the nearest bucket and trimmed after;
+        deterministic given (weights, settings, seed, bucket)."""
+        seed = int(seed)
+        if not 0 <= seed < 2**31:
+            raise ValueError(f"seed must satisfy 0 <= seed < 2**31, got {seed}")
+        n = int(np.shape(y_cat)[0])
+        bucket = self._pick_bucket(n)
+        pad = bucket - n
+        yc = np.asarray(y_cat, np.int32)
+        yv = np.asarray(y_cont, np.float32)
+        if pad:
+            yc = np.concatenate([yc, np.repeat(yc[-1:], pad, axis=0)])
+            yv = np.concatenate([yv, np.repeat(yv[-1:], pad, axis=0)])
+        with self._lock, torch.inference_mode():
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            x = self._sampler_fn(
+                self._apply_fn, self.sde,
+                torch.from_numpy(yc).to(self.device), torch.from_numpy(yv).to(self.device),
+                (bucket, self.img_size, self.img_size, 1), gen,
+                n_steps=self.steps, guidance_scale=self.guidance_scale,
+                t_end=self.t_end, n_types=self.n_types, clip_x0=self.clip_x0,
+                **self._extra_kw)
+            if self.out_dtype == "uint8":
+                x = (x * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+            x = x[:n].cpu().numpy()
+        with self._stats_lock:
+            self._stats["requests"] += 1
+            self._stats["images"] += n
+            self._stats["dispatches"] += 1
+        return x
+
+    def sample_conditions(self, types, thetas=None, *, seed: int = 0) -> np.ndarray:
+        y_cat, y_cont = self.conditions(types, thetas)
+        return self.sample(y_cat, y_cont, seed=seed)
+
+
+class MicroBatcher:
+    """Dynamic batching of concurrent requests: not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(f"MicroBatcher is not ported yet ({_DEFERRED})")

@@ -1,0 +1,80 @@
+"""Weight bridge between the flax `CondUNetTiny` param tree and the port.
+
+The port's submodules carry the flax names (`Dense_0`, `down1.conv0`,
+`attn.GroupNorm_0`, `ConditionEmbedding_0.cat_emb`, ...), so a flax leaf at
+path (m1, ..., mk, leaf) becomes the state_dict key "m1. ... .mk.<name>":
+
+| flax leaf                 | torch key | layout                                |
+|---------------------------|-----------|---------------------------------------|
+| Conv `kernel` (4-D)       | `weight`  | [kh, kw, in, out] -> [out, in, kh, kw] |
+| Dense `kernel` (2-D)      | `weight`  | [in, out] -> [out, in]                |
+| Embed `embedding`         | `weight`  | unchanged                             |
+| GroupNorm `scale`         | `weight`  | unchanged                             |
+| any `bias`                | `bias`    | unchanged                             |
+
+This covers all three stems ("none", "s2d", "s2dr"). Values are numpy in and
+out; `flax_from_torch_state_dict` is the exact inverse.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+
+def _walk(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def torch_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Flax CondUNetTiny param tree (nested dict of arrays) -> the port's
+    state_dict with numpy values (wrap with torch.from_numpy to load)."""
+    sd: dict[str, np.ndarray] = {}
+    for path, leaf in _walk(params):
+        *mods, name = path
+        a = np.asarray(leaf)
+        if name == "kernel" and a.ndim == 4:
+            a, name = a.transpose(3, 2, 0, 1), "weight"
+        elif name == "kernel" and a.ndim == 2:
+            a, name = a.T, "weight"
+        elif name in ("embedding", "scale"):
+            name = "weight"
+        elif name != "bias":
+            raise KeyError(f"unexpected flax leaf {'/'.join(path)}")
+        sd[".".join([*mods, name])] = np.ascontiguousarray(a)
+    return sd
+
+
+def flax_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """The port's state_dict (numpy or torch values) -> flax param tree."""
+    params: dict = {}
+    for key, value in sd.items():
+        a = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach") else value)
+        *mods, name = key.split(".")
+        if name == "weight":
+            if a.ndim == 4:
+                a, name = a.transpose(2, 3, 1, 0), "kernel"
+            elif mods[-1] == "cat_emb":
+                name = "embedding"
+            elif a.ndim == 2:
+                a, name = a.T, "kernel"
+            else:
+                name = "scale"
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return params
+
+
+def load_flax_params(model, params: Mapping[str, Any]) -> None:
+    """Copy a flax param tree into `model` (strict: every key must match)."""
+    sd = {k: torch.tensor(np.asarray(v, np.float32))
+          for k, v in torch_state_dict_from_flax(params).items()}
+    model.load_state_dict(sd, strict=True)
