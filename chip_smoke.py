@@ -1,26 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (toycrystals_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json-out PATH]
+    python3 chip_smoke.py [--profile] [--json-out PATH]
 
 Phases, each printing its own lines; any failure exits non-zero with no
 result line:
 
 1. Environment: torch version, the card's name and power limit, and the
-   seconds to build every CUDA kernel of the port from toycrystals_torch/csrc.
-2. Kernel parity and timing: the fused GroupNorm+SiLU(+halo) kernel against
-   its plain PyTorch version on the card at every shape the served U-Net
-   gives it (parity and s2dr stems, batch 512 = 256 images under CFG), pad
-   on and off, f32 and bf16, plus odd shapes. Times of the kernel, the plain
-   version, the library yardstick (F.group_norm + F.silu + F.pad) and the
-   bound (bytes moved at 3.35 TB/s).
-3. The slice at full width (base_ch 96, emb_dim 128, 64x64, bf16, reference
+   seconds to build every CUDA kernel of the port from toycrystals_torch/csrc
+   (one nvcc per source, all at once).
+2. GroupNorm+SiLU(+halo) kernel parity and timing against its plain PyTorch
+   version on the card at every shape the served U-Net gives it (parity and
+   s2dr stems, batch 512 = 256 images under CFG), pad on and off, f32 and
+   bf16, plus odd shapes. Times of the kernel, the plain version, the library
+   yardstick (F.group_norm + F.silu + F.pad) and the bound (bytes at
+   3.35 TB/s). Then the kernel under autograd at every shape the training
+   U-Net gives it (batch 128, both stems, f32 and bf16, pad on and off):
+   output and the gradients of x, scale and bias against the plain version on
+   the same leaves, and the times of the kernel forward, the plain forward
+   and the plain-version backward that autograd runs behind the kernel.
+3. Rasterizer kernel parity and timing against its plain version on the card:
+   the training batch (128 images, rot_only budget), the full-config budget at
+   128 and 4096 images, the 32x32 and 256x256 budgets, and odd cases (all
+   weights 0, one atom, H != W). Times of the kernel, the plain version with
+   TF32 off and on, and the bound (f32 operations of the atoms with weight 1).
+4. Data on the card against the CPU: generate_batch for the same (seed, idx).
+5. Serving at full width (base_ch 96, emb_dim 128, 64x64, bf16, reference
    settings: reverse SDE, 300 steps, CFG 1.5, t_end 0.005) through
    ScoreModelService for the "none" and "s2dr" stems: first a 3-step f32
    run on injected noise, card against CPU; then requests of 1, 4 and 16
    images and one uint8 request, checked for shape, range, finiteness,
-   determinism and exactly 10 x 301 kernel launches each.
-4. Throughput: one timed 300-step request of 256 images per stem.
+   determinism and exactly 10 x 301 GroupNorm launches each; then one timed
+   300-step request of 256 images per stem.
+6. Training at full width (batch 128, lr 1e-4, beta 0.1-30, p_uncond 0.1, EMA
+   0.999, procedural rot_only data rendered on the card) through
+   make_sde_train_epoch: first 2 f32 steps on injected (x0, t, eps), card
+   against CPU (losses, and the gradients leaf by leaf); then 4 epochs of 5
+   steps for each stem in f32 and bf16, checked for finite losses, a falling
+   loss, exactly 10 GroupNorm and 1 rasterizer launches per step, and a
+   finite EMA that left the parameters.
+   Prints steps/s, img/s and peak memory. --profile adds device ms per step
+   by kernel class.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them lists every kernel.
@@ -50,6 +70,13 @@ BATCH = 256                   # images per throughput request; 512 rows under CF
 SLICE_CFG = dict(n_types=4, y_cont_dim=4, base_ch=96, emb_dim=128, cond_ch=8, time_ch=8,
                  img_size=64, dtype="bfloat16")
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (3e-2, 1.6e-2)}  # (atol, rtol)
+# Gradients through the kernel are the plain version's own at the same inputs, so
+# only the order of a reduction can differ: share of each gradient's largest entry.
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+LEAF_GRAD_TOL = (1e-4, 1e-7)  # (share of the leaf's largest entry, absolute)
+RASTER_TOL = (1e-5, 1e-5)     # (atol, rtol): f32 sums over the atoms in another order
+TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS, TRAIN_STEPS = 128, 1e-4, 4, 5
+TRAIN_KW = dict(n_types=4, p_uncond=0.1, t_power=1.0, ema_decay=0.999)
 
 
 def log(msg: str) -> None:
@@ -151,37 +178,31 @@ def phase_kernel(gn) -> tuple[list[dict], dict]:
     return rows, headline
 
 
-def random_flax_params(stem: str, seed: int) -> dict:
-    """A flax-layout CondUNetTiny param tree from a numpy seed: lecun-normal
-    weights, zero biases, unit GroupNorm scales, N(0, 1) embeddings."""
+def make_model(stem: str, dtype: str = "float32"):
     from toycrystals_torch.models.sde_score_model import CondUNetTiny
-    from toycrystals_torch.utils.params import flax_from_torch_state_dict
 
     c = SLICE_CFG
-    model = CondUNetTiny(c["n_types"], c["y_cont_dim"], base_ch=c["base_ch"],
-                         emb_dim=c["emb_dim"], cond_ch=c["cond_ch"], time_ch=c["time_ch"],
-                         stem=stem)
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for k, v in model.state_dict().items():
-        shape = tuple(v.shape)
-        if k.endswith("cat_emb.weight"):
-            a = rng.normal(size=shape)
-        elif k.endswith("weight") and len(shape) >= 2:
-            a = rng.normal(size=shape) / math.sqrt(math.prod(shape[1:]))
-        elif k.endswith("weight"):
-            a = np.ones(shape)
-        else:
-            a = np.zeros(shape)
-        sd[k] = a.astype(np.float32)
-    return flax_from_torch_state_dict(sd)
+    return CondUNetTiny(c["n_types"], c["y_cont_dim"], base_ch=c["base_ch"],
+                        emb_dim=c["emb_dim"], cond_ch=c["cond_ch"], time_ch=c["time_ch"],
+                        dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
+                        stem=stem)
+
+
+def random_flax_params(stem: str, seed: int) -> dict:
+    """A flax-layout CondUNetTiny param tree from a numpy seed, with the
+    flax defaults the trainer starts from (models/torch_init.py)."""
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.utils.params import flax_from_torch_state_dict
+
+    model = flax_default_init(make_model(stem), np.random.default_rng(seed))
+    return flax_from_torch_state_dict(model.state_dict())
 
 
 def phase_card_vs_cpu(stem: str, params: dict) -> float:
     """3 SDE steps + projection in f32 on injected noise: the card (CUDA
     kernel) against the CPU (plain version). Returns the max abs difference."""
     from toycrystals_torch.models.sde_score_model import (
-        VPSDE, CondUNetTiny, sample_grid_conditions, sample_reverse_sde_euler_maruyama)
+        VPSDE, sample_grid_conditions, sample_reverse_sde_euler_maruyama)
     from toycrystals_torch.utils.params import load_flax_params
 
     c, n, shape = SLICE_CFG, 3, (2, 64, 64, 1)
@@ -190,9 +211,7 @@ def phase_card_vs_cpu(stem: str, params: dict) -> float:
              rng.normal(size=(n, *shape)).astype(np.float32))
     outs = []
     for dev in (DEVICE, "cpu"):
-        model = CondUNetTiny(c["n_types"], c["y_cont_dim"], base_ch=c["base_ch"],
-                             emb_dim=c["emb_dim"], cond_ch=c["cond_ch"],
-                             time_ch=c["time_ch"], stem=stem)
+        model = make_model(stem)
         load_flax_params(model, params)
         model = model.to(dev).eval()
         yc, yv = sample_grid_conditions(2, c["n_types"], c["y_cont_dim"], device=dev)
@@ -206,15 +225,47 @@ def phase_card_vs_cpu(stem: str, params: dict) -> float:
 
 def kernel_category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("gn_silu kernel", ("gn_silu",)),
-                      ("conv (cuDNN)", ("conv", "xmma", "implicit", "cudnn", "sm90_")),
-                      ("matmul", ("gemm", "cutlass")), ("softmax", ("softmax",)),
+    for cat, keys in (("gn_silu kernel", ("gn_silu",)), ("rasterize kernel", ("rasterize",)),
+                      ("conv (cuDNN)", ("conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop",
+                                        "nhwc", "nchw", "fft", "pointwise_mult_and_sum",
+                                        "region_transform")),
+                      ("matmul", ("gemm", "cutlass", "nvjet")),
+                      ("conv (cuDNN)", ("xmma", "sm90_")), ("softmax", ("softmax",)),
                       ("bilinear upsample", ("upsample",)), ("concat", ("cat",)),
+                      ("optimizer (foreach)", ("multi_tensor_apply",)),
+                      ("device copies", ("memcpy", "memset")),
                       ("reduction", ("reduce",)),
                       ("elementwise", ("elementwise", "vectorized", "unrolled", "copy"))):
         if any(k in n for k in keys):
             return cat
     return "other"
+
+
+def device_ms_by_category(prof, runs: int) -> tuple[dict[str, float], float]:
+    """Device ms per run by kernel category, largest first, and their sum,
+    over the profile's device events (kernels and device copies; host-side
+    events repeat their children's device time and are left out). Logs the
+    largest kernels that fell into no category."""
+    from torch.autograd import DeviceType
+
+    by_cat: dict[str, float] = {}
+    other: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        cat = kernel_category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3 / runs
+        if cat == "other":
+            other[e.key[:90]] = other.get(e.key[:90], 0.0) + us / 1e3 / runs
+    if not by_cat:
+        raise RuntimeError("the profiler recorded no device event")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:4]
+    if top:
+        log("profile uncategorised kernels, ms per run: " + json.dumps(top))
+    return dict(sorted(by_cat.items(), key=lambda kv: -kv[1])), sum(by_cat.values())
 
 
 def profile_forward(model, rows: int) -> dict:
@@ -235,18 +286,10 @@ def profile_forward(model, rows: int) -> dict:
                 model(*args)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    by_cat: dict[str, float] = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0 and not e.key.startswith("aten::"):
-            cat = kernel_category(e.key)
-            by_cat[cat] = by_cat.get(cat, 0.0) + us / 1e3 / 3
-    busy = sum(by_cat.values())
+    by_cat, busy = device_ms_by_category(prof, 3)
     return {"rows": rows, "wall_ms_per_forward": wall_ms / 3, "device_ms_per_forward": busy,
             "idle_share": 1.0 - busy / (wall_ms / 3),
-            "ms_by_category": dict(sorted(by_cat.items(), key=lambda kv: -kv[1]))}
+            "ms_by_category": by_cat}
 
 
 def profile_stem(stem: str, params: dict) -> list[dict]:
@@ -323,12 +366,315 @@ def phase_slice(gn, stem: str, params: dict) -> dict:
     return result
 
 
+def gn_training_rows(gn) -> list[dict]:
+    """The kernel under autograd at the training shapes (batch 128), held
+    against the plain version on the same leaves: the output within TOL, and
+    the gradients of x, scale and bias from torch.autograd.grad on both sides
+    within GRAD_TOL of each gradient's largest entry. Then the times of the
+    kernel forward, the plain forward and the backward autograd runs behind
+    the kernel (the gradient of the plain version, recomputed from the saved
+    inputs)."""
+    b, bc = TRAIN_BATCH, 96
+    shapes = [("none/down1,up1", (b, bc, 64, 64), 2), ("none/down2", (b, 2 * bc, 32, 32), 1),
+              ("none/mid", (b, 2 * bc, 16, 16), 1), ("none/up2", (b, bc, 32, 32), 1),
+              ("s2dr/down1,up1", (b, bc, 32, 32), 2), ("s2dr/down2", (b, 2 * bc, 16, 16), 1),
+              ("s2dr/mid", (b, 2 * bc, 8, 8), 1), ("s2dr/up2", (b, bc, 16, 16), 1)]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rows = []
+    for label, shape, blocks in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for pad in (True, False):
+                c = shape[1]
+                name = str(dtype).replace("torch.", "")
+                leaves = [(torch.randn(shape, generator=gen, device=DEVICE) * 2.0 + 0.5)
+                          .to(dtype).requires_grad_(True),
+                          (torch.randn(c, generator=gen, device=DEVICE) * 0.1 + 1.0)
+                          .requires_grad_(True),
+                          (torch.randn(c, generator=gen, device=DEVICE) * 0.1)
+                          .requires_grad_(True)]
+                before = gn.gn_silu.launches
+                y = gn.gn_silu(*leaves, 8, 1e-6, pad)
+                if gn.gn_silu.launches != before + 1 or not y.requires_grad:
+                    raise AssertionError(f"gn_silu did not launch its kernel under autograd "
+                                         f"at {label} {name} pad={pad}")
+                want = gn.gn_silu_reference(*leaves, 8, 1e-6, pad)
+                g = torch.randn(y.shape, generator=gen, device=DEVICE).to(dtype)
+                atol, rtol = TOL[name]
+                err = (y.detach().float() - want.detach().float()).abs()
+                bad = int((err > atol + rtol * want.detach().float().abs()).sum())
+                row = dict(shape=label, dims=list(shape), pad=pad, blocks_per_step=blocks,
+                           dtype=name, max_abs_err=float(err.max()), atol=atol, rtol=rtol,
+                           mismatches=bad, grad_tol=GRAD_TOL[name])
+                del err
+                got_g = torch.autograd.grad(y, leaves, g, retain_graph=True)
+                want_g = torch.autograd.grad(want, leaves, g)
+                for leaf, a, w in zip(("x", "scale", "bias"), got_g, want_g):
+                    row[f"grad_{leaf}_max_abs_err"] = float((a.float() - w.float()).abs().max())
+                    row[f"grad_{leaf}_max_abs"] = float(w.float().abs().max())
+                    if not row[f"grad_{leaf}_max_abs_err"] <= \
+                            GRAD_TOL[name] * row[f"grad_{leaf}_max_abs"]:
+                        bad += 1
+                del want, got_g, want_g
+                row["forward_ms"] = cuda_time_ms(
+                    lambda: gn.gn_silu(*leaves, 8, 1e-6, pad), iters=10)
+                with torch.no_grad():
+                    row["plain_ms"] = cuda_time_ms(
+                        lambda: gn.gn_silu_reference(*leaves, 8, 1e-6, pad), iters=10)
+                row["backward_plain_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), iters=10)
+                row["bound_ms"], row["bound_by"] = gn_bound(shape, pad, leaves[0].element_size())
+                rows.append(row)
+                log("kernel gn_silu training " + json.dumps(row))
+                if bad:
+                    raise AssertionError(f"gn_silu under autograd disagrees with its plain "
+                                         f"version at {label} {name} pad={pad}: {row}")
+                del leaves, y, g
+    return rows
+
+
+def raster_bound(weights: torch.Tensor, h: int, w: int) -> tuple[float, str, float]:
+    """Least time for one call: every input read and the images written once
+    over the HBM rate, against the f32 operations that the atoms with weight
+    1 need (2 per pixel and atom, one exponential per row and column and
+    atom). Also the operations bound if every atom of the budget counted."""
+    b, p = weights.shape
+    active = int((weights != 0).sum())
+    t_bytes = (b * (3 * p + h * w + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = (2 * h * w + h + w) * active / F32_OPS_PER_S * 1e3
+    dense = (2 * h * w + h + w) * b * p / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes", dense) if t_bytes >= t_ops else (t_ops, "operations", dense)
+
+
+def phase_raster(rz) -> tuple[list[dict], dict]:
+    from toycrystals_torch.data.lattice import LatticeConfig, generate_item, static_point_budget
+
+    def geometry(cfg, b):
+        budget = static_point_budget(cfg)
+        pts, wts, sigma, *_ = generate_item(cfg, budget, 0, torch.arange(b), DEVICE)
+        return pts, wts, sigma, cfg.img_size, cfg.img_size
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+    def random_atoms(b, p, h, w):
+        pts = torch.rand((b, p, 2), generator=gen, device=DEVICE) * (max(h, w) + 10.0) - 5.0
+        wts = (torch.rand((b, p), generator=gen, device=DEVICE) < 0.7).float()
+        return pts, wts, torch.rand((b,), generator=gen, device=DEVICE) * 1.4 + 0.6, h, w
+
+    cases = [("train rot_only 64x64", True, geometry(LatticeConfig(rot_only=True), TRAIN_BATCH)),
+             ("full 64x64", True, geometry(LatticeConfig(), TRAIN_BATCH)),
+             ("full 64x64 B4096", True, geometry(LatticeConfig(), 4096)),
+             ("full 32x32", True, geometry(LatticeConfig(img_size=32), TRAIN_BATCH)),
+             ("rot_only 256x256", True, geometry(LatticeConfig(img_size=256, rot_only=True), 16))]
+    zero = random_atoms(2, 256, 64, 64)
+    one = random_atoms(1, 128, 64, 64)
+    one[1].zero_()
+    one[1][0, 5] = 1.0
+    cases += [("odd all weights 0", False, (zero[0], torch.zeros_like(zero[1]), *zero[2:])),
+              ("odd one atom", False, one),
+              ("odd H!=W 40x100", False, random_atoms(3, 384, 40, 100))]
+    rows, headline = [], None
+    atol, rtol = RASTER_TOL
+    for label, timed, (pts, wts, sigma, h, w) in cases:
+        got = rz.rasterize(pts, wts, sigma, h, w)
+        torch.cuda.synchronize()
+        want = rz.rasterize_separable(pts, wts, sigma, h, w)
+        err = (got - want).abs()
+        bad = int((err > atol + rtol * want.abs()).sum())
+        row = dict(shape=label, b=pts.shape[0], p=pts.shape[1], h=h, w=w,
+                   active_atoms=int((wts != 0).sum()), max_abs_err=float(err.max()),
+                   peak=float(want.max()), atol=atol, rtol=rtol, mismatches=bad)
+        if label == "odd all weights 0" and float(got.abs().max()) != 0.0:
+            raise AssertionError("rasterize: atoms of weight 0 contributed to the image")
+        del want, err
+        if timed:
+            row["ms"] = cuda_time_ms(lambda: rz.rasterize(pts, wts, sigma, h, w), iters=10)
+            row["plain_ms"] = cuda_time_ms(
+                lambda: rz.rasterize_separable(pts, wts, sigma, h, w), iters=5, warmup=2)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                row["plain_tf32_ms"] = cuda_time_ms(
+                    lambda: rz.rasterize_separable(pts, wts, sigma, h, w), iters=5, warmup=2)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            row["bound_ms"], row["bound_by"], row["bound_all_atoms_ms"] = raster_bound(wts, h, w)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            if headline is None:
+                headline = row
+        rows.append(row)
+        log("kernel rasterize " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"rasterize disagrees with its plain version at {label}: "
+                                 f"{bad} pixels, max abs err {row['max_abs_err']}")
+    return rows, headline
+
+
+def phase_data_card_vs_cpu() -> dict:
+    """generate_batch for the same (seed, idx) on the card and on the CPU:
+    labels equal, images within 1e-4 (the integer draws are the same on
+    both; exp, log, cos and sin may differ in the last bit, and the card
+    sums the atoms in another order)."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+
+    out = {}
+    for name, cfg, n in (("rot_only", LatticeConfig(rot_only=True), TRAIN_BATCH),
+                         ("full", LatticeConfig(), 32)):
+        idx = np.arange(1000, 1000 + n)
+        xg, cg, vg = generate_batch(cfg, 0, idx, device=DEVICE)
+        xc, cc, vc = generate_batch(cfg, 0, idx, device="cpu")
+        d = float((xg.cpu() - xc).abs().max())
+        out[name] = d
+        log(f"data {name}: card vs CPU on {n} items: images max abs diff {d:.3e} "
+            f"(tolerance 1e-4), labels equal: "
+            f"{torch.equal(cg.cpu(), cc) and torch.equal(vg.cpu(), vc)}")
+        if xg.shape != (n, 64, 64, 1) or not torch.equal(cg.cpu(), cc) \
+                or not torch.equal(vg.cpu(), vc) or not d <= 1e-4:
+            raise AssertionError(f"data {name}: the card and the CPU render different items")
+        if float(xg.min()) < 0.0 or float(xg.max()) > 1.0 or \
+                not bool((xg.amax(dim=(1, 2, 3)) > 0.99).all()):
+            raise AssertionError(f"data {name}: images are not normalised to [0, 1]")
+    return out
+
+
+def train_pieces(stem: str, dtype: str, device: str):
+    from toycrystals_torch.models.sde_score_model import VPSDE
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.train.state import Optimizer, create_train_state
+
+    model = flax_default_init(make_model(stem, dtype), np.random.default_rng(0)).to(device)
+    tx = Optimizer(TRAIN_LR)
+    return model, tx, VPSDE(0.1, 30.0), create_train_state(model, tx, ema=True)
+
+
+def phase_train_card_vs_cpu(stem: str) -> dict:
+    """2 f32 train steps at full width on 8 injected items and (t, eps): the
+    card (kernel forward, plain backward) against the CPU (plain both ways).
+    Tolerances: each loss within 1e-3 relative; step-1 gradients leaf by
+    leaf, max |diff| <= LEAF_GRAD_TOL[0] * max |g_leaf| + LEAF_GRAD_TOL[1]."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.train.steps import make_sde_train_step, sde_loss_and_grads
+
+    n = 8
+    x0, y_cat, y_cont = generate_batch(LatticeConfig(rot_only=True), 0, np.arange(n),
+                                       device="cpu")
+    rng = np.random.default_rng(3)
+    noise = [(torch.tensor(rng.uniform(0.02, 1.0, size=n).astype(np.float32)),
+              torch.tensor(rng.normal(size=(n, 64, 64, 1)).astype(np.float32)))
+             for _ in range(2)]
+    losses, grads = {}, {}
+    for dev in (DEVICE, "cpu"):
+        model, tx, sde, state = train_pieces(stem, "float32", dev)
+        step = make_sde_train_step(model, tx, sde, **TRAIN_KW)
+        batch = [a.to(dev) for a in (x0, y_cat, y_cont)]
+        _, g = sde_loss_and_grads(model, sde, *batch, *(a.to(dev) for a in noise[0]))
+        grads[dev] = [a.cpu() for a in g]
+        losses[dev] = []
+        for t, eps in noise:
+            state, loss = step(state, *batch, noise=(t.to(dev), eps.to(dev)))
+            losses[dev].append(float(loss))
+    names = [k for k, _ in model.named_parameters()]
+    leaves = []
+    for k, a, b in zip(names, grads[DEVICE], grads["cpu"]):
+        d, m = float((a - b).abs().max()), float(b.abs().max())
+        leaves.append(dict(leaf=k, max_abs_diff=d, max_abs=m,
+                           share_of_limit=d / (LEAF_GRAD_TOL[0] * m + LEAF_GRAD_TOL[1])))
+    ranked = sorted(leaves, key=lambda r: -r["share_of_limit"])
+    worst = ranked[0]
+    l_diff = max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE], losses["cpu"]))
+    out = dict(stem=stem, losses_card=losses[DEVICE], losses_cpu=losses["cpu"],
+               loss_rel_diff=l_diff, grad_leaves=len(leaves), grad_worst_leaves=ranked[:3],
+               grad_max_abs_diff=max(r["max_abs_diff"] for r in leaves),
+               grad_max_abs=max(r["max_abs"] for r in leaves))
+    log("train card vs CPU " + json.dumps(out))
+    out["grad_by_leaf"] = leaves
+    if not (l_diff <= 1e-3 and worst["share_of_limit"] <= 1.0):
+        raise AssertionError(f"{stem}: card and CPU train steps disagree: loss relative "
+                             f"difference {l_diff}, worst gradient leaf {worst}")
+    return out
+
+
+def phase_train(gn, rz, stem: str, dtype: str) -> dict:
+    """TRAIN_EPOCHS epochs of TRAIN_STEPS steps through make_sde_train_epoch,
+    every epoch on fresh procedural items rendered on the card."""
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.train.steps import make_sde_train_epoch
+
+    model, tx, sde, state = train_pieces(stem, dtype, DEVICE)
+    n_items = TRAIN_STEPS * TRAIN_BATCH
+    epoch = make_sde_train_epoch(model, tx, sde, batch_size=TRAIN_BATCH, n_items=n_items,
+                                 lattice_cfg=LatticeConfig(rot_only=True), dataset_seed=0,
+                                 fresh_data=True, **TRAIN_KW)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for e in range(TRAIN_EPOCHS):
+        g0, r0 = gn.gn_silu.launches, rz.rasterize.launches
+        t0 = time.perf_counter()
+        state, loss = epoch(state, gen, e * n_items)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        dg, dr = gn.gn_silu.launches - g0, rz.rasterize.launches - r0
+        if (dg, dr) != (10 * TRAIN_STEPS, TRAIN_STEPS):
+            raise AssertionError(f"{stem} {dtype}: {dg} gn_silu and {dr} rasterize launches "
+                                 f"in {TRAIN_STEPS} steps, expected {10 * TRAIN_STEPS} and "
+                                 f"{TRAIN_STEPS}")
+    steady = sum(seconds[1:]) / ((TRAIN_EPOCHS - 1) * TRAIN_STEPS)  # epoch 1 warms cuDNN up
+    ema_gap = max(float((state.ema_params[k] - p.detach()).abs().max())
+                  for k, p in state.params.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in state.ema_params.values()) and \
+        all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    out = dict(stem=stem, dtype=dtype, steps=state.step, epoch_mean_losses=losses,
+               epoch_seconds=seconds, steps_per_s=1.0 / steady, img_per_s=TRAIN_BATCH / steady,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(), ema_max_gap=ema_gap)
+    log("train " + json.dumps(out))
+    if not (all(math.isfinite(v) for v in losses) and finite):
+        raise AssertionError(f"{stem} {dtype}: non-finite loss, parameters or EMA")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{stem} {dtype}: the loss did not fall: the mean of steps "
+                             f"1-{TRAIN_STEPS} is {losses[0]}, of the last {TRAIN_STEPS} "
+                             f"{losses[-1]}")
+    if not ema_gap > 0.0 or state.step != TRAIN_EPOCHS * TRAIN_STEPS:
+        raise AssertionError(f"{stem} {dtype}: EMA equals the parameters or steps are missing")
+    return out
+
+
+def profile_train(stem: str, dtype: str) -> dict:
+    """Device time by kernel category over 3 train steps (data included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.train.steps import make_sde_train_epoch
+
+    model, tx, sde, state = train_pieces(stem, dtype, DEVICE)
+    epoch = make_sde_train_epoch(model, tx, sde, batch_size=TRAIN_BATCH,
+                                 n_items=3 * TRAIN_BATCH,
+                                 lattice_cfg=LatticeConfig(rot_only=True), **TRAIN_KW)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    epoch(state, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch(state, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    by_cat, busy = device_ms_by_category(prof, 3)
+    out = {"stem": stem, "dtype": dtype, "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": busy, "idle_share": 1.0 - busy / wall_ms,
+           "ms_by_category": by_cat}
+    log("profile train " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
                     help="also write every measured number to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile U-Net forwards by kernel category")
+                    help="after the main paths, profile U-Net forwards and train steps by "
+                         "kernel category")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -337,6 +683,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
+        from toycrystals_torch.data import rasterize as rz
         from toycrystals_torch.ops import groupnorm as gn
         from toycrystals_torch.utils import cuda_build
     except ImportError as e:
@@ -365,7 +712,14 @@ def main() -> int:
 
         rows, headline = phase_kernel(gn)
         report["kernel_rows"] = rows
-        log(f"kernel parity passed on {len(rows)} cases")
+        log(f"kernel gn_silu parity passed on {len(rows)} cases")
+        report["gn_training_rows"] = gn_training_rows(gn)
+        log(f"kernel gn_silu under autograd: output and gradients equal the plain version's "
+            f"on {len(report['gn_training_rows'])} training cases")
+        raster_rows, raster_headline = phase_raster(rz)
+        report["raster_rows"] = raster_rows
+        log(f"kernel rasterize parity passed on {len(raster_rows)} cases")
+        report["data_card_vs_cpu"] = phase_data_card_vs_cpu()
 
         params = {stem: random_flax_params(stem, seed=0) for stem in ("none", "s2dr")}
         for stem in ("none", "s2dr"):
@@ -376,16 +730,40 @@ def main() -> int:
             if not d <= 1e-3:
                 raise AssertionError(f"{stem}: card and CPU disagree by {d}")
 
-        gn.gn_silu.launches = 0  # the main path starts here
+        gn.gn_silu.launches = rz.rasterize.launches = 0  # the serving path starts here
         report["slices"] = []
         for stem in ("none", "s2dr"):
             report["slices"].append(phase_slice(gn, stem, params[stem]))
-        main_launches = gn.gn_silu.launches
+        served = {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches}
+
+        report["train_card_vs_cpu"] = [phase_train_card_vs_cpu(stem)
+                                       for stem in ("none", "s2dr")]
+        gn.gn_silu.launches = rz.rasterize.launches = 0  # the training path starts here
+        report["train"] = [phase_train(gn, rz, stem, dtype) for stem in ("none", "s2dr")
+                           for dtype in ("float32", "bfloat16")]
+        trained = {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches}
+        report["launches"] = {"serving": served, "training": trained}
+        log("launches " + json.dumps(report["launches"]))
+        for tr in report["train"]:  # share of the plain-version GroupNorm backward
+            per_step = sum(r["backward_plain_ms"] * r["blocks_per_step"]
+                           for r in report["gn_training_rows"]
+                           if r["shape"].startswith(tr["stem"]) and r["dtype"] == tr["dtype"])
+            tr["gn_backward_plain_ms_per_step"] = per_step
+            tr["gn_backward_plain_share"] = per_step * tr["steps_per_s"] / 1e3
+            log(f"train {tr['stem']} {tr['dtype']}: plain GroupNorm backward "
+                f"{per_step:.3f} ms of {1e3 / tr['steps_per_s']:.3f} ms per step "
+                f"({tr['gn_backward_plain_share']:.3f})")
+        train_headline = next(r for r in report["gn_training_rows"]
+                              if r["shape"] == "none/down1,up1" and r["dtype"] == "bfloat16"
+                              and r["pad"])
         if args.profile:
             for stem, sl in zip(("none", "s2dr"), report["slices"]):
                 sl["profile"] = profile_stem(stem, params[stem])
-        if main_launches == 0:
-            raise AssertionError("the main path never launched the gn_silu kernel")
+            report["train_profile"] = [profile_train(stem, dtype) for stem in ("none", "s2dr")
+                                       for dtype in ("float32", "bfloat16")]
+        if served["gn_silu"] == 0 or trained["gn_silu"] == 0 or trained["rasterize"] == 0:
+            raise AssertionError(f"a main path never launched one of its kernels: "
+                                 f"serving {served}, training {trained}")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
@@ -399,12 +777,37 @@ def main() -> int:
     kernels = [{
         "name": "gn_silu", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:53",
-        "launches": main_launches, "max_abs_err": headline["max_abs_err"],
+        "launches": served["gn_silu"] + trained["gn_silu"],
+        "launches_serving": served["gn_silu"], "launches_training": trained["gn_silu"],
+        "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"],
         "library_call": "F.group_norm + F.silu + F.pad(circular)",
         "at": f"{headline['shape']} {headline['dims']} bf16 pad=True",
+        "training_at": {
+            "at": f"{train_headline['shape']} {train_headline['dims']} bf16 pad=True, "
+                  f"under autograd",
+            "max_abs_err": train_headline["max_abs_err"], "ms": train_headline["forward_ms"],
+            "plain_ms": train_headline["plain_ms"], "bound_ms": train_headline["bound_ms"],
+            "bound_by": train_headline["bound_by"],
+            "backward_plain_ms": train_headline["backward_plain_ms"],
+            "grad_x_max_abs_err": train_headline["grad_x_max_abs_err"]},
+    }, {
+        "name": "rasterize", "route": "cuda", "source": "toycrystals_torch/csrc/rasterize.cu",
+        "replaces": "toycrystals_tpu/data/rasterize.py:72",
+        "launches": trained["rasterize"], "launches_serving": served["rasterize"],
+        "launches_training": trained["rasterize"],
+        "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
+        "plain_ms": raster_headline["plain_ms"], "bound_ms": raster_headline["bound_ms"],
+        "bound_by": raster_headline["bound_by"],
+        "bound_counts": "the atoms of weight 1 in this run's data; the kernel computes every "
+                        "atom of the budget, for which the bound is bound_all_atoms_ms",
+        "bound_all_atoms_ms": raster_headline["bound_all_atoms_ms"],
+        "library_ms": raster_headline["plain_tf32_ms"],
+        "library_call": "torch.exp factors + one torch.bmm with TF32 allowed",
+        "at": f"{raster_headline['shape']} B={raster_headline['b']} P={raster_headline['p']} "
+              f"f32, {raster_headline['active_atoms']} atoms of weight 1",
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -67,17 +67,37 @@ def test_kernel_on_unaligned_storage(cuda, dtype):
     _check(xu, scale, bias, 8, True)
 
 
-@pytest.mark.parametrize("case", ["strided", "half", "grad"])
+@pytest.mark.parametrize("case", ["strided", "half"])
 def test_kernel_wrapper_raises_on_cuda(cuda, case):
     x, scale, bias = _inputs(cuda, (2, 8, 4, 4), torch.float32)
     err = ValueError
     if case == "strided":
         x = x.transpose(2, 3)
-    elif case == "half":
-        x, err = x.half(), TypeError
     else:
-        scale, err = scale.requires_grad_(True), RuntimeError
+        x, err = x.half(), TypeError
     before = gn.gn_silu.launches
     with pytest.raises(err):
         gn.gn_silu(x, scale, bias, 4)
     assert gn.gn_silu.launches == before
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_forward_under_autograd_gives_plain_gradients(cuda, dtype, pad):
+    """A call that needs gradients launches the kernel forward and returns
+    the plain version's gradients (the same plain backward on both sides, so
+    they agree to rounding of the upstream gradient only)."""
+    x, scale, bias = _inputs(cuda, (3, 16, 6, 10), dtype, seed=2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    p = 2 if pad else 0
+    upstream = torch.randn((3, 16, 6 + p, 10 + p), generator=g, device=cuda).to(dtype)
+    grads = []
+    for fn in (gn.gn_silu, gn.gn_silu_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        before = gn.gn_silu.launches
+        y = fn(*leaves, 8, 1e-6, pad)
+        assert gn.gn_silu.launches == before + (fn is gn.gn_silu)
+        grads.append(torch.autograd.grad(y, leaves, upstream))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and torch.isfinite(got.float()).all()
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-6, rtol=0)

@@ -74,24 +74,39 @@ def test_strict_load_rejects_another_stem():
 def test_port_imports_without_jax():
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['flax'] = None\n"
-        "sys.modules['toycrystals_tpu'] = None\n"
+        "for banned in ('jax', 'flax', 'optax', 'msgpack', 'toycrystals_tpu'):\n"
+        "    sys.modules[banned] = None\n"
         "import toycrystals_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(toycrystals_torch.__path__,\n"
         "                                               'toycrystals_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'toycrystals_torch.serve' in names, names\n"
+        "for must in ('serve', 'data.lattice', 'data.rasterize', 'data.datasets',\n"
+        "             'models.flow_matching', 'models.torch_init', 'train.state',\n"
+        "             'train.steps', 'utils.params', 'utils.cuda_build'):\n"
+        "    assert 'toycrystals_torch.' + must in names, (must, names)\n"
         "print(len(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 9
+    assert int(out.stdout.strip()) >= 19
 
 
 def test_state_dict_values_load_as_f32_tensors():
     sd = bridge.torch_state_dict_from_flax(_flax_params("none"))
     t = torch.from_numpy(sd["Dense_0.weight"])
     assert t.dtype == torch.float32 and t.shape == (16, 16)
+
+
+def test_no_port_source_names_a_jax_package():
+    """Every module of the port and chip_smoke.py: no import of jax, flax,
+    optax, msgpack or the JAX package, not even inside a function."""
+    import re
+
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|msgpack|toycrystals_tpu)\b",
+                        re.M)
+    files = sorted((ROOT / "toycrystals_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for f in files:
+        assert not banned.search(f.read_text()), f

@@ -18,6 +18,10 @@
 // L2, so device memory sees close to 1 read + 1 write. Keeping the slab in
 // shared memory instead is left to a later change.
 //
+// This is the forward. Under autograd the wrapper launches it inside a
+// torch.autograd.Function whose backward differentiates the plain PyTorch
+// version at the saved inputs; there is no backward kernel here yet.
+//
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/groupnorm.py). The launch goes on the caller's
 // stream; the function returns cudaGetLastError() of the launch.

@@ -1,6 +1,6 @@
 """VP-SDE score model: conditional tiny U-Net and its samplers, in PyTorch.
 
-Counterpart of toycrystals_tpu/models/sde_score_model.py for serving:
+Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and training:
 
 - `timestep_embedding_continuous`, `ConditionEmbedding` and `CondUNetTiny`
   (stems "none", "s2d" and "s2dr"). Public tensors keep the JAX layout (images
@@ -8,6 +8,9 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving:
   GroupNorm+SiLU(+halo) op of ops/groupnorm.py, as the JAX `_ConvBlock` does
   with gn_impl="pallas". Submodules carry the flax names, so the weight
   bridge (utils/params.py) is a rename and a transpose per leaf.
+- `draw_diffusion_loss_noise`, `diffusion_loss_eps_given` and
+  `diffusion_loss_eps`: the denoising loss (eps, v and fm targets, min-SNR
+  weights, CFG conditioning dropout) that the trainer differentiates.
 - `VPSDE`, `eps_apply_from_v`, `predict_eps_cfg` and the samplers
   `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode` and
   `sample_ddim`. The step loop is a Python loop. Each sampler draws its noise
@@ -180,7 +183,7 @@ class CondUNetTiny(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# SDE and samplers
+# SDE
 # ---------------------------------------------------------------------------
 
 
@@ -211,6 +214,88 @@ class VPSDE:
     def sigma(self, t):
         s2 = -torch.expm1(-self.int_beta(t)) / self._d(t)
         return torch.sqrt(s2.clamp(min=1e-8))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def draw_diffusion_loss_noise(x0: torch.Tensor, y_cat: torch.Tensor, y_cont: torch.Tensor,
+                              generator: torch.Generator | None, n_types: int,
+                              p_uncond: float = 0.1, t_power: float = 1.0,
+                              t_shift: float = 1.0):
+    """The randomness half of `diffusion_loss_eps`, for the whole batch:
+    (t [B], eps like x0, y_cat, y_cont) with t = u ** t_power (t_power > 1
+    biases towards small t), then `shift_t` when t_shift != 1, and the
+    conditioning dropped with probability p_uncond (null token `n_types`,
+    zeroed y_cont). Draws come from `generator`, which lies on x0's device."""
+    b, dev = x0.shape[0], x0.device
+    t = torch.rand(b, generator=generator, device=dev) ** float(t_power)
+    if float(t_shift) != 1.0:
+        from toycrystals_torch.models.flow_matching import shift_t
+
+        t = shift_t(t, t_shift)
+    eps = torch.randn(x0.shape, generator=generator, device=dev, dtype=x0.dtype)
+    if p_uncond > 0.0:
+        drop = torch.rand(b, generator=generator, device=dev) < p_uncond
+        y_cat = torch.where(drop, torch.full_like(y_cat, n_types), y_cat)
+        y_cont = torch.where(drop[:, None], torch.zeros_like(y_cont), y_cont)
+    return t, eps, y_cat, y_cont
+
+
+def diffusion_loss_eps_given(apply_fn: ApplyFn, sde: VPSDE, x0: torch.Tensor,
+                             y_cat: torch.Tensor, y_cont: torch.Tensor, t: torch.Tensor,
+                             eps: torch.Tensor, parameterization: str = "eps",
+                             min_snr_gamma: float = 0.0) -> torch.Tensor:
+    """The deterministic half: perturb with the given (t, eps) and return the
+    f32 MSE. x0 arrives in [0, 1] and is mapped to [-1, 1] here; the
+    conditioning is already dropped.
+
+    parameterization "eps": MSE(net, eps). "v": target alpha eps - sigma x0.
+    "fm": the straight-line path x_t = (1 - t) x0 + t eps with velocity
+    target eps - x0. min_snr_gamma > 0 scales each sample's squared error by
+    min(SNR, gamma) / SNR for "eps" and min(SNR, gamma) / (SNR + 1) for "v",
+    SNR = alpha^2 / sigma^2; it is not defined for "fm"."""
+    if parameterization not in ("eps", "v", "fm"):
+        raise ValueError(f"parameterization must be eps|v|fm, got {parameterization}")
+    b = x0.shape[0]
+    x0 = x0 * 2.0 - 1.0
+    if parameterization == "fm":
+        if min_snr_gamma > 0.0:
+            raise ValueError("min-SNR weighting targets the VP objectives (eps|v); "
+                             "rectified flow (fm) weights timesteps via t_shift instead")
+        tb = t.reshape(b, 1, 1, 1)
+        pred = apply_fn((1.0 - tb) * x0 + tb * eps, t, y_cat, y_cont)
+        return ((pred.float() - (eps - x0)) ** 2).mean()
+    a = sde.alpha(t).reshape(b, 1, 1, 1)
+    s = sde.sigma(t).reshape(b, 1, 1, 1)
+    pred = apply_fn(a * x0 + s * eps, t, y_cat, y_cont)
+    target = eps if parameterization == "eps" else a * eps - s * x0
+    se = (pred.float() - target) ** 2
+    if min_snr_gamma > 0.0:
+        snr = (a / s) ** 2
+        se = se * (snr.clamp(max=min_snr_gamma) / (snr if parameterization == "eps"
+                                                   else snr + 1.0))
+    return se.mean()
+
+
+def diffusion_loss_eps(apply_fn: ApplyFn, sde: VPSDE, x0: torch.Tensor, y_cat: torch.Tensor,
+                       y_cont: torch.Tensor, generator: torch.Generator | None, n_types: int,
+                       p_uncond: float = 0.1, t_power: float = 1.0,
+                       parameterization: str = "eps", t_shift: float = 1.0,
+                       min_snr_gamma: float = 0.0) -> torch.Tensor:
+    """Denoising MSE with CFG conditioning dropout: `draw_diffusion_loss_noise`
+    then `diffusion_loss_eps_given`. x0 in [0, 1], [B, H, W, 1]."""
+    t, eps, y_cat, y_cont = draw_diffusion_loss_noise(
+        x0, y_cat, y_cont, generator, n_types, p_uncond, t_power, t_shift)
+    return diffusion_loss_eps_given(apply_fn, sde, x0, y_cat, y_cont, t, eps,
+                                    parameterization, min_snr_gamma)
+
+
+# ---------------------------------------------------------------------------
+# Samplers
+# ---------------------------------------------------------------------------
 
 
 def eps_apply_from_v(sde: VPSDE, apply_fn: ApplyFn) -> ApplyFn:

@@ -1,0 +1,66 @@
+"""Parameter initialisation of the port's modules.
+
+Counterpart of toycrystals_tpu/models/torch_init.py, plus the flax defaults
+the JAX trainer starts from:
+
+- `flax_default_init`: kernels normal with std 1/sqrt(fan_in) (flax's
+  lecun-normal, without its truncation at two standard deviations), biases
+  zero, GroupNorm scales one, the class embedding N(0, 1); from a numpy
+  generator, so a seed gives the same weights on every machine.
+- `torch_like_init`: torch's own layer defaults, which the original torch
+  implementation trained from: conv and linear kernels and their biases
+  U(+-1/sqrt(fan_in)), embeddings N(0, 1), norm scales and biases untouched;
+  from a `torch.Generator`.
+
+Both write into the module in place and return it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from toycrystals_torch.ops.conv import Conv2d
+
+
+def flax_default_init(model: nn.Module, rng: np.random.Generator) -> nn.Module:
+    """Re-draw every parameter of `model` with flax's default statistics,
+    walking `state_dict()` in order (one `rng.normal` call per kernel)."""
+    sd = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith("cat_emb.weight"):
+            a = rng.normal(size=shape)
+        elif k.endswith("weight") and len(shape) >= 2:
+            a = rng.normal(size=shape) / math.sqrt(math.prod(shape[1:]))
+        elif k.endswith("weight"):
+            a = np.ones(shape)
+        else:
+            a = np.zeros(shape)
+        sd[k] = torch.tensor(a.astype(np.float32))
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def torch_like_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Re-draw every conv, linear and embedding parameter of `model` with
+    torch's default statistics; GroupNorm scales and biases keep their 1/0.
+    `generator` lies on the CPU; the values are copied to the parameters'
+    device."""
+
+    def uniform_(p: torch.Tensor, bound: float) -> None:
+        u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+        p.copy_((2.0 * u - 1.0) * bound)
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv2d, nn.Linear)):
+                bound = 1.0 / math.sqrt(math.prod(m.weight.shape[1:]))
+                uniform_(m.weight, bound)
+                uniform_(m.bias, bound)
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
+    return model

@@ -13,8 +13,12 @@ separate wrap-pad copy.
   branch: a failed build or launch raises. `gn_silu.launches` counts kernel
   launches.
 
-The kernel is forward-only (sampling never differentiates through it); a
-call that would need its gradient raises.
+Under autograd the forward on a CUDA tensor still launches the kernel, inside
+a `torch.autograd.Function` that saves (x, scale, bias); its backward
+differentiates the plain version (circular pad included, so the halo's
+gradient folds back onto the opposite edge), as the JAX op's custom VJP
+differentiates its jnp reference. There is no backward kernel yet. On the CPU
+the plain version runs under ordinary autograd.
 """
 
 from __future__ import annotations
@@ -74,9 +78,6 @@ def _gn_silu_cuda(x, scale, bias, groups: int, eps: float, pad: bool) -> torch.T
     b, c, h, w = x.shape
     if groups <= 0 or c % groups:
         raise ValueError(f"channels ({c}) must divide into groups ({groups})")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
-                                    or bias.requires_grad):
-        raise RuntimeError("gn_silu kernel is forward-only; run under torch.no_grad()")
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"scale/bias must be [{c}], got {tuple(scale.shape)}, "
                          f"{tuple(bias.shape)}")
@@ -99,13 +100,37 @@ def _gn_silu_cuda(x, scale, bias, groups: int, eps: float, pad: bool) -> torch.T
     return out
 
 
+class _GnSiluKernel(torch.autograd.Function):
+    """Kernel forward; backward = gradient of the plain version at the saved
+    inputs (one recomputed plain forward per backward)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, pad):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (groups, eps, pad)
+        return _gn_silu_cuda(x, scale, bias, groups, eps, pad)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+            y = gn_silu_reference(*leaves, *ctx.args)
+            wanted = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        return (*(next(grads) if n else None for n in need), None, None, None)
+
+
 def gn_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
             eps: float = 1e-6, pad: bool = False) -> torch.Tensor:
     """Fused GroupNorm+SiLU over [B, C, H, W]; `pad=True` returns the
-    circular-padded [B, C, H+2, W+2] output. CUDA tensors run the kernel,
-    CPU tensors the plain version."""
+    circular-padded [B, C, H+2, W+2] output. CUDA tensors run the kernel
+    (differentiable: see `_GnSiluKernel`), CPU tensors the plain version."""
     if x.device.type == "cpu":
         return gn_silu_reference(x, scale, bias, groups, eps, pad)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GnSiluKernel.apply(x, scale, bias, groups, eps, pad)
     return _gn_silu_cuda(x, scale, bias, groups, eps, pad)
 
 

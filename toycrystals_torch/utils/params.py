@@ -13,7 +13,10 @@ path (m1, ..., mk, leaf) becomes the state_dict key "m1. ... .mk.<name>":
 | any `bias`                | `bias`    | unchanged                             |
 
 This covers all three stems ("none", "s2d", "s2dr"). Values are numpy in and
-out; `flax_from_torch_state_dict` is the exact inverse.
+out; `flax_from_torch_state_dict` is the exact inverse. Gradient and Adam
+moment trees have the parameters' structure, so the same two functions carry
+them; `train_state_to_flax` / `load_train_state_from_flax` do so for a whole
+`TrainState` of toycrystals_torch/train/state.py.
 """
 
 from __future__ import annotations
@@ -78,3 +81,45 @@ def load_flax_params(model, params: Mapping[str, Any]) -> None:
     sd = {k: torch.tensor(np.asarray(v, np.float32))
           for k, v in torch_state_dict_from_flax(params).items()}
     model.load_state_dict(sd, strict=True)
+
+
+def train_state_to_flax(state) -> dict:
+    """A `TrainState` of the port as flax-layout numpy trees: `params`,
+    `ema_params` (None when the EMA is off), Adam's `mu` and `nu`, and the
+    integers `step` (steps taken) and `count` (optimizer updates applied)."""
+    names = list(state.params)
+    opt = state.opt_state
+    return {
+        "step": int(state.step),
+        "count": int(opt.count),
+        "params": flax_from_torch_state_dict(state.params),
+        "ema_params": (None if state.ema_params is None
+                       else flax_from_torch_state_dict(state.ema_params)),
+        "mu": flax_from_torch_state_dict(dict(zip(names, opt.mu))),
+        "nu": flax_from_torch_state_dict(dict(zip(names, opt.nu))),
+    }
+
+
+def load_train_state_from_flax(state, trees: Mapping[str, Any]) -> None:
+    """Read what `train_state_to_flax` wrote back into `state`, in place
+    (strict: every parameter must be present with its shape)."""
+
+    def copy_into(targets: Mapping[str, torch.Tensor], tree) -> None:
+        sd = torch_state_dict_from_flax(tree)
+        if set(sd) != set(targets):
+            raise KeyError(f"tree does not match the parameters: "
+                           f"{sorted(set(sd) ^ set(targets))}")
+        with torch.no_grad():
+            for k, t in targets.items():
+                t.copy_(torch.tensor(np.asarray(sd[k], np.float32)).reshape(t.shape))
+
+    names = list(state.params)
+    copy_into(state.params, trees["params"])
+    copy_into(dict(zip(names, state.opt_state.mu)), trees["mu"])
+    copy_into(dict(zip(names, state.opt_state.nu)), trees["nu"])
+    if (trees.get("ema_params") is None) != (state.ema_params is None):
+        raise ValueError("the state and the trees disagree on whether there is an EMA")
+    if state.ema_params is not None:
+        copy_into(state.ema_params, trees["ema_params"])
+    state.step = int(trees["step"])
+    state.opt_state.count = int(trees["count"])
