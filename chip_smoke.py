@@ -8,39 +8,66 @@ result line:
 
 1. Environment: torch version, the card's name and power limit, and the
    seconds to build every CUDA kernel of the port from toycrystals_torch/csrc
-   (one nvcc per source, all at once).
+   (one nvcc per library, all at once; the flash-attention source is built
+   once per head dim).
 2. GroupNorm+SiLU(+halo) kernel parity and timing against its plain PyTorch
    version on the card at every shape the served U-Net gives it (parity and
-   s2dr stems, batch 512 = 256 images under CFG), pad on and off, f32 and
-   bf16, plus odd shapes. Times of the kernel, the plain version, the library
-   yardstick (F.group_norm + F.silu + F.pad) and the bound (bytes at
-   3.35 TB/s). Then the kernel under autograd at every shape the training
-   U-Net gives it (batch 128, both stems, f32 and bf16, pad on and off):
-   output and the gradients of x, scale and bias against the plain version on
-   the same leaves, and the times of the kernel forward, the plain forward
-   and the plain-version backward that autograd runs behind the kernel.
+   s2dr stems, batch 512 = 256 images under CFG, and the 256x256 model at 24
+   rows), pad on and off, f32 and bf16, plus odd shapes. Times of the kernel,
+   the plain version, the library yardstick (F.group_norm + F.silu + F.pad)
+   and the bound (bytes at 3.35 TB/s). Then the kernel under autograd at
+   every shape the training U-Net gives it (batch 128, both stems, and batch
+   32 at 256x256; f32 and bf16, pad on and off): output and the gradients of
+   x, scale and bias against the plain version on the same leaves, and the
+   times of the kernel forward, the plain forward, the plain-version backward
+   that autograd runs behind the kernel, and the library yardstick's forward
+   and backward.
 3. Rasterizer kernel parity and timing against its plain version on the card:
    the training batch (128 images, rot_only budget), the full-config budget at
-   128 and 4096 images, the 32x32 and 256x256 budgets, and odd cases (all
-   weights 0, one atom, H != W). Times of the kernel, the plain version with
+   128 and 4096 images, the 32x32 budget, the 256x256 training batch (32
+   images, 9,728-point budget) and odd cases (all weights 0, one atom,
+   H != W). Times of the kernel, the plain version with
    TF32 off and on, and the bound (f32 operations of the atoms with weight 1).
-4. Data on the card against the CPU: generate_batch for the same (seed, idx).
-5. Serving at full width (base_ch 96, emb_dim 128, 64x64, bf16, reference
+4. Flash-attention kernels (forward; delta, dK/dV and dQ backward) against
+   the plain version `sdpa_reference` run in f32 on the same values: output
+   and the gradients of q, k and v, bf16 and f32, at the flagship shapes
+   [24, 4096, 4, 48] (serving) and [32, 4096, 4, 48] (training) and at other
+   head dims, one of them zero-padded. Times of the forward and backward
+   kernels, of the plain version, of the library yardstick
+   F.scaled_dot_product_attention (timed only) and the bound (operations at
+   the tensor cores' bf16 rate, or the f32 rate for f32 inputs).
+5. Data on the card against the CPU: generate_batch for the same (seed, idx),
+   at 64x64 and for the 256x256 training batch.
+6. Serving at full width (base_ch 96, emb_dim 128, 64x64, bf16, reference
    settings: reverse SDE, 300 steps, CFG 1.5, t_end 0.005) through
    ScoreModelService for the "none" and "s2dr" stems: first a 3-step f32
    run on injected noise, card against CPU; then requests of 1, 4 and 16
    images and one uint8 request, checked for shape, range, finiteness,
    determinism and exactly 10 x 301 GroupNorm launches each; then one timed
    300-step request of 256 images per stem.
-6. Training at full width (batch 128, lr 1e-4, beta 0.1-30, p_uncond 0.1, EMA
+7. Training at full width (batch 128, lr 1e-4, beta 0.1-30, p_uncond 0.1, EMA
    0.999, procedural rot_only data rendered on the card) through
    make_sde_train_epoch: first 2 f32 steps on injected (x0, t, eps), card
    against CPU (losses, and the gradients leaf by leaf); then 4 epochs of 5
    steps for each stem in f32 and bf16, checked for finite losses, a falling
    loss, exactly 10 GroupNorm and 1 rasterizer launches per step, and a
    finite EMA that left the parameters.
-   Prints steps/s, img/s and peak memory. --profile adds device ms per step
-   by kernel class.
+   Prints steps/s, img/s and peak memory.
+8. Serving at 256x256, full width (stem "none": 4,096 bottleneck tokens, so
+   attn_impl="auto" runs the flash kernel; param v, logsnr_shift -2.77,
+   buckets 1, 4, 12): 2 f32 SDE steps on injected noise, card against CPU;
+   a 1-image request twice (determinism), one timed 12-image SDE-300 request
+   (24 rows: exactly 301 flash and 3,010 GroupNorm launches), one 12-image
+   DPM-50 request (51 flash launches) and a 14-image DPM-50 request, which
+   runs as two 12-image dispatches.
+9. Training at 256x256, full width (batch 32, parameterization v, rot_only
+   data rendered on the card at a 9,728-point budget): 1 f32 step on 2
+   injected items, card against CPU (loss, gradients leaf by leaf); then 2
+   epochs of 4 bf16 steps: finite, falling loss, exactly 1 flash forward, 1
+   flash backward, 10 GroupNorm and 1 rasterizer launches per step.
+
+--profile adds device ms by kernel class of U-Net forwards and train steps,
+those at 256x256 included.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them lists every kernel.
@@ -65,6 +92,7 @@ import torch.nn.functional as F
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
 DEVICE = "cuda"
 BATCH = 256                   # images per throughput request; 512 rows under CFG
 SLICE_CFG = dict(n_types=4, y_cont_dim=4, base_ch=96, emb_dim=128, cond_ch=8, time_ch=8,
@@ -77,6 +105,24 @@ LEAF_GRAD_TOL = (1e-4, 1e-7)  # (share of the leaf's largest entry, absolute)
 RASTER_TOL = (1e-5, 1e-5)     # (atol, rtol): f32 sums over the atoms in another order
 TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS, TRAIN_STEPS = 128, 1e-4, 4, 5
 TRAIN_KW = dict(n_types=4, p_uncond=0.1, t_power=1.0, ema_decay=0.999)
+# The 256x256 model: stem "none" puts 64x64 = 4,096 tokens of 4 heads x 48 at the
+# bottleneck; v-prediction on the shifted schedule; 12 images (24 rows under CFG)
+# per serving dispatch and batch 32 in training, the JAX package's call shapes.
+HI_SIZE = 256
+HI_CFG = dict(SLICE_CFG, img_size=HI_SIZE, stem="none", param="v", logsnr_shift=-2.77)
+HI_BATCH, HI_BUCKETS, HI_DPM_STEPS = 12, (1, 4, 12), 50
+HI_TRAIN_BATCH, HI_TRAIN_EPOCHS, HI_TRAIN_STEPS = 32, 2, 4
+# Flash kernels against the plain version in f32: share of the reference's largest
+# entry. f32: sums in another order. bf16: the kernel rounds P and dS to bf16 before
+# the second products and its outputs to bf16 (2^-8 relative each); the f32 plain
+# version rounds nothing.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# (label, [B, N, heads, d], timing iterations; 0 = parity only)
+FLASH_SHAPES = [("serve 12 img", (2 * HI_BATCH, 4096, 4, 48), 10),
+                ("train batch 32", (HI_TRAIN_BATCH, 4096, 4, 48), 10),
+                ("2048 tokens", (2, 2048, 4, 48), 0), ("d 64", (2, 4096, 4, 64), 0),
+                ("d 16", (3, 256, 4, 16), 0), ("d 128", (2, 128, 1, 128), 0),
+                ("d 24 zero-padded to 32", (2, 256, 2, 24), 0)]
 
 
 def log(msg: str) -> None:
@@ -114,12 +160,17 @@ def gn_bound(shape, pad: bool, elem_bytes: int) -> tuple[float, str]:
 
 def kernel_shapes():
     """(label, [B, C, H, W], groups) for every conv-block activation of the
-    served U-Net at 64x64, base_ch 96, batch 512, and a few odd shapes."""
-    b, bc = 2 * BATCH, 96
+    served U-Net at 64x64, base_ch 96, batch 512, of the 256x256 U-Net at 24
+    rows, and a few odd shapes."""
+    b, bc, hb = 2 * BATCH, 96, 2 * HI_BATCH
     main = [("none/down1,up1", (b, bc, 64, 64)), ("none/down2", (b, 2 * bc, 32, 32)),
             ("none/mid", (b, 2 * bc, 16, 16)), ("none/up2", (b, bc, 32, 32)),
             ("s2dr/down1,up1", (b, bc, 32, 32)), ("s2dr/down2", (b, 2 * bc, 16, 16)),
-            ("s2dr/mid", (b, 2 * bc, 8, 8)), ("s2dr/up2", (b, bc, 16, 16))]
+            ("s2dr/mid", (b, 2 * bc, 8, 8)), ("s2dr/up2", (b, bc, 16, 16)),
+            ("256/down1,up1", (hb, bc, HI_SIZE, HI_SIZE)),
+            ("256/down2", (hb, 2 * bc, HI_SIZE // 2, HI_SIZE // 2)),
+            ("256/mid", (hb, 2 * bc, HI_SIZE // 4, HI_SIZE // 4)),
+            ("256/up2", (hb, bc, HI_SIZE // 2, HI_SIZE // 2))]
     seen, out = set(), []
     for label, shape in main:
         if shape not in seen:  # none/up2 and s2dr/down1 share a shape
@@ -151,7 +202,7 @@ def phase_kernel(gn) -> tuple[list[dict], dict]:
                 row = dict(shape=label, dims=list(shape), groups=groups, dtype=name,
                            pad=pad, max_abs_err=max_err, atol=atol, rtol=rtol,
                            mismatches=bad)
-                if label.startswith(("none", "s2dr")):
+                if not label.startswith("odd"):
                     p = 1 if pad else 0
 
                     def yardstick():
@@ -198,14 +249,16 @@ def random_flax_params(stem: str, seed: int) -> dict:
     return flax_from_torch_state_dict(model.state_dict())
 
 
-def phase_card_vs_cpu(stem: str, params: dict) -> float:
-    """3 SDE steps + projection in f32 on injected noise: the card (CUDA
-    kernel) against the CPU (plain version). Returns the max abs difference."""
+def phase_card_vs_cpu(stem: str, params: dict, n: int = 3, size: int = 64,
+                      logsnr_shift: float = 0.0, v_param: bool = False) -> float:
+    """n SDE steps + projection in f32 on injected noise: the card (CUDA
+    kernels) against the CPU (plain versions). Returns the max abs difference."""
     from toycrystals_torch.models.sde_score_model import (
-        VPSDE, sample_grid_conditions, sample_reverse_sde_euler_maruyama)
+        VPSDE, eps_apply_from_v, sample_grid_conditions, sample_reverse_sde_euler_maruyama)
     from toycrystals_torch.utils.params import load_flax_params
 
-    c, n, shape = SLICE_CFG, 3, (2, 64, 64, 1)
+    c, shape = SLICE_CFG, (2, size, size, 1)
+    sde = VPSDE(0.1, 30.0, logsnr_shift)
     rng = np.random.default_rng(1)
     noise = (rng.normal(size=shape).astype(np.float32),
              rng.normal(size=(n, *shape)).astype(np.float32))
@@ -217,8 +270,8 @@ def phase_card_vs_cpu(stem: str, params: dict) -> float:
         yc, yv = sample_grid_conditions(2, c["n_types"], c["y_cont_dim"], device=dev)
         with torch.inference_mode():
             x = sample_reverse_sde_euler_maruyama(
-                model, VPSDE(0.1, 30.0), yc, yv, shape, n_steps=n, guidance_scale=1.5,
-                t_end=0.005, n_types=c["n_types"], noise=noise)
+                eps_apply_from_v(sde, model) if v_param else model, sde, yc, yv, shape,
+                n_steps=n, guidance_scale=1.5, t_end=0.005, n_types=c["n_types"], noise=noise)
         outs.append(x.cpu())
     return float((outs[0] - outs[1]).abs().max())
 
@@ -226,6 +279,8 @@ def phase_card_vs_cpu(stem: str, params: dict) -> float:
 def kernel_category(name: str) -> str:
     n = name.lower()
     for cat, keys in (("gn_silu kernel", ("gn_silu",)), ("rasterize kernel", ("rasterize",)),
+                      ("flash_attn kernels", ("flash_fwd", "flash_dkv", "flash_dq",
+                                              "flash_delta")),
                       ("conv (cuDNN)", ("conv", "implicit", "cudnn", "wgrad", "dgrad", "fprop",
                                         "nhwc", "nchw", "fft", "pointwise_mult_and_sum",
                                         "region_transform")),
@@ -268,13 +323,14 @@ def device_ms_by_category(prof, runs: int) -> tuple[dict[str, float], float]:
     return dict(sorted(by_cat.items(), key=lambda kv: -kv[1])), sum(by_cat.values())
 
 
-def profile_forward(model, rows: int) -> dict:
-    """Device time by kernel category over 3 U-Net forwards at `rows` rows
-    (one CFG sampler step of rows/2 images each), and the device's busy share
-    of the wall time."""
+def profile_forward(model, rows: int, size: int = 64) -> dict:
+    """Device time by kernel category over 3 U-Net forwards at `rows` rows of
+    size x size (one CFG sampler step of rows/2 images each), and the device's
+    busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = (torch.randn(rows, 64, 64, 1, device=DEVICE), torch.full((rows,), 0.5, device=DEVICE),
+    args = (torch.randn(rows, size, size, 1, device=DEVICE),
+            torch.full((rows,), 0.5, device=DEVICE),
             torch.zeros(rows, dtype=torch.int32, device=DEVICE),
             torch.zeros(rows, 4, device=DEVICE))
     with torch.inference_mode():
@@ -287,7 +343,8 @@ def profile_forward(model, rows: int) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     by_cat, busy = device_ms_by_category(prof, 3)
-    return {"rows": rows, "wall_ms_per_forward": wall_ms / 3, "device_ms_per_forward": busy,
+    return {"rows": rows, "size": size, "wall_ms_per_forward": wall_ms / 3,
+            "device_ms_per_forward": busy,
             "idle_share": 1.0 - busy / (wall_ms / 3),
             "ms_by_category": by_cat}
 
@@ -367,18 +424,23 @@ def phase_slice(gn, stem: str, params: dict) -> dict:
 
 
 def gn_training_rows(gn) -> list[dict]:
-    """The kernel under autograd at the training shapes (batch 128), held
+    """The kernel under autograd at the training shapes (batch 128 at 64x64,
+    batch 32 at 256x256), held
     against the plain version on the same leaves: the output within TOL, and
     the gradients of x, scale and bias from torch.autograd.grad on both sides
     within GRAD_TOL of each gradient's largest entry. Then the times of the
     kernel forward, the plain forward and the backward autograd runs behind
     the kernel (the gradient of the plain version, recomputed from the saved
     inputs)."""
-    b, bc = TRAIN_BATCH, 96
+    b, bc, hb = TRAIN_BATCH, 96, HI_TRAIN_BATCH
     shapes = [("none/down1,up1", (b, bc, 64, 64), 2), ("none/down2", (b, 2 * bc, 32, 32), 1),
               ("none/mid", (b, 2 * bc, 16, 16), 1), ("none/up2", (b, bc, 32, 32), 1),
               ("s2dr/down1,up1", (b, bc, 32, 32), 2), ("s2dr/down2", (b, 2 * bc, 16, 16), 1),
-              ("s2dr/mid", (b, 2 * bc, 8, 8), 1), ("s2dr/up2", (b, bc, 16, 16), 1)]
+              ("s2dr/mid", (b, 2 * bc, 8, 8), 1), ("s2dr/up2", (b, bc, 16, 16), 1),
+              ("256/down1,up1", (hb, bc, HI_SIZE, HI_SIZE), 2),
+              ("256/down2", (hb, 2 * bc, HI_SIZE // 2, HI_SIZE // 2), 1),
+              ("256/mid", (hb, 2 * bc, HI_SIZE // 4, HI_SIZE // 4), 1),
+              ("256/up2", (hb, bc, HI_SIZE // 2, HI_SIZE // 2), 1)]
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = []
     for label, shape, blocks in shapes:
@@ -422,6 +484,18 @@ def gn_training_rows(gn) -> list[dict]:
                         lambda: gn.gn_silu_reference(*leaves, 8, 1e-6, pad), iters=10)
                 row["backward_plain_ms"] = cuda_time_ms(
                     lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), iters=10)
+
+                def yardstick():
+                    x, scale, bias = leaves
+                    lib = F.silu(F.group_norm(x, 8, scale.to(dtype), bias.to(dtype), eps=1e-6))
+                    return F.pad(lib, (1, 1, 1, 1), mode="circular") if pad else lib
+
+                with torch.no_grad():
+                    row["library_ms"] = cuda_time_ms(yardstick, iters=10)
+                lib_y = yardstick()
+                row["library_backward_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(lib_y, leaves, g, retain_graph=True), iters=10)
+                del lib_y
                 row["bound_ms"], row["bound_by"] = gn_bound(shape, pad, leaves[0].element_size())
                 rows.append(row)
                 log("kernel gn_silu training " + json.dumps(row))
@@ -464,7 +538,8 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
              ("full 64x64", True, geometry(LatticeConfig(), TRAIN_BATCH)),
              ("full 64x64 B4096", True, geometry(LatticeConfig(), 4096)),
              ("full 32x32", True, geometry(LatticeConfig(img_size=32), TRAIN_BATCH)),
-             ("rot_only 256x256", True, geometry(LatticeConfig(img_size=256, rot_only=True), 16))]
+             ("train rot_only 256x256", True,
+              geometry(LatticeConfig(img_size=HI_SIZE, rot_only=True), HI_TRAIN_BATCH))]
     zero = random_atoms(2, 256, 64, 64)
     one = random_atoms(1, 128, 64, 64)
     one[1].zero_()
@@ -508,6 +583,162 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
     return rows, headline
 
 
+def flash_bound(shape, elem_bytes: int, backward: bool) -> tuple[float, str]:
+    """Least time for one call. Forward: 2 products of 2 B H N^2 d operations;
+    q, k, v read and O and the f32 row log-sum-exp written once. Backward: 5
+    such products (S, dP, dV, dK, dQ); q, k, v, O, dO and L read, dq, dk, dv
+    written. Operations at the tensor cores' bf16 rate, or at the f32 rate
+    for f32 inputs, which run on no tensor core."""
+    b, n, h, d = shape
+    ops = (10 if backward else 4) * b * h * n * n * d
+    elems = (8 if backward else 4) * b * n * h * d
+    t_ops = ops / (BF16_OPS_PER_S if elem_bytes == 2 else F32_OPS_PER_S) * 1e3
+    t_bytes = (elems * elem_bytes + b * h * n * 4) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash(at) -> tuple[list[dict], dict]:
+    """The flash kernels against `sdpa_reference` in f32 on the same values
+    (bf16 inputs upcast; 8 items at a time, since the plain version holds the
+    [B, heads, N, N] logits): output and the gradients of q, k, v under a
+    random cotangent, each within FLASH_TOL of the reference's largest entry."""
+    rows, headline = [], {}
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    for label, shape, iters in FLASH_SHAPES:
+        b, n, h, d = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            qkv = torch.randn((b, n, 3, h, d), generator=gen, device=DEVICE).to(dtype)
+            up = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            leaves = [qkv[:, :, i].detach().requires_grad_(True) for i in range(3)]
+            before = (at.flash_sdpa.launches, at.flash_sdpa.backward_launches)
+            out = at.flash_sdpa(*leaves)
+            grads = torch.autograd.grad(out, leaves, up, retain_graph=True)
+            torch.cuda.synchronize()
+            if (at.flash_sdpa.launches, at.flash_sdpa.backward_launches) != \
+                    (before[0] + 1, before[1] + 1):
+                raise AssertionError(f"flash_sdpa did not launch its kernels at {label} {name}")
+            row = dict(shape=label, dims=list(shape), dtype=name, tol_share=FLASH_TOL[name])
+            errs = {k: 0.0 for k in ("out", "dq", "dk", "dv")}
+            maxs = dict(errs)
+            for i0 in range(0, b, 8):
+                sl = slice(i0, i0 + 8)
+                ref = [t[sl].detach().float().requires_grad_(True) for t in leaves]
+                want = at.sdpa_reference(*ref)
+                want_g = torch.autograd.grad(want, ref, up[sl].float())
+                for k, got, w in zip(errs, (out.detach(), *grads), (want.detach(), *want_g)):
+                    errs[k] = max(errs[k], float((got[sl].float() - w).abs().max()))
+                    maxs[k] = max(maxs[k], float(w.abs().max()))
+                del ref, want, want_g
+            bad = []
+            for k in errs:
+                row[f"{k}_max_abs_err"], row[f"{k}_max_abs"] = errs[k], maxs[k]
+                if not errs[k] <= FLASH_TOL[name] * maxs[k]:
+                    bad.append(k)
+            if iters:
+                it = iters if dtype == torch.bfloat16 else 3
+                qh, kh, vh = (t.detach().transpose(1, 2) for t in leaves)
+                with torch.no_grad():
+                    row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(*leaves), iters=it)
+                    row["plain_ms"] = cuda_time_ms(lambda: at.sdpa_reference(*leaves), iters=3,
+                                                   warmup=1)
+                    row["library_ms"] = cuda_time_ms(
+                        lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=it)
+                row["backward_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(out, leaves, up, retain_graph=True), iters=it)
+                plain = at.sdpa_reference(*leaves)
+                row["plain_backward_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(plain, leaves, up, retain_graph=True), iters=3,
+                    warmup=1)
+                del plain
+                lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in leaves]
+                lib = F.scaled_dot_product_attention(*lib_leaves)
+                row["library_backward_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(lib, lib_leaves, up.transpose(1, 2),
+                                                retain_graph=True), iters=it)
+                del lib, lib_leaves
+                row["bound_ms"], row["bound_by"] = flash_bound(shape, qkv.element_size(), False)
+                row["backward_bound_ms"], _ = flash_bound(shape, qkv.element_size(), True)
+                row["tflops"] = 4 * b * h * n * n * d / row["ms"] / 1e9
+                row["backward_tflops"] = 10 * b * h * n * n * d / row["backward_ms"] / 1e9
+                if dtype == torch.bfloat16:
+                    headline[label] = row
+            rows.append(row)
+            log("kernel flash_attn " + json.dumps(row))
+            if bad:
+                raise AssertionError(f"flash_attn disagrees with its plain version at {label} "
+                                     f"{name} in {bad}: {row}")
+            del qkv, up, leaves, out, grads
+            torch.cuda.empty_cache()
+    return rows, headline
+
+
+def phase_slice_hi(gn, at, params: dict) -> dict:
+    """Serving at 256x256 through ScoreModelService: SDE-300 and DPM-50."""
+    from toycrystals_torch.models.sde_score_model import auto_chunk
+    from toycrystals_torch.serve import ScoreModelService
+
+    svc = ScoreModelService(HI_CFG, params, device=DEVICE, buckets=HI_BUCKETS)
+    if (auto_chunk(HI_SIZE, svc.steps), HI_BUCKETS[-1]) != (HI_BATCH, HI_BATCH):
+        raise AssertionError(f"the timed 256x256 dispatch ({HI_BATCH} images) is not the "
+                             f"reference's auto_chunk({HI_SIZE}, {svc.steps}) = "
+                             f"{auto_chunk(HI_SIZE, svc.steps)} or not the top bucket")
+    dpm = ScoreModelService(HI_CFG, params, device=DEVICE, buckets=HI_BUCKETS, sampler="dpm",
+                            steps=HI_DPM_STEPS)
+    if (svc.sampler_name, svc.steps, svc.guidance_scale, svc.t_end, svc.buckets) != \
+            ("sde", 300, 1.5, 0.005, HI_BUCKETS) or svc._apply_fn is svc.model \
+            or svc.sde.logsnr_shift != HI_CFG["logsnr_shift"]:
+        raise AssertionError(f"256x256 service did not resolve the reference settings with "
+                             f"v wrapped to eps: {svc.stats}")
+    result = {"size": HI_SIZE, "requests": []}
+
+    def request(service, n, seed, dispatches=1):
+        evals = (service.steps + 1) * dispatches
+        g0, f0, d0 = gn.gn_silu.launches, at.flash_sdpa.launches, service.stats["dispatches"]
+        t0 = time.perf_counter()
+        x = service.sample_conditions(np.arange(n) % 4, np.linspace(0, 1, n), seed=seed)
+        dt = time.perf_counter() - t0
+        got = (gn.gn_silu.launches - g0, at.flash_sdpa.launches - f0,
+               service.stats["dispatches"] - d0)
+        if got != (10 * evals, evals, dispatches):
+            raise AssertionError(f"256x256 {service.sampler_name}: (gn_silu, flash, dispatches) "
+                                 f"= {got} for {n} images, expected "
+                                 f"{(10 * evals, evals, dispatches)}")
+        if x.shape != (n, HI_SIZE, HI_SIZE, 1) or x.dtype != np.float32:
+            raise AssertionError(f"256x256: output {x.shape} {x.dtype}")
+        if not np.isfinite(x).all() or x.min() < 0 or x.max() > 1:
+            raise AssertionError("256x256: output out of range or not finite")
+        rec = dict(sampler=service.sampler_name, steps=service.steps, images=n, seconds=dt,
+                   dispatches=dispatches, gn_silu_launches=got[0], flash_launches=got[1],
+                   mean=float(x.mean()), std=float(x.std()))
+        result["requests"].append(rec)
+        log("slice 256x256 request " + json.dumps(rec))
+        return x
+
+    with torch.inference_mode():  # warm the 24-row shapes with two forwards
+        rows = 2 * HI_BATCH
+        for _ in range(2):
+            svc.model(torch.randn(rows, HI_SIZE, HI_SIZE, 1, device=DEVICE),
+                      torch.full((rows,), 0.5, device=DEVICE),
+                      torch.zeros(rows, dtype=torch.int32, device=DEVICE),
+                      torch.zeros(rows, 4, device=DEVICE))
+    torch.cuda.synchronize()
+    gn.gn_silu.launches = at.flash_sdpa.launches = 0  # the 256x256 serving path starts here
+    one = request(svc, 1, seed=1)
+    if not np.array_equal(one, request(svc, 1, seed=1)):
+        raise AssertionError("256x256: same seed gave different images")
+    result["deterministic"] = True
+    request(svc, HI_BATCH, seed=7)
+    sec = result["requests"][-1]["seconds"]
+    result["img_per_s"], result["throughput_seconds"] = HI_BATCH / sec, sec
+    log(f"throughput 256x256: {HI_BATCH / sec:.4f} img/s ({HI_BATCH} images, 300-step SDE, "
+        f"CFG 1.5, bf16, {sec:.3f} s)")
+    request(dpm, HI_BATCH, seed=8)
+    result["dpm_img_per_s"] = HI_BATCH / result["requests"][-1]["seconds"]
+    request(dpm, HI_BATCH + 2, seed=9, dispatches=2)
+    return result
+
+
 def phase_data_card_vs_cpu() -> dict:
     """generate_batch for the same (seed, idx) on the card and on the CPU:
     labels equal, images within 1e-4 (the integer draws are the same on
@@ -518,7 +749,9 @@ def phase_data_card_vs_cpu() -> dict:
 
     out = {}
     for name, cfg, n in (("rot_only", LatticeConfig(rot_only=True), TRAIN_BATCH),
-                         ("full", LatticeConfig(), 32)):
+                         ("full", LatticeConfig(), 32),
+                         ("rot_only 256x256", LatticeConfig(img_size=HI_SIZE, rot_only=True),
+                          HI_TRAIN_BATCH)):
         idx = np.arange(1000, 1000 + n)
         xg, cg, vg = generate_batch(cfg, 0, idx, device=DEVICE)
         xc, cc, vc = generate_batch(cfg, 0, idx, device="cpu")
@@ -527,7 +760,7 @@ def phase_data_card_vs_cpu() -> dict:
         log(f"data {name}: card vs CPU on {n} items: images max abs diff {d:.3e} "
             f"(tolerance 1e-4), labels equal: "
             f"{torch.equal(cg.cpu(), cc) and torch.equal(vg.cpu(), vc)}")
-        if xg.shape != (n, 64, 64, 1) or not torch.equal(cg.cpu(), cc) \
+        if xg.shape != (n, cfg.img_size, cfg.img_size, 1) or not torch.equal(cg.cpu(), cc) \
                 or not torch.equal(vg.cpu(), vc) or not d <= 1e-4:
             raise AssertionError(f"data {name}: the card and the CPU render different items")
         if float(xg.min()) < 0.0 or float(xg.max()) > 1.0 or \
@@ -536,38 +769,42 @@ def phase_data_card_vs_cpu() -> dict:
     return out
 
 
-def train_pieces(stem: str, dtype: str, device: str):
+def train_pieces(stem: str, dtype: str, device: str, logsnr_shift: float = 0.0):
     from toycrystals_torch.models.sde_score_model import VPSDE
     from toycrystals_torch.models.torch_init import flax_default_init
     from toycrystals_torch.train.state import Optimizer, create_train_state
 
     model = flax_default_init(make_model(stem, dtype), np.random.default_rng(0)).to(device)
     tx = Optimizer(TRAIN_LR)
-    return model, tx, VPSDE(0.1, 30.0), create_train_state(model, tx, ema=True)
+    return (model, tx, VPSDE(0.1, 30.0, logsnr_shift),
+            create_train_state(model, tx, ema=True))
 
 
-def phase_train_card_vs_cpu(stem: str) -> dict:
-    """2 f32 train steps at full width on 8 injected items and (t, eps): the
-    card (kernel forward, plain backward) against the CPU (plain both ways).
+def phase_train_card_vs_cpu(stem: str, n: int = 8, size: int = 64, steps: int = 2,
+                            logsnr_shift: float = 0.0, parameterization: str = "eps") -> dict:
+    """`steps` f32 train steps at full width on n injected items and (t, eps):
+    the card (GroupNorm kernel forward with the plain backward, flash kernels
+    both ways at 256x256) against the CPU (plain versions both ways).
     Tolerances: each loss within 1e-3 relative; step-1 gradients leaf by
     leaf, max |diff| <= LEAF_GRAD_TOL[0] * max |g_leaf| + LEAF_GRAD_TOL[1]."""
     from toycrystals_torch.data.datasets import generate_batch
     from toycrystals_torch.data.lattice import LatticeConfig
     from toycrystals_torch.train.steps import make_sde_train_step, sde_loss_and_grads
 
-    n = 8
-    x0, y_cat, y_cont = generate_batch(LatticeConfig(rot_only=True), 0, np.arange(n),
-                                       device="cpu")
+    x0, y_cat, y_cont = generate_batch(LatticeConfig(img_size=size, rot_only=True), 0,
+                                       np.arange(n), device="cpu")
     rng = np.random.default_rng(3)
     noise = [(torch.tensor(rng.uniform(0.02, 1.0, size=n).astype(np.float32)),
-              torch.tensor(rng.normal(size=(n, 64, 64, 1)).astype(np.float32)))
-             for _ in range(2)]
+              torch.tensor(rng.normal(size=(n, size, size, 1)).astype(np.float32)))
+             for _ in range(steps)]
     losses, grads = {}, {}
     for dev in (DEVICE, "cpu"):
-        model, tx, sde, state = train_pieces(stem, "float32", dev)
-        step = make_sde_train_step(model, tx, sde, **TRAIN_KW)
+        model, tx, sde, state = train_pieces(stem, "float32", dev, logsnr_shift)
+        step = make_sde_train_step(model, tx, sde, **TRAIN_KW,
+                                   parameterization=parameterization)
         batch = [a.to(dev) for a in (x0, y_cat, y_cont)]
-        _, g = sde_loss_and_grads(model, sde, *batch, *(a.to(dev) for a in noise[0]))
+        _, g = sde_loss_and_grads(model, sde, *batch, *(a.to(dev) for a in noise[0]),
+                                  parameterization=parameterization)
         grads[dev] = [a.cpu() for a in g]
         losses[dev] = []
         for t, eps in noise:
@@ -582,76 +819,90 @@ def phase_train_card_vs_cpu(stem: str) -> dict:
     ranked = sorted(leaves, key=lambda r: -r["share_of_limit"])
     worst = ranked[0]
     l_diff = max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE], losses["cpu"]))
-    out = dict(stem=stem, losses_card=losses[DEVICE], losses_cpu=losses["cpu"],
+    out = dict(stem=stem, size=size, items=n, losses_card=losses[DEVICE],
+               losses_cpu=losses["cpu"],
                loss_rel_diff=l_diff, grad_leaves=len(leaves), grad_worst_leaves=ranked[:3],
                grad_max_abs_diff=max(r["max_abs_diff"] for r in leaves),
                grad_max_abs=max(r["max_abs"] for r in leaves))
     log("train card vs CPU " + json.dumps(out))
     out["grad_by_leaf"] = leaves
     if not (l_diff <= 1e-3 and worst["share_of_limit"] <= 1.0):
-        raise AssertionError(f"{stem}: card and CPU train steps disagree: loss relative "
+        raise AssertionError(f"{stem} {size}x{size}: card and CPU train steps disagree: loss rel. "
                              f"difference {l_diff}, worst gradient leaf {worst}")
     return out
 
 
-def phase_train(gn, rz, stem: str, dtype: str) -> dict:
-    """TRAIN_EPOCHS epochs of TRAIN_STEPS steps through make_sde_train_epoch,
-    every epoch on fresh procedural items rendered on the card."""
+def phase_train(gn, rz, at, stem: str, dtype: str, size: int = 64, batch: int = TRAIN_BATCH,
+                epochs: int = TRAIN_EPOCHS, steps: int = TRAIN_STEPS,
+                logsnr_shift: float = 0.0, parameterization: str = "eps",
+                flash_per_step: int = 0) -> dict:
+    """`epochs` epochs of `steps` steps through make_sde_train_epoch, every
+    epoch on fresh procedural items rendered on the card. Each step must
+    launch 10 GroupNorm kernels, 1 rasterizer and `flash_per_step` flash
+    forwards and as many flash backward passes."""
     from toycrystals_torch.data.lattice import LatticeConfig
     from toycrystals_torch.train.steps import make_sde_train_epoch
 
-    model, tx, sde, state = train_pieces(stem, dtype, DEVICE)
-    n_items = TRAIN_STEPS * TRAIN_BATCH
-    epoch = make_sde_train_epoch(model, tx, sde, batch_size=TRAIN_BATCH, n_items=n_items,
-                                 lattice_cfg=LatticeConfig(rot_only=True), dataset_seed=0,
-                                 fresh_data=True, **TRAIN_KW)
+    model, tx, sde, state = train_pieces(stem, dtype, DEVICE, logsnr_shift)
+    n_items = steps * batch
+    epoch = make_sde_train_epoch(model, tx, sde, batch_size=batch, n_items=n_items,
+                                 lattice_cfg=LatticeConfig(img_size=size, rot_only=True),
+                                 dataset_seed=0, fresh_data=True,
+                                 parameterization=parameterization, **TRAIN_KW)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, seconds = [], []
-    for e in range(TRAIN_EPOCHS):
-        g0, r0 = gn.gn_silu.launches, rz.rasterize.launches
+    for e in range(epochs):
+        before = (gn.gn_silu.launches, rz.rasterize.launches, at.flash_sdpa.launches,
+                  at.flash_sdpa.backward_launches)
         t0 = time.perf_counter()
         state, loss = epoch(state, gen, e * n_items)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(float(loss))
-        dg, dr = gn.gn_silu.launches - g0, rz.rasterize.launches - r0
-        if (dg, dr) != (10 * TRAIN_STEPS, TRAIN_STEPS):
-            raise AssertionError(f"{stem} {dtype}: {dg} gn_silu and {dr} rasterize launches "
-                                 f"in {TRAIN_STEPS} steps, expected {10 * TRAIN_STEPS} and "
-                                 f"{TRAIN_STEPS}")
-    steady = sum(seconds[1:]) / ((TRAIN_EPOCHS - 1) * TRAIN_STEPS)  # epoch 1 warms cuDNN up
+        after = (gn.gn_silu.launches, rz.rasterize.launches, at.flash_sdpa.launches,
+                 at.flash_sdpa.backward_launches)
+        got = tuple(a - b for a, b in zip(after, before))
+        want = (10 * steps, steps, flash_per_step * steps,
+                flash_per_step * steps)
+        if got != want:
+            raise AssertionError(f"{stem} {dtype} {size}x{size}: (gn_silu, rasterize, flash "
+                                 f"forward, flash backward) launches in {steps} steps "
+                                 f"were {got}, expected {want}")
+    steady = sum(seconds[1:]) / ((epochs - 1) * steps)  # epoch 1 warms cuDNN up
     ema_gap = max(float((state.ema_params[k] - p.detach()).abs().max())
                   for k, p in state.params.items())
     finite = all(bool(torch.isfinite(v).all()) for v in state.ema_params.values()) and \
         all(bool(torch.isfinite(p).all()) for p in state.params.values())
-    out = dict(stem=stem, dtype=dtype, steps=state.step, epoch_mean_losses=losses,
-               epoch_seconds=seconds, steps_per_s=1.0 / steady, img_per_s=TRAIN_BATCH / steady,
+    out = dict(stem=stem, dtype=dtype, size=size, batch=batch, steps=state.step,
+               epoch_mean_losses=losses,
+               epoch_seconds=seconds, steps_per_s=1.0 / steady, img_per_s=batch / steady,
                peak_memory_bytes=torch.cuda.max_memory_allocated(), ema_max_gap=ema_gap)
     log("train " + json.dumps(out))
     if not (all(math.isfinite(v) for v in losses) and finite):
         raise AssertionError(f"{stem} {dtype}: non-finite loss, parameters or EMA")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{stem} {dtype}: the loss did not fall: the mean of steps "
-                             f"1-{TRAIN_STEPS} is {losses[0]}, of the last {TRAIN_STEPS} "
+                             f"1-{steps} is {losses[0]}, of the last {steps} "
                              f"{losses[-1]}")
-    if not ema_gap > 0.0 or state.step != TRAIN_EPOCHS * TRAIN_STEPS:
+    if not ema_gap > 0.0 or state.step != epochs * steps:
         raise AssertionError(f"{stem} {dtype}: EMA equals the parameters or steps are missing")
     return out
 
 
-def profile_train(stem: str, dtype: str) -> dict:
+def profile_train(stem: str, dtype: str, size: int = 64, batch: int = TRAIN_BATCH,
+                  logsnr_shift: float = 0.0, parameterization: str = "eps") -> dict:
     """Device time by kernel category over 3 train steps (data included)."""
     from torch.profiler import ProfilerActivity, profile
 
     from toycrystals_torch.data.lattice import LatticeConfig
     from toycrystals_torch.train.steps import make_sde_train_epoch
 
-    model, tx, sde, state = train_pieces(stem, dtype, DEVICE)
-    epoch = make_sde_train_epoch(model, tx, sde, batch_size=TRAIN_BATCH,
-                                 n_items=3 * TRAIN_BATCH,
-                                 lattice_cfg=LatticeConfig(rot_only=True), **TRAIN_KW)
+    model, tx, sde, state = train_pieces(stem, dtype, DEVICE, logsnr_shift)
+    epoch = make_sde_train_epoch(model, tx, sde, batch_size=batch, n_items=3 * batch,
+                                 lattice_cfg=LatticeConfig(img_size=size, rot_only=True),
+                                 parameterization=parameterization, **TRAIN_KW)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     epoch(state, gen)
     torch.cuda.synchronize()
@@ -661,7 +912,8 @@ def profile_train(stem: str, dtype: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     by_cat, busy = device_ms_by_category(prof, 3)
-    out = {"stem": stem, "dtype": dtype, "wall_ms_per_step": wall_ms,
+    out = {"stem": stem, "dtype": dtype, "size": size, "batch": batch,
+           "wall_ms_per_step": wall_ms,
            "device_ms_per_step": busy, "idle_share": 1.0 - busy / wall_ms,
            "ms_by_category": by_cat}
     log("profile train " + json.dumps(out))
@@ -684,6 +936,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from toycrystals_torch.data import rasterize as rz
+        from toycrystals_torch.ops import attention as at
         from toycrystals_torch.ops import groupnorm as gn
         from toycrystals_torch.utils import cuda_build
     except ImportError as e:
@@ -701,10 +954,15 @@ def main() -> int:
             f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         log(f"env nvidia-smi: {card}")
         t0 = time.perf_counter()
+        # every source of csrc/; flash_attn once per head dim that phase 4 and the
+        # main paths give it
+        head_dims = sorted({at._kernel_head_dim(shape[3]) for _, shape, _ in FLASH_SHAPES})
+        defines = {"flash_attn": [(f"FLASH_HEAD_DIM={d}",) for d in head_dims]}
         names = sorted(f[:-3] for f in os.listdir(cuda_build.CSRC) if f.endswith(".cu"))
-        libs = cuda_build.build_all(names)
+        targets = [(name, d) for name in names for d in defines.get(name, [()])]
+        libs = cuda_build.build_all(targets)
         report["build_seconds"] = time.perf_counter() - t0
-        log(f"env built {names} in {report['build_seconds']:.2f} s")
+        log(f"env built {targets} in {report['build_seconds']:.2f} s")
         for lib in libs:
             log(f"env ptxas {lib.name}: " + " | ".join(
                 line.strip() for line in lib.with_suffix(".log").read_text().splitlines()
@@ -719,6 +977,11 @@ def main() -> int:
         raster_rows, raster_headline = phase_raster(rz)
         report["raster_rows"] = raster_rows
         log(f"kernel rasterize parity passed on {len(raster_rows)} cases")
+        raster_hi = next(r for r in raster_rows if r["shape"] == "train rot_only 256x256")
+        flash_rows, flash_headline = phase_flash(at)
+        report["flash_rows"] = flash_rows
+        log(f"kernel flash_attn parity passed on {len(flash_rows)} cases, forward and "
+            f"gradients")
         report["data_card_vs_cpu"] = phase_data_card_vs_cpu()
 
         params = {stem: random_flax_params(stem, seed=0) for stem in ("none", "s2dr")}
@@ -730,29 +993,72 @@ def main() -> int:
             if not d <= 1e-3:
                 raise AssertionError(f"{stem}: card and CPU disagree by {d}")
 
-        gn.gn_silu.launches = rz.rasterize.launches = 0  # the serving path starts here
+        def set_counts_to_zero():
+            gn.gn_silu.launches = rz.rasterize.launches = 0
+            at.flash_sdpa.launches = at.flash_sdpa.backward_launches = 0
+
+        def counts():
+            return {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches,
+                    "flash_attn": at.flash_sdpa.launches,
+                    "flash_attn_backward": at.flash_sdpa.backward_launches}
+
+        set_counts_to_zero()  # the serving path starts here
         report["slices"] = []
         for stem in ("none", "s2dr"):
             report["slices"].append(phase_slice(gn, stem, params[stem]))
-        served = {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches}
+        served = counts()
 
         report["train_card_vs_cpu"] = [phase_train_card_vs_cpu(stem)
                                        for stem in ("none", "s2dr")]
-        gn.gn_silu.launches = rz.rasterize.launches = 0  # the training path starts here
-        report["train"] = [phase_train(gn, rz, stem, dtype) for stem in ("none", "s2dr")
+        set_counts_to_zero()  # the training path starts here
+        report["train"] = [phase_train(gn, rz, at, stem, dtype) for stem in ("none", "s2dr")
                            for dtype in ("float32", "bfloat16")]
-        trained = {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches}
-        report["launches"] = {"serving": served, "training": trained}
+        trained = counts()
+
+        d = phase_card_vs_cpu("none", params["none"], n=2, size=HI_SIZE,
+                              logsnr_shift=HI_CFG["logsnr_shift"], v_param=True)
+        report["card_vs_cpu_256"] = d
+        log(f"slice 256x256: card vs CPU, 2 f32 SDE steps on injected noise (v wrapped to "
+            f"eps, flash kernel against the plain version): max abs diff {d:.3e} "
+            f"(tolerance 1e-3)")
+        if not d <= 1e-3:
+            raise AssertionError(f"256x256: card and CPU disagree by {d}")
+        set_counts_to_zero()  # phase_slice_hi sets them to 0 again after its warm-up
+        report["slice_256"] = phase_slice_hi(gn, at, params["none"])
+        served_hi = counts()
+
+        report["train_card_vs_cpu_256"] = phase_train_card_vs_cpu(
+            "none", n=2, size=HI_SIZE, steps=1, logsnr_shift=HI_CFG["logsnr_shift"],
+            parameterization="v")
+        set_counts_to_zero()  # the 256x256 training path starts here
+        report["train_256"] = phase_train(
+            gn, rz, at, "none", "bfloat16", size=HI_SIZE, batch=HI_TRAIN_BATCH,
+            epochs=HI_TRAIN_EPOCHS, steps=HI_TRAIN_STEPS, logsnr_shift=HI_CFG["logsnr_shift"],
+            parameterization="v", flash_per_step=1)
+        trained_hi = counts()
+        report["launches"] = {"serving": served, "training": trained,
+                              "serving_256": served_hi, "training_256": trained_hi}
         log("launches " + json.dumps(report["launches"]))
-        for tr in report["train"]:  # share of the plain-version GroupNorm backward
+        for tr in report["train"] + [report["train_256"]]:
+            # share of the plain-version GroupNorm backward
+            prefix = "256" if tr["size"] == HI_SIZE else tr["stem"]
             per_step = sum(r["backward_plain_ms"] * r["blocks_per_step"]
                            for r in report["gn_training_rows"]
-                           if r["shape"].startswith(tr["stem"]) and r["dtype"] == tr["dtype"])
+                           if r["shape"].startswith(prefix) and r["dtype"] == tr["dtype"])
             tr["gn_backward_plain_ms_per_step"] = per_step
             tr["gn_backward_plain_share"] = per_step * tr["steps_per_s"] / 1e3
-            log(f"train {tr['stem']} {tr['dtype']}: plain GroupNorm backward "
-                f"{per_step:.3f} ms of {1e3 / tr['steps_per_s']:.3f} ms per step "
+            log(f"train {tr['stem']} {tr['dtype']} {tr['size']}x{tr['size']}: plain GroupNorm "
+                f"backward {per_step:.3f} ms of {1e3 / tr['steps_per_s']:.3f} ms per step "
                 f"({tr['gn_backward_plain_share']:.3f})")
+        flash_train, flash_serve = flash_headline["train batch 32"], flash_headline["serve 12 img"]
+        tr, sl = report["train_256"], report["slice_256"]
+        tr["flash_ms_per_step"] = flash_train["ms"] + flash_train["backward_ms"]
+        tr["flash_share"] = tr["flash_ms_per_step"] * tr["steps_per_s"] / 1e3
+        sl["flash_share"] = flash_serve["ms"] * 301 / (sl["throughput_seconds"] * 1e3)
+        log(f"flash kernels: {tr['flash_ms_per_step']:.3f} ms of "
+            f"{1e3 / tr['steps_per_s']:.3f} ms per 256x256 train step ({tr['flash_share']:.4f}); "
+            f"301 x {flash_serve['ms']:.3f} ms of the {sl['throughput_seconds']:.3f} s "
+            f"12-image request ({sl['flash_share']:.4f})")
         train_headline = next(r for r in report["gn_training_rows"]
                               if r["shape"] == "none/down1,up1" and r["dtype"] == "bfloat16"
                               and r["pad"])
@@ -761,9 +1067,26 @@ def main() -> int:
                 sl["profile"] = profile_stem(stem, params[stem])
             report["train_profile"] = [profile_train(stem, dtype) for stem in ("none", "s2dr")
                                        for dtype in ("float32", "bfloat16")]
-        if served["gn_silu"] == 0 or trained["gn_silu"] == 0 or trained["rasterize"] == 0:
-            raise AssertionError(f"a main path never launched one of its kernels: "
-                                 f"serving {served}, training {trained}")
+            from toycrystals_torch.serve import ScoreModelService
+
+            svc = ScoreModelService(HI_CFG, params["none"], device=DEVICE, buckets=HI_BUCKETS)
+            report["slice_256"]["profile"] = [profile_forward(svc.model, rows, HI_SIZE)
+                                              for rows in (2 * HI_BATCH, 2)]
+            for prof in report["slice_256"]["profile"]:
+                log("profile 256x256 " + json.dumps(prof))
+            del svc
+            report["train_profile"].append(profile_train(
+                "none", "bfloat16", size=HI_SIZE, batch=HI_TRAIN_BATCH,
+                logsnr_shift=HI_CFG["logsnr_shift"], parameterization="v"))
+        paths = report["launches"]
+        missing = [f"{path}: {k}" for path, ks in (
+            ("serving", ("gn_silu",)), ("training", ("gn_silu", "rasterize")),
+            ("serving_256", ("gn_silu", "flash_attn")),
+            ("training_256", ("gn_silu", "rasterize", "flash_attn", "flash_attn_backward")))
+            for k in ks if paths[path][k] == 0]
+        if missing:
+            raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
+                                 f"{paths}")
     except Exception:  # noqa: BLE001 - any failed phase fails the run
         traceback.print_exc()
         log("chip_smoke: FAILED")
@@ -777,8 +1100,10 @@ def main() -> int:
     kernels = [{
         "name": "gn_silu", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:53",
-        "launches": served["gn_silu"] + trained["gn_silu"],
+        "launches": sum(path["gn_silu"] for path in paths.values()),
         "launches_serving": served["gn_silu"], "launches_training": trained["gn_silu"],
+        "launches_serving_256": served_hi["gn_silu"],
+        "launches_training_256": trained_hi["gn_silu"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
@@ -791,13 +1116,16 @@ def main() -> int:
             "max_abs_err": train_headline["max_abs_err"], "ms": train_headline["forward_ms"],
             "plain_ms": train_headline["plain_ms"], "bound_ms": train_headline["bound_ms"],
             "bound_by": train_headline["bound_by"],
+            "library_ms": train_headline["library_ms"],
             "backward_plain_ms": train_headline["backward_plain_ms"],
+            "backward_library_ms": train_headline["library_backward_ms"],
             "grad_x_max_abs_err": train_headline["grad_x_max_abs_err"]},
     }, {
         "name": "rasterize", "route": "cuda", "source": "toycrystals_torch/csrc/rasterize.cu",
         "replaces": "toycrystals_tpu/data/rasterize.py:72",
-        "launches": trained["rasterize"], "launches_serving": served["rasterize"],
-        "launches_training": trained["rasterize"],
+        "launches": trained["rasterize"] + trained_hi["rasterize"],
+        "launches_serving": served["rasterize"], "launches_training": trained["rasterize"],
+        "launches_training_256": trained_hi["rasterize"],
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "plain_ms": raster_headline["plain_ms"], "bound_ms": raster_headline["bound_ms"],
         "bound_by": raster_headline["bound_by"],
@@ -808,6 +1136,39 @@ def main() -> int:
         "library_call": "torch.exp factors + one torch.bmm with TF32 allowed",
         "at": f"{raster_headline['shape']} B={raster_headline['b']} P={raster_headline['p']} "
               f"f32, {raster_headline['active_atoms']} atoms of weight 1",
+        "training_256_at": {
+            "at": f"{raster_hi['shape']} B={raster_hi['b']} P={raster_hi['p']} f32, "
+                  f"{raster_hi['active_atoms']} atoms of weight 1",
+            "max_abs_err": raster_hi["max_abs_err"], "ms": raster_hi["ms"],
+            "plain_ms": raster_hi["plain_ms"], "bound_ms": raster_hi["bound_ms"],
+            "bound_by": raster_hi["bound_by"],
+            "bound_all_atoms_ms": raster_hi["bound_all_atoms_ms"],
+            "library_ms": raster_hi["plain_tf32_ms"]},
+    }, {
+        "name": "flash_attn", "route": "cuda",
+        "source": "toycrystals_torch/csrc/flash_attn.cu",
+        "replaces": "toycrystals_tpu/ops/attention.py:74",
+        "launches": served_hi["flash_attn"] + trained_hi["flash_attn"],
+        "launches_serving_256": served_hi["flash_attn"],
+        "launches_training_256": trained_hi["flash_attn"],
+        "backward_passes_training_256": trained_hi["flash_attn_backward"],
+        "backward_pass": "three kernels: delta, dK/dV, dQ",
+        "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],
+        "plain_ms": flash_serve["plain_ms"], "bound_ms": flash_serve["bound_ms"],
+        "bound_by": flash_serve["bound_by"], "library_ms": flash_serve["library_ms"],
+        "library_call": "F.scaled_dot_product_attention",
+        "at": f"forward, {flash_serve['dims']} bf16 (12 images under CFG at 256x256)",
+        "training_at": {
+            "at": f"forward and backward (delta, dK/dV, dQ), {flash_train['dims']} bf16",
+            "max_abs_err": flash_train["out_max_abs_err"], "ms": flash_train["ms"],
+            "plain_ms": flash_train["plain_ms"], "bound_ms": flash_train["bound_ms"],
+            "library_ms": flash_train["library_ms"],
+            "backward_ms": flash_train["backward_ms"],
+            "backward_plain_ms": flash_train["plain_backward_ms"],
+            "backward_bound_ms": flash_train["backward_bound_ms"],
+            "backward_library_ms": flash_train["library_backward_ms"],
+            "grad_max_abs_err": {k: flash_train[f"{k}_max_abs_err"]
+                                 for k in ("dq", "dk", "dv")}},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -83,7 +83,9 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "for must in ('serve', 'data.lattice', 'data.rasterize', 'data.datasets',\n"
         "             'models.flow_matching', 'models.torch_init', 'train.state',\n"
-        "             'train.steps', 'utils.params', 'utils.cuda_build'):\n"
+        "             'train.steps', 'utils.params', 'utils.cuda_build',\n"
+        "             'ops.attention', 'ops.groupnorm', 'ops.conv',\n"
+        "             'models.sde_score_model'):\n"
         "    assert 'toycrystals_torch.' + must in names, (must, names)\n"
         "print(len(names))\n"
     )

@@ -176,3 +176,136 @@ def test_sampler_generator_draws_are_reproducible(models):
         tm.sample_reverse_sde_euler_maruyama(
             tmodel, ts, tc, tv, SHAPE, n_steps=2,
             noise=(np.zeros(SHAPE, np.float32), np.zeros((3, *SHAPE), np.float32)))
+
+
+@pytest.mark.parametrize("shift", [0.0, -2.77])
+@pytest.mark.parametrize("n_steps,t_end", [(50, 0.005), (8, 1e-3)])
+def test_dpm_lambda_grid_matches_jax(shift, n_steps, t_end):
+    """The uniform-lambda grid inverted over 4,097 points: ts within 1e-6 of
+    JAX's (jnp.interp on the reversed dense grid), lambda within 1e-5."""
+    js, ts_ = jm.VPSDE(0.1, 30.0, shift), tm.VPSDE(0.1, 30.0, shift)
+
+    def lam(t):
+        a, s = js.alpha(t), js.sigma(t)
+        return 0.5 * (jnp.log(jnp.clip(a * a, min=1e-20)) - jnp.log(s * s))
+
+    ts_dense = jnp.linspace(t_end, 1.0, 4097)
+    lam_dense = lam(ts_dense)
+    lam_grid = jnp.linspace(lam(jnp.array(1.0)), lam(jnp.array(t_end)), n_steps + 1)
+    want = jnp.interp(lam_grid, lam_dense[::-1], ts_dense[::-1]).at[0].set(1.0).at[-1].set(t_end)
+    got_ts, got_lam = tm._uniform_lambda_grid(ts_, n_steps, t_end)
+    assert got_ts.shape == (n_steps + 1,) and got_ts.dtype == torch.float32
+    np.testing.assert_allclose(got_ts.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(got_lam.numpy(), np.asarray(lam_grid), atol=1e-5)
+
+
+def test_interp_matches_numpy():
+    rng = np.random.default_rng(0)
+    xp = np.sort(rng.uniform(-3, 3, size=50)).astype(np.float32)
+    fp = rng.normal(size=50).astype(np.float32)
+    x = np.concatenate([rng.uniform(-4, 4, size=40).astype(np.float32), xp[[0, 7, -1]]])
+    got = tm._interp(torch.from_numpy(x), torch.from_numpy(xp), torch.from_numpy(fp))
+    np.testing.assert_allclose(got.numpy(), np.interp(x, xp, fp), atol=1e-6)
+
+
+@pytest.mark.parametrize("clip_x0", [False, True])
+@pytest.mark.parametrize("param", ["eps", "v"])
+def test_dpm_sampler_matches_jax_on_injected_draws(models, param, clip_x0):
+    """DPM-Solver++(2M), 5 steps under CFG 1.5 on the 256x256 recipe's shifted
+    schedule (logsnr_shift -2.77), eps and v (through eps_apply_from_v)."""
+    japply, params, tmodel = models
+    (jc, jv), (tc, tv) = _conds()
+    key = jax.random.key(6)
+    js, ts = jm.VPSDE(0.1, 30.0, -2.77), tm.VPSDE(0.1, 30.0, -2.77)
+    japp, tapp = japply, tmodel
+    if param == "v":
+        japp, tapp = jm.eps_apply_from_v(js, japply), tm.eps_apply_from_v(ts, tmodel)
+    want = np.asarray(jm.sample_dpmpp_2m(japp, params, js, jc, jv, SHAPE, key, 5, 1.5,
+                                         0.005, 4, clip_x0))
+    x0 = np.asarray(jax.random.normal(key, SHAPE, jnp.float32))
+    got = tm.sample_dpmpp_2m(tapp, ts, tc, tv, SHAPE, n_steps=5, guidance_scale=1.5,
+                             t_end=0.005, n_types=4, clip_x0=clip_x0, noise=x0)
+    assert got.shape == SHAPE
+    # 1e-4 on [0, 1] images: half the 2e-4 the U-Net alone is held to, over 6 evaluations
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def test_dpm_step_for_step_against_jax_with_an_analytic_model():
+    """With a closed-form eps model the whole trajectory is compared after
+    1, 2, 3 and 6 steps, so a wrong multistep coefficient shows at its step."""
+    def jmodel(prm, x, t, yc, yv):
+        return 0.3 * x + t.reshape(-1, 1, 1, 1)
+
+    def tmodel(x, t, yc, yv):
+        return 0.3 * x + t.reshape(-1, 1, 1, 1)
+
+    (jc, jv), (tc, tv) = _conds()
+    key = jax.random.key(8)
+    x0 = np.asarray(jax.random.normal(key, SHAPE, jnp.float32))
+    for n in (1, 2, 3, 6):
+        want = np.asarray(jm.sample_dpmpp_2m(jmodel, None, jm.VPSDE(0.1, 30.0), jc, jv, SHAPE,
+                                             key, n, 0.0, 0.005, 4))
+        got = tm.sample_dpmpp_2m(tmodel, tm.VPSDE(0.1, 30.0), tc, tv, SHAPE, n_steps=n,
+                                 t_end=0.005, noise=x0)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, err_msg=f"{n} steps")
+
+
+@pytest.mark.parametrize("sampler", ["sde", "ode", "dpm", "ddim"])
+def test_auto_chunk_matches_jax(sampler):
+    for img_size in (16, 64, 96, 128, 224, 256, 512):
+        for steps in (1, 4, 50, 300, 1000):
+            assert tm.auto_chunk(img_size, steps, sampler) == \
+                jm.auto_chunk(img_size, steps, sampler), (img_size, steps)
+    assert tm.auto_chunk(256, 300) == 12 and tm.auto_chunk(64, 300) == 192
+
+
+def test_chunk_seed_is_injective_and_checked():
+    seen = {tm.chunk_seed(s, i) for s in (0, 1, 2**31 - 1) for i in (0, 3, 12, 2**32 - 1)}
+    assert len(seen) == 12 and max(seen) < 2**63
+    for bad in ((-1, 0), (2**31, 0), (0, -1), (0, 2**32)):
+        with pytest.raises(ValueError):
+            tm.chunk_seed(*bad)
+
+
+def test_sample_chunked_pads_trims_and_seeds_each_chunk(models):
+    """n = 7 in chunks of 3: three calls of exactly 3 rows, the last padded
+    with its last condition row and trimmed; each chunk equals a direct call
+    with that chunk's generator."""
+    _, _, tmodel = models
+    ts = tm.VPSDE(0.1, 30.0)
+    yc, yv = tm.sample_grid_conditions(7, 4, 4)
+    mask = torch.arange(7, dtype=torch.float32)
+    calls = []
+
+    def sampler(apply_fn, sde, y_cat, y_cont, shape, gen, *, tag, **kw):
+        calls.append((tuple(shape), y_cat.clone(), tag.clone()))
+        return tm.sample_ddim(apply_fn, sde, y_cat, y_cont, shape, gen, **kw)
+
+    got = tm.sample_chunked(sampler, tmodel, ts, yc, yv, (7, 16, 16, 1), 11, chunk=3,
+                            batch_kw={"tag": mask}, n_steps=2, guidance_scale=1.5)
+    assert isinstance(got, np.ndarray) and got.shape == (7, 16, 16, 1)
+    assert [c[0] for c in calls] == [(3, 16, 16, 1)] * 3
+    assert calls[2][1].tolist() == [yc[6].item()] * 3 and calls[2][2].tolist() == [6.0] * 3
+    assert calls[1][2].tolist() == [3.0, 4.0, 5.0]
+    for i0 in (0, 3):
+        gen = torch.Generator().manual_seed(tm.chunk_seed(11, i0))
+        want = tm.sample_ddim(tmodel, ts, yc[i0:i0 + 3], yv[i0:i0 + 3], (3, 16, 16, 1), gen,
+                              n_steps=2, guidance_scale=1.5)
+        np.testing.assert_array_equal(got[i0:i0 + 3], want.numpy())
+    gen = torch.Generator().manual_seed(tm.chunk_seed(11, 6))
+    want = tm.sample_ddim(tmodel, ts, yc[6:].repeat(3), yv[6:].repeat(3, 1), (3, 16, 16, 1),
+                          gen, n_steps=2, guidance_scale=1.5)
+    np.testing.assert_array_equal(got[6:], want.numpy()[:1])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.sample_chunked(sampler, tmodel, ts, yc, yv, (7, 16, 16, 1), 0, chunk=3,
+                          mesh=object())
+
+
+def test_sample_chunked_one_chunk_when_chunk_exceeds_n(models):
+    _, _, tmodel = models
+    yc, yv = tm.sample_grid_conditions(2, 4, 4)
+    got = tm.sample_chunked(tm.sample_dpmpp_2m, tmodel, tm.VPSDE(0.1, 30.0), yc, yv, SHAPE, 3,
+                            chunk=12, n_steps=2)
+    gen = torch.Generator().manual_seed(tm.chunk_seed(3, 0))
+    want = tm.sample_dpmpp_2m(tmodel, tm.VPSDE(0.1, 30.0), yc, yv, SHAPE, gen, n_steps=2)
+    np.testing.assert_array_equal(got, want.numpy())

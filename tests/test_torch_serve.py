@@ -1,7 +1,10 @@
 """The port's ScoreModelService (toycrystals_torch/serve.py) on the CPU:
-settings resolution, bucket pad and trim, the uint8 output, the seed range,
-and the parts not ported yet raising NotImplementedError.
+settings resolution, bucket pad and trim, chunked requests beyond the top
+bucket, the dpm sampler, describe() and warmup(), the uint8 output, the seed
+range, and the parts not ported yet raising NotImplementedError.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -106,11 +109,10 @@ def test_seed_and_condition_checks(params):
     assert y_cat.tolist() == [2, 2] and y_cont[:, 1].tolist() == pytest.approx([0.5, 0.7])
 
 
-@pytest.mark.parametrize("case", ["dpm", "rf", "fm", "int8", "mesh", "chunk",
-                                  "microbatcher", "checkpoint", "flash"])
+@pytest.mark.parametrize("case", ["rf", "fm", "int8", "mesh", "microbatcher", "checkpoint"])
 def test_unported_parts_raise(params, case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case in ("dpm", "rf"):
+        if case == "rf":
             _svc(params, sampler=case)
         elif case == "fm":
             serve.ScoreModelService(dict(CFG, param="fm"), params, device="cpu")
@@ -118,14 +120,98 @@ def test_unported_parts_raise(params, case):
             _svc(params, quantize="int8")
         elif case == "mesh":
             _svc(params, mesh=object())
-        elif case == "chunk":
-            _svc(params, buckets=(1, 2)).sample_conditions([0, 1, 2])
         elif case == "microbatcher":
             serve.MicroBatcher(_svc(params))
-        elif case == "checkpoint":
-            serve.load_score_payload("score.msgpack")
         else:
-            _svc(params, attn_impl="flash").sample_conditions([0])
+            serve.load_score_payload("score.msgpack")
+
+
+@pytest.mark.parametrize("param", ["eps", "v"])
+def test_dpm_sampler_serves(params, param):
+    s = serve.ScoreModelService(dict(CFG, param=param, logsnr_shift=-2.77), params,
+                                device="cpu", sampler="dpm", steps=3, buckets=(2,))
+    assert s.sampler_name == "dpm" and s._sampler_fn is tm.sample_dpmpp_2m
+    assert (s._apply_fn is s.model) == (param == "eps")
+    x = s.sample_conditions([0, 3], [0.1, 0.4], seed=3)
+    assert x.shape == (2, 16, 16, 1) and np.isfinite(x).all()
+    assert 0.0 <= x.min() and x.max() <= 1.0
+    np.testing.assert_array_equal(x, s.sample_conditions([0, 3], [0.1, 0.4], seed=3))
+    # the service's call is the sampler's own, on the request's generator
+    y_cat, y_cont = s.conditions([0, 3], [0.1, 0.4])
+    with torch.no_grad():
+        want = tm.sample_dpmpp_2m(s._apply_fn, s.sde, torch.from_numpy(y_cat),
+                                  torch.from_numpy(y_cont), (2, 16, 16, 1),
+                                  torch.Generator().manual_seed(3), n_steps=3,
+                                  guidance_scale=1.5, t_end=0.005, n_types=4)
+    np.testing.assert_array_equal(x, want.numpy())
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "uint8"])
+def test_request_beyond_top_bucket_runs_in_chunks(params, out_dtype):
+    """3 images with buckets (1, 2): two dispatches of the 2-bucket, the
+    second padded with its last row; each chunk has its own generator."""
+    s = _svc(params, buckets=(1, 2), out_dtype=out_dtype)
+    y_cat, y_cont = s.conditions([0, 1, 2], [0.0, 0.3, 0.6])
+    x = s.sample(y_cat, y_cont, seed=5)
+    assert x.shape == (3, 16, 16, 1) and x.dtype == np.dtype(out_dtype)
+    st = s.stats
+    assert (st["requests"], st["images"], st["dispatches"]) == (1, 3, 2)
+    with torch.no_grad():
+        want = tm.sample_chunked(s._sampler_fn, s._apply_fn, s.sde, torch.from_numpy(y_cat),
+                                 torch.from_numpy(y_cont), (3, 16, 16, 1), 5, chunk=2,
+                                 n_steps=2, guidance_scale=1.5, t_end=0.005, n_types=4,
+                                 clip_x0=False)
+    np.testing.assert_array_equal(x, want)
+    np.testing.assert_array_equal(x, s.sample(y_cat, y_cont, seed=5))
+    # a request that fits the top bucket still takes one dispatch
+    s.sample(y_cat[:2], y_cont[:2], seed=5)
+    assert s.stats["dispatches"] == 2 + 2 + 1
+
+
+def test_buckets_are_kept_as_given(params):
+    """Unlike the JAX service, no auto_chunk cap on the ladder: 300 steps at
+    img_size 256 would cap JAX's buckets at 12."""
+    s = serve.ScoreModelService(dict(CFG, img_size=256), params, device="cpu",
+                                buckets=(4, 1, 64, 4))
+    assert s.buckets == (1, 4, 64) and tm.auto_chunk(256, s.steps, s.sampler_name) == 12
+
+
+def test_describe_has_the_jax_services_keys(params):
+    from toycrystals_tpu.serve import ScoreModelService as JaxService
+
+    cfg = dict(CFG, param="v", dtype="float32", distilled=False, beta_max=30.0)
+    want = JaxService.describe(types.SimpleNamespace(config=cfg))
+    got = serve.ScoreModelService(cfg, params, device="cpu").describe()
+    assert got == want
+    assert set(got) == {"n_types", "y_cont_dim", "base_ch", "emb_dim", "param", "dtype",
+                        "img_size", "distilled"}
+
+
+def test_warmup_runs_every_bucket(params):
+    s = _svc(params, buckets=(1, 2, 3))
+    seen = []
+    inner = s._sampler_fn
+
+    def spy(apply_fn, sde, y_cat, y_cont, shape, gen, **kw):
+        seen.append(int(shape[0]))
+        return inner(apply_fn, sde, y_cat, y_cont, shape, gen, **kw)
+
+    s._sampler_fn = spy
+    s.warmup()
+    assert seen == [1, 2, 3]
+    st = s.stats
+    assert (st["requests"], st["images"], st["dispatches"]) == (3, 6, 3)
+
+
+def test_flash_impl_serves_on_the_cpu_through_the_plain_version():
+    """attn_impl="flash" at a 256-token bottleneck: the CPU runs the plain
+    version and equals the matmul path bit for bit."""
+    cfg = dict(CFG, stem="none", img_size=64)            # 16x16 = 256 tokens
+    prm = _params(2, stem="none")
+    a = serve.ScoreModelService(cfg, prm, device="cpu", steps=1, attn_impl="flash")
+    b = serve.ScoreModelService(cfg, prm, device="cpu", steps=1, attn_impl="xla")
+    np.testing.assert_array_equal(a.sample_conditions([1], seed=4),
+                                  b.sample_conditions([1], seed=4))
 
 
 def test_default_device_without_gpu_raises(params, monkeypatch):

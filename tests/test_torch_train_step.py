@@ -207,6 +207,56 @@ def test_three_train_steps_match_jax(stem):
     assert any(not torch.equal(tstate.ema_params[k], tstate.params[k]) for k in tstate.params)
 
 
+@pytest.mark.parametrize("attn", ["auto_2304_tokens", "flash_256_tokens"])
+def test_v_param_step_loss_and_gradients_match_jax_at_the_flash_sizes(attn):
+    """`parameterization="v"` on the shifted schedule of the 256x256 recipe
+    (logsnr_shift -2.77), on injected (t, eps): the loss (2e-5 relative) and
+    every gradient leaf (1e-5 + 2e-3 of the leaf's largest entry, the limits of
+    tests/test_torch_loss.py; conv biases ahead of a GroupNorm have gradients
+    at rounding-noise level) against JAX.
+
+    auto_2304_tokens: a 192x192 item, 48x48 = 2,304 bottleneck tokens, where
+    both sides take their matmul path on the CPU. flash_256_tokens: 64x64
+    items with attn_impl="flash" forced on both sides; JAX runs its Pallas
+    kernel and the backward kernels in interpret mode, the port the plain
+    version under autograd."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    size, b, impl = (192, 1, "auto") if attn.startswith("auto") else (64, 2, "flash")
+    r = np.random.default_rng(40)
+    x0 = r.uniform(size=(b, size, size, 1)).astype(np.float32)
+    y_cat = r.integers(0, 4, size=(b,)).astype(np.int32)
+    y_cont = r.normal(size=(b, 4)).astype(np.float32)
+    t = r.uniform(0.05, 1.0, size=(b,)).astype(np.float32)
+    eps = r.normal(size=x0.shape).astype(np.float32)
+    params = _jax_params("none")
+    sde_kw = dict(beta_min=0.1, beta_max=30.0, logsnr_shift=-2.77)
+
+    jmodel = jm.CondUNetTiny(**KW, stem="none", attn_impl=impl)
+
+    def loss_fn(p):
+        apply_fn = lambda prm, x_t, tt, yc, yv: jmodel.apply({"params": prm}, x_t, tt, yc, yv)
+        return jm.diffusion_loss_eps_given(apply_fn, p, jm.VPSDE(**sde_kw), jnp.asarray(x0),
+                                           jnp.asarray(y_cat), jnp.asarray(y_cont),
+                                           jnp.asarray(t), jnp.asarray(eps), "v")
+
+    with pltpu.force_tpu_interpret_mode():
+        jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
+    want = torch_state_dict_from_flax(jax.tree.map(np.asarray, jgrads))
+
+    tmodel = tm.CondUNetTiny(**KW, stem="none", attn_impl=impl)
+    load_flax_params(tmodel, params)
+    loss, grads = sde_loss_and_grads(tmodel, tm.VPSDE(**sde_kw), torch.tensor(x0),
+                                     torch.tensor(y_cat), torch.tensor(y_cont),
+                                     torch.tensor(t), torch.tensor(eps), "v")
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=2e-5)
+    names = [k for k, _ in tmodel.named_parameters()]
+    assert set(names) == set(want)
+    for k, g in zip(names, grads):
+        lim = 1e-5 + 2e-3 * max(float(np.abs(want[k]).max()), 1e-3)
+        np.testing.assert_allclose(g.numpy(), want[k], atol=lim, rtol=0, err_msg=k)
+
+
 def test_grad_accum_equals_the_unsplit_step():
     sde = tm.VPSDE(0.1, 30.0)
     x0, y_cat, y_cont = (torch.tensor(a) for a in _batch(40))

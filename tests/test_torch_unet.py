@@ -67,12 +67,18 @@ def test_self_attention_matches_jax():
     np.testing.assert_allclose(_nhwc(tmod(_nchw(x))), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["flash", "auto"])
-def test_self_attention_flash_path_raises(impl):
+@pytest.mark.parametrize("impl", ["xla", "auto"])
+def test_self_attention_runs_at_2304_tokens_on_the_cpu(impl):
+    """48x48 tokens: no refusal on the CPU; xla and auto are the same matmul path."""
+    x = torch.from_numpy(_rng(2).normal(size=(1, 8, 48, 48)).astype(np.float32))
+    torch.manual_seed(0)
     m = SelfAttention2d(8, num_heads=4, attn_impl=impl)
-    side = 4 if impl == "flash" else 48  # auto picks flash at >= 2048 tokens
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m(torch.zeros(1, 8, side, side))
+    ref = SelfAttention2d(8, num_heads=4, attn_impl="xla")
+    ref.load_state_dict(m.state_dict())
+    with torch.no_grad():
+        y = m(x)
+        assert y.shape == x.shape and torch.isfinite(y).all()
+        assert torch.equal(y, ref(x))
 
 
 @pytest.mark.parametrize("k,s", [(3, 1), (4, 2)])
@@ -145,6 +151,24 @@ def test_unet_matches_jax(stem, gn_impl):
     with torch.no_grad():
         got = tmodel(*(torch.from_numpy(a) for a in (x, t, y_cat, y_cont)))
     assert got.shape == (2, 16, 16, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
+
+
+def test_unet_matches_jax_at_2304_bottleneck_tokens():
+    """Stem none at 192x192: the bottleneck is 48x48 = 2,304 tokens, above the
+    2,048 where auto would pick the flash kernel on an accelerator. On the CPU
+    both sides run their matmul path; 2e-4 as for the 16x16 U-Net."""
+    x, t, y_cat, y_cont = _unet_inputs(13, b=1, size=192)
+    jmodel = jm.CondUNetTiny(**KW, stem="none")
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(y_cat), jnp.asarray(y_cont))
+    small = tuple(jnp.asarray(a) for a in _unet_inputs(13, b=1, size=16))
+    params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.key(12), *small)["params"])
+    want = np.asarray(jax.jit(jmodel.apply)({"params": params}, *args))
+    tmodel = tm.CondUNetTiny(**KW, stem="none")
+    load_flax_params(tmodel, params)
+    with torch.no_grad():
+        got = tmodel(*(torch.from_numpy(a) for a in (x, t, y_cat, y_cont)))
+    assert got.shape == (1, 192, 192, 1)
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4)
 
 

@@ -12,9 +12,12 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
   `diffusion_loss_eps`: the denoising loss (eps, v and fm targets, min-SNR
   weights, CFG conditioning dropout) that the trainer differentiates.
 - `VPSDE`, `eps_apply_from_v`, `predict_eps_cfg` and the samplers
-  `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode` and
-  `sample_ddim`. The step loop is a Python loop. Each sampler draws its noise
-  from the `torch.Generator` it is given, or takes it from `noise=`.
+  `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode`,
+  `sample_dpmpp_2m` and `sample_ddim`. The step loop is a Python loop. Each
+  sampler draws its noise from the `torch.Generator` it is given, or takes it
+  from `noise=`.
+- `auto_chunk` and `sample_chunked`: one big sampling batch as fixed-size
+  calls of a sampler, pulled to the host as they finish.
 """
 
 from __future__ import annotations
@@ -444,6 +447,86 @@ def sample_probability_flow_ode(
     return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
 
 
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """numpy's `interp` for ascending xp: piecewise linear, clamped at the ends."""
+    i = torch.searchsorted(xp, x, right=True).clamp(1, xp.shape[0] - 1)
+    dx = xp[i] - xp[i - 1]
+    flat = dx.abs() <= torch.finfo(xp.dtype).tiny
+    f = fp[i - 1] + ((x - xp[i - 1]) / torch.where(flat, torch.ones_like(dx), dx)) \
+        * (fp[i] - fp[i - 1])
+    f = torch.where(flat, fp[i - 1], f)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _log_snr_half(sde: VPSDE, t: torch.Tensor) -> torch.Tensor:
+    """lambda(t) = log(alpha / sigma), the DPM-Solver time."""
+    a, s = sde.alpha(t), sde.sigma(t)
+    return 0.5 * (torch.log((a * a).clamp(min=1e-20)) - torch.log(s * s))
+
+
+def _uniform_lambda_grid(sde: VPSDE, n_steps: int, t_end: float, device=None):
+    """(ts, lam_grid), each [n_steps + 1] f32: lambda uniform from t = 1 to
+    t_end, and the times it is reached at, inverted numerically from the
+    schedule over 4,097 points (so logsnr_shift flows through unchanged)."""
+    ts_dense = torch.linspace(t_end, 1.0, 4097, dtype=torch.float32, device=device)
+    lam_dense = _log_snr_half(sde, ts_dense)  # descending in t: ascending when reversed
+    ends = _log_snr_half(sde, torch.tensor([1.0, t_end], dtype=torch.float32, device=device))
+    lam_grid = torch.linspace(0.0, 1.0, n_steps + 1, dtype=torch.float32, device=device) \
+        * (ends[1] - ends[0]) + ends[0]
+    ts = _interp(lam_grid, lam_dense.flip(0), ts_dense.flip(0))
+    ts[0], ts[-1] = 1.0, t_end
+    return ts, lam_grid
+
+
+def sample_dpmpp_2m(
+    apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
+    generator: torch.Generator | None = None, n_steps: int = 50,
+    guidance_scale: float = 0.0, t_end: float = 1e-3, n_types: int = 4,
+    clip_x0: bool = False, noise=None,
+) -> torch.Tensor:
+    """DPM-Solver++(2M): second-order multistep ODE solver in log-SNR time
+    with data (x0) prediction, on a uniform-lambda grid from t = 1 to t_end,
+    then the x0 projection. Deterministic given the initial x.
+
+        h_i = lam_i - lam_{i-1},  r_i = h_{i-1} / h_i
+        D_i = (1 + 1/(2 r_i)) x0_i - 1/(2 r_i) x0_{i-1}      (first step: x0_i)
+        x_i = (sigma_i / sigma_{i-1}) x_{i-1} - alpha_i expm1(-h_i) D_i
+
+    `clip_x0` clips the predicted x0 directly (the solver works in x0 form).
+    noise: optional initial x [B, H, W, 1]."""
+    t_end = _check_t_end(t_end)
+    shape = _shape(img_shape)
+    dev = y_cat.device
+    b = shape[0]
+    gs = float(guidance_scale)
+    ts, lam_grid = _uniform_lambda_grid(sde, n_steps, t_end, dev)
+    x = _initial_x(noise, shape, generator, dev)
+
+    def x0_pred(x, t):
+        tb = t.expand(b)
+        a = sde.alpha(tb).reshape(b, 1, 1, 1)
+        s = sde.sigma(tb).reshape(b, 1, 1, 1)
+        eps = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+        x0 = (x - s * eps) / a.clamp(min=1e-6)
+        return x0.clamp(-1.0, 1.0) if clip_x0 else x0
+
+    m_prev = None
+    for i in range(n_steps):
+        t_cur, t_next = ts[i], ts[i + 1]
+        m = x0_pred(x, t_cur)
+        h_step = lam_grid[i + 1] - lam_grid[i]
+        if i == 0:
+            d = m
+        else:
+            r = (lam_grid[i] - lam_grid[i - 1]) / h_step
+            d = (1.0 + 1.0 / (2.0 * r)) * m - (1.0 / (2.0 * r)) * m_prev
+        x = (sde.sigma(t_next) / sde.sigma(t_cur)) * x \
+            - sde.alpha(t_next) * torch.expm1(-h_step) * d
+        m_prev = m
+    return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
+
+
 def sample_ddim(
     apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
     generator: torch.Generator | None = None, n_steps: int = 4,
@@ -491,6 +574,65 @@ def sample_ddim(
             x = (a_n / a_t.clamp(min=1e-6)) * (x - s_t * eps) + s_n * eps
     x0, _ = x0_eps(x, ts[-2].expand(b))
     return ((x0 + 1.0) * 0.5).clamp(0.0, 1.0)
+
+
+def auto_chunk(img_size: int, n_steps: int, sampler: str = "sde") -> int:
+    """The per-call sample batch the JAX package uses to keep one compiled
+    sampling scan under its backend's per-dispatch duration cap: 12 images at
+    256x256 and 300 steps, scaled by model evaluations times pixels. Heun
+    ("ode") runs 2 model evaluations per step, the other samplers 1. The card
+    has no such cap; callers here use it to run the reference's call shapes."""
+    evals = n_steps * (2 if sampler == "ode" else 1)
+    budget = 12 * 300 * (256 // 64) ** 2  # images * evals * (px/64)^2
+    scale = max(1, (img_size + 63) // 64) ** 2
+    return max(1, budget // max(1, evals * scale))
+
+
+def chunk_seed(seed: int, start: int) -> int:
+    """Generator seed of the chunk that starts at condition row `start` of a
+    request with `seed`: seed * 2**32 + start, one distinct 63-bit value per
+    (seed < 2**31, start < 2**32). Takes the place of folding the start index
+    into a JAX key."""
+    seed, start = int(seed), int(start)
+    if not (0 <= seed < 2**31 and 0 <= start < 2**32):
+        raise ValueError(f"need 0 <= seed < 2**31 and 0 <= start < 2**32, got {seed}, {start}")
+    return (seed << 32) + start
+
+
+def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, sde: VPSDE,
+                   y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape, seed: int, *,
+                   chunk: int, mesh=None, batch_kw: dict[str, torch.Tensor] | None = None,
+                   **kw) -> np.ndarray:
+    """Split one big sampling batch into calls of exactly `chunk` images.
+
+    The last, short chunk is padded by repeating its last condition row and
+    trimmed after. Each chunk draws from a fresh `torch.Generator` on the
+    conditions' device, seeded with `chunk_seed(seed, start)` (results are
+    statistically identical to, but differ from, one unchunked call). Chunks
+    are pulled to the host as they finish; returns an np.ndarray.
+
+    batch_kw: extra per-item tensors (leading dim == n) passed to sampler_fn
+    by keyword, sliced and padded per chunk like the condition rows."""
+    if mesh is not None:
+        raise NotImplementedError("sampling on a mesh is not ported yet (ROADMAP.md, "
+                                  "module 10, parallel axes)")
+    n, h, w, c = _shape(img_shape)
+    chunk = max(1, min(int(chunk), n))
+    dev = y_cat.device
+
+    def pad(a, k):
+        return a if k == 0 else torch.cat([a, a[-1:].repeat_interleave(k, dim=0)], dim=0)
+
+    outs = []
+    for i0 in range(0, n, chunk):
+        take = min(chunk, n - i0)
+        bkw = {k: pad(v[i0:i0 + take], chunk - take) for k, v in (batch_kw or {}).items()}
+        gen = torch.Generator(device=dev).manual_seed(chunk_seed(seed, i0))
+        x = sampler_fn(apply_fn, sde, pad(y_cat[i0:i0 + take], chunk - take),
+                       pad(y_cont[i0:i0 + take], chunk - take), (chunk, h, w, c), gen,
+                       **kw, **bkw)
+        outs.append(x[:take].cpu().numpy())
+    return np.concatenate(outs, axis=0)
 
 
 def sample_grid_conditions(n: int, n_types: int, y_cont_dim: int,

@@ -1,22 +1,39 @@
 """Spatial self-attention over NCHW feature maps.
 
-Counterpart of toycrystals_tpu/ops/attention.py on its XLA path: GroupNorm
-(plain, no SiLU, eps 1e-6) -> qkv Linear split (3, heads, head_dim) on the
-channel axis -> softmax(Q K^T / sqrt(d)) V -> proj Linear -> residual. Tokens
-run row-major over (H, W). At the 64x64 bottleneck there are 256 tokens.
-The flash path that JAX picks at >= 2048 tokens is not ported yet.
+Counterpart of toycrystals_tpu/ops/attention.py: GroupNorm (plain, no SiLU,
+eps 1e-6) -> qkv Linear split (3, heads, head_dim) on the channel axis ->
+softmax(Q K^T / sqrt(d)) V -> proj Linear -> residual. Tokens run row-major
+over (H, W): 256 at the 64x64 bottleneck, 4,096 at 256x256.
+
+Two SDPA backends on [B, N, heads, d] tensors (JAX's layout), picked by
+`attn_impl` as `select_attn_impl` says:
+
+- `sdpa_reference` ("xla"): the plain version, `torch.matmul` + softmax with
+  the logits in f32. It materialises the [B, heads, N, N] logits.
+- `flash_sdpa` ("flash"): the hand-written CUDA kernels of csrc/flash_attn.cu
+  on a CUDA tensor (forward, and under autograd the delta, dK/dV and dQ
+  backward kernels behind a `torch.autograd.Function`); the plain version on
+  a CPU tensor. There is no other branch: a failed build or launch raises.
+  `flash_sdpa.launches` counts forward launches and
+  `flash_sdpa.backward_launches` backward passes (three kernels each).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.ops.groupnorm import group_norm_f32
 
-_FLASH_TOKENS = 2048
+_FLASH_TOKENS = 2048        # auto: flash from this many tokens on
+_FLASH_MAX_HEAD_DIM = 128
+_FLASH_SEQ_MULTIPLE = 128
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def gn_groups(ch: int) -> int:
@@ -46,6 +63,179 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
                                       layer.bias.to(dtype))
 
 
+def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: softmax(Q K^T / sqrt(d)) V on [B, N, heads, d], logits
+    and softmax in f32, probabilities cast to v.dtype for the second product."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))                # [B, heads, N, d]
+    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.matmul(probs, vh).transpose(1, 2)
+
+
+def select_attn_impl(attn_impl: str, n: int, head_dim: int, device_type: str) -> str:
+    """"flash" or "xla" for `n` tokens of `head_dim` on a device of
+    `device_type`. auto picks flash where the logits buffer starts to matter
+    (n >= 2048), the kernel's constraints hold (n % 128 == 0, head_dim <= 128)
+    and the tensor is on a CUDA device (JAX: on a TPU); 56x56 = 3,136 tokens
+    stay on the matmul path. "xla" and "flash" are taken as given."""
+    if attn_impl != "auto":
+        return attn_impl
+    flash = (n >= _FLASH_TOKENS and n % _FLASH_SEQ_MULTIPLE == 0
+             and head_dim <= _FLASH_MAX_HEAD_DIM and device_type == "cuda")
+    return "flash" if flash else "xla"
+
+
+def _kernel_head_dim(d: int) -> int:
+    """The head dim the kernel is built for: the next multiple of 16."""
+    return -(-d // 16) * 16
+
+
+@functools.cache
+def _lib(head_dim: int) -> ctypes.CDLL:
+    """The kernel library built for `head_dim`, with its C signatures
+    declared (first use builds)."""
+    from toycrystals_torch.utils.cuda_build import load
+
+    lib = load("flash_attn", (f"FLASH_HEAD_DIM={head_dim}",))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.flash_attn_head_dim.argtypes = []
+    lib.flash_attn_head_dim.restype = i
+    lib.flash_attn_forward.argtypes = [p] * 5 + [i] * 3 + [ll] * 9 + [f, i, p]
+    lib.flash_attn_forward.restype = i
+    lib.flash_attn_backward.argtypes = [p] * 10 + [i] * 3 + [ll] * 12 + [f, i, p]
+    lib.flash_attn_backward.restype = i
+    lib.flash_attn_error_string.argtypes = [i]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
+    if lib.flash_attn_head_dim() != head_dim:
+        raise RuntimeError(f"flash_attn library was built for head dim "
+                           f"{lib.flash_attn_head_dim()}, not {head_dim}")
+    return lib
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"flash_sdpa expects q, k, v of one shape [B, N, heads, d], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_sdpa takes float32 or bfloat16 (one type for q, k, v), got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    n, d = q.shape[1], q.shape[3]
+    if d > _FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash path supports head_dim <= 128, got {d}; use xla")
+    if n % _FLASH_SEQ_MULTIPLE:
+        raise ValueError(f"flash path needs seq_len % 128 == 0, got {n}; use xla")
+
+
+def _kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself when the kernel can read it in place (last dim contiguous,
+    rows 16-byte aligned), else a contiguous copy."""
+    per16 = 16 // t.element_size()
+    ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+          and all(t.stride(i) % per16 == 0 for i in range(3)))
+    return t if ok else t.contiguous()
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    return t.stride(0), t.stride(1), t.stride(2)      # batch, row, head
+
+
+def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"flash_attn {what} launch failed: "
+                           f"{lib.flash_attn_error_string(err).decode()} ({err})")
+
+
+def _flash_forward_cuda(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel. q, k, v: [B, N, heads, d] CUDA tensors with
+    d a multiple of 16. Returns O (contiguous, q.dtype) and the row
+    log-sum-exp L (f32 [B, heads, N])."""
+    _check_qkv(q, k, v)
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attn kernel needs CUDA tensors on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    b, n, h, d = q.shape
+    if d % 16:
+        raise ValueError(f"flash_attn kernel takes head dims that are multiples of 16, "
+                         f"got {d}")
+    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    lib = _lib(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     lse.data_ptr(), b, n, h, *_strides(q), *_strides(k),
+                                     *_strides(v), float(scale), _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, lib, "forward")
+    flash_sdpa.launches += 1
+    return out, lse
+
+
+def _flash_backward_cuda(q, k, v, out, lse, grad_out, scale: float):
+    """Launch the backward kernels (delta, dK/dV, dQ) at the forward's
+    saved tensors. Returns (dq, dk, dv), views of one [B, N, 3, heads, d]
+    buffer, which is the layout of the qkv projection they flow back into."""
+    b, n, h, d = q.shape
+    q, k, v = (_kernel_view(t) for t in (q, k, v))
+    grad_out = grad_out.contiguous()
+    grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+    dq, dk, dv = grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
+    delta = torch.empty_like(lse)
+    lib = _lib(d)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attn_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, n, h, *_strides(q), *_strides(k), *_strides(v), *_strides(dq), float(scale),
+            _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, lib, "backward")
+    flash_sdpa.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashKernel(torch.autograd.Function):
+    """Kernel forward saving (q, k, v, O, L); backward kernels at those."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _flash_forward_cuda(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*_flash_backward_cuda(q, k, v, out, lse, grad_out, ctx.scale), None)
+
+
+def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Blockwise (flash) SDPA on [B, N, heads, d] tensors, exact math: the
+    counterpart of JAX's `_flash_sdpa`. CUDA tensors run the kernels
+    (differentiable: see `_FlashKernel`), CPU tensors the plain version.
+    N % 128 != 0 or d > 128 raises ValueError. A head dim that is no multiple
+    of 16 is zero-padded to the next one for the kernel, which is exact: zero
+    columns add nothing to Q K^T and give zero output columns, which are cut."""
+    _check_qkv(q, k, v)
+    if q.device.type == "cpu":
+        return sdpa_reference(q, k, v)
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    pad = _kernel_head_dim(d) - d
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = _FlashKernel.apply(q, k, v, scale)
+    else:
+        out = _flash_forward_cuda(q, k, v, scale)[0]
+    return out[..., :d] if pad else out
+
+
+flash_sdpa.launches = 0
+flash_sdpa.backward_launches = 0
+
+
 class SelfAttention2d(nn.Module):
     """Multi-head self-attention over the H*W tokens of [B, C, H, W]."""
 
@@ -64,16 +254,11 @@ class SelfAttention2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         n = h * w
-        if self.attn_impl == "flash" or n >= _FLASH_TOKENS:
-            raise NotImplementedError(
-                f"flash attention ({n} tokens, attn_impl={self.attn_impl!r}) is not "
-                "ported yet: ROADMAP.md, TPU kernel 3 (flash attention at 256x256)")
         hd = c // self.num_heads
         y = self.GroupNorm_0(x).reshape(b, c, n).transpose(1, 2)        # [B, N, C]
         qkv = linear(y, self.qkv, self.dtype).reshape(b, n, 3, self.num_heads, hd)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))       # [B, heads, N, hd]
-        logits = torch.matmul(q, k.transpose(-1, -2)).float() * (1.0 / math.sqrt(hd))
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        o = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
-        o = linear(o, self.proj, self.dtype)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]               # [B, N, heads, hd]
+        impl = select_attn_impl(self.attn_impl, n, hd, x.device.type)
+        o = flash_sdpa(q, k, v) if impl == "flash" else sdpa_reference(q, k, v)
+        o = linear(o.reshape(b, n, c), self.proj, self.dtype)
         return x + o.transpose(1, 2).reshape(b, c, h, w)

@@ -2,15 +2,21 @@
 
 Counterpart of toycrystals_tpu/serve.py:ScoreModelService. The weights go
 onto the device once; each request is padded on the host to the nearest
-batch bucket, sampled in one call and trimmed. Settings left `None` resolve
-from the checkpoint config exactly as the JAX service does: a distilled
-student serves with DDIM at its trained steps and t_end with its baked-in
-guidance, a v-prediction model is wrapped to eps, and anything else serves
-the reference settings (reverse SDE, 300 steps, CFG 1.5, t_end 0.005).
+batch bucket, sampled in one call and trimmed; a request beyond the top
+bucket runs in top-bucket chunks (`sample_chunked`). Settings left `None`
+resolve from the checkpoint config exactly as the JAX service does: a
+distilled student serves with DDIM at its trained steps and t_end with its
+baked-in guidance, a v-prediction model is wrapped to eps, and anything else
+serves the reference settings (reverse SDE, 300 steps, CFG 1.5, t_end 0.005).
+
+One deliberate difference: the JAX service caps its bucket ladder by
+`auto_chunk`, because its backend kills a dispatch that runs longer than a
+minute or two. A CUDA device has no such limit, so this service keeps the
+buckets it is given.
 
 Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
-the dpm and rf samplers, int8 convs, meshes, requests beyond the top bucket,
-reading msgpack checkpoints, the MicroBatcher and the HTTP front end.
+the rf sampler, int8 convs, meshes, reading msgpack checkpoints, the
+MicroBatcher and the HTTP front end.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from toycrystals_torch.models.sde_score_model import (
     VPSDE,
     CondUNetTiny,
     eps_apply_from_v,
+    sample_chunked,
     sample_ddim,
+    sample_dpmpp_2m,
     sample_probability_flow_ode,
     sample_reverse_sde_euler_maruyama,
 )
@@ -38,6 +46,7 @@ _REFERENCE_SERVE = {"sampler": "sde", "steps": 300,
 
 _SAMPLERS = {"sde": sample_reverse_sde_euler_maruyama,
              "ode": sample_probability_flow_ode,
+             "dpm": sample_dpmpp_2m,
              "ddim": sample_ddim}
 
 _DEFERRED = "ROADMAP.md, 'Deferred from the serving slice'"
@@ -100,7 +109,7 @@ class ScoreModelService:
         if sampler is None:
             sampler = ("ddim" if distilled else
                        "rf" if param == "fm" else _REFERENCE_SERVE["sampler"])
-        if sampler in ("dpm", "rf") or param == "fm":
+        if sampler == "rf" or param == "fm":
             raise NotImplementedError(
                 f"sampler {sampler!r} (param {param!r}) is not ported yet ({_DEFERRED})")
         if sampler not in _SAMPLERS:
@@ -155,6 +164,14 @@ class ScoreModelService:
             apply_fn = eps_apply_from_v(self.sde, apply_fn)
         self._apply_fn = apply_fn
         self._sampler_fn = _SAMPLERS[self.sampler_name]
+        if out_dtype == "uint8":
+            # quantise on the device: the pull to the host shrinks 4x
+            inner = self._sampler_fn
+
+            def _quantized(*args, **kw):
+                return (inner(*args, **kw) * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
+
+            self._sampler_fn = _quantized
 
         self.buckets = tuple(sorted({max(1, int(b)) for b in buckets}))
         self._lock = threading.Lock()  # one sampling call at a time per device
@@ -173,13 +190,14 @@ class ScoreModelService:
                  device=str(self.device))
         return s
 
+    def describe(self) -> dict[str, Any]:
+        keep = ("n_types", "y_cont_dim", "base_ch", "emb_dim", "param",
+                "dtype", "img_size", "distilled", "distill_steps")
+        return {k: self.config[k] for k in keep if k in self.config}
+
     def _pick_bucket(self, n: int) -> int:
-        for b in self.buckets:
-            if b >= n:
-                return b
-        raise NotImplementedError(
-            f"a request of {n} images exceeds the top bucket {self.buckets[-1]}; "
-            f"chunking is not ported yet ({_DEFERRED})")
+        """The smallest bucket that holds n rows (n <= the top bucket)."""
+        return next(b for b in self.buckets if b >= n)
 
     def conditions(self, types, thetas=None):
         """(y_cat, y_cont) rows from lattice types and rotation angles, in
@@ -207,40 +225,55 @@ class ScoreModelService:
     def sample(self, y_cat, y_cont, *, seed: int = 0) -> np.ndarray:
         """One image per condition row: (n, H, W, 1) float32 in [0, 1], or
         uint8 in [0, 255] (quantised on the device) with out_dtype="uint8".
-        The request is padded to the nearest bucket and trimmed after;
-        deterministic given (weights, settings, seed, bucket)."""
+        The request is padded to the nearest bucket and trimmed after; a
+        request beyond the top bucket runs in top-bucket chunks, each with
+        its own generator (`chunk_seed`). Deterministic given (weights,
+        settings, seed, batch layout)."""
         seed = int(seed)
         if not 0 <= seed < 2**31:
             raise ValueError(f"seed must satisfy 0 <= seed < 2**31, got {seed}")
         n = int(np.shape(y_cat)[0])
-        bucket = self._pick_bucket(n)
-        pad = bucket - n
         yc = np.asarray(y_cat, np.int32)
         yv = np.asarray(y_cont, np.float32)
+        kw = dict(n_steps=self.steps, guidance_scale=self.guidance_scale, t_end=self.t_end,
+                  n_types=self.n_types, clip_x0=self.clip_x0, **self._extra_kw)
+        size, top = self.img_size, self.buckets[-1]
+        if n > top:
+            with self._lock, torch.inference_mode():
+                yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
+                x = sample_chunked(self._sampler_fn, self._apply_fn, self.sde, yc_t, yv_t,
+                                   (n, size, size, 1), seed, chunk=top, **kw)
+            self._count(n, -(-n // top))
+            return x
+        # host-side pad, single dispatch, single pull
+        bucket = self._pick_bucket(n)
+        pad = bucket - n
         if pad:
             yc = np.concatenate([yc, np.repeat(yc[-1:], pad, axis=0)])
             yv = np.concatenate([yv, np.repeat(yv[-1:], pad, axis=0)])
         with self._lock, torch.inference_mode():
+            yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            x = self._sampler_fn(
-                self._apply_fn, self.sde,
-                torch.from_numpy(yc).to(self.device), torch.from_numpy(yv).to(self.device),
-                (bucket, self.img_size, self.img_size, 1), gen,
-                n_steps=self.steps, guidance_scale=self.guidance_scale,
-                t_end=self.t_end, n_types=self.n_types, clip_x0=self.clip_x0,
-                **self._extra_kw)
-            if self.out_dtype == "uint8":
-                x = (x * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)
-            x = x[:n].cpu().numpy()
+            x = self._sampler_fn(self._apply_fn, self.sde, yc_t, yv_t,
+                                 (bucket, size, size, 1), gen, **kw)[:n].cpu().numpy()
+        self._count(n, 1)
+        return x
+
+    def _count(self, images: int, dispatches: int) -> None:
         with self._stats_lock:
             self._stats["requests"] += 1
-            self._stats["images"] += n
-            self._stats["dispatches"] += 1
-        return x
+            self._stats["images"] += images
+            self._stats["dispatches"] += dispatches
 
     def sample_conditions(self, types, thetas=None, *, seed: int = 0) -> np.ndarray:
         y_cat, y_cont = self.conditions(types, thetas)
         return self.sample(y_cat, y_cont, seed=seed)
+
+    def warmup(self) -> None:
+        """One request per bucket, so the first real request finds the CUDA
+        kernels built and every shape's library algorithms chosen."""
+        for b in self.buckets:
+            self.sample_conditions([0] * b, seed=0)
 
 
 class MicroBatcher:
