@@ -34,8 +34,9 @@ result line:
    [24, 4096, 4, 48] (serving) and [32, 4096, 4, 48] (training) and at other
    head dims, one of them zero-padded. Times of the forward and backward
    kernels, of the plain version, of the library yardstick
-   F.scaled_dot_product_attention (timed only) and the bound (operations at
-   the tensor cores' bf16 rate, or the f32 rate for f32 inputs).
+   F.scaled_dot_product_attention (timed only) and the bound (the largest of
+   the tensor operations at the bf16 rate, or the f32 rate for f32 inputs,
+   one exp2 per logit at 16 per clock per SM at the top SM clock, and bytes).
 5. Data on the card against the CPU: generate_batch for the same (seed, idx),
    at 64x64 and for the 256x256 training batch.
 6. Serving at full width (base_ch 96, emb_dim 128, 64x64, bf16, reference
@@ -93,6 +94,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+SMS = 132                     # H100 SXM streaming multiprocessors
+SFU_EXP2_PER_CLOCK_PER_SM = 16  # ex2 throughput, compute capability 9.0
+H100_SM_CLOCK_MAX_HZ = 1.98e9   # H100 SXM top SM clock
 DEVICE = "cuda"
 BATCH = 256                   # images per throughput request; 512 rows under CFG
 SLICE_CFG = dict(n_types=4, y_cont_dim=4, base_ch=96, emb_dim=128, cond_ch=8, time_ch=8,
@@ -583,18 +587,38 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
     return rows, headline
 
 
-def flash_bound(shape, elem_bytes: int, backward: bool) -> tuple[float, str]:
-    """Least time for one call. Forward: 2 products of 2 B H N^2 d operations;
-    q, k, v read and O and the f32 row log-sum-exp written once. Backward: 5
-    such products (S, dP, dV, dK, dQ); q, k, v, O, dO and L read, dq, dk, dv
-    written. Operations at the tensor cores' bf16 rate, or at the f32 rate
-    for f32 inputs, which run on no tensor core."""
+def sm_clock_max_hz() -> float:
+    """The card's top SM clock, as `nvidia-smi --query-gpu=clocks.max.sm` gives it
+    ("1980 MHz"); the H100 SXM's 1,980 MHz if it gives none."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60)
+        return float(out.stdout.split()[0]) * 1e6
+    except (OSError, subprocess.SubprocessError, IndexError, ValueError):
+        return H100_SM_CLOCK_MAX_HZ
+
+
+def flash_bound(shape, elem_bytes: int, backward: bool,
+                clock_hz: float = H100_SM_CLOCK_MAX_HZ) -> tuple[float, str, str]:
+    """Least time for one call: the largest of three. Tensor operations: the
+    forward's 2 products of 2 B H N^2 d operations, the backward's 5 (S, dP,
+    dV, dK, dQ), at the tensor cores' bf16 rate, or at the f32 rate for f32
+    inputs, which run on no tensor core. Exponentials: one exp2 per logit,
+    B H N^2 (the backward's least work too), at 16 per clock per SM on 132 SMs
+    at the top SM clock. Bytes: q, k, v read and O and the f32 row log-sum-exp
+    written once (backward: q, k, v, O, dO and L read, dq, dk, dv written).
+    Returns (ms, "operations" or "bytes", which operations or "bytes")."""
     b, n, h, d = shape
     ops = (10 if backward else 4) * b * h * n * n * d
     elems = (8 if backward else 4) * b * n * h * d
-    t_ops = ops / (BF16_OPS_PER_S if elem_bytes == 2 else F32_OPS_PER_S) * 1e3
-    t_bytes = (elems * elem_bytes + b * h * n * 4) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    terms = {
+        "tensor operations" if elem_bytes == 2 else "f32 operations":
+            ops / (BF16_OPS_PER_S if elem_bytes == 2 else F32_OPS_PER_S) * 1e3,
+        "exponentials": b * h * n * n / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
+        "bytes": (elems * elem_bytes + b * h * n * 4) / HBM_BYTES_PER_S * 1e3,
+    }
+    what = max(terms, key=terms.get)
+    return terms[what], ("bytes" if what == "bytes" else "operations"), what
 
 
 def phase_flash(at) -> tuple[list[dict], dict]:
@@ -603,6 +627,7 @@ def phase_flash(at) -> tuple[list[dict], dict]:
     [B, heads, N, N] logits): output and the gradients of q, k, v under a
     random cotangent, each within FLASH_TOL of the reference's largest entry."""
     rows, headline = [], {}
+    clock_hz = sm_clock_max_hz()
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     for label, shape, iters in FLASH_SHAPES:
         b, n, h, d = shape
@@ -657,8 +682,10 @@ def phase_flash(at) -> tuple[list[dict], dict]:
                     lambda: torch.autograd.grad(lib, lib_leaves, up.transpose(1, 2),
                                                 retain_graph=True), iters=it)
                 del lib, lib_leaves
-                row["bound_ms"], row["bound_by"] = flash_bound(shape, qkv.element_size(), False)
-                row["backward_bound_ms"], _ = flash_bound(shape, qkv.element_size(), True)
+                row["bound_ms"], row["bound_by"], row["bound_operations"] = flash_bound(
+                    shape, qkv.element_size(), False, clock_hz)
+                row["backward_bound_ms"], _, row["backward_bound_operations"] = flash_bound(
+                    shape, qkv.element_size(), True, clock_hz)
                 row["tflops"] = 4 * b * h * n * n * d / row["ms"] / 1e9
                 row["backward_tflops"] = 10 * b * h * n * n * d / row["backward_ms"] / 1e9
                 if dtype == torch.bfloat16:
@@ -1155,13 +1182,15 @@ def main() -> int:
         "backward_pass": "three kernels: delta, dK/dV, dQ",
         "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],
         "plain_ms": flash_serve["plain_ms"], "bound_ms": flash_serve["bound_ms"],
-        "bound_by": flash_serve["bound_by"], "library_ms": flash_serve["library_ms"],
+        "bound_by": flash_serve["bound_by"], "bound_operations": flash_serve["bound_operations"],
+        "library_ms": flash_serve["library_ms"],
         "library_call": "F.scaled_dot_product_attention",
         "at": f"forward, {flash_serve['dims']} bf16 (12 images under CFG at 256x256)",
         "training_at": {
             "at": f"forward and backward (delta, dK/dV, dQ), {flash_train['dims']} bf16",
             "max_abs_err": flash_train["out_max_abs_err"], "ms": flash_train["ms"],
             "plain_ms": flash_train["plain_ms"], "bound_ms": flash_train["bound_ms"],
+            "bound_operations": flash_train["bound_operations"],
             "library_ms": flash_train["library_ms"],
             "backward_ms": flash_train["backward_ms"],
             "backward_plain_ms": flash_train["plain_backward_ms"],

@@ -1,6 +1,7 @@
 """The CUDA flash-attention kernels (toycrystals_torch/csrc/flash_attn.cu)
 against the plain PyTorch version, on the card: forward and the gradients of
-q, k and v, in f32 and bf16.
+q, k and v, in f32 and bf16, and the bf16 forward (wgmma, TMA-fed K/V ring)
+at every head dim that chip_smoke.py builds, its O and its row log-sum-exp.
 
 Every test here is marked `cuda` and skips without a card. On a machine with
 one NVIDIA GPU and nvcc, run them without tests/conftest.py, which imports
@@ -57,6 +58,29 @@ def test_forward_matches_plain_version(cuda, shape, dtype):
     assert at.flash_sdpa.launches == before + 1
     assert got.shape == q.shape and got.dtype == dtype
     _close(got, at.sdpa_reference(q.float(), k.float(), v.float()), SHARE[dtype])
+
+
+@pytest.mark.parametrize("layout", ["qkv_views", "contiguous"])
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_bf16_forward_at_every_built_head_dim(cuda, d, n, layout):
+    """The wgmma forward: one key tile and one block per head (N 128), and a
+    K/V ring that wraps many times (N 2,048 and 4,096), on the strided views
+    of the qkv projection and on contiguous tensors; O and the row
+    log-sum-exp L that the backward reads."""
+    b, h = (2, 3) if n == 128 else (1, 2)
+    q, k, v = _qkv(cuda, (b, n, h, d), torch.bfloat16, seed=d + n)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = at.flash_sdpa.launches
+    out, lse = at._flash_forward_cuda(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert at.flash_sdpa.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    _close(out, at.sdpa_reference(qf, kf, vf), SHARE[torch.bfloat16])
+    logits = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * d ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=2e-3, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

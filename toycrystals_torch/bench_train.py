@@ -62,6 +62,18 @@ def run(stem: str, dtype: str, epochs: int, steps: int, batch: int = 128) -> dic
                 card=torch.cuda.get_device_name(0))
 
 
+def run_in_turns(cmd: list[str], roots: list[str]) -> int:
+    """Run `cmd` once per root and then once per root in reverse (A B B A),
+    each in a process of its own with the root's `toycrystals_torch` package
+    (PYTHONPATH finds it there). Returns the first non-zero exit code, else 0."""
+    for root in roots + roots[::-1]:
+        env = dict(os.environ, PYTHONPATH=root)
+        rc = subprocess.run(cmd, cwd=root, env=env).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--stem", default="s2dr", choices=("none", "s2dr"))
@@ -77,13 +89,7 @@ def main() -> int:
     roots = [os.path.abspath(r) for r in args.root]
     cmd = [sys.executable, os.path.abspath(__file__), "--stem", args.stem, "--dtype", args.dtype,
            "--epochs", str(args.epochs), "--steps", str(args.steps)]
-    for root in roots + roots[::-1]:
-        # this file's code with the root's package: PYTHONPATH finds `toycrystals_torch` there
-        env = dict(os.environ, PYTHONPATH=root)
-        rc = subprocess.run(cmd, cwd=root, env=env).returncode
-        if rc != 0:
-            return rc
-    return 0
+    return run_in_turns(cmd, roots)
 
 
 if __name__ == "__main__":

@@ -9,12 +9,13 @@
 // sequential grid that carries the running max and sum in VMEM scratch. Here
 // blocks run in no order, so the key loop lives inside the block:
 //
-//   forward   one block per (item, head, 64 query rows), 4 warps x 16 rows;
-//             loop over 64-key tiles staged in shared memory: S = Q K^T,
-//             running max m and sum l per row in f32 registers (exp2 with
-//             scale * log2(e) folded once, in f32), P rounded to bf16 and
-//             multiplied into the f32 accumulator of O. Writes O in the input
-//             type and the row log-sum-exp L = m + log(l) as f32 [B, H, N].
+//   forward   one block per (item, head, 128 query rows): two consumer
+//             warpgroups of 64 rows and a producer warpgroup (bf16; see
+//             fwd_wgmma); loop over 128-key tiles: S = Q K^T, running max m
+//             and sum l per row in f32 registers (exp2 with scale * log2(e)
+//             folded once, in f32), P rounded to bf16 and multiplied into the
+//             f32 accumulator of O. Writes O in the input type and the row
+//             log-sum-exp L = m + log(l) as f32 [B, H, N].
 //   delta     delta = rowsum(dO * O) in f32, [B, H, N].
 //   dK/dV     one block per (item, head, 64 keys), loop over query tiles:
 //             P^T = exp(S^T - L), dV += P^T dO, dP^T = V dO^T,
@@ -25,28 +26,35 @@
 // No atomics anywhere: every output element has one owner, so results are
 // the same from run to run.
 //
-// Bound: operations. One forward at [B, N, H, d] does 4 B H N^2 d operations
-// on (3 reads + 1 write) B N H d elements: at N = 4,096 and d = 48 about
-// 2,000 operations per byte, far above the card's ~295. So the products run on
-// the tensor cores in bf16 (mma.sync.m16n8k16, f32 accumulation): the C
-// fragment of S is, register for register, the A fragment of the second
-// product, so P never leaves registers. K and V rows sit in shared memory at a
-// pitch of d + 8 elements, which makes the 32-bit fragment loads and ldmatrix
-// conflict-free. wgmma, TMA and an asynchronous pipeline are left to a later
-// change; this version relies on several blocks per SM to hide the tile loads.
+// Bound: operations. One forward at [B, N, H, d] does 4 B H N^2 d tensor
+// operations and B H N^2 exponentials on (3 reads + 1 write) B N H d elements.
+// At N = 4,096 and d = 48 that is only 192 tensor operations per exponential,
+// and the special-function unit (16 exp2 per clock per SM) takes longer than
+// the tensor cores: the exponentials bound the forward. Its design therefore
+// overlaps them with the products: both products on wgmma (S from shared
+// memory, P V with P from registers: the f32 C fragment of S, pairs packed to
+// bf16, is the A fragment, so P never leaves registers), K/V tiles arriving
+// by TMA round a ring of mbarrier-guarded stages, and two consumer
+// warpgroups that take turns at the tensor cores, each running its
+// exponentials while the other's products run. The backward kernels still use
+// mma.sync.m16n8k16 with K/V/Q/dO rows in shared memory at a pitch of d + 8
+// elements (conflict-free 32-bit fragment loads and ldmatrix) and rely on
+// several blocks per SM to hide synchronous tile loads.
 //
-// float32 inputs are the checking type, not the working one: the same kernel
-// templates instantiate a plain f32-FMA body (one thread per row, K/V tiles
+// float32 inputs are the checking type, not the working one: an f32 forward
+// kernel and the same backward templates instantiate a plain f32-FMA body (one thread per row, K/V tiles
 // in shared memory, expf), with no tensor cores and no TF32.
 //
 // One head dim per build: compile with -DFLASH_HEAD_DIM=<multiple of 16, at
 // most 128>. q, k, v arrive as [B, N, H, d] views given by element strides (d
-// contiguous, rows 16-byte aligned); N must be a multiple of 128.
+// contiguous, rows 16-byte aligned); N must be a multiple of 128. The bf16
+// forward reads them through TMA tensor maps encoded per call.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/attention.py). Launches go on the caller's stream;
 // each function returns the first cudaError_t it met.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -210,93 +218,464 @@ __device__ __forceinline__ void store_rows(bf16* dst, long long stride, int row0
   }
 }
 
-__device__ void fwd_mma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ks = qs + kTile * kLd;
-  bf16* vs = ks + kTile * kLd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qsn;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ksb + h * p.ksh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vsb + h * p.vsh;
+// ---------------------------------------------------------------------------
+// bf16 forward on wgmma, K/V through a TMA ring
+// ---------------------------------------------------------------------------
+//
+// Shared tiles are [128 rows, D] bf16 cut into D / 16 slabs of 16 columns:
+// slab c holds columns 16c.. as 128 rows of 32 bytes (4,096 bytes), in the
+// 32-byte swizzle that TMA writes and wgmma reads. A 5-D tensor map over (16
+// elements, rows, D / 16 slabs, heads, batch) writes a whole tile with one TMA
+// load, whatever the row and head strides of the view: d = 48 rows are 96
+// bytes, which no 64- or 128-byte swizzle fits, and every 32-byte request of
+// the copy is one whole L2 sector. A slab is one k-step of S = Q K^T (Q and K
+// K-major: 8-row groups 256 bytes apart) and one 16-wide n-atom of P V (V
+// MN-major, d contiguous: 8-key groups 256 bytes apart, slabs 4,096).
 
-  load_tile(qs, q, p.qsn);
+constexpr int kRows = 128;                      // query rows per block, keys per tile
+constexpr int kTileBytes = kRows * D * 2;       // one [128, D] bf16 tile
+constexpr int kSlabBytes = kRows * 32;          // 16 columns of a tile
+constexpr int kSmemPerBlock = 232448;           // the most a block may have on sm_90
+constexpr int kRingFits = (kSmemPerBlock - 1024 - kTileBytes) / (2 * kTileBytes);
+constexpr int kStages = kRingFits < 4 ? kRingFits : 4;  // K/V ring depth: 4, 3 at d > 96
+constexpr int kFwdThreads = 384;                // 2 consumer warpgroups + 1 producer
+static_assert(kStages >= 2, "K/V ring needs two stages");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One [128, D] tile at (row0, head, item) of `map` into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, int row0, int h,
+                                              int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row0), "r"(0), "r"(h), "r"(b),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Named barrier `id` over `threads` threads: wait, or arrive without waiting.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 32-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout type 3.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (3ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins a register across asynchronous wgmma issue and wait.
+template <int R, int C>
+__device__ __forceinline__ void keep(float (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
+  }
+}
+
+template <int R, int C>
+__device__ __forceinline__ void keep(uint32_t (&d)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int j = 0; j < C; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
+  }
+}
+
+// d (64 x 128, f32) = A * B (+ d if accumulate): A, B bf16 K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x n, f32) += A * B: A (64 x 16, bf16) from registers in the mma.sync
+// A-fragment layout, B (16 x n, bf16) MN-major in shared memory. One overload
+// per width n = 16, 32, .., 128, so that a build's head dim D picks its own.
+__device__ __forceinline__ void wgmma_rs(float (&d)[2][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[6][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[10][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[12][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[14][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// One block: 128 query rows of one (item, head). Warpgroups 0 and 1 each own
+// 64 rows; warpgroup 2 is the producer, of which one thread issues the TMA
+// loads: Q once, then K and V tiles of 128 keys round a ring of kStages
+// stages, each with a "full" barrier (TMA bytes) and an "empty" one (one
+// arrival per consumer warp once its P V product has retired).
+//
+// A consumer's iteration j: S_j = Q K_j^T (SS wgmma, D / 16 k-steps) and
+// O += P_{j-1} V_{j-1} (RS wgmma, P in registers, 8 k-steps) are issued
+// together; then the online softmax of S_j turns it into P_j and rescales O.
+// The two warpgroups take turns issuing through named barriers 1 and 2, so
+// one warpgroup's exponentials run while the other's products occupy the
+// tensor cores.
+__device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtensorMap* kmap,
+                          const CUtensorMap* vmap) {
+  extern __shared__ __align__(1024) unsigned char fwd_smem_raw[];  // swizzle atoms: 256 bytes
+  unsigned char* qs = fwd_smem_raw;
+  unsigned char* ks = qs + kTileBytes;
+  unsigned char* vs = ks + kStages * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kStages * kTileBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.N / kRows;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // 4 warps x 2 consumer warpgroups
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], qs, warp * 16, kk * 16, lane);
 
-  float oacc[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) oacc[dn][0] = oacc[dn][1] = oacc[dn][2] = oacc[dn][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running row max, in log2 units
-  float l[2] = {0.f, 0.f};              // this thread's share of the running row sum
-  const float sl2 = p.scale * kLog2e;
-
-  for (int k0 = 0; k0 < p.N; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile(ks, k + k0 * p.ksn, p.ksn);
-    load_tile(vs, v + k0 * p.vsn, p.vsn);
-    __syncthreads();
-
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        uint32_t bb[2];
-        load_b_nk(bb, ks, nt * 8, kk * 16, lane);
-        mma(s[nt], qf[kk], bb[0], bb[1]);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, kTileBytes);
+      tma_load_tile(qs, qmap, q0, h, b, qbar);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], (j / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_tile(ks + s * kTileBytes, kmap, j * kRows, h, b, &full[s]);
+        tma_load_tile(vs + s * kTileBytes, vmap, j * kRows, h, b, &full[s]);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    // this warpgroup's 64 rows start 64 * 32 bytes into each slab
+    const uint64_t qdesc = smem_desc(qs + wg * 64 * 32, 16, 256);
+    constexpr uint64_t kKStep = kSlabBytes >> 4;  // 16 columns of Q or K: the next slab
+    constexpr uint64_t kVStep = (16 * 32) >> 4;   // 16 keys of V
 
-    float mx[2] = {-INFINITY, -INFINITY};
+    float o[D / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // scale > 0, so the max commutes with the scaling; m = -inf on the
-      // first tile gives corr = exp2(-inf) = 0 against a finite new max
-      const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
-      corr[r] = exp2f(m[r] - mn);
-      m[r] = mn;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] * sl2 - m[0]);
-      s[nt][1] = exp2f(s[nt][1] * sl2 - m[0]);
-      s[nt][2] = exp2f(s[nt][2] * sl2 - m[1]);
-      s[nt][3] = exp2f(s[nt][3] * sl2 - m[1]);
-      l[0] += s[nt][0] + s[nt][1];
-      l[1] += s[nt][2] + s[nt][3];
-    }
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      oacc[dn][0] *= corr[0];
-      oacc[dn][1] *= corr[0];
-      oacc[dn][2] *= corr[1];
-      oacc[dn][3] *= corr[1];
-    }
-    mma_frag_by_tile(oacc, s, vs, lane);
-  }
+    for (int dn = 0; dn < D / 8; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+    uint32_t pa[8][4];  // P of the previous tile, bf16 pairs: the A operand of P V
+    float m[2] = {-INFINITY, -INFINITY};  // running row max, in log2 units
+    float l[2] = {0.f, 0.f};              // this thread's share of the running row sum
+    const float sl2 = p.scale * kLog2e;
+    const int turn = 1 + wg, other = 2 - wg;
 
-  l[0] = quad_sum(l[0]);
-  l[1] = quad_sum(l[1]);
-  const long long row_stride = static_cast<long long>(p.H) * D;
-  bf16* o = static_cast<bf16*>(p.out) + (static_cast<long long>(b) * p.N * p.H + h) * D;
-  store_rows(o, row_stride, q0 + warp * 16, oacc, 1.f / l[0], 1.f / l[1], lane);
-  if ((lane & 3) == 0) {
-    float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.N + q0 + warp * 16 + (lane >> 2);
-    lse[0] = m[0] * kLn2 + logf(l[0]);
-    lse[8] = m[1] * kLn2 + logf(l[1]);
+    if (wg == 1) bar_arrive(other, 256);  // warpgroup 0 issues first
+    mbar_wait(qbar, 0);
+    int sp = 0;  // stage of the previous tile
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      bar_sync(turn, 256);
+      float sacc[16][4];
+      keep(o);
+      keep(pa);
+      wgmma_fence();
+      const uint64_t kdesc = smem_desc(ks + s * kTileBytes, 16, 256);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wgmma_ss_n128(sacc, qdesc + kk * kKStep, kdesc + kk * kKStep, kk > 0);
+      }
+      wgmma_commit();
+      if (j > 0) {
+        const uint64_t vdesc = smem_desc(vs + sp * kTileBytes, kSlabBytes, 256);
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], vdesc + kk * kVStep);
+        wgmma_commit();
+      }
+      bar_arrive(other, 256);
+      wgmma_wait_all();
+      keep(sacc);
+      keep(o);
+      keep(pa);
+      if (j > 0 && lane == 0) mbar_arrive(&empty[sp]);
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[nt][0], sacc[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[nt][2], sacc[nt][3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // scale > 0, so the max commutes with the scaling; m = -inf on the
+        // first tile gives corr = exp2(-inf) = 0 against a finite new max
+        const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+        corr[r] = exp2f(m[r] - mn);
+        m[r] = mn;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const float e0 = exp2f(sacc[nt][0] * sl2 - m[0]);
+        const float e1 = exp2f(sacc[nt][1] * sl2 - m[0]);
+        const float e2 = exp2f(sacc[nt][2] * sl2 - m[1]);
+        const float e3 = exp2f(sacc[nt][3] * sl2 - m[1]);
+        l[0] += e0 + e1;
+        l[1] += e2 + e3;
+        // the C fragment of S, pairs packed to bf16, is the A fragment of P V
+        pa[nt >> 1][(nt & 1) * 2] = pack2(e0, e1);
+        pa[nt >> 1][(nt & 1) * 2 + 1] = pack2(e2, e3);
+      }
+#pragma unroll
+      for (int dn = 0; dn < D / 8; ++dn) {
+        o[dn][0] *= corr[0];
+        o[dn][1] *= corr[0];
+        o[dn][2] *= corr[1];
+        o[dn][3] *= corr[1];
+      }
+      sp = s;
+    }
+
+    bar_sync(turn, 256);
+    keep(o);
+    keep(pa);
+    wgmma_fence();
+    const uint64_t vdesc = smem_desc(vs + sp * kTileBytes, kSlabBytes, 256);
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], vdesc + kk * kVStep);
+    wgmma_commit();
+    if (wg == 0) bar_arrive(other, 256);  // warpgroup 1 still waits for its last turn
+    wgmma_wait_all();
+    keep(o);
+    keep(pa);
+
+    l[0] = quad_sum(l[0]);
+    l[1] = quad_sum(l[1]);
+    const int row0 = q0 + wg * 64 + warp * 16;
+    const long long row_stride = static_cast<long long>(p.H) * D;
+    bf16* out = static_cast<bf16*>(p.out) + (static_cast<long long>(b) * p.N * p.H + h) * D;
+    store_rows(out, row_stride, row0, o, 1.f / l[0], 1.f / l[1], lane);
+    if ((lane & 3) == 0) {
+      float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.N + row0 + (lane >> 2);
+      lse[0] = m[0] * kLn2 + logf(l[0]);
+      lse[8] = m[1] * kLn2 + logf(l[1]);
+    }
   }
 }
 
@@ -604,13 +983,18 @@ __device__ void dq_fma(const Params& p) {
 }
 
 // ---------------------------------------------------------------------------
-// The four kernels: T = bf16 runs the tensor-core bodies, T = float the FMA ones.
+// The kernels: the forward has a wgmma kernel for bf16 and an FMA one for f32;
+// in the backward T = bf16 runs the tensor-core bodies, T = float the FMA ones.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Params p) {
-  if constexpr (sizeof(T) == 2) fwd_mma(p); else fwd_fma(p);
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap) {
+  fwd_wgmma(p, &qmap, &kmap, &vmap);
 }
+
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) { fwd_fma(p); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
@@ -665,7 +1049,9 @@ __global__ void __launch_bounds__(kThreads) flash_delta_kernel(const Params p) {
 
 template <typename T>
 constexpr int fwd_smem() {
-  return sizeof(T) == 2 ? 3 * kTile * kLd * 2 : 2 * kTileF * D * 4;
+  // bf16: Q, the K and V ring, then 2 kStages + 1 mbarriers
+  return sizeof(T) == 2 ? (1 + 2 * kStages) * kTileBytes + (2 * kStages + 1) * 8
+                        : 2 * kTileF * D * 4;
 }
 
 template <typename T>
@@ -708,6 +1094,55 @@ bool misaligned(const Params& p) {
   return false;
 }
 
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library links nothing beyond the runtime.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// The tensor map of a bf16 [B, N, H, D] view with element strides (sb, sn, sh)
+// whose [128, D] boxes land in the slab layout of fwd_wgmma: dims (16
+// elements, N rows, D / 16 slabs of 32 bytes, H, B), box (16, 128, D / 16, 1,
+// 1), 32-byte swizzle. Encoded per call, since the map holds the base pointer.
+cudaError_t tile_map(CUtensorMap* map, const void* base, const Params& p, long long sb,
+                     long long sn, long long sh) {
+  EncodeTiled encode;
+  cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[5] = {16, static_cast<cuuint64_t>(p.N), D / 16,
+                              static_cast<cuuint64_t>(p.H), static_cast<cuuint64_t>(p.B)};
+  const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sn) * 2, 32,  // bytes, dims 1..4
+                                 static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[5] = {16, kRows, D / 16, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Raises the three tiled kernels' dynamic shared memory limit, once per
 // device and element type instead of before every launch.
 template <typename T>
@@ -718,8 +1153,13 @@ cudaError_t ensure_smem_limits() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fwd_smem<T>());
+  if constexpr (sizeof(T) == 2) {
+    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd_smem<T>());
+  } else {
+    err = cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               fwd_smem<T>());
+  }
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              dkv_smem<T>());
@@ -736,7 +1176,18 @@ cudaError_t forward(const Params& p, cudaStream_t s) {
   if (misaligned<T>(p)) return cudaErrorMisalignedAddress;
   cudaError_t err = ensure_smem_limits<T>();
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T><<<row_grid<T>(p), kThreads, fwd_smem<T>(), s>>>(p);
+  const dim3 grid(static_cast<unsigned>(p.N / kRows), static_cast<unsigned>(p.H),
+                  static_cast<unsigned>(p.B));
+  if constexpr (sizeof(T) == 2) {
+    CUtensorMap qmap, kmap, vmap;
+    err = tile_map(&qmap, p.q, p, p.qsb, p.qsn, p.qsh);
+    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.ksb, p.ksn, p.ksh);
+    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.vsb, p.vsn, p.vsh);
+    if (err != cudaSuccess) return err;
+    flash_fwd_wgmma_kernel<<<grid, kFwdThreads, fwd_smem<T>(), s>>>(p, qmap, kmap, vmap);
+  } else {
+    flash_fwd_f32_kernel<<<grid, kThreads, fwd_smem<T>(), s>>>(p);
+  }
   return cudaGetLastError();
 }
 
