@@ -1179,7 +1179,8 @@ def main() -> int:
         "launches_serving_256": served_hi["flash_attn"],
         "launches_training_256": trained_hi["flash_attn"],
         "backward_passes_training_256": trained_hi["flash_attn_backward"],
-        "backward_pass": "three kernels: delta, dK/dV, dQ",
+        "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
+                         "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",
         "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],
         "plain_ms": flash_serve["plain_ms"], "bound_ms": flash_serve["bound_ms"],
         "bound_by": flash_serve["bound_by"], "bound_operations": flash_serve["bound_operations"],

@@ -68,9 +68,27 @@ def test_sdpa_reference_matches_jax_dot_product_attention(shape):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
-def _module_pair(ch, impl, x, seed):
+@pytest.mark.parametrize("sigma", [1.0, 3.0, 6.0])
+def test_bf16_sdpa_reference_matches_jax_dot_product_attention(sigma):
+    """bf16 q, k, v: JAX forms the logits in f32 (BF16_BF16_F32) and so must
+    the plain version, or its error grows with the logits' scale (3e-2 of the
+    largest entry at sigma 3 with the logits rounded to bf16). Held to 5e-3 of
+    JAX's largest entry: both round the probabilities and the output to bf16."""
+    rng = np.random.default_rng(11)
+    shape = (2, 256, 4, 48)
+    q, k = (rng.normal(scale=sigma, size=shape).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=shape).astype(np.float32)
+    want = jax.nn.dot_product_attention(*(jnp.asarray(a, dtype=jnp.bfloat16) for a in (q, k, v)))
+    want = np.asarray(want.astype(jnp.float32))
+    got = at.sdpa_reference(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 5e-3 * np.abs(want).max(), err
+
+
+def _module_pair(ch, impl, x, seed, dtype=jnp.float32):
     """The JAX and the port's SelfAttention2d on the same (perturbed) params."""
-    jmod = jat.SelfAttention2d(num_heads=4, attn_impl=impl)
+    jmod = jat.SelfAttention2d(num_heads=4, dtype=dtype, attn_impl=impl)
     # every impl shares one param tree; init through xla runs no Pallas kernel
     v = jat.SelfAttention2d(num_heads=4, attn_impl="xla").init(jax.random.key(seed),
                                                                jnp.asarray(x))
@@ -80,7 +98,8 @@ def _module_pair(ch, impl, x, seed):
         v["params"])
     from toycrystals_torch.utils.params import torch_state_dict_from_flax
 
-    tmod = at.SelfAttention2d(ch, num_heads=4, attn_impl=impl)
+    tmod = at.SelfAttention2d(ch, num_heads=4, attn_impl=impl,
+                              dtype=getattr(torch, jnp.dtype(dtype).name))
     tmod.load_state_dict({k: torch.tensor(a)
                           for k, a in torch_state_dict_from_flax(params).items()}, strict=True)
     return jmod, params, tmod
@@ -115,6 +134,30 @@ def test_module_flash_forward_and_gradients_match_jax():
         # 1e-5 of the leaf's largest entry: the gradients sum over 512 tokens
         np.testing.assert_allclose(np.asarray(g), w, atol=ATOL * max(1.0, np.abs(w).max()),
                                    err_msg=str(path))
+
+
+@pytest.mark.parametrize("gain", [2.0, 4.0])
+def test_module_bf16_matches_jax(gain):
+    """SelfAttention2d in bf16 at 16x16 tokens (the xla path), with the qkv
+    kernel scaled by `gain` for logits of trained size. The attention branch
+    (output minus input) is held to 1e-2 of JAX's largest entry: both round
+    the qkv and proj products to bf16 (2^-8 relative), at other points. With
+    the logits rounded to bf16 before the softmax the error is 1.3e-2 at gain
+    2 and 5.7e-2 at gain 4."""
+    x = np.random.default_rng(8).normal(size=(2, 16, 16, 64)).astype(np.float32)
+    jmod, params, tmod = _module_pair(64, "xla", x, seed=4, dtype=jnp.bfloat16)
+    params["qkv"]["kernel"] = params["qkv"]["kernel"] * gain
+    from toycrystals_torch.utils.params import torch_state_dict_from_flax
+
+    tmod.load_state_dict({k: torch.tensor(a)
+                          for k, a in torch_state_dict_from_flax(params).items()}, strict=True)
+    want = np.asarray(jmod.apply({"params": params}, jnp.asarray(x))).astype(np.float32) - x
+    with torch.no_grad():
+        got = tmod(_nchw(x))
+    assert got.dtype == torch.float32
+    got = got.numpy().transpose(0, 2, 3, 1) - x
+    err = np.abs(got - want).max()
+    assert err <= 1e-2 * np.abs(want).max(), err
 
 
 def test_module_auto_on_cpu_runs_matmul_path_at_2304_tokens():

@@ -1,6 +1,6 @@
 """The CUDA flash-attention kernels (toycrystals_torch/csrc/flash_attn.cu)
 against the plain PyTorch version, on the card: forward and the gradients of
-q, k and v, in f32 and bf16, and the bf16 forward (wgmma, TMA-fed K/V ring)
+q, k and v, in f32 and bf16, and the bf16 forward and backward (wgmma, TMA rings)
 at every head dim that chip_smoke.py builds, its O and its row log-sum-exp.
 
 Every test here is marked `cuda` and skips without a card. On a machine with
@@ -81,6 +81,33 @@ def test_bf16_forward_at_every_built_head_dim(cuda, d, n, layout):
     _close(out, at.sdpa_reference(qf, kf, vf), SHARE[torch.bfloat16])
     logits = torch.einsum("bnhd,bmhd->bhnm", qf, kf) * d ** -0.5
     torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["qkv_views", "contiguous"])
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_bf16_gradients_at_every_built_head_dim(cuda, d, n, layout):
+    """The wgmma backward (dK/dV: K/V resident, a ring of Q/dO tiles with
+    their L and delta; dQ: Q/dO resident, a K/V ring): one tile and one block
+    per head (N 128) and rings that wrap many times (N 2,048 and 4,096), on
+    the strided views of the qkv projection and on contiguous tensors; q, k
+    and v gradients against the f32 plain version."""
+    b, h = (2, 3) if n == 128 else (1, 2)
+    q, k, v = _qkv(cuda, (b, n, h, d), torch.bfloat16, seed=d + n)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    g = torch.Generator(device=cuda).manual_seed(d * n)
+    upstream = torch.randn(q.shape, generator=g, device=cuda).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = at.flash_sdpa.backward_launches
+    got = torch.autograd.grad(at.flash_sdpa(*leaves), leaves, upstream)
+    torch.cuda.synchronize()
+    assert at.flash_sdpa.backward_launches == before + 1
+    ref = [t.detach().float().requires_grad_(True) for t in leaves]
+    want = torch.autograd.grad(at.sdpa_reference(*ref), ref, upstream.float())
+    for a, w in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        _close(a, w, SHARE[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])

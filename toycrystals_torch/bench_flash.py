@@ -10,8 +10,13 @@ training calls, [24|32, 4096, 4, 48]) q, k and v are bf16 views of one
 with CUDA events over `--iters` launches after a warm-up: the forward
 `flash_sdpa` (no autograd), its backward pass (delta, dK/dV, dQ kernels), and
 `F.scaled_dot_product_attention` forward and backward on the same values as
-the yardstick. Prints one JSON line per run, with the card's name, power limit
-and top SM clock as `nvidia-smi` gives them.
+the yardstick. Each backward kernel's own time comes from `torch.profiler`
+device times over `--iters` passes (`backward_kernel_ms`). Beside the times:
+the backward's bound at the tensor cores' bf16 peak for its 5 products
+(`backward_bound_ms`) and for the 7 that the kernels do, S and exp(S - L)
+being formed in both dK/dV and dQ (`backward_floor_ms`). Prints one JSON line
+per run, with the card's name, power limit and top SM clock as `nvidia-smi`
+gives them.
 
 With `--root`, each DIR is a checkout that holds a `toycrystals_torch`
 package (this one, an earlier commit unpacked beside it). Every root runs in
@@ -29,6 +34,8 @@ import subprocess
 import sys
 
 DEFAULT_SHAPES = ("24,4096,4,48", "32,4096,4,48")
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BACKWARD_KERNELS = ("flash_delta", "flash_dkv", "flash_dq")
 
 
 def nvidia_smi(fields: str) -> str:
@@ -51,6 +58,27 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn, iters: int, names=BACKWARD_KERNELS) -> dict[str, float]:
+    """Device ms per call of `fn` of each kernel whose name holds one of
+    `names`, from `torch.profiler` over `iters` calls after one warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        hit = [n for n in names if n in e.key]
+        if e.device_type == DeviceType.CUDA and hit:
+            out[hit[0]] += e.self_device_time_total / 1e3 / iters
+    return out
+
+
 def run(shapes: list[tuple[int, int, int, int]], iters: int) -> dict:
     import torch
     import torch.nn.functional as F
@@ -70,7 +98,12 @@ def run(shapes: list[tuple[int, int, int, int]], iters: int) -> dict:
             lib_leaves = [t.detach().transpose(1, 2) for t in leaves]
             lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(*lib_leaves), iters)
         out = at.flash_sdpa(*leaves)
-        bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, up, retain_graph=True), iters)
+
+        def backward():
+            return torch.autograd.grad(out, leaves, up, retain_graph=True)
+
+        bwd = cuda_ms(backward, iters)
+        per_kernel = kernel_ms(backward, iters)
         lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in leaves]
         lib = F.scaled_dot_product_attention(*lib_leaves)
         lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib, lib_leaves, up.transpose(1, 2),
@@ -78,7 +111,10 @@ def run(shapes: list[tuple[int, int, int, int]], iters: int) -> dict:
         flop = 4 * b * h * n * n * d
         rows.append(dict(shape=[b, n, h, d], forward_ms=fwd, forward_tflops=flop / fwd / 1e9,
                          library_forward_ms=lib_fwd, backward_ms=bwd,
-                         backward_tflops=2.5 * flop / bwd / 1e9, library_backward_ms=lib_bwd))
+                         backward_kernel_ms=per_kernel, backward_tflops=2.5 * flop / bwd / 1e9,
+                         backward_bound_ms=2.5 * flop / BF16_OPS_PER_S * 1e3,
+                         backward_floor_ms=3.5 * flop / BF16_OPS_PER_S * 1e3,
+                         library_backward_ms=lib_bwd))
         del qkv, up, leaves, out, lib, lib_leaves
         torch.cuda.empty_cache()
     return dict(root=os.getcwd(), card=nvidia_smi("name,power.limit"),

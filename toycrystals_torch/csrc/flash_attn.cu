@@ -16,39 +16,42 @@
 //             folded once, in f32), P rounded to bf16 and multiplied into the
 //             f32 accumulator of O. Writes O in the input type and the row
 //             log-sum-exp L = m + log(l) as f32 [B, H, N].
-//   delta     delta = rowsum(dO * O) in f32, [B, H, N].
-//   dK/dV     one block per (item, head, 64 keys), loop over query tiles:
-//             P^T = exp(S^T - L), dV += P^T dO, dP^T = V dO^T,
-//             dS^T = P^T * (dP^T - delta), dK += dS^T Q; dK scaled at the end.
-//   dQ        one block per (item, head, 64 query rows), loop over key tiles:
-//             dQ += dS K, scaled at the end.
+//   delta     delta = rowsum(dO * O) in f32, [B, H, N], one thread per row.
+//   dK/dV     one block per (item, head, 128 keys), bf16 (see dkv_wgmma): K
+//             and V resident, loop over tiles of 128 query rows (64 at
+//             d > 64): S^T = K Q^T, dP^T = V dO^T, P^T = exp(S^T - L),
+//             dS^T = P^T * (dP^T - delta), dV += P^T dO, dK += dS^T Q; dK
+//             scaled at the end.
+//   dQ        one block per (item, head, 128 query rows), bf16 (see
+//             dq_wgmma): Q and dO resident, loop over 128-key tiles: S, dP,
+//             dS as above, dQ += dS K, scaled at the end.
 //
 // No atomics anywhere: every output element has one owner, so results are
-// the same from run to run.
+// the same from run to run. The price is that S and exp(S - L) are formed in
+// both backward kernels: 7 products of 2 B H N^2 d operations, not 5.
 //
 // Bound: operations. One forward at [B, N, H, d] does 4 B H N^2 d tensor
 // operations and B H N^2 exponentials on (3 reads + 1 write) B N H d elements.
 // At N = 4,096 and d = 48 that is only 192 tensor operations per exponential,
 // and the special-function unit (16 exp2 per clock per SM) takes longer than
-// the tensor cores: the exponentials bound the forward. Its design therefore
-// overlaps them with the products: both products on wgmma (S from shared
-// memory, P V with P from registers: the f32 C fragment of S, pairs packed to
-// bf16, is the A fragment, so P never leaves registers), K/V tiles arriving
-// by TMA round a ring of mbarrier-guarded stages, and two consumer
+// the tensor cores: the exponentials bound the forward. The backward's 10
+// (here 14) B H N^2 d operations against 2 B H N^2 exponentials put its bound
+// on the tensor cores. All bf16 kernels share one design: every product on
+// wgmma (S, dP from shared memory; P V, dS K, P^T dO, dS^T Q with P or dS from
+// registers: the f32 C fragment of S, pairs packed to bf16, is the A fragment,
+// so P and dS never leave registers), tiles arriving by TMA round a ring of
+// mbarrier-guarded stages filled by a producer warpgroup, and two consumer
 // warpgroups that take turns at the tensor cores, each running its
-// exponentials while the other's products run. The backward kernels still use
-// mma.sync.m16n8k16 with K/V/Q/dO rows in shared memory at a pitch of d + 8
-// elements (conflict-free 32-bit fragment loads and ldmatrix) and rely on
-// several blocks per SM to hide synchronous tile loads.
+// exponentials while the other's products run.
 //
-// float32 inputs are the checking type, not the working one: an f32 forward
-// kernel and the same backward templates instantiate a plain f32-FMA body (one thread per row, K/V tiles
-// in shared memory, expf), with no tensor cores and no TF32.
+// float32 inputs are the checking type, not the working one: f32 forward,
+// dK/dV and dQ kernels run a plain f32-FMA body (one thread per row, tiles in
+// shared memory, expf), with no tensor cores and no TF32.
 //
 // One head dim per build: compile with -DFLASH_HEAD_DIM=<multiple of 16, at
 // most 128>. q, k, v arrive as [B, N, H, d] views given by element strides (d
 // contiguous, rows 16-byte aligned); N must be a multiple of 128. The bf16
-// forward reads them through TMA tensor maps encoded per call.
+// kernels read q, k, v and dO through TMA tensor maps encoded per call.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/attention.py). Launches go on the caller's stream;
@@ -71,9 +74,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int D = FLASH_HEAD_DIM;
 static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dim: a multiple of 16 up to 128");
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;    // bf16 bodies: query rows per block and keys per tile
-constexpr int kLd = D + 8;   // bf16 shared-memory row pitch, in elements
+constexpr int kThreads = 128;   // f32 bodies and the delta kernel
 constexpr int kRowsF = 128;  // f32 bodies: rows per block, one per thread
 constexpr int kTileF = 32;   // f32 bodies: rows per shared-memory tile
 constexpr float kLog2e = 1.4426950408889634f;
@@ -100,97 +101,9 @@ struct Params {
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// kTile rows of D bf16 (row r at src + r * stride) into dst[r][kLd].
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long stride) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + r * stride + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c * 8) = v;
-  }
-}
-
-// A fragment (16 x 16, row-major) of a shared tile: rows row0.., columns k0..
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int row0, int k0,
-                                       int lane) {
-  const bf16* p = tile + (row0 + (lane >> 2)) * kLd + k0 + (lane & 3) * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * kLd);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * kLd + 8);
-}
-
-// B fragment (16 x 8) with B(k, n) = X[n0 + n][k0 + k] for a shared tile X[n][k].
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[2], const bf16* tile, int n0, int k0,
-                                          int lane) {
-  const bf16* p = tile + (n0 + (lane >> 2)) * kLd + k0 + (lane & 3) * 2;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragments of two neighbouring n-tiles (n0 and n0 + 8) with
-// B(k, n) = X[k0 + k][n0 + n] for a shared tile X[k][n]: b[0..1] and b[2..3].
-__device__ __forceinline__ void load_b_kn_x2(uint32_t (&b)[4], const bf16* tile, int k0, int n0,
-                                             int lane) {
-  const bf16* p = tile + (k0 + (lane & 15)) * kLd + n0 + (lane >> 4) * 8;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16) * b (16 x 8, bf16).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[nt] (16 x 64) += A[row0.., :] * X^T, A and X shared tiles of D columns.
-__device__ __forceinline__ void mma_rows_by_rows(float (&acc)[8][4], const bf16* a_tile,
-                                                 int row0, const bf16* x_tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, a_tile, row0, kk * 16, lane);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      uint32_t b[2];
-      load_b_nk(b, x_tile, nt * 8, kk * 16, lane);
-      mma(acc[nt], a, b[0], b[1]);
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x 64, a C-fragment array) * X (64 x D shared tile).
-__device__ __forceinline__ void mma_frag_by_tile(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                                 const bf16* x_tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]), pack2(p[2 * kk][2], p[2 * kk][3]),
-                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      uint32_t b[4];
-      load_b_kn_x2(b, x_tile, kk * 16, dn * 16, lane);
-      mma(acc[2 * dn], a, b[0], b[1]);
-      mma(acc[2 * dn + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -241,6 +154,20 @@ constexpr int kStages = kRingFits < 4 ? kRingFits : 4;  // K/V ring depth: 4, 3 
 constexpr int kFwdThreads = 384;                // 2 consumer warpgroups + 1 producer
 static_assert(kStages >= 2, "K/V ring needs two stages");
 
+// Backward. dQ: Q and dO resident, the K/V ring of the forward (4 stages, 3 at
+// d 96-112, 2 at d 128). dK/dV: K and V resident, a ring of Q and dO tiles of
+// kQRows query rows with their L and delta; 64 rows at d > 64, where the f32
+// dK and dV accumulators take the registers that S^T and dP^T would need.
+constexpr int kDqRingFits = (kSmemPerBlock - 1024 - 2 * kTileBytes) / (2 * kTileBytes);
+constexpr int kDqStages = kDqRingFits < 4 ? kDqRingFits : 4;
+constexpr int kQRows = D <= 64 ? 128 : 64;
+constexpr int kQTileBytes = kQRows * D * 2;
+constexpr int kQSlabBytes = kQRows * 32;
+constexpr int kDkvStageBytes = 2 * kQTileBytes + 2 * kQRows * 4;  // Q, dO, L, delta
+constexpr int kDkvRingFits = (kSmemPerBlock - 1024 - 2 * kTileBytes) / kDkvStageBytes;
+constexpr int kDkvStages = kDkvRingFits < 4 ? kDkvRingFits : 4;
+static_assert(kDqStages >= 2 && kDkvStages >= 2, "backward rings need two stages");
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -271,7 +198,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// One [128, D] tile at (row0, head, item) of `map` into `dst`, completing on `bar`.
+// One box of `map` ([rows, D]) at (row0, head, item) into `dst`, completing on `bar`.
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, int row0, int h,
                                               int b, uint64_t* bar) {
   asm volatile(
@@ -280,6 +207,30 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row0), "r"(0), "r"(h), "r"(b),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` into shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// A ring's barriers: per stage a "full" one (TMA bytes) and an "empty" one (one
+// arrival per consumer warp), and `once` for the tiles loaded once.
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, uint64_t* once,
+                                          int stages) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // 4 warps x 2 consumer warpgroups
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 }
 
 // Named barrier `id` over `threads` threads: wait, or arrive without waiting.
@@ -330,9 +281,10 @@ __device__ __forceinline__ void keep(uint32_t (&d)[R][C]) {
   }
 }
 
-// d (64 x 128, f32) = A * B (+ d if accumulate): A, B bf16 K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a, uint64_t b,
-                                              int accumulate) {
+// d (64 x n, f32) = A * B (+ d if accumulate): A, B bf16 K-major in shared
+// memory; n = 128 and 64.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -357,6 +309,25 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t a, uin
         "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -519,6 +490,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4], const uint32_t (&a)[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// acc = A B over D / 16 k-steps: A and B K-major in slabs, `astep` and `bstep`
+// the descriptor steps to their next 16 columns. Issued, not committed.
+template <int N>
+__device__ __forceinline__ void issue_ss(float (&acc)[N][4], uint64_t a, uint64_t b,
+                                         uint64_t astep, uint64_t bstep) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(acc, a + kk * astep, b + kk * bstep, kk > 0);
+}
+
+// acc += A B over K 16-row steps: A from registers (bf16 pairs, the A-fragment
+// layout), B the MN-major tile at `t` whose slabs lie `slab` bytes apart.
+// Issued, not committed.
+template <int N, int K>
+__device__ __forceinline__ void issue_rs(float (&acc)[N][4], const uint32_t (&a)[K][4],
+                                         const unsigned char* t, uint32_t slab) {
+  constexpr uint64_t kRowStep = (16 * 32) >> 4;  // 16 rows of 32 bytes
+  const uint64_t desc = smem_desc(t, slab, 256);
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_rs(acc, a[kk], desc + kk * kRowStep);
+}
+
 // One block: 128 query rows of one (item, head). Warpgroups 0 and 1 each own
 // 64 rows; warpgroup 2 is the producer, of which one thread issues the TMA
 // loads: Q once, then K and V tiles of 128 keys round a ring of kStages
@@ -544,15 +536,7 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
   const int tiles = p.N / kRows;
   const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // 4 warps x 2 consumer warpgroups
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring(full, empty, qbar, kStages);
 
   if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
@@ -573,7 +557,6 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
     // this warpgroup's 64 rows start 64 * 32 bytes into each slab
     const uint64_t qdesc = smem_desc(qs + wg * 64 * 32, 16, 256);
     constexpr uint64_t kKStep = kSlabBytes >> 4;  // 16 columns of Q or K: the next slab
-    constexpr uint64_t kVStep = (16 * 32) >> 4;   // 16 keys of V
 
     float o[D / 8][4];
 #pragma unroll
@@ -595,16 +578,10 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
       keep(o);
       keep(pa);
       wgmma_fence();
-      const uint64_t kdesc = smem_desc(ks + s * kTileBytes, 16, 256);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wgmma_ss_n128(sacc, qdesc + kk * kKStep, kdesc + kk * kKStep, kk > 0);
-      }
+      issue_ss(sacc, qdesc, smem_desc(ks + s * kTileBytes, 16, 256), kKStep, kKStep);
       wgmma_commit();
       if (j > 0) {
-        const uint64_t vdesc = smem_desc(vs + sp * kTileBytes, kSlabBytes, 256);
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], vdesc + kk * kVStep);
+        issue_rs(o, pa, vs + sp * kTileBytes, kSlabBytes);
         wgmma_commit();
       }
       bar_arrive(other, 256);
@@ -656,9 +633,7 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
     keep(o);
     keep(pa);
     wgmma_fence();
-    const uint64_t vdesc = smem_desc(vs + sp * kTileBytes, kSlabBytes, 256);
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) wgmma_rs(o, pa[kk], vdesc + kk * kVStep);
+    issue_rs(o, pa, vs + sp * kTileBytes, kSlabBytes);
     wgmma_commit();
     if (wg == 0) bar_arrive(other, 256);  // warpgroup 1 still waits for its last turn
     wgmma_wait_all();
@@ -679,130 +654,278 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
   }
 }
 
-__device__ void dkv_mma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + kTile * kLd;
-  bf16* qs = vs + kTile * kLd;
-  bf16* dos = qs + kTile * kLd;
-  float* ls = reinterpret_cast<float*>(dos + kTile * kLd);  // L * log2(e) of the query tile
-  float* dl = ls + kTile;                                   // delta of the query tile
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ksb + h * p.ksh + k0 * p.ksn;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vsb + h * p.vsh + k0 * p.vsn;
-  const long long row_stride = static_cast<long long>(p.H) * D;
-  const bf16* dout =
-      static_cast<const bf16*>(p.dout) + (static_cast<long long>(b) * p.N * p.H + h) * D;
-  const long long bh = (static_cast<long long>(b) * p.H + h) * p.N;
-  const float sl2 = p.scale * kLog2e;
+// ---------------------------------------------------------------------------
+// bf16 backward on wgmma: dQ, and dK/dV, each fed by a TMA ring
+// ---------------------------------------------------------------------------
+//
+// Both kernels have the forward's shape: 128-row blocks of two consumer
+// warpgroups (64 rows each) and a producer warpgroup, tiles in the forward's
+// slabs, turns at the tensor cores through named barriers 1 and 2. S and
+// exp(S - L) are formed in both (7 products where 5 would do) so that every
+// output element has one owner and no atomics are needed.
+//
+// In its turn a consumer first issues and retires the previous tile's RS
+// products (the ones that take P or dS from registers), which frees that
+// tile's stage, then issues this tile's two SS products and passes the turn:
+// the other warpgroup's products run while this one forms P and dS. Retiring
+// the RS products before the SS ones are issued keeps the packed bf16 A
+// fragments and the two f32 SS tiles out of the registers at the same time.
+// Issuing both at once where the registers allow it (d <= 48) measured no
+// faster.
 
-  load_tile(ks, k, p.ksn);
-  load_tile(vs, v, p.vsn);
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
-    dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
-    dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
-  }
-
-  for (int q0 = 0; q0 < p.N; q0 += kTile) {
-    __syncthreads();
-    load_tile(qs, q + q0 * p.qsn, p.qsn);
-    load_tile(dos, dout + q0 * row_stride, row_stride);
-    if (threadIdx.x < kTile) {
-      ls[threadIdx.x] = p.lse[bh + q0 + threadIdx.x] * kLog2e;
-      dl[threadIdx.x] = p.delta[bh + q0 + threadIdx.x];
-    }
-    __syncthreads();
-
-    // rows: this warp's 16 keys; columns: the tile's 64 queries
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    mma_rows_by_rows(s, ks, warp * 16, qs, lane);    // S^T = K Q^T
-    mma_rows_by_rows(dp, vs, warp * 16, dos, lane);  // dP^T = V dO^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = nt * 8 + (lane & 3) * 2 + j;
-        const float lc = ls[col], dc = dl[col];
-        const float p0 = exp2f(s[nt][j] * sl2 - lc);
-        const float p1 = exp2f(s[nt][2 + j] * sl2 - lc);
-        s[nt][j] = p0;
-        s[nt][2 + j] = p1;
-        dp[nt][j] = p0 * (dp[nt][j] - dc);
-        dp[nt][2 + j] = p1 * (dp[nt][2 + j] - dc);
-      }
-    }
-    mma_frag_by_tile(dv, s, dos, lane);  // dV += P^T dO
-    mma_frag_by_tile(dk, dp, qs, lane);  // dK += dS^T Q
-  }
-
-  bf16* gk = static_cast<bf16*>(p.dk) + b * p.gsb + h * p.gsh;
-  bf16* gv = static_cast<bf16*>(p.dv) + b * p.gsb + h * p.gsh;
-  store_rows(gk, p.gsn, k0 + warp * 16, dk, p.scale, p.scale, lane);
-  store_rows(gv, p.gsn, k0 + warp * 16, dv, 1.f, 1.f, lane);
+// 2^x in one special-function instruction; exp2f adds a range fix-up for
+// results below 2^-126, which the backward's P and dS do not need (bf16 pairs
+// of them are what the products read).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ void dq_mma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + kTile * kLd;
-  bf16* ks = dos + kTile * kLd;
-  bf16* vs = ks + kTile * kLd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
-  const bf16* q = static_cast<const bf16*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qsn;
-  const bf16* k = static_cast<const bf16*>(p.k) + b * p.ksb + h * p.ksh;
-  const bf16* v = static_cast<const bf16*>(p.v) + b * p.vsb + h * p.vsh;
-  const long long row_stride = static_cast<long long>(p.H) * D;
-  const bf16* dout = static_cast<const bf16*>(p.dout) +
-                     (static_cast<long long>(b) * p.N * p.H + h) * D + q0 * row_stride;
-  const long long row = (static_cast<long long>(b) * p.H + h) * p.N + q0 + warp * 16 + (lane >> 2);
-  const float lr[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
-  const float dr[2] = {p.delta[row], p.delta[row + 8]};
-  const float sl2 = p.scale * kLog2e;
+// One block: 128 query rows of one (item, head). The producer loads Q and dO
+// once, then K and V tiles of 128 keys round a ring of kDqStages stages. A
+// consumer's iteration j, after dQ += dS_{j-1} K_{j-1} (RS wgmma, K read
+// MN-major as the forward reads V): S = Q K_j^T and dP = dO V_j^T (SS wgmma,
+// dO and V K-major as Q and K), then
+// dS = exp2(S * scale * log2(e) - L * log2(e)) * (dP - delta), with L and
+// delta of its two rows per thread held in registers, packed to bf16 pairs:
+// the C fragment of S is the A fragment of dS K, as P's is of P V in the
+// forward.
+__device__ void dq_wgmma(const Params& p, const CUtensorMap* qmap, const CUtensorMap* kmap,
+                         const CUtensorMap* vmap, const CUtensorMap* omap) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem_raw[];
+  unsigned char* qs = bwd_smem_raw;
+  unsigned char* dos = qs + kTileBytes;
+  unsigned char* ks = dos + kTileBytes;
+  unsigned char* vs = ks + kDqStages * kTileBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kDqStages * kTileBytes);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qbar = empty + kDqStages;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.N / kRows;
+  const int wg = threadIdx.x / 128;
+  init_ring(full, empty, qbar, kDqStages);
 
-  load_tile(qs, q, p.qsn);
-  load_tile(dos, dout, row_stride);
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
-
-  for (int k0 = 0; k0 < p.N; k0 += kTile) {
-    __syncthreads();
-    load_tile(ks, k + k0 * p.ksn, p.ksn);
-    load_tile(vs, v + k0 * p.vsn, p.vsn);
-    __syncthreads();
-
-    // rows: this warp's 16 queries; columns: the tile's 64 keys
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-    mma_rows_by_rows(s, qs, warp * 16, ks, lane);    // S = Q K^T
-    mma_rows_by_rows(dp, dos, warp * 16, vs, lane);  // dP = dO V^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = j >> 1;
-        dp[nt][j] = exp2f(s[nt][j] * sl2 - lr[r]) * (dp[nt][j] - dr[r]);
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(qbar, 2 * kTileBytes);
+      tma_load_tile(qs, qmap, q0, h, b, qbar);
+      tma_load_tile(dos, omap, q0, h, b, qbar);
+      for (int j = 0; j < tiles; ++j) {
+        const int s = j % kDqStages;
+        if (j >= kDqStages) mbar_wait(&empty[s], (j / kDqStages - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_load_tile(ks + s * kTileBytes, kmap, j * kRows, h, b, &full[s]);
+        tma_load_tile(vs + s * kTileBytes, vmap, j * kRows, h, b, &full[s]);
       }
     }
-    mma_frag_by_tile(dq, dp, ks, lane);  // dQ += dS K
-  }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const uint64_t qdesc = smem_desc(qs + wg * 64 * 32, 16, 256);
+    const uint64_t odesc = smem_desc(dos + wg * 64 * 32, 16, 256);
+    constexpr uint64_t kKStep = kSlabBytes >> 4;  // the next 16 columns: the next slab
+    const int row0 = q0 + wg * 64 + warp * 16;
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.N + row0 + (lane >> 2);
+    const float l2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+    const float dl[2] = {p.delta[row], p.delta[row + 8]};
+    const float sl2 = p.scale * kLog2e;
+    const int turn = 1 + wg, other = 2 - wg;
 
-  bf16* gq = static_cast<bf16*>(p.dq) + b * p.gsb + h * p.gsh;
-  store_rows(gq, p.gsn, q0 + warp * 16, dq, p.scale, p.scale, lane);
+    float dq[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) dq[dn][0] = dq[dn][1] = dq[dn][2] = dq[dn][3] = 0.f;
+    uint32_t ds[8][4];  // dS of the previous tile, bf16 pairs: the A operand of dS K
+
+    if (wg == 1) bar_arrive(other, 256);  // warpgroup 0 issues first
+    mbar_wait(qbar, 0);
+    int sp = 0;  // stage of the previous tile
+    for (int j = 0; j < tiles; ++j) {
+      const int s = j % kDqStages;
+      mbar_wait(&full[s], (j / kDqStages) & 1);
+      bar_sync(turn, 256);
+      if (j > 0) {
+        keep(dq);
+        keep(ds);
+        wgmma_fence();
+        issue_rs(dq, ds, ks + sp * kTileBytes, kSlabBytes);
+        wgmma_commit();
+        wgmma_wait_all();
+        keep(dq);
+        keep(ds);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+      }
+      float sacc[16][4], dpacc[16][4];
+      wgmma_fence();
+      issue_ss(sacc, qdesc, smem_desc(ks + s * kTileBytes, 16, 256), kKStep, kKStep);
+      issue_ss(dpacc, odesc, smem_desc(vs + s * kTileBytes, 16, 256), kKStep, kKStep);
+      wgmma_commit();
+      bar_arrive(other, 256);
+      wgmma_wait_all();
+      keep(sacc);
+      keep(dpacc);
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        const float d0 = exp2_ftz(sacc[nt][0] * sl2 - l2[0]) * (dpacc[nt][0] - dl[0]);
+        const float d1 = exp2_ftz(sacc[nt][1] * sl2 - l2[0]) * (dpacc[nt][1] - dl[0]);
+        const float d2 = exp2_ftz(sacc[nt][2] * sl2 - l2[1]) * (dpacc[nt][2] - dl[1]);
+        const float d3 = exp2_ftz(sacc[nt][3] * sl2 - l2[1]) * (dpacc[nt][3] - dl[1]);
+        ds[nt >> 1][(nt & 1) * 2] = pack2(d0, d1);
+        ds[nt >> 1][(nt & 1) * 2 + 1] = pack2(d2, d3);
+      }
+      sp = s;
+    }
+
+    bar_sync(turn, 256);
+    keep(dq);
+    keep(ds);
+    wgmma_fence();
+    issue_rs(dq, ds, ks + sp * kTileBytes, kSlabBytes);
+    wgmma_commit();
+    if (wg == 0) bar_arrive(other, 256);  // warpgroup 1 still waits for its last turn
+    wgmma_wait_all();
+    keep(dq);
+    bf16* gq = static_cast<bf16*>(p.dq) + b * p.gsb + h * p.gsh;
+    store_rows(gq, p.gsn, row0, dq, p.scale, p.scale, lane);
+  }
+}
+
+// One block: 128 keys of one (item, head), 64 per consumer warpgroup, each
+// holding its f32 dK and dV. The producer loads K and V once, then round a
+// ring of kDkvStages stages the tiles of kQRows query rows of Q and dO (TMA)
+// with their L and delta (1-D bulk copies), all on one full barrier. A
+// consumer's iteration i, after dV += P^T_{i-1} dO_{i-1} and
+// dK += dS^T_{i-1} Q_{i-1} (RS wgmma, dO and Q read MN-major): S^T = K Q_i^T
+// and dP^T = V dO_i^T (SS wgmma, K and V as the K-major A operand, Q and dO as
+// the K-major B operand: the forward's roles swapped), then
+// P^T = exp2(S^T * scale * log2(e) - L * log2(e)) and
+// dS^T = P^T * (dP^T - delta), with L and delta per column, read from the
+// stage as pairs.
+__device__ void dkv_wgmma(const Params& p, const CUtensorMap* kmap, const CUtensorMap* vmap,
+                          const CUtensorMap* qmap, const CUtensorMap* omap) {
+  extern __shared__ __align__(1024) unsigned char bwd_smem_raw[];
+  unsigned char* ks = bwd_smem_raw;
+  unsigned char* vs = ks + kTileBytes;
+  unsigned char* qs = vs + kTileBytes;
+  unsigned char* dos = qs + kDkvStages * kQTileBytes;
+  float* ls = reinterpret_cast<float*>(dos + kDkvStages * kQTileBytes);  // L per stage
+  float* dls = ls + kDkvStages * kQRows;                                 // delta per stage
+  uint64_t* full = reinterpret_cast<uint64_t*>(dls + kDkvStages * kQRows);
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* kvbar = empty + kDkvStages;
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.N / kQRows;
+  const int wg = threadIdx.x / 128;
+  const long long bh = (static_cast<long long>(b) * p.H + h) * p.N;
+  init_ring(full, empty, kvbar, kDkvStages);
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(kvbar, 2 * kTileBytes);
+      tma_load_tile(ks, kmap, k0, h, b, kvbar);
+      tma_load_tile(vs, vmap, k0, h, b, kvbar);
+      for (int i = 0; i < tiles; ++i) {
+        const int s = i % kDkvStages;
+        if (i >= kDkvStages) mbar_wait(&empty[s], (i / kDkvStages - 1) & 1);
+        mbar_expect_tx(&full[s], kDkvStageBytes);
+        tma_load_tile(qs + s * kQTileBytes, qmap, i * kQRows, h, b, &full[s]);
+        tma_load_tile(dos + s * kQTileBytes, omap, i * kQRows, h, b, &full[s]);
+        bulk_load(ls + s * kQRows, p.lse + bh + i * kQRows, kQRows * 4, &full[s]);
+        bulk_load(dls + s * kQRows, p.delta + bh + i * kQRows, kQRows * 4, &full[s]);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    // this warpgroup's 64 keys start 64 * 32 bytes into each slab of K and V
+    const uint64_t kdesc = smem_desc(ks + wg * 64 * 32, 16, 256);
+    const uint64_t vdesc = smem_desc(vs + wg * 64 * 32, 16, 256);
+    constexpr uint64_t kKStep = kSlabBytes >> 4;   // A: the next 16 columns of K or V
+    constexpr uint64_t kQStep = kQSlabBytes >> 4;  // B: the next 16 columns of Q or dO
+    const float sl2 = p.scale * kLog2e;
+    const int turn = 1 + wg, other = 2 - wg;
+
+    float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      dk[dn][0] = dk[dn][1] = dk[dn][2] = dk[dn][3] = 0.f;
+      dv[dn][0] = dv[dn][1] = dv[dn][2] = dv[dn][3] = 0.f;
+    }
+    // P^T and dS^T of the previous tile, bf16 pairs: the A operands of the RS products
+    uint32_t pa[kQRows / 16][4], dsa[kQRows / 16][4];
+
+    if (wg == 1) bar_arrive(other, 256);  // warpgroup 0 issues first
+    mbar_wait(kvbar, 0);
+    int sp = 0;  // stage of the previous tile
+    for (int i = 0; i < tiles; ++i) {
+      const int s = i % kDkvStages;
+      mbar_wait(&full[s], (i / kDkvStages) & 1);
+      bar_sync(turn, 256);
+      if (i > 0) {
+        keep(dk);
+        keep(dv);
+        keep(pa);
+        keep(dsa);
+        wgmma_fence();
+        issue_rs(dv, pa, dos + sp * kQTileBytes, kQSlabBytes);
+        issue_rs(dk, dsa, qs + sp * kQTileBytes, kQSlabBytes);
+        wgmma_commit();
+        wgmma_wait_all();
+        keep(dk);
+        keep(dv);
+        keep(pa);
+        keep(dsa);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+      }
+      float st[kQRows / 8][4], dpt[kQRows / 8][4];
+      wgmma_fence();
+      issue_ss(st, kdesc, smem_desc(qs + s * kQTileBytes, 16, 256), kKStep, kQStep);
+      issue_ss(dpt, vdesc, smem_desc(dos + s * kQTileBytes, 16, 256), kKStep, kQStep);
+      wgmma_commit();
+      bar_arrive(other, 256);
+      wgmma_wait_all();
+      keep(st);
+      keep(dpt);
+      // this thread's columns: nt * 8 + 2 t and the next
+      const float* lt = ls + s * kQRows + (lane & 3) * 2;
+      const float* dt = dls + s * kQRows + (lane & 3) * 2;
+#pragma unroll
+      for (int nt = 0; nt < kQRows / 8; ++nt) {
+        const float2 lc = *reinterpret_cast<const float2*>(lt + nt * 8);
+        const float2 dc = *reinterpret_cast<const float2*>(dt + nt * 8);
+        const float l0 = lc.x * kLog2e, l1 = lc.y * kLog2e;
+        const float p0 = exp2_ftz(st[nt][0] * sl2 - l0), p1 = exp2_ftz(st[nt][1] * sl2 - l1);
+        const float p2 = exp2_ftz(st[nt][2] * sl2 - l0), p3 = exp2_ftz(st[nt][3] * sl2 - l1);
+        pa[nt >> 1][(nt & 1) * 2] = pack2(p0, p1);
+        pa[nt >> 1][(nt & 1) * 2 + 1] = pack2(p2, p3);
+        dsa[nt >> 1][(nt & 1) * 2] = pack2(p0 * (dpt[nt][0] - dc.x), p1 * (dpt[nt][1] - dc.y));
+        dsa[nt >> 1][(nt & 1) * 2 + 1] =
+            pack2(p2 * (dpt[nt][2] - dc.x), p3 * (dpt[nt][3] - dc.y));
+      }
+      sp = s;
+    }
+
+    bar_sync(turn, 256);
+    keep(dk);
+    keep(dv);
+    keep(pa);
+    keep(dsa);
+    wgmma_fence();
+    issue_rs(dv, pa, dos + sp * kQTileBytes, kQSlabBytes);
+    issue_rs(dk, dsa, qs + sp * kQTileBytes, kQSlabBytes);
+    wgmma_commit();
+    if (wg == 0) bar_arrive(other, 256);  // warpgroup 1 still waits for its last turn
+    wgmma_wait_all();
+    keep(dk);
+    keep(dv);
+    const int row0 = k0 + wg * 64 + warp * 16;
+    bf16* gk = static_cast<bf16*>(p.dk) + b * p.gsb + h * p.gsh;
+    bf16* gv = static_cast<bf16*>(p.dv) + b * p.gsb + h * p.gsh;
+    store_rows(gk, p.gsn, row0, dk, p.scale, p.scale, lane);
+    store_rows(gv, p.gsn, row0, dv, 1.f, 1.f, lane);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -983,8 +1106,8 @@ __device__ void dq_fma(const Params& p) {
 }
 
 // ---------------------------------------------------------------------------
-// The kernels: the forward has a wgmma kernel for bf16 and an FMA one for f32;
-// in the backward T = bf16 runs the tensor-core bodies, T = float the FMA ones.
+// The kernels: wgmma kernels for bf16, FMA ones for f32; the delta kernel
+// serves both types.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFwdThreads, 1)
@@ -996,15 +1119,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
 __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) { fwd_fma(p); }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const Params p) {
-  if constexpr (sizeof(T) == 2) dkv_mma(p); else dkv_fma(p);
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_dkv_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap omap) {
+  dkv_wgmma(p, &kmap, &vmap, &qmap, &omap);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(const Params p) {
-  if constexpr (sizeof(T) == 2) dq_mma(p); else dq_fma(p);
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_dq_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap) {
+  dq_wgmma(p, &qmap, &kmap, &vmap, &omap);
 }
+
+__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(const Params p) { dkv_fma(p); }
+
+__global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(const Params p) { dq_fma(p); }
 
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -1056,19 +1189,16 @@ constexpr int fwd_smem() {
 
 template <typename T>
 constexpr int dkv_smem() {
-  return sizeof(T) == 2 ? 4 * kTile * kLd * 2 + 2 * kTile * 4 : 2 * kTileF * D * 4 + 2 * kTileF * 4;
+  // bf16: K, V, the ring of Q, dO, L and delta, then 2 kDkvStages + 1 mbarriers
+  return sizeof(T) == 2 ? 2 * kTileBytes + kDkvStages * kDkvStageBytes + (2 * kDkvStages + 1) * 8
+                        : 2 * kTileF * D * 4 + 2 * kTileF * 4;
 }
 
 template <typename T>
 constexpr int dq_smem() {
-  return sizeof(T) == 2 ? 4 * kTile * kLd * 2 : 2 * kTileF * D * 4;
-}
-
-template <typename T>
-dim3 row_grid(const Params& p) {
-  const int rows = sizeof(T) == 2 ? kTile : kRowsF;
-  return dim3(static_cast<unsigned>(p.N / rows), static_cast<unsigned>(p.H),
-              static_cast<unsigned>(p.B));
+  // bf16: Q, dO, the K and V ring, then 2 kDqStages + 1 mbarriers
+  return sizeof(T) == 2 ? (2 + 2 * kDqStages) * kTileBytes + (2 * kDqStages + 1) * 8
+                        : 2 * kTileF * D * 4;
 }
 
 bool bad_shape(const Params& p) {
@@ -1076,9 +1206,9 @@ bool bad_shape(const Params& p) {
          !(p.scale > 0.f);
 }
 
-// The kernels load and store rows 16 bytes at a time: every pointer and every
-// stride (in elements of T) must keep a row 16-byte aligned. Pointers and
-// strides a call does not use are 0.
+// The kernels load and store rows 16 bytes at a time (TMA and bulk copies
+// too): every pointer and every stride (in elements of T) must keep a row
+// 16-byte aligned. Pointers and strides a call does not use are 0.
 template <typename T>
 bool misaligned(const Params& p) {
   constexpr long long per16 = 16 / sizeof(T);
@@ -1087,7 +1217,7 @@ bool misaligned(const Params& p) {
   for (long long st : strides) {
     if (st % per16 != 0) return true;
   }
-  const void* ptrs[] = {p.q, p.k, p.v, p.out, p.o, p.dout, p.dq, p.dk, p.dv};
+  const void* ptrs[] = {p.q, p.k, p.v, p.out, p.o, p.dout, p.dq, p.dk, p.dv, p.lse, p.delta};
   for (const void* ptr : ptrs) {
     if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return true;
   }
@@ -1122,11 +1252,11 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
 }
 
 // The tensor map of a bf16 [B, N, H, D] view with element strides (sb, sn, sh)
-// whose [128, D] boxes land in the slab layout of fwd_wgmma: dims (16
-// elements, N rows, D / 16 slabs of 32 bytes, H, B), box (16, 128, D / 16, 1,
+// whose [rows, D] boxes land in the slab layout of fwd_wgmma: dims (16
+// elements, N rows, D / 16 slabs of 32 bytes, H, B), box (16, rows, D / 16, 1,
 // 1), 32-byte swizzle. Encoded per call, since the map holds the base pointer.
 cudaError_t tile_map(CUtensorMap* map, const void* base, const Params& p, long long sb,
-                     long long sn, long long sh) {
+                     long long sn, long long sh, int rows = kRows) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
@@ -1134,13 +1264,18 @@ cudaError_t tile_map(CUtensorMap* map, const void* base, const Params& p, long l
                               static_cast<cuuint64_t>(p.H), static_cast<cuuint64_t>(p.B)};
   const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sn) * 2, 32,  // bytes, dims 1..4
                                  static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[5] = {16, kRows, D / 16, 1, 1};
+  const cuuint32_t box[5] = {16, static_cast<cuuint32_t>(rows), D / 16, 1, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename K>
+cudaError_t max_smem(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // Raises the three tiled kernels' dynamic shared memory limit, once per
@@ -1154,18 +1289,14 @@ cudaError_t ensure_smem_limits() {
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < kMaxDevices && done[dev]) return cudaSuccess;
   if constexpr (sizeof(T) == 2) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               fwd_smem<T>());
+    err = max_smem(flash_fwd_wgmma_kernel, fwd_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dkv_wgmma_kernel, dkv_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dq_wgmma_kernel, dq_smem<T>());
   } else {
-    err = cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               fwd_smem<T>());
+    err = max_smem(flash_fwd_f32_kernel, fwd_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dkv_f32_kernel, dkv_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dq_f32_kernel, dq_smem<T>());
   }
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_smem<T>());
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dq_smem<T>());
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < kMaxDevices) done[dev] = true;
   return cudaSuccess;
@@ -1201,10 +1332,29 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
                           s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T><<<row_grid<T>(p), kThreads, dkv_smem<T>(), s>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_dq_kernel<T><<<row_grid<T>(p), kThreads, dq_smem<T>(), s>>>(p);
+  const dim3 grid(static_cast<unsigned>(p.N / kRows), static_cast<unsigned>(p.H),
+                  static_cast<unsigned>(p.B));
+  if constexpr (sizeof(T) == 2) {
+    // dO is contiguous [B, N, H, D]; dK/dV reads Q and dO in tiles of kQRows rows
+    const long long on = static_cast<long long>(p.H) * D, ob = p.N * on;
+    CUtensorMap qmap, kmap, vmap, omap, qrows, orows;
+    err = tile_map(&qmap, p.q, p, p.qsb, p.qsn, p.qsh);
+    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.ksb, p.ksn, p.ksh);
+    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.vsb, p.vsn, p.vsh);
+    if (err == cudaSuccess) err = tile_map(&omap, p.dout, p, ob, on, D);
+    if (err == cudaSuccess) err = tile_map(&qrows, p.q, p, p.qsb, p.qsn, p.qsh, kQRows);
+    if (err == cudaSuccess) err = tile_map(&orows, p.dout, p, ob, on, D, kQRows);
+    if (err != cudaSuccess) return err;
+    flash_dkv_wgmma_kernel<<<grid, kFwdThreads, dkv_smem<T>(), s>>>(p, kmap, vmap, qrows, orows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_dq_wgmma_kernel<<<grid, kFwdThreads, dq_smem<T>(), s>>>(p, qmap, kmap, vmap, omap);
+  } else {
+    flash_dkv_f32_kernel<<<grid, kThreads, dkv_smem<T>(), s>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    flash_dq_f32_kernel<<<grid, kThreads, dq_smem<T>(), s>>>(p);
+  }
   return cudaGetLastError();
 }
 

@@ -65,9 +65,12 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 
 def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version: softmax(Q K^T / sqrt(d)) V on [B, N, heads, d], logits
-    and softmax in f32, probabilities cast to v.dtype for the second product."""
+    and softmax in f32, probabilities cast to v.dtype for the second product.
+    q and k are upcast before the first product, so bf16 logits are never
+    rounded to bf16 (exact: a bf16 product fits in f32), as JAX's
+    `dot_product_attention` forms them (BF16_BF16_F32)."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))                # [B, heads, N, d]
-    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() * (1.0 / math.sqrt(q.shape[-1]))
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, vh).transpose(1, 2)
 
