@@ -10,18 +10,20 @@ result line:
    seconds to build every CUDA kernel of the port from toycrystals_torch/csrc
    (one nvcc per library, all at once; the flash-attention source is built
    once per head dim).
-2. GroupNorm+SiLU(+halo) kernel parity and timing against its plain PyTorch
-   version on the card at every shape the served U-Net gives it (parity and
-   s2dr stems, batch 512 = 256 images under CFG, and the 256x256 model at 24
-   rows), pad on and off, f32 and bf16, plus odd shapes. Times of the kernel,
-   the plain version, the library yardstick (F.group_norm + F.silu + F.pad)
-   and the bound (bytes at 3.35 TB/s). Then the kernel under autograd at
-   every shape the training U-Net gives it (batch 128, both stems, and batch
-   32 at 256x256; f32 and bf16, pad on and off): output and the gradients of
-   x, scale and bias against the plain version on the same leaves, and the
-   times of the kernel forward, the plain forward, the plain-version backward
-   that autograd runs behind the kernel, and the library yardstick's forward
-   and backward.
+2. GroupNorm+SiLU(+halo) forward kernel parity and timing against its plain
+   PyTorch version on the card at every shape the served U-Net gives it
+   (parity and s2dr stems, batch 512 = 256 images under CFG, and the 256x256
+   model at 24 and at 2 rows), pad on and off, f32 and bf16, plus odd shapes,
+   each with the cluster size its launch takes. Times of the kernel, the
+   plain version, the library yardstick (F.group_norm + F.silu + F.pad) and
+   the bound (bytes at 3.35 TB/s). Then the forward and backward kernels under
+   autograd at every shape the training U-Net gives it (batch 128, both stems,
+   and batch 32 at 256x256; f32 and bf16, pad on and off): output, and the
+   gradients of x, scale and bias against the closed-form plain backward
+   `gn_silu_backward_reference` and against autograd through the plain
+   version on the same leaves; the times of the kernel forward and backward,
+   the plain forward and backward, the library yardstick's forward and
+   backward, and both bounds.
 3. Rasterizer kernel parity and timing against its plain version on the card:
    the training batch (128 images, rot_only budget), the full-config budget at
    128 and 4096 images, the 32x32 budget, the 256x256 training batch (32
@@ -51,8 +53,8 @@ result line:
    make_sde_train_epoch: first 2 f32 steps on injected (x0, t, eps), card
    against CPU (losses, and the gradients leaf by leaf); then 4 epochs of 5
    steps for each stem in f32 and bf16, checked for finite losses, a falling
-   loss, exactly 10 GroupNorm and 1 rasterizer launches per step, and a
-   finite EMA that left the parameters.
+   loss, exactly 10 GroupNorm forward, 10 GroupNorm backward and 1 rasterizer
+   launches per step, and a finite EMA that left the parameters.
    Prints steps/s, img/s and peak memory.
 8. Serving at 256x256, full width (stem "none": 4,096 bottleneck tokens, so
    attn_impl="auto" runs the flash kernel; param v, logsnr_shift -2.77,
@@ -65,7 +67,8 @@ result line:
    data rendered on the card at a 9,728-point budget): 1 f32 step on 2
    injected items, card against CPU (loss, gradients leaf by leaf); then 2
    epochs of 4 bf16 steps: finite, falling loss, exactly 1 flash forward, 1
-   flash backward, 10 GroupNorm and 1 rasterizer launches per step.
+   flash backward, 10 GroupNorm forward, 10 GroupNorm backward and 1
+   rasterizer launches per step.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -102,8 +105,10 @@ BATCH = 256                   # images per throughput request; 512 rows under CF
 SLICE_CFG = dict(n_types=4, y_cont_dim=4, base_ch=96, emb_dim=128, cond_ch=8, time_ch=8,
                  img_size=64, dtype="bfloat16")
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (3e-2, 1.6e-2)}  # (atol, rtol)
-# Gradients through the kernel are the plain version's own at the same inputs, so
-# only the order of a reduction can differ: share of each gradient's largest entry.
+# GroupNorm gradients, as a share of each gradient's largest entry. f32: sums in
+# another order. bf16: dx rounds to bf16 (2^-8 relative) on both sides, and
+# autograd through the plain version folds the halo in bf16 where the kernel and
+# the closed-form plain backward fold it in f32.
 GRAD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 LEAF_GRAD_TOL = (1e-4, 1e-7)  # (share of the leaf's largest entry, absolute)
 RASTER_TOL = (1e-5, 1e-5)     # (atol, rtol): f32 sums over the atoms in another order
@@ -162,10 +167,19 @@ def gn_bound(shape, pad: bool, elem_bytes: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gn_backward_bound(shape, pad: bool, elem_bytes: int) -> float:
+    """Least time for one backward call, bytes: x and the upstream gradient
+    read once, dx written once, scale and bias read and the per-channel sums
+    written once, over the HBM rate."""
+    b, c, h, w = shape
+    n_in, n_out = b * c * h * w, b * c * (h + 2 * pad) * (w + 2 * pad)
+    return ((2 * n_in + n_out) * elem_bytes + 4 * c * 4) / HBM_BYTES_PER_S * 1e3
+
+
 def kernel_shapes():
     """(label, [B, C, H, W], groups) for every conv-block activation of the
     served U-Net at 64x64, base_ch 96, batch 512, of the 256x256 U-Net at 24
-    rows, and a few odd shapes."""
+    rows and at 2 rows (one image under CFG), and a few odd shapes."""
     b, bc, hb = 2 * BATCH, 96, 2 * HI_BATCH
     main = [("none/down1,up1", (b, bc, 64, 64)), ("none/down2", (b, 2 * bc, 32, 32)),
             ("none/mid", (b, 2 * bc, 16, 16)), ("none/up2", (b, bc, 32, 32)),
@@ -174,7 +188,11 @@ def kernel_shapes():
             ("256/down1,up1", (hb, bc, HI_SIZE, HI_SIZE)),
             ("256/down2", (hb, 2 * bc, HI_SIZE // 2, HI_SIZE // 2)),
             ("256/mid", (hb, 2 * bc, HI_SIZE // 4, HI_SIZE // 4)),
-            ("256/up2", (hb, bc, HI_SIZE // 2, HI_SIZE // 2))]
+            ("256/up2", (hb, bc, HI_SIZE // 2, HI_SIZE // 2)),
+            ("256 2-row/down1,up1", (2, bc, HI_SIZE, HI_SIZE)),
+            ("256 2-row/down2", (2, 2 * bc, HI_SIZE // 2, HI_SIZE // 2)),
+            ("256 2-row/mid", (2, 2 * bc, HI_SIZE // 4, HI_SIZE // 4)),
+            ("256 2-row/up2", (2, bc, HI_SIZE // 2, HI_SIZE // 2))]
     seen, out = set(), []
     for label, shape in main:
         if shape not in seen:  # none/up2 and s2dr/down1 share a shape
@@ -205,7 +223,7 @@ def phase_kernel(gn) -> tuple[list[dict], dict]:
                 bad = int((err > atol + rtol * want.float().abs()).sum())
                 row = dict(shape=label, dims=list(shape), groups=groups, dtype=name,
                            pad=pad, max_abs_err=max_err, atol=atol, rtol=rtol,
-                           mismatches=bad)
+                           mismatches=bad, plan=gn.kernel_plan(shape, groups, dtype, pad))
                 if not label.startswith("odd"):
                     p = 1 if pad else 0
 
@@ -428,14 +446,15 @@ def phase_slice(gn, stem: str, params: dict) -> dict:
 
 
 def gn_training_rows(gn) -> list[dict]:
-    """The kernel under autograd at the training shapes (batch 128 at 64x64,
-    batch 32 at 256x256), held
-    against the plain version on the same leaves: the output within TOL, and
-    the gradients of x, scale and bias from torch.autograd.grad on both sides
-    within GRAD_TOL of each gradient's largest entry. Then the times of the
-    kernel forward, the plain forward and the backward autograd runs behind
-    the kernel (the gradient of the plain version, recomputed from the saved
-    inputs)."""
+    """The forward and backward kernels under autograd at the training shapes
+    (batch 128 at 64x64, batch 32 at 256x256): the output within TOL of the
+    plain version, and the gradients of x, scale and bias from
+    torch.autograd.grad (the backward kernel) within GRAD_TOL of each
+    gradient's largest entry, held against the closed-form plain backward
+    `gn_silu_backward_reference` and against autograd through the plain
+    version on the same leaves. Then the times of the kernel forward and
+    backward, the plain forward and backward (autograd through the plain
+    version), the library yardstick's forward and backward, and both bounds."""
     b, bc, hb = TRAIN_BATCH, 96, HI_TRAIN_BATCH
     shapes = [("none/down1,up1", (b, bc, 64, 64), 2), ("none/down2", (b, 2 * bc, 32, 32), 1),
               ("none/mid", (b, 2 * bc, 16, 16), 1), ("none/up2", (b, bc, 32, 32), 1),
@@ -470,24 +489,37 @@ def gn_training_rows(gn) -> list[dict]:
                 bad = int((err > atol + rtol * want.detach().float().abs()).sum())
                 row = dict(shape=label, dims=list(shape), pad=pad, blocks_per_step=blocks,
                            dtype=name, max_abs_err=float(err.max()), atol=atol, rtol=rtol,
-                           mismatches=bad, grad_tol=GRAD_TOL[name])
+                           mismatches=bad, grad_tol=GRAD_TOL[name],
+                           plan=gn.kernel_plan(shape, 8, dtype, pad),
+                           backward_plan=gn.kernel_plan(shape, 8, dtype, pad, backward=True))
                 del err
+                before = gn.gn_silu.backward_launches
                 got_g = torch.autograd.grad(y, leaves, g, retain_graph=True)
-                want_g = torch.autograd.grad(want, leaves, g)
-                for leaf, a, w in zip(("x", "scale", "bias"), got_g, want_g):
-                    row[f"grad_{leaf}_max_abs_err"] = float((a.float() - w.float()).abs().max())
-                    row[f"grad_{leaf}_max_abs"] = float(w.float().abs().max())
-                    if not row[f"grad_{leaf}_max_abs_err"] <= \
-                            GRAD_TOL[name] * row[f"grad_{leaf}_max_abs"]:
-                        bad += 1
-                del want, got_g, want_g
+                if gn.gn_silu.backward_launches != before + 1:
+                    raise AssertionError(f"gn_silu's backward did not launch its kernel at "
+                                         f"{label} {name} pad={pad}")
+                want_g = torch.autograd.grad(want, leaves, g, retain_graph=True)
+                closed_g = gn.gn_silu_backward_reference(*(t.detach() for t in leaves), g, 8,
+                                                         1e-6, pad)
+                for leaf, a, w, w2 in zip(("x", "scale", "bias"), got_g, want_g, closed_g):
+                    for tag, ref in (("", w), ("closed_form_", w2)):
+                        e = float((a.float() - ref.float()).abs().max())
+                        m = float(ref.float().abs().max())
+                        row[f"grad_{leaf}_{tag}max_abs_err"] = e
+                        row[f"grad_{leaf}_{tag}max_abs"] = m
+                        if not e <= GRAD_TOL[name] * m:
+                            bad += 1
+                del got_g, want_g, closed_g
                 row["forward_ms"] = cuda_time_ms(
                     lambda: gn.gn_silu(*leaves, 8, 1e-6, pad), iters=10)
                 with torch.no_grad():
                     row["plain_ms"] = cuda_time_ms(
                         lambda: gn.gn_silu_reference(*leaves, 8, 1e-6, pad), iters=10)
-                row["backward_plain_ms"] = cuda_time_ms(
+                row["backward_ms"] = cuda_time_ms(
                     lambda: torch.autograd.grad(y, leaves, g, retain_graph=True), iters=10)
+                row["backward_plain_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(want, leaves, g, retain_graph=True), iters=10)
+                del want
 
                 def yardstick():
                     x, scale, bias = leaves
@@ -501,6 +533,9 @@ def gn_training_rows(gn) -> list[dict]:
                     lambda: torch.autograd.grad(lib_y, leaves, g, retain_graph=True), iters=10)
                 del lib_y
                 row["bound_ms"], row["bound_by"] = gn_bound(shape, pad, leaves[0].element_size())
+                row["backward_bound_ms"] = gn_backward_bound(shape, pad,
+                                                             leaves[0].element_size())
+                row["backward_bound_share"] = row["backward_bound_ms"] / row["backward_ms"]
                 rows.append(row)
                 log("kernel gn_silu training " + json.dumps(row))
                 if bad:
@@ -810,8 +845,8 @@ def train_pieces(stem: str, dtype: str, device: str, logsnr_shift: float = 0.0):
 def phase_train_card_vs_cpu(stem: str, n: int = 8, size: int = 64, steps: int = 2,
                             logsnr_shift: float = 0.0, parameterization: str = "eps") -> dict:
     """`steps` f32 train steps at full width on n injected items and (t, eps):
-    the card (GroupNorm kernel forward with the plain backward, flash kernels
-    both ways at 256x256) against the CPU (plain versions both ways).
+    the card (GroupNorm and, at 256x256, flash kernels both ways) against the
+    CPU (plain versions both ways).
     Tolerances: each loss within 1e-3 relative; step-1 gradients leaf by
     leaf, max |diff| <= LEAF_GRAD_TOL[0] * max |g_leaf| + LEAF_GRAD_TOL[1]."""
     from toycrystals_torch.data.datasets import generate_batch
@@ -865,8 +900,9 @@ def phase_train(gn, rz, at, stem: str, dtype: str, size: int = 64, batch: int = 
                 flash_per_step: int = 0) -> dict:
     """`epochs` epochs of `steps` steps through make_sde_train_epoch, every
     epoch on fresh procedural items rendered on the card. Each step must
-    launch 10 GroupNorm kernels, 1 rasterizer and `flash_per_step` flash
-    forwards and as many flash backward passes."""
+    launch 10 GroupNorm forward and 10 GroupNorm backward kernels, 1
+    rasterizer and `flash_per_step` flash forwards and as many flash backward
+    passes."""
     from toycrystals_torch.data.lattice import LatticeConfig
     from toycrystals_torch.train.steps import make_sde_train_epoch
 
@@ -881,22 +917,22 @@ def phase_train(gn, rz, at, stem: str, dtype: str, size: int = 64, batch: int = 
     torch.cuda.reset_peak_memory_stats()
     losses, seconds = [], []
     for e in range(epochs):
-        before = (gn.gn_silu.launches, rz.rasterize.launches, at.flash_sdpa.launches,
-                  at.flash_sdpa.backward_launches)
+        before = (gn.gn_silu.launches, gn.gn_silu.backward_launches, rz.rasterize.launches,
+                  at.flash_sdpa.launches, at.flash_sdpa.backward_launches)
         t0 = time.perf_counter()
         state, loss = epoch(state, gen, e * n_items)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(float(loss))
-        after = (gn.gn_silu.launches, rz.rasterize.launches, at.flash_sdpa.launches,
-                 at.flash_sdpa.backward_launches)
+        after = (gn.gn_silu.launches, gn.gn_silu.backward_launches, rz.rasterize.launches,
+                 at.flash_sdpa.launches, at.flash_sdpa.backward_launches)
         got = tuple(a - b for a, b in zip(after, before))
-        want = (10 * steps, steps, flash_per_step * steps,
+        want = (10 * steps, 10 * steps, steps, flash_per_step * steps,
                 flash_per_step * steps)
         if got != want:
-            raise AssertionError(f"{stem} {dtype} {size}x{size}: (gn_silu, rasterize, flash "
-                                 f"forward, flash backward) launches in {steps} steps "
-                                 f"were {got}, expected {want}")
+            raise AssertionError(f"{stem} {dtype} {size}x{size}: (gn_silu forward, gn_silu "
+                                 f"backward, rasterize, flash forward, flash backward) "
+                                 f"launches in {steps} steps were {got}, expected {want}")
     steady = sum(seconds[1:]) / ((epochs - 1) * steps)  # epoch 1 warms cuDNN up
     ema_gap = max(float((state.ema_params[k] - p.detach()).abs().max())
                   for k, p in state.params.items())
@@ -1021,11 +1057,13 @@ def main() -> int:
                 raise AssertionError(f"{stem}: card and CPU disagree by {d}")
 
         def set_counts_to_zero():
-            gn.gn_silu.launches = rz.rasterize.launches = 0
+            gn.gn_silu.launches = gn.gn_silu.backward_launches = rz.rasterize.launches = 0
             at.flash_sdpa.launches = at.flash_sdpa.backward_launches = 0
 
         def counts():
-            return {"gn_silu": gn.gn_silu.launches, "rasterize": rz.rasterize.launches,
+            return {"gn_silu": gn.gn_silu.launches,
+                    "gn_silu_backward": gn.gn_silu.backward_launches,
+                    "rasterize": rz.rasterize.launches,
                     "flash_attn": at.flash_sdpa.launches,
                     "flash_attn_backward": at.flash_sdpa.backward_launches}
 
@@ -1067,16 +1105,19 @@ def main() -> int:
                               "serving_256": served_hi, "training_256": trained_hi}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
-            # share of the plain-version GroupNorm backward
+            # share of the GroupNorm kernels, forward and backward, in a step
             prefix = "256" if tr["size"] == HI_SIZE else tr["stem"]
-            per_step = sum(r["backward_plain_ms"] * r["blocks_per_step"]
-                           for r in report["gn_training_rows"]
-                           if r["shape"].startswith(prefix) and r["dtype"] == tr["dtype"])
-            tr["gn_backward_plain_ms_per_step"] = per_step
-            tr["gn_backward_plain_share"] = per_step * tr["steps_per_s"] / 1e3
-            log(f"train {tr['stem']} {tr['dtype']} {tr['size']}x{tr['size']}: plain GroupNorm "
-                f"backward {per_step:.3f} ms of {1e3 / tr['steps_per_s']:.3f} ms per step "
-                f"({tr['gn_backward_plain_share']:.3f})")
+            mine = [r for r in report["gn_training_rows"]
+                    if r["shape"].startswith(prefix) and r["dtype"] == tr["dtype"]]
+            for key in ("forward_ms", "backward_ms", "backward_plain_ms"):
+                tr[f"gn_{key}_per_step"] = sum(r[key] * r["blocks_per_step"] for r in mine)
+            per_step = tr["gn_forward_ms_per_step"] + tr["gn_backward_ms_per_step"]
+            tr["gn_share"] = per_step * tr["steps_per_s"] / 1e3
+            log(f"train {tr['stem']} {tr['dtype']} {tr['size']}x{tr['size']}: GroupNorm kernels "
+                f"{tr['gn_forward_ms_per_step']:.3f} ms forward + "
+                f"{tr['gn_backward_ms_per_step']:.3f} ms backward (plain backward "
+                f"{tr['gn_backward_plain_ms_per_step']:.3f}) of {1e3 / tr['steps_per_s']:.3f} ms "
+                f"per step ({tr['gn_share']:.3f})")
         flash_train, flash_serve = flash_headline["train batch 32"], flash_headline["serve 12 img"]
         tr, sl = report["train_256"], report["slice_256"]
         tr["flash_ms_per_step"] = flash_train["ms"] + flash_train["backward_ms"]
@@ -1107,9 +1148,10 @@ def main() -> int:
                 logsnr_shift=HI_CFG["logsnr_shift"], parameterization="v"))
         paths = report["launches"]
         missing = [f"{path}: {k}" for path, ks in (
-            ("serving", ("gn_silu",)), ("training", ("gn_silu", "rasterize")),
+            ("serving", ("gn_silu",)), ("training", ("gn_silu", "gn_silu_backward", "rasterize")),
             ("serving_256", ("gn_silu", "flash_attn")),
-            ("training_256", ("gn_silu", "rasterize", "flash_attn", "flash_attn_backward")))
+            ("training_256", ("gn_silu", "gn_silu_backward", "rasterize", "flash_attn",
+                              "flash_attn_backward")))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -1131,6 +1173,7 @@ def main() -> int:
         "launches_serving": served["gn_silu"], "launches_training": trained["gn_silu"],
         "launches_serving_256": served_hi["gn_silu"],
         "launches_training_256": trained_hi["gn_silu"],
+        "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
@@ -1144,9 +1187,30 @@ def main() -> int:
             "plain_ms": train_headline["plain_ms"], "bound_ms": train_headline["bound_ms"],
             "bound_by": train_headline["bound_by"],
             "library_ms": train_headline["library_ms"],
+            "backward_ms": train_headline["backward_ms"],
+            "backward_bound_ms": train_headline["backward_bound_ms"],
+            "backward_bound_by": "bytes",
             "backward_plain_ms": train_headline["backward_plain_ms"],
             "backward_library_ms": train_headline["library_backward_ms"],
+            "backward_cluster": train_headline["backward_plan"]["cluster"],
+            "grad_max_abs_err": {k: train_headline[f"grad_{k}_closed_form_max_abs_err"]
+                                 for k in ("x", "scale", "bias")},
             "grad_x_max_abs_err": train_headline["grad_x_max_abs_err"]},
+    }, {
+        "name": "gn_silu_backward", "route": "cuda",
+        "source": "toycrystals_torch/csrc/gn_silu.cu",
+        "replaces": "toycrystals_tpu/ops/groupnorm.py:155 (the custom VJP's backward)",
+        "launches": trained["gn_silu_backward"] + trained_hi["gn_silu_backward"],
+        "launches_training": trained["gn_silu_backward"],
+        "launches_training_256": trained_hi["gn_silu_backward"],
+        "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
+        "ms": train_headline["backward_ms"], "plain_ms": train_headline["backward_plain_ms"],
+        "bound_ms": train_headline["backward_bound_ms"], "bound_by": "bytes",
+        "library_ms": train_headline["library_backward_ms"],
+        "library_call": "autograd through F.group_norm + F.silu + F.pad(circular)",
+        "cluster": train_headline["backward_plan"]["cluster"],
+        "at": f"{train_headline['shape']} {train_headline['dims']} bf16 pad=True, dx, dscale "
+              f"and dbias",
     }, {
         "name": "rasterize", "route": "cuda", "source": "toycrystals_torch/csrc/rasterize.cu",
         "replaces": "toycrystals_tpu/data/rasterize.py:72",
