@@ -28,8 +28,14 @@ result line:
    the training batch (128 images, rot_only budget), the full-config budget at
    128 and 4096 images, the 32x32 budget, the 256x256 training batch (32
    images, 9,728-point budget) and odd cases (all weights 0, one atom,
-   H != W). Times of the kernel, the plain version with
-   TF32 off and on, and the bound (f32 operations of the atoms with weight 1).
+   H != W, all 9,728 atoms inside one 32-px tile, atoms just inside and just
+   outside the cull's radius at sigma 1.2, 0.72 and 1.68). Each case logs its
+   launch plan and the mean and largest count of atoms kept per tile; the
+   training batches and the last two cases are rerun bit for bit, and render
+   the same bits with the cull switched off. Times of the kernel (its device
+   time from torch.profiler) and of the wrapper's calls (CUDA events), of the
+   plain version with TF32 off and on, and the bound (bytes, against the f32
+   operations of the (row, column) pairs whose factors are non-zero).
 4. Flash-attention kernels (forward; delta, dK/dV and dQ backward) against
    the plain version `sdpa_reference` run in f32 on the same values: output
    and the gradients of q, k and v, bf16 and f32, at the flagship shapes
@@ -545,20 +551,50 @@ def gn_training_rows(gn) -> list[dict]:
     return rows
 
 
-def raster_bound(weights: torch.Tensor, h: int, w: int) -> tuple[float, str, float]:
+def raster_bound(points: torch.Tensor, weights: torch.Tensor, sigma: torch.Tensor, h: int,
+                 w: int) -> dict:
     """Least time for one call: every input read and the images written once
-    over the HBM rate, against the f32 operations that the atoms with weight
-    1 need (2 per pixel and atom, one exponential per row and column and
-    atom). Also the operations bound if every atom of the budget counted."""
+    over the HBM rate, against the f32 operations that this data needs: for
+    each atom with weight != 0, 2 per (row, column) pair whose factors are
+    both non-zero (the plain version's `torch.exp`) plus one exponential per
+    such row and column. Also the operations bounds if every atom of weight
+    != 0 (`bound_active_atoms_ms`) or every atom of the budget
+    (`bound_all_atoms_ms`) counted at every pixel."""
     b, p = weights.shape
+    inv = 1.0 / (2.0 * sigma * sigma)
+    ops = 0
+    for i in range(0, b, 256):  # [<=256, P, H] factors at a time
+        c = inv[i:i + 256, None, None]
+        nz = weights[i:i + 256] != 0
+
+        def reach(coord, n):  # rows (columns) where an atom's factor is non-zero
+            d = torch.arange(n, dtype=torch.float32, device=coord.device) - coord[..., None]
+            return (torch.exp(-(d * d) * c) != 0).sum(dim=-1).double() * nz
+
+        nr, nc = reach(points[i:i + 256, :, 1], h), reach(points[i:i + 256, :, 0], w)
+        ops += float((2 * nr * nc + nr + nc).sum())
     active = int((weights != 0).sum())
     t_bytes = (b * (3 * p + h * w + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    t_ops = (2 * h * w + h + w) * active / F32_OPS_PER_S * 1e3
-    dense = (2 * h * w + h + w) * b * p / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes", dense) if t_bytes >= t_ops else (t_ops, "operations", dense)
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes_ms=t_bytes, bound_operations_ms=t_ops, nonzero_pair_ops=ops,
+                bound_active_atoms_ms=(2 * h * w + h + w) * active / F32_OPS_PER_S * 1e3,
+                bound_all_atoms_ms=(2 * h * w + h + w) * b * p / F32_OPS_PER_S * 1e3)
+
+
+def survivors_per_tile(rz, points, weights, sigma, h: int, w: int, tile: int) -> dict:
+    """Mean and largest number of atoms that the kernel's cull keeps per tile
+    (its plain counterpart `tile_keep_mask`, 256 images at a time)."""
+    counts = torch.cat([rz.tile_keep_mask(points[i:i + 256], weights[i:i + 256],
+                                          sigma[i:i + 256], h, w, tile).sum(dim=-1).flatten()
+                        for i in range(0, points.shape[0], 256)])
+    return dict(survivors_per_tile_mean=float(counts.double().mean()),
+                survivors_per_tile_max=int(counts.max()))
 
 
 def phase_raster(rz) -> tuple[list[dict], dict]:
+    from toycrystals_torch.bench_flash import kernel_ms
     from toycrystals_torch.data.lattice import LatticeConfig, generate_item, static_point_budget
 
     def geometry(cfg, b):
@@ -573,35 +609,76 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
         wts = (torch.rand((b, p), generator=gen, device=DEVICE) < 0.7).float()
         return pts, wts, torch.rand((b,), generator=gen, device=DEVICE) * 1.4 + 0.6, h, w
 
-    cases = [("train rot_only 64x64", True, geometry(LatticeConfig(rot_only=True), TRAIN_BATCH)),
-             ("full 64x64", True, geometry(LatticeConfig(), TRAIN_BATCH)),
-             ("full 64x64 B4096", True, geometry(LatticeConfig(), 4096)),
-             ("full 32x32", True, geometry(LatticeConfig(img_size=32), TRAIN_BATCH)),
-             ("train rot_only 256x256", True,
+    def crowded(b=2, p=9728):
+        """Every atom of the 256x256 budget, weight 1, inside one 32-px tile."""
+        pts = torch.rand((b, p, 2), generator=gen, device=DEVICE) * 31.999 + 96.0
+        return pts, torch.ones((b, p), device=DEVICE), torch.full((b,), 1.2, device=DEVICE), \
+            HI_SIZE, HI_SIZE
+
+    def near_radius(sigmas=(1.2, 0.72, 1.68), p=2048):
+        """Atoms 17.0-17.6 px (at sigma 1.2; sigma * sqrt(208) -+ 0.3 px at the
+        full config's extreme sigmas) outside the tile edges at 64, 128 and
+        192, which are edges of tiles and of warp sub-tiles."""
+        b = len(sigmas)
+        s = torch.tensor(sigmas, device=DEVICE)[:, None]
+        d = s * 208.0 ** 0.5 + (torch.rand((b, p), generator=gen, device=DEVICE) - 0.5) * 0.6
+        edge = 64.0 * torch.randint(1, 4, (b, p), generator=gen, device=DEVICE).float()
+        below = torch.rand((b, p), generator=gen, device=DEVICE) < 0.5
+        across = torch.where(below, edge - d, edge - 1.0 + d)
+        along = torch.rand((b, p), generator=gen, device=DEVICE) * (HI_SIZE - 1)
+        on_x = torch.rand((b, p), generator=gen, device=DEVICE) < 0.5
+        pts = torch.stack([torch.where(on_x, across, along), torch.where(on_x, along, across)],
+                          -1).contiguous()
+        return pts, torch.ones((b, p), device=DEVICE), s[:, 0].contiguous(), HI_SIZE, HI_SIZE
+
+    # (label, timed, checks: "rerun" bit-equal rerun, "cull" bit-equal without the cull)
+    cases = [("train rot_only 64x64", True, ("rerun", "cull"),
+              geometry(LatticeConfig(rot_only=True), TRAIN_BATCH)),
+             ("full 64x64", True, (), geometry(LatticeConfig(), TRAIN_BATCH)),
+             ("full 64x64 B4096", True, (), geometry(LatticeConfig(), 4096)),
+             ("full 32x32", True, (), geometry(LatticeConfig(img_size=32), TRAIN_BATCH)),
+             ("train rot_only 256x256", True, ("rerun", "cull"),
               geometry(LatticeConfig(img_size=HI_SIZE, rot_only=True), HI_TRAIN_BATCH))]
     zero = random_atoms(2, 256, 64, 64)
     one = random_atoms(1, 128, 64, 64)
     one[1].zero_()
     one[1][0, 5] = 1.0
-    cases += [("odd all weights 0", False, (zero[0], torch.zeros_like(zero[1]), *zero[2:])),
-              ("odd one atom", False, one),
-              ("odd H!=W 40x100", False, random_atoms(3, 384, 40, 100))]
+    cases += [("odd all weights 0", False, (), (zero[0], torch.zeros_like(zero[1]), *zero[2:])),
+              ("odd one atom", False, (), one),
+              ("odd H!=W 40x100", False, (), random_atoms(3, 384, 40, 100)),
+              ("crowded 9728 atoms in one 32-px tile", False, ("rerun", "cull"), crowded()),
+              ("near the cut radius, sigma 1.2 / 0.72 / 1.68", False, ("rerun", "cull"),
+               near_radius())]
     rows, headline = [], None
     atol, rtol = RASTER_TOL
-    for label, timed, (pts, wts, sigma, h, w) in cases:
+    for label, timed, checks, (pts, wts, sigma, h, w) in cases:
         got = rz.rasterize(pts, wts, sigma, h, w)
         torch.cuda.synchronize()
         want = rz.rasterize_separable(pts, wts, sigma, h, w)
         err = (got - want).abs()
         bad = int((err > atol + rtol * want.abs()).sum())
+        plan = rz.kernel_plan(pts.shape[0], pts.shape[1], h, w)
         row = dict(shape=label, b=pts.shape[0], p=pts.shape[1], h=h, w=w,
                    active_atoms=int((wts != 0).sum()), max_abs_err=float(err.max()),
-                   peak=float(want.max()), atol=atol, rtol=rtol, mismatches=bad)
+                   peak=float(want.max()), atol=atol, rtol=rtol, mismatches=bad, plan=plan,
+                   **survivors_per_tile(rz, pts, wts, sigma, h, w, plan["tile"]))
         if label == "odd all weights 0" and float(got.abs().max()) != 0.0:
             raise AssertionError("rasterize: atoms of weight 0 contributed to the image")
         del want, err
+        if "rerun" in checks:
+            row["rerun_bit_equal"] = bool(torch.equal(got, rz.rasterize(pts, wts, sigma, h, w)))
+        if "cull" in checks:
+            row["cull_off_bit_equal"] = bool(torch.equal(
+                got, rz._rasterize_cuda(pts, wts, sigma, h, w, cull=False)))
         if timed:
-            row["ms"] = cuda_time_ms(lambda: rz.rasterize(pts, wts, sigma, h, w), iters=10)
+            # the kernel's device time; at these shapes CUDA events around the
+            # calls time the wrapper's host cost, kept as wrapper_ms
+            row["ms"] = kernel_ms(lambda: rz.rasterize(pts, wts, sigma, h, w), 20,
+                                  ("rasterize",))["rasterize"]
+            if not row["ms"] > 0.0:
+                raise AssertionError(f"rasterize at {label}: torch.profiler saw no device time")
+            row["wrapper_ms"] = cuda_time_ms(lambda: rz.rasterize(pts, wts, sigma, h, w),
+                                             iters=10)
             row["plain_ms"] = cuda_time_ms(
                 lambda: rz.rasterize_separable(pts, wts, sigma, h, w), iters=5, warmup=2)
             torch.backends.cuda.matmul.allow_tf32 = True
@@ -610,7 +687,7 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
                     lambda: rz.rasterize_separable(pts, wts, sigma, h, w), iters=5, warmup=2)
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
-            row["bound_ms"], row["bound_by"], row["bound_all_atoms_ms"] = raster_bound(wts, h, w)
+            row.update(raster_bound(pts, wts, sigma, h, w))
             row["bound_share"] = row["bound_ms"] / row["ms"]
             if headline is None:
                 headline = row
@@ -619,6 +696,9 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
         if bad:
             raise AssertionError(f"rasterize disagrees with its plain version at {label}: "
                                  f"{bad} pixels, max abs err {row['max_abs_err']}")
+        if row.get("rerun_bit_equal") is False or row.get("cull_off_bit_equal") is False:
+            raise AssertionError(f"rasterize at {label}: a rerun or a render without the cull "
+                                 f"changed bits: {row}")
     return rows, headline
 
 
@@ -1218,11 +1298,20 @@ def main() -> int:
         "launches_serving": served["rasterize"], "launches_training": trained["rasterize"],
         "launches_training_256": trained_hi["rasterize"],
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
+        "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
+                 "around the wrapper's calls",
+        "wrapper_ms": raster_headline["wrapper_ms"],
         "plain_ms": raster_headline["plain_ms"], "bound_ms": raster_headline["bound_ms"],
         "bound_by": raster_headline["bound_by"],
-        "bound_counts": "the atoms of weight 1 in this run's data; the kernel computes every "
-                        "atom of the budget, for which the bound is bound_all_atoms_ms",
+        "bound_counts": "bytes (inputs read once, images written once) against the (row, "
+                        "column) pairs whose factors are non-zero in this run's data; "
+                        "bound_active_atoms_ms counts every atom of weight 1 at every pixel, "
+                        "bound_all_atoms_ms every atom of the budget",
+        "bound_operations_ms": raster_headline["bound_operations_ms"],
+        "bound_active_atoms_ms": raster_headline["bound_active_atoms_ms"],
         "bound_all_atoms_ms": raster_headline["bound_all_atoms_ms"],
+        "plan": raster_headline["plan"],
+        "survivors_per_tile_mean": raster_headline["survivors_per_tile_mean"],
         "library_ms": raster_headline["plain_tf32_ms"],
         "library_call": "torch.exp factors + one torch.bmm with TF32 allowed",
         "at": f"{raster_headline['shape']} B={raster_headline['b']} P={raster_headline['p']} "
@@ -1231,9 +1320,14 @@ def main() -> int:
             "at": f"{raster_hi['shape']} B={raster_hi['b']} P={raster_hi['p']} f32, "
                   f"{raster_hi['active_atoms']} atoms of weight 1",
             "max_abs_err": raster_hi["max_abs_err"], "ms": raster_hi["ms"],
+            "wrapper_ms": raster_hi["wrapper_ms"],
             "plain_ms": raster_hi["plain_ms"], "bound_ms": raster_hi["bound_ms"],
             "bound_by": raster_hi["bound_by"],
+            "bound_operations_ms": raster_hi["bound_operations_ms"],
+            "bound_active_atoms_ms": raster_hi["bound_active_atoms_ms"],
             "bound_all_atoms_ms": raster_hi["bound_all_atoms_ms"],
+            "plan": raster_hi["plan"],
+            "survivors_per_tile_mean": raster_hi["survivors_per_tile_mean"],
             "library_ms": raster_hi["plain_tf32_ms"]},
     }, {
         "name": "flash_attn", "route": "cuda",
