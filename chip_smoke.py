@@ -75,6 +75,26 @@ result line:
    epochs of 4 bf16 steps: finite, falling loss, exactly 1 flash forward, 1
    flash backward, 10 GroupNorm forward, 10 GroupNorm backward and 1
    rasterizer launches per step.
+10. The CLIs at full width, through their `train` / `sample` functions (what
+   `main(argv)` runs), into runs/chip_smoke_cli/: train_sde_score_model at
+   64x64 (base_ch 96, stem none, bf16, procedural, batch 128, 1,280 items, EMA
+   0.999) for 2 epochs, a --resume at --epochs 2 that trains nothing (its
+   state must equal the saved one bit for bit: params, both moments, EMA,
+   step and count), then --resume to 3 epochs: metrics.jsonl holds epochs 1-3
+   with finite losses, the checkpoint epoch_next 3, and every step launched
+   exactly 10 GroupNorm forward, 10 GroupNorm backward and 1 rasterizer
+   kernels; steps/s per epoch after the first. sample_sde_score_model from
+   that checkpoint (SDE-300, CFG 1.5, t_end 0.005, EMA, 36 images): exactly
+   3,010 GroupNorm launches per dispatch, the PNG (read back here) holds 36
+   tiles equal to the 8-bit quantisation of sample_chunked run on the model
+   rebuilt from the checkpoint with the same seed and chunk; img/s.
+   ScoreModelService.from_checkpoint serves a 16-image request (finite, in
+   [0, 1]). The 256x256 recipe (param v, logsnr_shift -2.77, batch 32, 64
+   items, 1 epoch: 1 flash forward and 1 backward per step), then DPM-50 on
+   4 images: exactly 51 flash forwards per dispatch. Last, save_checkpoint,
+   load_score_payload and the synchronous part of AsyncCheckpointer.save of
+   the full-width train state, timed on the host's clock, with the file's
+   bytes.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -90,10 +110,13 @@ import argparse
 import json
 import math
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
 import traceback
+import zlib
 
 import numpy as np
 import torch
@@ -1063,6 +1086,259 @@ def profile_train(stem: str, dtype: str, size: int = 64, batch: int = TRAIN_BATC
     return out
 
 
+CLI_DIR = os.path.join(ROOT, "runs", "chip_smoke_cli")  # runs/ is git-ignored
+# Phase 10, the CLIs: full width; 10 steps per 64x64 epoch, 2 at 256x256.
+CLI_MODEL = ["--base-ch", "96", "--stem", "none", "--dtype", "bfloat16"]
+CLI_SIZE, CLI_BATCH, CLI_ITEMS, CLI_SDE_STEPS, CLI_IMAGES = 64, 128, 1280, 300, 36
+CLI_HI_BATCH, CLI_HI_ITEMS, CLI_HI_DPM_STEPS, CLI_HI_IMAGES = 32, 64, 50, 4
+
+
+def read_png_gray(path: str) -> np.ndarray:
+    """An 8-bit grayscale, non-interlaced PNG whose scanlines all use filter
+    0 (what utils/figures.py writes) as a [H, W] uint8 array; anything else
+    raises. Checks every chunk's CRC."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = struct.unpack(">I", data[pos:pos + 4])[0]
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(tag + body):
+            raise ValueError(f"{path}: bad CRC in {tag!r}")
+        pos += 12 + n
+        if tag == b"IHDR":
+            w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", body)
+            if (depth, color, interlace) != (8, 0, 0):
+                raise ValueError(f"{path}: not 8-bit grayscale without interlace")
+            size = (h, w)
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(size[0], size[1] + 1)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: a scanline uses a filter other than 0")
+    return rows[:, 1:]
+
+
+def grid_tiles(img: np.ndarray, n: int, tile: int, pad: int = 2) -> np.ndarray:
+    """The n tiles of a square grid with `pad`-px white gaps; the gaps must be
+    white."""
+    side = int(math.ceil(math.sqrt(n)))
+    if img.shape != (side * (tile + pad) + pad,) * 2:
+        raise AssertionError(f"grid of shape {img.shape} for {n} tiles of {tile} px")
+    gaps = np.ones(img.shape, bool)
+    tiles = []
+    for i in range(n):
+        r, c = divmod(i, side)
+        y0, x0 = pad + r * (tile + pad), pad + c * (tile + pad)
+        tiles.append(img[y0:y0 + tile, x0:x0 + tile])
+        gaps[y0:y0 + tile, x0:x0 + tile] = False
+    if not (img[gaps] == 255).all():
+        raise AssertionError("the gaps of the grid are not white")
+    return np.stack(tiles)
+
+
+def phase_cli(gn, rz, at, set_counts_to_zero, counts, card: str) -> dict:
+    """The two score-model CLIs at full width: 64x64 train -> resume ->
+    sample, the 256x256 recipe, and checkpoint timing (module docstring, phase 10)."""
+    from toycrystals_torch.models.sde_score_model import (
+        VPSDE, CondUNetTiny, sample_chunked, sample_grid_conditions,
+        sample_reverse_sde_euler_maruyama)
+    from toycrystals_torch.scripts import sample_sde_score_model as sample_cli
+    from toycrystals_torch.scripts import train_sde_score_model as train_cli
+    from toycrystals_torch.serve import ScoreModelService
+    from toycrystals_torch.utils import checkpoint as ck
+    from toycrystals_torch.utils.figures import quantize_u8
+    from toycrystals_torch.utils.params import load_flax_params, train_state_to_checkpoint
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    run64, run256 = os.path.join(CLI_DIR, "64"), os.path.join(CLI_DIR, "256")
+    ckpt64 = os.path.join(run64, "checkpoints", "sde_score_model_last.msgpack")
+    per_epoch = CLI_ITEMS // CLI_BATCH
+    flags64 = ["--procedural", *CLI_MODEL, "--img-size", str(CLI_SIZE), "--n-samples",
+               str(CLI_ITEMS), "--batch-size", str(CLI_BATCH), "--ema-decay", "0.999",
+               "--ckpt-every", "1", "--sample-every", "0", "--out-dir", run64]
+    out: dict = {"card": card}
+
+    def tensors(state):
+        named = {f"params/{k}": v for k, v in state.params.items()}
+        named.update({f"ema/{k}": v for k, v in state.ema_params.items()})
+        named.update({f"mu/{i}": t for i, t in enumerate(state.opt_state.mu)})
+        named.update({f"nu/{i}": t for i, t in enumerate(state.opt_state.nu)})
+        return named
+
+    def check_train_launches(label, got, steps, flash):
+        want = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps, "rasterize": steps,
+                "flash_attn": flash * steps, "flash_attn_backward": flash * steps}
+        if got != want:
+            raise AssertionError(f"CLI {label}: launches {got} in {steps} steps, expected {want}")
+
+    # -- 64x64: train 2 epochs, reload, resume to 3
+    set_counts_to_zero()  # the CLI training path starts here
+    first = train_cli.train(flags64 + ["--epochs", "2"])
+    train64 = counts()
+    check_train_launches("train 64x64", train64, first.state.step, 0)
+    loaded = train_cli.train(flags64 + ["--epochs", "2", "--resume"])
+    saved, back = tensors(first.state), tensors(loaded.state)
+    unequal = [k for k in saved if not torch.equal(saved[k], back[k])]
+    if unequal or set(saved) != set(back) or (loaded.state.step, loaded.state.opt_state.count) \
+            != (first.state.step, first.state.opt_state.count) or loaded.epoch_seconds:
+        raise AssertionError(f"--resume did not restore the saved state bit for bit: "
+                             f"{len(unequal)} tensors differ ({unequal[:4]}), step "
+                             f"{loaded.state.step} vs {first.state.step}")
+    out["resume_bit_equal_tensors"] = len(saved)
+    epoch_seconds = list(first.epoch_seconds)
+    del first, loaded, saved, back
+    set_counts_to_zero()
+    third = train_cli.train(flags64 + ["--epochs", "3", "--resume"])
+    resumed = counts()
+    check_train_launches("train 64x64 after --resume", resumed, per_epoch, 0)
+    with open(os.path.join(run64, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    raw = ck.load_checkpoint(ckpt64)
+    if [r["epoch"] for r in rows] != [1, 2, 3] or not all(math.isfinite(r["loss"])
+                                                         for r in rows) \
+            or raw["epoch_next"] != 3 or third.state.step != 3 * per_epoch:
+        raise AssertionError(f"CLI 64x64: metrics {rows}, epoch_next {raw['epoch_next']}, "
+                             f"step {third.state.step}")
+    # epoch 1 warms cuDNN up; epoch 3 runs in the resumed run
+    epoch_seconds += third.epoch_seconds
+    out["train_64"] = dict(losses=[r["loss"] for r in rows], steps=third.state.step,
+                           steps_per_epoch=per_epoch, epoch_seconds=epoch_seconds,
+                           steps_per_s={f"epoch {e + 1}": per_epoch / epoch_seconds[e]
+                                        for e in (1, 2)},
+                           launches_first_run=train64, launches_resumed_run=resumed)
+    log("cli train 64x64 " + json.dumps(out["train_64"]))
+    log(f"cli train 64x64 ({card}): " + ", ".join(
+        f"{k} {v:.3f} steps/s" for k, v in out["train_64"]["steps_per_s"].items()))
+
+    # -- 64x64: the sample CLI from that checkpoint
+    set_counts_to_zero()  # the CLI sampling path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sample_cli.sample(["--out-dir", run64, "--sampler", "sde", "--steps",
+                             str(CLI_SDE_STEPS), "--cfg", "1.5", "--t-end", "0.005",
+                             "--use-ema", "1", "--n", str(CLI_IMAGES)])
+    cli_s = time.perf_counter() - t0
+    sample64 = counts()
+    dispatches = -(-CLI_IMAGES // res.chunk)
+    per_dispatch = 10 * (CLI_SDE_STEPS + 1)
+    if sample64["gn_silu"] != per_dispatch * dispatches or sample64["rasterize"] \
+            or sample64["flash_attn"]:
+        raise AssertionError(f"CLI sample 64x64: launches {sample64} in {dispatches} "
+                             f"dispatch(es), expected {per_dispatch} gn_silu each")
+    tiles = grid_tiles(read_png_gray(res.out_path), CLI_IMAGES, CLI_SIZE)
+    payload = ck.load_score_payload(ckpt64)
+    cfg = payload["config"]
+    model = CondUNetTiny(int(cfg["n_types"]), int(cfg["y_cont_dim"]), base_ch=int(cfg["base_ch"]),
+                         emb_dim=int(cfg["emb_dim"]), cond_ch=int(cfg["cond_ch"]),
+                         time_ch=int(cfg["time_ch"]), dtype=torch.bfloat16, stem=cfg["stem"])
+    load_flax_params(model, payload["state"]["ema_params"])
+    model = model.to(DEVICE).eval().requires_grad_(False)
+    sde = VPSDE(float(cfg["beta_min"]), float(cfg["beta_max"]), float(cfg["logsnr_shift"]))
+    yc, yv = sample_grid_conditions(CLI_IMAGES, 4, 4, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        direct = sample_chunked(sample_reverse_sde_euler_maruyama, model, sde, yc, yv,
+                                (CLI_IMAGES, CLI_SIZE, CLI_SIZE, 1), 0, chunk=res.chunk,
+                                n_steps=CLI_SDE_STEPS,
+                                guidance_scale=1.5, t_end=0.005, n_types=4)
+    direct_s = time.perf_counter() - t0
+    want = quantize_u8(direct[..., 0])
+    differ = int((tiles != want).sum())
+    out["sample_64"] = dict(images=CLI_IMAGES, chunk=res.chunk, dispatches=dispatches,
+                            launches=sample64, cli_seconds=cli_s,
+                            cli_img_per_s=CLI_IMAGES / cli_s, sample_chunked_seconds=direct_s,
+                            sample_chunked_img_per_s=CLI_IMAGES / direct_s,
+                            tiles_differing_pixels=differ,
+                            tile_mean=float(tiles.mean()), tile_std=float(tiles.std()))
+    log("cli sample 64x64 " + json.dumps(out["sample_64"]))
+    log(f"cli sample 64x64 ({card}): {CLI_IMAGES / cli_s:.3f} img/s through the CLI "
+        f"(checkpoint read, model build, PNG write included), {CLI_IMAGES / direct_s:.3f} "
+        f"img/s in sample_chunked")
+    if differ or not np.isfinite(res.x).all():
+        raise AssertionError(f"CLI sample 64x64: {differ} pixels of the PNG differ from the "
+                             f"quantised sample_chunked output on the checkpoint's weights")
+    del model, direct
+    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE)
+    x = svc.sample_conditions(np.arange(16) % 4, np.linspace(0, 1, 16), seed=3)
+    if x.shape != (16, CLI_SIZE, CLI_SIZE, 1) or not np.isfinite(x).all() or x.min() < 0 \
+            or x.max() > 1:
+        raise AssertionError(f"ScoreModelService.from_checkpoint: output {x.shape}, range "
+                             f"[{x.min()}, {x.max()}]")
+    out["service_16"] = dict(mean=float(x.mean()), std=float(x.std()))
+    del svc
+
+    # -- checkpoint timing at full width (the resumed run's state)
+    payload_of = lambda: {"epoch_next": 3, "loss_hist": third.loss_hist,  # noqa: E731
+                          "config": third.config,
+                          "state": train_state_to_checkpoint(third.state, third.tx)}
+    path = os.path.join(CLI_DIR, "timing.msgpack")
+    times: dict[str, list[float]] = {"save_ms": [], "load_ms": [], "async_return_ms": [],
+                                     "async_total_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_checkpoint(path, payload_of())
+        times["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ck.load_score_payload(path)
+        times["load_ms"].append((time.perf_counter() - t0) * 1e3)
+        ckptr = ck.AsyncCheckpointer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckptr.save(path, payload_of())
+        times["async_return_ms"].append((time.perf_counter() - t0) * 1e3)
+        ckptr.wait()
+        times["async_total_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["checkpoint"] = {k: sorted(v)[1] for k, v in times.items()}
+    out["checkpoint"].update(bytes=os.path.getsize(path), runs=3, statistic="median",
+                             card=card, params=sum(p.numel() for p in third.state.params.values()))
+    log(f"cli checkpoint timing ({card}): " + json.dumps(out["checkpoint"]))
+    del third
+
+    # -- 256x256: the recipe, briefly
+    set_counts_to_zero()  # the CLI 256x256 training path starts here
+    hi = train_cli.train(["--procedural", *CLI_MODEL, "--img-size", str(HI_SIZE), "--param",
+                          "v", "--logsnr-shift", "-2.77", "--batch-size", str(CLI_HI_BATCH),
+                          "--n-samples", str(CLI_HI_ITEMS), "--epochs", "1",
+                          "--sample-every", "0", "--out-dir", run256])
+    train256 = counts()
+    check_train_launches("train 256x256", train256, hi.state.step, 1)
+    if hi.state.step != CLI_HI_ITEMS // CLI_HI_BATCH \
+            or not all(math.isfinite(v) for v in hi.loss_hist):
+        raise AssertionError(f"CLI 256x256: step {hi.state.step}, losses {hi.loss_hist}")
+    del hi
+    set_counts_to_zero()  # the CLI 256x256 sampling path starts here
+    t0 = time.perf_counter()
+    res = sample_cli.sample(["--out-dir", run256, "--sampler", "dpm", "--steps",
+                             str(CLI_HI_DPM_STEPS), "--n", str(CLI_HI_IMAGES)])
+    hi_s = time.perf_counter() - t0
+    sample256 = counts()
+    dispatches = -(-CLI_HI_IMAGES // res.chunk)
+    evals = CLI_HI_DPM_STEPS + 1
+    if (sample256["flash_attn"], sample256["gn_silu"]) != (evals * dispatches,
+                                                           10 * evals * dispatches):
+        raise AssertionError(f"CLI sample 256x256: launches {sample256} in {dispatches} "
+                             f"dispatch(es), expected {evals} flash and {10 * evals} gn_silu "
+                             f"each")
+    hi_tiles = grid_tiles(read_png_gray(res.out_path), CLI_HI_IMAGES, HI_SIZE)
+    if not np.array_equal(hi_tiles, quantize_u8(res.x[..., 0])):
+        raise AssertionError("CLI sample 256x256: the PNG's tiles are not the samples")
+    out["256"] = dict(train_launches=train256, sample_launches=sample256,
+                      sample_dispatches=dispatches, sample_cli_seconds=hi_s,
+                      tile_mean=float(hi_tiles.mean()))
+    log("cli 256x256 " + json.dumps(out["256"]))
+    out["launches"] = {"cli_train_64": {k: train64[k] + resumed[k] for k in train64},
+                       "cli_sample_64": sample64, "cli_train_256": train256,
+                       "cli_sample_256": sample256}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -1181,8 +1457,10 @@ def main() -> int:
             epochs=HI_TRAIN_EPOCHS, steps=HI_TRAIN_STEPS, logsnr_shift=HI_CFG["logsnr_shift"],
             parameterization="v", flash_per_step=1)
         trained_hi = counts()
+        report["cli"] = phase_cli(gn, rz, at, set_counts_to_zero, counts, card)
         report["launches"] = {"serving": served, "training": trained,
-                              "serving_256": served_hi, "training_256": trained_hi}
+                              "serving_256": served_hi, "training_256": trained_hi,
+                              **report["cli"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -1231,7 +1509,12 @@ def main() -> int:
             ("serving", ("gn_silu",)), ("training", ("gn_silu", "gn_silu_backward", "rasterize")),
             ("serving_256", ("gn_silu", "flash_attn")),
             ("training_256", ("gn_silu", "gn_silu_backward", "rasterize", "flash_attn",
-                              "flash_attn_backward")))
+                              "flash_attn_backward")),
+            ("cli_train_64", ("gn_silu", "gn_silu_backward", "rasterize")),
+            ("cli_sample_64", ("gn_silu",)),
+            ("cli_train_256", ("gn_silu", "gn_silu_backward", "rasterize", "flash_attn",
+                               "flash_attn_backward")),
+            ("cli_sample_256", ("gn_silu", "flash_attn")))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -1253,6 +1536,7 @@ def main() -> int:
         "launches_serving": served["gn_silu"], "launches_training": trained["gn_silu"],
         "launches_serving_256": served_hi["gn_silu"],
         "launches_training_256": trained_hi["gn_silu"],
+        "launches_cli": {k: paths[k]["gn_silu"] for k in report["cli"]["launches"]},
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
@@ -1280,9 +1564,10 @@ def main() -> int:
         "name": "gn_silu_backward", "route": "cuda",
         "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:155 (the custom VJP's backward)",
-        "launches": trained["gn_silu_backward"] + trained_hi["gn_silu_backward"],
+        "launches": sum(path["gn_silu_backward"] for path in paths.values()),
         "launches_training": trained["gn_silu_backward"],
         "launches_training_256": trained_hi["gn_silu_backward"],
+        "launches_cli": {k: paths[k]["gn_silu_backward"] for k in report["cli"]["launches"]},
         "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
         "ms": train_headline["backward_ms"], "plain_ms": train_headline["backward_plain_ms"],
         "bound_ms": train_headline["backward_bound_ms"], "bound_by": "bytes",
@@ -1294,9 +1579,10 @@ def main() -> int:
     }, {
         "name": "rasterize", "route": "cuda", "source": "toycrystals_torch/csrc/rasterize.cu",
         "replaces": "toycrystals_tpu/data/rasterize.py:72",
-        "launches": trained["rasterize"] + trained_hi["rasterize"],
+        "launches": sum(path["rasterize"] for path in paths.values()),
         "launches_serving": served["rasterize"], "launches_training": trained["rasterize"],
         "launches_training_256": trained_hi["rasterize"],
+        "launches_cli": {k: paths[k]["rasterize"] for k in report["cli"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",
@@ -1333,10 +1619,12 @@ def main() -> int:
         "name": "flash_attn", "route": "cuda",
         "source": "toycrystals_torch/csrc/flash_attn.cu",
         "replaces": "toycrystals_tpu/ops/attention.py:74",
-        "launches": served_hi["flash_attn"] + trained_hi["flash_attn"],
+        "launches": sum(path["flash_attn"] for path in paths.values()),
         "launches_serving_256": served_hi["flash_attn"],
         "launches_training_256": trained_hi["flash_attn"],
         "backward_passes_training_256": trained_hi["flash_attn_backward"],
+        "launches_cli": {k: paths[k]["flash_attn"] for k in report["cli"]["launches"]},
+        "backward_passes_cli_train_256": paths["cli_train_256"]["flash_attn_backward"],
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",
         "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],

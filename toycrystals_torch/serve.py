@@ -14,9 +14,13 @@ One deliberate difference: the JAX service caps its bucket ladder by
 minute or two. A CUDA device has no such limit, so this service keeps the
 buckets it is given.
 
+`ScoreModelService.from_checkpoint(path)` serves a checkpoint of either
+package's trainer (msgpack) or a reference `.pt`, as the JAX service does from
+its `ckpt_path`.
+
 Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
-the rf sampler, int8 convs, meshes, reading msgpack checkpoints, the
-MicroBatcher and the HTTP front end.
+the rf sampler, int8 convs, meshes, orbax checkpoints, the MicroBatcher and
+the HTTP front end.
 """
 
 from __future__ import annotations
@@ -63,9 +67,11 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 
 def load_score_payload(ckpt_path: str) -> dict[str, Any]:
-    raise NotImplementedError(
-        f"reading score checkpoints ({ckpt_path}) is not ported yet ({_DEFERRED}); "
-        "pass the config and the flax param tree to ScoreModelService")
+    """Read a score-model checkpoint: msgpack of either package's trainer or a
+    reference `.pt` (utils/checkpoint.py)."""
+    from toycrystals_torch.utils.checkpoint import load_score_payload as _load
+
+    return _load(ckpt_path)
 
 
 class ScoreModelService:
@@ -177,6 +183,19 @@ class ScoreModelService:
         self._lock = threading.Lock()  # one sampling call at a time per device
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "images": 0, "dispatches": 0}
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_path: str, **kw) -> "ScoreModelService":
+        """The service of a self-describing checkpoint (its config, params and
+        EMA); `kw` as for the constructor."""
+        payload = load_score_payload(ckpt_path)
+        cfg = payload.get("config")
+        if not cfg:
+            raise ValueError(f"{ckpt_path} has no embedded config; serving needs a "
+                             "self-describing checkpoint (any trainer's output, or a "
+                             "reference .pt)")
+        state = payload["state"]
+        return cls(cfg, state["params"], ema_params=state.get("ema_params"), **kw)
 
     @property
     def stats(self) -> dict[str, Any]:

@@ -16,7 +16,10 @@ This covers all three stems ("none", "s2d", "s2dr"). Values are numpy in and
 out; `flax_from_torch_state_dict` is the exact inverse. Gradient and Adam
 moment trees have the parameters' structure, so the same two functions carry
 them; `train_state_to_flax` / `load_train_state_from_flax` do so for a whole
-`TrainState` of toycrystals_torch/train/state.py.
+`TrainState` of toycrystals_torch/train/state.py, and
+`train_state_to_checkpoint` / `load_train_state_from_checkpoint` map it onto
+the JAX checkpoint's `state`: the optax `opt_state` layout that the
+trainer's flags give.
 """
 
 from __future__ import annotations
@@ -58,7 +61,9 @@ def flax_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
     """The port's state_dict (numpy or torch values) -> flax param tree."""
     params: dict = {}
     for key, value in sd.items():
-        a = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach") else value)
+        # a copy: the train state's tensors change in place after a save
+        a = np.asarray(value.detach().to("cpu", copy=True).numpy() if hasattr(value, "detach")
+                       else value)
         *mods, name = key.split(".")
         if name == "weight":
             if a.ndim == 4:
@@ -123,3 +128,81 @@ def load_train_state_from_flax(state, trees: Mapping[str, Any]) -> None:
         copy_into(state.ema_params, trees["ema_params"])
     state.step = int(trees["step"])
     state.opt_state.count = int(trees["count"])
+
+
+_GUARD_KEYS = {"notfinite_count", "last_finite", "total_notfinite", "inner_state"}
+
+
+def train_state_to_checkpoint(state, tx) -> dict:
+    """`TrainState` and `Optimizer` (train/state.py) as the JAX trainer's
+    `to_state_dict(TrainState)`: `{"step", "params", "opt_state",
+    "ema_params"}`, with step and counts as 0-d int32 arrays and `opt_state`
+    in the layout of the optax chain that the flags build:
+
+    - `optax.adam(lr)`: `{"0": {"count", "mu", "nu"}, "1": {}}`, or
+      `"1": {"count"}` when lr is a schedule (--lr-schedule cosine,
+      --warmup-steps);
+    - --clip-grad-norm wraps that as `{"0": {}, "1": <adam>}`;
+    - --skip-nonfinite (`optax.apply_if_finite`) wraps the whole as
+      `{"notfinite_count", "last_finite", "total_notfinite", "inner_state"}`;
+      `last_finite` is whether no step has been skipped since the last one
+      applied.
+    """
+    trees = train_state_to_flax(state)
+    count = np.asarray(trees["count"], np.int32)
+    opt: dict = {"0": {"count": count, "mu": trees["mu"], "nu": trees["nu"]},
+                 "1": {"count": count.copy()} if callable(tx.lr) else {}}
+    if tx.clip_grad_norm > 0.0:
+        opt = {"0": {}, "1": opt}
+    if tx.skip_nonfinite > 0:
+        o = state.opt_state
+        opt = {"notfinite_count": np.asarray(o.notfinite_count, np.int32),
+               "last_finite": np.asarray(o.notfinite_count == 0),
+               "total_notfinite": np.asarray(o.total_notfinite, np.int32),
+               "inner_state": opt}
+    return {"step": np.asarray(trees["step"], np.int32), "params": trees["params"],
+            "opt_state": opt, "ema_params": trees["ema_params"]}
+
+
+def load_train_state_from_checkpoint(state, tx, raw: Mapping[str, Any]) -> None:
+    """Read a checkpoint's `state` (of the JAX trainer or of
+    `train_state_to_checkpoint`) into `state`, in place. Strict: an
+    `opt_state` whose layout is not the one `tx`'s flags give raises
+    ValueError naming the flag, as does an EMA present on one side only."""
+    opt = raw["opt_state"]
+    guarded = isinstance(opt, Mapping) and set(opt) == _GUARD_KEYS
+    if guarded != (tx.skip_nonfinite > 0):
+        raise ValueError(f"the checkpoint was written {'with' if guarded else 'without'} "
+                         "--skip-nonfinite: pass the value it was trained with")
+    guard = opt if guarded else None
+    if guarded:
+        opt = opt["inner_state"]
+    clipped = set(opt) == {"0", "1"} and opt["0"] == {}
+    if clipped != (tx.clip_grad_norm > 0.0):
+        raise ValueError(f"the checkpoint was written {'with' if clipped else 'without'} "
+                         "--clip-grad-norm: pass the value it was trained with")
+    if clipped:
+        opt = opt["1"]
+    if set(opt) != {"0", "1"} or set(opt["0"]) != {"count", "mu", "nu"}:
+        raise ValueError(f"opt_state is not optax.adam's layout: keys {sorted(opt)}")
+    scheduled = opt["1"] != {}
+    if scheduled != callable(tx.lr):
+        raise ValueError(f"the checkpoint was written {'with' if scheduled else 'without'} a "
+                         "learning-rate schedule (--lr-schedule cosine or --warmup-steps): "
+                         "pass the flags it was trained with")
+    adam = opt["0"]
+    count = int(adam["count"])
+    if scheduled and int(opt["1"]["count"]) != count:
+        raise ValueError(f"the schedule's count {int(opt['1']['count'])} differs from "
+                         f"Adam's {count}")
+    has_ema = raw.get("ema_params") is not None
+    if has_ema != (state.ema_params is not None):
+        raise ValueError(f"the checkpoint was written {'with' if has_ema else 'without'} an EMA "
+                         "(--ema-decay): pass the value it was trained with")
+    load_train_state_from_flax(state, {"step": int(raw["step"]), "count": count,
+                                       "params": raw["params"],
+                                       "ema_params": raw.get("ema_params"),
+                                       "mu": adam["mu"], "nu": adam["nu"]})
+    if guard is not None:
+        state.opt_state.notfinite_count = int(guard["notfinite_count"])
+        state.opt_state.total_notfinite = int(guard["total_notfinite"])
