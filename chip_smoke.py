@@ -95,6 +95,25 @@ result line:
    load_score_payload and the synchronous part of AsyncCheckpointer.save of
    the full-width train state, timed on the host's clock, with the file's
    bytes.
+11. The quality instruments and the few-step path, at full width on phase
+   10's 64x64 checkpoint: the fidelity template bank (610 templates, one
+   rasterizer launch) on the card against the CPU (spectra within 1e-5 of
+   the largest entry); the eval CLI's --grid --fid-vae on four committed
+   grids against the JAX CLI's values (fractions to 3 decimals, FIDs to 2,
+   theta within 0.1 deg), with scoring and FID ms for 36 images; --ckpt on
+   phase 10's checkpoint (SDE-300, CFG 1.5, 36 images: 3,010 GroupNorm
+   launches, finite scores). Rectified flow: the train CLI with --param fm
+   for 10 steps (10 + 10 GroupNorm and 1 rasterizer launches per step), the
+   sample CLI's rf sampler (euler 50 steps: 510 GroupNorm launches per
+   dispatch; heun 8: 170), the service at rf-50, and 2 f32 rf steps card
+   against CPU (1e-3). Distillation: 1 f32 step card against CPU on
+   injected (x0, i, eps) (loss 1e-3 relative, gradients leaf by leaf), then
+   the distill CLI 8 -> 4 steps, one epoch of 10 steps each (30 GroupNorm
+   forward, 10 backward and 1 rasterizer launches per step, plus each
+   phase's DDIM grid), its two checkpoints' config and distill_summary.jsonl;
+   steps/s per phase. The 4-step student through ScoreModelService (DDIM-4,
+   guidance 0) at 1, 64 and 1,024 images: 40 GroupNorm launches per
+   dispatch, output finite in [0, 1], img/s.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -107,16 +126,15 @@ Needs one CUDA card; exits non-zero without one. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
 import shutil
-import struct
 import subprocess
 import sys
 import time
 import traceback
-import zlib
 
 import numpy as np
 import torch
@@ -1094,33 +1112,15 @@ CLI_HI_BATCH, CLI_HI_ITEMS, CLI_HI_DPM_STEPS, CLI_HI_IMAGES = 32, 64, 50, 4
 
 
 def read_png_gray(path: str) -> np.ndarray:
-    """An 8-bit grayscale, non-interlaced PNG whose scanlines all use filter
-    0 (what utils/figures.py writes) as a [H, W] uint8 array; anything else
-    raises. Checks every chunk's CRC."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, size = 8, b"", None
-    while pos < len(data):
-        n = struct.unpack(">I", data[pos:pos + 4])[0]
-        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(tag + body):
-            raise ValueError(f"{path}: bad CRC in {tag!r}")
-        pos += 12 + n
-        if tag == b"IHDR":
-            w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB", body)
-            if (depth, color, interlace) != (8, 0, 0):
-                raise ValueError(f"{path}: not 8-bit grayscale without interlace")
-            size = (h, w)
-        elif tag == b"IDAT":
-            idat += body
-        elif tag == b"IEND":
-            break
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(size[0], size[1] + 1)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: a scanline uses a filter other than 0")
-    return rows[:, 1:]
+    """An 8-bit grayscale PNG (what utils/figures.py writes) as a [H, W]
+    uint8 array, decoded by utils/figures.py:read_png (every chunk's CRC
+    checked); any other colour type raises."""
+    from toycrystals_torch.utils.figures import read_png
+
+    img = read_png(path)
+    if img.ndim != 2:
+        raise ValueError(f"{path}: not a grayscale PNG (shape {img.shape})")
+    return np.rint(img * 255.0).astype(np.uint8)
 
 
 def grid_tiles(img: np.ndarray, n: int, tile: int, pad: int = 2) -> np.ndarray:
@@ -1339,6 +1339,329 @@ def phase_cli(gn, rz, at, set_counts_to_zero, counts, card: str) -> dict:
     return out
 
 
+# Phase 11, the quality instruments and the few-step path, on phase 10's 64x64
+# checkpoint. The four committed grids and the JAX CLI's JSON values for each
+# (scripts/eval_sde_score_model.py --device cpu --grid <png> --fid-vae
+# assets/eval/feature_vae_z16.msgpack): type_acc, type_acc_merged01,
+# theta_mae_deg, cond_fidelity, fid, fid_floor.
+Q_EXTRACTOR = os.path.join("assets", "eval", "feature_vae_z16.msgpack")
+Q_GRIDS = {
+    "score_based_diffusion_samples": (0.9444444444444444, 1.0, 1.373015770480742,
+                                      0.8909534811973572, 2.526961591332995,
+                                      0.8044657404264406),
+    "distill_16step": (1.0, 1.0, 0.6309522960235132, 0.9508679509162903, 1.6528338421136883,
+                       0.8044657404264406),
+    "distill_4step": (0.9444444444444444, 1.0, 0.7380955288268644, 0.914840817451477,
+                      1.864640224106342, 0.8044657404264406),
+    "fm64_rf50_samples": (0.9444444444444444, 1.0, 0.7896824890979919, 0.9222322106361389,
+                          2.2264259119654835, 0.8044657404264406),
+}
+Q_SCALARS = ("type_acc", "type_acc_merged01", "theta_mae_deg", "cond_fidelity", "fid",
+             "fid_floor")
+# on the card: the three fractions to 3 decimals, the FIDs to 2, theta within 0.1 deg
+# (assets/FIGURES.md:33-35, the metric's backend sensitivity)
+Q_GRID_TOL = dict(type_acc=5e-4, type_acc_merged01=5e-4, cond_fidelity=5e-4, fid=5e-3,
+                  fid_floor=5e-3, theta_mae_deg=0.1)
+Q_RF_STEPS, Q_HEUN_STEPS, Q_FROM_STEPS, Q_TO_STEPS = 50, 8, 8, 4
+Q_STUDENT_REQUESTS = (1, 64, 1024)
+STUDENT_KEYS = ("param", "distilled", "distill_cfg", "distill_t_end", "distill_teacher",
+                "distill_steps")
+
+
+def _median_ms(fn, runs: int = 3) -> float:
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[runs // 2]
+
+
+def _f32_model(cfg: dict, params, device):
+    from toycrystals_torch.models.sde_score_model import CondUNetTiny
+    from toycrystals_torch.utils.params import load_flax_params
+
+    model = CondUNetTiny(int(cfg["n_types"]), int(cfg["y_cont_dim"]), base_ch=int(cfg["base_ch"]),
+                         emb_dim=int(cfg["emb_dim"]), cond_ch=int(cfg["cond_ch"]),
+                         time_ch=int(cfg["time_ch"]), stem=cfg["stem"])
+    load_flax_params(model, params)
+    return model.to(device)
+
+
+def phase_quality(set_counts_to_zero, counts, card: str) -> dict:
+    """The eval CLI, rectified flow and progressive distillation at full width
+    (module docstring, phase 11)."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.flow_matching import sample_rectified_flow
+    from toycrystals_torch.models.sde_score_model import VPSDE
+    from toycrystals_torch.scripts import distill_sde_score_model as distill_cli
+    from toycrystals_torch.scripts import eval_sde_score_model as eval_cli
+    from toycrystals_torch.scripts import sample_sde_score_model as sample_cli
+    from toycrystals_torch.scripts import train_sde_score_model as train_cli
+    from toycrystals_torch.serve import ScoreModelService
+    from toycrystals_torch.train import distill as td
+    from toycrystals_torch.train.state import Optimizer, create_train_state
+    from toycrystals_torch.utils import checkpoint as ck
+    from toycrystals_torch.utils import fid as qf
+    from toycrystals_torch.utils import fidelity as fq
+
+    ckpt64 = os.path.join(CLI_DIR, "64", "checkpoints", "sde_score_model_last.msgpack")
+    extractor = os.path.join(ROOT, Q_EXTRACTOR)
+    out: dict = {"card": card}
+    launches: dict = {}
+
+    # -- a. the template bank: the rasterizer kernel against the plain version
+    fq._template_bank.cache_clear()
+    set_counts_to_zero()  # the bank's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec, _, _ = fq.template_bank(CLI_SIZE, device=DEVICE)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches["quality_bank"] = counts()
+    if launches["quality_bank"]["rasterize"] != 1 or launches["quality_bank"]["gn_silu"]:
+        raise AssertionError(f"template bank: launches {launches['quality_bank']}, expected one "
+                             f"rasterizer launch")
+
+    def rebuild():
+        fq._template_bank.cache_clear()
+        fq.template_bank(CLI_SIZE, device=DEVICE)
+
+    warm_ms = _median_ms(rebuild)
+    cpu_spec, _, _ = fq.template_bank(CLI_SIZE, device="cpu")
+    d, m = float((spec.cpu() - cpu_spec).abs().max()), float(cpu_spec.abs().max())
+    out["bank"] = dict(templates=int(spec.shape[0]), max_abs_diff=d, max_abs=m, tolerance=1e-5 * m,
+                       build_ms_first=cold_ms, build_ms=warm_ms, runs=3, statistic="median")
+    log("quality template bank " + json.dumps(out["bank"]))
+    if not d <= 1e-5 * m:
+        raise AssertionError(f"template bank: card and CPU spectra differ by {d} (max {m})")
+    fq.template_bank(CLI_SIZE, device=DEVICE)  # cached for the steps below
+
+    # -- b. the committed grids through the eval CLI
+    out["grids"] = {}
+    for name, want in Q_GRIDS.items():
+        path = os.path.join(ROOT, "assets", "score_based_diffusion", f"{name}.png")
+        t0 = time.perf_counter()
+        line = eval_cli.evaluate(["--grid", path, "--fid-vae", extractor]).line
+        got = {k: line[k] for k in Q_SCALARS}
+        out["grids"][name] = dict(got, seconds=time.perf_counter() - t0,
+                                  jax=dict(zip(Q_SCALARS, want)))
+        bad = [k for k, w in zip(Q_SCALARS, want) if not abs(got[k] - w) <= Q_GRID_TOL[k]]
+        log(f"quality grid {name}: " + json.dumps(out["grids"][name]))
+        if bad:
+            raise AssertionError(f"{name}: {bad} differ from the JAX CLI beyond {Q_GRID_TOL}: "
+                                 f"{got} vs {dict(zip(Q_SCALARS, want))}")
+    tiles = fq.extract_grid_tiles(os.path.join(ROOT, "assets", "score_based_diffusion",
+                                               "score_based_diffusion_samples.png"))
+    y_cat = np.arange(36) % 4
+    theta = np.linspace(0.0, math.pi / 3, 36).astype(np.float32)
+    t0 = time.perf_counter()
+    fmodel, _ = qf.load_feature_extractor(extractor, device=DEVICE)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    ref = qf.reference_stats(fmodel)
+    out["timing"] = dict(
+        score_36_ms=_median_ms(lambda: fq.score_lattice_fidelity(tiles, y_cat, theta,
+                                                                 device=DEVICE)),
+        fid_36_ms=_median_ms(lambda: qf.compute_fid(tiles[..., None], fmodel, ref_stats=ref)),
+        extractor_load_ms=load_ms, runs=3, statistic="median", card=card)
+    log("quality instruments " + json.dumps(out["timing"]))
+
+    # -- c. --ckpt on phase 10's checkpoint (SDE-300, CFG 1.5, 36 images)
+    set_counts_to_zero()  # the eval CLI's sampling path starts here
+    t0 = time.perf_counter()
+    res = eval_cli.evaluate(["--ckpt", ckpt64, "--sampler", "sde", "--steps", str(CLI_SDE_STEPS),
+                             "--cfg", "1.5", "--t-end", "0.005", "--fid-vae", extractor])
+    eval_s = time.perf_counter() - t0
+    launches["quality_eval_ckpt"] = c = counts()
+    line = res.line
+    if c["gn_silu"] != 10 * (CLI_SDE_STEPS + 1) or c["flash_attn"] \
+            or (line["sampler"], line["steps"], line["n"]) != ("sde", CLI_SDE_STEPS, CLI_IMAGES) \
+            or not all(math.isfinite(line[k]) for k in Q_SCALARS):
+        raise AssertionError(f"eval --ckpt: launches {c}, line {line}")
+    out["eval_ckpt"] = dict({k: line[k] for k in Q_SCALARS}, seconds=eval_s, launches=c)
+    log(f"quality eval --ckpt (phase 10's weights, 3 epochs; {card}): " + json.dumps(
+        out["eval_ckpt"]))
+
+    # -- d. rectified flow: train --param fm, sample rf (euler 50, heun 8)
+    runfm = os.path.join(CLI_DIR, "fm")
+    set_counts_to_zero()  # the fm training path starts here
+    fm = train_cli.train(["--procedural", *CLI_MODEL, "--img-size", str(CLI_SIZE), "--param",
+                          "fm", "--n-samples", str(CLI_ITEMS), "--batch-size", str(CLI_BATCH),
+                          "--epochs", "1", "--sample-every", "0", "--out-dir", runfm])
+    launches["quality_train_fm"] = c = counts()
+    steps = fm.state.step
+    if (c["gn_silu"], c["gn_silu_backward"], c["rasterize"], c["flash_attn"]) != \
+            (10 * steps, 10 * steps, steps, 0) or steps != CLI_ITEMS // CLI_BATCH \
+            or not all(math.isfinite(v) for v in fm.loss_hist) or fm.config["param"] != "fm":
+        raise AssertionError(f"fm training: launches {c} in {steps} steps, losses {fm.loss_hist}")
+    out["train_fm"] = dict(steps=steps, loss=fm.loss_hist, launches=c)
+    del fm
+    out["sample_rf"] = {}
+    launches["quality_sample_rf"] = {k: 0 for k in counts()}
+    for solver, n_steps, evals in (("euler", Q_RF_STEPS, Q_RF_STEPS + 1),
+                                   ("heun", Q_HEUN_STEPS, 2 * Q_HEUN_STEPS + 1)):
+        set_counts_to_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sample_cli.sample(["--out-dir", runfm, "--sampler", "rf", "--rf-solver", solver,
+                                 "--steps", str(n_steps), "--n", str(CLI_IMAGES)])
+        dt = time.perf_counter() - t0
+        c = counts()
+        dispatches = -(-CLI_IMAGES // res.chunk)
+        if c["gn_silu"] != 10 * evals * dispatches or res.sampler != "rf" \
+                or not np.isfinite(res.x).all():
+            raise AssertionError(f"rf {solver} {n_steps}: launches {c} in {dispatches} "
+                                 f"dispatch(es), expected {10 * evals} gn_silu each")
+        for k in c:
+            launches["quality_sample_rf"][k] += c[k]
+        out["sample_rf"][f"{solver}_{n_steps}"] = dict(
+            seconds=dt, img_per_s=CLI_IMAGES / dt, dispatches=dispatches,
+            gn_silu_per_dispatch=c["gn_silu"] // dispatches)
+    fm_ckpt = os.path.join(runfm, "checkpoints", "sde_score_model_last.msgpack")
+    svc = ScoreModelService.from_checkpoint(fm_ckpt, device=DEVICE, buckets=(CLI_IMAGES,))
+    conds = (np.arange(CLI_IMAGES) % 4, np.linspace(0.0, math.pi / 3, CLI_IMAGES))
+    svc.sample_conditions(*conds, seed=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.sample_conditions(*conds, seed=2)
+    dt = time.perf_counter() - t0
+    out["sample_rf"]["service_rf50_cfg1.5"] = dict(seconds=dt, img_per_s=CLI_IMAGES / dt,
+                                                   sampler=svc.sampler_name, steps=svc.steps)
+    del svc
+    log(f"quality rf ({card}): " + json.dumps(out["sample_rf"]))
+    payload = ck.load_score_payload(fm_ckpt)
+    rng = np.random.default_rng(11)
+    noise = rng.normal(size=(4, CLI_SIZE, CLI_SIZE, 1)).astype(np.float32)
+    rf = {}
+    for dev in (DEVICE, "cpu"):
+        model = _f32_model(payload["config"], payload["state"]["params"], dev).eval()
+        with torch.inference_mode():
+            rf[dev] = sample_rectified_flow(
+                model.requires_grad_(False), None, torch.tensor([0, 1, 2, 3], device=dev),
+                torch.zeros(4, 4, device=dev), (4, CLI_SIZE, CLI_SIZE, 1), noise=noise,
+                n_steps=2, guidance_scale=1.5, t_end=0.005).cpu()
+    d = float((rf[DEVICE] - rf["cpu"]).abs().max())
+    out["rf_card_vs_cpu"] = d
+    log(f"quality rf: card vs CPU, 2 f32 rf steps (CFG 1.5) on injected noise: max abs diff "
+        f"{d:.3e} (tolerance 1e-3)")
+    if not d <= 1e-3:
+        raise AssertionError(f"rf: card and CPU disagree by {d}")
+
+    # -- e. progressive distillation: 1 f32 step card vs CPU, then the CLI 8 -> 4
+    payload = ck.load_score_payload(ckpt64)
+    tcfg, tparams = payload["config"], payload["state"]["ema_params"]
+    n = 8
+    x0, y_cat_t, y_cont_t = generate_batch(LatticeConfig(img_size=CLI_SIZE, rot_only=True), 0,
+                                           np.arange(n), device="cpu")
+    i_draw = torch.tensor(rng.integers(0, Q_FROM_STEPS, size=n))
+    eps = torch.tensor(rng.normal(size=(n, CLI_SIZE, CLI_SIZE, 1)).astype(np.float32))
+
+    @dataclasses.dataclass(frozen=True)
+    class KeepGrads(Optimizer):
+        seen: list = dataclasses.field(default_factory=list)
+
+        def update(self, params, grads, state):
+            self.seen.append([g.detach().cpu() for g in grads])
+            return super().update(params, grads, state)
+
+    losses, grads = {}, {}
+    for dev in (DEVICE, "cpu"):
+        teacher = _f32_model(tcfg, tparams, dev).eval().requires_grad_(False)
+        student = _f32_model(tcfg, tparams, dev)
+        tx = KeepGrads(TRAIN_LR)
+        state = create_train_state(student, tx)
+        step = td.make_distill_train_step(student, teacher, tx, VPSDE(0.1, 30.0), Q_FROM_STEPS,
+                                          n_types=4, guidance_scale=1.5, t_end=0.005)
+        _, loss = step(state, *(a.to(dev) for a in (x0, y_cat_t, y_cont_t)),
+                       noise=(i_draw.to(dev), eps.to(dev)))
+        losses[dev], grads[dev] = float(loss), tx.seen[0]
+        names = list(state.params)
+        del teacher, student, state
+    leaves = []
+    for k, a, b in zip(names, grads[DEVICE], grads["cpu"]):
+        dd, mm = float((a - b).abs().max()), float(b.abs().max())
+        leaves.append(dict(leaf=k, max_abs_diff=dd, max_abs=mm,
+                           share_of_limit=dd / (LEAF_GRAD_TOL[0] * mm + LEAF_GRAD_TOL[1])))
+    worst = sorted(leaves, key=lambda r: -r["share_of_limit"])
+    l_diff = abs(losses[DEVICE] - losses["cpu"]) / abs(losses["cpu"])
+    out["distill_card_vs_cpu"] = dict(items=n, i=i_draw.tolist(), loss_card=losses[DEVICE],
+                                      loss_cpu=losses["cpu"], loss_rel_diff=l_diff,
+                                      grad_leaves=len(leaves), grad_worst_leaves=worst[:3])
+    log("quality distill step card vs CPU " + json.dumps(out["distill_card_vs_cpu"]))
+    if not (l_diff <= 1e-3 and worst[0]["share_of_limit"] <= 1.0):
+        raise AssertionError(f"distill step: card and CPU disagree: loss rel. difference "
+                             f"{l_diff}, worst gradient leaf {worst[0]}")
+
+    rund = os.path.join(CLI_DIR, "distill")
+    shutil.rmtree(rund, ignore_errors=True)
+    set_counts_to_zero()  # the distillation path starts here
+    run = distill_cli.distill(["--teacher", ckpt64, "--from-steps", str(Q_FROM_STEPS),
+                               "--to-steps", str(Q_TO_STEPS), "--epochs", "1", "--n-samples",
+                               str(CLI_ITEMS), "--batch-size", str(CLI_BATCH), "--cfg", "1.5",
+                               "--out-dir", rund])
+    launches["quality_distill"] = c = counts()
+    steps = sum(len(s) for s in run.epoch_seconds) * (CLI_ITEMS // CLI_BATCH)
+    grid_evals = sum(run.schedule)  # one DDIM grid per phase, guidance 0: 1 forward per step
+    want = (30 * steps + 10 * grid_evals, 10 * steps, steps, 0)
+    if (c["gn_silu"], c["gn_silu_backward"], c["rasterize"], c["flash_attn"]) != want:
+        raise AssertionError(f"distillation: launches {c} in {steps} steps and {grid_evals} grid "
+                             f"evaluations, expected (gn_silu, backward, rasterize, flash) {want}")
+    ckpts = [ck.load_checkpoint(p)["config"] for p in run.checkpoints]
+    if run.schedule != [Q_FROM_STEPS, Q_TO_STEPS] or len(ckpts) != 2 or run.preempted \
+            or any(cfg.get(k) is None for cfg in ckpts for k in STUDENT_KEYS) \
+            or [cfg["distill_steps"] for cfg in ckpts] != run.schedule \
+            or any((cfg["param"], cfg["distilled"]) != ("v", True) for cfg in ckpts):
+        raise AssertionError(f"distillation: schedule {run.schedule}, configs "
+                             f"{[{k: cfg.get(k) for k in STUDENT_KEYS} for cfg in ckpts]}")
+    with open(os.path.join(rund, "distill_summary.jsonl")) as f:
+        summary = [json.loads(line) for line in f if line.strip()]
+    if len(summary) != 2 or not all(math.isfinite(v) for s in summary for v in s.values()):
+        raise AssertionError(f"distill_summary.jsonl: {summary}")
+    per_phase = CLI_ITEMS // CLI_BATCH
+    out["distill"] = dict(
+        schedule=run.schedule, losses=run.losses, epoch_seconds=run.epoch_seconds,
+        steps_per_s={f"{n_s}-step phase": per_phase / s[0]
+                     for n_s, s in zip(run.schedule, run.epoch_seconds)},
+        launches=c, gn_silu_per_step=30, gn_silu_backward_per_step=10, rasterize_per_step=1,
+        summary=summary, configs=[{k: cfg[k] for k in STUDENT_KEYS} for cfg in ckpts])
+    log("quality distill " + json.dumps(out["distill"]))
+    log(f"quality distill ({card}): " + ", ".join(
+        f"{k} {v:.3f} steps/s" for k, v in out["distill"]["steps_per_s"].items()))
+
+    # -- f. the 4-step student through the service
+    svc = ScoreModelService.from_checkpoint(run.checkpoints[-1], device=DEVICE,
+                                            buckets=Q_STUDENT_REQUESTS)
+    if (svc.sampler_name, svc.steps, svc.guidance_scale) != ("ddim", Q_TO_STEPS, 0.0):
+        raise AssertionError(f"student: sampler {svc.sampler_name}, steps {svc.steps}, "
+                             f"guidance {svc.guidance_scale}")
+    svc.warmup()
+    out["student"] = {}
+    launches["quality_student"] = {k: 0 for k in counts()}
+    for req in Q_STUDENT_REQUESTS:
+        set_counts_to_zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = svc.sample_conditions(np.arange(req) % 4, np.linspace(0.0, math.pi / 3, req), seed=5)
+        dt = time.perf_counter() - t0
+        c = counts()
+        if c["gn_silu"] != 10 * Q_TO_STEPS or x.shape != (req, CLI_SIZE, CLI_SIZE, 1) \
+                or not np.isfinite(x).all() or x.min() < 0 or x.max() > 1:
+            raise AssertionError(f"student request of {req}: launches {c}, shape {x.shape}, "
+                                 f"range [{x.min()}, {x.max()}]")
+        for k in c:
+            launches["quality_student"][k] += c[k]
+        out["student"][str(req)] = dict(seconds=dt, img_per_s=req / dt, dispatches=1,
+                                        gn_silu=c["gn_silu"])
+    del svc
+    log(f"quality student DDIM-{Q_TO_STEPS} ({card}): " + ", ".join(
+        f"{k} images {v['img_per_s']:.1f} img/s" for k, v in out["student"].items()))
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -1458,9 +1781,13 @@ def main() -> int:
             parameterization="v", flash_per_step=1)
         trained_hi = counts()
         report["cli"] = phase_cli(gn, rz, at, set_counts_to_zero, counts, card)
+        t0 = time.perf_counter()
+        report["quality"] = phase_quality(set_counts_to_zero, counts, card)
+        report["quality"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 11 took {report['quality']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
-                              **report["cli"]["launches"]}
+                              **report["cli"]["launches"], **report["quality"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -1514,7 +1841,12 @@ def main() -> int:
             ("cli_sample_64", ("gn_silu",)),
             ("cli_train_256", ("gn_silu", "gn_silu_backward", "rasterize", "flash_attn",
                                "flash_attn_backward")),
-            ("cli_sample_256", ("gn_silu", "flash_attn")))
+            ("cli_sample_256", ("gn_silu", "flash_attn")), ("quality_bank", ("rasterize",)),
+            ("quality_eval_ckpt", ("gn_silu",)),
+            ("quality_train_fm", ("gn_silu", "gn_silu_backward", "rasterize")),
+            ("quality_sample_rf", ("gn_silu",)),
+            ("quality_distill", ("gn_silu", "gn_silu_backward", "rasterize")),
+            ("quality_student", ("gn_silu",)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -1537,6 +1869,7 @@ def main() -> int:
         "launches_serving_256": served_hi["gn_silu"],
         "launches_training_256": trained_hi["gn_silu"],
         "launches_cli": {k: paths[k]["gn_silu"] for k in report["cli"]["launches"]},
+        "launches_quality": {k: paths[k]["gn_silu"] for k in report["quality"]["launches"]},
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
@@ -1568,6 +1901,8 @@ def main() -> int:
         "launches_training": trained["gn_silu_backward"],
         "launches_training_256": trained_hi["gn_silu_backward"],
         "launches_cli": {k: paths[k]["gn_silu_backward"] for k in report["cli"]["launches"]},
+        "launches_quality": {k: paths[k]["gn_silu_backward"]
+                             for k in report["quality"]["launches"]},
         "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
         "ms": train_headline["backward_ms"], "plain_ms": train_headline["backward_plain_ms"],
         "bound_ms": train_headline["backward_bound_ms"], "bound_by": "bytes",
@@ -1583,6 +1918,7 @@ def main() -> int:
         "launches_serving": served["rasterize"], "launches_training": trained["rasterize"],
         "launches_training_256": trained_hi["rasterize"],
         "launches_cli": {k: paths[k]["rasterize"] for k in report["cli"]["launches"]},
+        "launches_quality": {k: paths[k]["rasterize"] for k in report["quality"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",

@@ -109,14 +109,10 @@ def test_seed_and_condition_checks(params):
     assert y_cat.tolist() == [2, 2] and y_cont[:, 1].tolist() == pytest.approx([0.5, 0.7])
 
 
-@pytest.mark.parametrize("case", ["rf", "fm", "int8", "mesh", "microbatcher", "checkpoint"])
+@pytest.mark.parametrize("case", ["int8", "mesh", "microbatcher", "checkpoint"])
 def test_unported_parts_raise(params, case, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "rf":
-            _svc(params, sampler=case)
-        elif case == "fm":
-            serve.ScoreModelService(dict(CFG, param="fm"), params, device="cpu")
-        elif case == "int8":
+        if case == "int8":
             _svc(params, quantize="int8")
         elif case == "mesh":
             _svc(params, mesh=object())

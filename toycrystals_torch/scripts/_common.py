@@ -14,7 +14,7 @@ from toycrystals_torch.data.datasets import load_archive
 from toycrystals_torch.serve import resolve_device
 
 PARALLEL = "ROADMAP.md queue 1, module 5: parallel axes"
-FAST_PATH = "ROADMAP.md queue 1, module 3: fast path and the rest of serving"
+FAST_PATH = "ROADMAP.md queue 1, module 3: the rest of serving"
 DATA_REST = "ROADMAP.md queue 1, module 2: its rest"
 
 

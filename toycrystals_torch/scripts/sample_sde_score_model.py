@@ -6,15 +6,16 @@
 Counterpart of scripts/sample_sde_score_model.py, with its flags: --ckpt is
 a path or last/best under <out-dir>/checkpoints (msgpack of either package's
 trainer, or a reference .pt); the model is rebuilt from the checkpoint's
-config (the flags are the fallback); --use-ema; samplers ode, sde, dpm and
-ddim; v-prediction checkpoints are wrapped to eps; a distilled checkpoint
-defaults to its trained steps and t_end; the grid goes to
-<out-dir>/results/ under a name that encodes the settings.
+config (the flags are the fallback); --use-ema; samplers ode, sde, dpm,
+ddim and rf (--rf-solver euler or heun); v-prediction checkpoints are
+wrapped to eps; an fm checkpoint samples with rf on its fm_shift grid; a
+distilled checkpoint defaults to its trained steps and t_end; the grid goes
+to <out-dir>/results/ under a name that encodes the settings.
 
 Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU, and the grid is an 8-bit PNG of the pixels themselves
-(utils/figures.py). The rf sampler, int8 convs, meshes and orbax
-checkpoints are not ported yet: those flags raise, naming their ROADMAP item.
+(utils/figures.py). Int8 convs, meshes and orbax checkpoints are not ported
+yet: those flags raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from toycrystals_torch.models.flow_matching import sample_rectified_flow
 from toycrystals_torch.models.sde_score_model import (
     VPSDE,
     CondUNetTiny,
@@ -55,7 +57,7 @@ from toycrystals_torch.utils.figures import save_image_grid
 from toycrystals_torch.utils.params import load_flax_params
 
 SAMPLERS = {"ode": sample_probability_flow_ode, "sde": sample_reverse_sde_euler_maruyama,
-            "dpm": sample_dpmpp_2m, "ddim": sample_ddim}
+            "dpm": sample_dpmpp_2m, "ddim": sample_ddim, "rf": sample_rectified_flow}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,9 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["ode", "sde", "dpm", "ddim", "rf"],
                    help="ode = probability-flow Heun, sde = reverse-SDE Euler-Maruyama, dpm = "
                         "DPM-Solver++(2M) (try --steps 30-50), ddim = deterministic DDIM, the "
-                        f"sampler of distilled checkpoints; rf is not ported yet ({FAST_PATH})")
+                        "sampler of distilled checkpoints; rf = rectified-flow Euler, chosen "
+                        "for --param fm checkpoints (try --steps 20-50)")
     p.add_argument("--rf-solver", type=str, default="euler", choices=["euler", "heun"],
-                   help=f"--sampler rf's integrator; not ported yet ({FAST_PATH})")
+                   help="--sampler rf's integrator: euler (1 evaluation per step) or heun "
+                        "(2; compare N heun steps with 2N euler steps)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--chunk", type=int, default=None,
                    help="Max images per sampling call (the last one padded and trimmed). "
@@ -124,9 +128,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     p = build_parser()
     args = p.parse_args(argv)
     refuse_deferred(p, args, {**{d: PARALLEL for d in PARALLEL_DESTS},
-                              "quantize": FAST_PATH, "rf_solver": FAST_PATH})
-    if args.sampler == "rf":
-        raise SystemExit(f"--sampler rf is not ported yet ({FAST_PATH})")
+                              "quantize": FAST_PATH})
     device = select_device(args.device)
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
@@ -140,9 +142,6 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         "param": args.param,
     }
     ckpt_param = str(cfg.get("param", "eps"))
-    if ckpt_param == "fm":
-        raise SystemExit(f"{ckpt_path} was trained with --param fm; its rf sampler is not "
-                         f"ported yet ({FAST_PATH})")
     dtype_name = str(cfg.get("dtype", "float32")) if args.dtype == "auto" else args.dtype
     model = CondUNetTiny(
         n_types=int(cfg["n_types"]), y_cont_dim=int(cfg["y_cont_dim"]),
@@ -162,7 +161,25 @@ def sample(argv: list[str] | None = None) -> SampleRun:
 
     apply_fn = model
     extra_kw: dict[str, Any] = {}
-    if args.sampler == "ddim":
+    if ckpt_param == "fm":
+        # the net is a velocity field on the straight-line path: only the rf
+        # integrator consumes it
+        if args.sampler != "rf":
+            if args.sampler != p.get_default("sampler"):
+                raise SystemExit(f"--sampler {args.sampler} expects a VP eps/v model; this "
+                                 "checkpoint was trained with --param fm: use --sampler rf")
+            args.sampler = "rf"
+            print("flow-matching checkpoint: --sampler defaulting to rf")
+        # sample on the shifted grid the model was trained for (--fm-shift)
+        if float(cfg.get("fm_shift", 1.0)) != 1.0:
+            extra_kw["t_shift"] = float(cfg["fm_shift"])
+        if args.rf_solver != "euler":
+            extra_kw["solver"] = args.rf_solver
+    elif args.sampler == "rf":
+        raise SystemExit(f"--sampler rf integrates a rectified-flow velocity field; this "
+                         f"checkpoint was trained with --param {ckpt_param}: use ode/sde/dpm "
+                         "(or ddim for distilled checkpoints)")
+    elif args.sampler == "ddim":
         # ddim reads the raw net output (v is its well-conditioned route)
         extra_kw["prediction"] = ckpt_param
     elif ckpt_param == "v":

@@ -17,8 +17,8 @@ Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU; the sample grids are 8-bit PNGs of the pixels themselves
 (utils/figures.py) and there is no loss-curve figure; each epoch draws from a
 generator seeded by (--seed, epoch), so a resumed run continues the draws of
-an uninterrupted one. Meshes, streaming, profiling, --param fm and orbax
-checkpoints are not ported yet: those flags raise, naming their ROADMAP item.
+an uninterrupted one. Meshes, streaming, profiling and orbax checkpoints are
+not ported yet: those flags raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 
 from toycrystals_torch.data.datasets import batch_iterator, generate_batch
 from toycrystals_torch.data.lattice import LatticeConfig, static_point_budget
+from toycrystals_torch.models.flow_matching import sample_rectified_flow
 from toycrystals_torch.models.sde_score_model import (
     VPSDE,
     CondUNetTiny,
@@ -49,7 +50,6 @@ from toycrystals_torch.models.sde_score_model import (
 from toycrystals_torch.models.torch_init import flax_default_init, torch_like_init
 from toycrystals_torch.scripts._common import (
     DATA_REST,
-    FAST_PATH,
     PARALLEL,
     PARALLEL_DESTS,
     ResidentDiskDataset,
@@ -116,10 +116,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--t-power", type=float, default=1.0,
                    help="Sample t as t=u**t_power. >1 biases towards small t.")
     p.add_argument("--param", type=str, default=None, choices=["eps", "v", "fm"],
-                   help="Prediction target: eps or v (fm is not ported yet). Stored in the "
-                        "config. Default: eps, or the checkpoint's on --resume.")
+                   help="Prediction target: eps, v, or fm (rectified-flow velocity on the "
+                        "straight-line path; sample with --sampler rf). Stored in the config. "
+                        "Default: eps, or the checkpoint's on --resume.")
     p.add_argument("--fm-shift", type=float, default=None,
-                   help="Timestep shift of --param fm. Default: 1.0, or the checkpoint's.")
+                   help="Timestep shift t -> s t / (1 + (s - 1) t) of --param fm, in the "
+                        "training draw and the rf sampling grid (4.0 at 256x256). Default: "
+                        "1.0, or the checkpoint's on --resume.")
     p.add_argument("--min-snr-gamma", type=float, default=None,
                    help="min-SNR-gamma loss weighting for eps|v (0 = off). Default: 0, or the "
                         "checkpoint's value on --resume.")
@@ -231,8 +234,6 @@ def train(argv: list[str] | None = None) -> TrainRun:
         args.img_size = int(rcfg.get("img_size") or 64)
     if args.param is None:
         args.param = str(rcfg.get("param") or "eps")
-    if args.param == "fm":
-        raise SystemExit(f"--param fm (rectified flow) is not ported yet ({FAST_PATH})")
     if args.stem is None:
         args.stem = str(rcfg.get("stem") or "none")
     if args.beta_min is None:
@@ -243,11 +244,14 @@ def train(argv: list[str] | None = None) -> TrainRun:
         args.logsnr_shift = float(rcfg.get("logsnr_shift", 0.0))
     if args.fm_shift is None:
         args.fm_shift = float(rcfg.get("fm_shift", 1.0))
-    if args.fm_shift != 1.0:
+    if args.fm_shift != 1.0 and args.param != "fm":
         raise SystemExit("--fm-shift shifts the rectified-flow timestep draw (--param fm); VP "
                          "runs shift via --logsnr-shift")
     if args.min_snr_gamma is None:
         args.min_snr_gamma = float(rcfg.get("min_snr_gamma", 0.0))
+    if args.min_snr_gamma > 0.0 and args.param == "fm":
+        raise SystemExit("--min-snr-gamma weights the VP objectives (--param eps|v); rectified "
+                         "flow weights timesteps via --fm-shift instead")
     # clipping changes the opt_state layout, so it follows the checkpoint
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
@@ -357,9 +361,9 @@ def train(argv: list[str] | None = None) -> TrainRun:
             print(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
 
     def save_samples(out_path: str) -> None:
-        """A 36-image grid with the ODE sampler, as the JAX trainer's
-        in-training grids, from a copy of the model holding the EMA (or the
-        live) weights."""
+        """A 36-image grid with the ODE sampler (rf on the --fm-shift grid for
+        --param fm), as the JAX trainer's in-training grids, from a copy of
+        the model holding the EMA (or the live) weights."""
         prm = state.sample_params if args.sample_from_ema == 1 else state.params
         grid_model = CondUNetTiny(
             n_types=args.n_types, y_cont_dim=args.y_cont_dim, base_ch=args.base_ch,
@@ -368,14 +372,17 @@ def train(argv: list[str] | None = None) -> TrainRun:
         grid_model.load_state_dict({k: v.detach() for k, v in prm.items()}, strict=True)
         grid_model = grid_model.to(device).eval().requires_grad_(False)
         apply_fn = eps_apply_from_v(sde, grid_model) if args.param == "v" else grid_model
+        grid_sampler, grid_name, grid_kw = sample_probability_flow_ode, "ode", {}
+        if args.param == "fm":
+            grid_sampler, grid_name = sample_rectified_flow, "rf"
+            grid_kw = {"t_shift": args.fm_shift}
         y_cat, y_cont = sample_grid_conditions(36, args.n_types, args.y_cont_dim, device=device)
         with torch.inference_mode():
             x = sample_chunked(
-                sample_probability_flow_ode, apply_fn, sde, y_cat, y_cont,
-                (36, img_size, img_size, 1), args.seed + 1,
-                chunk=auto_chunk(img_size, args.sample_steps, "ode"),
+                grid_sampler, apply_fn, sde, y_cat, y_cont, (36, img_size, img_size, 1),
+                args.seed + 1, chunk=auto_chunk(img_size, args.sample_steps, grid_name),
                 n_steps=args.sample_steps, guidance_scale=args.cfg, t_end=args.t_end,
-                n_types=args.n_types, clip_x0=bool(args.clip_x0))
+                n_types=args.n_types, clip_x0=bool(args.clip_x0), **grid_kw)
         save_image_grid(x, out_path)
 
     print("starting SDE score-model training loop.")

@@ -6,8 +6,10 @@ batch bucket, sampled in one call and trimmed; a request beyond the top
 bucket runs in top-bucket chunks (`sample_chunked`). Settings left `None`
 resolve from the checkpoint config exactly as the JAX service does: a
 distilled student serves with DDIM at its trained steps and t_end with its
-baked-in guidance, a v-prediction model is wrapped to eps, and anything else
-serves the reference settings (reverse SDE, 300 steps, CFG 1.5, t_end 0.005).
+baked-in guidance, a rectified-flow (`param` fm) model with the rf sampler at
+50 steps on its `fm_shift` grid, a v-prediction model is wrapped to eps, and
+anything else serves the reference settings (reverse SDE, 300 steps, CFG
+1.5, t_end 0.005).
 
 One deliberate difference: the JAX service caps its bucket ladder by
 `auto_chunk`, because its backend kills a dispatch that runs longer than a
@@ -19,8 +21,8 @@ package's trainer (msgpack) or a reference `.pt`, as the JAX service does from
 its `ckpt_path`.
 
 Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
-the rf sampler, int8 convs, meshes, orbax checkpoints, the MicroBatcher and
-the HTTP front end.
+int8 convs, meshes, orbax checkpoints, the MicroBatcher and the HTTP front
+end.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from toycrystals_torch.models.flow_matching import sample_rectified_flow
 from toycrystals_torch.models.sde_score_model import (
     VPSDE,
     CondUNetTiny,
@@ -51,7 +54,8 @@ _REFERENCE_SERVE = {"sampler": "sde", "steps": 300,
 _SAMPLERS = {"sde": sample_reverse_sde_euler_maruyama,
              "ode": sample_probability_flow_ode,
              "dpm": sample_dpmpp_2m,
-             "ddim": sample_ddim}
+             "ddim": sample_ddim,
+             "rf": sample_rectified_flow}
 
 _DEFERRED = "ROADMAP.md, 'Deferred from the serving slice'"
 
@@ -112,12 +116,17 @@ class ScoreModelService:
 
         distilled = bool(cfg.get("distilled"))
         param = str(cfg.get("param", "eps"))
+        flow = param == "fm"
         if sampler is None:
             sampler = ("ddim" if distilled else
-                       "rf" if param == "fm" else _REFERENCE_SERVE["sampler"])
-        if sampler == "rf" or param == "fm":
-            raise NotImplementedError(
-                f"sampler {sampler!r} (param {param!r}) is not ported yet ({_DEFERRED})")
+                       "rf" if flow else _REFERENCE_SERVE["sampler"])
+        if flow and sampler != "rf":
+            raise ValueError(f"sampler {sampler!r} expects a VP eps/v model; this checkpoint "
+                             "was trained with param fm (rectified flow): serve with "
+                             "sampler='rf'")
+        if not flow and sampler == "rf":
+            raise ValueError(f"sampler 'rf' integrates a rectified-flow velocity field; this "
+                             f"checkpoint was trained with param {param}")
         if sampler not in _SAMPLERS:
             raise ValueError(f"sampler must be one of {sorted(_SAMPLERS)}, got {sampler!r}")
         if quantize == "int8":
@@ -129,7 +138,8 @@ class ScoreModelService:
         if out_dtype not in ("float32", "uint8"):
             raise ValueError(f"out_dtype must be 'float32' or 'uint8', got {out_dtype!r}")
         if steps is None:
-            steps = int(cfg["distill_steps"]) if distilled else _REFERENCE_SERVE["steps"]
+            steps = (int(cfg["distill_steps"]) if distilled else
+                     50 if flow else _REFERENCE_SERVE["steps"])
         if t_end is None:
             t_end = float(cfg["distill_t_end"]) if distilled else _REFERENCE_SERVE["t_end"]
         if guidance_scale is None:
@@ -166,6 +176,10 @@ class ScoreModelService:
         if self.sampler_name == "ddim":
             # ddim reads the raw net output itself (v is its well-conditioned route)
             self._extra_kw["prediction"] = param
+        elif self.sampler_name == "rf":
+            # an fm checkpoint samples on the shifted grid it trained for
+            if float(cfg.get("fm_shift", 1.0)) != 1.0:
+                self._extra_kw["t_shift"] = float(cfg["fm_shift"])
         elif param == "v":
             apply_fn = eps_apply_from_v(self.sde, apply_fn)
         self._apply_fn = apply_fn

@@ -128,17 +128,31 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
     if fresh_data and lattice_cfg is None:
         raise ValueError("fresh_data needs the procedural (lattice_cfg) source: a resident "
                          "archive has only n items")
-    n_steps = n_items // batch_size
-    if n_steps == 0:
-        raise ValueError(f"n_items {n_items} < batch_size {batch_size}")
     device = next(model.parameters()).device
     step_fn = make_sde_train_step(model, tx, sde, n_types, p_uncond, t_power, ema_decay,
                                   parameterization, grad_accum, t_shift, min_snr_gamma)
     get_batch = _batch_source(lattice_cfg, dataset_seed, resident, device)
+    run_epoch = _make_epoch(step_fn, get_batch, n_items, batch_size, device,
+                            torch.nanmean if nan_safe_metrics else torch.mean)
 
     def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0):
         if offset and not fresh_data:
             raise ValueError("an index offset needs fresh_data=True")
+        return run_epoch(state, generator, offset)
+
+    return epoch_fn
+
+
+def _make_epoch(step_fn: Callable, get_batch: Callable, n_items: int, batch_size: int, device,
+                reduce: Callable) -> Callable:
+    """epoch(state, generator, offset=0) -> (state, reduce(losses)): shuffle
+    [0, n_items) with `generator` (drop-last), then one `step_fn(state, x0,
+    y_cat, y_cont, generator)` per batch of `get_batch(idx + offset)`."""
+    n_steps = n_items // batch_size
+    if n_steps == 0:
+        raise ValueError(f"n_items {n_items} < batch_size {batch_size}")
+
+    def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0):
         order = torch.randperm(n_items, generator=generator, device=device)
         order = order[: n_steps * batch_size].reshape(n_steps, batch_size)
         losses = []
@@ -146,7 +160,6 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
             x0, y_cat, y_cont = get_batch(idx + offset)
             state, loss = step_fn(state, x0, y_cat, y_cont, generator)
             losses.append(loss)
-        losses = torch.stack(losses)
-        return state, (torch.nanmean(losses) if nan_safe_metrics else losses.mean())
+        return state, reduce(torch.stack(losses))
 
     return epoch_fn

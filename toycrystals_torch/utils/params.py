@@ -81,6 +81,46 @@ def flax_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
     return params
 
 
+def torch_state_dict_from_flax_vae(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Flax VAE param tree -> the state_dict of models/vae.py:VAE (numpy)."""
+    sd: dict[str, np.ndarray] = {}
+    for path, leaf in _walk(params):
+        *mods, name = path
+        a = np.asarray(leaf)
+        if name == "kernel" and mods[-1].startswith("ConvTranspose"):
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif name == "kernel" and a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif name == "kernel" and a.ndim == 2:
+            a = a.T
+        elif name != "bias":
+            raise KeyError(f"unexpected flax VAE leaf {'/'.join(path)}")
+        sd[".".join([*mods, "weight" if name == "kernel" else name])] = np.ascontiguousarray(a)
+    return sd
+
+
+def flax_vae_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """The inverse of `torch_state_dict_from_flax_vae` (numpy or torch values)."""
+    params: dict = {}
+    for key, value in sd.items():
+        a = np.asarray(value.detach().to("cpu", copy=True).numpy() if hasattr(value, "detach")
+                       else value)
+        *mods, name = key.split(".")
+        if name == "weight":
+            if mods[-1].startswith("ConvTranspose"):
+                a = a.transpose(2, 3, 0, 1)[::-1, ::-1]
+            elif a.ndim == 4:
+                a = a.transpose(2, 3, 1, 0)
+            else:
+                a = a.T
+            name = "kernel"
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return params
+
+
 def load_flax_params(model, params: Mapping[str, Any]) -> None:
     """Copy a flax param tree into `model` (strict: every key must match)."""
     sd = {k: torch.tensor(np.asarray(v, np.float32))
