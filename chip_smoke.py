@@ -115,6 +115,27 @@ result line:
    guidance 0) at 1, 64 and 1,024 images: 40 GroupNorm launches per
    dispatch, output finite in [0, 1], img/s.
 
+12. The rest of serving, at full width. int8: every distinct conv shape of
+   both stems in a 32-row int8 U-Net forward (16 images under CFG), its
+   torch._int_mm accumulators and dequantised output bit-equal to the plain
+   version (the same im2col as an exact f64 product) on the card, with the
+   int8 and the bf16 conv's ms; the f32 int8 s2dr U-Net card against CPU;
+   ScoreModelService(quantize="int8") at SDE-300, CFG 1.5, 16 images for both
+   stems beside the same request in bf16 (img/s; 3,010 GroupNorm launches and
+   301 _int_mm calls per conv per dispatch). border: the f32 U-Net with
+   conv_impl "border" against "pad" on the card (1e-4), both timed.
+   Inpainting: the inpaint CLI on phase 10's checkpoint, 12 images, center
+   mask, 200 steps, --resample 1 and 2 (10 x (steps x resample + 1)
+   GroupNorm launches per dispatch, 1 rasterizer launch for the sources; the
+   known region equals the source), region_rel_mse and seconds. HTTP:
+   make_server on 127.0.0.1 serving phase 11's 4-step student after warmup:
+   /healthz, /stats, /sample in every format, 32 concurrent unseeded
+   one-image requests (fewer dispatches than requests; p50 / p95 latency,
+   img/s), a seeded npy request bit-equal to service.sample, exactly 40
+   GroupNorm launches per dispatch; then a server process of phase 10's
+   checkpoint stopped by SIGTERM while it samples: the request in flight
+   answers 200 and the process exits 0.
+
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
 
@@ -298,14 +319,14 @@ def phase_kernel(gn) -> tuple[list[dict], dict]:
     return rows, headline
 
 
-def make_model(stem: str, dtype: str = "float32"):
+def make_model(stem: str, dtype: str = "float32", conv_impl: str = "pad"):
     from toycrystals_torch.models.sde_score_model import CondUNetTiny
 
     c = SLICE_CFG
     return CondUNetTiny(c["n_types"], c["y_cont_dim"], base_ch=c["base_ch"],
                         emb_dim=c["emb_dim"], cond_ch=c["cond_ch"], time_ch=c["time_ch"],
                         dtype=torch.bfloat16 if dtype == "bfloat16" else torch.float32,
-                        stem=stem)
+                        stem=stem, conv_impl=conv_impl)
 
 
 def random_flax_params(stem: str, seed: int) -> dict:
@@ -1656,8 +1677,382 @@ def phase_quality(set_counts_to_zero, counts, card: str) -> dict:
         out["student"][str(req)] = dict(seconds=dt, img_per_s=req / dt, dispatches=1,
                                         gn_silu=c["gn_silu"])
     del svc
+    out["student_ckpt"] = run.checkpoints[-1]
     log(f"quality student DDIM-{Q_TO_STEPS} ({card}): " + ", ".join(
         f"{k} images {v['img_per_s']:.1f} img/s" for k, v in out["student"].items()))
+    out["launches"] = launches
+    return out
+
+
+# Phase 12, the rest of serving: int8 and border convs, inpainting and the HTTP
+# front end, at full width on the random weights of phase 6 and the checkpoints of
+# phases 10 and 11.
+S12_IMAGES = 16                     # the int8 request: 32 rows under CFG
+S12_INPAINT_IMAGES, S12_INPAINT_STEPS = 12, 200
+S12_CONCURRENT = 32                 # unseeded one-image HTTP requests at once
+# The int8 U-Net, card against CPU, f32. Each conv is held bit for bit, on the
+# card's own input, to the CPU's conv. The whole forward cannot be: the GroupNorm
+# kernel and the plain version differ by ~1e-7, which moves an activation across a
+# rounding boundary of its int8 grid, and a flipped quantum changes the next convs'
+# inputs enough to flip more (the forward's change when its input is scaled by
+# 1 + 1e-7 is logged beside). So each side's int8 forward is held to its own float
+# forward: the card's mean quantisation error within this factor of the CPU's.
+INT8_ERROR_RATIO = 1.5
+
+
+def _post(url: str, obj, timeout: float = 300.0):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def _get(url: str, timeout: float = 60.0):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def _conv_calls(model, args) -> list:
+    """(name, module, input, output) of every conv of one forward of `model`
+    on the tensors `args`."""
+    from toycrystals_torch.ops.conv import Conv2d
+
+    names = {m: n for n, m in model.named_modules() if isinstance(m, Conv2d)}
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, o: seen.append((names[mod], mod, inp[0].clone(), o.clone())))
+        for m in names]
+    try:
+        with torch.inference_mode():
+            model(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
+                       student_ckpt: str) -> dict:
+    """int8 and border convs, inpainting and the HTTP front end at full width
+    (module docstring, phase 12)."""
+    import io
+    import signal
+    import threading
+
+    from toycrystals_torch.ops import conv as tc
+    from toycrystals_torch.ops.conv import CircularConv
+    from toycrystals_torch.scripts import inpaint_sde_score_model as inpaint_cli
+    from toycrystals_torch.scripts import serve_sde_score_model as serve_cli
+    from toycrystals_torch.serve import ScoreModelService, npy_bytes
+    from toycrystals_torch.utils.params import load_flax_params
+
+    out: dict = {"card": card}
+    launches: dict = {}
+    conds = (np.arange(S12_IMAGES) % 4, np.linspace(0.0, 1.0, S12_IMAGES))
+
+    # -- a. int8: every conv shape of both stems, the U-Net card vs CPU, the service
+    out["int8_shapes"], out["int8_service"] = [], {}
+    launches["int8_serving"] = {k: 0 for k in counts()}
+    for stem in ("none", "s2dr"):
+        svc8 = ScoreModelService(dict(SLICE_CFG, stem=stem), params[stem], device=DEVICE,
+                                 quantize="int8", buckets=(S12_IMAGES,))
+        svcb = ScoreModelService(dict(SLICE_CFG, stem=stem), params[stem], device=DEVICE,
+                                 buckets=(S12_IMAGES,))
+        n_convs = sum(isinstance(m, tc.Conv2d) for m in svc8.model.modules())
+        rows, keys = 2 * S12_IMAGES, set()
+        calls = _conv_calls(svc8.model, (
+            torch.randn(rows, 64, 64, 1, device=DEVICE), torch.rand(rows, device=DEVICE),
+            torch.arange(rows, device=DEVICE) % 5, torch.randn(rows, 4, device=DEVICE)))
+        for _, mod, x, _ in calls:
+            wrap = isinstance(mod, CircularConv)
+            key = (tuple(x.shape), tuple(mod.weight.shape), mod.stride, wrap)
+            if key in keys:  # one check per distinct conv shape
+                continue
+            keys.add(key)
+            with torch.inference_mode():
+                xq, sx = tc.quantize_int8(x)
+                wq, sw = tc.quantize_int8(mod.weight, dims=(1, 2, 3))
+                xp = tc.wrap_pad(xq) if wrap else xq
+                acc = tc.int8_conv_acc(xp, wq, mod.stride)
+                ref = tc.int8_conv_acc_reference(xp, wq, mod.stride)
+                y, y_ref = mod(x), tc.dequantize(ref, sx, sw, mod.bias, mod.dtype)
+                wb, bb = mod.weight.to(torch.bfloat16), mod.bias.to(torch.bfloat16)
+                xb = tc.wrap_pad(x) if wrap else x
+                rec = dict(stem=stem, input=list(x.shape), weight=list(mod.weight.shape),
+                           stride=mod.stride, wrap=wrap,
+                           acc_equal=bool(torch.equal(acc, ref)),
+                           output_equal=bool(torch.equal(y, y_ref)),
+                           int8_ms=cuda_time_ms(lambda: mod(x), iters=10),
+                           bf16_conv_ms=cuda_time_ms(
+                               lambda: F.conv2d(xb, wb, bb, stride=mod.stride), iters=10))
+            out["int8_shapes"].append(rec)
+            if not (rec["acc_equal"] and rec["output_equal"]):
+                raise AssertionError(f"int8 conv on the card differs from its plain version: "
+                                     f"{rec}")
+        with torch.inference_mode():  # warm the bf16 service's shapes
+            svcb.model(torch.randn(2 * S12_IMAGES, 64, 64, 1, device=DEVICE),
+                       torch.rand(2 * S12_IMAGES, device=DEVICE),
+                       torch.zeros(2 * S12_IMAGES, dtype=torch.int32, device=DEVICE),
+                       torch.zeros(2 * S12_IMAGES, 4, device=DEVICE))
+        res = {}
+        for name, svc in (("int8", svc8), ("bf16", svcb)):
+            set_counts_to_zero()
+            mm0 = tc.int8_conv_acc.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = svc.sample_conditions(*conds, seed=S12_IMAGES)
+            dt = time.perf_counter() - t0
+            c, mm = counts(), tc.int8_conv_acc.launches - mm0
+            want_mm = n_convs * (svc.steps + 1) if name == "int8" else 0
+            if c["gn_silu"] != 10 * (svc.steps + 1) or mm != want_mm \
+                    or x.shape != (S12_IMAGES, 64, 64, 1) or not np.isfinite(x).all() \
+                    or x.min() < 0 or x.max() > 1:
+                raise AssertionError(f"{stem} {name} request: launches {c}, int_mm calls {mm} "
+                                     f"(expected {want_mm}), shape {x.shape}")
+            if name == "int8":
+                for k in c:
+                    launches["int8_serving"][k] += c[k]
+                if svc.stats["quantize"] != "int8":
+                    raise AssertionError(f"int8 service stats: {svc.stats}")
+            res[name] = dict(seconds=dt, img_per_s=S12_IMAGES / dt, gn_silu=c["gn_silu"],
+                             int_mm_calls=mm, x=x)
+        out["int8_service"][stem] = dict(
+            {k: {kk: v for kk, v in r.items() if kk != "x"} for k, r in res.items()},
+            convs_per_forward=n_convs, int8_over_bf16_seconds=res["int8"]["seconds"]
+            / res["bf16"]["seconds"],
+            mean_abs_diff_int8_bf16=float(np.abs(res["int8"]["x"] - res["bf16"]["x"]).mean()))
+        log(f"int8 service {stem} ({card}): " + json.dumps(out["int8_service"][stem]))
+        del svc8, svcb, res
+    shapes = out["int8_shapes"]
+    log(f"int8 conv: _int_mm accumulators and dequantised outputs bit-equal to the plain "
+        f"version at {len(shapes)} conv shapes (both stems, {2 * S12_IMAGES} rows): " +
+        json.dumps(shapes))
+
+    rng = np.random.default_rng(12)
+    args = (rng.normal(size=(2, 64, 64, 1)).astype(np.float32), np.array([0.3, 0.8], np.float32),
+            np.array([1, 4], np.int32), rng.normal(size=(2, 4)).astype(np.float32))
+    models, got = {}, {}
+    for dev in (DEVICE, "cpu"):
+        for impl in ("int8", "pad"):
+            model = make_model("s2dr", "float32", impl)
+            load_flax_params(model, params["s2dr"])
+            models[dev, impl] = model.to(dev).eval()
+            with torch.inference_mode():
+                got[dev, impl] = model(*(torch.from_numpy(a).to(dev) for a in args)).cpu()
+    # every conv of the card's forward, on the card's own input, against the CPU's conv
+    cpu_mods = dict(models["cpu", "int8"].named_modules())
+    convs = _conv_calls(models[DEVICE, "int8"],
+                        tuple(torch.from_numpy(a).to(DEVICE) for a in args))
+    with torch.inference_mode():
+        unequal = [name for name, _, x, y in convs
+                   if not torch.equal(y.cpu(), cpu_mods[name](x.cpu()))]
+        perturbed = models[DEVICE, "int8"](
+            torch.from_numpy(args[0] * np.float32(1 + 1e-7)).to(DEVICE),
+            *(torch.from_numpy(a).to(DEVICE) for a in args[1:])).cpu()
+    diff = (got[DEVICE, "int8"] - got["cpu", "int8"]).abs()
+    self_diff = (got[DEVICE, "int8"] - perturbed).abs()
+    err = {dev: (got[dev, "int8"] - got[dev, "pad"]).abs() for dev in (DEVICE, "cpu")}
+    ratio = float(err[DEVICE].mean() / err["cpu"].mean())
+    out["int8_card_vs_cpu"] = dict(
+        stem="s2dr", rows=2, dtype="float32", convs=len(convs), convs_unequal=unequal,
+        max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
+        perturbed_1e7_max_abs_diff=float(self_diff.max()),
+        perturbed_1e7_mean_abs_diff=float(self_diff.mean()),
+        int8_error_card=dict(max=float(err[DEVICE].max()), mean=float(err[DEVICE].mean())),
+        int8_error_cpu=dict(max=float(err["cpu"].max()), mean=float(err["cpu"].mean())),
+        int8_error_ratio=ratio, ratio_limit=INT8_ERROR_RATIO,
+        float_card_vs_cpu_max_abs_diff=float((got[DEVICE, "pad"] - got["cpu", "pad"]).abs().max()))
+    del models
+    log("int8 U-Net forward card vs CPU " + json.dumps(out["int8_card_vs_cpu"]))
+    if unequal or not 1.0 / INT8_ERROR_RATIO <= ratio <= INT8_ERROR_RATIO:
+        raise AssertionError(f"int8 U-Net: card and CPU disagree: {out['int8_card_vs_cpu']}")
+
+    # -- b. border against pad on the card, f32
+    models = {}
+    for impl in ("pad", "border"):
+        model = make_model("none", "float32", impl)
+        load_flax_params(model, params["none"])
+        models[impl] = model.to(DEVICE).eval()
+    xb = tuple(torch.from_numpy(np.repeat(a, S12_IMAGES, axis=0)).to(DEVICE) for a in args)
+    with torch.inference_mode():
+        yb = {impl: m(*xb) for impl, m in models.items()}
+        d = float((yb["border"] - yb["pad"]).abs().max())
+        out["border"] = dict(rows=2 * S12_IMAGES, dtype="float32", max_abs_diff=d,
+                             tolerance=TOL["float32"][0], **{
+                                 f"{impl}_forward_ms": cuda_time_ms(lambda m=m: m(*xb), iters=5)
+                                 for impl, m in models.items()})
+    del models, yb
+    log(f"border conv U-Net forward ({card}): " + json.dumps(out["border"]))
+    if not d <= TOL["float32"][0]:
+        raise AssertionError(f"border and pad U-Nets differ by {d}")
+
+    # -- c. inpainting through its CLI on phase 10's checkpoint
+    run64 = os.path.join(CLI_DIR, "64")
+    out["inpaint"] = {}
+    launches["inpaint"] = {k: 0 for k in counts()}
+    for r in (1, 2):
+        set_counts_to_zero()  # the inpainting path starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inpaint_cli.inpaint(["--out-dir", run64, "--n", str(S12_INPAINT_IMAGES),
+                                   "--mask", "center", "--steps", str(S12_INPAINT_STEPS),
+                                   "--resample", str(r)])
+        dt = time.perf_counter() - t0
+        c = counts()
+        dispatches = -(-S12_INPAINT_IMAGES // res.chunk)
+        keep = res.mask == 1.0
+        if c["gn_silu"] != 10 * (S12_INPAINT_STEPS * r + 1) * dispatches or c["rasterize"] != 1 \
+                or c["flash_attn"] or not np.isfinite(res.x).all() \
+                or not np.array_equal(res.x[keep], res.x_src[keep]):
+            raise AssertionError(f"inpaint resample {r}: launches {c} in {dispatches} "
+                                 f"dispatch(es), line {res.line}")
+        for k in c:
+            launches["inpaint"][k] += c[k]
+        out["inpaint"][f"resample_{r}"] = dict(res.line, seconds=dt, dispatches=dispatches,
+                                               launches=c)
+        log(f"inpaint ({card}): " + json.dumps(out["inpaint"][f"resample_{r}"]))
+
+    # -- d. the HTTP front end: the 4-step student in process, then a SIGTERM drain
+    svc = ScoreModelService.from_checkpoint(student_ckpt, device=DEVICE)
+    svc.warmup()
+    srv = serve_cli.make_server(svc, "127.0.0.1", 0, window_ms=5.0)
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    http: dict = {}
+    try:
+        code, _, body = _get(url + "/healthz")
+        health = json.loads(body)
+        code2, _, body = _get(url + "/stats")
+        stats = json.loads(body)
+        if (code, code2) != (200, 200) or not health["ok"] or set(stats) != {"service", "batcher"}:
+            raise AssertionError(f"/healthz {code} {health}, /stats {code2} {stats}")
+        set_counts_to_zero()  # the HTTP path starts here
+        d0, b0 = svc.stats["dispatches"], dict(srv.batcher.stats)
+        formats = {}
+        for fmt, ctype in (("json", "application/json"), ("png", "image/png"),
+                           ("png_raw", "image/png"), ("npy", "application/octet-stream")):
+            t0 = time.perf_counter()
+            code, got_ctype, body = _post(url + "/sample", {"types": [0, 1, 2, 3],
+                                                            "format": fmt})
+            formats[fmt] = dict(seconds=time.perf_counter() - t0, bytes=len(body))
+            ok = code == 200 and got_ctype == ctype and (
+                json.loads(body)["shape"] == [4, 64, 64, 1] if fmt == "json" else
+                np.load(io.BytesIO(body)).shape == (4, 64, 64, 1) if fmt == "npy" else
+                body[:8] == b"\x89PNG\r\n\x1a\n")
+            if not ok:
+                raise AssertionError(f"/sample format {fmt}: {code} {got_ctype}")
+        http["formats"] = formats
+        go = threading.Barrier(S12_CONCURRENT)
+        lat = [None] * S12_CONCURRENT
+
+        def one(i):
+            go.wait(timeout=60)
+            t0 = time.perf_counter()
+            code, _, body = _post(url + "/sample", {"types": [i % 4], "thetas": [0.03 * i],
+                                                    "format": "npy"})
+            x = np.load(io.BytesIO(body))
+            lat[i] = (time.perf_counter() - t0, code == 200 and x.shape == (1, 64, 64, 1)
+                      and bool(np.isfinite(x).all()))
+
+        b1 = dict(srv.batcher.stats)
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(S12_CONCURRENT)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        b2 = srv.batcher.stats
+        batched = b2["batched_dispatches"] - b1["batched_dispatches"]
+        ms = np.array([v[0] for v in lat if v]) * 1e3
+        http["concurrent"] = dict(
+            requests=S12_CONCURRENT, dispatches=batched,
+            coalesced=b2["coalesced_requests"] - b1["coalesced_requests"], seconds=wall,
+            img_per_s=S12_CONCURRENT / wall, p50_ms=float(np.percentile(ms, 50)),
+            p95_ms=float(np.percentile(ms, 95)), max_ms=float(ms.max()))
+        if any(t.is_alive() for t in threads) or not all(v and v[1] for v in lat) \
+                or not batched < S12_CONCURRENT:
+            raise AssertionError(f"concurrent requests: {http['concurrent']}, {lat}")
+        seeded = {"types": [0, 1, 2, 3], "thetas": [0.0, 0.2, 0.4, 0.6], "format": "npy",
+                  "seed": 123}
+        code, _, body = _post(url + "/sample", seeded)
+        want = npy_bytes(svc.sample_conditions(seeded["types"], seeded["thetas"], seed=123))
+        http["seeded_npy_bit_equal"] = code == 200 and body == want
+        if not http["seeded_npy_bit_equal"]:
+            raise AssertionError("a seeded npy request differs from service.sample")
+        c = counts()
+        dispatches = svc.stats["dispatches"] - d0
+        http["launches"], http["dispatches"] = c, dispatches
+        http["batcher_dispatches"] = srv.batcher.stats["batched_dispatches"] \
+            - b0["batched_dispatches"]
+        if c["gn_silu"] != 10 * svc.steps * dispatches:
+            raise AssertionError(f"HTTP: launches {c} in {dispatches} dispatches, expected "
+                                 f"{10 * svc.steps} gn_silu each")
+        launches["http_student"] = c
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        server_thread.join(timeout=60)
+    log(f"HTTP front end, DDIM-{svc.steps} student ({card}): " + json.dumps(http))
+    del svc
+
+    # a server process of phase 10's checkpoint (SDE-300), stopped by SIGTERM mid-request
+    ckpt64 = os.path.join(run64, "checkpoints", "sde_score_model_last.msgpack")
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "toycrystals_torch.scripts.serve_sde_score_model", ckpt64,
+         "--port", "0", "--buckets", str(S12_IMAGES)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        purl, deadline = None, time.time() + 300
+        while time.time() < deadline:
+            line = proc.stdout.readline()
+            if line.startswith("listening on "):
+                purl = line.split()[2]
+                break
+            if proc.poll() is not None:
+                raise AssertionError(f"the server process died early:\n{proc.stdout.read()}")
+        if purl is None:
+            raise AssertionError("the server process never reported its address")
+        got_resp: dict = {}
+
+        def request():
+            t0 = time.perf_counter()
+            got_resp["resp"] = _post(purl + "/sample", {"types": list(range(4)) * 4,
+                                                        "format": "npy"})
+            got_resp["seconds"] = time.perf_counter() - t0
+
+        t = threading.Thread(target=request)
+        t.start()
+        # SIGTERM once the batcher's dispatch has begun (301 forwards take seconds)
+        while time.time() < deadline and json.loads(
+                _get(purl + "/stats")[2])["batcher"]["coalesced_requests"] == 0:
+            time.sleep(0.01)
+        in_flight = json.loads(_get(purl + "/stats")[2])["service"]["requests"] == 0
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        t.join(timeout=300)
+        log_out, _ = proc.communicate(timeout=300)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    code, _, body = got_resp.get("resp", (None, None, b""))
+    http["sigterm"] = dict(returncode=proc.returncode, request_code=code,
+                           in_flight_at_signal=in_flight,
+                           request_seconds=got_resp.get("seconds"), seconds_to_exit=drain_s)
+    log(f"HTTP SIGTERM drain ({card}): " + json.dumps(http["sigterm"]))
+    if proc.returncode != 0 or code != 200 or not in_flight or "draining" not in log_out \
+            or "serving stopped" not in log_out \
+            or np.load(io.BytesIO(body)).shape != (S12_IMAGES, 64, 64, 1):
+        raise AssertionError(f"SIGTERM drain: {http['sigterm']}\n{log_out}")
+    out["http"] = http
     out["launches"] = launches
     return out
 
@@ -1785,9 +2180,15 @@ def main() -> int:
         report["quality"] = phase_quality(set_counts_to_zero, counts, card)
         report["quality"]["seconds"] = time.perf_counter() - t0
         log(f"phase 11 took {report['quality']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        report["serving_rest"] = phase_serving_rest(set_counts_to_zero, counts, card, params,
+                                                    report["quality"]["student_ckpt"])
+        report["serving_rest"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 12 took {report['serving_rest']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
-                              **report["cli"]["launches"], **report["quality"]["launches"]}
+                              **report["cli"]["launches"], **report["quality"]["launches"],
+                              **report["serving_rest"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -1846,7 +2247,8 @@ def main() -> int:
             ("quality_train_fm", ("gn_silu", "gn_silu_backward", "rasterize")),
             ("quality_sample_rf", ("gn_silu",)),
             ("quality_distill", ("gn_silu", "gn_silu_backward", "rasterize")),
-            ("quality_student", ("gn_silu",)))
+            ("quality_student", ("gn_silu",)), ("int8_serving", ("gn_silu",)),
+            ("inpaint", ("gn_silu", "rasterize")), ("http_student", ("gn_silu",)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -1870,6 +2272,8 @@ def main() -> int:
         "launches_training_256": trained_hi["gn_silu"],
         "launches_cli": {k: paths[k]["gn_silu"] for k in report["cli"]["launches"]},
         "launches_quality": {k: paths[k]["gn_silu"] for k in report["quality"]["launches"]},
+        "launches_serving_rest": {k: paths[k]["gn_silu"]
+                                  for k in report["serving_rest"]["launches"]},
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
@@ -1919,6 +2323,8 @@ def main() -> int:
         "launches_training_256": trained_hi["rasterize"],
         "launches_cli": {k: paths[k]["rasterize"] for k in report["cli"]["launches"]},
         "launches_quality": {k: paths[k]["rasterize"] for k in report["quality"]["launches"]},
+        "launches_serving_rest": {k: paths[k]["rasterize"]
+                                  for k in report["serving_rest"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",

@@ -17,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from toycrystals_torch.models.sde_score_model import sample_grid_conditions
 from toycrystals_torch.scripts import eval_sde_score_model as eval_cli
 from toycrystals_torch.scripts import train_sde_score_model as train_cli
+from toycrystals_torch.serve import ScoreModelService
 from toycrystals_tpu.data.lattice import LatticeConfig as JLatticeConfig
 from toycrystals_tpu.utils import fid as jfid
 from toycrystals_tpu.utils import fidelity as jf
@@ -95,10 +97,25 @@ def test_ckpt_mode_samples_through_the_service_and_writes_its_files(tmp_path, ca
     np.testing.assert_array_equal(again.x, out.x)
 
 
+def test_ckpt_mode_quantize_int8_samples_through_the_int8_service(tmp_path, capsys):
+    run = tmp_path / "run"
+    train_cli.train(["--device", "cpu", "--procedural", "--img-size", "16", "--base-ch", "8",
+                     "--emb-dim", "16", "--n-samples", "16", "--batch-size", "16",
+                     "--epochs", "1", "--sample-every", "0", "--out-dir", str(run)])
+    ckpt = str(run / "checkpoints" / "sde_score_model_last.msgpack")
+    out = eval_cli.evaluate(["--device", "cpu", "--ckpt", ckpt, "--n", "4", "--steps", "2",
+                             "--quantize", "int8"])
+    assert out.line["quantize"] == "int8"
+    assert all(np.isfinite(out.line[k]) for k in SCALARS[:4])
+    svc = ScoreModelService.from_checkpoint(ckpt, device="cpu", steps=2, quantize="int8")
+    yc, yv = (a.numpy() for a in sample_grid_conditions(4, 4, 4))
+    np.testing.assert_array_equal(out.x, svc.sample(yc, yv, seed=0))
+    plain = eval_cli.evaluate(["--device", "cpu", "--ckpt", ckpt, "--n", "4", "--steps", "2"])
+    assert plain.line["quantize"] == "none" and not np.array_equal(plain.x, out.x)
+
+
 def test_refusals(tmp_path, monkeypatch):
     path = "assets/score_based_diffusion/distill_4step.png"
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 3"):
-        eval_cli.evaluate(["--device", "cpu", "--grid", path, "--quantize", "int8"])
     with pytest.raises(SystemExit):  # --ckpt and --grid exclude each other
         eval_cli.evaluate(["--device", "cpu", "--grid", path, "--ckpt", "x.msgpack"])
     with pytest.raises(FileNotFoundError):

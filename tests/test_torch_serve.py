@@ -1,7 +1,8 @@
 """The port's ScoreModelService (toycrystals_torch/serve.py) on the CPU:
 settings resolution, bucket pad and trim, chunked requests beyond the top
 bucket, the dpm sampler, describe() and warmup(), the uint8 output, the seed
-range, and the parts not ported yet raising NotImplementedError.
+range, int8 serving, and the parts not ported yet raising NotImplementedError
+(the batcher and the HTTP front end: tests/test_torch_http.py).
 """
 
 import types
@@ -12,7 +13,8 @@ import torch
 
 from toycrystals_torch import serve
 from toycrystals_torch.models import sde_score_model as tm
-from toycrystals_torch.utils.params import flax_from_torch_state_dict
+from toycrystals_torch.ops.conv import Conv2d
+from toycrystals_torch.utils.params import flax_from_torch_state_dict, load_flax_params
 
 CFG = dict(n_types=4, y_cont_dim=4, base_ch=8, emb_dim=16, cond_ch=8, time_ch=8,
            img_size=16, stem="s2dr")
@@ -109,17 +111,45 @@ def test_seed_and_condition_checks(params):
     assert y_cat.tolist() == [2, 2] and y_cont[:, 1].tolist() == pytest.approx([0.5, 0.7])
 
 
-@pytest.mark.parametrize("case", ["int8", "mesh", "microbatcher", "checkpoint"])
+@pytest.mark.parametrize("case", ["mesh", "checkpoint"])
 def test_unported_parts_raise(params, case, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "int8":
-            _svc(params, quantize="int8")
-        elif case == "mesh":
+        if case == "mesh":
             _svc(params, mesh=object())
-        elif case == "microbatcher":
-            serve.MicroBatcher(_svc(params))
         else:  # msgpack and .pt are read; an orbax checkpoint directory is not yet
             serve.load_score_payload(str(tmp_path))
+
+
+def test_int8_service_builds_every_conv_int8_and_reports_it(params):
+    s = _svc(params, quantize="int8")
+    convs = [m for m in s.model.modules() if isinstance(m, Conv2d)]
+    assert len(convs) == 17 and all(m.int8 for m in convs)  # conv1 of all 5 blocks too
+    assert s.stats["quantize"] == "int8" and _svc(params).stats["quantize"] == "none"
+    with pytest.raises(ValueError, match="quantize"):
+        _svc(params, quantize="fp8")
+
+
+@pytest.mark.parametrize("out_dtype", ["float32", "uint8"])
+def test_int8_service_samples_with_the_int8_model(params, out_dtype):
+    """The int8 service's request is the sampler on the int8 U-Net with the
+    request's generator, and differs from the float service's."""
+    s = _svc(params, quantize="int8", buckets=(2,), out_dtype=out_dtype)
+    x = s.sample_conditions([0, 3], [0.1, 0.4], seed=3)
+    assert x.shape == (2, 16, 16, 1) and x.dtype == np.dtype(out_dtype)
+    model = tm.CondUNetTiny(4, 4, base_ch=8, emb_dim=16, stem="s2dr", conv_impl="int8")
+    load_flax_params(model, params)
+    y_cat, y_cont = s.conditions([0, 3], [0.1, 0.4])
+    with torch.no_grad():
+        want = tm.sample_reverse_sde_euler_maruyama(
+            model.requires_grad_(False), s.sde, torch.from_numpy(y_cat),
+            torch.from_numpy(y_cont), (2, 16, 16, 1), torch.Generator().manual_seed(3),
+            n_steps=2, guidance_scale=1.5, t_end=0.005, n_types=4).numpy()
+    if out_dtype == "uint8":
+        want = np.clip(want * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+    np.testing.assert_array_equal(x, want)
+    xf = _svc(params, buckets=(2,), out_dtype=out_dtype).sample_conditions([0, 3], [0.1, 0.4],
+                                                                           seed=3)
+    assert not np.array_equal(x, xf)
 
 
 @pytest.mark.parametrize("param", ["eps", "v"])

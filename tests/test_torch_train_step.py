@@ -350,7 +350,7 @@ def test_epoch_sources_and_arguments():
         make_sde_train_epoch(*args, 16, resident=(None, None, None), fresh_data=True)
     with pytest.raises(ValueError, match="batch_size"):
         make_sde_train_epoch(*args, 4, lattice_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="module 5"):
         make_sde_train_epoch(*args, 16, lattice_cfg=cfg, mesh=object())
     # resident source: u8 images decoded on the fly; fresh_data shifts the items
     r = np.random.default_rng(1)

@@ -94,8 +94,11 @@ def test_circular_conv_matches_jax(k, s):
 
 @pytest.mark.parametrize("impl", ["int8", "border"])
 def test_circular_conv_other_impls_raise(impl):
-    with pytest.raises(NotImplementedError):
-        CircularConv(4, 4, impl=impl)
+    """The other impls take the pad-1 geometries only, as "pad" does (their
+    parity with JAX: tests/test_torch_conv_impls.py)."""
+    with pytest.raises(ValueError, match="pad-1"):
+        CircularConv(4, 4, kernel_size=5, stride=1, impl=impl)
+    assert CircularConv(4, 4, 4, 2, impl=impl).impl == impl
 
 
 @pytest.mark.parametrize("dim", [16, 17])

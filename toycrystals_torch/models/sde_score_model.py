@@ -6,14 +6,16 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
   (stems "none", "s2d" and "s2dr"). Public tensors keep the JAX layout (images
   [B, H, W, 1]); the network runs NCHW inside. Every conv block runs the fused
   GroupNorm+SiLU(+halo) op of ops/groupnorm.py, as the JAX `_ConvBlock` does
-  with gn_impl="pallas". Submodules carry the flax names, so the weight
-  bridge (utils/params.py) is a rename and a transpose per leaf.
+  with gn_impl="pallas"; `conv_impl` picks the convs (ops/conv.py).
+  Submodules carry the flax names, so the weight bridge (utils/params.py) is
+  a rename and a transpose per leaf.
 - `draw_diffusion_loss_noise`, `diffusion_loss_eps_given` and
   `diffusion_loss_eps`: the denoising loss (eps, v and fm targets, min-SNR
   weights, CFG conditioning dropout) that the trainer differentiates.
 - `VPSDE`, `eps_apply_from_v`, `predict_eps_cfg` and the samplers
   `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode`,
-  `sample_dpmpp_2m` and `sample_ddim`. The step loop is a Python loop. Each
+  `sample_dpmpp_2m`, `sample_ddim` and the inpainting sampler
+  `sample_inpaint_reverse_sde`. The step loop is a Python loop. Each
   sampler draws its noise from the `torch.Generator` it is given, or takes it
   from `noise=`.
 - `auto_chunk` and `sample_chunked`: one big sampling batch as fixed-size
@@ -81,14 +83,21 @@ class ConditionEmbedding(nn.Module):
 
 class _ConvBlock(nn.Module):
     """conv0 (circular) -> gn0 with halo -> conv1 (VALID) -> gn1: the fused
-    layout of the JAX `_ConvBlock(gn_impl="pallas")`."""
+    layout of the JAX `_ConvBlock(gn_impl="pallas")`.
 
-    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32):
+    conv_impl goes to conv0; conv1 reads the halo and stays VALID, which is
+    the circular conv itself, so "border" changes nothing there. Under "int8"
+    conv1 quantises too, as both convs of the JAX int8 block do (JAX serves
+    int8 with gn_impl "xla", where conv1 is an int8 CircularConv): the halo
+    copies values, so the scale and the int8 values are the same."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype: torch.dtype = torch.float32,
+                 conv_impl: str = "pad"):
         super().__init__()
         g = gn_groups(out_ch)
-        self.conv0 = CircularConv(in_ch, out_ch, 3, 1, dtype)
+        self.conv0 = CircularConv(in_ch, out_ch, 3, 1, dtype, impl=conv_impl)
         self.gn0 = GroupNormSiLU(out_ch, g, pad=True)
-        self.conv1 = Conv2d(out_ch, out_ch, 3, 1, dtype)
+        self.conv1 = Conv2d(out_ch, out_ch, 3, 1, dtype, int8=conv_impl == "int8")
         self.gn1 = GroupNormSiLU(out_ch, g, pad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -122,11 +131,12 @@ class CondUNetTiny(nn.Module):
 
     forward(x_t [B, H, W, 1], t [B], y_cat [B], y_cont [B, D]) -> [B, H, W, 1] f32.
     Parameters stay f32; `dtype` is the compute type each layer casts to.
+    `conv_impl` ("pad", "border" or "int8", ops/conv.py) goes to every conv.
     """
 
     def __init__(self, n_types: int, y_cont_dim: int, base_ch: int = 32, emb_dim: int = 128,
                  cond_ch: int = 8, time_ch: int = 8, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "auto", stem: str = "none"):
+                 attn_impl: str = "auto", stem: str = "none", conv_impl: str = "pad"):
         super().__init__()
         if stem not in ("none", "s2d", "s2dr"):
             raise ValueError(f"stem must be none|s2d|s2dr, got {stem!r}")
@@ -139,20 +149,21 @@ class CondUNetTiny(nn.Module):
         self.ConditionEmbedding_0 = ConditionEmbedding(n_types, y_cont_dim, emb_dim, dtype)
         self.to_time_map = nn.Linear(emb_dim, time_ch)
         self.to_cond_map = nn.Linear(emb_dim, cond_ch)
-        self.down1 = _ConvBlock(trunk_in, bc, dtype)
-        self.ds1 = CircularConv(bc, bc, 4, 2, dtype)
-        self.down2 = _ConvBlock(bc, 2 * bc, dtype)
-        self.ds2 = CircularConv(2 * bc, 2 * bc, 4, 2, dtype)
-        self.mid = _ConvBlock(2 * bc, 2 * bc, dtype)
+        ci = conv_impl
+        self.down1 = _ConvBlock(trunk_in, bc, dtype, ci)
+        self.ds1 = CircularConv(bc, bc, 4, 2, dtype, ci)
+        self.down2 = _ConvBlock(bc, 2 * bc, dtype, ci)
+        self.ds2 = CircularConv(2 * bc, 2 * bc, 4, 2, dtype, ci)
+        self.mid = _ConvBlock(2 * bc, 2 * bc, dtype, ci)
         self.attn = SelfAttention2d(2 * bc, num_heads=4, dtype=dtype, attn_impl=attn_impl)
-        self.us2_conv = CircularConv(2 * bc, 2 * bc, 3, 1, dtype)
-        self.up2 = _ConvBlock(4 * bc, bc, dtype)
-        self.us1_conv = CircularConv(bc, bc, 3, 1, dtype)
-        self.up1 = _ConvBlock(2 * bc, bc, dtype)
-        self.out = CircularConv(bc, 4 if stem != "none" else 1, 3, 1, dtype)
+        self.us2_conv = CircularConv(2 * bc, 2 * bc, 3, 1, dtype, ci)
+        self.up2 = _ConvBlock(4 * bc, bc, dtype, ci)
+        self.us1_conv = CircularConv(bc, bc, 3, 1, dtype, ci)
+        self.up1 = _ConvBlock(2 * bc, bc, dtype, ci)
+        self.out = CircularConv(bc, 4 if stem != "none" else 1, 3, 1, dtype, ci)
         if stem == "s2dr":
-            self.refine1 = CircularConv(1 + in_ch, bc // 2, 3, 1, dtype)
-            self.refine2 = CircularConv(bc // 2, 1, 3, 1, dtype)
+            self.refine1 = CircularConv(1 + in_ch, bc // 2, 3, 1, dtype, ci)
+            self.refine2 = CircularConv(bc // 2, 1, 3, 1, dtype, ci)
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor, y_cat: torch.Tensor,
                 y_cont: torch.Tensor) -> torch.Tensor:
@@ -576,6 +587,75 @@ def sample_ddim(
     return ((x0 + 1.0) * 0.5).clamp(0.0, 1.0)
 
 
+def sample_inpaint_reverse_sde(
+    apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
+    generator: torch.Generator | None = None, n_steps: int = 300,
+    guidance_scale: float = 0.0, t_end: float = 1e-3, n_types: int = 4, resample: int = 1,
+    clip_x0: bool = False, noise=None, *, x_known, mask,
+) -> torch.Tensor:
+    """Inpainting by the reverse SDE: the Euler-Maruyama step of
+    `sample_reverse_sde_euler_maruyama`, after which the known region is
+    replaced by an exact forward-marginal sample of x_known at t_next. With
+    `resample` > 1, every repeat of a step but the last diffuses the merged
+    image back to t by the exact VP bridge q(x_t | x_t_next) (RePaint) and the
+    step runs again. Then the x0 projection.
+
+    x_known [B, H, W, 1] in data space [0, 1] (clipped there, mapped to
+    [-1, 1] inside); mask [B, H, W, 1], 1 = keep from x_known, 0 = generate.
+    The result equals clip(x_known) exactly where mask is 1.
+    noise: optional (x_init [B, H, W, 1], draws [n_steps, resample, 3, B, H,
+    W, 1]) replacing the generator's draws; draws[i, r] holds the step's z,
+    the known region's zk and the bridge's z2 (tests inject JAX's
+    fold_in(fold_in(fold_in(k_noise, i), r), 0|1|2) draws)."""
+    t_end = _check_t_end(t_end)
+    if resample < 1:
+        raise ValueError(f"resample must be >= 1, got {resample}")
+    shape = _shape(img_shape)
+    dev = y_cat.device
+    b = shape[0]
+    gs = float(guidance_scale)
+    x_known = torch.as_tensor(x_known, dtype=torch.float32, device=dev).clamp(0.0, 1.0)
+    x0k = x_known * 2.0 - 1.0
+    mask = torch.as_tensor(mask, dtype=torch.float32, device=dev)
+    ts = _quadratic_grid(n_steps, t_end, dev)
+    x = _initial_x(None if noise is None else noise[0], shape, generator, dev)
+    draws = None
+    if noise is not None:
+        draws = torch.tensor(np.asarray(noise[1], np.float32), device=dev)
+        if tuple(draws.shape) != (n_steps, resample, 3, *shape):
+            raise ValueError(f"injected draws have shape {tuple(draws.shape)}, expected "
+                             f"{(n_steps, resample, 3, *shape)}")
+
+    def draw(i: int, r: int, k: int) -> torch.Tensor:
+        if draws is not None:
+            return draws[i, r, k]
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+
+    for i in range(n_steps):
+        t, t_next = ts[i], ts[i + 1]
+        dt = t_next - t  # < 0
+        tb, tn = t.expand(b), t_next.expand(b)
+        beta_t = sde.beta(tb).reshape(b, 1, 1, 1)
+        a_t = sde.alpha(tb).reshape(b, 1, 1, 1)
+        s_t = sde.sigma(tb).reshape(b, 1, 1, 1)
+        a_n = sde.alpha(tn).reshape(b, 1, 1, 1)
+        s_n = sde.sigma(tn).reshape(b, 1, 1, 1)
+        for r in range(resample):
+            eps_hat = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
+            eps_hat = _maybe_clip_eps(eps_hat, x, a_t, s_t, clip_x0)
+            score = -eps_hat / s_t
+            drift = (-0.5 * beta_t * x) - (beta_t * score)
+            x = x + drift * dt + torch.sqrt(beta_t) * torch.sqrt(torch.abs(dt)) * draw(i, r, 0)
+            # the known region: the exact forward marginal of x_known at t_next
+            x = mask * (a_n * x0k + s_n * draw(i, r, 1)) + (1.0 - mask) * x
+            if r < resample - 1:
+                ratio = a_t / a_n.clamp(min=1e-6)
+                sig = torch.sqrt((s_t**2 - ratio**2 * s_n**2).clamp(min=0.0))
+                x = ratio * x + sig * draw(i, r, 2)
+    x0 = _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
+    return mask * x_known + (1.0 - mask) * x0
+
+
 def auto_chunk(img_size: int, n_steps: int, sampler: str = "sde") -> int:
     """The per-call sample batch the JAX package uses to keep one compiled
     sampling scan under its backend's per-dispatch duration cap: 12 images at
@@ -614,8 +694,8 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     batch_kw: extra per-item tensors (leading dim == n) passed to sampler_fn
     by keyword, sliced and padded per chunk like the condition rows."""
     if mesh is not None:
-        raise NotImplementedError("sampling on a mesh is not ported yet (ROADMAP.md, "
-                                  "module 10, parallel axes)")
+        raise NotImplementedError("sampling on a mesh is not ported yet (ROADMAP.md "
+                                  "queue 1, module 5: parallel axes)")
     n, h, w, c = _shape(img_shape)
     chunk = max(1, min(int(chunk), n))
     dev = y_cat.device

@@ -14,7 +14,6 @@ from toycrystals_torch.data.datasets import load_archive
 from toycrystals_torch.serve import resolve_device
 
 PARALLEL = "ROADMAP.md queue 1, module 5: parallel axes"
-FAST_PATH = "ROADMAP.md queue 1, module 3: the rest of serving"
 DATA_REST = "ROADMAP.md queue 1, module 2: its rest"
 
 

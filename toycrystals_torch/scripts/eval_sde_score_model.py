@@ -21,7 +21,7 @@ noise floor (utils/fid.py). --json-out also writes the per-sample arrays.
 Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU (the template bank renders through the rasterizer kernel there);
 --save-grid writes utils/figures.py's 8-bit PNG of the pixels. --quantize
-int8 is not ported yet and exits naming its ROADMAP item.
+int8 samples --ckpt through the int8 convs of ops/conv.py.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import Any
 
 import numpy as np
 
-from toycrystals_torch.scripts._common import FAST_PATH, add_device_flag, select_device
+from toycrystals_torch.scripts._common import add_device_flag, select_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="auto", choices=["auto", "float32", "bfloat16"])
     p.add_argument("--attn-impl", default="auto", choices=["auto", "xla", "flash"])
     p.add_argument("--quantize", default="none", choices=["none", "int8"],
-                   help=f"int8 convs are not ported yet ({FAST_PATH})")
+                   help="Checkpoint mode: int8 = dynamic-quantised int8 convs "
+                        "(post-training; any float checkpoint serves so).")
     p.add_argument("--fid-vae", default=None,
                    help="Unconditional-VAE feature-extractor checkpoint (the committed "
                         "assets/eval/feature_vae_z16.msgpack). Adds the latent FID against "
@@ -97,8 +98,6 @@ class EvalRun:
 def evaluate(argv: list[str] | None = None) -> EvalRun:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.quantize != "none":
-        raise SystemExit(f"--quantize {args.quantize} is not ported yet ({FAST_PATH})")
     device = select_device(args.device)
 
     from toycrystals_torch.utils.fidelity import (
@@ -126,7 +125,8 @@ def evaluate(argv: list[str] | None = None) -> EvalRun:
         svc = ScoreModelService.from_checkpoint(
             args.ckpt, device=device, use_ema=bool(args.use_ema), sampler=args.sampler,
             steps=args.steps, guidance_scale=args.cfg, t_end=args.t_end,
-            clip_x0=bool(args.clip_x0), dtype=args.dtype, attn_impl=args.attn_impl)
+            clip_x0=bool(args.clip_x0), dtype=args.dtype, attn_impl=args.attn_impl,
+            quantize=args.quantize)
         y_cat, y_cont = (a.numpy() for a in sample_grid_conditions(
             args.n, svc.n_types, svc.y_cont_dim, args.theta_max))
         print(f"sampling {args.n} images: sampler={svc.sampler_name} steps={svc.steps} "

@@ -12,9 +12,10 @@ wrapped to eps; an fm checkpoint samples with rf on its fm_shift grid; a
 distilled checkpoint defaults to its trained steps and t_end; the grid goes
 to <out-dir>/results/ under a name that encodes the settings.
 
-Differences from the JAX CLI: --device defaults to cuda and never falls back
-to the CPU, and the grid is an 8-bit PNG of the pixels themselves
-(utils/figures.py). Int8 convs, meshes and orbax checkpoints are not ported
+--quantize int8 samples with every conv as the dynamic int8 conv of
+ops/conv.py. Differences from the JAX CLI: --device defaults to cuda and
+never falls back to the CPU, and the grid is an 8-bit PNG of the pixels
+themselves (utils/figures.py). Meshes and orbax checkpoints are not ported
 yet: those flags raise, naming their ROADMAP item.
 """
 
@@ -43,7 +44,6 @@ from toycrystals_torch.models.sde_score_model import (
     sample_reverse_sde_euler_maruyama,
 )
 from toycrystals_torch.scripts._common import (
-    FAST_PATH,
     PARALLEL,
     PARALLEL_DESTS,
     add_device_flag,
@@ -90,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clip-x0", type=int, default=0, choices=[0, 1],
                    help="Static x0-thresholding inside the sampler.")
     p.add_argument("--quantize", type=str, default="none", choices=["none", "int8"],
-                   help=f"int8 convs are not ported yet ({FAST_PATH})")
+                   help="int8: dynamic-quantised int8 convs (post-training; any float "
+                        "checkpoint samples so)")
     p.add_argument("--attn-impl", type=str, default="auto", choices=["auto", "xla", "flash"],
                    help="Attention: auto = the flash kernel at >= 2048 tokens.")
     add_parallel_flags(p, train=False)
@@ -127,8 +128,7 @@ class SampleRun:
 def sample(argv: list[str] | None = None) -> SampleRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {**{d: PARALLEL for d in PARALLEL_DESTS},
-                              "quantize": FAST_PATH})
+    refuse_deferred(p, args, {d: PARALLEL for d in PARALLEL_DESTS})
     device = select_device(args.device)
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
@@ -148,7 +148,8 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         base_ch=int(cfg["base_ch"]), emb_dim=int(cfg["emb_dim"]),
         cond_ch=int(cfg["cond_ch"]), time_ch=int(cfg["time_ch"]),
         dtype=torch.bfloat16 if dtype_name == "bfloat16" else torch.float32,
-        attn_impl=args.attn_impl, stem=str(cfg.get("stem", "none")))
+        attn_impl=args.attn_impl, stem=str(cfg.get("stem", "none")),
+        conv_impl="int8" if args.quantize == "int8" else "pad")
     state = payload["state"]
     params = state["params"]
     if args.use_ema == 1 and state.get("ema_params") is not None:

@@ -18,16 +18,29 @@ buckets it is given.
 
 `ScoreModelService.from_checkpoint(path)` serves a checkpoint of either
 package's trainer (msgpack) or a reference `.pt`, as the JAX service does from
-its `ckpt_path`.
+its `ckpt_path`. `quantize="int8"` serves every conv of the U-Net as the
+dynamic int8 conv of ops/conv.py.
+
+`MicroBatcher` coalesces concurrent requests into shared dispatches, and
+`grid_png_bytes`, `raw_png_bytes` and `npy_bytes` encode a response body;
+scripts/serve_sde_score_model.py puts them behind HTTP. `grid_png_bytes`
+differs from JAX's on purpose: JAX draws a matplotlib figure with a frame and
+a title, which the card machine cannot, so this writes utils/figures.py's PNG
+of the pixels and takes no title. `raw_png_bytes` and `npy_bytes` give JAX's
+bytes.
 
 Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
-int8 convs, meshes, orbax checkpoints, the MicroBatcher and the HTTP front
-end.
+meshes and orbax checkpoints.
 """
 
 from __future__ import annotations
 
+import io
+import math
+import queue
 import threading
+import time
+from concurrent.futures import Future
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -44,6 +57,7 @@ from toycrystals_torch.models.sde_score_model import (
     sample_probability_flow_ode,
     sample_reverse_sde_euler_maruyama,
 )
+from toycrystals_torch.utils.figures import _grid_png, png_gray
 from toycrystals_torch.utils.params import load_flax_params
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
@@ -129,9 +143,7 @@ class ScoreModelService:
                              f"checkpoint was trained with param {param}")
         if sampler not in _SAMPLERS:
             raise ValueError(f"sampler must be one of {sorted(_SAMPLERS)}, got {sampler!r}")
-        if quantize == "int8":
-            raise NotImplementedError(f"quantize='int8' is not ported yet ({_DEFERRED})")
-        if quantize != "none":
+        if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
         if mesh is not None:
             raise NotImplementedError(f"serving on a mesh is not ported yet ({_DEFERRED})")
@@ -163,6 +175,7 @@ class ScoreModelService:
             cond_ch=int(cfg["cond_ch"]), time_ch=int(cfg["time_ch"]),
             dtype=torch.bfloat16 if dtype_name == "bfloat16" else torch.float32,
             attn_impl=attn_impl, stem=str(cfg.get("stem", "none")),
+            conv_impl="int8" if quantize == "int8" else "pad",
         )
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
@@ -310,7 +323,142 @@ class ScoreModelService:
 
 
 class MicroBatcher:
-    """Dynamic batching of concurrent requests: not ported yet."""
+    """Dynamic batching: coalesce concurrent requests into shared dispatches.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"MicroBatcher is not ported yet ({_DEFERRED})")
+    Requests submitted within `window_ms` of each other, up to `max_batch`
+    rows (default: the service's top bucket), are stacked on the host into
+    one `service.sample` call and the results are split back to each caller
+    in order. Dispatch k (from 1) samples with seed `base_seed + k`, so the
+    results are i.i.d. across dispatches but depend on how requests happened
+    to coalesce; `ScoreModelService.sample` is the reproducible path."""
+
+    def __init__(self, service: ScoreModelService, *, window_ms: float = 5.0,
+                 max_batch: int | None = None, base_seed: int = 0):
+        self.service = service
+        self.window_s = float(window_ms) / 1e3
+        self.max_batch = int(max_batch or service.buckets[-1])
+        self._q: queue.Queue = queue.Queue()
+        self._dispatches = 0
+        self._coalesced = 0
+        self._base_seed = int(base_seed)
+        self._closed = False
+        self._close_lock = threading.Lock()  # no request may land behind the sentinel
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    def submit(self, types, thetas=None) -> Future:
+        """Validate now (service.conditions) and enqueue; the Future resolves
+        to (n, H, W, 1) in the service's out_dtype."""
+        y_cat, y_cont = self.service.conditions(types, thetas)
+        fut: Future = Future()
+        with self._close_lock:
+            if self._closed:
+                # no worker would ever drain the queue: the Future would hang its caller
+                raise RuntimeError("MicroBatcher is closed")
+            self._q.put((y_cat, y_cont, fut))
+        return fut
+
+    def close(self, timeout: float | None = None) -> None:
+        """Stop taking requests, dispatch every one already submitted, and
+        join the worker; later submits raise. A timeout abandons what is
+        still in flight."""
+        with self._close_lock:
+            if not self._closed:
+                self._closed = True
+                self._q.put(None)
+        self._worker.join(timeout=timeout)
+
+    @property
+    def stats(self) -> dict[str, Any]:
+        return {"batched_dispatches": self._dispatches,
+                "coalesced_requests": self._coalesced,
+                "window_ms": self.window_s * 1e3, "max_batch": self.max_batch}
+
+    def _run(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            batch = [item]
+            rows = item[0].shape[0]
+            deadline = time.monotonic() + self.window_s
+            while rows < self.max_batch:
+                try:
+                    nxt = self._q.get(timeout=max(0.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._dispatch(batch)
+                    return
+                batch.append(nxt)
+                rows += nxt[0].shape[0]
+            self._dispatch(batch)
+
+    def _dispatch(self, batch) -> None:
+        self._dispatches += 1
+        self._coalesced += len(batch)
+        seed = self._base_seed + self._dispatches
+        try:
+            # the concat stays on the host, before sample() takes the service's lock
+            y_cat = np.concatenate([b[0] for b in batch], axis=0)
+            y_cont = np.concatenate([b[1] for b in batch], axis=0)
+            x = self.service.sample(y_cat, y_cont, seed=seed)
+        except Exception as e:  # noqa: BLE001 - the failure goes to every caller
+            for _, _, fut in batch:
+                fut.set_exception(e)
+            return
+        i = 0
+        for yc, _, fut in batch:
+            n = yc.shape[0]
+            fut.set_result(x[i:i + n])
+            i += n
+
+
+def grid_png_bytes(x: np.ndarray) -> bytes:
+    """Samples as a square grid PNG: utils/figures.py's 8-bit PNG of the
+    pixels (2-px white gaps). uint8 input (an out_dtype="uint8" service) is
+    divided by 255 first."""
+    x = np.asarray(x)
+    if x.dtype == np.uint8:
+        x = x.astype(np.float32) / 255.0
+    side = int(math.ceil(math.sqrt(x.shape[0])))
+    return _grid_png(x, side, side)
+
+
+def raw_png_bytes(x: np.ndarray, ncols: int | None = None, pad: int = 2,
+                  pad_value: float = 1.0) -> bytes:
+    """Samples tiled into one 8-bit grayscale PNG with `pad`-px gaps of
+    `pad_value`, `ncols` wide (default a square grid); float pixels quantise as
+    round(x * 255), uint8 pixels pass through. The same bytes as JAX's."""
+    x = np.asarray(x)
+    u8_in = x.dtype == np.uint8
+    if not u8_in:
+        x = np.asarray(x, np.float32)
+    if x.ndim == 4:
+        x = x[..., 0]
+    if x.ndim == 2:
+        x = x[None]
+    n, h, w = x.shape
+    nc = int(ncols) if ncols else int(math.ceil(math.sqrt(n)))
+    nr = -(-n // nc)
+    canvas = np.full((nr * (h + pad) + pad, nc * (w + pad) + pad),
+                     np.uint8(round(pad_value * 255.0)) if u8_in else pad_value,
+                     np.uint8 if u8_in else np.float32)
+    for i in range(n):
+        r, c = divmod(i, nc)
+        canvas[pad + r * (h + pad):pad + r * (h + pad) + h,
+               pad + c * (w + pad):pad + c * (w + pad) + w] = x[i]
+    u8 = canvas if u8_in else np.clip(canvas * 255.0 + 0.5, 0.0, 255.0).astype(np.uint8)
+    return png_gray(u8)
+
+
+def npy_bytes(x: np.ndarray) -> bytes:
+    """Samples as a `.npy` blob (`np.load(io.BytesIO(body))` gives them back
+    bit for bit): float32 in [0, 1], or uint8 in [0, 255] from an
+    out_dtype="uint8" service."""
+    x = np.asarray(x)
+    if x.dtype != np.uint8:
+        x = np.asarray(x, np.float32)
+    buf = io.BytesIO()
+    np.save(buf, x)
+    return buf.getvalue()

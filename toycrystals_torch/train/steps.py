@@ -123,8 +123,8 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
     [e n, (e + 1) n) instead of the same n; offset 0 is the fixed dataset.
     """
     if mesh is not None:
-        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md, "
-                                  "module 10, parallel axes)")
+        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
+                                  "queue 1, module 5: parallel axes)")
     if fresh_data and lattice_cfg is None:
         raise ValueError("fresh_data needs the procedural (lattice_cfg) source: a resident "
                          "archive has only n items")

@@ -35,8 +35,8 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 def _grid_png(images, nrows: int = 6, ncols: int = 6, pad: int = 2) -> bytes:
     """The first nrows x ncols images of [N, H, W(, 1)] in [0, 1], row by
-    row, as the bytes of an 8-bit grayscale PNG; cells without an image and
-    the `pad`-px gaps are white."""
+    row, as the bytes of an 8-bit grayscale PNG (`png_gray`); cells without
+    an image and the `pad`-px gaps are white."""
     x = np.asarray(images, np.float32)
     if x.ndim == 4:
         x = x[..., 0]
@@ -46,6 +46,12 @@ def _grid_png(images, nrows: int = 6, ncols: int = 6, pad: int = 2) -> bytes:
         r, c = divmod(i, ncols)
         y0, x0 = pad + r * (h + pad), pad + c * (w + pad)
         canvas[y0:y0 + h, x0:x0 + w] = quantize_u8(x[i])
+    return png_gray(canvas)
+
+
+def png_gray(canvas: np.ndarray) -> bytes:
+    """A [H, W] uint8 array as the bytes of an 8-bit grayscale PNG (filter
+    None on every row, zlib level 6)."""
     hh, ww = canvas.shape
     # one filter byte (0, None) before each scanline
     scan = np.concatenate([np.zeros((hh, 1), np.uint8), canvas], axis=1).tobytes()
