@@ -135,6 +135,23 @@ result line:
    GroupNorm launches per dispatch; then a server process of phase 10's
    checkpoint stopped by SIGTERM while it samples: the request in flight
    answers 200 and the process exits 0.
+13. Export and the VAE trainer, at full width. Export: phase 10's checkpoint
+   at SDE-64 (CFG 1.5, the step loop unrolled into the graph; first the
+   service's dispatch against the sampler on its own generator, bit-equal),
+   phase 11's 4-step student and a 256x256 service at DPM-4 (4,096 tokens:
+   the flash op inside the graph), each at one small batch, exported by
+   toycrystals_torch/export.py, saved, reloaded and run: bit-equal to its live
+   service at the same seed, exactly 10 gn_silu launches per U-Net forward
+   through the artefact (and 1 flash launch per forward at 256x256), with the
+   export, save, load and call seconds, the graph's nodes and the file's
+   bytes; then the export CLI's --selftest on the student (bit-equal). The
+   VAE: 2 f32 CondVAE steps card against CPU on one rendered batch
+   and injected draws (losses within 1e-5 relative, step-1 gradients leaf by
+   leaf as phase 7; the parameters after Adam logged),
+   then train_vae --procedural at z 32, batch 128 for 2 epochs of 12,800 items
+   and a --resume epoch: 1 rasterizer launch per step plus 2 for the
+   diagnostics, img/s per epoch, the three PNGs, and vae_samples_mop.png
+   scored by the eval CLI's --grid (fidelity and latent FID).
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -2057,6 +2074,241 @@ def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
     return out
 
 
+# Phase 13, export and the VAE trainer: the exported sampler of phase 10's
+# checkpoint, of phase 11's student and of a 256x256 service, each bit-equal to
+# its live service; then train_vae at full width.
+EXPORT_BATCH = 4                    # images per exported dispatch
+EXPORT_SDE_STEPS = 64               # the SDE export's steps: its graph unrolls them
+EXPORT_HI_STEPS = 4                 # DPM steps of the 256x256 export (flash inside)
+VAE_DIR = os.path.join(ROOT, "runs", "chip_smoke_vae")
+VAE_ITEMS, VAE_BATCH, VAE_Z = 12800, 128, 32  # the CLI's defaults but for the item count
+VAE_REL = 1e-5                      # VAE steps card vs CPU: each loss, relative
+
+
+def _export_round_trip(name: str, svc, path: str, set_counts_to_zero, counts) -> dict:
+    """Export `svc` at its one bucket, save, load, run the artefact once (its
+    launches counted) and hold it to svc.sample at the same seed, bit for bit."""
+    from toycrystals_torch import export as ex
+
+    b = svc.buckets[0]
+    t0 = time.perf_counter()
+    ep = ex.export_service(svc, b)
+    export_s = time.perf_counter() - t0
+    nodes, ops = len(ep.graph.nodes), ex.custom_ops(ep)
+    t0 = time.perf_counter()
+    ex.save_exported(path, ep, ex.export_meta(svc, b, ep))
+    save_s = time.perf_counter() - t0
+    del ep
+    t0 = time.perf_counter()
+    fn, meta = ex.load_exported(path)
+    load_s = time.perf_counter() - t0
+    y_cat = (np.arange(b) % svc.n_types).astype(np.int32)
+    y_cont = np.zeros((b, svc.y_cont_dim), np.float32)
+    y_cont[:, 1] = np.linspace(0.0, math.pi / 3, b)
+    fn(y_cat, y_cont, 11)  # the first call builds the graph's kernels' libraries
+    torch.cuda.synchronize()
+    set_counts_to_zero()  # the artefact's path starts here
+    t0 = time.perf_counter()
+    got = fn(y_cat, y_cont, 11).cpu().numpy()
+    call_s = time.perf_counter() - t0
+    c = counts()
+    t0 = time.perf_counter()
+    want = svc.sample(y_cat, y_cont, seed=11)
+    live_s = time.perf_counter() - t0
+    diff = float(np.abs(got - want).max())
+    rec = dict(batch=b, sampler=meta["sampler"], steps=meta["steps"], graph_nodes=nodes,
+               custom_ops=ops, export_seconds=export_s, save_seconds=save_s,
+               bytes=os.path.getsize(path), load_seconds=load_s, call_seconds=call_s,
+               service_seconds=live_s, max_abs_diff=diff, bit_equal=bool(np.array_equal(got, want)),
+               launches=c)
+    log(f"export {name}: " + json.dumps(rec))
+    if not rec["bit_equal"] or not np.isfinite(got).all():
+        raise AssertionError(f"export {name}: the artefact differs from the live service by "
+                             f"{diff}")
+    return rec
+
+
+def _vae_steps_card_vs_cpu(card: str) -> dict:
+    """2 f32 CondVAE steps at full width on one rendered batch and injected
+    draws, card against CPU: each loss within VAE_REL relative, and the
+    step-1 gradients leaf by leaf within LEAF_GRAD_TOL (as phase 7). The
+    parameters after Adam are logged, not held: Adam's first updates are
+    lr * g / (|g| + 1e-8), so a gradient that cancels to near 0 and rounds
+    to the other sign on one side moves its entry by up to 2 lr."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.models.vae import CondVAE
+    from toycrystals_torch.train.state import Optimizer, create_train_state
+    from toycrystals_torch.train.steps import make_vae_train_step, vae_loss_and_grads
+
+    cfg = LatticeConfig(img_size=64, n_types=4, rot_only=True)
+    x, y_cat, y_cont = generate_batch(cfg, 5, torch.arange(VAE_BATCH), device="cpu")
+    g = torch.Generator().manual_seed(6)
+    draws = [(torch.randn((VAE_BATCH, VAE_Z), generator=g),
+              (torch.rand((VAE_BATCH, 1), generator=g) >= 0.1).float()) for _ in range(2)]
+    beta_eff = 3e-4 / 5
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        model = flax_default_init(CondVAE(z_dim=VAE_Z, cond_drop=0.1),
+                                  np.random.default_rng(7)).to(dev)
+        tx = Optimizer(2e-3)
+        state = create_train_state(model, tx)
+        step = make_vae_train_step(model, tx, 0.05)
+        batch = [a.to(dev) for a in (x, y_cat, y_cont)]
+        _, grads = vae_loss_and_grads(model, *batch, beta_eff, 0.05,
+                                      noise=tuple(a.to(dev) for a in draws[0]))
+        losses = []
+        for eps, keep in draws:
+            state, m = step(state, *batch, beta_eff, noise=(eps.to(dev), keep.to(dev)))
+            losses.append(float(m["loss"]))
+        runs[dev] = (losses, [a.cpu() for a in grads],
+                     {k: v.detach().cpu() for k, v in state.params.items()})
+    (lc, gc, pc), (lg, gg, pg) = runs["cpu"], runs[DEVICE]
+    leaves = []
+    for k, a, b in zip(pc, gg, gc):
+        d, m = float((a - b).abs().max()), float(b.abs().max())
+        leaves.append(dict(leaf=k, max_abs_diff=d, max_abs=m,
+                           share_of_limit=d / (LEAF_GRAD_TOL[0] * m + LEAF_GRAD_TOL[1])))
+    worst = max(leaves, key=lambda r: r["share_of_limit"])
+    diff = math.sqrt(sum(float(((pg[k] - pc[k]) ** 2).sum()) for k in pc))
+    norm = math.sqrt(sum(float((pc[k] ** 2).sum()) for k in pc))
+    # the entries that moved apart by more than lr / 10, and their step-1 gradients
+    apart = [(pg[k] - pc[k]).abs() > 2e-4 for k in pc]
+    out = dict(losses_cpu=lc, losses_card=lg,
+               loss_rel=max(abs(a - b) / abs(b) for a, b in zip(lg, lc)), loss_tolerance=VAE_REL,
+               grad_worst_leaf=worst, params_after_2_steps_rel_l2=diff / norm,
+               params_after_2_steps_max_abs_diff=max(float((pg[k] - pc[k]).abs().max())
+                                                     for k in pc),
+               entries_apart=int(sum(int(m.sum()) for m in apart)),
+               entries_apart_max_abs_step1_grad=max(
+                   [float(gr[m].abs().max()) for gr, m in zip(gc, apart) if m.any()] or [0.0]),
+               card=card)
+    log("vae 2 f32 steps card vs CPU: " + json.dumps(out))
+    if not (out["loss_rel"] <= VAE_REL and worst["share_of_limit"] <= 1.0):
+        raise AssertionError(f"VAE steps: card and CPU differ: {out}")
+    return out
+
+
+def phase_export_vae(set_counts_to_zero, counts, card: str, params: dict,
+                     student_ckpt: str) -> dict:
+    """Export and the VAE trainer (module docstring, phase 13)."""
+    from toycrystals_torch.models.sde_score_model import sample_reverse_sde_euler_maruyama
+    from toycrystals_torch.scripts import export_sde_score_model as export_cli
+    from toycrystals_torch.serve import ScoreModelService
+
+    ckpt64 = os.path.join(CLI_DIR, "64", "checkpoints", "sde_score_model_last.msgpack")
+    os.makedirs(VAE_DIR, exist_ok=True)
+    out: dict = {"card": card}
+    launches: dict = {}
+
+    # -- a. phase 10's checkpoint, reverse SDE at CFG 1.5 (unrolled EXPORT_SDE_STEPS)
+    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, sampler="sde",
+                                            steps=EXPORT_SDE_STEPS, guidance_scale=1.5,
+                                            t_end=0.005, buckets=(EXPORT_BATCH,))
+    # the service's draws (x_init, then one Philox call per step as the sampler
+    # reads it) are the sampler's own, so a dispatch equals the sampler on a generator
+    y_cat, y_cont = svc.conditions(np.arange(EXPORT_BATCH) % 4, np.linspace(0, 1, EXPORT_BATCH))
+    with torch.inference_mode():
+        direct = sample_reverse_sde_euler_maruyama(
+            svc._apply_fn, svc.sde, torch.from_numpy(y_cat).to(DEVICE),
+            torch.from_numpy(y_cont).to(DEVICE), (EXPORT_BATCH, CLI_SIZE, CLI_SIZE, 1),
+            torch.Generator(device=DEVICE).manual_seed(3), n_steps=svc.steps,
+            guidance_scale=1.5, t_end=0.005, n_types=4).cpu().numpy()
+    if not np.array_equal(direct, svc.sample(y_cat, y_cont, seed=3)):
+        raise AssertionError("the service's dispatch differs from the sampler on its generator")
+    out["sde_64"] = rec = _export_round_trip("sde 64x64", svc, os.path.join(VAE_DIR, "sde.tcx"),
+                                             set_counts_to_zero, counts)
+    launches["export_sde_64"] = rec["launches"]
+    if rec["launches"]["gn_silu"] != 10 * (EXPORT_SDE_STEPS + 1) or rec["launches"]["flash_attn"] \
+            or rec["custom_ops"] != ["toycrystals.gn_silu.default"]:
+        raise AssertionError(f"export sde 64x64: {rec}")
+    del svc
+
+    # -- b. phase 11's 4-step student (DDIM, guidance 0)
+    svc = ScoreModelService.from_checkpoint(student_ckpt, device=DEVICE, buckets=(EXPORT_BATCH,))
+    out["student"] = rec = _export_round_trip("student", svc,
+                                              os.path.join(VAE_DIR, "student.tcx"),
+                                              set_counts_to_zero, counts)
+    launches["export_student"] = rec["launches"]
+    if rec["launches"]["gn_silu"] != 10 * Q_TO_STEPS or rec["sampler"] != "ddim":
+        raise AssertionError(f"export student: {rec}")
+    del svc
+    # the export CLI's --selftest on the same checkpoint (atol 1e-4 inside; bit-equal here)
+    line = export_cli.export(["--ckpt", student_ckpt, "--out", os.path.join(VAE_DIR, "cli.tcx"),
+                              "--batch", str(EXPORT_BATCH), "--selftest", "--seed", "5"])
+    out["cli_selftest_max_abs_diff"] = line["selftest_max_abs_diff"]
+    if line["selftest_max_abs_diff"] != 0.0:
+        raise AssertionError(f"export CLI --selftest: {line}")
+
+    # -- c. 256x256 (4,096 bottleneck tokens): the graph holds the flash op
+    svc = ScoreModelService(HI_CFG, params["none"], device=DEVICE, sampler="dpm",
+                            steps=EXPORT_HI_STEPS, buckets=(1,))
+    out["dpm_256"] = rec = _export_round_trip("dpm 256x256", svc,
+                                              os.path.join(VAE_DIR, "hi.tcx"),
+                                              set_counts_to_zero, counts)
+    launches["export_256"] = rec["launches"]
+    evals = EXPORT_HI_STEPS + 1  # the solver's steps and the x0 projection
+    if rec["launches"]["flash_attn"] != evals or rec["launches"]["gn_silu"] != 10 * evals \
+            or "toycrystals.flash_sdpa_fwd.default" not in rec["custom_ops"]:
+        raise AssertionError(f"export dpm 256x256: {rec}")
+    del svc
+    for f in ("sde.tcx", "student.tcx", "hi.tcx", "cli.tcx"):
+        os.remove(os.path.join(VAE_DIR, f))
+    out.update(phase_vae(set_counts_to_zero, counts, card, launches))
+    out["launches"] = launches
+    return out
+
+
+def phase_vae(set_counts_to_zero, counts, card: str, launches: dict) -> dict:
+    """Phase 13's VAE: 2 f32 steps card vs CPU, then train_vae at full width
+    (2 epochs, a --resume epoch) and its MoP grid scored. Adds the trainer's
+    launches to `launches`."""
+    from toycrystals_torch.scripts import eval_sde_score_model as eval_cli
+    from toycrystals_torch.scripts import train_vae as vae_cli
+
+    os.makedirs(VAE_DIR, exist_ok=True)
+    out: dict = {"vae_card_vs_cpu": _vae_steps_card_vs_cpu(card)}
+    argv = ["--procedural", "--n-samples", str(VAE_ITEMS), "--batch-size", str(VAE_BATCH),
+            "--z-dim", str(VAE_Z), "--out-dir", VAE_DIR]
+    shutil.rmtree(os.path.join(VAE_DIR, "checkpoints"), ignore_errors=True)
+    steps = VAE_ITEMS // VAE_BATCH
+    runs = {}
+    for name, extra, epochs in (("vae_train", ["--epochs", "2"], 2),
+                                ("vae_resume", ["--epochs", "3", "--resume"], 1)):
+        set_counts_to_zero()  # the trainer's path starts here
+        t0 = time.perf_counter()
+        runs[name] = run = vae_cli.train(argv + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = c = counts()
+        # one render per step, plus the recon batch and the MoP pool
+        if c["rasterize"] != steps * epochs + 2 or c["gn_silu"] or c["flash_attn"] \
+                or not all(math.isfinite(v) for v in run.hists["loss"]):
+            raise AssertionError(f"{name}: launches {c}, hists {run.hists}")
+        out[name] = dict(epochs=len(run.epoch_seconds), seconds=seconds,
+                         epoch_seconds=run.epoch_seconds, img_per_s=run.images_per_second,
+                         loss=run.hists["loss"], recon=run.hists["recon"], kl=run.hists["kl"],
+                         launches=c)
+        log(f"{name} ({card}): " + json.dumps(out[name]))
+    r = runs["vae_resume"]
+    if r.hists["loss"][:2] != runs["vae_train"].hists["loss"] \
+            or r.state.opt_state.count != 3 * steps:
+        raise AssertionError(f"--resume: {r.hists}, count {r.state.opt_state.count}")
+    for key, (rows, cols) in (("recon", (4, 8)), ("samples_prior", (6, 6)),
+                              ("samples_mop", (6, 6))):
+        img = read_png_gray(r.figures[key])
+        if img.shape != (rows * 66 + 2, cols * 66 + 2):
+            raise AssertionError(f"{r.figures[key]}: shape {img.shape}")
+    line = eval_cli.evaluate(["--grid", r.figures["samples_mop"],
+                              "--fid-vae", os.path.join(ROOT, Q_EXTRACTOR)]).line
+    out["mop_scores"] = {k: line[k] for k in Q_SCALARS}
+    log(f"vae_samples_mop.png ({card}): " + json.dumps(out["mop_scores"]))
+    if not all(math.isfinite(v) for v in out["mop_scores"].values()):
+        raise AssertionError(f"MoP scores: {out['mop_scores']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -2185,10 +2437,16 @@ def main() -> int:
                                                     report["quality"]["student_ckpt"])
         report["serving_rest"]["seconds"] = time.perf_counter() - t0
         log(f"phase 12 took {report['serving_rest']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        report["export_vae"] = phase_export_vae(set_counts_to_zero, counts, card, params,
+                                                report["quality"]["student_ckpt"])
+        report["export_vae"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 13 took {report['export_vae']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
-                              **report["serving_rest"]["launches"]}
+                              **report["serving_rest"]["launches"],
+                              **report["export_vae"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -2248,7 +2506,10 @@ def main() -> int:
             ("quality_sample_rf", ("gn_silu",)),
             ("quality_distill", ("gn_silu", "gn_silu_backward", "rasterize")),
             ("quality_student", ("gn_silu",)), ("int8_serving", ("gn_silu",)),
-            ("inpaint", ("gn_silu", "rasterize")), ("http_student", ("gn_silu",)))
+            ("inpaint", ("gn_silu", "rasterize")), ("http_student", ("gn_silu",)),
+            ("export_sde_64", ("gn_silu",)), ("export_student", ("gn_silu",)),
+            ("export_256", ("gn_silu", "flash_attn")), ("vae_train", ("rasterize",)),
+            ("vae_resume", ("rasterize",)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -2274,6 +2535,8 @@ def main() -> int:
         "launches_quality": {k: paths[k]["gn_silu"] for k in report["quality"]["launches"]},
         "launches_serving_rest": {k: paths[k]["gn_silu"]
                                   for k in report["serving_rest"]["launches"]},
+        "launches_export_vae": {k: paths[k]["gn_silu"] for k in report["export_vae"]["launches"]},
+        "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
         "ms": headline["ms"], "plain_ms": headline["plain_ms"],
@@ -2325,6 +2588,8 @@ def main() -> int:
         "launches_quality": {k: paths[k]["rasterize"] for k in report["quality"]["launches"]},
         "launches_serving_rest": {k: paths[k]["rasterize"]
                                   for k in report["serving_rest"]["launches"]},
+        "launches_export_vae": {k: paths[k]["rasterize"]
+                                for k in report["export_vae"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",
@@ -2367,6 +2632,8 @@ def main() -> int:
         "backward_passes_training_256": trained_hi["flash_attn_backward"],
         "launches_cli": {k: paths[k]["flash_attn"] for k in report["cli"]["launches"]},
         "backward_passes_cli_train_256": paths["cli_train_256"]["flash_attn_backward"],
+        "launches_export_256": paths["export_256"]["flash_attn"],
+        "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",
         "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],

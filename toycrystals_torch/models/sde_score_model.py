@@ -374,13 +374,62 @@ def _shape(img_shape) -> tuple[int, int, int, int]:
     return b, h, w, c
 
 
+def _noise_tensor(noise, device) -> torch.Tensor:
+    """Injected draws as an f32 tensor on `device`: a tensor that is already
+    one passes as it is (an exported graph traces it), numpy is copied, and
+    `StepDraws` pass through to be drawn as they are read."""
+    if isinstance(noise, torch.Tensor):
+        return noise.to(device=device, dtype=torch.float32)
+    if isinstance(noise, StepDraws):
+        return noise
+    return torch.tensor(np.asarray(noise, np.float32), device=device)
+
+
 def _initial_x(noise, shape, generator, device) -> torch.Tensor:
     if noise is not None:
-        x = torch.tensor(np.asarray(noise, np.float32), device=device)
+        x = _noise_tensor(noise, device)
         if tuple(x.shape) != shape:
             raise ValueError(f"injected x has shape {tuple(x.shape)}, expected {shape}")
         return x
     return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+
+
+class StepDraws:
+    """The per-step draws z [n, B, H, W, 1] of a sampler, taken from
+    `generator` when the sampler reads them: z[i] is a fresh randn, so the
+    reads must come in order 0, 1, ... (each raises otherwise). Drawing all
+    n first, into one tensor or into n, made a 256-image s2dr request
+    slower on the card (PERF.md); drawn at use, the kernels run in the order
+    they run without injected noise."""
+
+    def __init__(self, n: int, img_shape, generator: torch.Generator | None, device=None):
+        self.shape = (int(n), *_shape(img_shape))
+        self._generator, self._device, self._next = generator, device, 0
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if i != self._next:
+            raise IndexError(f"step draws are read in order: expected {self._next}, got {i}")
+        self._next += 1
+        return torch.randn(self.shape[1:], generator=self._generator, device=self._device,
+                           dtype=torch.float32)
+
+
+def draw_sampler_noise(img_shape, n_z: int, generator: torch.Generator | None, device=None,
+                       lazy: bool = False):
+    """(x_init [B, H, W, 1], z [n_z, B, H, W, 1]) drawn from `generator` as
+    a sampler draws them: x_init first, then one call per step. The per-step
+    calls matter: a CUDA generator's Philox offset advances per call, so one
+    draw of the whole z would give other values. n_z is the step count for
+    the reverse SDE and 0 for the samplers that draw x_init alone. `lazy`
+    returns z as `StepDraws`, drawn when the sampler reads each step's."""
+    shape = _shape(img_shape)
+    x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    if lazy:
+        return x, StepDraws(n_z, shape, generator, device)
+    z = torch.empty((int(n_z), *shape), device=device, dtype=torch.float32)
+    for i in range(int(n_z)):
+        z[i].normal_(generator=generator)  # randn's own fill, into its slot
+    return x, z
 
 
 def sample_reverse_sde_euler_maruyama(
@@ -393,7 +442,7 @@ def sample_reverse_sde_euler_maruyama(
     projection; returns [B, H, W, 1] in [0, 1].
 
     noise: optional (x_init [B, H, W, 1], z [n_steps, B, H, W, 1]) replacing
-    the generator's draws (tests inject JAX's)."""
+    the generator's draws (tests inject JAX's); z may be `StepDraws`."""
     t_end = _check_t_end(t_end)
     shape = _shape(img_shape)
     dev = y_cat.device
@@ -402,7 +451,7 @@ def sample_reverse_sde_euler_maruyama(
     x = _initial_x(None if noise is None else noise[0], shape, generator, dev)
     z_all = None
     if noise is not None:
-        z_all = torch.tensor(np.asarray(noise[1], np.float32), device=dev)
+        z_all = _noise_tensor(noise[1], dev)
         if tuple(z_all.shape) != (n_steps, *shape):
             raise ValueError(f"injected z has shape {tuple(z_all.shape)}, "
                              f"expected {(n_steps, *shape)}")
@@ -621,7 +670,7 @@ def sample_inpaint_reverse_sde(
     x = _initial_x(None if noise is None else noise[0], shape, generator, dev)
     draws = None
     if noise is not None:
-        draws = torch.tensor(np.asarray(noise[1], np.float32), device=dev)
+        draws = _noise_tensor(noise[1], dev)
         if tuple(draws.shape) != (n_steps, resample, 3, *shape):
             raise ValueError(f"injected draws have shape {tuple(draws.shape)}, expected "
                              f"{(n_steps, resample, 3, *shape)}")

@@ -4,7 +4,8 @@ Counterpart of toycrystals_tpu/models/torch_init.py, plus the flax defaults
 the JAX trainer starts from:
 
 - `flax_default_init`: kernels normal with std 1/sqrt(fan_in) (flax's
-  lecun-normal, without its truncation at two standard deviations), biases
+  lecun-normal, without its truncation at two standard deviations; a
+  ConvTranspose2d's fan-in is in x kh x kw, as flax counts it), biases
   zero, GroupNorm scales one, the class embedding N(0, 1); from a numpy
   generator, so a seed gives the same weights on every machine.
 - `torch_like_init`: torch's own layer defaults, which the original torch
@@ -34,6 +35,8 @@ def flax_default_init(model: nn.Module, rng: np.random.Generator) -> nn.Module:
         shape = tuple(v.shape)
         if k.endswith("cat_emb.weight"):
             a = rng.normal(size=shape)
+        elif k.endswith("weight") and "ConvTranspose" in k:  # [in, out, kh, kw]
+            a = rng.normal(size=shape) / math.sqrt(shape[0] * math.prod(shape[2:]))
         elif k.endswith("weight") and len(shape) >= 2:
             a = rng.normal(size=shape) / math.sqrt(math.prod(shape[1:]))
         elif k.endswith("weight"):

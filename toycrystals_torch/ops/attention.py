@@ -16,6 +16,10 @@ Two SDPA backends on [B, N, heads, d] tensors (JAX's layout), picked by
   a CPU tensor. There is no other branch: a failed build or launch raises.
   `flash_sdpa.launches` counts forward launches and
   `flash_sdpa.backward_launches` backward passes (three kernels each).
+  Without autograd the forward kernel runs as the custom op
+  `torch.ops.toycrystals.flash_sdpa_fwd` (registered at import, built at its
+  first CUDA call; CPU kernel: the plain version; a fake function for
+  `torch.export`), so an exported graph launches it as eager serving does.
 """
 
 from __future__ import annotations
@@ -63,14 +67,18 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
                                       layer.bias.to(dtype))
 
 
-def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version: softmax(Q K^T / sqrt(d)) V on [B, N, heads, d], logits
-    and softmax in f32, probabilities cast to v.dtype for the second product.
+def sdpa_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float | None = None) -> torch.Tensor:
+    """Plain version: softmax(Q K^T * scale) V on [B, N, heads, d] (scale
+    1 / sqrt(d) unless given), logits and softmax in f32, probabilities cast
+    to v.dtype for the second product.
     q and k are upcast before the first product, so bf16 logits are never
     rounded to bf16 (exact: a bf16 product fits in f32), as JAX's
     `dot_product_attention` forms them (BF16_BF16_F32)."""
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))                # [B, heads, N, d]
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(probs, vh).transpose(1, 2)
 
@@ -197,6 +205,24 @@ def _flash_backward_cuda(q, k, v, out, lse, grad_out, scale: float):
     return dq, dk, dv
 
 
+@torch.library.custom_op("toycrystals::flash_sdpa_fwd", mutates_args=(), device_types="cuda")
+def flash_forward_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """The forward kernel as a torch op: O only (no log-sum-exp, no autograd).
+    The head dim must be a multiple of 16, as for `_flash_forward_cuda`."""
+    return _flash_forward_cuda(q, k, v, scale)[0]
+
+
+@flash_forward_op.register_kernel("cpu")
+def _flash_forward_op_cpu(q, k, v, scale):
+    return sdpa_reference(q, k, v, scale).contiguous()
+
+
+@flash_forward_op.register_fake
+def _flash_forward_op_fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
 class _FlashKernel(torch.autograd.Function):
     """Kernel forward saving (q, k, v, O, L); backward kernels at those."""
 
@@ -231,7 +257,7 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         out = _FlashKernel.apply(q, k, v, scale)
     else:
-        out = _flash_forward_cuda(q, k, v, scale)[0]
+        out = flash_forward_op(q, k, v, scale)
     return out[..., :d] if pad else out
 
 

@@ -21,6 +21,13 @@ a `torch.autograd.Function` that also has it write the per-(item, group)
 statistics, and whose backward launches the backward kernel on the saved
 inputs and statistics, as the JAX op's custom VJP differentiates its jnp
 reference. On the CPU the plain version runs under ordinary autograd.
+
+Without autograd, a CUDA tensor goes through the custom op
+`torch.ops.toycrystals.gn_silu` (registered when this module is imported;
+nothing is built until its first CUDA call). Its CUDA kernel is the forward
+kernel, its CPU kernel the plain version, and its fake function gives the
+output's shape and type, so `torch.export` records the op in a graph, and
+eager serving and an exported graph launch the same kernel.
 """
 
 from __future__ import annotations
@@ -188,6 +195,23 @@ def _gn_silu_backward_cuda(x, scale, bias, grad_out, stats, groups: int, eps: fl
     return dx, sums[:, 1].to(scale.dtype), sums[:, 0].to(bias.dtype)
 
 
+@torch.library.custom_op("toycrystals::gn_silu", mutates_args=(), device_types="cuda")
+def gn_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+               eps: float, pad: bool) -> torch.Tensor:
+    """The forward kernel as a torch op (no statistics, no autograd)."""
+    return _gn_silu_cuda(x, scale, bias, groups, eps, pad)
+
+
+gn_silu_op.register_kernel("cpu")(gn_silu_reference)
+
+
+@gn_silu_op.register_fake
+def _gn_silu_op_fake(x, scale, bias, groups, eps, pad):
+    b, c, h, w = x.shape
+    p = 2 if pad else 0
+    return x.new_empty((b, c, h + p, w + p))
+
+
 def kernel_plan(shape, groups: int, dtype: torch.dtype, pad: bool,
                 backward: bool = False) -> dict:
     """The launch a call of this shape gets on the current card: CTAs per
@@ -234,7 +258,7 @@ def gn_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: in
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
                                     or bias.requires_grad):
         return _GnSiluKernel.apply(x, scale, bias, groups, eps, pad)
-    return _gn_silu_cuda(x, scale, bias, groups, eps, pad)
+    return gn_silu_op(x, scale, bias, groups, eps, pad)
 
 
 gn_silu.launches = 0

@@ -29,10 +29,14 @@ def select_device(device: str) -> torch.device:
     return resolve_device("cuda" if device == "auto" else device)
 
 
-def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True) -> None:
+def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
+                       space: bool = True) -> None:
     """The JAX CLIs' mesh and multi-process flags, kept so that the command
-    lines match; any value but the default raises (`refuse_deferred`)."""
+    lines match; any value but the default raises (`refuse_deferred`).
+    `space=False` leaves out --shard-space, as the VAE trainer's JAX CLI does."""
     for flag in ("--shard", "--shard-space", "--shard-model"):
+        if flag == "--shard-space" and not space:
+            continue
         p.add_argument(flag, type=int, default=0, help=f"not ported yet ({PARALLEL})")
     if train:
         p.add_argument("--fsdp", action="store_true", help=f"not ported yet ({PARALLEL})")

@@ -66,7 +66,12 @@ from toycrystals_torch.train.state import (
     warmup_cosine_decay_schedule,
 )
 from toycrystals_torch.train.steps import make_sde_train_epoch, make_sde_train_step
-from toycrystals_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from toycrystals_torch.utils.checkpoint import (
+    AsyncCheckpointer,
+    float_list,
+    load_checkpoint,
+    save_checkpoint,
+)
 from toycrystals_torch.utils.figures import save_image_grid
 from toycrystals_torch.utils.metrics import append_jsonl, ensure_file, truncate_jsonl
 from toycrystals_torch.utils.params import (
@@ -352,8 +357,7 @@ def train(argv: list[str] | None = None) -> TrainRun:
         except ValueError as e:
             raise SystemExit(f"--resume from {ckpt_path}: {e}") from e
         start_epoch = int(resume_raw["epoch_next"])
-        hist = resume_raw.get("loss_hist", [])
-        loss_hist = [float(v) for v in (hist.values() if isinstance(hist, dict) else hist)]
+        loss_hist = float_list(resume_raw.get("loss_hist", []))
         # with --ckpt-every N > 1 metrics.jsonl can run ahead of the restored
         # epoch; drop those rows so the epochs trained again do not repeat them
         truncate_jsonl(metrics_path, "epoch", start_epoch)

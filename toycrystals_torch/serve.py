@@ -18,8 +18,14 @@ buckets it is given.
 
 `ScoreModelService.from_checkpoint(path)` serves a checkpoint of either
 package's trainer (msgpack) or a reference `.pt`, as the JAX service does from
-its `ckpt_path`. `quantize="int8"` serves every conv of the U-Net as the
-dynamic int8 conv of ops/conv.py.
+its `ckpt_path` (kept as `service.ckpt_path`). `quantize="int8"` serves every
+conv of the U-Net as the dynamic int8 conv of ops/conv.py.
+
+A dispatch is `sampler_callable(batch)`, a function of the conditions and
+the noise, run on the draws of a generator seeded by the request's seed
+(`draw_noise`, in the order and at the time the sampler itself would draw
+them).
+toycrystals_torch/export.py exports that same function.
 
 `MicroBatcher` coalesces concurrent requests into shared dispatches, and
 `grid_png_bytes`, `raw_png_bytes` and `npy_bytes` encode a response body;
@@ -52,6 +58,7 @@ from toycrystals_torch.models.sde_score_model import (
     CondUNetTiny,
     eps_apply_from_v,
     sample_chunked,
+    draw_sampler_noise,
     sample_ddim,
     sample_dpmpp_2m,
     sample_probability_flow_ode,
@@ -123,6 +130,7 @@ class ScoreModelService:
         mesh=None,
     ):
         self.device = resolve_device(device)
+        self.ckpt_path: str | None = None  # set by from_checkpoint
         cfg = dict(config)
         self.config = cfg
         if use_ema and ema_params is not None:
@@ -222,7 +230,9 @@ class ScoreModelService:
                              "self-describing checkpoint (any trainer's output, or a "
                              "reference .pt)")
         state = payload["state"]
-        return cls(cfg, state["params"], ema_params=state.get("ema_params"), **kw)
+        service = cls(cfg, state["params"], ema_params=state.get("ema_params"), **kw)
+        service.ckpt_path = str(ckpt_path)
+        return service
 
     @property
     def stats(self) -> dict[str, Any]:
@@ -268,6 +278,47 @@ class ScoreModelService:
         y_cont[:, 1] = th
         return y_cat, y_cont
 
+    @property
+    def noise_steps(self) -> int:
+        """Leading size of a dispatch's z: one draw per step for the reverse
+        SDE, none for the samplers that draw the initial x alone."""
+        return self.steps if self.sampler_name == "sde" else 0
+
+    def draw_noise(self, batch: int, generator: torch.Generator, lazy: bool = False):
+        """(x_init [batch, H, W, 1], z [noise_steps, batch, H, W, 1]) from
+        `generator` (on the service's device), in the sampler's order; with
+        `lazy`, z is `StepDraws`, drawn as the sampler reads it."""
+        s = self.img_size
+        return draw_sampler_noise((batch, s, s, 1), self.noise_steps, generator, self.device,
+                                  lazy=lazy)
+
+    def sampler_callable(self, batch: int):
+        """The serving dispatch at one static batch:
+        ``run(y_cat int32 [batch], y_cont f32 [batch, D], x_init f32
+        [batch, H, W, 1], z f32 [noise_steps, batch, H, W, 1]) -> [batch, H,
+        W, 1]``, with the resolved sampler, steps, CFG and t_end baked in and
+        the noise as an input (an exported graph takes no generator). z is
+        read by the reverse SDE only. `sample()` runs it on `draw_noise`'s
+        draws (z as `StepDraws`); toycrystals_torch/export.py exports it with
+        z a tensor."""
+        sampler_fn, apply_fn, sde = self._sampler_fn, self._apply_fn, self.sde
+        shape = (int(batch), self.img_size, self.img_size, 1)
+        kw = dict(n_steps=self.steps, guidance_scale=self.guidance_scale, t_end=self.t_end,
+                  n_types=self.n_types, clip_x0=self.clip_x0, **self._extra_kw)
+        sde_noise = self.sampler_name == "sde"
+
+        def run(y_cat, y_cont, x_init, z):
+            return sampler_fn(apply_fn, sde, y_cat, y_cont, shape, None,
+                              noise=(x_init, z) if sde_noise else x_init, **kw)
+
+        return run
+
+    def _dispatch(self, _apply_fn, _sde, y_cat, y_cont, img_shape, generator):
+        """One call of `sampler_callable` on `generator`'s draws; it takes a
+        sampler's arguments, so `sample_chunked` drives it as a sampler."""
+        x_init, z = self.draw_noise(int(img_shape[0]), generator, lazy=True)
+        return self.sampler_callable(int(img_shape[0]))(y_cat, y_cont, x_init, z)
+
     def sample(self, y_cat, y_cont, *, seed: int = 0) -> np.ndarray:
         """One image per condition row: (n, H, W, 1) float32 in [0, 1], or
         uint8 in [0, 255] (quantised on the device) with out_dtype="uint8".
@@ -281,14 +332,12 @@ class ScoreModelService:
         n = int(np.shape(y_cat)[0])
         yc = np.asarray(y_cat, np.int32)
         yv = np.asarray(y_cont, np.float32)
-        kw = dict(n_steps=self.steps, guidance_scale=self.guidance_scale, t_end=self.t_end,
-                  n_types=self.n_types, clip_x0=self.clip_x0, **self._extra_kw)
         size, top = self.img_size, self.buckets[-1]
         if n > top:
             with self._lock, torch.inference_mode():
                 yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
-                x = sample_chunked(self._sampler_fn, self._apply_fn, self.sde, yc_t, yv_t,
-                                   (n, size, size, 1), seed, chunk=top, **kw)
+                x = sample_chunked(self._dispatch, self._apply_fn, self.sde, yc_t, yv_t,
+                                   (n, size, size, 1), seed, chunk=top)
             self._count(n, -(-n // top))
             return x
         # host-side pad, single dispatch, single pull
@@ -300,8 +349,8 @@ class ScoreModelService:
         with self._lock, torch.inference_mode():
             yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            x = self._sampler_fn(self._apply_fn, self.sde, yc_t, yv_t,
-                                 (bucket, size, size, 1), gen, **kw)[:n].cpu().numpy()
+            x = self._dispatch(self._apply_fn, self.sde, yc_t, yv_t, (bucket, size, size, 1),
+                               gen)[:n].cpu().numpy()
         self._count(n, 1)
         return x
 

@@ -1,12 +1,18 @@
-"""Train step and epoch of the VP-SDE score model.
+"""Train steps and epochs of the VP-SDE score model and of the VAE.
 
-Counterpart of `make_sde_train_step` and `make_sde_train_epoch` in
-toycrystals_tpu/train/steps.py: `diffusion_loss_eps` with CFG conditioning
-dropout, gradient accumulation that draws (t, eps) once for the whole batch,
-the optimizer of train/state.py, and the EMA lerp inside the step. The epoch
-is a Python loop over steps with the batches rendered (or gathered) on the
-model's device; nothing returns to the host inside it unless the optimizer
-checks for non-finite gradients.
+Counterpart of `make_sde_train_step` / `make_sde_train_epoch` and
+`make_vae_train_step` / `make_vae_train_epoch` in
+toycrystals_tpu/train/steps.py.
+
+- SDE: `diffusion_loss_eps` with CFG conditioning dropout, gradient
+  accumulation that draws (t, eps) once for the whole batch, the optimizer of
+  train/state.py, and the EMA lerp inside the step.
+- VAE: MSE reconstruction + beta_eff * the free-bits KL of models/vae.py,
+  with the metrics loss, recon, kl and kl_raw, and the same optimizer.
+
+An epoch is a Python loop over steps with the batches rendered (or gathered)
+on the model's device; nothing returns to the host inside it unless the
+optimizer checks for non-finite gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from toycrystals_torch.models.sde_score_model import (
     diffusion_loss_eps_given,
     draw_diffusion_loss_noise,
 )
+from toycrystals_torch.models.vae import kl_stats
 from toycrystals_torch.train.state import Optimizer, TrainState, ema_update
 
 
@@ -87,6 +94,52 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
     return step
 
 
+def make_vae_train_step(model: nn.Module, tx: Optimizer, free_bits: float,
+                        uncond: bool = False) -> Callable:
+    """Returns step(state, x, y_cat, y_cont, beta_eff, generator=None,
+    noise=None) -> (state, metrics): `state` (of `create_train_state(model,
+    tx)`) updated in place, metrics 0-d device tensors `loss`, `recon`, `kl`
+    (the free-bits KL in the loss) and `kl_raw`. beta_eff is the warmed-up KL
+    weight beta * min(1, (epoch + 1) / 5) that the caller passes per epoch.
+
+    The step draws the reparameterisation's eps and then (CondVAE, cond_drop
+    > 0) the cond-drop mask from `generator`; noise=(eps [B, z_dim], keep
+    [B, 1] or None) replaces the draws (tests inject JAX's)."""
+
+    def step(state: TrainState, x, y_cat, y_cont, beta_eff: float,
+             generator: torch.Generator | None = None, noise=None):
+        if noise is None and generator is None:
+            raise ValueError("pass a torch.Generator (or noise=(eps, keep)); the step never "
+                             "draws from the global generator")
+        metrics, grads = vae_loss_and_grads(model, x, y_cat, y_cont, beta_eff, free_bits,
+                                            uncond, generator, noise)
+        tx.update(list(state.params.values()), grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def vae_loss_and_grads(model: nn.Module, x, y_cat, y_cont, beta_eff: float, free_bits: float,
+                       uncond: bool = False, generator: torch.Generator | None = None,
+                       noise=None) -> tuple[dict[str, torch.Tensor], list[torch.Tensor]]:
+    """The VAE step's metrics (`loss`, `recon`, `kl`, `kl_raw`, detached) and
+    the loss's gradient for every parameter of `model`, in
+    `model.parameters()` order; the draws as `make_vae_train_step` says."""
+    eps, keep = (None, None) if noise is None else noise
+    if uncond:
+        x_hat, mu, logvar = model(x, generator=generator, noise=eps)
+    else:
+        x_hat, mu, logvar = model(x, y_cat, y_cont, train=True, generator=generator,
+                                  noise=eps, keep=keep)
+    recon = ((x_hat - x) ** 2).mean()
+    kl_used, kl_raw = kl_stats(mu, logvar, free_bits)
+    loss = recon + float(beta_eff) * kl_used
+    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    return ({"loss": loss.detach(), "recon": recon.detach(), "kl": kl_used.detach(),
+             "kl_raw": kl_raw.detach()}, grads)
+
+
 def _batch_source(lattice_cfg, dataset_seed: int, resident: tuple | None, device) -> Callable:
     """get_batch(idx) -> (x, y_cat, y_cont) on `device`, from exactly one of
     lattice_cfg (procedural: rendered per step from (dataset_seed, idx), the
@@ -143,23 +196,50 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
     return epoch_fn
 
 
+def make_vae_train_epoch(model: nn.Module, tx: Optimizer, free_bits: float, batch_size: int,
+                         n_items: int, uncond: bool = False, lattice_cfg=None,
+                         dataset_seed: int = 0, resident: tuple | None = None,
+                         mesh=None) -> Callable:
+    """A whole VAE training epoch: the SDE epoch's shuffle and batch source
+    (`_batch_source`, `_make_epoch`) around `make_vae_train_step`. Returns
+    epoch_fn(state, beta_eff, generator) -> (state, {metric: mean over the
+    epoch's steps}); `generator` (on the model's device) drives the shuffle
+    and every step's draws."""
+    if mesh is not None:
+        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
+                                  "queue 1, module 5: parallel axes)")
+    device = next(model.parameters()).device
+    step_fn = make_vae_train_step(model, tx, free_bits, uncond)
+    get_batch = _batch_source(lattice_cfg, dataset_seed, resident, device)
+    run_epoch = _make_epoch(step_fn, get_batch, n_items, batch_size, device, torch.mean)
+
+    def epoch_fn(state: TrainState, beta_eff: float, generator: torch.Generator):
+        return run_epoch(state, generator, 0, float(beta_eff))
+
+    return epoch_fn
+
+
 def _make_epoch(step_fn: Callable, get_batch: Callable, n_items: int, batch_size: int, device,
                 reduce: Callable) -> Callable:
-    """epoch(state, generator, offset=0) -> (state, reduce(losses)): shuffle
+    """epoch(state, generator, offset=0, *extra) -> (state, reduced): shuffle
     [0, n_items) with `generator` (drop-last), then one `step_fn(state, x0,
-    y_cat, y_cont, generator)` per batch of `get_batch(idx + offset)`."""
+    y_cat, y_cont, *extra, generator)` per batch of `get_batch(idx +
+    offset)`. A step's metric is a tensor or a dict of them; `reduce` runs
+    over the steps' stack of each."""
     n_steps = n_items // batch_size
     if n_steps == 0:
         raise ValueError(f"n_items {n_items} < batch_size {batch_size}")
 
-    def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0):
+    def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0, *extra):
         order = torch.randperm(n_items, generator=generator, device=device)
         order = order[: n_steps * batch_size].reshape(n_steps, batch_size)
-        losses = []
+        metrics = []
         for idx in order:
             x0, y_cat, y_cont = get_batch(idx + offset)
-            state, loss = step_fn(state, x0, y_cat, y_cont, generator)
-            losses.append(loss)
-        return state, reduce(torch.stack(losses))
+            state, m = step_fn(state, x0, y_cat, y_cont, *extra, generator)
+            metrics.append(m)
+        if isinstance(metrics[0], dict):
+            return state, {k: reduce(torch.stack([m[k] for m in metrics])) for k in metrics[0]}
+        return state, reduce(torch.stack(metrics))
 
     return epoch_fn

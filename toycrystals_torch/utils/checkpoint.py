@@ -121,6 +121,12 @@ class AsyncCheckpointer:
         self.wait()
 
 
+def float_list(value) -> list[float]:
+    """A list of floats that a checkpoint stored (restored as a dict keyed
+    "0", "1", ...) or that a caller holds as a list."""
+    return [float(v) for v in (value.values() if isinstance(value, dict) else value)]
+
+
 def load_checkpoint(path: str | Path) -> Any:
     """Read a msgpack checkpoint as its raw nested dict (numpy leaves)."""
     return unpackb(Path(path).read_bytes())

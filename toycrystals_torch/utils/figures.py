@@ -7,7 +7,9 @@ matplotlib. This writes the pixels themselves, as
 toycrystals_tpu/serve.py:raw_png_bytes does: tiles on a white canvas with
 2-px gaps, each pixel quantised to 8 bits as round(x * 255) with no
 resampling, in one 8-bit grayscale PNG. toycrystals_tpu/utils/fidelity.py
-recovers the tiles from such a grid. There is no loss-curve figure.
+recovers the tiles from such a grid. `save_recon_grid` writes the VAE's
+(X, X_hat) pairs the same way, without the JAX figure's titles. There is no
+loss-curve figure.
 
 `read_png` decodes what both packages' grids are stored as (8-bit,
 non-interlaced gray, RGB or RGBA, filter types 0-4) into floats value / 255,
@@ -66,6 +68,17 @@ def save_image_grid(images, out_path: str | Path, nrows: int = 6, ncols: int = 6
     p = Path(out_path)
     p.parent.mkdir(parents=True, exist_ok=True)
     p.write_bytes(_grid_png(images, nrows, ncols, pad))
+
+
+def save_recon_grid(x, x_hat, out_path: str | Path, n_pairs: int = 16) -> None:
+    """The VAE's reconstructions as a 4x8 grid PNG of the pixels: tile 2i is
+    x[i], tile 2i + 1 its reconstruction x_hat[i], row by row, for the first
+    n_pairs (at most 16) rows; cells left over are white. The JAX figure
+    titles each tile with its type; this one has no titles."""
+    x, x_hat = np.asarray(x, np.float32), np.asarray(x_hat, np.float32)
+    n = min(n_pairs, 16, x.shape[0])
+    pairs = np.stack([x[:n], x_hat[:n]], axis=1).reshape(2 * n, *x.shape[1:])
+    save_image_grid(pairs, out_path, nrows=4, ncols=8)
 
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"

@@ -13,13 +13,17 @@ path (m1, ..., mk, leaf) becomes the state_dict key "m1. ... .mk.<name>":
 | any `bias`                | `bias`    | unchanged                             |
 
 This covers all three stems ("none", "s2d", "s2dr"). Values are numpy in and
-out; `flax_from_torch_state_dict` is the exact inverse. Gradient and Adam
-moment trees have the parameters' structure, so the same two functions carry
-them; `train_state_to_flax` / `load_train_state_from_flax` do so for a whole
-`TrainState` of toycrystals_torch/train/state.py, and
+out; `flax_from_torch_state_dict` is the exact inverse.
+`torch_state_dict_from_flax_vae` / `flax_vae_from_torch_state_dict` are the
+same pair for the VAEs of models/vae.py (`VAE` and `CondVAE`: CondVAE's
+encoder `Dense_0` has the cond vector's y_dim input columns after the 4,096
+HWC ones, its decoder `Dense_0` y_dim input rows after z's, in both layouts).
+Gradient and Adam moment trees have the parameters' structure, so the same
+functions carry them; `train_state_to_flax` / `load_train_state_from_flax` do
+so for a whole `TrainState` of toycrystals_torch/train/state.py, and
 `train_state_to_checkpoint` / `load_train_state_from_checkpoint` map it onto
 the JAX checkpoint's `state`: the optax `opt_state` layout that the
-trainer's flags give.
+trainer's flags give. Each takes `bridge`: `UNET` (the default) or `VAE`.
 """
 
 from __future__ import annotations
@@ -82,7 +86,8 @@ def flax_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
 
 
 def torch_state_dict_from_flax_vae(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """Flax VAE param tree -> the state_dict of models/vae.py:VAE (numpy)."""
+    """Flax VAE or CondVAE param tree -> the state_dict of models/vae.py's
+    module (numpy). Dense kernels transpose whole, cond columns included."""
     sd: dict[str, np.ndarray] = {}
     for path, leaf in _walk(params):
         *mods, name = path
@@ -121,6 +126,11 @@ def flax_vae_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
     return params
 
 
+# (flax tree -> state_dict, state_dict -> flax tree) of each model family
+UNET = (torch_state_dict_from_flax, flax_from_torch_state_dict)
+VAE = (torch_state_dict_from_flax_vae, flax_vae_from_torch_state_dict)
+
+
 def load_flax_params(model, params: Mapping[str, Any]) -> None:
     """Copy a flax param tree into `model` (strict: every key must match)."""
     sd = {k: torch.tensor(np.asarray(v, np.float32))
@@ -128,29 +138,29 @@ def load_flax_params(model, params: Mapping[str, Any]) -> None:
     model.load_state_dict(sd, strict=True)
 
 
-def train_state_to_flax(state) -> dict:
+def train_state_to_flax(state, bridge=UNET) -> dict:
     """A `TrainState` of the port as flax-layout numpy trees: `params`,
     `ema_params` (None when the EMA is off), Adam's `mu` and `nu`, and the
     integers `step` (steps taken) and `count` (optimizer updates applied)."""
+    to_flax = bridge[1]
     names = list(state.params)
     opt = state.opt_state
     return {
         "step": int(state.step),
         "count": int(opt.count),
-        "params": flax_from_torch_state_dict(state.params),
-        "ema_params": (None if state.ema_params is None
-                       else flax_from_torch_state_dict(state.ema_params)),
-        "mu": flax_from_torch_state_dict(dict(zip(names, opt.mu))),
-        "nu": flax_from_torch_state_dict(dict(zip(names, opt.nu))),
+        "params": to_flax(state.params),
+        "ema_params": None if state.ema_params is None else to_flax(state.ema_params),
+        "mu": to_flax(dict(zip(names, opt.mu))),
+        "nu": to_flax(dict(zip(names, opt.nu))),
     }
 
 
-def load_train_state_from_flax(state, trees: Mapping[str, Any]) -> None:
+def load_train_state_from_flax(state, trees: Mapping[str, Any], bridge=UNET) -> None:
     """Read what `train_state_to_flax` wrote back into `state`, in place
     (strict: every parameter must be present with its shape)."""
 
     def copy_into(targets: Mapping[str, torch.Tensor], tree) -> None:
-        sd = torch_state_dict_from_flax(tree)
+        sd = bridge[0](tree)
         if set(sd) != set(targets):
             raise KeyError(f"tree does not match the parameters: "
                            f"{sorted(set(sd) ^ set(targets))}")
@@ -173,7 +183,7 @@ def load_train_state_from_flax(state, trees: Mapping[str, Any]) -> None:
 _GUARD_KEYS = {"notfinite_count", "last_finite", "total_notfinite", "inner_state"}
 
 
-def train_state_to_checkpoint(state, tx) -> dict:
+def train_state_to_checkpoint(state, tx, bridge=UNET) -> dict:
     """`TrainState` and `Optimizer` (train/state.py) as the JAX trainer's
     `to_state_dict(TrainState)`: `{"step", "params", "opt_state",
     "ema_params"}`, with step and counts as 0-d int32 arrays and `opt_state`
@@ -188,7 +198,7 @@ def train_state_to_checkpoint(state, tx) -> dict:
       `last_finite` is whether no step has been skipped since the last one
       applied.
     """
-    trees = train_state_to_flax(state)
+    trees = train_state_to_flax(state, bridge)
     count = np.asarray(trees["count"], np.int32)
     opt: dict = {"0": {"count": count, "mu": trees["mu"], "nu": trees["nu"]},
                  "1": {"count": count.copy()} if callable(tx.lr) else {}}
@@ -204,7 +214,7 @@ def train_state_to_checkpoint(state, tx) -> dict:
             "opt_state": opt, "ema_params": trees["ema_params"]}
 
 
-def load_train_state_from_checkpoint(state, tx, raw: Mapping[str, Any]) -> None:
+def load_train_state_from_checkpoint(state, tx, raw: Mapping[str, Any], bridge=UNET) -> None:
     """Read a checkpoint's `state` (of the JAX trainer or of
     `train_state_to_checkpoint`) into `state`, in place. Strict: an
     `opt_state` whose layout is not the one `tx`'s flags give raises
@@ -242,7 +252,7 @@ def load_train_state_from_checkpoint(state, tx, raw: Mapping[str, Any]) -> None:
     load_train_state_from_flax(state, {"step": int(raw["step"]), "count": count,
                                        "params": raw["params"],
                                        "ema_params": raw.get("ema_params"),
-                                       "mu": adam["mu"], "nu": adam["nu"]})
+                                       "mu": adam["mu"], "nu": adam["nu"]}, bridge)
     if guard is not None:
         state.opt_state.notfinite_count = int(guard["notfinite_count"])
         state.opt_state.total_notfinite = int(guard["total_notfinite"])

@@ -1,11 +1,13 @@
-"""Reading the reference's torch `.pt` score-model checkpoints.
+"""The reference's torch `.pt` checkpoints: the score model and the VAE.
 
-Counterpart of the score-model half of toycrystals_tpu/utils/torch_interop.py.
-The original torch implementation checkpoints `CondUNetTiny` as
-`{"epoch_next", "model": state_dict, "opt", "loss_hist", "config", ["ema"]}`;
-scripts/export_torch_checkpoint.py writes the same layout from a JAX
-checkpoint. This module maps those state_dict names onto the flax param tree
-that the port's weight bridge (utils/params.py) and the JAX package share:
+Counterpart of the score-model and VAE parts of
+toycrystals_tpu/utils/torch_interop.py. The original torch implementation
+checkpoints `CondUNetTiny` as `{"epoch_next", "model": state_dict, "opt",
+"loss_hist", "config", ["ema"]}`; scripts/export_torch_checkpoint.py (and the
+port's toycrystals_torch/scripts/export_torch_checkpoint.py) write the same
+layout from a msgpack checkpoint. This module maps those state_dict names
+onto the flax param tree that the port's weight bridge (utils/params.py) and
+the JAX package share, and back (`torch_state_dict_from_flax_params`):
 
 - Conv2d  [out, in, kh, kw] -> kernel [kh, kw, in, out]
 - Linear  [out, in]         -> kernel [in, out]
@@ -88,6 +90,33 @@ def flax_params_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
     return params
 
 
+def torch_state_dict_from_flax_params(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Flax CondUNetTiny param tree -> the reference's state_dict (numpy f32,
+    contiguous); the exact inverse of `flax_params_from_torch_state_dict`."""
+
+    def get(path: tuple[str, ...], leaf: str) -> np.ndarray:
+        node: Any = params
+        for k in path:
+            node = node[k]
+        return np.asarray(node[leaf], dtype=np.float32)
+
+    sd: dict[str, np.ndarray] = {}
+    for tprefix, fpath, kind in _spec():
+        if kind == "embed":
+            sd[f"{tprefix}.weight"] = get(fpath, "embedding")
+            continue
+        w = get(fpath, "scale" if kind == "gn" else "kernel")
+        if kind == "conv":
+            w = w.transpose(3, 2, 0, 1)
+        elif kind == "conv1x1":
+            w = w.T[:, :, None, None]
+        elif kind == "linear":
+            w = w.T
+        sd[f"{tprefix}.weight"] = np.ascontiguousarray(w)
+        sd[f"{tprefix}.bias"] = get(fpath, "bias")
+    return sd
+
+
 def load_torch_score_checkpoint(path: str) -> dict:
     """A reference `.pt` score-model checkpoint as the msgpack payload
     schema `{"epoch_next", "state": {"params", "ema_params"}, "loss_hist",
@@ -104,3 +133,56 @@ def load_torch_score_checkpoint(path: str) -> dict:
         "loss_hist": [float(v) for v in obj.get("loss_hist", [])],
         "config": dict(obj.get("config", {})),
     }
+
+
+# The reference VAE (`CondVAE` / `VAE`) ends its encoder at a 4x4x256 map
+# (64x64 input); the flatten-order permutations below are specific to that.
+_VAE_C, _VAE_HW = 256, 4
+
+
+def flax_vae_params_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """Reference CondVAE / VAE state_dict -> flax param tree (numpy leaves).
+
+    Beyond the per-layer transposes:
+    - the reference flattens the encoder's map channel-major (C, H, W) before
+      `enc_fc`, the flax encoder (H, W, C): the first 4,096 input columns of
+      `enc_fc` permute, and any cond-vector columns after them pass through;
+    - `dec_fc`'s output is viewed as [256, 4, 4] there and reshaped as
+      [4, 4, 256] in flax: its output rows and bias permute;
+    - ConvTranspose2d(k4, s2, p1) weights [in, out, kh, kw] become the flax
+      "SAME" kernel by transpose(2, 3, 0, 1) and a flip of both spatial axes.
+    """
+    c, hw = _VAE_C, _VAE_HW
+    flat = c * hw * hw
+    enc: dict = {}
+    dec: dict = {}
+    for i, t_idx in enumerate((0, 2, 4, 6)):
+        enc[f"Conv_{i}"] = {"kernel": _arr(sd[f"enc.{t_idx}.weight"]).transpose(2, 3, 1, 0),
+                            "bias": _arr(sd[f"enc.{t_idx}.bias"])}
+    w = _arr(sd["enc_fc.weight"])  # [256, flat + y_dim]
+    wf = w[:, :flat].reshape(-1, c, hw, hw).transpose(0, 2, 3, 1).reshape(-1, flat)
+    enc["Dense_0"] = {"kernel": np.concatenate([wf, w[:, flat:]], axis=1).T,
+                      "bias": _arr(sd["enc_fc.bias"])}
+    for name in ("mu", "logvar"):
+        enc[name] = {"kernel": _arr(sd[f"{name}.weight"]).T, "bias": _arr(sd[f"{name}.bias"])}
+    w = _arr(sd["dec_fc.weight"]).reshape(c, hw, hw, -1).transpose(1, 2, 0, 3).reshape(flat, -1)
+    b = _arr(sd["dec_fc.bias"]).reshape(c, hw, hw).transpose(1, 2, 0).reshape(flat)
+    dec["Dense_0"] = {"kernel": w.T, "bias": b}
+    for i, t_idx in enumerate((0, 2, 4, 6)):
+        dec[f"ConvTranspose_{i}"] = {
+            "kernel": np.ascontiguousarray(
+                _arr(sd[f"dec.{t_idx}.weight"]).transpose(2, 3, 0, 1)[::-1, ::-1]),
+            "bias": _arr(sd[f"dec.{t_idx}.bias"])}
+    return {"encoder": enc, "decoder": dec}
+
+
+def load_torch_vae_checkpoint(path: str) -> dict:
+    """A reference `vae_last.pt` (a raw state_dict, or one under "model") ->
+    `{"params": tree}`, the payload the latent prior's trainer reads for its
+    frozen VAE."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("model", obj) if isinstance(obj, dict) else obj
+    if not isinstance(sd, Mapping) or "enc.0.weight" not in sd:
+        raise ValueError(f"{path} is not a reference VAE checkpoint (expected a raw CondVAE / "
+                         "VAE state_dict)")
+    return {"params": flax_vae_params_from_torch_state_dict(sd)}
