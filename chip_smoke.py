@@ -152,6 +152,25 @@ result line:
    and a --resume epoch: 1 rasterizer launch per step plus 2 for the
    diagnostics, img/s per epoch, the three PNGs, and vae_samples_mop.png
    scored by the eval CLI's --grid (fidelity and latent FID).
+14. The latent prior and the rest of the data path, at full width.
+   build_dataset writes 12,800 rot-only 64x64 items as .npz and as .pt (7
+   rasterizer launches each at 2,048 per batch), both read back equal to
+   generate_batch quantised on the card; preview_data's grid (1 launch).
+   The SDE trainer (base_ch 96, bf16, batch 128) on that archive for 2
+   epochs, streamed (--stream 2) and resident (--fused-epoch 0), both under
+   torch's deterministic algorithms: the losses and parameters equal bit for
+   bit, 10 + 10 gn_silu launches per step, steps/s; a --profile-dir run on
+   the first 1,280 items (the trace's bytes and top kernel classes). The
+   dense prior at the README's recipe (T 1000, beta_end 0.05, width 1024, 8
+   blocks, batch 256, lr 1e-4, mu, DDIM-50) on phase 13's VAE and the
+   archive's latents: 2 epochs, --resume 1, --sample-only (z/s, cache and
+   DDIM seconds, bucket losses), its grid scored by the eval CLI beside
+   phase 13's MoP grid; MoE-4 for 2 epochs and moe_route_stats on it
+   (fractions summing to 1 per block); a procedural cache build (25
+   rasterizer launches); no gn_silu or flash launch on the prior's path.
+   Card against CPU, TF32 off: 2 f32 prior steps dense and MoE-4 on
+   injected (t, eps) (losses 1e-5 relative, step-1 gradients leaf by leaf as
+   phase 7) and DDIM-50 on an injected z (1e-3 of the largest |z0|).
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -2309,6 +2328,293 @@ def phase_vae(set_counts_to_zero, counts, card: str, launches: dict) -> dict:
     return out
 
 
+# Phase 14, the latent prior (dense and MoE), its route stats and the rest of the
+# data path, at full width: build_dataset and preview_data, --stream against the
+# resident per-batch path, --profile-dir; the frozen VAE is phase 13's.
+DATA_DIR = os.path.join(ROOT, "runs", "chip_smoke_data")
+PRIOR_DIR = os.path.join(ROOT, "runs", "chip_smoke_prior")
+DATA_ITEMS, DATA_BUILD_BATCH = 12800, 2048   # build_dataset: 50,000 items cut to 12,800
+STREAM_BATCH = 128
+STREAM_ARGS = ["--epochs", "2", "--dtype", "bfloat16", "--base-ch", "96", "--stem", "none",
+               "--sample-every", "0", "--ckpt-every", "0"]
+PROFILE_ITEMS = 1280                         # the --profile-dir run's archive: 10 steps/epoch
+# the README's recipe for the prior (README.md, Quickstart step 3) at DDIM-50
+PRIOR_RECIPE = ["--T", "1000", "--beta-end", "0.05", "--width", "1024", "--batch-size", "256",
+                "--lr", "1e-4", "--z-target", "mu", "--ddim-steps", "50", "--z-dim", str(VAE_Z)]
+PRIOR_KW = dict(z_dim=VAE_Z, n_types=4, y_cont_dim=4, t_emb_dim=64, width=1024, n_blocks=8,
+                y_cat_emb_dim=64)
+PRIOR_REL = 1e-5        # prior steps card vs CPU: each loss, relative
+PRIOR_CPU_BATCH = 64    # rows of the card-vs-CPU prior steps
+DDIM_TOL = 1e-3         # DDIM-50 card vs CPU: share of the largest |z0|
+
+
+def _trace_top_kernels(path: str, top: int = 5) -> list:
+    """Device ms by kernel class (`kernel_category`) in a Chrome trace of
+    torch.profiler, largest first."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_cat: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            cat = kernel_category(e.get("name", ""))
+            by_cat[cat] = by_cat.get(cat, 0.0) + float(e.get("dur", 0.0)) / 1e3
+    if not by_cat:
+        raise AssertionError(f"{path}: the trace holds no kernel event")
+    return sorted(by_cat.items(), key=lambda kv: -kv[1])[:top]
+
+
+def _phase14_data(set_counts_to_zero, counts, card: str, launches: dict) -> tuple[dict, str]:
+    """a. build_dataset (npz and pt) read back against generate_batch on the
+    card, and preview_data; returns the record and the npz archive's path."""
+    from toycrystals_torch.data.datasets import generate_batch, load_archive
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.scripts import build_dataset, preview_data
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    out: dict = {}
+    paths = {fmt: os.path.join(DATA_DIR, f"train.{fmt}") for fmt in ("npz", "pt")}
+    builds = -(-DATA_ITEMS // DATA_BUILD_BATCH)
+    for fmt, path in paths.items():
+        set_counts_to_zero()  # the build's path starts here
+        rec = build_dataset.build(["--n-samples", str(DATA_ITEMS), "--out", path])
+        torch.cuda.synchronize()
+        launches[f"build_dataset_{fmt}"] = c = counts()
+        if c["rasterize"] != builds or c["gn_silu"] or c["flash_attn"]:
+            raise AssertionError(f"build_dataset {fmt}: launches {c}, want {builds} rasterize")
+        out[f"build_{fmt}"] = dict(seconds=rec["seconds"], items_per_s=rec["items_per_s"],
+                                   bytes=os.path.getsize(path), launches=c)
+        log(f"phase 14 build_dataset {fmt} ({card}): " + json.dumps(out[f"build_{fmt}"]))
+    x, y_cat, y_cont = generate_batch(LatticeConfig(img_size=64, n_types=4, rot_only=True), 0,
+                                      torch.arange(DATA_ITEMS, device=DEVICE), device=DEVICE)
+    want = (torch.clip(x * 255.0, 0, 255).to(torch.uint8).cpu().numpy(), y_cat.cpu().numpy(),
+            y_cont.cpu().numpy())
+    del x
+    for fmt, path in paths.items():
+        got = load_archive(path)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{path} differs from generate_batch quantised on the card")
+    np.savez(os.path.join(DATA_DIR, "small.npz"), x_u8=want[0][:PROFILE_ITEMS],
+             y_cat=want[1][:PROFILE_ITEMS], y_cont=want[2][:PROFILE_ITEMS])
+    set_counts_to_zero()
+    png, images = preview_data.preview(["--out", os.path.join(DATA_DIR, "preview.png")])
+    torch.cuda.synchronize()
+    launches["preview_data"] = c = counts()
+    img = read_png_gray(png)
+    if c["rasterize"] != 1 or img.shape != (6 * 66 + 2,) * 2 or not np.isfinite(images).all():
+        raise AssertionError(f"preview_data: launches {c}, PNG {img.shape}")
+    out["archive_items"] = DATA_ITEMS
+    return out, paths["npz"]
+
+
+def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict, archive: str) -> dict:
+    """b. The SDE trainer on the archive, streamed (--stream 2) and resident
+    (--fused-epoch 0) under torch's deterministic algorithms (bilinear
+    upsample's backward and cuDNN's are atomic otherwise): equal losses and
+    parameters bit for bit, 10 + 10 gn_silu launches per step; then a
+    --profile-dir run on the first PROFILE_ITEMS items."""
+    from toycrystals_torch.scripts import train_sde_score_model as train_cli
+
+    steps = 2 * (DATA_ITEMS // STREAM_BATCH)
+    argv = [*STREAM_ARGS, "--batch-size", str(STREAM_BATCH)]
+    runs, out = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for name, extra in (("train_resident", ["--fused-epoch", "0"]),
+                            ("train_stream", ["--stream", "2"])):
+            set_counts_to_zero()  # the trainer's path starts here
+            t0 = time.perf_counter()
+            runs[name] = run = train_cli.train(["--data-path", archive, *argv, *extra,
+                                                "--out-dir", os.path.join(DATA_DIR, name)])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[name] = c = counts()
+            if c["gn_silu"] != 10 * steps or c["gn_silu_backward"] != 10 * steps \
+                    or c["rasterize"] or c["flash_attn"]:
+                raise AssertionError(f"{name}: launches {c} for {steps} steps")
+            out[name] = dict(seconds=seconds, loss=run.loss_hist,
+                             steps_per_s=[DATA_ITEMS // STREAM_BATCH / s
+                                          for s in run.epoch_seconds],
+                             launches=c)
+            log(f"phase 14 {name} ({card}, deterministic algorithms): " + json.dumps(out[name]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = runs["train_resident"], runs["train_stream"]
+    if a.loss_hist != b.loss_hist or not all(torch.equal(v, b.state.params[k])
+                                             for k, v in a.state.params.items()):
+        raise AssertionError(f"--stream differs from the resident path: {a.loss_hist} against "
+                             f"{b.loss_hist}")
+    set_counts_to_zero()
+    run = train_cli.train(["--data-path", os.path.join(DATA_DIR, "small.npz"), *argv,
+                           "--stream", "2", "--profile-dir", os.path.join(DATA_DIR, "trace"),
+                           "--out-dir", os.path.join(DATA_DIR, "train_profile")])
+    launches["train_profile"] = counts()
+    out["profile"] = dict(trace=os.path.relpath(run.trace_path, ROOT),
+                          bytes=os.path.getsize(run.trace_path),
+                          top_kernel_classes_ms=_trace_top_kernels(run.trace_path),
+                          steps=PROFILE_ITEMS // STREAM_BATCH)
+    log(f"phase 14 --profile-dir ({card}): " + json.dumps(out["profile"]))
+    return out
+
+
+def _prior_card_vs_cpu(card: str, trained: dict) -> dict:
+    """e. 2 f32 prior steps on injected (t, eps), dense and MoE-4, at full
+    width (README schedule, TF32 off): each loss within PRIOR_REL relative,
+    step-1 gradients leaf by leaf within LEAF_GRAD_TOL (as phase 7); then
+    DDIM-50 on an injected z with the `trained` dense prior's state_dict,
+    within DDIM_TOL of the largest |z0|."""
+    from toycrystals_torch.models.diffusion_prior import (
+        DiffusionPriorFiLM,
+        DiffusionSchedule,
+        ddim_sample,
+    )
+    from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
+    from toycrystals_torch.models.sde_score_model import sample_grid_conditions
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.train.state import Optimizer, create_train_state
+    from toycrystals_torch.train.steps import make_prior_train_step, prior_loss_and_grads
+
+    sched = DiffusionSchedule.linear(1000, 1e-4, 0.05)  # the CPU's arrays on both sides
+    rng = np.random.default_rng(31)
+    b, t_max = PRIOR_CPU_BATCH, 1000
+    z0n = torch.from_numpy(rng.normal(size=(b, VAE_Z)).astype(np.float32))
+    y_cat = torch.from_numpy(rng.integers(0, 4, b).astype(np.int32))
+    y_cont = torch.from_numpy(rng.uniform(0, 1, (b, 4)).astype(np.float32))
+    noise = [(torch.from_numpy(np.clip((rng.uniform(size=b) ** 2 * t_max).astype(np.int32), 0,
+                                       t_max - 1)),
+              torch.from_numpy(rng.normal(size=(b, VAE_Z)).astype(np.float32))) for _ in range(2)]
+    out: dict = {"card": card}
+    for kind, cls, kw, aux in (("dense", DiffusionPriorFiLM, {}, 0.0),
+                               ("moe4", DiffusionPriorMoE, {"n_experts": 4}, 0.01)):
+        runs = {}
+        for dev in ("cpu", DEVICE):
+            model = flax_default_init(cls(**PRIOR_KW, **kw), np.random.default_rng(32)).to(dev)
+            s = DiffusionSchedule.from_arrays(sched.betas, sched.alpha_bars, dev)
+            args = [a.to(dev) for a in (z0n, y_cat, y_cont)]
+            _, grads = prior_loss_and_grads(model, s, *args, *(a.to(dev) for a in noise[0]),
+                                            aux_weight=aux)
+            tx = Optimizer(1e-4)
+            state, step = create_train_state(model, tx), make_prior_train_step(model, tx,
+                                                                               t_max, aux)
+            losses = [float(step(state, s, *args, noise=(t.to(dev), e.to(dev)))[1]["loss"])
+                      for t, e in noise]
+            runs[dev] = (losses, [g.cpu() for g in grads], [k for k, _ in model.named_parameters()])
+            del model, state, grads
+        (lc, gc, names), (lg, gg, _) = runs["cpu"], runs[DEVICE]
+        leaves = [dict(leaf=k, max_abs_diff=float((a - c).abs().max()),
+                       share_of_limit=float((a - c).abs().max())
+                       / (LEAF_GRAD_TOL[0] * float(c.abs().max()) + LEAF_GRAD_TOL[1]))
+                  for k, a, c in zip(names, gg, gc)]
+        worst = max(leaves, key=lambda r: r["share_of_limit"])
+        rel = max(abs(a - c) / abs(c) for a, c in zip(lg, lc))
+        out[kind] = dict(losses_cpu=lc, losses_card=lg, loss_rel=rel, grad_worst_leaf=worst,
+                         leaves=len(leaves))
+        log(f"phase 14 prior {kind} 2 f32 steps card vs CPU: " + json.dumps(out[kind]))
+        if not (rel <= PRIOR_REL and worst["share_of_limit"] <= 1.0):
+            raise AssertionError(f"prior {kind} steps: card and CPU differ: {out[kind]}")
+    yg_cat, yg_cont = sample_grid_conditions(36, 4, 4)
+    z = torch.from_numpy(rng.normal(size=(36, VAE_Z)).astype(np.float32))
+    zs = {}
+    for dev in ("cpu", DEVICE):
+        model = DiffusionPriorFiLM(**PRIOR_KW)
+        model.load_state_dict(trained)
+        model.to(dev)
+        s = DiffusionSchedule.from_arrays(sched.betas, sched.alpha_bars, dev)
+        zs[dev] = ddim_sample(model, s, yg_cat.to(dev), yg_cont.to(dev), 50, VAE_Z,
+                              z=z.to(dev)).cpu()
+    diff, scale = float((zs[DEVICE] - zs["cpu"]).abs().max()), float(zs["cpu"].abs().max())
+    out["ddim50"] = dict(max_abs_diff=diff, max_abs=scale, tolerance=DDIM_TOL * scale)
+    log("phase 14 prior DDIM-50 card vs CPU: " + json.dumps(out["ddim50"]))
+    if not (np.isfinite(zs[DEVICE].numpy()).all() and diff <= DDIM_TOL * scale):
+        raise AssertionError(f"DDIM-50 card vs CPU: {out['ddim50']}")
+    return out
+
+
+def _phase14_prior(set_counts_to_zero, counts, card: str, launches: dict, archive: str,
+                   mop_scores: dict) -> tuple[dict, dict]:
+    """c, d, f. The dense prior at the README recipe on phase 13's VAE (2
+    epochs, --resume 1, --sample-only), its grid scored beside phase 13's
+    MoP grid; MoE-4 for 2 epochs and its route stats; a procedural cache
+    build; no kernel of the port on the prior's path. Returns the record and
+    the trained dense prior's state_dict (on the host)."""
+    from toycrystals_torch.scripts import eval_sde_score_model as eval_cli
+    from toycrystals_torch.scripts import moe_route_stats
+    from toycrystals_torch.scripts import train_diffusion_prior as prior_cli
+
+    vae_ckpt = os.path.join(VAE_DIR, "checkpoints", "vae_last.msgpack")
+    base = ["--data-path", archive, "--vae-ckpt", vae_ckpt, *PRIOR_RECIPE, "--out-dir", PRIOR_DIR]
+    shutil.rmtree(PRIOR_DIR, ignore_errors=True)
+    out: dict = {}
+    runs = {}
+    steps = DATA_ITEMS // 256
+    for name, extra in (("prior_train", ["--epochs", "2", "--rebuild-latents"]),
+                        ("prior_resume", ["--epochs", "1", "--resume"]),
+                        ("prior_sample", ["--sample-only"]),
+                        ("prior_moe4", ["--epochs", "2", "--moe-experts", "4", "--sample-every",
+                                        "0", "--ckpt-every", "0", "--prior-ckpt",
+                                        "checkpoints/moe4.msgpack"]),
+                        ("prior_cache_procedural", ["--procedural", "--max-items",
+                                                    str(DATA_ITEMS), "--rebuild-latents",
+                                                    "--epochs", "0", "--latent-cache",
+                                                    "data/procedural.npz"])):
+        set_counts_to_zero()  # the prior's path starts here
+        t0 = time.perf_counter()
+        runs[name] = run = prior_cli.train(base + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = c = counts()
+        want_raster = -(-DATA_ITEMS // 512) if name == "prior_cache_procedural" else 0
+        if c["gn_silu"] or c["gn_silu_backward"] or c["flash_attn"] \
+                or c["rasterize"] != want_raster or not all(map(math.isfinite, run.loss_hist)):
+            raise AssertionError(f"{name}: launches {c}, losses {run.loss_hist}")
+        out[name] = dict(seconds=seconds, loss=run.loss_hist, buckets=run.bucket_hist,
+                         z_per_s=run.z_per_second, epoch_seconds=run.epoch_seconds,
+                         cache_seconds=run.cache_seconds, ddim50_36_seconds=run.sample_seconds,
+                         launches=c)
+        log(f"phase 14 {name} ({card}): " + json.dumps(out[name]))
+    if runs["prior_train"].state.opt_state.count != 2 * steps \
+            or runs["prior_resume"].state.opt_state.count != steps:
+        raise AssertionError("prior: steps per epoch")
+    sampled, resumed = runs["prior_sample"].model.state_dict(), runs["prior_resume"].model
+    if not all(torch.equal(sampled[k], v) for k, v in resumed.state_dict().items()):
+        raise AssertionError("--sample-only did not load the resumed checkpoint")
+    figure = runs["prior_sample"].figure
+    if read_png_gray(figure).shape != (6 * 66 + 2,) * 2:
+        raise AssertionError(f"{figure}: not a 6x6 grid")
+    line = eval_cli.evaluate(["--grid", figure, "--fid-vae", os.path.join(ROOT, Q_EXTRACTOR)]).line
+    out["prior_scores"] = {k: line[k] for k in Q_SCALARS}
+    out["mop_scores_phase13"] = mop_scores
+    log(f"phase 14 prior DDIM-50 grid after 3 epochs ({card}): " + json.dumps(out["prior_scores"])
+        + " beside phase 13's MoP grid " + json.dumps(mop_scores))
+    if not all(math.isfinite(v) for v in out["prior_scores"].values()):
+        raise AssertionError(f"prior grid scores: {out['prior_scores']}")
+    set_counts_to_zero()
+    stats = moe_route_stats.route_stats(["--ckpt", os.path.join(PRIOR_DIR, "checkpoints",
+                                                                 "moe4.msgpack")])
+    launches["moe_route_stats"] = counts()
+    blocks = stats["blocks"]
+    if len(blocks) != 8 or any(abs(sum(b["fractions"]) - 1.0) > 1e-3 for b in blocks.values()):
+        raise AssertionError(f"route stats: {stats}")
+    out["moe_routes"] = dict(conditions=stats["conditions"],
+                             entropy_norm=[b["entropy_norm"] for b in blocks.values()],
+                             max_share=[b["max_share"] for b in blocks.values()])
+    log(f"phase 14 moe_route_stats ({card}): " + json.dumps(out["moe_routes"]))
+    return out, {k: v.cpu() for k, v in sampled.items()}
+
+
+def phase_prior_data(set_counts_to_zero, counts, card: str, mop_scores: dict) -> dict:
+    """The latent prior and the rest of the data path (module docstring, phase 14)."""
+    launches: dict = {}
+    out, archive = _phase14_data(set_counts_to_zero, counts, card, launches)
+    out["stream"] = _phase14_stream(set_counts_to_zero, counts, card, launches, archive)
+    prior, trained = _phase14_prior(set_counts_to_zero, counts, card, launches, archive,
+                                    mop_scores)
+    out.update(prior)
+    out["prior_card_vs_cpu"] = _prior_card_vs_cpu(card, trained)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -2442,11 +2748,17 @@ def main() -> int:
                                                 report["quality"]["student_ckpt"])
         report["export_vae"]["seconds"] = time.perf_counter() - t0
         log(f"phase 13 took {report['export_vae']['seconds']:.1f} s")
+        t0 = time.perf_counter()
+        report["prior_data"] = phase_prior_data(set_counts_to_zero, counts, card,
+                                                report["export_vae"]["mop_scores"])
+        report["prior_data"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 14 took {report['prior_data']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
                               **report["serving_rest"]["launches"],
-                              **report["export_vae"]["launches"]}
+                              **report["export_vae"]["launches"],
+                              **report["prior_data"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -2509,7 +2821,12 @@ def main() -> int:
             ("inpaint", ("gn_silu", "rasterize")), ("http_student", ("gn_silu",)),
             ("export_sde_64", ("gn_silu",)), ("export_student", ("gn_silu",)),
             ("export_256", ("gn_silu", "flash_attn")), ("vae_train", ("rasterize",)),
-            ("vae_resume", ("rasterize",)))
+            ("vae_resume", ("rasterize",)), ("build_dataset_npz", ("rasterize",)),
+            ("build_dataset_pt", ("rasterize",)), ("preview_data", ("rasterize",)),
+            ("train_resident", ("gn_silu", "gn_silu_backward")),
+            ("train_stream", ("gn_silu", "gn_silu_backward")),
+            ("train_profile", ("gn_silu", "gn_silu_backward")),
+            ("prior_cache_procedural", ("rasterize",)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -2536,6 +2853,7 @@ def main() -> int:
         "launches_serving_rest": {k: paths[k]["gn_silu"]
                                   for k in report["serving_rest"]["launches"]},
         "launches_export_vae": {k: paths[k]["gn_silu"] for k in report["export_vae"]["launches"]},
+        "launches_prior_data": {k: paths[k]["gn_silu"] for k in report["prior_data"]["launches"]},
         "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
@@ -2570,6 +2888,8 @@ def main() -> int:
         "launches_cli": {k: paths[k]["gn_silu_backward"] for k in report["cli"]["launches"]},
         "launches_quality": {k: paths[k]["gn_silu_backward"]
                              for k in report["quality"]["launches"]},
+        "launches_prior_data": {k: paths[k]["gn_silu_backward"]
+                                for k in report["prior_data"]["launches"]},
         "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
         "ms": train_headline["backward_ms"], "plain_ms": train_headline["backward_plain_ms"],
         "bound_ms": train_headline["backward_bound_ms"], "bound_by": "bytes",
@@ -2590,6 +2910,8 @@ def main() -> int:
                                   for k in report["serving_rest"]["launches"]},
         "launches_export_vae": {k: paths[k]["rasterize"]
                                 for k in report["export_vae"]["launches"]},
+        "launches_prior_data": {k: paths[k]["rasterize"]
+                                for k in report["prior_data"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",
@@ -2633,6 +2955,8 @@ def main() -> int:
         "launches_cli": {k: paths[k]["flash_attn"] for k in report["cli"]["launches"]},
         "backward_passes_cli_train_256": paths["cli_train_256"]["flash_attn_backward"],
         "launches_export_256": paths["export_256"]["flash_attn"],
+        "launches_prior_data": {k: paths[k]["flash_attn"]
+                                for k in report["prior_data"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",

@@ -23,6 +23,7 @@ from toycrystals_torch.data.datasets import generate_batch
 from toycrystals_torch.data.lattice import LatticeConfig
 from toycrystals_torch.models import sde_score_model as tm
 from toycrystals_torch.scripts import sample_sde_score_model as sample_cli
+from toycrystals_torch.scripts import train_diffusion_prior as prior_cli
 from toycrystals_torch.scripts import train_sde_score_model as train_cli
 from toycrystals_torch.serve import ScoreModelService
 from toycrystals_torch.utils import checkpoint as tck
@@ -308,8 +309,8 @@ def test_without_device_flag_both_clis_refuse_to_run_on_the_cpu(tmp_path, monkey
     ("train", ["--shard-model", "2"], "module 5"), ("train", ["--fsdp"], "module 5"),
     ("train", ["--coordinator", "localhost:1"], "module 5"),
     ("train", ["--num-processes", "2"], "module 5"), ("train", ["--process-id", "1"], "module 5"),
-    ("train", ["--ckpt-format", "orbax"], "module 5"), ("train", ["--stream"], "module 2"),
-    ("train", ["--profile-dir", "trace"], "module 2"),
+    ("train", ["--ckpt-format", "orbax"], "module 5"), ("prior", ["--shard-pipe", "2"], "module 5"),
+    ("prior", ["--shard-expert", "2"], "module 5"),
     ("sample", ["--shard", "2"], "module 5"),
     ("sample", ["--coordinator", "localhost:1"], "module 5"),
 ])
@@ -317,5 +318,7 @@ def test_deferred_flags_exit_naming_their_roadmap_item(tmp_path, cli, flags, ite
     with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
         if cli == "train":
             _train(tmp_path / "run", "--epochs", "1", *flags)
+        elif cli == "prior":
+            prior_cli.train(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
         else:
             sample_cli.sample(["--device", "cpu", "--out-dir", str(tmp_path), *flags])

@@ -5,9 +5,12 @@ the JAX trainer starts from:
 
 - `flax_default_init`: kernels normal with std 1/sqrt(fan_in) (flax's
   lecun-normal, without its truncation at two standard deviations; a
-  ConvTranspose2d's fan-in is in x kh x kw, as flax counts it), biases
-  zero, GroupNorm scales one, the class embedding N(0, 1); from a numpy
-  generator, so a seed gives the same weights on every machine.
+  ConvTranspose2d's fan-in is in x kh x kw, and a MoE block's stacked expert
+  kernel `w1` [E, d, f] / `w2` [E, f, d] counts E x d / E x f, as flax
+  counts them), biases zero, norm scales one, the U-Net's class embedding
+  N(0, 1) and the prior's `y_cat_emb` N(0, 1/features) (flax's Embed
+  default); from a numpy generator, so a seed gives the same weights on
+  every machine.
 - `torch_like_init`: torch's own layer defaults, which the original torch
   implementation trained from: conv and linear kernels and their biases
   U(+-1/sqrt(fan_in)), embeddings N(0, 1), norm scales and biases untouched;
@@ -33,8 +36,12 @@ def flax_default_init(model: nn.Module, rng: np.random.Generator) -> nn.Module:
     sd = {}
     for k, v in model.state_dict().items():
         shape = tuple(v.shape)
-        if k.endswith("cat_emb.weight"):
+        if k.endswith("y_cat_emb.weight"):
+            a = rng.normal(size=shape) / math.sqrt(shape[1])
+        elif k.endswith("cat_emb.weight"):
             a = rng.normal(size=shape)
+        elif k.endswith((".w1", ".w2")):  # [E, fan_in, fan_out], the flax layout
+            a = rng.normal(size=shape) / math.sqrt(math.prod(shape[:-1]))
         elif k.endswith("weight") and "ConvTranspose" in k:  # [in, out, kh, kw]
             a = rng.normal(size=shape) / math.sqrt(shape[0] * math.prod(shape[2:]))
         elif k.endswith("weight") and len(shape) >= 2:

@@ -14,7 +14,6 @@ from toycrystals_torch.data.datasets import load_archive
 from toycrystals_torch.serve import resolve_device
 
 PARALLEL = "ROADMAP.md queue 1, module 5: parallel axes"
-DATA_REST = "ROADMAP.md queue 1, module 2: its rest"
 
 
 def add_device_flag(p: argparse.ArgumentParser) -> None:

@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Train the latent diffusion prior on the cached latents of a frozen VAE, on the GPU.
+
+    python -m toycrystals_torch.scripts.train_diffusion_prior --vae-ckpt PATH [flags]
+
+Counterpart of scripts/train_diffusion_prior.py, with its flags and defaults
+(T 200, beta 1e-4 to 1.0, width 512, 8 FiLM blocks, y_cat_emb_dim 64, batch
+256, lr 1e-4, 600 epochs, DDIM-50):
+
+- the frozen CondVAE from --vae-ckpt: a msgpack checkpoint of either
+  package's train_vae, or the reference's torch `vae_last.pt`;
+- the latent cache: every item of --data-path (or, with --procedural, of the
+  rot-only procedural set, up to --max-items) encoded in batches of 512,
+  z = mu or a posterior sample (--z-target), written with np.savez as z0,
+  y_cat, y_cont, z_mean, z_std (population std, floored at 1e-6) and reused
+  unless --rebuild-latents; the prior trains on (z0 - z_mean) / z_std;
+- t = clamp(int(u^2 T), 0, T - 1), the eps-MSE, and the 4-bucket losses over
+  t, printed per epoch beside z/s; a non-finite epoch loss stops the run
+  before the checkpoint write;
+- --moe-experts E trains `DiffusionPriorMoE` (switch top-1 experts per block)
+  with --moe-aux-weight x its load-balancing term;
+- the checkpoint {params, config} (the JAX CLI's keys, n_experts included;
+  the bytes JAX's `save_checkpoint` writes), weights only: --resume loads
+  them and trains --epochs more epochs with a fresh Adam, as JAX does;
+  --sample-only also reads the reference's `diffusion_prior_last.pt`;
+- the DDIM grid results/diffusion_samples.png: 36 latents on the 6x6 grid
+  conditions, un-standardised and decoded by the VAE.
+
+Differences from the JAX CLI: --device defaults to cuda and never falls back
+to the CPU; --out-dir (default: the working directory, where the JAX CLI
+writes) holds results/, and relative --vae-ckpt, --latent-cache and
+--prior-ckpt paths resolve under it; the grid is an 8-bit PNG of the pixels
+without titles (utils/figures.py) and no loss-curve PNG is written; each
+epoch draws its shuffle and steps from a generator seeded by (--seed,
+epoch). The mesh, pipeline, expert and multi-process flags raise, naming
+their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import math
+import os
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from toycrystals_torch.data.datasets import batch_iterator, generate_batch
+from toycrystals_torch.data.lattice import LatticeConfig, static_point_budget
+from toycrystals_torch.models.diffusion_prior import (
+    DiffusionPriorFiLM,
+    DiffusionSchedule,
+    ddim_sample,
+)
+from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
+from toycrystals_torch.models.sde_score_model import chunk_seed, sample_grid_conditions
+from toycrystals_torch.models.torch_init import flax_default_init
+from toycrystals_torch.models.vae import CondVAE
+from toycrystals_torch.scripts._common import (
+    PARALLEL,
+    ResidentDiskDataset,
+    add_device_flag,
+    add_parallel_flags,
+    refuse_deferred,
+    select_device,
+)
+from toycrystals_torch.train.state import Optimizer, TrainState, create_train_state
+from toycrystals_torch.train.steps import make_prior_train_epoch, make_prior_train_step
+from toycrystals_torch.utils.checkpoint import AsyncCheckpointer, load_checkpoint, save_checkpoint
+from toycrystals_torch.utils.figures import save_image_grid
+from toycrystals_torch.utils.params import (
+    flax_prior_from_torch_state_dict,
+    torch_state_dict_from_flax_prior,
+    torch_state_dict_from_flax_vae,
+)
+from toycrystals_torch.utils.preempt import GracefulShutdown
+from toycrystals_torch.utils.torch_interop import (
+    load_torch_prior_checkpoint,
+    load_torch_vae_checkpoint,
+)
+
+N_BLOCKS, Y_CAT_EMB_DIM = 8, 64  # fixed by the trainer, as in the reference
+ENCODE_BATCH = 512
+N_GRID = 36
+_CACHE_STREAM = 2**32 - 1  # generator stream of the --z-target sample draws
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    add_device_flag(p)
+    p.add_argument("--data-path", type=str, default="data/toycrystals_train_rotonly.npz")
+    p.add_argument("--procedural", action="store_true",
+                   help="render rot-only batches on the device (no image archive)")
+    p.add_argument("--vae-ckpt", type=str, default="checkpoints/vae_last.msgpack")
+    p.add_argument("--z-dim", type=int, default=32)
+    p.add_argument("--n-types", type=int, default=4)
+    p.add_argument("--y-cont-dim", type=int, default=4)
+    p.add_argument("--z-target", type=str, choices=["mu", "sample"], default="mu")
+    p.add_argument("--latent-cache", type=str, default="data/latents_rotonly_mu.npz")
+    p.add_argument("--rebuild-latents", action="store_true")
+    p.add_argument("--max-items", type=int, default=50_000)
+    p.add_argument("--T", type=int, default=200)
+    p.add_argument("--beta-start", type=float, default=1e-4)
+    p.add_argument("--beta-end", type=float, default=1.0)
+    p.add_argument("--t-emb-dim", type=int, default=64)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--epochs", type=int, default=600)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--clip-grad-norm", type=float, default=0.0,
+                   help="Clip gradients to this global L2 norm before Adam (0 = off).")
+    p.add_argument("--ddim-steps", type=int, default=50)
+    p.add_argument("--prior-ckpt", type=str, default="checkpoints/diffusion_prior_last.msgpack")
+    p.add_argument("--resume", action="store_true",
+                   help="Start from the weights in --prior-ckpt (a fresh Adam state).")
+    p.add_argument("--sample-only", action="store_true",
+                   help="Write the DDIM grid of --prior-ckpt (msgpack or the reference's "
+                        ".pt) and exit.")
+    p.add_argument("--fused-epoch", type=int, default=1, choices=[0, 1],
+                   help="1: make_prior_train_epoch (shuffle and gathers on the device); 0: one "
+                        "step per host batch of indices.")
+    p.add_argument("--ckpt-every", type=int, default=1,
+                   help="Save the prior checkpoint every N epochs (always at the end; 0 = end "
+                        "only).")
+    p.add_argument("--async-ckpt", type=int, default=1, choices=[0, 1],
+                   help="Encode and write checkpoints on a thread while the next epoch "
+                        "trains; the process waits for the last write. 0 = synchronous.")
+    add_parallel_flags(p, space=False)
+    p.add_argument("--shard-pipe", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--pipe-micro", type=int, default=4, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="Train the mixture-of-experts prior: E switch-routed expert MLPs per "
+                        "block, routed on the (t, y) conditioning. 0 = dense. Recorded in the "
+                        "checkpoint's config; --resume and --sample-only need the same value.")
+    p.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="Weight of the switch load-balancing auxiliary loss (only with "
+                        "--moe-experts).")
+    p.add_argument("--shard-expert", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--sample-every", type=int, default=1,
+                   help="epochs between DDIM grids; 0 disables in-training grids")
+    p.add_argument("--out-dir", type=str, default=".",
+                   help="Directory holding results/ and, for relative paths, the VAE and "
+                        "prior checkpoints and the latent cache (default: the working "
+                        "directory, as the JAX CLI).")
+    return p
+
+
+@dataclasses.dataclass
+class PriorTrainRun:
+    """What a run leaves in memory: the state, its pieces, the latent
+    statistics, this process's per-epoch losses, bucket losses, seconds and
+    z/s, the cache build's seconds (None when the cache was read), each DDIM
+    grid's sampling seconds, and the last grid's path and images."""
+
+    state: TrainState | None
+    model: torch.nn.Module
+    config: dict[str, Any]
+    z_mean: torch.Tensor
+    z_std: torch.Tensor
+    loss_hist: list[float]
+    bucket_hist: list[list[float]]
+    epoch_seconds: list[float]
+    z_per_second: list[float]
+    cache_seconds: float | None
+    sample_seconds: list[float]
+    figure: str | None
+    samples: np.ndarray | None
+
+
+def _under(out_dir: str, path: str) -> str:
+    return path if os.path.isabs(path) else os.path.join(out_dir, path)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def load_frozen_vae(path: str, z_dim: int, n_types: int, y_cont_dim: int,
+                    device: torch.device) -> CondVAE:
+    """The CondVAE of a msgpack checkpoint (`{"params": ...}` or a bare
+    tree) or of the reference's `.pt`, in eval mode without gradients."""
+    obj = load_torch_vae_checkpoint(path) if path.endswith(".pt") else load_checkpoint(path)
+    params = obj["params"] if "params" in obj else obj
+    vae = CondVAE(z_dim=z_dim, n_types=n_types, y_cont_dim=y_cont_dim, cond_drop=0.0)
+    vae.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
+                         torch_state_dict_from_flax_vae(params).items()})
+    return vae.to(device).eval().requires_grad_(False)
+
+
+@torch.no_grad()
+def build_latent_cache(vae: CondVAE, get_batch, n_items: int, z_target: str,
+                       generator: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """(z0, y_cat, y_cont, z_mean, z_std) of every item, encoded in batches of
+    ENCODE_BATCH; z0 = mu, or mu + exp(logvar / 2) eps with eps from
+    `generator`."""
+    zs, cats, conts = [], [], []
+    for start in range(0, n_items, ENCODE_BATCH):
+        x, yc, yv = get_batch(np.arange(start, min(start + ENCODE_BATCH, n_items)))
+        mu, logvar = vae.encode(x, yc, yv)
+        if z_target == "sample":
+            mu = mu + torch.exp(0.5 * logvar) * torch.randn(mu.shape, generator=generator,
+                                                            device=mu.device)
+        zs.append(mu)
+        cats.append(yc)
+        conts.append(yv)
+    z0 = torch.cat(zs)
+    return (z0, torch.cat(cats).to(torch.int32), torch.cat(conts).to(torch.float32),
+            z0.mean(dim=0, keepdim=True),
+            z0.std(dim=0, keepdim=True, correction=0).clamp_min(1e-6))
+
+
+def train(argv: list[str] | None = None) -> PriorTrainRun:
+    p = build_parser()
+    args = p.parse_args(argv)
+    refuse_deferred(p, args, {d: PARALLEL for d in (
+        "shard", "shard_model", "fsdp", "shard_pipe", "pipe_micro", "shard_expert",
+        "coordinator", "num_processes", "process_id")})
+    device = select_device(args.device)
+    vae_ckpt, cache_path, prior_ckpt = (_under(args.out_dir, a) for a in (
+        args.vae_ckpt, args.latent_cache, args.prior_ckpt))
+    results_dir = os.path.join(args.out_dir, "results")
+    for d in (results_dir, os.path.dirname(cache_path)):
+        os.makedirs(d or ".", exist_ok=True)
+
+    vae = load_frozen_vae(vae_ckpt, args.z_dim, args.n_types, args.y_cont_dim, device)
+
+    # --- the latent cache ---
+    cache_seconds = None
+    if not args.rebuild_latents and os.path.exists(cache_path):
+        with np.load(cache_path) as obj:
+            z0 = torch.from_numpy(obj["z0"]).to(device)
+            y_cat = torch.from_numpy(obj["y_cat"].astype(np.int32)).to(device)
+            y_cont = torch.from_numpy(obj["y_cont"].astype(np.float32)).to(device)
+            z_mean = (torch.from_numpy(obj["z_mean"]).to(device) if "z_mean" in obj
+                      else z0.mean(dim=0, keepdim=True))
+            z_std = (torch.from_numpy(obj["z_std"]).to(device) if "z_std" in obj
+                     else z0.std(dim=0, keepdim=True, correction=0).clamp_min(1e-6))
+        print(f"loaded latents: {cache_path}  z0={tuple(z0.shape)}")
+    else:
+        if args.procedural or not args.data_path:
+            cfg = LatticeConfig(img_size=64, n_types=args.n_types, rot_only=True)
+            budget = static_point_budget(cfg)
+            n_items = args.max_items
+
+            def get_batch(idx):
+                return generate_batch(cfg, args.seed, torch.as_tensor(idx, device=device),
+                                      budget, device)
+        else:
+            ds = ResidentDiskDataset(args.data_path, device)
+            n_items = min(len(ds), args.max_items)
+            get_batch = ds.gather
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, _CACHE_STREAM))
+        z0, y_cat, y_cont, z_mean, z_std = build_latent_cache(vae, get_batch, n_items,
+                                                              args.z_target, gen)
+        np.savez(cache_path, **{k: v.cpu().numpy() for k, v in (
+            ("z0", z0), ("y_cat", y_cat), ("y_cont", y_cont), ("z_mean", z_mean),
+            ("z_std", z_std))})
+        cache_seconds = time.perf_counter() - t0
+        print(f"saved latents: {cache_path}  z0={tuple(z0.shape)} ({cache_seconds:.1f}s)")
+    z0_norm = (z0 - z_mean) / z_std
+    n_items = int(z0_norm.shape[0])
+
+    # --- prior, schedule, optimizer ---
+    kw = dict(z_dim=args.z_dim, n_types=args.n_types, y_cont_dim=args.y_cont_dim,
+              t_emb_dim=args.t_emb_dim, width=args.width, n_blocks=N_BLOCKS,
+              y_cat_emb_dim=Y_CAT_EMB_DIM)
+    if args.moe_experts > 0:
+        print(f"MoE prior: {args.moe_experts} experts/block (aux weight {args.moe_aux_weight})")
+        prior = DiffusionPriorMoE(n_experts=args.moe_experts, **kw)
+    else:
+        prior = DiffusionPriorFiLM(**kw)
+    flax_default_init(prior, np.random.default_rng(args.seed))
+    prior.to(device)
+    sched = DiffusionSchedule.linear(args.T, args.beta_start, args.beta_end, device=device)
+    config = {"z_dim": args.z_dim, "n_types": args.n_types, "y_cont_dim": args.y_cont_dim,
+              "t_emb_dim": args.t_emb_dim, "width": args.width, "n_blocks": N_BLOCKS,
+              "y_cat_emb_dim": Y_CAT_EMB_DIM, "T": args.T, "beta_start": args.beta_start,
+              "beta_end": args.beta_end, "n_experts": args.moe_experts}
+
+    if (args.sample_only or args.resume) and os.path.exists(prior_ckpt):
+        raw = (load_torch_prior_checkpoint(prior_ckpt) if prior_ckpt.endswith(".pt")
+               else load_checkpoint(prior_ckpt))
+        try:
+            prior.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in
+                                   torch_state_dict_from_flax_prior(raw["params"]).items()})
+        except RuntimeError as e:
+            raise SystemExit(f"{prior_ckpt} does not match the flags' prior: {e}") from e
+        print(f"loaded diffusion prior: {prior_ckpt}")
+
+    sample_seconds: list[float] = []
+    figure, samples = None, None
+
+    def save_samples() -> None:
+        nonlocal figure, samples
+        yg_cat, yg_cont = sample_grid_conditions(N_GRID, args.n_types, args.y_cont_dim,
+                                                 device=device)
+        _sync(device)
+        t0 = time.perf_counter()
+        z_norm = ddim_sample(prior, sched, yg_cat, yg_cont, args.ddim_steps, args.z_dim,
+                             generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+        _sync(device)
+        sample_seconds.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            samples = vae.decode(z_norm * z_std + z_mean, yg_cat, yg_cont).cpu().numpy()
+        figure = os.path.join(results_dir, "diffusion_samples.png")
+        save_image_grid(samples, figure)
+
+    def run(state) -> PriorTrainRun:
+        return PriorTrainRun(state, prior, config, z_mean, z_std, loss_hist, bucket_hist,
+                             epoch_seconds, z_per_second, cache_seconds, sample_seconds, figure,
+                             samples)
+
+    loss_hist: list[float] = []
+    bucket_hist: list[list[float]] = []
+    epoch_seconds: list[float] = []
+    z_per_second: list[float] = []
+    if args.sample_only:
+        save_samples()
+        print(f"sample-only: saved {figure}")
+        return run(None)
+
+    tx = Optimizer(args.lr, clip_grad_norm=args.clip_grad_norm)
+    state = create_train_state(prior, tx)
+    aux_weight = args.moe_aux_weight if args.moe_experts else 0.0
+    if args.fused_epoch:
+        epoch_fn = make_prior_train_epoch(prior, tx, args.T, args.batch_size,
+                                          (z0_norm, y_cat, y_cont), aux_weight=aux_weight)
+    else:
+        step = make_prior_train_step(prior, tx, args.T, aux_weight=aux_weight)
+    steps_per_epoch = n_items // args.batch_size
+    if steps_per_epoch == 0:
+        raise SystemExit(f"{n_items} latents make no batch of {args.batch_size}")
+
+    print("starting diffusion training loop.")
+    ckptr = AsyncCheckpointer()
+    save_ckpt = ckptr.save if args.async_ckpt else save_checkpoint
+    with GracefulShutdown() as stop, ckptr:
+        for epoch in range(args.epochs):
+            t0 = time.perf_counter()
+            # one generator per epoch, seeded by (seed, epoch): the shuffle and every step's draws
+            gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, epoch))
+            if args.fused_epoch:
+                state, em = epoch_fn(state, sched, gen)
+            else:
+                ms = []
+                for bidx in batch_iterator(n_items, args.batch_size,
+                                           rng=np.random.default_rng([args.seed, epoch])):
+                    idx = torch.as_tensor(bidx, device=device)
+                    state, m = step(state, sched, z0_norm[idx], y_cat[idx], y_cont[idx], gen)
+                    ms.append(m)
+                em = {"loss": torch.stack([m["loss"] for m in ms]).mean(),
+                      "bucket_sum": torch.stack([m["bucket_sum"] for m in ms]).sum(0),
+                      "bucket_n": torch.stack([m["bucket_n"] for m in ms]).sum(0)}
+            avg = float(em["loss"])  # one host sync per epoch
+            bucket_avg = (em["bucket_sum"] / em["bucket_n"].clamp_min(1.0)).tolist()
+            dt = time.perf_counter() - t0
+            if not math.isfinite(avg):
+                # halt before the save, so the last checkpoint with a finite loss survives
+                raise SystemExit(f"epoch {epoch + 1}: non-finite loss ({avg}): training "
+                                 f"diverged; last good checkpoint kept at {prior_ckpt}.")
+            loss_hist.append(avg)
+            bucket_hist.append(bucket_avg)
+            epoch_seconds.append(dt)
+            z_per_second.append(steps_per_epoch * args.batch_size / dt)
+            print(f"epoch {epoch + 1:02d}/{args.epochs} diffusion_loss={avg:.6f} "
+                  f"({z_per_second[-1]:.0f} z/s)")
+
+            # one read per epoch: a signal between two reads must not claim a save
+            preempted = stop.requested
+            if preempted or (args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0) \
+                    or epoch == args.epochs - 1:
+                save_ckpt(prior_ckpt, {"params": flax_prior_from_torch_state_dict(state.params),
+                                       "config": config})
+            if preempted:
+                print(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
+                      f"{prior_ckpt}; continue with --resume")
+                break
+            if args.sample_every > 0 and ((epoch + 1) % args.sample_every == 0
+                                          or epoch == args.epochs - 1):
+                save_samples()
+            print("  bucket loss (low t -> high t):", [f"{v:.3f}" for v in bucket_avg])
+    print(f"saved: {figure or 'no grid'}, {prior_ckpt}")
+    return run(state)
+
+
+def main(argv: list[str] | None = None) -> int:
+    train(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

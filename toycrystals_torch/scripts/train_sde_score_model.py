@@ -17,13 +17,18 @@ Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU; the sample grids are 8-bit PNGs of the pixels themselves
 (utils/figures.py) and there is no loss-curve figure; each epoch draws from a
 generator seeded by (--seed, epoch), so a resumed run continues the draws of
-an uninterrupted one. Meshes, streaming, profiling and orbax checkpoints are
-not ported yet: those flags raise, naming their ROADMAP item.
+an uninterrupted one; --stream draws the shuffle and the steps' noise as the
+resident per-batch path (--fused-epoch 0) does, so both see the same batches
+and draws; --profile-dir writes a torch.profiler Chrome trace (CPU and CUDA
+activity) of the second epoch, where JAX writes an XPlane trace. Meshes and
+orbax checkpoints are not ported yet: those flags raise, naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import math
 import os
@@ -36,6 +41,7 @@ import torch
 
 from toycrystals_torch.data.datasets import batch_iterator, generate_batch
 from toycrystals_torch.data.lattice import LatticeConfig, static_point_budget
+from toycrystals_torch.data.stream import StreamingDiskDataset
 from toycrystals_torch.models.flow_matching import sample_rectified_flow
 from toycrystals_torch.models.sde_score_model import (
     VPSDE,
@@ -49,7 +55,6 @@ from toycrystals_torch.models.sde_score_model import (
 )
 from toycrystals_torch.models.torch_init import flax_default_init, torch_like_init
 from toycrystals_torch.scripts._common import (
-    DATA_REST,
     PARALLEL,
     PARALLEL_DESTS,
     ResidentDiskDataset,
@@ -168,12 +173,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="1: make_sde_train_epoch (shuffle and batches on the device); 0: one "
                         "step per host batch of indices.")
     p.add_argument("--stream", type=int, nargs="?", const=2, default=0, metavar="DEPTH",
-                   help=f"not ported yet ({DATA_REST})")
+                   help="Keep the archive in host memory instead of on the device: batches "
+                        "gathered on the host as u8 and copied to the device DEPTH steps "
+                        "ahead on a side CUDA stream (data/stream.py). Needs --data-path; "
+                        "implies --fused-epoch 0.")
     p.add_argument("--fresh-data", action="store_true",
                    help="Procedural source only: epoch e trains on items [e*n, (e+1)*n) "
                         "instead of re-shuffling the same n.")
     p.add_argument("--profile-dir", type=str, default=None,
-                   help=f"not ported yet ({DATA_REST})")
+                   help="Write a torch.profiler Chrome trace (CPU and CUDA activity) of one "
+                        "post-warmup epoch into this directory.")
     p.add_argument("--init", type=str, default="flax", choices=["flax", "torch"],
                    help="Parameter init: flax defaults, or torch layer defaults.")
     p.add_argument("--ckpt-every", type=int, default=1,
@@ -208,13 +217,13 @@ class TrainRun:
     config: dict[str, Any]
     loss_hist: list[float]
     epoch_seconds: list[float]
+    trace_path: str | None = None
 
 
 def train(argv: list[str] | None = None) -> TrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {**{d: PARALLEL for d in (*PARALLEL_DESTS, "fsdp", "ckpt_format")},
-                              "stream": DATA_REST, "profile_dir": DATA_REST})
+    refuse_deferred(p, args, {d: PARALLEL for d in (*PARALLEL_DESTS, "fsdp", "ckpt_format")})
     device = select_device(args.device)
 
     if args.out_dir is None:
@@ -271,6 +280,13 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # --- data ---
     img_size = args.img_size
     procedural = args.procedural or not args.data_path
+    if args.stream:
+        if procedural:
+            raise SystemExit("--stream needs --data-path (the procedural dataset already renders "
+                             "on the device)")
+        if args.fused_epoch:
+            print("--stream: per-batch path (the fused epoch needs the archive on the device)")
+            args.fused_epoch = 0
     if args.fresh_data and not procedural:
         raise SystemExit("--fresh-data needs the procedural source (a disk archive has only "
                          "its n items)")
@@ -285,6 +301,9 @@ def train(argv: list[str] | None = None) -> TrainRun:
 
         def get_batch(idx):
             return generate_batch(lattice_cfg, args.seed, idx, budget, device)
+    elif args.stream:
+        sds = StreamingDiskDataset(args.data_path, device)
+        n_items, img_size = len(sds), int(sds.x_u8.shape[1])
     else:
         ds = ResidentDiskDataset(args.data_path, device)
         n_items, img_size = len(ds), int(ds.x_u8.shape[1])
@@ -389,6 +408,18 @@ def train(argv: list[str] | None = None) -> TrainRun:
                 n_types=args.n_types, clip_x0=bool(args.clip_x0), **grid_kw)
         save_image_grid(x, out_path)
 
+    def epoch_batches(epoch: int, offset: int):
+        """The per-batch path's batches on the device: the host shuffle of
+        (seed, epoch), streamed or gathered from the resident source."""
+        idx_it = (bidx + offset for bidx in batch_iterator(
+            n_items, args.batch_size, rng=np.random.default_rng([args.seed, epoch])))
+        if args.stream:
+            return sds.device_batches(idx_it, args.stream)
+        return (get_batch(torch.as_tensor(bidx, device=device)) for bidx in idx_it)
+
+    # the second epoch of this process (the first carries the warm-up)
+    profile_epoch = start_epoch + 1 if args.epochs - start_epoch > 1 else start_epoch
+    trace_path = None
     print("starting SDE score-model training loop.")
     ensure_file(metrics_path)
     sample_grid_ok = False
@@ -407,19 +438,24 @@ def train(argv: list[str] | None = None) -> TrainRun:
             # and every step's draws; a resumed run repeats them
             gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, epoch))
             offset = epoch * n_items if args.fresh_data else 0
-            if args.fused_epoch:
-                state, avg_t = epoch_fn(state, gen, offset)
-                avg = float(avg_t)
-            else:
-                losses = []
-                for bidx in batch_iterator(n_items, args.batch_size,
-                                           rng=np.random.default_rng([args.seed, epoch])):
-                    x0, y_cat, y_cont = get_batch(torch.as_tensor(bidx + offset, device=device))
-                    state, loss = step(state, x0, y_cat, y_cont, gen)
-                    losses.append(loss)
-                stacked = torch.stack(losses)
-                avg = float(stacked.nanmean() if args.skip_nonfinite > 0 else stacked.mean())
+            profiling = args.profile_dir is not None and epoch == profile_epoch
+            with (_profiler(device) if profiling else contextlib.nullcontext()) as prof:
+                if args.fused_epoch:
+                    state, avg_t = epoch_fn(state, gen, offset)
+                    avg = float(avg_t)
+                else:
+                    losses = []
+                    for x0, y_cat, y_cont in epoch_batches(epoch, offset):
+                        state, loss = step(state, x0, y_cat, y_cont, gen)
+                        losses.append(loss)
+                    stacked = torch.stack(losses)
+                    avg = float(stacked.nanmean() if args.skip_nonfinite > 0 else stacked.mean())
             dt = time.perf_counter() - t0
+            if prof is not None:
+                os.makedirs(args.profile_dir, exist_ok=True)
+                trace_path = os.path.join(args.profile_dir, f"epoch_{epoch + 1:03d}.trace.json")
+                prof.export_chrome_trace(trace_path)
+                print(f"  profile: {trace_path}")
             if not math.isfinite(avg):
                 # halt before the save, so the last checkpoint with a finite
                 # loss survives
@@ -465,7 +501,14 @@ def train(argv: list[str] | None = None) -> TrainRun:
                     print(f"  WARNING: sample grid failed ({type(e).__name__}); training "
                           f"artefacts are saved; rerun via sample_sde_score_model: {e}")
     print(f"checkpoint: {ckpt_path}")
-    return TrainRun(state, model, tx, config, loss_hist, epoch_seconds)
+    return TrainRun(state, model, tx, config, loss_hist, epoch_seconds, trace_path)
+
+
+def _profiler(device: torch.device) -> torch.profiler.profile:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts)
 
 
 def main(argv: list[str] | None = None) -> int:

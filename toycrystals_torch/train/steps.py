@@ -1,14 +1,18 @@
-"""Train steps and epochs of the VP-SDE score model and of the VAE.
+"""Train steps and epochs of the VP-SDE score model, the VAE and the latent prior.
 
-Counterpart of `make_sde_train_step` / `make_sde_train_epoch` and
-`make_vae_train_step` / `make_vae_train_epoch` in
-toycrystals_tpu/train/steps.py.
+Counterpart of `make_sde_train_step` / `make_sde_train_epoch`,
+`make_vae_train_step` / `make_vae_train_epoch` and `make_prior_train_step` /
+`make_prior_train_epoch` in toycrystals_tpu/train/steps.py.
 
 - SDE: `diffusion_loss_eps` with CFG conditioning dropout, gradient
   accumulation that draws (t, eps) once for the whole batch, the optimizer of
   train/state.py, and the EMA lerp inside the step.
 - VAE: MSE reconstruction + beta_eff * the free-bits KL of models/vae.py,
   with the metrics loss, recon, kl and kl_raw, and the same optimizer.
+- prior: t = clamp(int(u^2 T), 0, T - 1) (a bias to small t), q_sample, the
+  eps-MSE per example, plus aux_weight x the mean over blocks of the MoE
+  prior's load-balancing term; the metrics loss, aux and the 4-bucket-over-t
+  bucket_sum / bucket_n, which the epoch sums.
 
 An epoch is a Python loop over steps with the batches rendered (or gathered)
 on the model's device; nothing returns to the host inside it unless the
@@ -138,6 +142,94 @@ def vae_loss_and_grads(model: nn.Module, x, y_cat, y_cont, beta_eff: float, free
     grads = list(torch.autograd.grad(loss, list(model.parameters())))
     return ({"loss": loss.detach(), "recon": recon.detach(), "kl": kl_used.detach(),
              "kl_raw": kl_raw.detach()}, grads)
+
+
+def prior_loss_and_grads(model: nn.Module, sched, z0n, y_cat, y_cont, t, eps,
+                         aux_weight: float = 0.0) -> tuple[dict[str, torch.Tensor],
+                                                           list[torch.Tensor]]:
+    """The prior step's metrics at the given (t [B] int, eps [B, z]) and the
+    loss's gradient for every parameter of `model`, in `model.parameters()`
+    order. aux_weight > 0 (the MoE prior) adds aux_weight x the mean over
+    blocks of the returned `moe_aux` terms."""
+    z_t = sched.q_sample(z0n, t, eps)
+    aux = torch.zeros((), device=z0n.device)
+    if aux_weight:
+        eps_pred, stats = model(z_t, t, y_cat, y_cont, return_stats=True)
+        if stats["moe_aux"]:
+            aux = torch.stack(stats["moe_aux"]).mean()
+    else:
+        eps_pred = model(z_t, t, y_cat, y_cont)
+    per = ((eps_pred - eps) ** 2).mean(dim=1)  # [B]
+    loss = per.mean() + aux_weight * aux
+    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    q = ((t.to(torch.float32) / sched.T * 4).to(torch.int64)).clamp(0, 3)
+    per = per.detach()
+    return ({"loss": loss.detach(), "aux": aux.detach(),
+             "bucket_sum": torch.zeros(4, device=per.device).index_add_(0, q, per),
+             "bucket_n": torch.zeros(4, device=per.device).index_add_(
+                 0, q, torch.ones_like(per))}, grads)
+
+
+def draw_prior_noise(z0n: torch.Tensor, T: int, generator: torch.Generator):
+    """The prior step's draws from `generator`: u [B] then eps [B, z];
+    t = clamp(int(u^2 T), 0, T - 1)."""
+    u = torch.rand((z0n.shape[0],), generator=generator, device=z0n.device)
+    t = (u * u * T).to(torch.int32).clamp(0, T - 1)
+    return t, torch.randn(z0n.shape, generator=generator, device=z0n.device)
+
+
+def make_prior_train_step(model: nn.Module, tx: Optimizer, T: int,
+                          aux_weight: float = 0.0) -> Callable:
+    """Returns step(state, sched, z0n, y_cat, y_cont, generator=None,
+    noise=None) -> (state, metrics): `state` (of `create_train_state(model,
+    tx)`) updated in place, metrics 0-d `loss` and `aux` and [4] `bucket_sum`
+    / `bucket_n` on the device. The step draws (t, eps) from `generator`
+    (`draw_prior_noise`); noise=(t, eps) replaces the draw (tests inject
+    JAX's). aux_weight > 0 needs the MoE prior."""
+
+    def step(state: TrainState, sched, z0n, y_cat, y_cont,
+             generator: torch.Generator | None = None, noise=None):
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator (or noise=(t, eps)); the step never "
+                                 "draws from the global generator")
+            noise = draw_prior_noise(z0n, T, generator)
+        metrics, grads = prior_loss_and_grads(model, sched, z0n, y_cat, y_cont, *noise,
+                                              aux_weight=aux_weight)
+        tx.update(list(state.params.values()), grads, state.opt_state)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def make_prior_train_epoch(model: nn.Module, tx: Optimizer, T: int, batch_size: int,
+                           latents: tuple, mesh=None, aux_weight: float = 0.0) -> Callable:
+    """A whole prior epoch over the resident latent cache: `_make_epoch`'s
+    shuffle (drop-last) and per-step gathers of `latents` = (z0_norm [N, z]
+    f32, y_cat [N] i32, y_cont [N, 4] f32, on the model's device) around
+    `make_prior_train_step`. Returns epoch_fn(state, sched, generator) ->
+    (state, {"loss": mean, "aux": mean, "bucket_sum": [4] sum, "bucket_n":
+    [4] sum}); `generator` drives the shuffle and every step's draws."""
+    if mesh is not None:
+        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
+                                  "queue 1, module 5: parallel axes)")
+    z0n, y_cat_all, y_cont_all = latents
+    device = next(model.parameters()).device
+    step_fn = make_prior_train_step(model, tx, T, aux_weight)
+
+    def run_batch(state, z, yc, yv, sched, generator):
+        return step_fn(state, sched, z, yc, yv, generator)
+
+    run_epoch = _make_epoch(run_batch, lambda idx: (z0n[idx], y_cat_all[idx], y_cont_all[idx]),
+                            int(z0n.shape[0]), batch_size, device, lambda stacked: stacked)
+
+    def epoch_fn(state: TrainState, sched, generator: torch.Generator):
+        state, ms = run_epoch(state, generator, 0, sched)
+        return state, {"loss": ms["loss"].mean(), "aux": ms["aux"].mean(),
+                       "bucket_sum": ms["bucket_sum"].sum(0), "bucket_n": ms["bucket_n"].sum(0)}
+
+    return epoch_fn
 
 
 def _batch_source(lattice_cfg, dataset_seed: int, resident: tuple | None, device) -> Callable:

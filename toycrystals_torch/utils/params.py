@@ -24,6 +24,12 @@ so for a whole `TrainState` of toycrystals_torch/train/state.py, and
 `train_state_to_checkpoint` / `load_train_state_from_checkpoint` map it onto
 the JAX checkpoint's `state`: the optax `opt_state` layout that the
 trainer's flags give. Each takes `bridge`: `UNET` (the default) or `VAE`.
+`torch_state_dict_from_flax_prior` / `flax_prior_from_torch_state_dict`
+map the latent priors of models/diffusion_prior.py and models/moe_prior.py,
+whose torch names are the original implementation's (`t_mlp.0`, `y_cat_emb`,
+`blocks.i.norm`, ...; flax `Dense_0`, `Embed_0`, `block_i/LayerNorm_0`, ...):
+Dense kernels transpose, the MoE blocks' stacked `w1`, `b1`, `w2`, `b2` keep
+the flax layout and names.
 """
 
 from __future__ import annotations
@@ -119,6 +125,72 @@ def flax_vae_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
             else:
                 a = a.T
             name = "kernel"
+        node = params
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return params
+
+
+# the FiLM and MoE priors' stem: flax module -> torch module
+_PRIOR_STEM = {"Dense_0": "t_mlp.0", "Dense_1": "t_mlp.2", "Embed_0": "y_cat_emb",
+               "Dense_2": "y_cont_mlp.0", "Dense_3": "y_cont_mlp.2", "Dense_4": "y_fuse.0",
+               "Dense_5": "y_fuse.2"}
+_PRIOR_STEM_INV = {v: k for k, v in _PRIOR_STEM.items()}
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def torch_state_dict_from_flax_prior(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """Flax DiffusionPriorFiLM, DiffusionPriorMoE or (no `in_proj`) plain
+    DiffusionPrior param tree -> the port's state_dict (numpy)."""
+    film = "in_proj" in params
+    sd: dict[str, np.ndarray] = {}
+    for path, leaf in _walk(params):
+        *mods, name = path
+        a = np.asarray(leaf)
+        head = mods[0] if mods else ""
+        if film and head in _PRIOR_STEM:
+            mods = [_PRIOR_STEM[head]]
+        elif not film and head.startswith("Dense_"):
+            mods = ["net", str(2 * int(head.split("_")[1]))]
+        elif head.startswith("block_"):
+            mods = ["blocks", head.split("_")[1]] + ["norm" if m == "LayerNorm_0" else m
+                                                     for m in mods[1:]]
+        if name in _EXPERT_LEAVES:
+            pass
+        elif name == "kernel" and a.ndim == 2:
+            a, name = a.T, "weight"
+        elif name in ("embedding", "scale"):
+            name = "weight"
+        elif name != "bias":
+            raise KeyError(f"unexpected flax prior leaf {'/'.join(path)}")
+        sd[".".join([*mods, name])] = np.ascontiguousarray(a)
+    return sd
+
+
+def flax_prior_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """The inverse of `torch_state_dict_from_flax_prior` (numpy or torch
+    values); the reference's DiffusionPriorFiLM state_dict reads the same."""
+    params: dict = {}
+    for key, value in sd.items():
+        a = np.asarray(value.detach().to("cpu", copy=True).numpy() if hasattr(value, "detach")
+                       else value)
+        *mods, name = key.split(".")
+        prefix = ".".join(mods)
+        if prefix in _PRIOR_STEM_INV:
+            mods = [_PRIOR_STEM_INV[prefix]]
+        elif mods[0] == "net":
+            mods = [f"Dense_{int(mods[1]) // 2}"]
+        elif mods[0] == "blocks":
+            mods = [f"block_{mods[1]}"] + ["LayerNorm_0" if m == "norm" else m
+                                           for m in mods[2:]]
+        if name == "weight":
+            if mods[-1] == "Embed_0":
+                name = "embedding"
+            elif a.ndim == 2:
+                a, name = a.T, "kernel"
+            else:
+                name = "scale"
         node = params
         for m in mods:
             node = node.setdefault(m, {})

@@ -1,7 +1,7 @@
-"""The reference's torch `.pt` checkpoints: the score model and the VAE.
+"""The reference's torch `.pt` checkpoints: the score model, the VAE and the
+latent prior.
 
-Counterpart of the score-model and VAE parts of
-toycrystals_tpu/utils/torch_interop.py. The original torch implementation
+Counterpart of toycrystals_tpu/utils/torch_interop.py. The original torch implementation
 checkpoints `CondUNetTiny` as `{"epoch_next", "model": state_dict, "opt",
 "loss_hist", "config", ["ema"]}`; scripts/export_torch_checkpoint.py (and the
 port's toycrystals_torch/scripts/export_torch_checkpoint.py) write the same
@@ -27,6 +27,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from toycrystals_torch.utils.params import flax_prior_from_torch_state_dict
 
 # (reference module prefix, flax block name) for the five double-conv blocks
 _BLOCKS = [("down1", "down1"), ("down2", "down2"), ("mid", "mid"),
@@ -186,3 +188,22 @@ def load_torch_vae_checkpoint(path: str) -> dict:
         raise ValueError(f"{path} is not a reference VAE checkpoint (expected a raw CondVAE / "
                          "VAE state_dict)")
     return {"params": flax_vae_params_from_torch_state_dict(sd)}
+
+
+def flax_prior_params_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
+    """Reference DiffusionPriorFiLM state_dict -> flax param tree (numpy
+    leaves); the block count follows the keys. The port's prior carries the
+    reference's names, so this is utils/params.py's prior bridge."""
+    return flax_prior_from_torch_state_dict({k: _arr(v) for k, v in sd.items()})
+
+
+def load_torch_prior_checkpoint(path: str) -> dict:
+    """A reference `diffusion_prior_last.pt` (a raw state_dict, or one under
+    "model") -> `{"params": tree}`, for the prior trainer's --resume and
+    --sample-only."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    sd = obj.get("model", obj) if isinstance(obj, dict) else obj
+    if not isinstance(sd, Mapping) or "in_proj.weight" not in sd:
+        raise ValueError(f"{path} is not a reference FiLM-prior checkpoint (expected a raw "
+                         "DiffusionPriorFiLM state_dict)")
+    return {"params": flax_prior_params_from_torch_state_dict(sd)}
