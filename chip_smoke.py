@@ -172,6 +172,26 @@ result line:
    injected (t, eps) (losses 1e-5 relative, step-1 gradients leaf by leaf as
    phase 7) and DDIM-50 on an injected z (1e-3 of the largest |z0|).
 
+15. The data axis (parallel/), at full width (base_ch 96, stem none, 64x64,
+   f32, TF32 off). World 1, in this process over NCCL: 2 epochs of 5 steps
+   at batch 128 through make_sde_train_epoch with no mesh, under
+   DistributedDataParallel and under FSDP2 (place_state on a 1-rank data
+   mesh), each from the same initial state under torch's deterministic
+   algorithms: DDP's losses and parameters equal the no-mesh run's bit for
+   bit, FSDP2's are held to 1e-5 (and logged as bit-equal or not); exactly
+   10 gn_silu forward, 10 backward and 1 rasterizer launches per step; step
+   ms of each. World 2, two spawned processes on cuda:0 over gloo
+   (parallel/parity.py `run_cases` through parallel.multihost.launch): 2 f32
+   SDE steps at batch 128 under DDP and under FSDP2, held to the same cases
+   run in this process with no mesh (losses 1e-5 relative, step-1 gradients
+   and the last moments leaf by leaf as phase 7 plus 1e-6 of the largest
+   gradient, parameters within two Adam updates), each rank's peak memory;
+   the FSDP2 state written by ShardedCheckpointManager (DCP) reloads in this
+   process bit for bit (save and load ms, bytes); sample_chunked of 8 images
+   at chunk 4 (10 SDE steps, CFG 1.5) on injected and on drawn noise held to
+   the one-process chunks (1e-3, as phase 6: each call has half the rows),
+   with each rank's kernel launches equal to the one-process run's.
+
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
 
@@ -184,6 +204,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -192,6 +213,7 @@ import subprocess
 import sys
 import time
 import traceback
+from datetime import timedelta
 
 import numpy as np
 import torch
@@ -231,6 +253,14 @@ HI_TRAIN_BATCH, HI_TRAIN_EPOCHS, HI_TRAIN_STEPS = 32, 2, 4
 # version rounds nothing.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # (label, [B, N, heads, d], timing iterations; 0 = parity only)
+# Phase 15: the data axis at world 1 (2 epochs of 5 steps at batch 128) and world 2
+PAR_BATCH, PAR_STEPS, PAR_EPOCHS, PAR_W2_STEPS = 128, 5, 2, 2
+PAR_SAMPLE = dict(n=8, chunk=4, n_steps=10, cfg=1.5)
+# sample_chunked on 2 ranks against one process: each call has half the rows, and
+# cuDNN picks its f32 conv algorithms by batch size; phase 6's tolerance for f32
+# sampling card against CPU
+PAR_SAMPLE_TOL = 1e-3
+PAR_DIR = os.path.join(ROOT, "runs", "chip_smoke_parallel")
 FLASH_SHAPES = [("serve 12 img", (2 * HI_BATCH, 4096, 4, 48), 10),
                 ("train batch 32", (HI_TRAIN_BATCH, 4096, 4, 48), 10),
                 ("2048 tokens", (2, 2048, 4, 48), 0), ("d 64", (2, 4096, 4, 64), 0),
@@ -2615,6 +2645,243 @@ def phase_prior_data(set_counts_to_zero, counts, card: str, mop_scores: dict) ->
     return out
 
 
+def _par_world1(set_counts_to_zero, counts) -> dict:
+    """World 1, in this process: the SDE epoch with no mesh, under DDP and
+    under FSDP2 on a 1-rank mesh (NCCL on the card), from one initial state."""
+    import torch.distributed as dist
+
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.parallel import make_mesh, place_state
+    from toycrystals_torch.parallel.fsdp import full
+    from toycrystals_torch.train.steps import make_sde_train_epoch
+
+    dev_type = torch.device(DEVICE).type
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{os.path.join(PAR_DIR, 'world1')}",
+                            rank=0, world_size=1, timeout=timedelta(seconds=300))
+    runs, launches = {}, {}
+    n_items = PAR_STEPS * PAR_BATCH
+    try:
+        mesh = make_mesh(1, dev_type)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for name in ("no_mesh", "ddp", "fsdp"):
+            model, tx, sde, state = train_pieces("none", "float32", DEVICE)
+            module, state = ((model, state) if name == "no_mesh" else
+                             place_state(mesh, model, state, fsdp=name == "fsdp"))
+            epoch = make_sde_train_epoch(
+                module, tx, sde, batch_size=PAR_BATCH, n_items=n_items,
+                lattice_cfg=LatticeConfig(img_size=64, rot_only=True), dataset_seed=0,
+                fresh_data=True, mesh=None if name == "no_mesh" else mesh, **TRAIN_KW)
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            losses, seconds = [], []
+            set_counts_to_zero()  # the path of this run starts here
+            for e in range(PAR_EPOCHS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = epoch(state, gen, e * n_items)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            launches[f"data_w1_{name}"] = got = counts()
+            steps = PAR_STEPS * PAR_EPOCHS
+            want = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps,
+                    "rasterize": steps, "flash_attn": 0, "flash_attn_backward": 0}
+            if got != want:
+                raise AssertionError(f"world 1 {name}: launches {got}, expected {want}")
+            runs[name] = {"losses": losses, "step_ms": seconds[-1] / PAR_STEPS * 1e3,
+                          "params": {k: full(v).detach().clone()
+                                     for k, v in state.params.items()}}
+            del model, module, state, epoch
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    ref = runs["no_mesh"]
+    out = {"step_ms": {k: r["step_ms"] for k, r in runs.items()}, "launches": launches,
+           "losses": {k: r["losses"] for k, r in runs.items()}}
+    for name in ("ddp", "fsdp"):
+        r = runs[name]
+        equal = r["losses"] == ref["losses"] and all(
+            torch.equal(r["params"][k], ref["params"][k]) for k in ref["params"])
+        loss_diff = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"]))
+        param_diff = max(float((r["params"][k] - ref["params"][k]).abs().max())
+                         for k in ref["params"])
+        out[name] = {"bit_equal": equal, "loss_rel_diff": loss_diff,
+                     "param_max_abs_diff": param_diff}
+        log(f"parallel world 1 {name}: bit-equal to no mesh {equal} (losses {loss_diff:.3e} "
+            f"relative, parameters {param_diff:.3e}); step {r['step_ms']:.2f} ms against "
+            f"{ref['step_ms']:.2f} ms with no mesh")
+    if not out["ddp"]["bit_equal"]:
+        raise AssertionError(f"world 1 DDP differs from the no-mesh run: {out['ddp']}")
+    if not (out["fsdp"]["loss_rel_diff"] <= 1e-5 and out["fsdp"]["param_max_abs_diff"] <= 1e-5):
+        raise AssertionError(f"world 1 FSDP2 differs from the no-mesh run: {out['fsdp']}")
+    return out
+
+
+def _par_spec() -> dict:
+    """The world-2 cases at full width: global batches and injected draws."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.torch_init import flax_default_init
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    model = flax_default_init(make_model("none", "float32"), np.random.default_rng(5))
+    sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    r = np.random.default_rng(6)
+    b, st = PAR_BATCH, PAR_W2_STEPS
+    x0 = np.stack([generate_batch(LatticeConfig(img_size=64, rot_only=True), 0,
+                                  np.arange(i * b, (i + 1) * b), device="cpu")[0].numpy()
+                   for i in range(st)])
+    sde = dict(kind="sde", model=kw, state_dict=sd, opt={"lr": TRAIN_LR, "ema": 0.999},
+               x0=x0, y_cat=r.integers(0, 5, (st, b)).astype(np.int32),
+               y_cont=r.normal(size=(st, b, 4)).astype(np.float32),
+               t=r.uniform(0.02, 1.0, (st, b)).astype(np.float32),
+               eps=r.normal(size=x0.shape).astype(np.float32))
+    n, steps = PAR_SAMPLE["n"], PAR_SAMPLE["n_steps"]
+    sample = dict(kind="sample", model=kw, state_dict=sd, shape=(n, 64, 64, 1), seed=7,
+                  chunk=PAR_SAMPLE["chunk"], n_steps=steps, cfg=PAR_SAMPLE["cfg"],
+                  y_cat=(np.arange(n) % 4).astype(np.int32),
+                  y_cont=r.normal(size=(n, 4)).astype(np.float32),
+                  x_init=r.normal(size=(n, 64, 64, 1)).astype(np.float32),
+                  z=r.normal(size=(n, steps, 64, 64, 1)).astype(np.float32))
+    dcp = dict(kind="dcp_save", model=kw, state_dict=sd, fsdp=True, seed=8,
+               path=os.path.join(PAR_DIR, "dcp"))
+    return {"device": torch.device(DEVICE).type, "tf32": False,
+            "cases": [sde, dict(sde, fsdp=True), dcp, sample]}
+
+
+def _leafwise(got: dict, want: dict, what: str) -> float:
+    """Leaf by leaf as phase 7 (LEAF_GRAD_TOL), plus 1e-6 of the largest entry
+    of the whole tree for leaves whose values are at rounding-noise level;
+    returns the largest share of its limit a leaf used."""
+    top = max(float(np.abs(v).max()) for v in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        lim = LEAF_GRAD_TOL[0] * float(np.abs(w).max()) + LEAF_GRAD_TOL[1] + 1e-6 * top
+        d = float(np.abs(got[k] - w).max())
+        worst = max(worst, d / lim)
+        if d > lim:
+            raise AssertionError(f"{what} {k}: max abs diff {d:.3e} > {lim:.3e}")
+    return worst
+
+
+def _par_world2() -> dict:
+    """World 2: two processes on cuda:0 over gloo, against the same cases in
+    this process with no mesh; the DCP directory reloaded here."""
+    from toycrystals_torch.models.sde_score_model import CondUNetTiny
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+    from toycrystals_torch.train.state import Optimizer, create_train_state
+    from toycrystals_torch.utils.orbax_io import ShardedCheckpointManager
+
+    spec = _par_spec()
+    dev_type = spec["device"]
+    # the two ranks share the card with this process: hand its cached blocks back
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parallel world 2: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"of device memory before the ranks start")
+    t0 = time.perf_counter()
+    two = launch(run_cases, 2, (spec,), device_type=dev_type, backend="gloo",
+                 device_ids=[0, 0], timeout=600)
+    w2_seconds = time.perf_counter() - t0
+    one = run_cases({**spec, "cases": [c for c in spec["cases"] if c["kind"] != "dcp_save"]})
+    ref = {"sde": one[0], "sde_fsdp": one[1], "sample": one[2]}
+    out = {"seconds": w2_seconds, "launches": {}}
+    steps = PAR_W2_STEPS
+    for i, name in ((0, "sde"), (1, "sde_fsdp")):
+        r0, r1, want = two[0][i], two[1][i], ref[name]
+        loss_diff = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["losses"]))
+        if not (r0["losses"] == r1["losses"] and loss_diff <= 1e-5):
+            raise AssertionError(f"world 2 {name}: losses {r0['losses']} / {r1['losses']} "
+                                 f"against {want['losses']}")
+        g = _leafwise(r0["grads"], want["grads"], f"world 2 {name} step-1 gradient")
+        m = _leafwise(r0["mu"], want["mu"], f"world 2 {name} first moment")
+        p_diff = max(float(np.abs(r0["params"][k] - want["params"][k]).max())
+                     for k in want["params"])
+        if not p_diff <= 2 * TRAIN_LR * steps:
+            raise AssertionError(f"world 2 {name}: parameters {p_diff:.3e} apart")
+        for rank, res in enumerate((r0, r1)):
+            out["launches"][f"data_w2_{name}_rank{rank}"] = res["launches"]
+            wl = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps, "rasterize": 0,
+                  "flash_attn": 0, "flash_attn_backward": 0}
+            if res["launches"] != wl:
+                raise AssertionError(f"world 2 {name} rank {rank}: launches "
+                                     f"{res['launches']}, expected {wl}")
+        out[name] = {"loss_rel_diff": loss_diff, "grad_worst_share": g, "mu_worst_share": m,
+                     "param_max_abs_diff": p_diff,
+                     "step_ms_rank0": r0["step_ms"], "step_ms_one_process": want["step_ms"],
+                     "peak_bytes": [r0.get("peak_bytes", 0), r1.get("peak_bytes", 0)],
+                     "peak_bytes_one_process": want.get("peak_bytes", 0)}
+        log(f"parallel world 2 {name}: losses {loss_diff:.3e} relative to one process, "
+            f"gradients {g:.3f} and moments {m:.3f} of their limits, parameters "
+            f"{p_diff:.3e}; peak memory per rank "
+            f"{out[name]['peak_bytes'][0] / 2**30:.2f} / "
+            f"{out[name]['peak_bytes'][1] / 2**30:.2f} GiB (one process "
+            f"{out[name]['peak_bytes_one_process'] / 2**30:.2f}); step "
+            f"{r0['step_ms'][-1]:.1f} ms (rank 0, step {steps})")
+    # DCP: the 2-rank FSDP2 state reloads in one process, bit for bit
+    saved = two[0][2]
+    case = spec["cases"][2]
+    model = make_model("none", "float32").to(DEVICE)
+    tx = Optimizer(1e-3)
+    state = create_train_state(model, tx, ema=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ShardedCheckpointManager(case["path"]) as mgr:
+        state, _ = mgr.restore_onto(state)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    names = list(state.params)
+    loaded = {"params": state.params, "mu": dict(zip(names, state.opt_state.mu)),
+              "nu": dict(zip(names, state.opt_state.nu)), "ema": state.ema_params}
+    for part, tensors in loaded.items():
+        for k, v in tensors.items():
+            if not np.array_equal(v.detach().cpu().numpy(), saved[part][k]):
+                raise AssertionError(f"DCP: {part}.{k} did not reload bit for bit")
+    if (state.step, state.opt_state.count) != (saved["step"], saved["count"]):
+        raise AssertionError("DCP: the counters did not reload")
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(case["path"])
+                 for f in files)
+    out["dcp"] = {"save_ms": [two[0][2]["ms"], two[1][2]["ms"]], "load_ms": load_ms,
+                  "bytes": nbytes}
+    out["launches"]["dcp_save_rank0"] = two[0][2]["launches"]
+    log(f"parallel DCP: FSDP2 state of 2 ranks saved in {two[0][2]['ms']:.1f} / "
+        f"{two[1][2]['ms']:.1f} ms, {nbytes} bytes, reloaded in one process bit for bit in "
+        f"{load_ms:.1f} ms")
+    # sample_chunked on the 2-rank mesh against the one-process chunks
+    for key in ("injected", "drawn"):
+        d = float(np.abs(two[0][3][key] - ref["sample"][key]).max())
+        if not (np.array_equal(two[0][3][key], two[1][3][key]) and d <= PAR_SAMPLE_TOL):
+            raise AssertionError(f"world 2 sample_chunked ({key}): {d:.3e} from one process")
+        out[f"sample_{key}_max_abs_diff"] = d
+    for rank in (0, 1):
+        got = two[rank][3]["launches"]
+        out["launches"][f"data_w2_sample_rank{rank}"] = got
+        if got != ref["sample"]["launches"] or got["gn_silu"] == 0:
+            raise AssertionError(f"world 2 sample rank {rank}: launches {got}, one process "
+                                 f"{ref['sample']['launches']}")
+    log(f"parallel world 2 sample_chunked: {out['sample_injected_max_abs_diff']:.3e} "
+        f"(injected) and {out['sample_drawn_max_abs_diff']:.3e} (drawn) from one process; "
+        f"{two[0][3]['launches']['gn_silu']} gn_silu launches per rank; the world-2 job took "
+        f"{w2_seconds:.1f} s")
+    return out
+
+
+def phase_parallel(set_counts_to_zero, counts, card: str) -> dict:
+    """Phase 15: the data axis (module docstring)."""
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    t0 = time.perf_counter()
+    out = {"world1": _par_world1(set_counts_to_zero, counts), "world2": _par_world2()}
+    out["launches"] = {**out["world1"]["launches"], **out["world2"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"parallel on {card}: world 1 step ms {json.dumps(out['world1']['step_ms'])}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -2753,12 +3020,15 @@ def main() -> int:
                                                 report["export_vae"]["mop_scores"])
         report["prior_data"]["seconds"] = time.perf_counter() - t0
         log(f"phase 14 took {report['prior_data']['seconds']:.1f} s")
+        report["parallel"] = phase_parallel(set_counts_to_zero, counts, card)
+        log(f"phase 15 took {report['parallel']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
                               **report["serving_rest"]["launches"],
                               **report["export_vae"]["launches"],
-                              **report["prior_data"]["launches"]}
+                              **report["prior_data"]["launches"],
+                              **report["parallel"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -2826,7 +3096,14 @@ def main() -> int:
             ("train_resident", ("gn_silu", "gn_silu_backward")),
             ("train_stream", ("gn_silu", "gn_silu_backward")),
             ("train_profile", ("gn_silu", "gn_silu_backward")),
-            ("prior_cache_procedural", ("rasterize",)))
+            ("prior_cache_procedural", ("rasterize",)),
+            ("data_w1_ddp", ("gn_silu", "gn_silu_backward", "rasterize")),
+            ("data_w1_fsdp", ("gn_silu", "gn_silu_backward", "rasterize")),
+            ("data_w2_sde_rank0", ("gn_silu", "gn_silu_backward")),
+            ("data_w2_sde_rank1", ("gn_silu", "gn_silu_backward")),
+            ("data_w2_sde_fsdp_rank0", ("gn_silu", "gn_silu_backward")),
+            ("data_w2_sde_fsdp_rank1", ("gn_silu", "gn_silu_backward")),
+            ("data_w2_sample_rank0", ("gn_silu",)), ("data_w2_sample_rank1", ("gn_silu",)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -2854,6 +3131,7 @@ def main() -> int:
                                   for k in report["serving_rest"]["launches"]},
         "launches_export_vae": {k: paths[k]["gn_silu"] for k in report["export_vae"]["launches"]},
         "launches_prior_data": {k: paths[k]["gn_silu"] for k in report["prior_data"]["launches"]},
+        "launches_parallel": {k: paths[k]["gn_silu"] for k in report["parallel"]["launches"]},
         "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
@@ -2890,6 +3168,8 @@ def main() -> int:
                              for k in report["quality"]["launches"]},
         "launches_prior_data": {k: paths[k]["gn_silu_backward"]
                                 for k in report["prior_data"]["launches"]},
+        "launches_parallel": {k: paths[k]["gn_silu_backward"]
+                              for k in report["parallel"]["launches"]},
         "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
         "ms": train_headline["backward_ms"], "plain_ms": train_headline["backward_plain_ms"],
         "bound_ms": train_headline["backward_bound_ms"], "bound_by": "bytes",
@@ -2912,6 +3192,7 @@ def main() -> int:
                                 for k in report["export_vae"]["launches"]},
         "launches_prior_data": {k: paths[k]["rasterize"]
                                 for k in report["prior_data"]["launches"]},
+        "launches_parallel": {k: paths[k]["rasterize"] for k in report["parallel"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",
@@ -2957,6 +3238,7 @@ def main() -> int:
         "launches_export_256": paths["export_256"]["flash_attn"],
         "launches_prior_data": {k: paths[k]["flash_attn"]
                                 for k in report["prior_data"]["launches"]},
+        "launches_parallel": {k: paths[k]["flash_attn"] for k in report["parallel"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",

@@ -452,8 +452,18 @@ def test_a_failed_write_reraises_and_keeps_the_old_file(tmp_path, monkeypatch):
 
 
 def test_load_score_payload_refuses_an_orbax_directory(tmp_path):
-    with pytest.raises(NotImplementedError, match="module 5"):
+    """A directory holds the port's DCP checkpoints: an empty one has no
+    step, and one that the JAX package's orbax wrote is refused, naming
+    msgpack."""
+    from toycrystals_tpu.utils import ShardedCheckpointManager
+
+    with pytest.raises(FileNotFoundError, match="no checkpoint steps"):
         tck.load_score_payload(tmp_path)
+    jstate = jax_create_train_state(_jax_params(), optax.adam(1e-3), ema=True)
+    with ShardedCheckpointManager(tmp_path / "j.orbax") as mgr:
+        mgr.save(1, jstate, {"epoch_next": 1, "loss_hist": [], "config": {}})
+    with pytest.raises(NotImplementedError, match="JAX package.*msgpack"):
+        tck.load_score_payload(tmp_path / "j.orbax")
 
 
 def test_service_from_checkpoint(tmp_path):

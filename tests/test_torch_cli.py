@@ -304,21 +304,33 @@ def test_without_device_flag_both_clis_refuse_to_run_on_the_cpu(tmp_path, monkey
     assert not (tmp_path / "run").exists()
 
 
+MODULE_5 = "ROADMAP.md queue 1, module 5"
+
+
 @pytest.mark.parametrize("cli, flags, item", [
-    ("train", ["--shard", "2"], "module 5"), ("train", ["--shard-space", "2"], "module 5"),
-    ("train", ["--shard-model", "2"], "module 5"), ("train", ["--fsdp"], "module 5"),
-    ("train", ["--coordinator", "localhost:1"], "module 5"),
-    ("train", ["--num-processes", "2"], "module 5"), ("train", ["--process-id", "1"], "module 5"),
-    ("train", ["--ckpt-format", "orbax"], "module 5"), ("prior", ["--shard-pipe", "2"], "module 5"),
-    ("prior", ["--shard-expert", "2"], "module 5"),
-    ("sample", ["--shard", "2"], "module 5"),
-    ("sample", ["--coordinator", "localhost:1"], "module 5"),
+    # the data axis runs; its refusals are JAX's
+    ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
+    ("train", ["--shard-space", "2"], MODULE_5),
+    ("train", ["--shard-model", "2"], MODULE_5), ("serve", ["--shard", "2"], MODULE_5),
+    ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
+    ("serve", ["--coordinator", "localhost:1"], MODULE_5),
+    ("prior", ["--shard-model", "2"], MODULE_5),
+    ("prior", ["--pipe-micro", "2"], MODULE_5), ("prior", ["--shard-pipe", "2"], MODULE_5),
+    ("prior", ["--shard-expert", "2"], MODULE_5),
+    ("sample", ["--shard-space", "2"], MODULE_5),
+    ("sample", ["--shard-model", "2"], MODULE_5),
 ])
 def test_deferred_flags_exit_naming_their_roadmap_item(tmp_path, cli, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md queue 1, {item}"):
+    """The model axes and serving on a mesh refuse, naming their ROADMAP item;
+    the data axis's flags refuse as JAX's CLIs do."""
+    from toycrystals_torch.scripts import serve_sde_score_model as serve_cli
+
+    with pytest.raises(SystemExit, match=item):
         if cli == "train":
             _train(tmp_path / "run", "--epochs", "1", *flags)
         elif cli == "prior":
             prior_cli.train(["--device", "cpu", "--out-dir", str(tmp_path), *flags])
+        elif cli == "serve":
+            serve_cli.main([str(tmp_path / "x.msgpack"), "--device", "cpu", *flags])
         else:
             sample_cli.sample(["--device", "cpu", "--out-dir", str(tmp_path), *flags])

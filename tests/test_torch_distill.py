@@ -283,8 +283,8 @@ def test_refusals(tmp_path, monkeypatch):
     v = _teacher_ckpt(tmp_path / "v", param="v")
     with pytest.raises(SystemExit, match="powers of 2"):
         distill_cli.distill(DISTILL + ["--teacher", v, "--from-steps", "6"])
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
-        distill_cli.distill(DISTILL + ["--teacher", fm, "--shard", "2"])
+    with pytest.raises(SystemExit, match="batch size 8 not divisible by --shard 3"):
+        distill_cli.distill(DISTILL + ["--teacher", v, "--shard", "3"])
     with pytest.raises(ValueError, match="teacher_prediction"):
         td.make_distill_train_step(tm.CondUNetTiny(**KW), None, ts.Optimizer(1e-3),
                                    tm.VPSDE(), 2, n_types=4, guidance_scale=0.0,

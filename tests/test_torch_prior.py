@@ -15,6 +15,7 @@ max|g| + 1e-7; ddim_timesteps and the epoch against its own steps exact.
 """
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -303,7 +304,8 @@ def test_epoch_is_its_shuffle_then_its_steps():
     assert all(torch.equal(p1[k], p2[k]) for k in p1)
     assert math.isfinite(float(e1["loss"]))
     with pytest.raises(NotImplementedError, match="module 5"):
-        make_prior_train_epoch(tm, tx, T, B, lat, mesh=object())
+        make_prior_train_epoch(tm, tx, T, B, lat,
+                               mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
 
 
 def test_layernorm_variance_formula_costs_under_2e6_at_width_1024():

@@ -113,11 +113,18 @@ def test_seed_and_condition_checks(params):
 
 @pytest.mark.parametrize("case", ["mesh", "checkpoint"])
 def test_unported_parts_raise(params, case, tmp_path):
+    if case == "checkpoint":  # the port's own sharded directories are read; JAX's orbax not
+        import jax.numpy as jnp
+
+        from toycrystals_tpu.utils import ShardedCheckpointManager
+
+        with ShardedCheckpointManager(tmp_path / "j.orbax") as mgr:
+            mgr.save(1, {"w": jnp.zeros(2)}, {"epoch_next": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "mesh":
             _svc(params, mesh=object())
-        else:  # msgpack and .pt are read; an orbax checkpoint directory is not yet
-            serve.load_score_payload(str(tmp_path))
+        else:
+            serve.load_score_payload(str(tmp_path / "j.orbax"))
 
 
 def test_int8_service_builds_every_conv_int8_and_reports_it(params):

@@ -10,6 +10,7 @@ linear in the gradients, carry the tight comparison.
 """
 
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -351,7 +352,8 @@ def test_epoch_sources_and_arguments():
     with pytest.raises(ValueError, match="batch_size"):
         make_sde_train_epoch(*args, 4, lattice_cfg=cfg)
     with pytest.raises(NotImplementedError, match="module 5"):
-        make_sde_train_epoch(*args, 16, lattice_cfg=cfg, mesh=object())
+        make_sde_train_epoch(*args, 16, lattice_cfg=cfg,
+                             mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
     # resident source: u8 images decoded on the fly; fresh_data shifts the items
     r = np.random.default_rng(1)
     resident = (torch.tensor(r.integers(0, 256, size=(16, SIZE, SIZE, 1), dtype=np.uint8)),

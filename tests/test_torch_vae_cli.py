@@ -112,9 +112,10 @@ def test_uncond_per_batch_trains_and_draws(tmp_path):
 
 def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="module 5"):
-        vae_cli.train(TINY + ["--shard", "2", "--out-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="module 5"):
-        vae_cli.train(TINY + ["--num-processes", "2", "--out-dir", str(tmp_path)])
+        vae_cli.train(TINY + ["--shard-model", "2", "--out-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="--coordinator auto detects"):
+        vae_cli.train(TINY + ["--coordinator", "auto", "--num-processes", "2",
+                              "--out-dir", str(tmp_path)])
     with pytest.raises(SystemExit):  # the VAE trainer's JAX CLI has no --shard-space
         vae_cli.train(TINY + ["--shard-space", "2", "--out-dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -12,6 +12,8 @@ within 2e-6 (a thousandth of the lr); weight bridges exact; the
 reference-layout forward atol 1e-5.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -224,7 +226,8 @@ def test_vae_epoch_is_the_shuffle_then_the_steps():
     for (k, a), b in zip(s1.params.items(), s2.params.values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
     with pytest.raises(NotImplementedError, match="module 5"):
-        make_vae_train_epoch(m1, tx1, 0.05, 4, 10, lattice_cfg=cfg, mesh=object())
+        make_vae_train_epoch(m1, tx1, 0.05, 4, 10, lattice_cfg=cfg,
+                             mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
 
 
 def _reference_state_dict(z_dim, y_dim, seed=0):

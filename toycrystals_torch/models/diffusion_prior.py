@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from toycrystals_torch.utils.rng import randn
+
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
 
 
@@ -208,7 +210,7 @@ def ddim_sample(model, sched: DiffusionSchedule, y_cat: torch.Tensor, y_cont: to
         if generator is None:
             raise ValueError("pass a torch.Generator or the start noise z; DDIM never draws "
                              "from the global generator")
-        z = torch.randn((b, z_dim), generator=generator, device=device)
+        z = randn((b, z_dim), generator, device)
     z = z.to(device=device, dtype=torch.float32)
     ts = ddim_timesteps(sched.T, n_steps)
     for i, t in enumerate(ts):

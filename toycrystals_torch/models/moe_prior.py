@@ -16,7 +16,11 @@ replaced by `n_experts` switch-routed expert MLPs (`MoEFiLMResBlock`):
   the JAX module sows into its `losses` and `intermediates` collections, are
   returned here: `forward(..., return_stats=True)` gives (eps, {"moe_aux":
   [one 0-d tensor per block], "route_fraction": [one [E] tensor per
-  block]}). The module keeps no state between calls.
+  block]}). The module keeps no state between calls;
+- on a data mesh (`forward(..., mesh=)`, each rank holding its rows of the
+  batch) f_e and p_e are the global batch's, as under JAX's GSPMD: both means
+  are averaged over the ranks, p_e by a differentiable all-reduce, so the
+  term and its gradient are those of the unsharded batch.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.models.diffusion_prior import LN_EPS, DiffusionPriorFiLM
+from toycrystals_torch.parallel.mesh import all_reduce_sum
 
 
 class MoEFiLMResBlock(nn.Module):
@@ -44,14 +49,19 @@ class MoEFiLMResBlock(nn.Module):
         self.w2 = nn.Parameter(torch.zeros(e, f, d))
         self.b2 = nn.Parameter(torch.zeros(e, d))
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor):
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, mesh=None):
         gamma, beta = self.cond(cond).chunk(2, dim=-1)
         h = self.norm(x) * (1.0 + gamma) + beta
         probs = torch.softmax(self.router(cond.float()), dim=-1)        # [B, E]
         onehot = F.one_hot(probs.argmax(dim=-1), self.n_experts).to(probs.dtype)
         combine = onehot * (probs * onehot).sum(dim=-1, keepdim=True)
-        f_e = onehot.mean(dim=0)
-        aux = self.n_experts * (f_e * probs.mean(dim=0)).sum()
+        f_e, p_e = onehot.mean(dim=0), probs.mean(dim=0)
+        if mesh is not None and mesh.size() > 1:
+            from torch.distributed.nn.functional import all_reduce
+
+            f_e = all_reduce_sum(mesh, f_e) / mesh.size()
+            p_e = all_reduce(p_e, group=mesh.get_group()) / mesh.size()
+        aux = self.n_experts * (f_e * p_e).sum()
         he = torch.einsum("bd,edf->ebf", h, self.w1) + self.b1[:, None, :]   # [E, B, f]
         he = torch.einsum("ebf,efd->ebd", F.silu(he), self.w2) + self.b2[:, None, :]
         return x + torch.einsum("ebd,be->bd", he, combine), aux, f_e
@@ -59,8 +69,9 @@ class MoEFiLMResBlock(nn.Module):
 
 class DiffusionPriorMoE(DiffusionPriorFiLM):
     """The FiLM prior's stem and head around `n_blocks` MoE blocks.
-    forward(z_t, t, y_cat, y_cont, return_stats=False) -> eps, or (eps,
-    {"moe_aux": [...], "route_fraction": [...]}) with one entry per block."""
+    forward(z_t, t, y_cat, y_cont, return_stats=False, mesh=None) -> eps, or
+    (eps, {"moe_aux": [...], "route_fraction": [...]}) with one entry per
+    block; on a `mesh` the statistics are the global batch's."""
 
     def __init__(self, z_dim: int, n_types: int, y_cont_dim: int, n_experts: int = 4,
                  t_emb_dim: int = 64, width: int = 256, n_blocks: int = 6,
@@ -71,12 +82,12 @@ class DiffusionPriorMoE(DiffusionPriorFiLM):
     def _block(self, i: int) -> nn.Module:
         return MoEFiLMResBlock(self.width, 2 * self.width, self.n_experts)
 
-    def forward(self, z_t, t, y_cat, y_cont, return_stats: bool = False):
+    def forward(self, z_t, t, y_cat, y_cont, return_stats: bool = False, mesh=None):
         cond = self.cond(t, y_cat, y_cont)
         h = self.in_proj(z_t.float())
         stats: dict[str, list[torch.Tensor]] = {"moe_aux": [], "route_fraction": []}
         for block in self.blocks:
-            h, aux, frac = block(h, cond)
+            h, aux, frac = block(h, cond, mesh)
             stats["moe_aux"].append(aux)
             stats["route_fraction"].append(frac)
         eps = self.out_proj(self.out_norm(h))

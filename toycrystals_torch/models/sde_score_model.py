@@ -35,6 +35,8 @@ from torch import nn
 from toycrystals_torch.ops.attention import SelfAttention2d, gn_groups, linear
 from toycrystals_torch.ops.conv import CircularConv, Conv2d
 from toycrystals_torch.ops.groupnorm import GroupNormSiLU
+from toycrystals_torch.parallel.mesh import allgather_rows, check_data_mesh
+from toycrystals_torch.utils.rng import RowGenerator, rand, randn
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -243,16 +245,17 @@ def draw_diffusion_loss_noise(x0: torch.Tensor, y_cat: torch.Tensor, y_cont: tor
     (t [B], eps like x0, y_cat, y_cont) with t = u ** t_power (t_power > 1
     biases towards small t), then `shift_t` when t_shift != 1, and the
     conditioning dropped with probability p_uncond (null token `n_types`,
-    zeroed y_cont). Draws come from `generator`, which lies on x0's device."""
+    zeroed y_cont). Draws come from `generator`, which lies on x0's device;
+    a `utils.rng.RowGenerator` draws the global batch and keeps its rows."""
     b, dev = x0.shape[0], x0.device
-    t = torch.rand(b, generator=generator, device=dev) ** float(t_power)
+    t = rand((b,), generator, dev) ** float(t_power)
     if float(t_shift) != 1.0:
         from toycrystals_torch.models.flow_matching import shift_t
 
         t = shift_t(t, t_shift)
-    eps = torch.randn(x0.shape, generator=generator, device=dev, dtype=x0.dtype)
+    eps = randn(x0.shape, generator, dev, x0.dtype)
     if p_uncond > 0.0:
-        drop = torch.rand(b, generator=generator, device=dev) < p_uncond
+        drop = rand((b,), generator, dev) < p_uncond
         y_cat = torch.where(drop, torch.full_like(y_cat, n_types), y_cat)
         y_cont = torch.where(drop[:, None], torch.zeros_like(y_cont), y_cont)
     return t, eps, y_cat, y_cont
@@ -391,7 +394,7 @@ def _initial_x(noise, shape, generator, device) -> torch.Tensor:
         if tuple(x.shape) != shape:
             raise ValueError(f"injected x has shape {tuple(x.shape)}, expected {shape}")
         return x
-    return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    return randn(shape, generator, device)
 
 
 class StepDraws:
@@ -410,8 +413,7 @@ class StepDraws:
         if i != self._next:
             raise IndexError(f"step draws are read in order: expected {self._next}, got {i}")
         self._next += 1
-        return torch.randn(self.shape[1:], generator=self._generator, device=self._device,
-                           dtype=torch.float32)
+        return randn(self.shape[1:], self._generator, self._device)
 
 
 def draw_sampler_noise(img_shape, n_z: int, generator: torch.Generator | None, device=None,
@@ -467,8 +469,7 @@ def sample_reverse_sde_euler_maruyama(
         eps_hat = _maybe_clip_eps(eps_hat, x, alpha_t, sigma_t, clip_x0)
         score = -eps_hat / sigma_t
         drift = (-0.5 * beta_t * x) - (beta_t * score)
-        z = (z_all[i] if z_all is not None else
-             torch.randn(shape, generator=generator, device=dev, dtype=torch.float32))
+        z = z_all[i] if z_all is not None else randn(shape, generator, dev)
         x = x + drift * dt + g * torch.sqrt(torch.abs(dt)) * z
     return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
 
@@ -678,7 +679,7 @@ def sample_inpaint_reverse_sde(
     def draw(i: int, r: int, k: int) -> torch.Tensor:
         if draws is not None:
             return draws[i, r, k]
-        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return randn(shape, generator, dev)
 
     for i in range(n_steps):
         t, t_next = ts[i], ts[i + 1]
@@ -741,12 +742,23 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     are pulled to the host as they finish; returns an np.ndarray.
 
     batch_kw: extra per-item tensors (leading dim == n) passed to sampler_fn
-    by keyword, sliced and padded per chunk like the condition rows."""
-    if mesh is not None:
-        raise NotImplementedError("sampling on a mesh is not ported yet (ROADMAP.md "
-                                  "queue 1, module 5: parallel axes)")
+    by keyword, sliced and padded per chunk like the condition rows.
+
+    On a data `mesh` (parallel/) the chunk is first rounded up to a multiple
+    of the mesh's ranks; every rank draws each chunk's noise for the whole
+    chunk, samples its own rows of it (`RowGenerator`), and the rows are
+    gathered back to every rank, so each rank returns the whole, unsharded
+    result. `apply_fn` is each rank's whole model."""
     n, h, w, c = _shape(img_shape)
     chunk = max(1, min(int(chunk), n))
+    if mesh is not None:
+        check_data_mesh(mesh)
+        m = mesh.size()
+        chunk = -(-chunk // m) * m
+        lo = mesh.get_local_rank() * (chunk // m)
+        mine = slice(lo, lo + chunk // m)
+    else:
+        mine = slice(0, chunk)
     dev = y_cat.device
 
     def pad(a, k):
@@ -755,12 +767,14 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     outs = []
     for i0 in range(0, n, chunk):
         take = min(chunk, n - i0)
-        bkw = {k: pad(v[i0:i0 + take], chunk - take) for k, v in (batch_kw or {}).items()}
+        bkw = {k: pad(v[i0:i0 + take], chunk - take)[mine] for k, v in (batch_kw or {}).items()}
         gen = torch.Generator(device=dev).manual_seed(chunk_seed(seed, i0))
-        x = sampler_fn(apply_fn, sde, pad(y_cat[i0:i0 + take], chunk - take),
-                       pad(y_cont[i0:i0 + take], chunk - take), (chunk, h, w, c), gen,
-                       **kw, **bkw)
-        outs.append(x[:take].cpu().numpy())
+        if mesh is not None:
+            gen = RowGenerator(gen, mine.start, mine.stop, chunk)
+        x = sampler_fn(apply_fn, sde, pad(y_cat[i0:i0 + take], chunk - take)[mine],
+                       pad(y_cont[i0:i0 + take], chunk - take)[mine],
+                       (mine.stop - mine.start, h, w, c), gen, **kw, **bkw)
+        outs.append(allgather_rows(mesh, x)[:take].cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 

@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from toycrystals_torch.utils.rng import rand, randn
+
 _ENC_CH = (32, 64, 128, 256)
 _DEC_CH = (128, 64, 32, 1)
 _HW, _C = 4, 256  # the encoder's last map, and the decoder's first
@@ -85,8 +87,7 @@ def _reparameterise(mu: torch.Tensor, logvar: torch.Tensor,
     """mu + exp(logvar / 2) * eps, eps from `generator` (on mu's device)
     unless given as `noise`."""
     std = torch.exp(0.5 * logvar)
-    eps = noise if noise is not None else torch.randn(
-        std.shape, generator=generator, device=std.device, dtype=std.dtype)
+    eps = noise if noise is not None else randn(std.shape, generator, std.device, std.dtype)
     return mu + std * eps
 
 
@@ -127,8 +128,7 @@ class CondVAE(nn.Module):
         y = _y_vec(y_cat, y_cont, self.n_types)
         if train and self.cond_drop > 0.0:
             if keep is None:
-                keep = (torch.rand((y.shape[0], 1), generator=generator, device=y.device)
-                        >= self.cond_drop)
+                keep = rand((y.shape[0], 1), generator, y.device) >= self.cond_drop
             y = y * keep.to(y.dtype)
         return self.decoder(z, y)
 

@@ -1,0 +1,311 @@
+"""Sharded runs and their one-process counterparts, case by case.
+
+`run_cases(spec)` runs a list of cases in every rank of a process group, or
+alone in a process with none, and returns what each produced as numpy
+(whole tensors: sharded ones are gathered). Held against each other, a
+2-rank result and the 1-process result of the same spec show that the data
+mesh keeps the single-device numbers; the CPU tests also hold them to the
+JAX package on a 2-device mesh (tests/test_torch_parallel.py), and
+chip_smoke.py's phase 15 runs the same cases on the card. It is the rank
+entry of those 2-rank jobs (`parallel.multihost.launch(run_cases, 2,
+(spec,))`), so it imports neither JAX nor a test.
+
+`spec` = {"device": "cpu" | "cuda", "tf32": bool, "cases": [...]}; every
+case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
+draws included), of which each rank takes its rows:
+
+- "sde": `make_sde_train_step` on CondUNetTiny(**model) from `state_dict`,
+  under DDP or FSDP2 ("fsdp"), with (x0, y_cat, y_cont, t, eps) per step;
+  returns the first step's gradients, the losses, and the parameters, Adam
+  moments and EMA after the last step;
+- "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep);
+- "prior": one `make_prior_train_step` ("moe" > 0 experts: the MoE prior,
+  with its global route statistics) on injected (t, eps);
+- "distill": one `make_distill_train_step` on injected (i, eps), teacher
+  whole on every rank, student under DDP;
+- "sample": `sample_chunked` of the reverse SDE, once on per-row injected
+  noise and once on its own chunk generators;
+- "dcp_save" / "dcp_load": a state written to / read from a
+  `ShardedCheckpointManager` directory under FSDP2.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
+
+
+def _np(tensors: dict) -> dict[str, np.ndarray]:
+    from toycrystals_torch.parallel.fsdp import full
+
+    return {k: full(v).detach().cpu().numpy().copy() for k, v in tensors.items()}
+
+
+def _state_np(state) -> dict:
+    names = list(state.params)
+    return {"params": _np(state.params), "mu": _np(dict(zip(names, state.opt_state.mu))),
+            "nu": _np(dict(zip(names, state.opt_state.nu))),
+            "ema": None if state.ema_params is None else _np(state.ema_params),
+            "step": state.step, "count": state.opt_state.count}
+
+
+def _grads_np(model, grads) -> dict[str, np.ndarray]:
+    names = [k for k, _ in _inner(model).named_parameters()]
+    return _np(dict(zip(names, grads)))
+
+
+def _inner(model):
+    from torch.nn.parallel import DistributedDataParallel
+
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def _load(model, state_dict: dict, device) -> Any:
+    model.load_state_dict({k: torch.as_tensor(np.asarray(v)) for k, v in state_dict.items()},
+                          strict=True)
+    return model.to(device)
+
+
+def _place(mesh, model, tx, fsdp: bool, ema: bool = False):
+    from toycrystals_torch.parallel import place_state
+    from toycrystals_torch.train.state import create_train_state
+
+    state = create_train_state(model, tx, ema=ema)
+    return place_state(mesh, model, state, fsdp)
+
+
+def _rows(mesh, case: dict, keys, device) -> list[torch.Tensor]:
+    from toycrystals_torch.parallel.mesh import shard_batch
+
+    return [shard_batch(mesh, _t(case[k], device)) for k in keys]
+
+
+def _opt(case: dict):
+    """Adam as the case asks, keeping every update's gradients in `seen`."""
+    from toycrystals_torch.train.state import Optimizer
+
+    class Recorded(Optimizer):
+        def update(self, params, grads, state):
+            seen.append(list(grads))
+            return super().update(params, grads, state)
+
+    seen: list = []
+    o = case.get("opt", {})
+    tx = Recorded(o.get("lr", 1e-3), clip_grad_norm=o.get("clip", 0.0))
+    object.__setattr__(tx, "seen", seen)
+    return tx
+
+
+def _sde(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.sde_score_model import VPSDE, CondUNetTiny
+    from toycrystals_torch.train.steps import make_sde_train_step
+
+    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    tx = _opt(case)
+    decay = case.get("opt", {}).get("ema", 0.0)
+    module, state = _place(mesh, model, tx, case.get("fsdp", False), ema=decay > 0.0)
+    sde = VPSDE(**case.get("sde", {"beta_min": 0.1, "beta_max": 30.0}))
+    step = make_sde_train_step(module, tx, sde, case["model"]["n_types"], 0.0, 1.0, decay,
+                               case.get("param", "eps"), case.get("grad_accum", 1),
+                               mesh=mesh)
+    keys = ("x0", "y_cat", "y_cont", "t", "eps")
+    out: dict[str, Any] = {"losses": [], "step_ms": []}
+    for i in range(len(case["x0"])):
+        x0, yc, yv, t, eps = _rows(mesh, {k: case[k][i] for k in keys}, keys, device)
+        _sync(device)
+        t0 = time.perf_counter()
+        state, loss = step(state, x0, yc, yv, noise=(t, eps))
+        out["losses"].append(float(loss))
+        _sync(device)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["grads"] = _grads_np(module, tx.seen[0])
+    out.update(_state_np(state))
+    return out
+
+
+def _vae(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.vae import CondVAE
+    from toycrystals_torch.train.steps import make_vae_train_step
+
+    model = _load(CondVAE(**case["model"]), case["state_dict"], device)
+    tx = _opt(case)
+    module, state = _place(mesh, model, tx, case.get("fsdp", False))
+    x, yc, yv, eps, keep = _rows(mesh, case, ("x", "y_cat", "y_cont", "eps", "keep"), device)
+    beta, fb = case["beta_eff"], case["free_bits"]
+    state, m = make_vae_train_step(module, tx, fb, mesh=mesh)(state, x, yc, yv, beta,
+                                                              noise=(eps, keep))
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
+
+
+def _prior(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.diffusion_prior import DiffusionPriorFiLM, DiffusionSchedule
+    from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
+    from toycrystals_torch.train.steps import make_prior_train_step
+
+    kw = case["model"]
+    model = DiffusionPriorMoE(**kw) if "n_experts" in kw else DiffusionPriorFiLM(**kw)
+    model = _load(model, case["state_dict"], device)
+    tx = _opt(case)
+    module, state = _place(mesh, model, tx, case.get("fsdp", False))
+    sched = DiffusionSchedule.from_arrays(case["betas"], case["alpha_bars"], device)
+    z0n, yc, yv, t, eps = _rows(mesh, case, ("z0n", "y_cat", "y_cont", "t", "eps"), device)
+    aux = case.get("aux_weight", 0.0)
+    step = make_prior_train_step(module, tx, sched.T, aux, mesh)
+    state, m = step(state, sched, z0n, yc, yv, noise=(t, eps))
+    route = None
+    if aux:
+        with torch.no_grad():
+            _, stats = _inner(module)(sched.q_sample(z0n, t, eps), t, yc, yv,
+                                      return_stats=True, mesh=mesh)
+        route = [f.cpu().numpy() for f in stats["route_fraction"]]
+    return {"metrics": {k: v.cpu().numpy() for k, v in m.items()}, "route_fraction": route,
+            "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
+
+
+def _distill(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.sde_score_model import VPSDE, CondUNetTiny
+    from toycrystals_torch.train.distill import make_distill_train_step
+
+    teacher = _load(CondUNetTiny(**case["model"]), case["teacher"], device)
+    teacher.eval().requires_grad_(False)
+    student = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    tx = _opt(case)
+    module, state = _place(mesh, student, tx, case.get("fsdp", False))
+    x0, yc, yv, i, eps = _rows(mesh, case, ("x0", "y_cat", "y_cont", "i", "eps"), device)
+    step = make_distill_train_step(module, teacher, tx, VPSDE(0.1, 30.0), case["n"],
+                                   n_types=case["model"]["n_types"],
+                                   guidance_scale=case["cfg"],
+                                   teacher_prediction=case["teacher_prediction"],
+                                   t_end=case["t_end"], mesh=mesh)
+    state, loss = step(state, x0, yc, yv, noise=(i, eps))
+    return {"loss": float(loss), "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
+
+
+def _sample(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.sde_score_model import (
+        VPSDE,
+        CondUNetTiny,
+        sample_chunked,
+        sample_reverse_sde_euler_maruyama,
+    )
+
+    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    model.eval().requires_grad_(False)
+    yc, yv = _t(case["y_cat"], device), _t(case["y_cont"], device)
+    sde = VPSDE(0.1, 30.0)
+    kw = dict(n_steps=case["n_steps"], guidance_scale=case["cfg"], n_types=4)
+
+    def injected(apply_fn, sde, y_cat, y_cont, shape, gen, *, x_init, z, **kw):
+        return sample_reverse_sde_euler_maruyama(apply_fn, sde, y_cat, y_cont, shape,
+                                                 noise=(x_init, z.transpose(0, 1)), **kw)
+
+    shape = tuple(case["shape"])
+    with torch.inference_mode():
+        inj = sample_chunked(injected, model, sde, yc, yv, shape, case["seed"],
+                             chunk=case["chunk"], mesh=mesh,
+                             batch_kw={"x_init": _t(case["x_init"], device),
+                                       "z": _t(case["z"], device)}, **kw)
+        drawn = sample_chunked(sample_reverse_sde_euler_maruyama, model, sde, yc, yv, shape,
+                               case["seed"], chunk=case["chunk"], mesh=mesh, **kw)
+    return {"injected": inj, "drawn": drawn}
+
+
+def _dcp(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.sde_score_model import CondUNetTiny
+    from toycrystals_torch.utils.orbax_io import ShardedCheckpointManager
+
+    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    tx = _opt(case)
+    _, state = _place(mesh, model, tx, case.get("fsdp", True), ema=True)
+    with ShardedCheckpointManager(case["path"], max_to_keep=case.get("keep", 1)) as mgr:
+        _sync(device)
+        t0 = time.perf_counter()
+        if case["kind"] == "dcp_save":
+            _fill(state, case["seed"])
+            t0 = time.perf_counter()
+            mgr.save(case.get("step", 1), state, tx, {"epoch_next": 1, "loss_hist": [],
+                                                      "config": {}})
+            mgr.wait()
+        else:
+            state, _ = mgr.restore_onto(state)
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+    return {"ms": ms, **_state_np(state)}
+
+
+def _fill(state, seed: int) -> None:
+    """Give the moments, the EMA and the counters values of their own, the
+    same on every rank (each writes its shard of them)."""
+    from toycrystals_torch.parallel.fsdp import copy_full_, full
+
+    g = torch.Generator().manual_seed(seed)
+    tensors = [*state.opt_state.mu, *state.opt_state.nu, *state.ema_params.values()]
+    for t in tensors:
+        copy_full_(t, torch.randn(tuple(full(t).shape), generator=g))
+    state.step, state.opt_state.count = 7, 5
+
+
+CASES = {"sde": _sde, "vae": _vae, "prior": _prior, "distill": _distill, "sample": _sample,
+         "dcp_save": _dcp, "dcp_load": _dcp}
+
+
+def _counters():
+    from toycrystals_torch.data import rasterize as rz
+    from toycrystals_torch.ops import attention as at
+    from toycrystals_torch.ops import groupnorm as gn
+
+    return {"gn_silu": (gn.gn_silu, "launches"),
+            "gn_silu_backward": (gn.gn_silu, "backward_launches"),
+            "rasterize": (rz.rasterize, "launches"),
+            "flash_attn": (at.flash_sdpa, "launches"),
+            "flash_attn_backward": (at.flash_sdpa, "backward_launches")}
+
+
+def _zero_launches() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _launches() -> dict[str, int]:
+    return {k: int(getattr(fn, attr)) for k, (fn, attr) in _counters().items()}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_cases(spec: dict) -> list[dict]:
+    """Every case of `spec` on this rank's rows (see the module docstring);
+    the mesh spans the process group when there is one. Each result holds
+    the launches of the port's kernels in the case ("launches", counted from
+    0 by each wrapper), and on a CUDA device the case's peak device memory
+    of this process ("peak_bytes")."""
+    from toycrystals_torch.parallel.mesh import make_mesh
+
+    device = torch.device(spec.get("device", "cpu"))
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+        torch.backends.cuda.matmul.allow_tf32 = bool(spec.get("tf32", False))
+        torch.backends.cudnn.allow_tf32 = bool(spec.get("tf32", False))
+    mesh = make_mesh(device_type=device.type) if dist.is_initialized() else None
+    out = []
+    for case in spec["cases"]:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        res = CASES[case["kind"]](mesh, case, device)
+        res["launches"] = _launches()
+        if device.type == "cuda":
+            res["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+        out.append(res)
+    return out

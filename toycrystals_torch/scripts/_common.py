@@ -1,6 +1,12 @@
 """Shared plumbing of the port's CLIs (counterpart of scripts/_common.py):
-device selection, checkpoint-name resolution, a disk archive resident on
-the device, and the flags whose paths are not ported yet."""
+device selection, the data mesh and its process group (--shard, --fsdp and
+the cluster flags), checkpoint-name resolution, a disk archive resident on
+the device, and the flags whose paths are not ported yet.
+
+`--shard N` with no cluster flags runs the CLI in N spawned local ranks
+(`spawn_shards`), one per device (parallel/multihost.py); the cluster flags
+join a process group whose ranks were started elsewhere, one per device, and
+then --shard must equal its size."""
 
 from __future__ import annotations
 
@@ -11,9 +17,8 @@ from pathlib import Path
 import torch
 
 from toycrystals_torch.data.datasets import load_archive
+from toycrystals_torch.parallel.mesh import DEFERRED as PARALLEL
 from toycrystals_torch.serve import resolve_device
-
-PARALLEL = "ROADMAP.md queue 1, module 5: parallel axes"
 
 
 def add_device_flag(p: argparse.ArgumentParser) -> None:
@@ -24,29 +29,166 @@ def add_device_flag(p: argparse.ArgumentParser) -> None:
 
 def select_device(device: str) -> torch.device:
     """'cuda', 'cuda:N', 'auto' (= 'cuda') or 'cpu'. A CUDA device with no GPU
-    raises: nothing falls back to the CPU."""
-    return resolve_device("cuda" if device == "auto" else device)
+    raises: nothing falls back to the CPU. In a process group of several
+    ranks, 'cuda' is this rank's own device."""
+    from toycrystals_torch.parallel.multihost import rank_device
+
+    return rank_device(resolve_device("cuda" if device == "auto" else device))
+
+
+def add_shard_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--shard", type=int, default=0,
+                   help="Data parallelism over N devices: N ranks (one process per device), "
+                        "each with its rows of every batch, gradients averaged over the ranks "
+                        "(DistributedDataParallel). Needs the batch size to divide by N. 0/1 "
+                        "= one device.")
+
+
+def add_dist_flags(p: argparse.ArgumentParser) -> None:
+    """--coordinator/--num-processes/--process-id: join a process group of
+    ranks started elsewhere (parallel/multihost.py `maybe_initialize`)."""
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0's rendezvous (multi-host runs: start the same "
+                        "command on every host, one process per device), or 'auto' to read "
+                        "torchrun's environment. Omit for one host: --shard N spawns the "
+                        "ranks itself.")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Total number of processes (ranks) in the process group.")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="This process's rank in [0, --num-processes).")
 
 
 def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        space: bool = True) -> None:
-    """The JAX CLIs' mesh and multi-process flags, kept so that the command
-    lines match; any value but the default raises (`refuse_deferred`).
-    `space=False` leaves out --shard-space, as the VAE trainer's JAX CLI does."""
-    for flag in ("--shard", "--shard-space", "--shard-model"):
+    """The JAX CLIs' mesh and multi-process flags: --shard (and --fsdp for a
+    trainer) and the cluster flags run; --shard-space and --shard-model are
+    kept so that the command lines match, and any value but the default
+    raises (`refuse_deferred`). `space=False` leaves out --shard-space, as
+    the VAE trainer's JAX CLI does."""
+    add_shard_flag(p)
+    for flag in ("--shard-space", "--shard-model"):
         if flag == "--shard-space" and not space:
             continue
         p.add_argument(flag, type=int, default=0, help=f"not ported yet ({PARALLEL})")
     if train:
-        p.add_argument("--fsdp", action="store_true", help=f"not ported yet ({PARALLEL})")
-    p.add_argument("--coordinator", type=str, default=None, help=f"not ported yet ({PARALLEL})")
-    p.add_argument("--num-processes", type=int, default=None,
-                   help=f"not ported yet ({PARALLEL})")
-    p.add_argument("--process-id", type=int, default=None, help=f"not ported yet ({PARALLEL})")
+        p.add_argument("--fsdp", action="store_true",
+                       help="ZeRO-3 placement: with --shard N, also shard every weight, its "
+                            "Adam moments and its EMA 1/N over the ranks (FSDP2, "
+                            "parallel/fsdp.py). No effect without --shard >= 2.")
+    add_dist_flags(p)
 
 
-PARALLEL_DESTS = ("shard", "shard_space", "shard_model", "coordinator", "num_processes",
-                  "process_id")
+PARALLEL_DESTS = ("shard_space", "shard_model")
+CLUSTER_DESTS = ("coordinator", "num_processes", "process_id")
+
+
+def init_distributed(args: argparse.Namespace, device: str = "cuda") -> bool:
+    """Join the process group that the cluster flags name, before the
+    first device is chosen. True when the flags made a multi-process group
+    (not when `spawn_shards` started this rank)."""
+    from toycrystals_torch.parallel.multihost import maybe_initialize, process_count
+
+    cluster = any(getattr(args, d, None) is not None for d in CLUSTER_DESTS)
+    multi = maybe_initialize(getattr(args, "coordinator", None),
+                             getattr(args, "num_processes", None),
+                             getattr(args, "process_id", None),
+                             device_type="cpu" if device == "cpu" else "cuda")
+    if multi and cluster:
+        import torch.distributed as dist
+
+        print(f"torch.distributed: rank {dist.get_rank()}/{process_count()}")
+    return multi and cluster
+
+
+def _run_rank(fn, argv) -> None:
+    fn(argv)
+
+
+def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
+                 batch_sizes: tuple[int, ...] = ()) -> bool:
+    """--shard N > 1 with no cluster flags and no process group yet: run
+    `fn(argv)` (a CLI's module-level entry) in N spawned local ranks on
+    `cuda:0..N-1`, or on the CPU under --device cpu, and return True once
+    all finished; False when this process should run the CLI itself. Any
+    rank's failure exits non-zero with its traceback."""
+    import torch.distributed as dist
+
+    from toycrystals_torch.parallel.multihost import launch
+
+    shard = getattr(args, "shard", 0)
+    if shard <= 1 or dist.is_initialized() or any(
+            getattr(args, d, None) is not None for d in CLUSTER_DESTS):
+        return False
+    check_shard_batches(shard, *batch_sizes)
+    device_type = "cpu" if args.device == "cpu" else "cuda"
+    if device_type == "cuda":
+        select_device(args.device)
+        n_dev = torch.cuda.device_count()
+        if shard > n_dev:
+            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible")
+    print(f"data-parallel mesh: {shard} ranks on {device_type}")
+    try:
+        launch(_run_rank, shard, (fn, list(argv) if argv is not None else None),
+               device_type=device_type, timeout=24 * 3600.0)
+    except (RuntimeError, TimeoutError) as e:
+        raise SystemExit(f"--shard {shard}: {e}") from None
+    return True
+
+
+def check_shard_batches(shard: int, *batch_sizes: int) -> None:
+    if shard < 0:
+        raise SystemExit(f"--shard must be >= 0, got {shard}")
+    for b in batch_sizes:
+        if b % max(1, shard):
+            raise SystemExit(f"batch size {b} not divisible by --shard {shard}")
+
+
+def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
+               shard_space: int = 0, shard_model: int = 0):
+    """--shard N into the ("data",) mesh of this process group (None for
+    one device). Every batch size must divide by N and the group must have
+    exactly N ranks; --shard-space and --shard-model refuse, naming their
+    ROADMAP item."""
+    from toycrystals_torch.parallel.mesh import make_mesh
+    from toycrystals_torch.parallel.multihost import process_count
+
+    for flag, value in (("--shard-space", shard_space), ("--shard-model", shard_model)):
+        if value > 1:
+            raise SystemExit(f"{flag} {value} is not ported yet ({PARALLEL})")
+    check_shard_batches(shard, *batch_sizes)
+    world = process_count()
+    if shard in (0, 1) and world == 1:
+        return None
+    if shard != world:
+        # one device per process: a process group of `world` ranks sees `world`
+        raise SystemExit(f"--shard {shard} but only {world} devices visible (one per rank: "
+                         f"the CLI's main spawns --shard ranks, or start them with the "
+                         f"cluster flags)")
+    return make_mesh(shard, torch.device(device).type)
+
+
+def any_rank(mesh, flag: bool, device) -> bool:
+    """True on every rank when `flag` is true on any (a preemption signal
+    that reached one rank stops them all at the same epoch)."""
+    if mesh is None:
+        return bool(flag)
+    from toycrystals_torch.parallel.mesh import all_reduce_sum
+
+    return bool(all_reduce_sum(mesh, torch.tensor([float(flag)], device=device)).item())
+
+
+def place_state(mesh, model, state, fsdp: bool = False):
+    """The trainers' placement: DistributedDataParallel, or FSDP2 under
+    `fsdp` (printing the share of parameter elements it shards, as JAX
+    does); mesh=None passes through. Returns (module to train, state)."""
+    from toycrystals_torch.parallel import fsdp_coverage
+    from toycrystals_torch.parallel import place_state as _place
+    from toycrystals_torch.parallel.multihost import is_primary
+
+    if mesh is not None and fsdp and is_primary():
+        print(f"fsdp: {fsdp_coverage(mesh.size(), model):.0%} of param elements sharded "
+              f"over 'data'")
+    return _place(mesh, model, state, fsdp)
 
 
 def refuse_deferred(p: argparse.ArgumentParser, args: argparse.Namespace,

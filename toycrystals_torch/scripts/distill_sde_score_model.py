@@ -18,7 +18,10 @@ the phase and exits. Students serve through `ScoreModelService`'s DDIM path.
 
 Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU; the grids are 8-bit PNGs of the pixels (utils/figures.py).
---shard is not ported yet and exits naming its ROADMAP item.
+--shard N trains each student over N ranks (one process per device, spawned
+here), each with its rows of every batch: the teacher is whole on every
+rank and the student under DistributedDataParallel; rank 0 writes the
+checkpoints, metrics, grids and summary lines.
 """
 
 from __future__ import annotations
@@ -41,11 +44,16 @@ from toycrystals_torch.models.sde_score_model import (
     sample_ddim,
     sample_grid_conditions,
 )
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
+    add_shard_flag,
+    any_rank,
+    place_state,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.train.distill import make_distill_train_epoch
 from toycrystals_torch.train.state import Optimizer, create_train_state
@@ -100,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default=None, choices=["float32", "bfloat16"],
                    help="Computation dtype; default: the teacher's.")
     p.add_argument("--attn-impl", type=str, default="auto", choices=["auto", "xla", "flash"])
-    p.add_argument("--shard", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    add_shard_flag(p)
     p.add_argument("--grid-n", type=int, default=36,
                    help="Sample-grid size scored after each phase (0 disables grids and "
                         "fidelity scoring).")
@@ -126,9 +134,10 @@ class DistillRun:
 def distill(argv: list[str] | None = None) -> DistillRun:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.shard:
-        raise SystemExit(f"--shard {args.shard} is not ported yet ({PARALLEL})")
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, args.batch_size, device=device)
+    primary = is_primary()
+    print_ = print if primary else (lambda *a, **k: None)
 
     # ---- teacher ----
     payload = load_score_payload(args.teacher)
@@ -159,7 +168,6 @@ def distill(argv: list[str] | None = None) -> DistillRun:
     teacher = build_model()
     load_flax_params(teacher, teacher_params)
     teacher = teacher.to(device).eval().requires_grad_(False)
-    student = build_model().to(device)
     sde = VPSDE(beta_min=float(tcfg.get("beta_min", 0.1)),
                 beta_max=float(tcfg.get("beta_max", 30.0)),
                 logsnr_shift=float(tcfg.get("logsnr_shift", 0.0)))
@@ -174,10 +182,10 @@ def distill(argv: list[str] | None = None) -> DistillRun:
     while n >= ts_:
         schedule.append(n)
         n //= 2
-    print(f"distilling {teacher_pred}-teacher at cfg {args.cfg}: phases {schedule} "
+    print_(f"distilling {teacher_pred}-teacher at cfg {args.cfg}: phases {schedule} "
           f"({args.epochs} epochs each)")
     if teacher_pred == "eps" and args.phase0_epochs is None:
-        print("WARNING: eps-parameterized teacher: phase 0 must also LEARN the eps->v "
+        print_("WARNING: eps-parameterized teacher: phase 0 must also LEARN the eps->v "
               "parameterization conversion (loss starts ~1 and falls slowly). Give it "
               "--phase0-epochs >> --epochs, or train the teacher with --param v (recommended; "
               "see --phase0-epochs help).")
@@ -192,7 +200,7 @@ def distill(argv: list[str] | None = None) -> DistillRun:
     os.makedirs(results_dir, exist_ok=True)
     metrics_path = os.path.join(args.out_dir, "metrics.jsonl")
     summary_path = os.path.join(args.out_dir, "distill_summary.jsonl")
-    print(f"run dir: {args.out_dir}")
+    print_(f"run dir: {args.out_dir}")
 
     # ---- data ----
     data_kw: dict[str, Any]
@@ -220,6 +228,8 @@ def distill(argv: list[str] | None = None) -> DistillRun:
     run = DistillRun(args.out_dir, schedule, [], [], [], [])
 
     def save(ckptr, path, student_state, n_steps, epoch_next, losses):
+        if not primary:
+            return
         student_cfg["distill_steps"] = n_steps
         ckptr.save(path, {"epoch_next": epoch_next, "loss_hist": losses,
                           "config": dict(student_cfg),
@@ -233,13 +243,16 @@ def distill(argv: list[str] | None = None) -> DistillRun:
             t0 = time.perf_counter()
             n_epochs = (args.phase0_epochs if phase == 0 and args.phase0_epochs is not None
                         else args.epochs)
-            # the student starts from the teacher's weights
+            # the student starts from the teacher's weights (a module of its
+            # own per phase, so that each phase's DDP wraps a fresh one)
+            student = build_model().to(device)
             student.load_state_dict(teacher.state_dict())
-            state = create_train_state(student, tx, ema=args.ema_decay > 0)
+            module, state = place_state(
+                mesh, student, create_train_state(student, tx, ema=args.ema_decay > 0))
             epoch_fn = make_distill_train_epoch(
-                student, teacher, tx, sde, n_steps, n_types=n_types, guidance_scale=args.cfg,
+                module, teacher, tx, sde, n_steps, n_types=n_types, guidance_scale=args.cfg,
                 teacher_prediction=teacher_pred, t_end=args.t_end, ema_decay=args.ema_decay,
-                batch_size=args.batch_size, n_items=n_items, **data_kw)
+                batch_size=args.batch_size, n_items=n_items, mesh=mesh, **data_kw)
             ckpt_path = os.path.join(ckpt_dir, f"distilled_{n_steps}step.msgpack")
             losses: list[float] = []
             seconds: list[float] = []
@@ -251,15 +264,16 @@ def distill(argv: list[str] | None = None) -> DistillRun:
                 loss = float(loss_t)
                 seconds.append(time.perf_counter() - te)
                 losses.append(loss)
-                print(f"[phase {phase} | {n_steps}-step] epoch {ep + 1}/{n_epochs} "
-                      f"v-mse {loss:.5f}")
-                append_jsonl(metrics_path, {"phase": phase, "steps": n_steps, "epoch": ep + 1,
-                                            "loss": loss})
-                if stop.requested:
+                print_(f"[phase {phase} | {n_steps}-step] epoch {ep + 1}/{n_epochs} "
+                       f"v-mse {loss:.5f}")
+                if primary:
+                    append_jsonl(metrics_path, {"phase": phase, "steps": n_steps,
+                                                "epoch": ep + 1, "loss": loss})
+                if any_rank(mesh, stop.requested, device):
                     # a working n_steps student, undertrained; continue with
                     # --teacher <this ckpt> --from-steps n_steps
                     save(ckptr, ckpt_path, state, n_steps, ep + 1, losses)
-                    print(f"preempted ({stop.signame}) in phase {phase} after epoch {ep + 1}: "
+                    print_(f"preempted ({stop.signame}) in phase {phase} after epoch {ep + 1}: "
                           f"partial student saved at {ckpt_path}")
                     run.checkpoints.append(ckpt_path)
                     run.preempted = True
@@ -267,17 +281,17 @@ def distill(argv: list[str] | None = None) -> DistillRun:
 
             save(ckptr, ckpt_path, state, n_steps, n_epochs, losses)
             run.checkpoints.append(ckpt_path)
-            print(f"  saved: {ckpt_path}  ({time.perf_counter() - t0:.0f}s)")
+            print_(f"  saved: {ckpt_path}  ({time.perf_counter() - t0:.0f}s)")
             # this phase's student teaches the next (always v from here on)
             teacher.load_state_dict(state.sample_params)
             teacher_pred = "v"
             # a signal during the last epoch's bookkeeping must not buy a grid
-            if stop.requested:
-                print(f"preempted ({stop.signame}) after phase {phase}: checkpoint saved at "
+            if any_rank(mesh, stop.requested, device):
+                print_(f"preempted ({stop.signame}) after phase {phase}: checkpoint saved at "
                       f"{ckpt_path}; skipping diagnostics and later phases")
                 run.preempted = True
                 return run
-            if args.grid_n:
+            if args.grid_n and primary:
                 with torch.inference_mode():
                     g = torch.Generator(device=device).manual_seed(args.seed + 1)
                     x = sample_ddim(teacher, sde, y_cat_g, y_cont_g,
@@ -295,19 +309,22 @@ def distill(argv: list[str] | None = None) -> DistillRun:
                                                  "theta_mae_deg", "cond_fidelity")}}
                 append_jsonl(summary_path, line)
                 run.summary.append(line)
-                print(f"  grid: {grid_path}\n  fidelity: {json.dumps(line)}")
-            if stop.requested:  # a signal during the diagnostics
-                print(f"preempted ({stop.signame}) after phase {phase} diagnostics: "
+                print_(f"  grid: {grid_path}\n  fidelity: {json.dumps(line)}")
+            if any_rank(mesh, stop.requested, device):  # a signal during the diagnostics
+                print_(f"preempted ({stop.signame}) after phase {phase} diagnostics: "
                       f"checkpoint saved at {ckpt_path}; skipping later phases")
                 run.preempted = True
                 return run
 
-    print(f"done: {len(schedule)} phases -> {ckpt_dir}")
+    print_(f"done: {len(schedule)} phases -> {ckpt_dir}")
     return run
 
 
 def main(argv: list[str] | None = None) -> int:
-    distill(argv)
+    """The CLI: `distill(argv)` in this process, or in --shard N spawned ranks."""
+    args = build_parser().parse_args(argv)
+    if not spawn_shards(args, distill, argv, (args.batch_size,)):
+        distill(argv)
     return 0
 
 

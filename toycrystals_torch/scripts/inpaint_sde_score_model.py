@@ -17,8 +17,10 @@ masked, gray where hidden | inpainted) goes to <out-dir>/results/.
 
 Differences from the JAX CLI: --device defaults to cuda and never falls back
 to the CPU; the grid is utils/figures.py's 8-bit PNG of the pixels, with no
-title; --shard and the other mesh flags are not ported yet and exit naming
-their ROADMAP item.
+title. --shard N inpaints each chunk's rows over N ranks (one process per
+device, spawned here unless the cluster flags join ranks started elsewhere),
+each drawing the chunk's whole noise, and rank 0 writes the grid and the
+line; --shard-space and --shard-model exit naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,14 +44,15 @@ from toycrystals_torch.models.sde_score_model import (
     sample_grid_conditions,
     sample_inpaint_reverse_sde,
 )
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
-    PARALLEL_DESTS,
     add_device_flag,
     add_parallel_flags,
     infer_score_ckpt_path,
-    refuse_deferred,
+    init_distributed,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.utils.checkpoint import load_score_payload
 from toycrystals_torch.utils.figures import save_image_grid
@@ -131,8 +134,11 @@ class InpaintRun:
 def inpaint(argv: list[str] | None = None) -> InpaintRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in PARALLEL_DESTS})
+    init_distributed(args, args.device)
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
+                      shard_model=args.shard_model)
+    primary = is_primary()
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
     if not os.path.exists(ckpt_path):
@@ -174,7 +180,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     with torch.inference_mode():
         x_out = sample_chunked(
             sample_inpaint_reverse_sde, apply_fn, sde, y_cat, y_cont,
-            (args.n, img_size, img_size, 1), args.seed, chunk=chunk,
+            (args.n, img_size, img_size, 1), args.seed, chunk=chunk, mesh=mesh,
             batch_kw={"x_known": x_src, "mask": mask}, n_steps=args.steps,
             guidance_scale=args.cfg, t_end=args.t_end, n_types=n_types,
             resample=args.resample, clip_x0=bool(args.clip_x0))
@@ -185,7 +191,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     mse = float(np.sum(gen * (x_out - x_src_np) ** 2) / max(1.0, np.sum(gen)))
     base = float(np.sum(gen * (x_src_np - x_src_np.mean()) ** 2) / max(1.0, np.sum(gen)))
 
-    if args.out_path is None:
+    if args.out_path is None and primary:
         os.makedirs(os.path.join(args.out_dir, "results"), exist_ok=True)
         stem = os.path.splitext(os.path.basename(ckpt_path))[0]
         args.out_path = os.path.join(
@@ -194,17 +200,22 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
             f"_steps{args.steps}_r{args.resample}_cfg{args.cfg:.2f}.png")
     shown = x_src_np * mask_np + 0.5 * (1.0 - mask_np)  # the hidden region gray
     tri = np.stack([x_src_np, shown, x_out], axis=1).reshape(3 * args.n, img_size, img_size, 1)
-    save_image_grid(tri, args.out_path, nrows=args.n, ncols=3)
-    print(f"Saved inpainting grid -> {args.out_path}")
     line = {"mask": args.mask, "mask_frac": args.mask_frac, "n": args.n, "steps": args.steps,
             "resample": args.resample, "cfg": args.cfg, "region_mse": round(mse, 6),
             "region_var": round(base, 6), "region_rel_mse": round(mse / max(base, 1e-12), 4)}
-    print(json.dumps(line))
+    if primary:
+        save_image_grid(tri, args.out_path, nrows=args.n, ncols=3)
+        print(f"Saved inpainting grid -> {args.out_path}")
+        print(json.dumps(line))
+    if mesh is not None:
+        chunk = -(-min(chunk, args.n) // mesh.size()) * mesh.size()
     return InpaintRun(x_out, x_src_np, mask_np, line, args.out_path, min(chunk, args.n))
 
 
 def main(argv: list[str] | None = None) -> int:
-    inpaint(argv)
+    """The CLI: `inpaint(argv)` in this process, or in --shard N spawned ranks."""
+    if not spawn_shards(build_parser().parse_args(argv), inpaint, argv):
+        inpaint(argv)
     return 0
 
 

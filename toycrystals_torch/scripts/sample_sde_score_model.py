@@ -15,8 +15,14 @@ to <out-dir>/results/ under a name that encodes the settings.
 --quantize int8 samples with every conv as the dynamic int8 conv of
 ops/conv.py. Differences from the JAX CLI: --device defaults to cuda and
 never falls back to the CPU, and the grid is an 8-bit PNG of the pixels
-themselves (utils/figures.py). Meshes and orbax checkpoints are not ported
-yet: those flags raise, naming their ROADMAP item.
+themselves (utils/figures.py).
+
+--shard N samples each chunk's rows over N ranks (one process per device,
+spawned here unless the cluster flags join ranks started elsewhere): every
+rank draws the chunk's whole noise and samples its rows, and rank 0 writes
+the grid, which equals the one-device grid at the same (mesh-rounded)
+chunk. --ckpt may name a --ckpt-format orbax directory of the port's
+trainer. --shard-space and --shard-model raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,14 +49,15 @@ from toycrystals_torch.models.sde_score_model import (
     sample_probability_flow_ode,
     sample_reverse_sde_euler_maruyama,
 )
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
-    PARALLEL_DESTS,
     add_device_flag,
     add_parallel_flags,
     infer_score_ckpt_path,
-    refuse_deferred,
+    init_distributed,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.utils.checkpoint import load_score_payload
 from toycrystals_torch.utils.figures import save_image_grid
@@ -128,8 +135,12 @@ class SampleRun:
 def sample(argv: list[str] | None = None) -> SampleRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in PARALLEL_DESTS})
+    init_distributed(args, args.device)
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
+                      shard_model=args.shard_model)
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
     if not os.path.exists(ckpt_path):
@@ -170,7 +181,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
                 raise SystemExit(f"--sampler {args.sampler} expects a VP eps/v model; this "
                                  "checkpoint was trained with --param fm: use --sampler rf")
             args.sampler = "rf"
-            print("flow-matching checkpoint: --sampler defaulting to rf")
+            say("flow-matching checkpoint: --sampler defaulting to rf")
         # sample on the shifted grid the model was trained for (--fm-shift)
         if float(cfg.get("fm_shift", 1.0)) != 1.0:
             extra_kw["t_shift"] = float(cfg["fm_shift"])
@@ -189,19 +200,19 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         # a distilled student is committed to its grid, with its guidance baked in
         if args.steps == p.get_default("steps"):
             args.steps = int(cfg.get("distill_steps", args.steps))
-            print(f"distilled checkpoint: --steps defaulting to {args.steps}")
+            say(f"distilled checkpoint: --steps defaulting to {args.steps}")
         if args.t_end == p.get_default("t_end"):
             args.t_end = float(cfg.get("distill_t_end", args.t_end))
         if args.sampler != "ddim":
-            print(f"NOTE: checkpoint was distilled for the ddim sampler at "
+            say(f"NOTE: checkpoint was distilled for the ddim sampler at "
                   f"{cfg.get('distill_steps')} steps; --sampler {args.sampler} will work but "
                   "wastes the distillation")
         if args.cfg > 0:
-            print(f"NOTE: guidance {cfg.get('distill_cfg')} is baked into this distilled "
+            say(f"NOTE: guidance {cfg.get('distill_cfg')} is baked into this distilled "
                   f"checkpoint; --cfg {args.cfg} applies guidance ON TOP of that (use --cfg 0 "
                   "for the trained behaviour)")
     # named after the settings are resolved, so the name tells what was run
-    if args.out_path is None:
+    if args.out_path is None and primary:
         os.makedirs(os.path.join(args.out_dir, "results"), exist_ok=True)
         base = os.path.splitext(os.path.basename(ckpt_path))[0]
         args.out_path = os.path.join(
@@ -218,21 +229,26 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         chunk = auto_chunk(img_size, args.steps, args.sampler)
     if chunk == 0:
         chunk = args.n
+    if mesh is not None:
+        chunk = -(-chunk // mesh.size()) * mesh.size()  # as sample_chunked rounds it
     if chunk < args.n:
-        print(f"sampling {args.n} images in calls of {chunk} (--chunk 0 to disable)")
+        say(f"sampling {args.n} images in calls of {chunk} (--chunk 0 to disable)")
     with torch.inference_mode():
         x = sample_chunked(SAMPLERS[args.sampler], apply_fn, sde, y_cat, y_cont,
-                           (args.n, img_size, img_size, 1), args.seed, chunk=chunk,
+                           (args.n, img_size, img_size, 1), args.seed, chunk=chunk, mesh=mesh,
                            n_steps=args.steps, guidance_scale=args.cfg, t_end=args.t_end,
                            n_types=n_types, clip_x0=bool(args.clip_x0), **extra_kw)
-    side = int(math.ceil(math.sqrt(args.n)))
-    save_image_grid(x, args.out_path, nrows=side, ncols=side)
-    print(f"Saved samples -> {args.out_path}")
+    if primary:
+        side = int(math.ceil(math.sqrt(args.n)))
+        save_image_grid(x, args.out_path, nrows=side, ncols=side)
+        print(f"Saved samples -> {args.out_path}")
     return SampleRun(x, args.out_path, args.sampler, args.steps, min(chunk, args.n))
 
 
 def main(argv: list[str] | None = None) -> int:
-    sample(argv)
+    """The CLI: `sample(argv)` in this process, or in --shard N spawned ranks."""
+    if not spawn_shards(build_parser().parse_args(argv), sample, argv):
+        sample(argv)
     return 0
 
 

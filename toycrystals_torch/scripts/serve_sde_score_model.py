@@ -42,6 +42,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from toycrystals_torch.scripts._common import (
+    CLUSTER_DESTS,
     PARALLEL,
     PARALLEL_DESTS,
     add_device_flag,
@@ -227,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in PARALLEL_DESTS})
+    # serving on a mesh is the model axes' slice: every mesh flag still refuses
+    refuse_deferred(p, args, {d: PARALLEL for d in ("shard", *PARALLEL_DESTS, *CLUSTER_DESTS)})
     device = select_device(args.device)
     service = ScoreModelService.from_checkpoint(
         args.ckpt, device=device, use_ema=not args.no_ema, sampler=args.sampler,

@@ -32,8 +32,18 @@ writes) holds results/, and relative --vae-ckpt, --latent-cache and
 --prior-ckpt paths resolve under it; the grid is an 8-bit PNG of the pixels
 without titles (utils/figures.py) and no loss-curve PNG is written; each
 epoch draws its shuffle and steps from a generator seeded by (--seed,
-epoch). The mesh, pipeline, expert and multi-process flags raise, naming
-their ROADMAP item.
+epoch).
+
+--shard N trains over N ranks (one process per device, spawned here unless
+the cluster flags --coordinator/--num-processes/--process-id join ranks
+started elsewhere), each with its rows of every batch, under
+DistributedDataParallel, or FSDP2 with --fsdp; the MoE prior's routing
+statistics, the losses and the bucket diagnostics are the global batch's,
+so the numbers are the one-device run's up to the order of reductions.
+Rank 0 writes the cache, the checkpoint and the grid. Across hosts --fsdp
+is refused, as in JAX (msgpack checkpoints only). --shard-model,
+--shard-pipe, --pipe-micro and --shard-expert raise, naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -59,13 +69,21 @@ from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
 from toycrystals_torch.models.sde_score_model import chunk_seed, sample_grid_conditions
 from toycrystals_torch.models.torch_init import flax_default_init
 from toycrystals_torch.models.vae import CondVAE
+from toycrystals_torch.parallel.fsdp import full
+from toycrystals_torch.parallel.mesh import data_sharding
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
     PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
+    any_rank,
+    init_distributed,
+    place_state,
     refuse_deferred,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.train.state import Optimizer, TrainState, create_train_state
 from toycrystals_torch.train.steps import make_prior_train_epoch, make_prior_train_step
@@ -217,10 +235,18 @@ def build_latent_cache(vae: CondVAE, get_batch, n_items: int, z_target: str,
 def train(argv: list[str] | None = None) -> PriorTrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in (
-        "shard", "shard_model", "fsdp", "shard_pipe", "pipe_micro", "shard_expert",
-        "coordinator", "num_processes", "process_id")})
+    refuse_deferred(p, args, {d: PARALLEL for d in ("shard_pipe", "pipe_micro",
+                                                     "shard_expert")})
+    multihost = init_distributed(args, args.device)
+    if multihost and args.fsdp:
+        # msgpack-only checkpoints: the save gathers the whole state to one host
+        raise SystemExit("multi-host --fsdp/--shard-model/--shard-pipe/--shard-expert is "
+                         "unsupported in this trainer (msgpack checkpoints gather every "
+                         "shard to one host); drop the flag or train single-host")
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, args.batch_size, device=device, shard_model=args.shard_model)
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
     vae_ckpt, cache_path, prior_ckpt = (_under(args.out_dir, a) for a in (
         args.vae_ckpt, args.latent_cache, args.prior_ckpt))
     results_dir = os.path.join(args.out_dir, "results")
@@ -240,7 +266,7 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
                       else z0.mean(dim=0, keepdim=True))
             z_std = (torch.from_numpy(obj["z_std"]).to(device) if "z_std" in obj
                      else z0.std(dim=0, keepdim=True, correction=0).clamp_min(1e-6))
-        print(f"loaded latents: {cache_path}  z0={tuple(z0.shape)}")
+        say(f"loaded latents: {cache_path}  z0={tuple(z0.shape)}")
     else:
         if args.procedural or not args.data_path:
             cfg = LatticeConfig(img_size=64, n_types=args.n_types, rot_only=True)
@@ -258,11 +284,12 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
         gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, _CACHE_STREAM))
         z0, y_cat, y_cont, z_mean, z_std = build_latent_cache(vae, get_batch, n_items,
                                                               args.z_target, gen)
-        np.savez(cache_path, **{k: v.cpu().numpy() for k, v in (
-            ("z0", z0), ("y_cat", y_cat), ("y_cont", y_cont), ("z_mean", z_mean),
-            ("z_std", z_std))})
+        if primary:  # every rank builds the same cache; rank 0 writes it
+            np.savez(cache_path, **{k: v.cpu().numpy() for k, v in (
+                ("z0", z0), ("y_cat", y_cat), ("y_cont", y_cont), ("z_mean", z_mean),
+                ("z_std", z_std))})
         cache_seconds = time.perf_counter() - t0
-        print(f"saved latents: {cache_path}  z0={tuple(z0.shape)} ({cache_seconds:.1f}s)")
+        say(f"saved latents: {cache_path}  z0={tuple(z0.shape)} ({cache_seconds:.1f}s)")
     z0_norm = (z0 - z_mean) / z_std
     n_items = int(z0_norm.shape[0])
 
@@ -271,7 +298,7 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
               t_emb_dim=args.t_emb_dim, width=args.width, n_blocks=N_BLOCKS,
               y_cat_emb_dim=Y_CAT_EMB_DIM)
     if args.moe_experts > 0:
-        print(f"MoE prior: {args.moe_experts} experts/block (aux weight {args.moe_aux_weight})")
+        say(f"MoE prior: {args.moe_experts} experts/block (aux weight {args.moe_aux_weight})")
         prior = DiffusionPriorMoE(n_experts=args.moe_experts, **kw)
     else:
         prior = DiffusionPriorFiLM(**kw)
@@ -291,25 +318,28 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
                                    torch_state_dict_from_flax_prior(raw["params"]).items()})
         except RuntimeError as e:
             raise SystemExit(f"{prior_ckpt} does not match the flags' prior: {e}") from e
-        print(f"loaded diffusion prior: {prior_ckpt}")
+        say(f"loaded diffusion prior: {prior_ckpt}")
 
     sample_seconds: list[float] = []
     figure, samples = None, None
 
     def save_samples() -> None:
+        """The DDIM grid, on every rank (under FSDP2 each forward gathers
+        the weights), written by rank 0."""
         nonlocal figure, samples
         yg_cat, yg_cont = sample_grid_conditions(N_GRID, args.n_types, args.y_cont_dim,
                                                  device=device)
         _sync(device)
         t0 = time.perf_counter()
-        z_norm = ddim_sample(prior, sched, yg_cat, yg_cont, args.ddim_steps, args.z_dim,
+        z_norm = ddim_sample(sampler, sched, yg_cat, yg_cont, args.ddim_steps, args.z_dim,
                              generator=torch.Generator(device=device).manual_seed(args.seed + 1))
         _sync(device)
         sample_seconds.append(time.perf_counter() - t0)
         with torch.no_grad():
             samples = vae.decode(z_norm * z_std + z_mean, yg_cat, yg_cont).cpu().numpy()
         figure = os.path.join(results_dir, "diffusion_samples.png")
-        save_image_grid(samples, figure)
+        if primary:
+            save_image_grid(samples, figure)
 
     def run(state) -> PriorTrainRun:
         return PriorTrainRun(state, prior, config, z_mean, z_std, loss_hist, bucket_hist,
@@ -320,24 +350,29 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
     bucket_hist: list[list[float]] = []
     epoch_seconds: list[float] = []
     z_per_second: list[float] = []
+    sampler = prior
     if args.sample_only:
         save_samples()
-        print(f"sample-only: saved {figure}")
+        say(f"sample-only: saved {figure}")
         return run(None)
 
     tx = Optimizer(args.lr, clip_grad_norm=args.clip_grad_norm)
-    state = create_train_state(prior, tx)
+    module, state = place_state(mesh, prior, create_train_state(prior, tx), fsdp=args.fsdp)
+    if args.fsdp and mesh is not None:
+        sampler = module  # the sharded module gathers its weights in forward
     aux_weight = args.moe_aux_weight if args.moe_experts else 0.0
     if args.fused_epoch:
-        epoch_fn = make_prior_train_epoch(prior, tx, args.T, args.batch_size,
-                                          (z0_norm, y_cat, y_cont), aux_weight=aux_weight)
+        epoch_fn = make_prior_train_epoch(module, tx, args.T, args.batch_size,
+                                          (z0_norm, y_cat, y_cont), mesh=mesh,
+                                          aux_weight=aux_weight)
     else:
-        step = make_prior_train_step(prior, tx, args.T, aux_weight=aux_weight)
+        step = make_prior_train_step(module, tx, args.T, aux_weight=aux_weight, mesh=mesh)
+        mine = data_sharding(mesh, args.batch_size)
     steps_per_epoch = n_items // args.batch_size
     if steps_per_epoch == 0:
         raise SystemExit(f"{n_items} latents make no batch of {args.batch_size}")
 
-    print("starting diffusion training loop.")
+    say("starting diffusion training loop.")
     ckptr = AsyncCheckpointer()
     save_ckpt = ckptr.save if args.async_ckpt else save_checkpoint
     with GracefulShutdown() as stop, ckptr:
@@ -351,7 +386,7 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
                 ms = []
                 for bidx in batch_iterator(n_items, args.batch_size,
                                            rng=np.random.default_rng([args.seed, epoch])):
-                    idx = torch.as_tensor(bidx, device=device)
+                    idx = torch.as_tensor(bidx[mine], device=device)
                     state, m = step(state, sched, z0_norm[idx], y_cat[idx], y_cont[idx], gen)
                     ms.append(m)
                 em = {"loss": torch.stack([m["loss"] for m in ms]).mean(),
@@ -368,29 +403,34 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
             bucket_hist.append(bucket_avg)
             epoch_seconds.append(dt)
             z_per_second.append(steps_per_epoch * args.batch_size / dt)
-            print(f"epoch {epoch + 1:02d}/{args.epochs} diffusion_loss={avg:.6f} "
-                  f"({z_per_second[-1]:.0f} z/s)")
+            say(f"epoch {epoch + 1:02d}/{args.epochs} diffusion_loss={avg:.6f} "
+                f"({z_per_second[-1]:.0f} z/s)")
 
             # one read per epoch: a signal between two reads must not claim a save
-            preempted = stop.requested
+            preempted = any_rank(mesh, stop.requested, device)
             if preempted or (args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0) \
                     or epoch == args.epochs - 1:
-                save_ckpt(prior_ckpt, {"params": flax_prior_from_torch_state_dict(state.params),
-                                       "config": config})
+                whole = {k: full(v) for k, v in state.params.items()}  # gathered under FSDP
+                if primary:
+                    save_ckpt(prior_ckpt, {"params": flax_prior_from_torch_state_dict(whole),
+                                           "config": config})
             if preempted:
-                print(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
+                say(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
                       f"{prior_ckpt}; continue with --resume")
                 break
             if args.sample_every > 0 and ((epoch + 1) % args.sample_every == 0
                                           or epoch == args.epochs - 1):
                 save_samples()
-            print("  bucket loss (low t -> high t):", [f"{v:.3f}" for v in bucket_avg])
-    print(f"saved: {figure or 'no grid'}, {prior_ckpt}")
+            say("  bucket loss (low t -> high t):", [f"{v:.3f}" for v in bucket_avg])
+    say(f"saved: {figure or 'no grid'}, {prior_ckpt}")
     return run(state)
 
 
 def main(argv: list[str] | None = None) -> int:
-    train(argv)
+    """The CLI: `train(argv)` in this process, or in --shard N spawned ranks."""
+    args = build_parser().parse_args(argv)
+    if not spawn_shards(args, train, argv, (args.batch_size,)):
+        train(argv)
     return 0
 
 

@@ -20,9 +20,17 @@ generator seeded by (--seed, epoch), so a resumed run continues the draws of
 an uninterrupted one; --stream draws the shuffle and the steps' noise as the
 resident per-batch path (--fused-epoch 0) does, so both see the same batches
 and draws; --profile-dir writes a torch.profiler Chrome trace (CPU and CUDA
-activity) of the second epoch, where JAX writes an XPlane trace. Meshes and
-orbax checkpoints are not ported yet: those flags raise, naming their ROADMAP
-item.
+activity) of the second epoch, where JAX writes an XPlane trace.
+
+--shard N trains on N devices with the batch split by rows (N ranks, one
+process per device, parallel/; spawned here unless the cluster flags
+--coordinator/--num-processes/--process-id join ranks started elsewhere),
+--fsdp shards the weights, moments and EMA over them (FSDP2), and
+--ckpt-format orbax writes sharded torch.distributed.checkpoint directories
+(utils/orbax_io.py; JAX's orbax directories are not readable here). The
+numbers are the single-device run's up to the order of reductions. Only
+rank 0 writes the msgpack checkpoint, metrics.jsonl and the grids. The
+model axes (--shard-space, --shard-model) raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,14 +62,19 @@ from toycrystals_torch.models.sde_score_model import (
     sample_probability_flow_ode,
 )
 from toycrystals_torch.models.torch_init import flax_default_init, torch_like_init
+from toycrystals_torch.parallel.fsdp import full
+from toycrystals_torch.parallel.mesh import data_sharding
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
-    PARALLEL_DESTS,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
-    refuse_deferred,
+    any_rank,
+    init_distributed,
+    place_state,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.train.state import (
     Optimizer,
@@ -79,6 +92,7 @@ from toycrystals_torch.utils.checkpoint import (
 )
 from toycrystals_torch.utils.figures import save_image_grid
 from toycrystals_torch.utils.metrics import append_jsonl, ensure_file, truncate_jsonl
+from toycrystals_torch.utils.orbax_io import ShardedCheckpointManager, load_orbax_meta
 from toycrystals_torch.utils.params import (
     load_train_state_from_checkpoint,
     train_state_to_checkpoint,
@@ -188,8 +202,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-every", type=int, default=1,
                    help="Save the checkpoint every N epochs (always at the end; 0 = end only).")
     p.add_argument("--ckpt-format", default="msgpack", choices=["msgpack", "orbax"],
-                   help=f"msgpack: one self-describing file; orbax is not ported yet "
-                        f"({PARALLEL})")
+                   help="msgpack: one self-describing file, gathered whole on rank 0 (the "
+                        "JAX package's format). orbax: a step directory per save, each "
+                        "rank writing its own shards (torch.distributed.checkpoint, "
+                        "utils/orbax_io.py; not the JAX package's orbax), restored into "
+                        "the resuming run's layout.")
     p.add_argument("--async-ckpt", type=int, default=1, choices=[0, 1],
                    help="Encode and write checkpoints on a thread while the next epoch "
                         "trains (the copy to the host stays synchronous). 0 = synchronous.")
@@ -209,10 +226,11 @@ def _make_run_name(args) -> str:
 @dataclasses.dataclass
 class TrainRun:
     """What a run leaves in memory: the state as last saved, its pieces, and
-    the per-epoch losses and seconds of this process."""
+    the per-epoch losses and seconds of this process. On a mesh, `model`
+    is the module trained through (DistributedDataParallel or FSDP2)."""
 
     state: TrainState
-    model: CondUNetTiny
+    model: torch.nn.Module
     tx: Optimizer
     config: dict[str, Any]
     loss_hist: list[float]
@@ -223,25 +241,32 @@ class TrainRun:
 def train(argv: list[str] | None = None) -> TrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in (*PARALLEL_DESTS, "fsdp", "ckpt_format")})
+    multihost = init_distributed(args, args.device)
     device = select_device(args.device)
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
 
     if args.out_dir is None:
         # a fresh run dir holds no checkpoint to resume, so the schedule's
         # flags take their defaults before the run is named
         args.beta_max = 30.0 if args.beta_max is None else args.beta_max
         args.out_dir = os.path.join("runs", "sde_score", _make_run_name(args))
-    print(f"run dir: {args.out_dir}")
+    say(f"run dir: {args.out_dir}")
     results_dir = os.path.join(args.out_dir, "results")
     ckpt_dir = os.path.join(args.out_dir, "checkpoints")
     os.makedirs(results_dir, exist_ok=True)
     os.makedirs(ckpt_dir, exist_ok=True)
     metrics_path = os.path.join(args.out_dir, "metrics.jsonl")
-    ckpt_path = os.path.join(ckpt_dir, "sde_score_model_last.msgpack")
+    orbax_fmt = args.ckpt_format == "orbax"
+    ckpt_ext = ".orbax" if orbax_fmt else ".msgpack"
+    ckpt_path = os.path.join(ckpt_dir, "sde_score_model_last" + ckpt_ext)
 
     # read the checkpoint before anything is built: on --resume its config
     # decides dtype, img_size, param, stem and the schedule unless flags do
-    resume_raw = load_checkpoint(ckpt_path) if args.resume and os.path.exists(ckpt_path) else None
+    # (orbax: the JSON sidecar only; the tensors load into the placed state)
+    resume_raw = None
+    if args.resume and os.path.exists(ckpt_path):
+        resume_raw = load_orbax_meta(ckpt_path) if orbax_fmt else load_checkpoint(ckpt_path)
     rcfg = (resume_raw or {}).get("config", {})
     dtype_name = args.dtype or str(rcfg.get("dtype") or "float32")
     if args.img_size is None:
@@ -269,6 +294,13 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # clipping changes the opt_state layout, so it follows the checkpoint
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
+    mesh = setup_mesh(args.shard, args.batch_size, device=device,
+                      shard_space=args.shard_space, shard_model=args.shard_model)
+    if multihost and args.fsdp and not orbax_fmt:
+        # msgpack saves gather the whole state to rank 0; the JAX trainer
+        # refuses this across hosts, and so does the port
+        raise SystemExit("multi-host --fsdp/--shard-model needs --ckpt-format orbax (per-shard "
+                         "writes; msgpack would gather every shard to one host)")
     if args.grad_accum < 1:
         raise SystemExit(f"--grad-accum must be >= 1, got {args.grad_accum}")
     if args.batch_size % args.grad_accum:
@@ -285,7 +317,7 @@ def train(argv: list[str] | None = None) -> TrainRun:
             raise SystemExit("--stream needs --data-path (the procedural dataset already renders "
                              "on the device)")
         if args.fused_epoch:
-            print("--stream: per-batch path (the fused epoch needs the archive on the device)")
+            say("--stream: per-batch path (the fused epoch needs the archive on the device)")
             args.fused_epoch = 0
     if args.fresh_data and not procedural:
         raise SystemExit("--fresh-data needs the procedural source (a disk archive has only "
@@ -328,31 +360,20 @@ def train(argv: list[str] | None = None) -> TrainRun:
         total_steps = max(args.epochs * steps_per_epoch, 1)
         lr = warmup_cosine_decay_schedule(0.0, args.lr, min(args.warmup_steps, total_steps),
                                           total_steps, args.lr * 0.01)
-        print(f"lr schedule: cosine (peak {args.lr:g}, {args.warmup_steps} warmup of "
+        say(f"lr schedule: cosine (peak {args.lr:g}, {args.warmup_steps} warmup of "
               f"{total_steps} steps)")
     else:
         lr = args.lr
         if args.warmup_steps:
             lr = linear_schedule(0.0, args.lr, args.warmup_steps)
-            print(f"lr schedule: constant {args.lr:g} after {args.warmup_steps} warmup steps")
+            say(f"lr schedule: constant {args.lr:g} after {args.warmup_steps} warmup steps")
     if args.clip_grad_norm > 0.0:
-        print(f"gradient clipping: global norm <= {args.clip_grad_norm:g}")
+        say(f"gradient clipping: global norm <= {args.clip_grad_norm:g}")
     if args.skip_nonfinite > 0:
-        print(f"non-finite-gradient guard: skipping up to {args.skip_nonfinite} consecutive "
+        say(f"non-finite-gradient guard: skipping up to {args.skip_nonfinite} consecutive "
               f"bad steps")
     tx = Optimizer(lr, clip_grad_norm=args.clip_grad_norm, skip_nonfinite=args.skip_nonfinite)
     state = create_train_state(model, tx, ema=args.ema_decay > 0.0)
-    train_kw = dict(parameterization=args.param, grad_accum=args.grad_accum,
-                    t_shift=args.fm_shift, min_snr_gamma=args.min_snr_gamma)
-    if args.fused_epoch:
-        epoch_fn = make_sde_train_epoch(
-            model, tx, sde, args.n_types, args.p_uncond, args.t_power, args.ema_decay,
-            args.batch_size, n_items, lattice_cfg=lattice_cfg if procedural else None,
-            dataset_seed=args.seed, resident=None if procedural else ds.arrays,
-            nan_safe_metrics=args.skip_nonfinite > 0, fresh_data=args.fresh_data, **train_kw)
-    else:
-        step = make_sde_train_step(model, tx, sde, args.n_types, args.p_uncond, args.t_power,
-                                   args.ema_decay, **train_kw)
 
     # the self-describing config embedded in the checkpoint (the JAX CLI's keys)
     config = {
@@ -371,28 +392,57 @@ def train(argv: list[str] | None = None) -> TrainRun:
     start_epoch = 0
     loss_hist: list[float] = []
     if resume_raw is not None:
-        try:
-            load_train_state_from_checkpoint(state, tx, resume_raw["state"])
-        except ValueError as e:
-            raise SystemExit(f"--resume from {ckpt_path}: {e}") from e
+        if not orbax_fmt:
+            try:
+                load_train_state_from_checkpoint(state, tx, resume_raw["state"])
+            except ValueError as e:
+                raise SystemExit(f"--resume from {ckpt_path}: {e}") from e
         start_epoch = int(resume_raw["epoch_next"])
         loss_hist = float_list(resume_raw.get("loss_hist", []))
         # with --ckpt-every N > 1 metrics.jsonl can run ahead of the restored
         # epoch; drop those rows so the epochs trained again do not repeat them
-        truncate_jsonl(metrics_path, "epoch", start_epoch)
+        if primary:
+            truncate_jsonl(metrics_path, "epoch", start_epoch)
         if start_epoch > 0:
-            print(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
+            say(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
+
+    # the mesh's placement (DistributedDataParallel, or FSDP2 under --fsdp),
+    # then an orbax checkpoint straight into the placed layout
+    module, state = place_state(mesh, model, state, fsdp=args.fsdp)
+    ckpt_mgr = best_mgr = None
+    if orbax_fmt:
+        ckpt_mgr = ShardedCheckpointManager(ckpt_path, max_to_keep=2)
+        if args.save_best:
+            best_mgr = ShardedCheckpointManager(
+                os.path.join(ckpt_dir, "sde_score_model_best.orbax"), max_to_keep=1)
+        if resume_raw is not None:
+            try:
+                state, _ = ckpt_mgr.restore_onto(state)
+            except (KeyError, RuntimeError, ValueError) as e:
+                raise SystemExit(f"--resume from {ckpt_path}: {e}") from e
+    train_kw = dict(parameterization=args.param, grad_accum=args.grad_accum,
+                    t_shift=args.fm_shift, min_snr_gamma=args.min_snr_gamma, mesh=mesh)
+    if args.fused_epoch:
+        epoch_fn = make_sde_train_epoch(
+            module, tx, sde, args.n_types, args.p_uncond, args.t_power, args.ema_decay,
+            args.batch_size, n_items, lattice_cfg=lattice_cfg if procedural else None,
+            dataset_seed=args.seed, resident=None if procedural else ds.arrays,
+            nan_safe_metrics=args.skip_nonfinite > 0, fresh_data=args.fresh_data, **train_kw)
+    else:
+        step = make_sde_train_step(module, tx, sde, args.n_types, args.p_uncond, args.t_power,
+                                   args.ema_decay, **train_kw)
 
     def save_samples(out_path: str) -> None:
         """A 36-image grid with the ODE sampler (rf on the --fm-shift grid for
         --param fm), as the JAX trainer's in-training grids, from a copy of
-        the model holding the EMA (or the live) weights."""
+        the model holding the EMA (or the live) weights. On a mesh every rank
+        samples its rows and rank 0 writes the grid."""
         prm = state.sample_params if args.sample_from_ema == 1 else state.params
         grid_model = CondUNetTiny(
             n_types=args.n_types, y_cont_dim=args.y_cont_dim, base_ch=args.base_ch,
             emb_dim=args.emb_dim, cond_ch=args.cond_ch, time_ch=args.time_ch,
             dtype=model.dtype, attn_impl=args.attn_impl, stem=args.stem)
-        grid_model.load_state_dict({k: v.detach() for k, v in prm.items()}, strict=True)
+        grid_model.load_state_dict({k: full(v).detach() for k, v in prm.items()}, strict=True)
         grid_model = grid_model.to(device).eval().requires_grad_(False)
         apply_fn = eps_apply_from_v(sde, grid_model) if args.param == "v" else grid_model
         grid_sampler, grid_name, grid_kw = sample_probability_flow_ode, "ode", {}
@@ -404,14 +454,17 @@ def train(argv: list[str] | None = None) -> TrainRun:
             x = sample_chunked(
                 grid_sampler, apply_fn, sde, y_cat, y_cont, (36, img_size, img_size, 1),
                 args.seed + 1, chunk=auto_chunk(img_size, args.sample_steps, grid_name),
-                n_steps=args.sample_steps, guidance_scale=args.cfg, t_end=args.t_end,
-                n_types=args.n_types, clip_x0=bool(args.clip_x0), **grid_kw)
-        save_image_grid(x, out_path)
+                mesh=mesh, n_steps=args.sample_steps, guidance_scale=args.cfg,
+                t_end=args.t_end, n_types=args.n_types, clip_x0=bool(args.clip_x0), **grid_kw)
+        if primary:
+            save_image_grid(x, out_path)
 
     def epoch_batches(epoch: int, offset: int):
         """The per-batch path's batches on the device: the host shuffle of
-        (seed, epoch), streamed or gathered from the resident source."""
-        idx_it = (bidx + offset for bidx in batch_iterator(
+        (seed, epoch), streamed or gathered from the resident source; on a
+        mesh, this rank's rows of each."""
+        mine = data_sharding(mesh, args.batch_size)
+        idx_it = (bidx[mine] + offset for bidx in batch_iterator(
             n_items, args.batch_size, rng=np.random.default_rng([args.seed, epoch])))
         if args.stream:
             return sds.device_batches(idx_it, args.stream)
@@ -420,25 +473,40 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # the second epoch of this process (the first carries the warm-up)
     profile_epoch = start_epoch + 1 if args.epochs - start_epoch > 1 else start_epoch
     trace_path = None
-    print("starting SDE score-model training loop.")
-    ensure_file(metrics_path)
+    say("starting SDE score-model training loop.")
+    if primary:
+        ensure_file(metrics_path)
     sample_grid_ok = False
     epoch_seconds: list[float] = []
     ckptr = AsyncCheckpointer()
     save_ckpt = ckptr.save if args.async_ckpt else save_checkpoint
 
-    def write_ckpt(path: str, epoch: int) -> None:
-        save_ckpt(path, {"epoch_next": epoch + 1, "loss_hist": loss_hist, "config": config,
-                         "state": train_state_to_checkpoint(state, tx)})
+    def write_ckpt(which: str, epoch: int) -> None:
+        """One checkpoint write ('last' or 'best'), either format: orbax on
+        every rank (each its shards); msgpack gathered whole (a collective
+        under --fsdp) and written by rank 0."""
+        meta = {"epoch_next": epoch + 1, "loss_hist": loss_hist, "config": config}
+        if orbax_fmt:
+            (ckpt_mgr if which == "last" else best_mgr).save(epoch + 1, state, tx, meta)
+            return
+        if primary or args.fsdp and mesh is not None:
+            tree = train_state_to_checkpoint(state, tx)
+        if primary:
+            save_ckpt(ckpt_path if which == "last" else
+                      os.path.join(ckpt_dir, "sde_score_model_best.msgpack"),
+                      {**meta, "state": tree})
 
-    with GracefulShutdown() as stop, ckptr:
+    with GracefulShutdown() as stop, ckptr, contextlib.ExitStack() as mgrs:
+        for m in (ckpt_mgr, best_mgr):
+            if m is not None:
+                mgrs.enter_context(m)
         for epoch in range(start_epoch, args.epochs):
             t0 = time.perf_counter()
             # one generator per epoch, seeded by (seed, epoch): the shuffle
             # and every step's draws; a resumed run repeats them
             gen = torch.Generator(device=device).manual_seed(chunk_seed(args.seed, epoch))
             offset = epoch * n_items if args.fresh_data else 0
-            profiling = args.profile_dir is not None and epoch == profile_epoch
+            profiling = primary and args.profile_dir is not None and epoch == profile_epoch
             with (_profiler(device) if profiling else contextlib.nullcontext()) as prof:
                 if args.fused_epoch:
                     state, avg_t = epoch_fn(state, gen, offset)
@@ -455,7 +523,7 @@ def train(argv: list[str] | None = None) -> TrainRun:
                 os.makedirs(args.profile_dir, exist_ok=True)
                 trace_path = os.path.join(args.profile_dir, f"epoch_{epoch + 1:03d}.trace.json")
                 prof.export_chrome_trace(trace_path)
-                print(f"  profile: {trace_path}")
+                say(f"  profile: {trace_path}")
             if not math.isfinite(avg):
                 # halt before the save, so the last checkpoint with a finite
                 # loss survives
@@ -469,20 +537,21 @@ def train(argv: list[str] | None = None) -> TrainRun:
             if args.skip_nonfinite > 0 and state.opt_state.total_notfinite:
                 skipped = (f" [{state.opt_state.total_notfinite} non-finite steps skipped "
                            f"so far]")
-            print(f"epoch {epoch + 1:03d}/{args.epochs}: loss={avg:.6f} "
-                  f"({steps_per_epoch * args.batch_size / dt:.0f} img/s){skipped}")
+            say(f"epoch {epoch + 1:03d}/{args.epochs}: loss={avg:.6f} "
+                f"({steps_per_epoch * args.batch_size / dt:.0f} img/s){skipped}")
 
             # one read per epoch: a signal between two reads must not claim a
-            # save that never happened
-            preempted = stop.requested
+            # save that never happened; on a mesh a signal to any rank stops all
+            preempted = any_rank(mesh, stop.requested, device)
             if preempted or (args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0) \
                     or epoch == args.epochs - 1:
-                write_ckpt(ckpt_path, epoch)
+                write_ckpt("last", epoch)
             if args.save_best and avg <= min(loss_hist):
-                write_ckpt(os.path.join(ckpt_dir, "sde_score_model_best.msgpack"), epoch)
-            append_jsonl(metrics_path, {"epoch": epoch + 1, "loss": avg})
+                write_ckpt("best", epoch)
+            if primary:
+                append_jsonl(metrics_path, {"epoch": epoch + 1, "loss": avg})
             if preempted:
-                print(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
+                say(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
                       f"{ckpt_path}; continue with --resume")
                 break
 
@@ -494,14 +563,14 @@ def train(argv: list[str] | None = None) -> TrainRun:
                 try:
                     save_samples(out_path)
                     sample_grid_ok = True
-                    print(f"  saved: {out_path}")
+                    say(f"  saved: {out_path}")
                 except Exception as e:  # noqa: BLE001
                     if not sample_grid_ok:
                         raise
-                    print(f"  WARNING: sample grid failed ({type(e).__name__}); training "
+                    say(f"  WARNING: sample grid failed ({type(e).__name__}); training "
                           f"artefacts are saved; rerun via sample_sde_score_model: {e}")
-    print(f"checkpoint: {ckpt_path}")
-    return TrainRun(state, model, tx, config, loss_hist, epoch_seconds, trace_path)
+    say(f"checkpoint: {ckpt_path}")
+    return TrainRun(state, module, tx, config, loss_hist, epoch_seconds, trace_path)
 
 
 def _profiler(device: torch.device) -> torch.profiler.profile:
@@ -512,7 +581,10 @@ def _profiler(device: torch.device) -> torch.profiler.profile:
 
 
 def main(argv: list[str] | None = None) -> int:
-    train(argv)
+    """The CLI: `train(argv)` in this process, or in --shard N spawned ranks."""
+    args = build_parser().parse_args(argv)
+    if not spawn_shards(args, train, argv, (args.batch_size,)):
+        train(argv)
     return 0
 
 

@@ -22,8 +22,14 @@ writes) holds checkpoints/ and results/; the grids are 8-bit PNGs of the
 pixels without titles (utils/figures.py) and no loss-curve PNG is written
 (the histories are in the checkpoint); each epoch draws from a generator
 seeded by (--seed, epoch), so a resumed run repeats the draws of an
-uninterrupted one. The mesh and multi-process flags raise, naming their
-ROADMAP item.
+uninterrupted one.
+
+--shard N trains over N ranks (one process per device, spawned here unless
+the cluster flags --coordinator/--num-processes/--process-id join ranks
+started elsewhere), each with its rows of every batch, under
+DistributedDataParallel, or FSDP2 with --fsdp; the numbers are the one-device
+run's up to the order of reductions, and rank 0 writes the checkpoint and the
+grids. --shard-model raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,13 +49,19 @@ from toycrystals_torch.data.lattice import LatticeConfig, static_point_budget
 from toycrystals_torch.models.sde_score_model import chunk_seed, sample_grid_conditions
 from toycrystals_torch.models.torch_init import flax_default_init
 from toycrystals_torch.models.vae import VAE, CondVAE
+from toycrystals_torch.parallel.fsdp import full
+from toycrystals_torch.parallel.mesh import data_sharding
+from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
-    refuse_deferred,
+    any_rank,
+    init_distributed,
+    place_state,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.train.state import Optimizer, TrainState, create_train_state
 from toycrystals_torch.train.steps import make_vae_train_epoch, make_vae_train_step
@@ -139,10 +151,11 @@ class VaeTrainRun:
 def train(argv: list[str] | None = None) -> VaeTrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {d: PARALLEL for d in ("shard", "shard_model", "fsdp",
-                                                     "coordinator", "num_processes",
-                                                     "process_id")})
+    init_distributed(args, args.device)
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, args.batch_size, device=device, shard_model=args.shard_model)
+    primary = is_primary()
+    say = print if primary else (lambda *a, **k: None)
     ckpt_path = os.path.join(args.out_dir, "checkpoints", "vae_last.msgpack")
     results_dir = os.path.join(args.out_dir, "results")
     os.makedirs(results_dir, exist_ok=True)
@@ -168,12 +181,9 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
         raise SystemExit(f"{n_items} items make no batch of {args.batch_size}")
 
     # --- model, optimizer, state ---
-    if args.uncond:
-        model = VAE(z_dim=args.z_dim)
-    else:
-        print("Training conditional VAE")
-        model = CondVAE(z_dim=args.z_dim, n_types=args.n_types, y_cont_dim=args.y_cont_dim,
-                        cond_drop=args.cond_drop)
+    if not args.uncond:
+        say("Training conditional VAE")
+    model = _build_model(args)
     flax_default_init(model, np.random.default_rng(args.seed))
     model.to(device)
     tx = Optimizer(args.lr, clip_grad_norm=args.clip_grad_norm)
@@ -198,20 +208,22 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
         start_epoch = int(raw.get("epoch_next", 0))
         for k in HISTS:
             hists[k] = float_list(raw.get("hists", {}).get(k, []))
-        print(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
+        say(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
 
+    module, state = place_state(mesh, model, state, fsdp=args.fsdp)
     if args.fused_epoch:
         epoch_fn = make_vae_train_epoch(
-            model, tx, args.free_bits, args.batch_size, n_items, uncond=args.uncond,
+            module, tx, args.free_bits, args.batch_size, n_items, uncond=args.uncond,
             lattice_cfg=lattice_cfg if procedural else None, dataset_seed=args.seed,
-            resident=None if procedural else ds.arrays)
+            resident=None if procedural else ds.arrays, mesh=mesh)
     else:
-        step = make_vae_train_step(model, tx, args.free_bits, uncond=args.uncond)
+        step = make_vae_train_step(module, tx, args.free_bits, uncond=args.uncond, mesh=mesh)
+        mine = data_sharding(mesh, args.batch_size)
 
     config = {"z_dim": args.z_dim, "n_types": args.n_types, "y_cont_dim": args.y_cont_dim,
               "cond_drop": args.cond_drop, "uncond": args.uncond, "img_size": args.img_size}
 
-    print("starting training loop...")
+    say("starting training loop...")
     n_batches = n_items // args.batch_size
     epoch_seconds: list[float] = []
     ips_hist: list[float] = []
@@ -231,7 +243,7 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
                 ms = []
                 for bidx in batch_iterator(n_items, args.batch_size,
                                            rng=np.random.default_rng([args.seed, epoch])):
-                    x, y_cat, y_cont = get_batch(bidx)
+                    x, y_cat, y_cont = get_batch(bidx[mine])
                     state, m = step(state, x, y_cat, y_cont, beta_eff, gen)
                     ms.append(m)
                 em = {k: torch.stack([m[k] for m in ms]).mean() for k in HISTS}
@@ -245,22 +257,34 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
                 hists[k].append(avg[k])
             epoch_seconds.append(dt)
             ips_hist.append(n_batches * args.batch_size / dt)
-            print(f"epoch {epoch + 1:02d}/{args.epochs} loss={avg['loss']:.4f} "
-                  f"recon={avg['recon']:.4f} kl={avg['kl']:.6f} ({ips_hist[-1]:.0f} img/s)")
-            ck = train_state_to_checkpoint(state, tx, bridge=VAE_BRIDGE)
-            # `params` stays top-level, the schema the latent prior's trainer reads
-            save_ckpt(ckpt_path, {"params": ck["params"], "config": config,
-                                  "opt_state": ck["opt_state"], "epoch_next": epoch + 1,
-                                  "hists": {k: list(hists[k]) for k in HISTS}})
-            if stop.requested:
-                print(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
+            say(f"epoch {epoch + 1:02d}/{args.epochs} loss={avg['loss']:.4f} "
+                f"recon={avg['recon']:.4f} kl={avg['kl']:.6f} ({ips_hist[-1]:.0f} img/s)")
+            if primary or args.fsdp and mesh is not None:  # gathered whole under --fsdp
+                ck = train_state_to_checkpoint(state, tx, bridge=VAE_BRIDGE)
+            if primary:
+                # `params` stays top-level, the schema the latent prior's trainer reads
+                save_ckpt(ckpt_path, {"params": ck["params"], "config": config,
+                                      "opt_state": ck["opt_state"], "epoch_next": epoch + 1,
+                                      "hists": {k: list(hists[k]) for k in HISTS}})
+            if any_rank(mesh, stop.requested, device):
+                say(f"preempted ({stop.signame}) after epoch {epoch + 1}: checkpoint saved at "
                       f"{ckpt_path}; continue with --resume")
-                return VaeTrainRun(state, model, tx, config, hists, epoch_seconds, ips_hist,
+                return VaeTrainRun(state, module, tx, config, hists, epoch_seconds, ips_hist,
                                    {}, {})
     model.eval()
-    figures, images = _diagnostics(args, model, get_batch, n_items, rng, device, results_dir)
-    print("saved: " + ", ".join(figures.values()))
-    return VaeTrainRun(state, model, tx, config, hists, epoch_seconds, ips_hist, figures, images)
+    if args.fsdp and mesh is not None:
+        # the grids run outside the sharded forward: a whole copy (gathered
+        # on every rank, drawn by rank 0)
+        whole = {k: full(v).detach() for k, v in state.params.items()}
+        model = _build_model(args).to(device).eval()
+        model.load_state_dict(whole)
+    figures, images = {}, {}
+    if primary:
+        figures, images = _diagnostics(args, model, get_batch, n_items, rng, device,
+                                       results_dir)
+        print("saved: " + ", ".join(figures.values()))
+    return VaeTrainRun(state, module, tx, config, hists, epoch_seconds, ips_hist, figures,
+                       images)
 
 
 @torch.no_grad()
@@ -304,8 +328,18 @@ def _diagnostics(args, model, get_batch, n_items: int, rng: np.random.Generator,
     return figures, images
 
 
+def _build_model(args) -> torch.nn.Module:
+    if args.uncond:
+        return VAE(z_dim=args.z_dim)
+    return CondVAE(z_dim=args.z_dim, n_types=args.n_types, y_cont_dim=args.y_cont_dim,
+                   cond_drop=args.cond_drop)
+
+
 def main(argv: list[str] | None = None) -> int:
-    train(argv)
+    """The CLI: `train(argv)` in this process, or in --shard N spawned ranks."""
+    args = build_parser().parse_args(argv)
+    if not spawn_shards(args, train, argv, (args.batch_size,)):
+        train(argv)
     return 0
 
 

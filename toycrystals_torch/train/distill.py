@@ -14,6 +14,9 @@ The teacher is a frozen module run under `torch.no_grad` (two doubled-batch
 forwards per step); the student's loss is a v-space MSE, its update the
 optimizer of train/state.py, with an optional EMA. The epoch is
 train/steps.py's loop over batches rendered (or gathered) on the device.
+On a data mesh the teacher is whole on every rank and the student is the
+module that `parallel.place_state` returns; each rank trains its rows of
+the global batch (train/steps.py).
 """
 
 from __future__ import annotations
@@ -29,8 +32,16 @@ from toycrystals_torch.models.sde_score_model import (
     _quadratic_grid,
     predict_eps_cfg,
 )
+from toycrystals_torch.utils.rng import randint, randn
 from toycrystals_torch.train.state import Optimizer, TrainState, ema_update
-from toycrystals_torch.train.steps import _batch_source, _make_epoch
+from toycrystals_torch.train.steps import (
+    _batch_source,
+    _make_epoch,
+    _rows_generator,
+    accumulate_grads,
+    check_placed,
+    mesh_metrics,
+)
 
 
 def _at(f, t: torch.Tensor) -> torch.Tensor:
@@ -65,7 +76,8 @@ def pd_target_x0(sde: VPSDE, x_t, t, t_next, x_next) -> torch.Tensor:
 def make_distill_train_step(student: nn.Module, teacher_apply: ApplyFn, tx: Optimizer,
                             sde: VPSDE, n_student_steps: int, *, n_types: int,
                             guidance_scale: float, teacher_prediction: str = "eps",
-                            t_end: float = 1e-3, ema_decay: float = 0.0) -> Callable:
+                            t_end: float = 1e-3, ema_decay: float = 0.0,
+                            mesh=None) -> Callable:
     """Returns step(state, x0, y_cat, y_cont, generator=None, noise=None) ->
     (state, loss); `state` (of `create_train_state(student, tx, ...)`) is
     updated in place.
@@ -75,7 +87,9 @@ def make_distill_train_step(student: nn.Module, teacher_apply: ApplyFn, tx: Opti
     eps at t = grid_N[i]; the teacher's two guided DDIM half-steps on the
     nested 2N grid give x_next; the one-step map is inverted for the x0
     target, and the student's v output regresses on the equivalent v target
-    (v-space MSE). `teacher_apply` is called under `torch.no_grad`."""
+    (v-space MSE). `teacher_apply` is called under `torch.no_grad`. On a
+    `mesh` the batch is this rank's rows and `loss` the global mean."""
+    check_placed(student, mesh)
     if teacher_prediction not in ("eps", "v"):
         raise ValueError(f"teacher_prediction must be eps|v, got {teacher_prediction}")
     n = int(n_student_steps)
@@ -83,7 +97,6 @@ def make_distill_train_step(student: nn.Module, teacher_apply: ApplyFn, tx: Opti
     device = next(student.parameters()).device
     ts_s = _quadratic_grid(n, t_end, device)        # N + 1 points, the student's grid
     ts_t = _quadratic_grid(2 * n, t_end, device)    # nested: ts_t[2i] == ts_s[i]
-    params = list(student.parameters())
 
     def step(state: TrainState, x0, y_cat, y_cont, generator: torch.Generator | None = None,
              noise=None):
@@ -94,8 +107,9 @@ def make_distill_train_step(student: nn.Module, teacher_apply: ApplyFn, tx: Opti
             raise ValueError("pass a torch.Generator (or noise=(i, eps)); the step never "
                              "draws from the global generator")
         else:
-            i = torch.randint(0, n, (b,), generator=generator, device=device)
-            eps = torch.randn(x0.shape, generator=generator, device=device, dtype=torch.float32)
+            generator = _rows_generator(mesh, generator, b)
+            i = randint(n, (b,), generator, device)
+            eps = randn(x0.shape, generator, device)
         i = i.long()
         t, t_mid, t_next = ts_s[i], ts_t[2 * i + 1], ts_s[i + 1]
         x0 = x0 * 2.0 - 1.0
@@ -112,14 +126,14 @@ def make_distill_train_step(student: nn.Module, teacher_apply: ApplyFn, tx: Opti
             # v = alpha eps - sigma x0 with eps = (x_t - alpha x0) / sigma
             v_tgt = (a_t / s_t) * x_t - ((a_t * a_t + s_t * s_t) / s_t) * x0_tgt
 
-        v_pred = student(x_t, t, y_cat, y_cont)
-        loss = ((v_pred.float() - v_tgt) ** 2).mean()
-        grads = list(torch.autograd.grad(loss, params))
+        loss, grads = accumulate_grads(
+            student, lambda _c: ((student(x_t, t, y_cat, y_cont).float() - v_tgt) ** 2).mean(),
+            1, mesh)
         applied = tx.update(list(state.params.values()), grads, state.opt_state)
         if applied and state.ema_params is not None:
             ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return state, loss.detach()
+        return state, mesh_metrics(mesh, loss)
 
     return step
 
@@ -129,15 +143,16 @@ def make_distill_train_epoch(student: nn.Module, teacher_apply: ApplyFn, tx: Opt
                              guidance_scale: float, batch_size: int, n_items: int,
                              teacher_prediction: str = "eps", t_end: float = 1e-3,
                              ema_decay: float = 0.0, lattice_cfg=None, dataset_seed: int = 0,
-                             resident: tuple | None = None) -> Callable:
+                             resident: tuple | None = None, mesh=None) -> Callable:
     """A whole distillation epoch: shuffle (drop-last), each step's batch
     from the data source (train/steps.py `_batch_source`) on the student's
     device, then the distillation step. Returns epoch(state, generator) ->
-    (state, mean_loss); `generator` drives the shuffle and every draw."""
+    (state, mean_loss); `generator` drives the shuffle and every draw. On a
+    `mesh` (`batch_size` global) each rank trains its rows of every batch."""
     step_fn = make_distill_train_step(
         student, teacher_apply, tx, sde, n_student_steps, n_types=n_types,
         guidance_scale=guidance_scale, teacher_prediction=teacher_prediction, t_end=t_end,
-        ema_decay=ema_decay)
+        ema_decay=ema_decay, mesh=mesh)
     device = next(student.parameters()).device
     get_batch = _batch_source(lattice_cfg, dataset_seed, resident, device)
-    return _make_epoch(step_fn, get_batch, n_items, batch_size, device, torch.mean)
+    return _make_epoch(step_fn, get_batch, n_items, batch_size, device, torch.mean, mesh)

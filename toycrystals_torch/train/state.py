@@ -9,6 +9,13 @@ Unlike the JAX state, which is a pytree replaced at every step, the state
 here is updated in place: `TrainState.params` are the model's own parameters
 (f32), and the moments and the EMA are f32 tensors beside them. That saves a
 copy of every tensor per step.
+
+On a data mesh (parallel/) the parameters are those of the module that
+DistributedDataParallel wraps, replicated on every rank, or FSDP2's sharded
+DTensors; the moments and the EMA are laid out as their parameters, and the
+updates act on each rank's shard. Global-norm clipping and the non-finite
+check then reduce over the shards, so every rank takes the decision the
+single-device step takes.
 """
 
 from __future__ import annotations
@@ -18,7 +25,10 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from toycrystals_torch.parallel.fsdp import is_sharded, local
 
 Schedule = Callable[[int], float]
 
@@ -98,27 +108,43 @@ class Optimizer:
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: OptState) -> bool:
         """One update of `params` and `state` in place from `grads`; returns
-        False when the step was skipped as non-finite."""
+        False when the step was skipped as non-finite. Sharded (DTensor)
+        gradients take the norm and the finiteness over all their shards."""
+        group = next((g.device_mesh.get_group() for g in grads if is_sharded(g)), None)
+        sharded = [is_sharded(g) for g in grads]
+        params, grads = [local(p) for p in params], [local(g) for g in grads]
+        mu, nu = [local(m) for m in state.mu], [local(v) for v in state.nu]
         if self.skip_nonfinite > 0:
-            finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            flag = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+            if group is not None:
+                flag = flag.to(torch.int32)
+                dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+            finite = bool(flag)
             state.notfinite_count = 0 if finite else state.notfinite_count + 1
             if not finite:
                 state.total_notfinite += 1
                 if state.notfinite_count <= self.skip_nonfinite:
                     return False
         if self.clip_grad_norm > 0.0:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norms = torch.stack(torch._foreach_norm(grads))
+            if group is None:
+                norm = torch.linalg.vector_norm(norms)
+            else:
+                mask = torch.tensor(sharded, device=norms.device)
+                sq = (norms[mask] ** 2).sum()
+                dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
+                norm = torch.sqrt(sq + (norms[~mask] ** 2).sum())
             scale = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
                                 self.clip_grad_norm / norm)
             grads = torch._foreach_mul(grads, scale)
         count = state.count + 1
-        torch._foreach_mul_(state.mu, self.b1)
-        torch._foreach_add_(state.mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(state.nu, self.b2)
-        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - self.b2)
-        denom = torch._foreach_sqrt(torch._foreach_div(state.nu, 1.0 - self.b2 ** count))
+        torch._foreach_mul_(mu, self.b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1.0 - self.b2 ** count))
         torch._foreach_add_(denom, self.eps)
-        torch._foreach_addcdiv_(params, state.mu, denom,
+        torch._foreach_addcdiv_(params, mu, denom,
                                 value=-self.rate(state.count) / (1.0 - self.b1 ** count))
         state.count = count
         return True
@@ -152,7 +178,7 @@ def create_train_state(model: nn.Module, tx: Optimizer, ema: bool = False) -> Tr
 @torch.no_grad()
 def ema_update(ema_params: dict[str, torch.Tensor], params: dict[str, torch.Tensor],
                decay: float) -> None:
-    """p_ema <- d p_ema + (1 - d) p, in place."""
-    ema = list(ema_params.values())
+    """p_ema <- d p_ema + (1 - d) p, in place (on each rank's shard)."""
+    ema = [local(t) for t in ema_params.values()]
     torch._foreach_mul_(ema, decay)
-    torch._foreach_add_(ema, [params[k] for k in ema_params], alpha=1.0 - decay)
+    torch._foreach_add_(ema, [local(params[k]) for k in ema_params], alpha=1.0 - decay)

@@ -17,10 +17,20 @@ Counterpart of `make_sde_train_step` / `make_sde_train_epoch`,
 An epoch is a Python loop over steps with the batches rendered (or gathered)
 on the model's device; nothing returns to the host inside it unless the
 optimizer checks for non-finite gradients.
+
+On a data mesh (parallel/; `mesh=`), `model` is the module that
+`parallel.place_state` returns (DistributedDataParallel or FSDP2). Every
+rank shuffles and draws the whole batch's randomness from the same
+generator and keeps its own rows (`utils.rng.RowGenerator`); the
+gradients are averaged over the ranks, gradient accumulation syncs only on
+its last micro-batch, and the metrics are reduced over the ranks, so each
+rank reports the single-device run's values. A mesh with an axis other than
+"data" raises (ROADMAP.md queue 1, module 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -32,41 +42,139 @@ from toycrystals_torch.models.sde_score_model import (
     draw_diffusion_loss_noise,
 )
 from toycrystals_torch.models.vae import kl_stats
+from toycrystals_torch.parallel.fsdp import local, reduce_replicated_grads
+from toycrystals_torch.parallel.mesh import check_data_mesh, data_sharding, row_generator
 from toycrystals_torch.train.state import Optimizer, TrainState, ema_update
+from toycrystals_torch.utils.rng import RowGenerator, rand, randn
+
+
+def _is_fsdp(model: nn.Module) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(model, FSDPModule)
+
+
+def check_placed(model: nn.Module, mesh) -> None:
+    """On a mesh of several ranks, `model` must be the module that
+    `parallel.place_state` returns: its gradients are then averaged."""
+    if mesh is None:
+        return
+    check_data_mesh(mesh)
+    from torch.nn.parallel import DistributedDataParallel
+
+    if mesh.size() > 1 and not isinstance(model, DistributedDataParallel) \
+            and not _is_fsdp(model):
+        raise ValueError("on a mesh, train the module that parallel.place_state returns "
+                         "(DistributedDataParallel or FSDP2)")
+
+
+@contextlib.contextmanager
+def _grad_sync(model: nn.Module, sync: bool):
+    """Run a backward that averages the gradients over the ranks only when
+    `sync` (the last micro-batch); the others accumulate locally."""
+    if sync:
+        yield
+        return
+    from torch.nn.parallel import DistributedDataParallel
+
+    if isinstance(model, DistributedDataParallel):
+        with model.no_sync():
+            yield
+    elif _is_fsdp(model):
+        model.set_requires_gradient_sync(False)
+        try:
+            yield
+        finally:
+            model.set_requires_gradient_sync(True)
+    else:
+        yield
+
+
+def accumulate_grads(model: nn.Module, chunk_loss: Callable[[int], torch.Tensor], k: int = 1,
+                     mesh=None) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """The mean of `chunk_loss(c)` over c < k (detached) and the mean of
+    their gradients for every parameter of `model`, in `model.parameters()`
+    order: one backward per chunk, accumulated in `.grad`, which is cleared
+    before and after. Under DistributedDataParallel or FSDP2 the last
+    backward averages the gradients over the ranks (FSDP2's whole leaves
+    too); the others do not communicate."""
+    if _is_fsdp(model):
+        model.reshard()  # a forward without backward (sampling) leaves it gathered
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    loss_sum = None
+    for c in range(k):
+        with _grad_sync(model, c == k - 1):
+            loss = chunk_loss(c)
+            loss.backward()
+        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+    if _is_fsdp(model):
+        reduce_replicated_grads(mesh, params)
+    grads = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+    if k > 1:
+        loss_sum = loss_sum / k
+        torch._foreach_div_([local(g) for g in grads], float(k))
+    return loss_sum, grads
+
+
+def mesh_metrics(mesh, metrics, sums: tuple[str, ...] = ()):
+    """A step's metrics (a tensor or a dict of tensors) reduced over the
+    mesh in one all-reduce: the mean over the ranks, or the sum for the
+    keys in `sums`. mesh=None, or one rank, returns them as they are."""
+    if mesh is None or mesh.size() == 1:
+        return metrics
+    import torch.distributed as dist
+
+    items = metrics if isinstance(metrics, dict) else {"": metrics}
+    flat = torch.cat([v.reshape(-1).float() for v in items.values()])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    out, i = {}, 0
+    for k, v in items.items():
+        part = flat[i:i + v.numel()].reshape(v.shape)
+        out[k] = part if k in sums else part / mesh.size()
+        i += v.numel()
+    return out if isinstance(metrics, dict) else out[""]
+
+
+def _rows_generator(mesh, generator, local_rows: int):
+    """On a mesh, a plain generator becomes the `RowGenerator` of this
+    rank's rows of the global batch."""
+    if mesh is None or generator is None or isinstance(generator, RowGenerator):
+        return generator
+    return row_generator(mesh, generator, local_rows)
 
 
 def sde_loss_and_grads(model: nn.Module, sde: VPSDE, x0, y_cat, y_cont, t, eps,
                        parameterization: str = "eps", min_snr_gamma: float = 0.0,
-                       grad_accum: int = 1) -> tuple[torch.Tensor, list[torch.Tensor]]:
+                       grad_accum: int = 1, mesh=None) -> tuple[torch.Tensor,
+                                                                list[torch.Tensor]]:
     """Loss at the given (t, eps) and its gradient for every parameter of
     `model`, in `model.parameters()` order. grad_accum k > 1 runs k chunks of
     the batch one after the other and averages, which equals the unsplit
-    batch (mean of equal-sized chunk means) at 1/k of the activations."""
-    params = list(model.parameters())
+    batch (mean of equal-sized chunk means) at 1/k of the activations. On a
+    mesh the rows are this rank's, the loss is this rank's mean and the
+    gradients are averaged over the ranks (`accumulate_grads`)."""
     b, k = x0.shape[0], max(int(grad_accum), 1)
     if b % k:
         raise ValueError(f"batch {b} not divisible by grad_accum {k}")
-    loss_sum, grad_sum = None, None
-    for c in range(k):
-        sl = slice(c * (b // k), (c + 1) * (b // k))
-        loss = diffusion_loss_eps_given(model, sde, x0[sl], y_cat[sl], y_cont[sl], t[sl],
+    m = b // k
+
+    def chunk_loss(c: int) -> torch.Tensor:
+        sl = slice(c * m, (c + 1) * m)
+        return diffusion_loss_eps_given(model, sde, x0[sl], y_cat[sl], y_cont[sl], t[sl],
                                         eps[sl], parameterization, min_snr_gamma)
-        grads = list(torch.autograd.grad(loss, params))
-        if grad_sum is None:
-            loss_sum, grad_sum = loss.detach(), grads
-        else:
-            loss_sum = loss_sum + loss.detach()
-            torch._foreach_add_(grad_sum, grads)
-    if k > 1:
-        loss_sum = loss_sum / k
-        torch._foreach_div_(grad_sum, float(k))
-    return loss_sum, grad_sum
+
+    return accumulate_grads(model, chunk_loss, k, mesh)
 
 
 def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: int,
                         p_uncond: float, t_power: float, ema_decay: float,
                         parameterization: str = "eps", grad_accum: int = 1,
-                        t_shift: float = 1.0, min_snr_gamma: float = 0.0) -> Callable:
+                        t_shift: float = 1.0, min_snr_gamma: float = 0.0,
+                        mesh=None) -> Callable:
     """Returns step(state, x0, y_cat, y_cont, generator=None, noise=None) ->
     (state, loss). `state` (of `create_train_state(model, tx, ...)`) is
     updated in place and returned; `loss` is a 0-d tensor on the device.
@@ -74,8 +182,11 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
     The step draws (t, eps) and the conditioning dropout from `generator`
     (on x0's device). noise=(t, eps) replaces the draw; the conditioning is
     then taken as given (tests inject JAX's draws). On a step the optimizer
-    skips as non-finite, neither the parameters nor the EMA move.
+    skips as non-finite, neither the parameters nor the EMA move. On a
+    `mesh` the batch and `noise` are this rank's rows, the generator's draws
+    are the global batch's (module docstring) and `loss` is the global mean.
     """
+    check_placed(model, mesh)
 
     def step(state: TrainState, x0, y_cat, y_cont, generator: torch.Generator | None = None,
              noise=None):
@@ -86,20 +197,21 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
                              "draws from the global generator")
         else:
             t, eps, y_cat, y_cont = draw_diffusion_loss_noise(
-                x0, y_cat, y_cont, generator, n_types, p_uncond, t_power, t_shift)
+                x0, y_cat, y_cont, _rows_generator(mesh, generator, x0.shape[0]), n_types,
+                p_uncond, t_power, t_shift)
         loss, grads = sde_loss_and_grads(model, sde, x0, y_cat, y_cont, t, eps,
-                                         parameterization, min_snr_gamma, grad_accum)
+                                         parameterization, min_snr_gamma, grad_accum, mesh)
         applied = tx.update(list(state.params.values()), grads, state.opt_state)
         if applied and state.ema_params is not None:
             ema_update(state.ema_params, state.params, ema_decay)
         state.step += 1
-        return state, loss
+        return state, mesh_metrics(mesh, loss)
 
     return step
 
 
 def make_vae_train_step(model: nn.Module, tx: Optimizer, free_bits: float,
-                        uncond: bool = False) -> Callable:
+                        uncond: bool = False, mesh=None) -> Callable:
     """Returns step(state, x, y_cat, y_cont, beta_eff, generator=None,
     noise=None) -> (state, metrics): `state` (of `create_train_state(model,
     tx)`) updated in place, metrics 0-d device tensors `loss`, `recon`, `kl`
@@ -108,7 +220,9 @@ def make_vae_train_step(model: nn.Module, tx: Optimizer, free_bits: float,
 
     The step draws the reparameterisation's eps and then (CondVAE, cond_drop
     > 0) the cond-drop mask from `generator`; noise=(eps [B, z_dim], keep
-    [B, 1] or None) replaces the draws (tests inject JAX's)."""
+    [B, 1] or None) replaces the draws (tests inject JAX's). On a `mesh`, as
+    `make_sde_train_step` says; the metrics are the global batch's."""
+    check_placed(model, mesh)
 
     def step(state: TrainState, x, y_cat, y_cont, beta_eff: float,
              generator: torch.Generator | None = None, noise=None):
@@ -116,55 +230,66 @@ def make_vae_train_step(model: nn.Module, tx: Optimizer, free_bits: float,
             raise ValueError("pass a torch.Generator (or noise=(eps, keep)); the step never "
                              "draws from the global generator")
         metrics, grads = vae_loss_and_grads(model, x, y_cat, y_cont, beta_eff, free_bits,
-                                            uncond, generator, noise)
+                                            uncond, _rows_generator(mesh, generator, x.shape[0]),
+                                            noise, mesh)
         tx.update(list(state.params.values()), grads, state.opt_state)
         state.step += 1
-        return state, metrics
+        return state, mesh_metrics(mesh, metrics)
 
     return step
 
 
 def vae_loss_and_grads(model: nn.Module, x, y_cat, y_cont, beta_eff: float, free_bits: float,
                        uncond: bool = False, generator: torch.Generator | None = None,
-                       noise=None) -> tuple[dict[str, torch.Tensor], list[torch.Tensor]]:
-    """The VAE step's metrics (`loss`, `recon`, `kl`, `kl_raw`, detached) and
-    the loss's gradient for every parameter of `model`, in
-    `model.parameters()` order; the draws as `make_vae_train_step` says."""
+                       noise=None, mesh=None) -> tuple[dict[str, torch.Tensor],
+                                                      list[torch.Tensor]]:
+    """The VAE step's metrics (`loss`, `recon`, `kl`, `kl_raw`, detached, of
+    this rank's rows) and the loss's gradient for every parameter of
+    `model`, in `model.parameters()` order; the draws as
+    `make_vae_train_step` says."""
     eps, keep = (None, None) if noise is None else noise
-    if uncond:
-        x_hat, mu, logvar = model(x, generator=generator, noise=eps)
-    else:
-        x_hat, mu, logvar = model(x, y_cat, y_cont, train=True, generator=generator,
-                                  noise=eps, keep=keep)
-    recon = ((x_hat - x) ** 2).mean()
-    kl_used, kl_raw = kl_stats(mu, logvar, free_bits)
-    loss = recon + float(beta_eff) * kl_used
-    grads = list(torch.autograd.grad(loss, list(model.parameters())))
-    return ({"loss": loss.detach(), "recon": recon.detach(), "kl": kl_used.detach(),
-             "kl_raw": kl_raw.detach()}, grads)
+    out = {}
+
+    def loss_fn(_c: int) -> torch.Tensor:
+        if uncond:
+            x_hat, mu, logvar = model(x, generator=generator, noise=eps)
+        else:
+            x_hat, mu, logvar = model(x, y_cat, y_cont, train=True, generator=generator,
+                                      noise=eps, keep=keep)
+        recon = ((x_hat - x) ** 2).mean()
+        kl_used, kl_raw = kl_stats(mu, logvar, free_bits)
+        out.update(recon=recon.detach(), kl=kl_used.detach(), kl_raw=kl_raw.detach())
+        return recon + float(beta_eff) * kl_used
+
+    loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
+    return {"loss": loss, **out}, grads
 
 
 def prior_loss_and_grads(model: nn.Module, sched, z0n, y_cat, y_cont, t, eps,
-                         aux_weight: float = 0.0) -> tuple[dict[str, torch.Tensor],
-                                                           list[torch.Tensor]]:
+                         aux_weight: float = 0.0, mesh=None) -> tuple[dict[str, torch.Tensor],
+                                                                      list[torch.Tensor]]:
     """The prior step's metrics at the given (t [B] int, eps [B, z]) and the
     loss's gradient for every parameter of `model`, in `model.parameters()`
     order. aux_weight > 0 (the MoE prior) adds aux_weight x the mean over
-    blocks of the returned `moe_aux` terms."""
+    blocks of the returned `moe_aux` terms; on a mesh those are formed from
+    the global batch's route statistics (models/moe_prior.py)."""
     z_t = sched.q_sample(z0n, t, eps)
-    aux = torch.zeros((), device=z0n.device)
-    if aux_weight:
-        eps_pred, stats = model(z_t, t, y_cat, y_cont, return_stats=True)
-        if stats["moe_aux"]:
-            aux = torch.stack(stats["moe_aux"]).mean()
-    else:
-        eps_pred = model(z_t, t, y_cat, y_cont)
-    per = ((eps_pred - eps) ** 2).mean(dim=1)  # [B]
-    loss = per.mean() + aux_weight * aux
-    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    out = {"aux": torch.zeros((), device=z0n.device)}
+
+    def loss_fn(_c: int) -> torch.Tensor:
+        if aux_weight:
+            eps_pred, stats = model(z_t, t, y_cat, y_cont, return_stats=True, mesh=mesh)
+            if stats["moe_aux"]:
+                out["aux"] = torch.stack(stats["moe_aux"]).mean()
+        else:
+            eps_pred = model(z_t, t, y_cat, y_cont)
+        out["per"] = ((eps_pred - eps) ** 2).mean(dim=1)  # [B]
+        return out["per"].mean() + aux_weight * out["aux"]
+
+    loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
+    aux, per = out["aux"].detach(), out["per"].detach()
     q = ((t.to(torch.float32) / sched.T * 4).to(torch.int64)).clamp(0, 3)
-    per = per.detach()
-    return ({"loss": loss.detach(), "aux": aux.detach(),
+    return ({"loss": loss, "aux": aux,
              "bucket_sum": torch.zeros(4, device=per.device).index_add_(0, q, per),
              "bucket_n": torch.zeros(4, device=per.device).index_add_(
                  0, q, torch.ones_like(per))}, grads)
@@ -173,19 +298,22 @@ def prior_loss_and_grads(model: nn.Module, sched, z0n, y_cat, y_cont, t, eps,
 def draw_prior_noise(z0n: torch.Tensor, T: int, generator: torch.Generator):
     """The prior step's draws from `generator`: u [B] then eps [B, z];
     t = clamp(int(u^2 T), 0, T - 1)."""
-    u = torch.rand((z0n.shape[0],), generator=generator, device=z0n.device)
+    u = rand((z0n.shape[0],), generator, z0n.device)
     t = (u * u * T).to(torch.int32).clamp(0, T - 1)
-    return t, torch.randn(z0n.shape, generator=generator, device=z0n.device)
+    return t, randn(z0n.shape, generator, z0n.device)
 
 
 def make_prior_train_step(model: nn.Module, tx: Optimizer, T: int,
-                          aux_weight: float = 0.0) -> Callable:
+                          aux_weight: float = 0.0, mesh=None) -> Callable:
     """Returns step(state, sched, z0n, y_cat, y_cont, generator=None,
     noise=None) -> (state, metrics): `state` (of `create_train_state(model,
     tx)`) updated in place, metrics 0-d `loss` and `aux` and [4] `bucket_sum`
     / `bucket_n` on the device. The step draws (t, eps) from `generator`
     (`draw_prior_noise`); noise=(t, eps) replaces the draw (tests inject
-    JAX's). aux_weight > 0 needs the MoE prior."""
+    JAX's). aux_weight > 0 needs the MoE prior. On a `mesh`, as
+    `make_sde_train_step` says; `loss` and `aux` are the global batch's and
+    the buckets sum over the ranks."""
+    check_placed(model, mesh)
 
     def step(state: TrainState, sched, z0n, y_cat, y_cont,
              generator: torch.Generator | None = None, noise=None):
@@ -193,12 +321,12 @@ def make_prior_train_step(model: nn.Module, tx: Optimizer, T: int,
             if generator is None:
                 raise ValueError("pass a torch.Generator (or noise=(t, eps)); the step never "
                                  "draws from the global generator")
-            noise = draw_prior_noise(z0n, T, generator)
+            noise = draw_prior_noise(z0n, T, _rows_generator(mesh, generator, z0n.shape[0]))
         metrics, grads = prior_loss_and_grads(model, sched, z0n, y_cat, y_cont, *noise,
-                                              aux_weight=aux_weight)
+                                              aux_weight=aux_weight, mesh=mesh)
         tx.update(list(state.params.values()), grads, state.opt_state)
         state.step += 1
-        return state, metrics
+        return state, mesh_metrics(mesh, metrics, sums=("bucket_sum", "bucket_n"))
 
     return step
 
@@ -210,19 +338,19 @@ def make_prior_train_epoch(model: nn.Module, tx: Optimizer, T: int, batch_size: 
     f32, y_cat [N] i32, y_cont [N, 4] f32, on the model's device) around
     `make_prior_train_step`. Returns epoch_fn(state, sched, generator) ->
     (state, {"loss": mean, "aux": mean, "bucket_sum": [4] sum, "bucket_n":
-    [4] sum}); `generator` drives the shuffle and every step's draws."""
-    if mesh is not None:
-        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
-                                  "queue 1, module 5: parallel axes)")
+    [4] sum}); `generator` drives the shuffle and every step's draws. On a
+    `mesh` (`model` placed by `parallel.place_state`, `batch_size` global)
+    each rank gathers and trains its rows of every batch."""
     z0n, y_cat_all, y_cont_all = latents
     device = next(model.parameters()).device
-    step_fn = make_prior_train_step(model, tx, T, aux_weight)
+    step_fn = make_prior_train_step(model, tx, T, aux_weight, mesh)
 
     def run_batch(state, z, yc, yv, sched, generator):
         return step_fn(state, sched, z, yc, yv, generator)
 
     run_epoch = _make_epoch(run_batch, lambda idx: (z0n[idx], y_cat_all[idx], y_cont_all[idx]),
-                            int(z0n.shape[0]), batch_size, device, lambda stacked: stacked)
+                            int(z0n.shape[0]), batch_size, device, lambda stacked: stacked,
+                            mesh)
 
     def epoch_fn(state: TrainState, sched, generator: torch.Generator):
         state, ms = run_epoch(state, generator, 0, sched)
@@ -266,19 +394,20 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
     optimizer that skips non-finite steps. `fresh_data` (procedural source
     only) lets `offset` shift the item indices, so epoch e trains on items
     [e n, (e + 1) n) instead of the same n; offset 0 is the fixed dataset.
+
+    On a `mesh` (`model` placed by `parallel.place_state`, `batch_size`
+    global) each rank renders or gathers only its rows of every batch: one
+    rasterizer launch per step per rank on the procedural source.
     """
-    if mesh is not None:
-        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
-                                  "queue 1, module 5: parallel axes)")
     if fresh_data and lattice_cfg is None:
         raise ValueError("fresh_data needs the procedural (lattice_cfg) source: a resident "
                          "archive has only n items")
     device = next(model.parameters()).device
     step_fn = make_sde_train_step(model, tx, sde, n_types, p_uncond, t_power, ema_decay,
-                                  parameterization, grad_accum, t_shift, min_snr_gamma)
+                                  parameterization, grad_accum, t_shift, min_snr_gamma, mesh)
     get_batch = _batch_source(lattice_cfg, dataset_seed, resident, device)
     run_epoch = _make_epoch(step_fn, get_batch, n_items, batch_size, device,
-                            torch.nanmean if nan_safe_metrics else torch.mean)
+                            torch.nanmean if nan_safe_metrics else torch.mean, mesh)
 
     def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0):
         if offset and not fresh_data:
@@ -296,14 +425,11 @@ def make_vae_train_epoch(model: nn.Module, tx: Optimizer, free_bits: float, batc
     (`_batch_source`, `_make_epoch`) around `make_vae_train_step`. Returns
     epoch_fn(state, beta_eff, generator) -> (state, {metric: mean over the
     epoch's steps}); `generator` (on the model's device) drives the shuffle
-    and every step's draws."""
-    if mesh is not None:
-        raise NotImplementedError("training on a mesh is not ported yet (ROADMAP.md "
-                                  "queue 1, module 5: parallel axes)")
+    and every step's draws; on a `mesh`, as `make_sde_train_epoch` says."""
     device = next(model.parameters()).device
-    step_fn = make_vae_train_step(model, tx, free_bits, uncond)
+    step_fn = make_vae_train_step(model, tx, free_bits, uncond, mesh)
     get_batch = _batch_source(lattice_cfg, dataset_seed, resident, device)
-    run_epoch = _make_epoch(step_fn, get_batch, n_items, batch_size, device, torch.mean)
+    run_epoch = _make_epoch(step_fn, get_batch, n_items, batch_size, device, torch.mean, mesh)
 
     def epoch_fn(state: TrainState, beta_eff: float, generator: torch.Generator):
         return run_epoch(state, generator, 0, float(beta_eff))
@@ -312,19 +438,21 @@ def make_vae_train_epoch(model: nn.Module, tx: Optimizer, free_bits: float, batc
 
 
 def _make_epoch(step_fn: Callable, get_batch: Callable, n_items: int, batch_size: int, device,
-                reduce: Callable) -> Callable:
+                reduce: Callable, mesh=None) -> Callable:
     """epoch(state, generator, offset=0, *extra) -> (state, reduced): shuffle
     [0, n_items) with `generator` (drop-last), then one `step_fn(state, x0,
     y_cat, y_cont, *extra, generator)` per batch of `get_batch(idx +
     offset)`. A step's metric is a tensor or a dict of them; `reduce` runs
-    over the steps' stack of each."""
+    over the steps' stack of each. On a mesh every rank draws the same
+    shuffle and takes its rows of each batch."""
     n_steps = n_items // batch_size
     if n_steps == 0:
         raise ValueError(f"n_items {n_items} < batch_size {batch_size}")
+    mine = data_sharding(mesh, batch_size)
 
     def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0, *extra):
         order = torch.randperm(n_items, generator=generator, device=device)
-        order = order[: n_steps * batch_size].reshape(n_steps, batch_size)
+        order = order[: n_steps * batch_size].reshape(n_steps, batch_size)[:, mine]
         metrics = []
         for idx in order:
             x0, y_cat, y_cont = get_batch(idx + offset)

@@ -138,7 +138,8 @@ def load_score_payload(path: str | Path) -> dict:
     (`{"state": {...}, "config": {...}, "epoch_next": N, ...}`):
 
     - `*.pt`: the reference torch layout (utils/torch_interop.py);
-    - a directory: a `--ckpt-format orbax` checkpoint, not ported yet;
+    - a directory: a `--ckpt-format orbax` checkpoint of the port
+      (utils/orbax_io.py; one written by the JAX package is refused);
     - anything else: msgpack.
     """
     p = str(path)
@@ -147,7 +148,7 @@ def load_score_payload(path: str | Path) -> dict:
 
         return load_torch_score_checkpoint(p)
     if os.path.isdir(p):
-        raise NotImplementedError(
-            f"{p} is a directory: orbax checkpoints (--ckpt-format orbax) are not ported yet "
-            "(ROADMAP.md queue 1, module 5: parallel axes)")
+        from toycrystals_torch.utils.orbax_io import load_orbax_payload
+
+        return load_orbax_payload(p)
     return load_checkpoint(p)

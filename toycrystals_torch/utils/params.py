@@ -213,8 +213,14 @@ def load_flax_params(model, params: Mapping[str, Any]) -> None:
 def train_state_to_flax(state, bridge=UNET) -> dict:
     """A `TrainState` of the port as flax-layout numpy trees: `params`,
     `ema_params` (None when the EMA is off), Adam's `mu` and `nu`, and the
-    integers `step` (steps taken) and `count` (optimizer updates applied)."""
-    to_flax = bridge[1]
+    integers `step` (steps taken) and `count` (optimizer updates applied).
+    FSDP-sharded tensors are gathered whole, a collective that every rank
+    of the mesh must call."""
+    from toycrystals_torch.parallel.fsdp import full
+
+    def to_flax(tensors: Mapping[str, torch.Tensor]) -> dict:
+        return bridge[1]({k: full(v) for k, v in tensors.items()})
+
     names = list(state.params)
     opt = state.opt_state
     return {
@@ -229,16 +235,17 @@ def train_state_to_flax(state, bridge=UNET) -> dict:
 
 def load_train_state_from_flax(state, trees: Mapping[str, Any], bridge=UNET) -> None:
     """Read what `train_state_to_flax` wrote back into `state`, in place
-    (strict: every parameter must be present with its shape)."""
+    (strict: every parameter must be present with its shape); an
+    FSDP-sharded tensor takes its rank's shard."""
+    from toycrystals_torch.parallel.fsdp import copy_full_
 
     def copy_into(targets: Mapping[str, torch.Tensor], tree) -> None:
         sd = bridge[0](tree)
         if set(sd) != set(targets):
             raise KeyError(f"tree does not match the parameters: "
                            f"{sorted(set(sd) ^ set(targets))}")
-        with torch.no_grad():
-            for k, t in targets.items():
-                t.copy_(torch.tensor(np.asarray(sd[k], np.float32)).reshape(t.shape))
+        for k, t in targets.items():
+            copy_full_(t, torch.tensor(np.asarray(sd[k], np.float32)).reshape(t.shape))
 
     names = list(state.params)
     copy_into(state.params, trees["params"])
