@@ -136,7 +136,7 @@ result line:
    checkpoint stopped by SIGTERM while it samples: the request in flight
    answers 200 and the process exits 0.
 13. Export and the VAE trainer, at full width. Export: phase 10's checkpoint
-   at SDE-64 (CFG 1.5, the step loop unrolled into the graph; first the
+   at SDE-16 (CFG 1.5, the step loop unrolled into the graph; first the
    service's dispatch against the sampler on its own generator, bit-equal),
    phase 11's 4-step student and a 256x256 service at DPM-4 (4,096 tokens:
    the flash op inside the graph), each at one small batch, exported by
@@ -191,6 +191,33 @@ result line:
    at chunk 4 (10 SDE steps, CFG 1.5) on injected and on drawn noise held to
    the one-process chunks (1e-3, as phase 6: each call has half the rows),
    with each rank's kernel launches equal to the one-process run's.
+16. The space axis and serving on a mesh (parallel/spatial.py), on one card:
+   two ranks share cuda:0 over gloo, so nothing here times NCCL or a
+   collective across cards. The kernels of the space axis against their
+   plain versions: the GroupNorm sums and apply kernels at the 256x256
+   path's sharded shapes ([24, 96, 128, 256] and the lower levels; bf16 and
+   f32, pad on and off; the ranks' sums added in-process), and the flash
+   forward of Nq 2,048 and 1,024 queries against 4,096 gathered keys ([24,
+   ., 4, 48], bf16 and f32), each timed beside its plain version (and
+   F.scaled_dot_product_attention at the same shapes). A (1, 1) mesh at
+   world 1 over NCCL: the service bit-equal to no mesh. F4: int8
+   sample_chunked at world 2 (base_ch 96, 64x64, both stems, bf16, SDE-10, 8
+   images) against one process: each rank's first int8 activation scale
+   equal to the one-process scale (the max over both ranks' rows); the grids'
+   gap printed (int8 rounding amplifies the last bits in which the other
+   ops' half-batch calls differ). A (data 1, space 2) mesh: a 12-image 256x256 request through
+   ScoreModelService(mesh=) at SDE-20 (cut from 300 for time; stem none,
+   param v, logsnr_shift -2.77), f32 against the one-process service's
+   dispatch (1e-3), then bf16, timed, each rank's peak memory beside one
+   process's, and exactly 21 flash forwards and 210 sums and 210 apply
+   launches (no one-launch gn_silu) per rank per dispatch; 64x64 at SDE-10,
+   both stems, f32, against one process. Last, the serve CLI with --shard 2
+   --dist-backend gloo on phase 10's checkpoint (f32, SDE-4): 16 concurrent
+   seeded one-image requests, each bit-equal to the same dispatch of a 2-rank
+   mesh launched here with the CLI's settings (its f32 convs run TF32, as
+   torch leaves them) and beside the one-process service's dispatch of the
+   same layout (the gap printed, beside what TF32 alone moves in one
+   process), then SIGTERM: every rank exits 0 within 60 s.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -205,10 +232,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
+import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2127,7 +2157,7 @@ def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
 # checkpoint, of phase 11's student and of a 256x256 service, each bit-equal to
 # its live service; then train_vae at full width.
 EXPORT_BATCH = 4                    # images per exported dispatch
-EXPORT_SDE_STEPS = 64               # the SDE export's steps: its graph unrolls them
+EXPORT_SDE_STEPS = 16               # the SDE export's steps: its graph unrolls them
 EXPORT_HI_STEPS = 4                 # DPM steps of the 256x256 export (flash inside)
 VAE_DIR = os.path.join(ROOT, "runs", "chip_smoke_vae")
 VAE_ITEMS, VAE_BATCH, VAE_Z = 12800, 128, 32  # the CLI's defaults but for the item count
@@ -2805,8 +2835,8 @@ def _par_world2() -> dict:
             raise AssertionError(f"world 2 {name}: parameters {p_diff:.3e} apart")
         for rank, res in enumerate((r0, r1)):
             out["launches"][f"data_w2_{name}_rank{rank}"] = res["launches"]
-            wl = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps, "rasterize": 0,
-                  "flash_attn": 0, "flash_attn_backward": 0}
+            wl = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps, "gn_silu_sums": 0,
+                  "gn_silu_apply": 0, "rasterize": 0, "flash_attn": 0, "flash_attn_backward": 0}
             if res["launches"] != wl:
                 raise AssertionError(f"world 2 {name} rank {rank}: launches "
                                      f"{res['launches']}, expected {wl}")
@@ -2879,6 +2909,439 @@ def phase_parallel(set_counts_to_zero, counts, card: str) -> dict:
     out["launches"] = {**out["world1"]["launches"], **out["world2"]["launches"]}
     out["seconds"] = time.perf_counter() - t0
     log(f"parallel on {card}: world 1 step ms {json.dumps(out['world1']['step_ms'])}")
+    return out
+
+
+# Phase 16: the space axis and serving on a mesh, on one card: two ranks share
+# cuda:0 over gloo, so nothing here times NCCL or a collective across cards
+SPACE_DIR = os.path.join(ROOT, "runs", "chip_smoke_space")
+SPACE_HI_STEPS = 20          # SDE steps of the 256x256 request (cut from 300 for time)
+SPACE_HI_IMAGES = 12         # one 12-image dispatch, 24 rows under CFG
+SPACE_64_STEPS, SPACE_64_IMAGES = 10, 8
+SPACE_F4 = dict(n=8, n_steps=10, cfg=1.5)  # int8 sample_chunked, bf16, chunk 8
+SPACE_SERVE_STEPS, SPACE_SERVE_REQUESTS = 4, 16
+# against one process: phase 15's tolerance (each rank's calls have other shapes,
+# and cuDNN picks its f32 algorithms by shape)
+SPACE_TOL = PAR_SAMPLE_TOL
+# the sharded shapes of the 256x256 path at S = 2 (24 rows: 12 images under CFG)
+SPACE_GN_SHAPES = [("256 down1/up1", (24, 96, 128, 256)), ("256 down2", (24, 192, 64, 128)),
+                   ("256 up2", (24, 96, 64, 128)), ("256 mid", (24, 192, 32, 64))]
+# (label, q [B, Nq, heads, d], Nk): a rank's queries against the gathered keys
+SPACE_FLASH_SHAPES = [("S=2", (24, 2048, 4, 48), 4096), ("S=4", (24, 1024, 4, 48), 4096)]
+
+
+def _space_gn_rows(gn) -> tuple[list[dict], dict]:
+    """The sums and apply kernels at the 256x256 path's sharded shapes, one
+    rank's rows against their plain versions, the all-reduce done here (the
+    other rank's sums added); timed against the plain versions."""
+    rows, headline = [], {}
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    for label, shape in SPACE_GN_SHAPES:
+        b, c, h, w = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            x, other = ((torch.randn(shape, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+                        for _ in range(2))
+            scale = torch.randn(c, generator=gen, device=DEVICE) * 0.1 + 1.0
+            bias = torch.randn(c, generator=gen, device=DEVICE) * 0.1
+            sums = gn.gn_sums(x, 8) + gn.gn_sums(other, 8)
+            want_sums = gn.gn_sums_reference(x, 8) + gn.gn_sums_reference(other, 8)
+            count = c // 8 * h * w * 2
+            sums_err = float(((sums - want_sums).abs() / want_sums.abs().clamp(min=1.0)).max())
+            for pad in (False, True):
+                got = gn.gn_silu_apply(x, sums, count, scale, bias, 8, pad=pad)
+                want = gn.gn_silu_apply_reference(x, sums, count, scale, bias, 8, pad=pad)
+                err = float((got.float() - want.float()).abs().max())
+                atol, rtol = TOL[name]
+                torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+                row = dict(shape=label, dims=list(shape), dtype=name, pad=pad,
+                           sums_max_rel_err=sums_err, max_abs_err=err)
+                if not sums_err <= 1e-5:
+                    raise AssertionError(f"gn sums kernel at {label} {name}: {sums_err}")
+                elem = x.element_size()
+                row["sums_ms"] = cuda_time_ms(lambda: gn.gn_sums(x, 8))
+                row["sums_plain_ms"] = cuda_time_ms(lambda: gn.gn_sums_reference(x, 8), iters=5)
+                row["sums_bound_ms"] = (b * c * h * w * elem + b * 8 * 8) / HBM_BYTES_PER_S * 1e3
+                row["apply_ms"] = cuda_time_ms(
+                    lambda: gn.gn_silu_apply(x, sums, count, scale, bias, 8, pad=pad))
+                row["apply_plain_ms"] = cuda_time_ms(
+                    lambda: gn.gn_silu_apply_reference(x, sums, count, scale, bias, 8, pad=pad),
+                    iters=5)
+                row["apply_bound_ms"], row["apply_bound_by"] = gn_bound(shape, pad, elem)
+                # the one-launch kernel on the whole image's rows, for scale
+                whole = torch.cat([x, other], dim=2)
+                row["one_launch_whole_image_ms"] = cuda_time_ms(
+                    lambda: gn.gn_silu(whole, scale, bias, 8, pad=pad))
+                rows.append(row)
+                log("kernel gn_silu space modes " + json.dumps(row))
+                if label == "256 down1/up1" and name == "bfloat16" and pad:
+                    headline = row
+            del x, other, whole
+    torch.cuda.empty_cache()
+    return rows, headline
+
+
+def _space_flash_rows(at) -> tuple[list[dict], dict]:
+    """The flash forward of a rank's Nq queries against Nk gathered keys,
+    against `sdpa_reference` in f32 (8 items at a time), timed beside
+    F.scaled_dot_product_attention at the same shapes."""
+    rows, headline = [], {}
+    clock_hz = sm_clock_max_hz()
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    for label, shape, nk in SPACE_FLASH_SHAPES:
+        b, n, h, d = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            q = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+            kv = torch.randn((b, nk, 2, h, d), generator=gen, device=DEVICE).to(dtype)
+            k, v = kv[:, :, 0], kv[:, :, 1]
+            before = at.flash_sdpa.launches
+            with torch.no_grad():
+                out = at.flash_sdpa(q, k, v)
+            torch.cuda.synchronize()
+            if at.flash_sdpa.launches != before + 1:
+                raise AssertionError(f"flash_sdpa did not launch at {label} {name}")
+            err = big = 0.0
+            for i0 in range(0, b, 8):
+                sl = slice(i0, i0 + 8)
+                want = at.sdpa_reference(q[sl].float(), k[sl].float(), v[sl].float())
+                err = max(err, float((out[sl].float() - want).abs().max()))
+                big = max(big, float(want.abs().max()))
+                del want
+            row = dict(shape=label, dims=list(shape), nk=nk, dtype=name, max_abs_err=err,
+                       max_abs=big, tol_share=FLASH_TOL[name])
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            with torch.no_grad():
+                row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(q, k, v),
+                                         iters=10 if dtype == torch.bfloat16 else 3)
+                row["plain_ms"] = cuda_time_ms(lambda: at.sdpa_reference(q, k, v), iters=3,
+                                               warmup=1)
+                row["library_ms"] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=10)
+            ops = 4 * b * h * n * nk * d
+            terms = {"tensor operations" if dtype == torch.bfloat16 else "f32 operations":
+                     ops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S) * 1e3,
+                     "exponentials": b * h * n * nk
+                     / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
+                     "bytes": (2 * b * n * h * d + 2 * b * nk * h * d) * q.element_size()
+                     / HBM_BYTES_PER_S * 1e3 + b * h * n * 4 / HBM_BYTES_PER_S * 1e3}
+            what = max(terms, key=terms.get)
+            row["bound_ms"], row["bound_operations"] = terms[what], what
+            row["bound_by"] = "bytes" if what == "bytes" else "operations"
+            rows.append(row)
+            log("kernel flash_attn Nq != Nk " + json.dumps(row))
+            if not err <= FLASH_TOL[name] * big:
+                raise AssertionError(f"flash forward at Nq {n} / Nk {nk} {name}: {row}")
+            if label == "S=2" and dtype == torch.bfloat16:
+                headline = row
+            del q, kv, k, v, out
+    torch.cuda.empty_cache()
+    return rows, headline
+
+
+def _one_process_dispatch(svc, y_cat, y_cont, seed: int, rows: int) -> np.ndarray:
+    """The one-process service's dispatch of a request padded to `rows`, the
+    layout a mesh gives it (its bucket, rounded to the data axis)."""
+    from toycrystals_torch.models.sde_score_model import sample_chunked
+
+    n = len(y_cat)
+    yc, yv = (np.concatenate([a, np.repeat(a[-1:], rows - n, axis=0)]) for a in (y_cat, y_cont))
+    with torch.inference_mode():
+        return sample_chunked(svc._dispatch, svc._apply_fn, svc.sde,
+                              torch.from_numpy(yc).to(DEVICE), torch.from_numpy(yv).to(DEVICE),
+                              (rows, svc.img_size, svc.img_size, 1), seed, chunk=rows)[:n]
+
+
+def _space_cases(params: dict) -> dict:
+    """The mesh cases: int8 sampling at world 2 (F4), and the services on the
+    (data 1, space 2) mesh."""
+    from toycrystals_torch.models.sde_score_model import sample_grid_conditions
+    from toycrystals_torch.models.torch_init import flax_default_init
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    f4 = []
+    for stem in ("none", "s2dr"):
+        model = flax_default_init(make_model(stem, "float32"), np.random.default_rng(12))
+        sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+        n = SPACE_F4["n"]
+        yc, yv = (a.numpy() for a in sample_grid_conditions(n, 4, 4))
+        r = np.random.default_rng(13)
+        f4.append(dict(kind="sample", record_scale=True, drawn=False,
+                       model=dict(kw, stem=stem, conv_impl="int8", dtype=torch.bfloat16),
+                       state_dict=sd, y_cat=yc, y_cont=yv, shape=(n, 64, 64, 1), seed=14,
+                       chunk=n, n_steps=SPACE_F4["n_steps"], cfg=SPACE_F4["cfg"],
+                       x_init=r.normal(size=(n, 64, 64, 1)).astype(np.float32),
+                       z=r.normal(size=(n, SPACE_F4["n_steps"], 64, 64, 1)).astype(np.float32)))
+    yc, yv = (a.numpy() for a in sample_grid_conditions(SPACE_HI_IMAGES, 4, 4))
+    hi = dict(kind="service", config=dict(HI_CFG, dtype="float32"), params=params["none"],
+              buckets=(SPACE_HI_IMAGES,), settings=dict(steps=SPACE_HI_STEPS),
+              requests=[(yc, yv, 15)])
+    hi_bf16 = dict(hi, config=HI_CFG)
+    yc, yv = (a.numpy() for a in sample_grid_conditions(SPACE_64_IMAGES, 4, 4))
+    small = [dict(kind="service", config=dict(SLICE_CFG, dtype="float32", stem=stem),
+                  params=params[stem], buckets=(SPACE_64_IMAGES,),
+                  settings=dict(steps=SPACE_64_STEPS), requests=[(yc, yv, 16)])
+             for stem in ("none", "s2dr")]
+    return {"f4": f4, "space": [hi, hi_bf16, *small]}
+
+
+def _space_world1(svc_cls, params: dict) -> dict:
+    """A (1, 1) mesh at world 1 in this process over NCCL: the service's
+    result bit-equal to the same dispatch with no mesh."""
+    import torch.distributed as dist
+
+    from toycrystals_torch.parallel.mesh import make_mesh_2d
+
+    dev_type = torch.device(DEVICE).type
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=f"file://{os.path.join(SPACE_DIR, 'world1')}",
+                            rank=0, world_size=1, timeout=timedelta(seconds=300))
+    try:
+        cfg = dict(SLICE_CFG, dtype="float32")
+        mesh = make_mesh_2d(1, 1, dev_type)
+        svc = svc_cls(cfg, params["none"], device=DEVICE, steps=SPACE_64_STEPS, buckets=(4,),
+                      mesh=mesh)
+        y_cat, y_cont = svc.conditions([0, 1, 2], [0.1, 0.2, 0.3])
+        got = svc.sample(y_cat, y_cont, seed=17)
+    finally:
+        dist.destroy_process_group()
+    ref = svc_cls(cfg, params["none"], device=DEVICE, steps=SPACE_64_STEPS, buckets=(4,))
+    want = _one_process_dispatch(ref, y_cat, y_cont, 17, 3)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"(1, 1) mesh at world 1: {np.abs(got - want).max():.3e} from no "
+                             f"mesh")
+    log("space (1, 1) mesh at world 1 over NCCL: bit-equal to no mesh")
+    return {"bit_equal": True}
+
+
+def _space_serve_cli(card: str) -> dict:
+    """The serve CLI with --shard 2 on one card over gloo (phase 10's
+    checkpoint, f32): a burst of seeded one-image requests, each answer
+    bit-equal to the same dispatch of a 2-rank mesh launched here with the
+    CLI's settings (TF32 as torch leaves it), and beside the one-process
+    service's dispatch of the same layout; then SIGTERM."""
+    import threading
+
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+    from toycrystals_torch.serve import ScoreModelService
+    from toycrystals_torch.utils.checkpoint import load_score_payload
+
+    ckpt64 = os.path.join(CLI_DIR, "64", "checkpoints", "sde_score_model_last.msgpack")
+    argv = [sys.executable, "-u", "-m", "toycrystals_torch.scripts.serve_sde_score_model",
+            ckpt64, "--port", "0", "--steps", str(SPACE_SERVE_STEPS), "--dtype", "float32",
+            "--buckets", "1,4", "--shard", "2", "--dist-backend", "gloo"]
+    if DEVICE == "cpu":
+        argv += ["--device", "cpu"]
+    conds = [([i % 4], [0.05 * i], 200 + i) for i in range(SPACE_SERVE_REQUESTS)]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    text, url = "", None
+    try:
+        while url is None and time.perf_counter() - t0 < 300:
+            text += proc.stdout.readline()
+            found = re.search(r"listening on (http://[0-9.]+:[0-9]+)", text)
+            url = found and found.group(1)
+            if proc.poll() is not None:
+                raise AssertionError(f"the sharded server died:\n{text}{proc.stdout.read()}")
+        if url is None:
+            raise AssertionError(f"the sharded server never listened:\n{text}")
+        ready_s = time.perf_counter() - t0
+        got, lat = {}, {}
+
+        def go(i):
+            types, thetas, seed = conds[i]
+            s0 = time.perf_counter()
+            got[i] = _post(url + "/sample", {"types": types, "thetas": thetas, "seed": seed,
+                                             "format": "npy"})
+            lat[i] = time.perf_counter() - s0
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(SPACE_SERVE_REQUESTS)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        burst_s = time.perf_counter() - t1
+        stats = json.loads(_get(url + "/stats")[2])
+        t2 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        stop_s = time.perf_counter() - t2
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0 or "serving stopped" not in out:
+        raise AssertionError(f"the sharded server exited {proc.returncode}:\n{text}{out}")
+    answers = []
+    for i in range(SPACE_SERVE_REQUESTS):
+        code, _, body = got[i]
+        if code != 200:
+            raise AssertionError(f"sharded server request {i}: {code}")
+        answers.append(np.load(io.BytesIO(body)))
+    # the same dispatches on a 2-rank mesh launched here, with the CLI's settings
+    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, steps=SPACE_SERVE_STEPS,
+                                            dtype="float32", buckets=(2,))
+    payload = load_score_payload(ckpt64)
+    requests = [(*svc.conditions(types, thetas), seed) for types, thetas, seed in conds]
+    case = dict(kind="service", config=payload["config"],
+                params=payload["state"].get("ema_params") or payload["state"]["params"],
+                buckets=(1, 4), settings=dict(steps=SPACE_SERVE_STEPS, dtype="float32"),
+                requests=requests)
+    dev_type = torch.device(DEVICE).type
+    gc.collect()
+    torch.cuda.empty_cache()
+    two = launch(run_cases, 2, ({"device": dev_type, "tf32": None, "cases": [case]},),
+                 device_type=dev_type, backend="gloo", device_ids=[0, 0], timeout=600)
+    for i, x in enumerate(answers):
+        if not np.array_equal(x, two[0][0]["x"][i]):
+            raise AssertionError(f"sharded server request {i}: "
+                                 f"{float(np.abs(x - two[0][0]['x'][i]).max()):.3e} from the "
+                                 f"mesh's own dispatch")
+    # beside the one-process service (its convs' TF32 as the CLI's: torch's
+    # default), and what TF32 alone moves in one process
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = [_one_process_dispatch(svc, yc, yv, seed, 2) for yc, yv, seed in requests]
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    gap = max(float(np.abs(x - w).max()) for x, w in zip(answers, tf32))
+    tf32_alone = max(float(np.abs(w - _one_process_dispatch(svc, yc, yv, seed, 2)).max())
+                     for w, (yc, yv, seed) in zip(tf32, requests))
+    out_d = {"ready_s": ready_s, "burst_s": burst_s, "p50_s": float(np.median(list(lat.values()))),
+             "max_s": max(lat.values()), "sigterm_exit_s": stop_s,
+             "one_process_max_abs_diff": gap, "tf32_alone_max_abs_diff": tf32_alone,
+             "dispatches": stats["service"]["dispatches"],
+             "buckets": stats["service"]["buckets"], "mesh": stats["service"]["mesh"]}
+    log(f"space serve CLI --shard 2 (two ranks on one card over gloo, {card}): ready in "
+        f"{ready_s:.1f} s; {SPACE_SERVE_REQUESTS} seeded one-image requests in {burst_s:.2f} s "
+        f"(p50 {out_d['p50_s']:.3f} s), each bit-equal to the 2-rank mesh's own dispatch, "
+        f"{gap:.3e} from the one-process service (TF32 convs, half the rows per call; TF32 "
+        f"on against off moves one process by {tf32_alone:.3e}); "
+        f"SIGTERM: every rank exited 0 in {stop_s:.2f} s")
+    if not stop_s <= 60.0:
+        raise AssertionError(f"the sharded server took {stop_s:.1f} s to stop")
+    return out_d
+
+
+def phase_space(set_counts_to_zero, counts, card: str, params: dict) -> dict:
+    """Phase 16: the space axis and serving on a mesh (module docstring)."""
+    from toycrystals_torch.ops import attention as at
+    from toycrystals_torch.ops import groupnorm as gn
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+    from toycrystals_torch.serve import ScoreModelService
+
+    shutil.rmtree(SPACE_DIR, ignore_errors=True)
+    os.makedirs(SPACE_DIR)
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "launches": {}}
+    out["gn_rows"], out["gn_headline"] = _space_gn_rows(gn)
+    out["flash_rows"], out["flash_headline"] = _space_flash_rows(at)
+    out["world1"] = _space_world1(ScoreModelService, params)
+    cases = _space_cases(params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev_type = torch.device(DEVICE).type
+    # (a) F4: int8 sample_chunked at world 2 against one process
+    t1 = time.perf_counter()
+    two = launch(run_cases, 2, ({"device": dev_type, "cases": cases["f4"]},),
+                 device_type=dev_type, backend="gloo", device_ids=[0, 0], timeout=600)
+    one = run_cases({"device": dev_type, "cases": cases["f4"]})
+    out["f4"] = {}
+    for i, stem in enumerate(("none", "s2dr")):
+        # the first conv's input is the same bits on both sides: its scale must be
+        # the one-process scale, the max over both ranks' rows
+        (own0, s0), (own1, s1), (whole, s) = (r[i]["int8_scale"] for r in (two[0], two[1], one))
+        if not (s0 == s1 == s and max(own0, own1) == whole):
+            raise AssertionError(f"F4 int8 {stem}: first scales {s0} / {s1} against {s} in one "
+                                 f"process (own maxima {own0} / {own1}, whole {whole})")
+        rec = {"first_scale_equal": True, "rows_decide_the_max": min(own0, own1) < whole}
+        for key in ("injected",):
+            a, b = two[0][i][key], one[i][key]
+            rec[f"{key}_max_abs_diff"] = float(np.abs(a - b).max())
+            rec[f"{key}_mean_abs_diff"] = float(np.abs(a - b).mean())
+            rec[f"{key}_bit_equal"] = bool(np.array_equal(a, b))
+            if not (np.array_equal(a, two[1][i][key]) and np.isfinite(a).all()
+                    and 0.0 <= a.min() and a.max() <= 1.0):
+                raise AssertionError(f"F4 int8 {stem} ({key}): ranks disagree or out of range")
+        out["f4"][stem] = rec
+        out["launches"][f"space_int8_{stem}_rank0"] = two[0][i]["launches"]
+    log(f"space F4: int8 sample_chunked at world 2 (bf16, SDE-{SPACE_F4['n_steps']}, "
+        f"{SPACE_F4['n']} images) against one process; each rank's first int8 scale is the "
+        f"one-process scale (the max over both ranks' rows); the grids, where every call "
+        f"of the other ops has half the rows (algorithms and gn_silu's cluster plan by "
+        f"shape) and int8 rounding amplifies their last bits: {json.dumps(out['f4'])}; "
+        f"{time.perf_counter() - t1:.1f} s")
+    # (c) the (data 1, space 2) mesh: the services at 256x256 and 64x64
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    two = launch(run_cases, 2, ({"device": dev_type, "mesh": [1, 2], "cases": cases["space"]},),
+                 device_type=dev_type, backend="gloo", device_ids=[0, 0], timeout=900)
+    out["space_job_s"] = time.perf_counter() - t1
+    names = ("hi_f32", "hi_bf16", "none_64", "s2dr_64")
+    for rank in (0, 1):
+        for name, res in zip(names, two[rank]):
+            out["launches"][f"space_{name}_rank{rank}"] = res["launches"]
+    evals = SPACE_HI_STEPS + 1
+    for rank in (0, 1):
+        for name in ("hi_f32", "hi_bf16"):
+            got = two[rank][names.index(name)]["launches"]
+            want = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 10 * evals,
+                    "gn_silu_apply": 10 * evals, "rasterize": 0, "flash_attn": evals,
+                    "flash_attn_backward": 0}
+            if got != want:
+                raise AssertionError(f"space {name} rank {rank}: launches {got}, expected {want}")
+    result = {}
+    for i, (name, case) in enumerate(zip(names, cases["space"])):
+        svc = ScoreModelService(case["config"], case["params"], device=DEVICE,
+                                buckets=case["buckets"], **case["settings"])
+        (y_cat, y_cont, seed), = case["requests"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        want = _one_process_dispatch(svc, y_cat, y_cont, seed, len(y_cat))
+        torch.cuda.synchronize()
+        got = two[0][i]["x"][0]
+        d = float(np.abs(got - want).max())
+        result[name] = {"max_abs_diff": d, "seconds": [two[0][i]["seconds"][0],
+                                                       two[1][i]["seconds"][0]],
+                        "seconds_one_process": time.perf_counter() - s0,
+                        "peak_bytes": [two[0][i].get("peak_bytes", 0),
+                                       two[1][i].get("peak_bytes", 0)],
+                        "peak_bytes_one_process": int(torch.cuda.max_memory_allocated())}
+        if not (np.array_equal(got, two[1][i]["x"][0]) and got.shape == want.shape
+                and (name == "hi_bf16" or d <= SPACE_TOL)):
+            raise AssertionError(f"space {name}: {d:.3e} from one process")
+        del svc
+    out["space"] = result
+    hi, hb = result["hi_f32"], result["hi_bf16"]
+    gib = 2.0**30
+    log(f"space 256x256 12 images SDE-{SPACE_HI_STEPS} on a (1, 2) mesh (two ranks on one "
+        f"card over gloo, {card}): f32 {hi['max_abs_diff']:.3e} from one process (tolerance "
+        f"{SPACE_TOL}), {hi['seconds'][0]:.2f} / {hi['seconds'][1]:.2f} s per rank against "
+        f"{hi['seconds_one_process']:.2f} s in one process, peak "
+        f"{hi['peak_bytes'][0] / gib:.2f} / {hi['peak_bytes'][1] / gib:.2f} GiB against "
+        f"{hi['peak_bytes_one_process'] / gib:.2f}; bf16 {hb['max_abs_diff']:.3e} from one "
+        f"process (not held), {hb['seconds'][0]:.2f} / {hb['seconds'][1]:.2f} s against "
+        f"{hb['seconds_one_process']:.2f} s, peak {hb['peak_bytes'][0] / gib:.2f} / "
+        f"{hb['peak_bytes'][1] / gib:.2f} GiB against {hb['peak_bytes_one_process'] / gib:.2f}; "
+        f"launches per rank per dispatch {json.dumps(two[0][1]['launches'])}")
+    log(f"space 64x64 SDE-{SPACE_64_STEPS} on the (1, 2) mesh: stem none "
+        f"{result['none_64']['max_abs_diff']:.3e}, s2dr {result['s2dr_64']['max_abs_diff']:.3e} "
+        f"from one process")
+    # (d) the serve CLI on a 2-rank mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve_cli"] = _space_serve_cli(card)
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2957,6 +3420,7 @@ def main() -> int:
 
         def set_counts_to_zero():
             gn.gn_silu.launches = gn.gn_silu.backward_launches = rz.rasterize.launches = 0
+            gn.gn_silu.sums_launches = gn.gn_silu.apply_launches = 0
             at.flash_sdpa.launches = at.flash_sdpa.backward_launches = 0
 
         def counts():
@@ -3022,13 +3486,15 @@ def main() -> int:
         log(f"phase 14 took {report['prior_data']['seconds']:.1f} s")
         report["parallel"] = phase_parallel(set_counts_to_zero, counts, card)
         log(f"phase 15 took {report['parallel']['seconds']:.1f} s")
+        report["space"] = phase_space(set_counts_to_zero, counts, card, params)
+        log(f"phase 16 took {report['space']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
                               **report["serving_rest"]["launches"],
                               **report["export_vae"]["launches"],
                               **report["prior_data"]["launches"],
-                              **report["parallel"]["launches"]}
+                              **report["parallel"]["launches"], **report["space"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -3045,6 +3511,7 @@ def main() -> int:
                 f"{tr['gn_backward_plain_ms_per_step']:.3f}) of {1e3 / tr['steps_per_s']:.3f} ms "
                 f"per step ({tr['gn_share']:.3f})")
         flash_train, flash_serve = flash_headline["train batch 32"], flash_headline["serve 12 img"]
+        gn_space, flash_space = report["space"]["gn_headline"], report["space"]["flash_headline"]
         tr, sl = report["train_256"], report["slice_256"]
         tr["flash_ms_per_step"] = flash_train["ms"] + flash_train["backward_ms"]
         tr["flash_share"] = tr["flash_ms_per_step"] * tr["steps_per_s"] / 1e3
@@ -3103,7 +3570,12 @@ def main() -> int:
             ("data_w2_sde_rank1", ("gn_silu", "gn_silu_backward")),
             ("data_w2_sde_fsdp_rank0", ("gn_silu", "gn_silu_backward")),
             ("data_w2_sde_fsdp_rank1", ("gn_silu", "gn_silu_backward")),
-            ("data_w2_sample_rank0", ("gn_silu",)), ("data_w2_sample_rank1", ("gn_silu",)))
+            ("data_w2_sample_rank0", ("gn_silu",)), ("data_w2_sample_rank1", ("gn_silu",)),
+            ("space_int8_none_rank0", ("gn_silu",)), ("space_int8_s2dr_rank0", ("gn_silu",)),
+            *((f"space_{name}_rank{r}", ("gn_silu_sums", "gn_silu_apply", "flash_attn"))
+              for name in ("hi_f32", "hi_bf16") for r in (0, 1)),
+            *((f"space_{stem}_64_rank{r}", ("gn_silu_sums", "gn_silu_apply"))
+              for stem in ("none", "s2dr") for r in (0, 1)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -3132,6 +3604,7 @@ def main() -> int:
         "launches_export_vae": {k: paths[k]["gn_silu"] for k in report["export_vae"]["launches"]},
         "launches_prior_data": {k: paths[k]["gn_silu"] for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["gn_silu"] for k in report["parallel"]["launches"]},
+        "launches_space": {k: paths[k]["gn_silu"] for k in report["space"]["launches"]},
         "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
@@ -3239,6 +3712,7 @@ def main() -> int:
         "launches_prior_data": {k: paths[k]["flash_attn"]
                                 for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["flash_attn"] for k in report["parallel"]["launches"]},
+        "launches_space": {k: paths[k]["flash_attn"] for k in report["space"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",
@@ -3260,6 +3734,34 @@ def main() -> int:
             "backward_library_ms": flash_train["library_backward_ms"],
             "grad_max_abs_err": {k: flash_train[f"{k}_max_abs_err"]
                                  for k in ("dq", "dk", "dv")}},
+        "space_at": {
+            "at": f"forward, q {flash_space['dims']} against K and V of {flash_space['nk']} "
+                  f"gathered keys, bf16 (a rank of the 256x256 path at S = 2)",
+            "launches_per_rank_per_dispatch": SPACE_HI_STEPS + 1,
+            "max_abs_err": flash_space["max_abs_err"], "ms": flash_space["ms"],
+            "plain_ms": flash_space["plain_ms"], "bound_ms": flash_space["bound_ms"],
+            "bound_by": flash_space["bound_by"],
+            "bound_operations": flash_space["bound_operations"],
+            "library_ms": flash_space["library_ms"]},
+    }, {
+        "name": "gn_silu_sums", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
+        "replaces": "toycrystals_tpu/ops/groupnorm.py:53 (the statistics, under a space axis)",
+        "launches": sum(path.get("gn_silu_sums", 0) for path in paths.values()),
+        "launches_space": {k: paths[k]["gn_silu_sums"] for k in report["space"]["launches"]},
+        "max_abs_err": gn_space["sums_max_rel_err"], "max_err_is": "relative, of each sum",
+        "ms": gn_space["sums_ms"], "plain_ms": gn_space["sums_plain_ms"],
+        "bound_ms": gn_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "at": f"{gn_space['shape']} {gn_space['dims']} bf16, one rank's rows at S = 2",
+    }, {
+        "name": "gn_silu_apply", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
+        "replaces": "toycrystals_tpu/ops/groupnorm.py:53 (normalise, SiLU and halo, under a "
+                    "space axis)",
+        "launches": sum(path.get("gn_silu_apply", 0) for path in paths.values()),
+        "launches_space": {k: paths[k]["gn_silu_apply"] for k in report["space"]["launches"]},
+        "max_abs_err": gn_space["max_abs_err"], "ms": gn_space["apply_ms"],
+        "plain_ms": gn_space["apply_plain_ms"], "bound_ms": gn_space["apply_bound_ms"],
+        "bound_by": gn_space["apply_bound_by"], "library_ms": None,
+        "at": f"{gn_space['shape']} {gn_space['dims']} bf16 pad=True, one rank's rows at S = 2",
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

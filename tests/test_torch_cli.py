@@ -308,21 +308,22 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    # the data axis runs; its refusals are JAX's
+    # the data axis, and the space axis of sampling and serving, run; their
+    # refusals are JAX's
     ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
     ("train", ["--shard-space", "2"], MODULE_5),
-    ("train", ["--shard-model", "2"], MODULE_5), ("serve", ["--shard", "2"], MODULE_5),
+    ("train", ["--shard-model", "2"], MODULE_5), ("serve", ["--shard-model", "2"], MODULE_5),
     ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
-    ("serve", ["--coordinator", "localhost:1"], MODULE_5),
+    ("serve", ["--coordinator", "localhost:1"], "--coordinator host:port, --num-processes"),
     ("prior", ["--shard-model", "2"], MODULE_5),
     ("prior", ["--pipe-micro", "2"], MODULE_5), ("prior", ["--shard-pipe", "2"], MODULE_5),
     ("prior", ["--shard-expert", "2"], MODULE_5),
-    ("sample", ["--shard-space", "2"], MODULE_5),
+    ("sample", ["--shard-space", "2"], "--shard 0 x --shard-space 2 needs 2 devices, have 1"),
     ("sample", ["--shard-model", "2"], MODULE_5),
 ])
 def test_deferred_flags_exit_naming_their_roadmap_item(tmp_path, cli, flags, item):
-    """The model axes and serving on a mesh refuse, naming their ROADMAP item;
-    the data axis's flags refuse as JAX's CLIs do."""
+    """The model axes still to port refuse, naming their ROADMAP item; the
+    data and space axes' flags refuse as JAX's CLIs do."""
     from toycrystals_torch.scripts import serve_sde_score_model as serve_cli
 
     with pytest.raises(SystemExit, match=item):

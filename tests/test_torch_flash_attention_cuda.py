@@ -166,8 +166,8 @@ def test_c_entry_refuses_rows_off_16_bytes(cuda):
 
     def call(q_row_stride):
         return lib.flash_attn_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, h,
-            n * h * d, q_row_stride, d, *at._strides(k), *at._strides(v), 0.25, 0, stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, n,
+            h, n * h * d, q_row_stride, d, *at._strides(k), *at._strides(v), 0.25, 0, stream)
 
     assert call(h * d) == 0
     torch.cuda.synchronize()

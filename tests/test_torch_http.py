@@ -12,11 +12,18 @@ tests/test_serving.py.
 - The server answers /healthz, /stats and /sample in every format, 400 on a
   bad body or bad conditions, 404 on an unknown route; a seeded request is
   the service's own dispatch; SIGTERM finishes the request in flight.
+- The server on a mesh (--shard 2 on the CPU, two gloo ranks: rank 0 serves,
+  rank 1 follows): 8 concurrent seeded requests answer the one-process
+  service's dispatch of the same rows; it outlives an idle gap longer than
+  its collective timeout (shortened for the test by a launcher script); a
+  SIGTERM drains it with every rank at exit 0; a killed follower ends it with
+  a non-zero exit, and no rank hangs.
 """
 
 import io
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -313,7 +320,7 @@ def test_http_errors(server, case, code):
 
 def test_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="module 5"):
-        ssm.main(["x.msgpack", "--device", "cpu", "--shard", "2"])
+        ssm.main(["x.msgpack", "--device", "cpu", "--shard-model", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ssm.main([str(tmp_path / "x.msgpack")])
@@ -362,3 +369,166 @@ def test_sigterm_drains_the_request_in_flight(params, tmp_path):
     assert "draining" in out and "serving stopped" in out, out
     code, _, body = got["resp"]
     assert code == 200 and np.load(io.BytesIO(body)).shape == (2, 16, 16, 1)
+
+
+# ---------------------------------------------------------------------------
+# The server on a 2-rank mesh
+# ---------------------------------------------------------------------------
+
+COLLECTIVE_S = 3  # the ranks' collective timeout in these tests
+
+
+def _launcher(tmp_path):
+    """A script that runs the serve CLI with every rank's collective timeout
+    at COLLECTIVE_S seconds: spawned ranks import the main module, so its
+    top level runs in each of them before the rank joins its group."""
+    script = tmp_path / "serve_short_timeout.py"
+    script.write_text(
+        "from datetime import timedelta\n"
+        "from toycrystals_torch.parallel import multihost\n"
+        f"multihost.COLLECTIVE_TIMEOUT = timedelta(seconds={COLLECTIVE_S})\n"
+        "if __name__ == '__main__':\n"
+        "    import sys\n"
+        "    from toycrystals_torch.scripts import serve_sde_score_model as cli\n"
+        "    sys.exit(cli.main())\n")
+    return script
+
+
+def _start_sharded(params, tmp_path):
+    ckpt = tmp_path / "tiny.msgpack"
+    save_checkpoint(ckpt, {"epoch_next": 1, "config": CFG,
+                           "state": {"params": params, "ema_params": params}})
+    proc = subprocess.Popen(
+        [sys.executable, "-u", str(_launcher(tmp_path)), str(ckpt), "--device", "cpu",
+         "--port", "0", "--steps", "3", "--buckets", "1,4", "--shard", "2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(ROOT)))
+    # the ranks share the pipe, unbuffered: a line of one may hold another's text
+    url, follower, text, deadline = None, None, "", time.time() + 300
+    try:
+        while time.time() < deadline and (url is None or follower is None):
+            text += proc.stdout.readline()
+            found = re.search(r"listening on (http://[0-9.]+:[0-9]+)", text)
+            url = found and found.group(1)
+            found = re.search(r"following rank 0's dispatches \(pid ([0-9]+)\)", text)
+            follower = found and int(found.group(1))
+            if proc.poll() is not None:
+                pytest.fail("server died early:\n" + text + proc.stdout.read())
+        assert url and follower, text
+    except BaseException:
+        _stop(proc)
+        raise
+    return proc, url, follower
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def sharded(params, tmp_path_factory):
+    proc, url, follower = _start_sharded(params, tmp_path_factory.mktemp("sharded"))
+    yield proc, url
+    _stop(proc)
+
+
+def _one_process(params, types, thetas, seed, rows):
+    """The one-process service's dispatch of a request padded to `rows` (the
+    mesh's layout: the bucket, rounded to the data axis)."""
+    svc = serve.ScoreModelService(CFG, params, device="cpu", steps=3, buckets=(rows,))
+    yc, yv = svc.conditions(types, thetas)
+    n = yc.shape[0]
+    yc, yv = (np.concatenate([a, np.repeat(a[-1:], rows - n, axis=0)]) for a in (yc, yv))
+    with torch.inference_mode():
+        x = tm.sample_chunked(svc._dispatch, svc._apply_fn, svc.sde, torch.from_numpy(yc),
+                              torch.from_numpy(yv), (rows, 16, 16, 1), seed, chunk=rows)
+    return x[:n]
+
+
+def test_sharded_server_answers_concurrent_requests_as_one_process(params, sharded):
+    proc, url = sharded
+    stats = json.loads(_get(url + "/stats")[2])["service"]
+    assert stats["mesh"] == [2, 1] and stats["buckets"] == [2, 4]
+    reqs = [([i % 4], [0.1 * i], 100 + i) if i % 2 else ([i % 4, 3 - i % 4], [0.2, 0.4], 100 + i)
+            for i in range(8)]
+    got = {}
+
+    def go(i):
+        types, thetas, seed = reqs[i]
+        got[i] = _post(url + "/sample", {"types": types, "thetas": thetas, "seed": seed,
+                                         "format": "npy"})
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for i, (types, thetas, seed) in enumerate(reqs):
+        code, _, body = got[i]
+        assert code == 200
+        np.testing.assert_array_equal(np.load(io.BytesIO(body)),
+                                      _one_process(params, types, thetas, seed, 2))
+    assert proc.poll() is None
+
+
+def test_sharded_server_outlives_an_idle_gap_beyond_the_collective_timeout(params, sharded):
+    proc, url = sharded
+    _post(url + "/sample", {"types": [1], "seed": 5, "format": "npy"})
+    time.sleep(2 * COLLECTIVE_S)  # the follower waits outside any collective
+    code, _, body = _post(url + "/sample", {"types": [2, 0, 1], "seed": 6, "format": "npy"})
+    assert code == 200 and proc.poll() is None
+    np.testing.assert_array_equal(np.load(io.BytesIO(body)),
+                                  _one_process(params, [2, 0, 1], None, 6, 4))
+
+
+def test_sharded_server_drains_on_sigterm_with_every_rank_at_exit_0(sharded):
+    proc, url = sharded
+    got = {}
+    t = threading.Thread(target=lambda: got.update(r=_post(url + "/sample",
+                                                          {"types": [0, 1], "format": "npy"})))
+    t.start()
+    while json.loads(_get(url + "/stats")[2])["batcher"]["coalesced_requests"] == 0:
+        time.sleep(0.01)
+    start = time.time()
+    proc.send_signal(signal.SIGTERM)
+    t.join(timeout=120)
+    out, _ = proc.communicate(timeout=120)
+    assert proc.returncode == 0, out  # the launcher exits 0 only when every rank did
+    assert time.time() - start < 60
+    assert "draining" in out and "serving stopped" in out, out
+    code, _, body = got["r"]
+    assert code == 200 and np.load(io.BytesIO(body)).shape == (2, 16, 16, 1)
+
+
+def test_sharded_server_exits_nonzero_when_a_follower_dies(params, tmp_path):
+    proc, url, follower = _start_sharded(params, tmp_path)
+    try:
+        assert _post(url + "/sample", {"types": [3], "seed": 1, "format": "npy"})[0] == 200
+        os.kill(follower, signal.SIGKILL)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        _stop(proc)
+    assert proc.returncode not in (0, None), out
+    assert "rank 1 died" in out, out
+
+
+def test_sharded_server_ranks_exit_when_the_launcher_is_killed(params, tmp_path):
+    """A follower waits for work with no deadline: when its launcher is killed
+    outright (no SIGTERM to pass on), the ranks end themselves."""
+    proc, url, follower = _start_sharded(params, tmp_path)
+    proc.kill()
+    proc.wait()
+    deadline = time.time() + 30
+    while time.time() < deadline and Path(f"/proc/{follower}").exists() \
+            and "zombie" not in _proc_state(follower):
+        time.sleep(0.2)
+    assert not Path(f"/proc/{follower}").exists() or "zombie" in _proc_state(follower)
+
+
+def _proc_state(pid):
+    try:
+        return Path(f"/proc/{pid}/status").read_text().split("State:")[1].split("\n")[0]
+    except (OSError, IndexError):
+        return "zombie"

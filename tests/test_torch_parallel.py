@@ -9,9 +9,10 @@ runs, on the CPU.
 - (c) One 2-rank gloo job (`parallel.multihost.launch` of
   `parallel.parity.run_cases`, every collective with a timeout) runs 3 SDE
   steps under DDP and under FSDP2, a VAE step, a dense and a MoE-4 prior
-  step, a distillation step and `sample_chunked` of 7 images at chunk 3,
-  each fed the draws that the JAX package's step or sampler makes on a
-  2-device mesh of the 8-virtual-device CPU (tests/conftest.py). Against
+  step, a distillation step and `sample_chunked` of 7 images at chunk 3
+  (also with the int8 convs), each fed the draws that the JAX package's step
+  or sampler makes on a 2-device mesh of the 8-virtual-device CPU
+  (tests/conftest.py). Against
   JAX: the tolerances of the single-device tests of each step
   (tests/test_torch_train_step.py, test_torch_vae_train.py,
   test_torch_prior.py, test_torch_distill.py, test_torch_sampler.py).
@@ -19,7 +20,9 @@ runs, on the CPU.
   relative; gradients within 1e-5 of each leaf's largest entry, plus 1e-6 of
   the step's largest gradient for leaves at rounding-noise level (the
   embeddings and conv biases ahead of a GroupNorm, ~1e-8 here); images
-  within 1e-6.
+  within 1e-6; the int8 ones (at the mesh's chunk) bit for bit: the
+  activation scale is the max over both ranks' rows, as over the one
+  process's batch.
 - (d) torch.distributed.checkpoint: a 2-rank FSDP2 save restores bit for
   bit in one process and a one-process save in 2 FSDP2 ranks (same job);
   step retention as tests/test_orbax_io.py; a JAX-written orbax directory
@@ -407,9 +410,11 @@ def jax_suite(tmp_path_factory):
                fsdp=True, seed=8, path=str(d / "two"))
     load = dict(kind="dcp_load", model=KW, state_dict=torch_state_dict_from_flax(unet),
                 fsdp=True, path=str(d / "one"))
+    # at the mesh's chunk of 4: an int8 scale spans the chunk's rows
+    sample_int8 = dict(sample, model=dict(KW, conv_impl="int8"), chunk=4)
     cases = {"sde": sde, "sde_fsdp": dict(sde, fsdp=True), "vae": vae, "dense": dense,
-             "moe": moe, "distill": distill, "sample": sample, "dcp_save": dcp,
-             "dcp_load": load}
+             "moe": moe, "distill": distill, "sample": sample, "sample_int8": sample_int8,
+             "dcp_save": dcp, "dcp_load": load}
     return {"cases": cases, "one_saved": one_saved,
             "jax": {"sde": jax_sde, "sde_fsdp": jax_sde, "vae": jax_vae,
                     "dense": jax_dense, "moe": jax_moe, "distill": jax_distill,
@@ -560,6 +565,17 @@ def test_sample_chunked_matches_jax_and_one_process(jax_suite, two_ranks, one_pr
     case = dict(jax_suite["cases"]["sample"], chunk=4)
     ref = run_cases({"device": "cpu", "cases": [case]})[0]["drawn"]
     np.testing.assert_allclose(got["drawn"], ref, atol=1e-6, rtol=0)
+
+
+def test_int8_sample_chunked_matches_one_process(two_ranks, one_process):
+    """The int8 convs on 2 ranks: each conv's activation scale is the max over
+    the whole batch, both ranks' rows, so the grid is the one-process grid bit
+    for bit on the CPU (a scale from each rank's own rows gave other images:
+    5% of the pixels, by up to 1.0)."""
+    for kind in ("injected", "drawn"):
+        got, want = two_ranks[0]["sample_int8"][kind], one_process["sample_int8"][kind]
+        assert got.shape == (7, SIZE, SIZE, 1)
+        np.testing.assert_array_equal(got, want, err_msg=kind)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,8 @@ the JAX package.
 
 Three 2-rank runs in all (module fixtures): train_sde_score_model --shard 2
 (DDP), --shard 2 --fsdp --ckpt-format orbax, and sample_sde_score_model
---shard 2 on the first run's checkpoint. The tolerances: a 2-rank epoch's
+--shard 2 on the first run's checkpoint; then the sample and inpaint CLIs
+with --shard-space 2 (and sample on a 2 x 2 mesh) on that checkpoint. The tolerances: a 2-rank epoch's
 loss within 1e-6 relative of the one-process epoch's (the same global
 batches and draws, other reduction order); Adam's moments in the saved
 state, leaf by leaf, within 1e-5 of the leaf's largest entry plus 1e-6 of
@@ -155,6 +156,32 @@ def test_sample_on_two_ranks_is_the_one_process_grid(runs):
     assert ref.x.shape == (7, 16, 16, 1)
     got = np.asarray(Image.open(base / "two.png"), np.int16)
     want = np.asarray(Image.open(base / "ref.png"), np.int16)
+    assert got.shape == want.shape and np.abs(got - want).max() <= 1
+
+
+@pytest.mark.parametrize("cli, mesh", [("sample", ["--shard-space", "2"]),
+                                       ("sample", ["--shard", "2", "--shard-space", "2"]),
+                                       ("inpaint", ["--shard-space", "2"])])
+def test_shard_space_gives_the_one_process_grid(runs, cli, mesh):
+    """--shard-space 2 (and a 2 x 2 mesh) splits every image's rows over the
+    ranks: the grid is the one-process grid at the mesh's chunk, within one
+    8-bit level."""
+    from toycrystals_torch.scripts import inpaint_sde_score_model as inpaint_cli
+
+    base, _ = runs
+    ckpt = str(base / "one" / "checkpoints" / "sde_score_model_last.msgpack")
+    name = "_".join([cli, *mesh[::2]]).replace("-", "")
+    if cli == "sample":
+        module, common = sample_cli, SAMPLE + ["--ckpt", ckpt, "--out-dir", str(base)]
+    else:
+        module = inpaint_cli
+        common = ["--device", "cpu", "--ckpt", ckpt, "--out-dir", str(base), "--n", "3",
+                  "--steps", "2", "--resample", "2", "--cfg", "1.5"]
+    assert module.main(common + mesh + ["--out-path", str(base / f"{name}.png")]) == 0
+    chunk = ["--chunk", "4"] if "--shard" in mesh else []
+    module.main(common + chunk + ["--out-path", str(base / f"{name}_ref.png")])
+    got = np.asarray(Image.open(base / f"{name}.png"), np.int16)
+    want = np.asarray(Image.open(base / f"{name}_ref.png"), np.int16)
     assert got.shape == want.shape and np.abs(got - want).max() <= 1
 
 

@@ -50,7 +50,10 @@
 //
 // One head dim per build: compile with -DFLASH_HEAD_DIM=<multiple of 16, at
 // most 128>. q, k, v arrive as [B, N, H, d] views given by element strides (d
-// contiguous, rows 16-byte aligned); N must be a multiple of 128. The bf16
+// contiguous, rows 16-byte aligned); N must be a multiple of 128. The forward
+// also takes K and V of Nk rows against Q of N (sequence-parallel attention:
+// a rank's queries against the keys gathered from every rank), Nk a multiple
+// of 128 too; the backward takes Nk = N. The bf16
 // kernels read q, k, v and dO through TMA tensor maps encoded per call.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
@@ -94,6 +97,7 @@ struct Params {
   void* dv;
   long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh;
   int B, N, H;
+  int Nk;  // rows of K and V (the forward's key loop); N in the backward
   float scale;
 };
 
@@ -533,7 +537,7 @@ __device__ void fwd_wgmma(const Params& p, const CUtensorMap* qmap, const CUtens
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = p.N / kRows;
+  const int tiles = p.Nk / kRows;
   const int wg = threadIdx.x / 128;
 
   init_ring(full, empty, qbar, kStages);
@@ -1000,7 +1004,7 @@ __device__ void fwd_fma(const Params& p) {
   for (int d = 0; d < D; ++d) acc[d] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  for (int k0 = 0; k0 < p.N; k0 += kTileF) {
+  for (int k0 = 0; k0 < p.Nk; k0 += kTileF) {
     __syncthreads();
     load_rows_f32(ks, k + k0 * p.ksn, p.ksn, kTileF);
     load_rows_f32(vs, v + k0 * p.vsn, p.vsn, kTileF);
@@ -1202,8 +1206,8 @@ constexpr int dq_smem() {
 }
 
 bool bad_shape(const Params& p) {
-  return p.B <= 0 || p.N <= 0 || p.H <= 0 || p.N % 128 != 0 || p.B > 65535 || p.H > 65535 ||
-         !(p.scale > 0.f);
+  return p.B <= 0 || p.N <= 0 || p.H <= 0 || p.N % 128 != 0 || p.Nk <= 0 ||
+         p.Nk % 128 != 0 || p.B > 65535 || p.H > 65535 || !(p.scale > 0.f);
 }
 
 // The kernels load and store rows 16 bytes at a time (TMA and bulk copies
@@ -1251,16 +1255,16 @@ cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// The tensor map of a bf16 [B, N, H, D] view with element strides (sb, sn, sh)
+// The tensor map of a bf16 [B, n, H, D] view with element strides (sb, sn, sh)
 // whose [rows, D] boxes land in the slab layout of fwd_wgmma: dims (16
-// elements, N rows, D / 16 slabs of 32 bytes, H, B), box (16, rows, D / 16, 1,
+// elements, n rows, D / 16 slabs of 32 bytes, H, B), box (16, rows, D / 16, 1,
 // 1), 32-byte swizzle. Encoded per call, since the map holds the base pointer.
-cudaError_t tile_map(CUtensorMap* map, const void* base, const Params& p, long long sb,
-                     long long sn, long long sh, int rows = kRows) {
+cudaError_t tile_map(CUtensorMap* map, const void* base, const Params& p, long long n,
+                     long long sb, long long sn, long long sh, int rows = kRows) {
   EncodeTiled encode;
   cudaError_t err = encode_tiled(&encode);
   if (err != cudaSuccess) return err;
-  const cuuint64_t dims[5] = {16, static_cast<cuuint64_t>(p.N), D / 16,
+  const cuuint64_t dims[5] = {16, static_cast<cuuint64_t>(n), D / 16,
                               static_cast<cuuint64_t>(p.H), static_cast<cuuint64_t>(p.B)};
   const cuuint64_t strides[4] = {static_cast<cuuint64_t>(sn) * 2, 32,  // bytes, dims 1..4
                                  static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sb) * 2};
@@ -1311,9 +1315,9 @@ cudaError_t forward(const Params& p, cudaStream_t s) {
                   static_cast<unsigned>(p.B));
   if constexpr (sizeof(T) == 2) {
     CUtensorMap qmap, kmap, vmap;
-    err = tile_map(&qmap, p.q, p, p.qsb, p.qsn, p.qsh);
-    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.ksb, p.ksn, p.ksh);
-    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.vsb, p.vsn, p.vsh);
+    err = tile_map(&qmap, p.q, p, p.N, p.qsb, p.qsn, p.qsh);
+    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.Nk, p.ksb, p.ksn, p.ksh);
+    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.Nk, p.vsb, p.vsn, p.vsh);
     if (err != cudaSuccess) return err;
     flash_fwd_wgmma_kernel<<<grid, kFwdThreads, fwd_smem<T>(), s>>>(p, qmap, kmap, vmap);
   } else {
@@ -1338,12 +1342,12 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
     // dO is contiguous [B, N, H, D]; dK/dV reads Q and dO in tiles of kQRows rows
     const long long on = static_cast<long long>(p.H) * D, ob = p.N * on;
     CUtensorMap qmap, kmap, vmap, omap, qrows, orows;
-    err = tile_map(&qmap, p.q, p, p.qsb, p.qsn, p.qsh);
-    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.ksb, p.ksn, p.ksh);
-    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.vsb, p.vsn, p.vsh);
-    if (err == cudaSuccess) err = tile_map(&omap, p.dout, p, ob, on, D);
-    if (err == cudaSuccess) err = tile_map(&qrows, p.q, p, p.qsb, p.qsn, p.qsh, kQRows);
-    if (err == cudaSuccess) err = tile_map(&orows, p.dout, p, ob, on, D, kQRows);
+    err = tile_map(&qmap, p.q, p, p.N, p.qsb, p.qsn, p.qsh);
+    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.N, p.ksb, p.ksn, p.ksh);
+    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.N, p.vsb, p.vsn, p.vsh);
+    if (err == cudaSuccess) err = tile_map(&omap, p.dout, p, p.N, ob, on, D);
+    if (err == cudaSuccess) err = tile_map(&qrows, p.q, p, p.N, p.qsb, p.qsn, p.qsh, kQRows);
+    if (err == cudaSuccess) err = tile_map(&orows, p.dout, p, p.N, ob, on, D, kQRows);
     if (err != cudaSuccess) return err;
     flash_dkv_wgmma_kernel<<<grid, kFwdThreads, dkv_smem<T>(), s>>>(p, kmap, vmap, qrows, orows);
     err = cudaGetLastError();
@@ -1362,20 +1366,20 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
 
 extern "C" int flash_attn_head_dim() { return D; }
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v: [B, N, H, D] views with element
-// strides (batch, row, head), D contiguous. out: contiguous [B, N, H, D];
-// lse: f32 [B, H, N]. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16. q: [B, N, H, D], k, v: [B, Nk, H, D] views
+// with element strides (batch, row, head), D contiguous. out: contiguous [B, N,
+// H, D]; lse: f32 [B, H, N]. Returns a cudaError_t.
 extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, void* out,
-                                  float* lse, int B, int N, int H, long long qsb, long long qsn,
-                                  long long qsh, long long ksb, long long ksn, long long ksh,
-                                  long long vsb, long long vsn, long long vsh, float scale,
-                                  int dtype, void* stream) {
+                                  float* lse, int B, int N, int Nk, int H, long long qsb,
+                                  long long qsn, long long qsh, long long ksb, long long ksn,
+                                  long long ksh, long long vsb, long long vsn, long long vsh,
+                                  float scale, int dtype, void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
   p.qsb = qsb; p.qsn = qsn; p.qsh = qsh;
   p.ksb = ksb; p.ksn = ksn; p.ksh = ksh;
   p.vsb = vsb; p.vsn = vsn; p.vsh = vsh;
-  p.B = B; p.N = N; p.H = H; p.scale = scale;
+  p.B = B; p.N = N; p.Nk = Nk; p.H = H; p.scale = scale;
   if (bad_shape(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(forward<float>(p, s));
@@ -1400,7 +1404,7 @@ extern "C" int flash_attn_backward(const void* q, const void* k, const void* v, 
   p.ksb = ksb; p.ksn = ksn; p.ksh = ksh;
   p.vsb = vsb; p.vsn = vsn; p.vsh = vsh;
   p.gsb = gsb; p.gsn = gsn; p.gsh = gsh;
-  p.B = B; p.N = N; p.H = H; p.scale = scale;
+  p.B = B; p.N = N; p.Nk = N; p.H = H; p.scale = scale;
   if (bad_shape(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(backward<float>(p, s));

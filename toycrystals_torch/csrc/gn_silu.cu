@@ -46,6 +46,22 @@
 // again. clipped = 1 where E[x^2] - E[x]^2 < 0, and then the variance path
 // carries no gradient (as torch's clamp does; at exactly 0 it passes).
 //
+// Under a space axis (an image split by rows over several ranks) a group's
+// statistics span the ranks, so the op runs as two kernels with an all-reduce
+// between them, both plain one-pass grids with no clusters:
+//
+// - gn_silu_sums_kernel: k blocks per (item, group) each sum a contiguous
+//   share of the group's elements (x and x^2, f32) and write their partials;
+//   the caller adds the k partials in block order and the ranks' sums.
+// - gn_silu_apply_kernel: normalises with the given sums exactly as the
+//   forward forms its statistics (mean = S1 / n, var = S2 / n - mean^2
+//   clipped at 0, a_c = inv * scale_c, b_c = bias_c - mean * a_c), applies
+//   SiLU, and with pad = 1 writes the [H+2, W+2] plane wrapped over the rank's
+//   own rows; the caller replaces the two H halo rows by its neighbours'.
+//
+// Both are bound by bytes: the sums kernel reads x once, the apply kernel
+// reads x once and writes the output once.
+//
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/groupnorm.py). Launches go on the caller's stream;
 // each entry returns cudaGetLastError() of its launch.
@@ -834,7 +850,92 @@ int backward(const void* x, const void* g, const void* scale, const void* bias,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The space axis: partial sums, and the apply pass with given statistics
+// ---------------------------------------------------------------------------
+
+constexpr int kSumThreads = 512;
+constexpr int kApplyThreads = 256;
+
+// Block j of the k blocks of (item, group) `grp` sums elements [lo, hi) of the
+// group's `per_group` contiguous elements; part[grp * k + j] = (S1, S2).
+template <typename T>
+__global__ void __launch_bounds__(kSumThreads)
+gn_silu_sums_kernel(const T* __restrict__ x, float* __restrict__ part, int per_group, int k) {
+  __shared__ float red[64];
+  const int grp = blockIdx.x / k, j = blockIdx.x - grp * k;
+  // shares are whole 16-byte vectors where the group starts on one
+  const int vec = 16 / static_cast<int>(sizeof(T));
+  const int share = ((per_group + k - 1) / k + vec - 1) / vec * vec;
+  const int lo = min(j * share, per_group), hi = min(lo + share, per_group);
+  float s1 = 0.f, s2 = 0.f;
+  sum_sq(x + static_cast<long long>(grp) * per_group + lo, hi - lo, s1, s2);
+  block_sum2(s1, s2, red);
+  if (threadIdx.x == 0) {
+    part[2 * (static_cast<long long>(grp) * k + j)] = s1;
+    part[2 * (static_cast<long long>(grp) * k + j) + 1] = s2;
+  }
+}
+
+// Block j of the k blocks of (item, group) `grp` writes every k-th run of
+// output rows of the group's [cg, ho, wo] plane, a warp per row: the row's
+// channel, source row and coefficients once, then the lanes along its columns
+// (coalesced loads and stores, no division per element).
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                     const float* __restrict__ bias, const float* __restrict__ sums,
+                     T* __restrict__ out, Dims d, float count, int k) {
+  const int grp = blockIdx.x / k, j = blockIdx.x - grp * k;
+  const int g = grp % d.groups;
+  const float mean = sums[2 * grp] / count;
+  const float var = sums[2 * grp + 1] / count - mean * mean;
+  const float inv = rsqrtf(fmaxf(var, 0.f) + d.eps);
+  // an item's groups are consecutive: group grp starts at channel grp * cg
+  const T* xg = x + static_cast<long long>(grp) * d.cg * d.H * d.W;
+  T* og = out + static_cast<long long>(grp) * d.cg * d.ho * d.wo;
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  const int rows = d.cg * d.ho;
+  for (int r = j * warps + (threadIdx.x >> 5); r < rows; r += k * warps) {
+    const int c = fdiv(r, d.dho);
+    const float a = inv * scale[g * d.cg + c];
+    const float b = bias[g * d.cg + c] - mean * a;
+    const T* src = xg + static_cast<long long>(c * d.H + wrap(r - c * d.ho, d.pad, d.H)) * d.W;
+    T* dst = og + static_cast<long long>(r) * d.wo;
+    for (int col = lane; col < d.wo; col += 32) {
+      const float y = to_f32(src[wrap(col, d.pad, d.W)]) * a + b;
+      dst[col] = from_f32<T>(y * sigmoid(y));
+    }
+  }
+}
+
+template <typename T>
+int space_sums(const void* x, void* part, int B, const Dims& d, int k, cudaStream_t s) {
+  gn_silu_sums_kernel<T><<<static_cast<unsigned>(B) * d.groups * k, kSumThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<float*>(part), d.rows * d.W, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int space_apply(const void* x, const void* scale, const void* bias, const void* sums, void* out,
+                int B, const Dims& d, float count, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // enough blocks for four per SM, no more than the plane has rows for their warps
+  const int bg = B * d.groups;
+  const int runs = (d.cg * d.ho + kApplyThreads / 32 - 1) / (kApplyThreads / 32);
+  const int k = max(1, min(runs, (4 * sms + bg - 1) / bg));
+  gn_silu_apply_kernel<T><<<static_cast<unsigned>(bg) * k, kApplyThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<const float*>(sums), static_cast<T*>(out), d,
+      count, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
 
 // dtype: 0 = float32, 1 = bfloat16. pad: 0 or 1. stats: null, or [B * groups * 3]
 // f32 that receives (mean, inv, clipped) per (item, group). Returns a cudaError_t.
@@ -881,6 +982,35 @@ extern "C" int gn_silu_plan(int B, int C, int H, int W, int groups, int pad, int
   out[2] = p.in_smem;
   out[3] = static_cast<int>(p.smem);
   return static_cast<int>(err);
+}
+
+// The space axis's sums kernel: part [B * groups * k * 2] f32 receives (S1,
+// S2) of each of the k shares of every (item, group). Returns a cudaError_t.
+extern "C" int gn_silu_sums_launch(const void* x, void* part, int B, int C, int H, int W,
+                                   int groups, int k, int dtype, void* stream) {
+  Dims d;
+  if (!make_dims(B, C, H, W, groups, 1e-6f, 0, &d) || k < 1 || k > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return space_sums<float>(x, part, B, d, k, s);
+  if (dtype == 1) return space_sums<__nv_bfloat16>(x, part, B, d, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The space axis's apply kernel: sums [B * groups * 2] f32 (S1, S2) over
+// `count` elements per (item, group); out as gn_silu_launch's. Returns a
+// cudaError_t.
+extern "C" int gn_silu_apply_launch(const void* x, const void* scale, const void* bias,
+                                    const void* sums, void* out, int B, int C, int H, int W,
+                                    int groups, float count, float eps, int pad, int dtype,
+                                    void* stream) {
+  Dims d;
+  if (!make_dims(B, C, H, W, groups, eps, pad, &d) || !(count > 0.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return space_apply<float>(x, scale, bias, sums, out, B, d, count, s);
+  if (dtype == 1) return space_apply<__nv_bfloat16>(x, scale, bias, sums, out, B, d, count, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* gn_silu_error_string(int code) {

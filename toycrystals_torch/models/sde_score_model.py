@@ -19,7 +19,10 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
   sampler draws its noise from the `torch.Generator` it is given, or takes it
   from `noise=`.
 - `auto_chunk` and `sample_chunked`: one big sampling batch as fixed-size
-  calls of a sampler, pulled to the host as they finish.
+  calls of a sampler, pulled to the host as they finish; on a ("data",) or
+  ("data", "space") mesh each rank samples its rows of the batch and of the
+  image height (parallel/spatial.py), and the ops of `CondUNetTiny` exchange
+  what crosses the ranks.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from torch import nn
 from toycrystals_torch.ops.attention import SelfAttention2d, gn_groups, linear
 from toycrystals_torch.ops.conv import CircularConv, Conv2d
 from toycrystals_torch.ops.groupnorm import GroupNormSiLU
-from toycrystals_torch.parallel.mesh import allgather_rows, check_data_mesh
+from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel.mesh import AXIS, SPACE, axis_rank, axis_size, check_data_mesh
 from toycrystals_torch.utils.rng import RowGenerator, rand, randn
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -124,8 +128,16 @@ def _depth_to_space2(x: torch.Tensor) -> torch.Tensor:
 
 def _bilinear_up2(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample with half-pixel centres (jax.image.resize). Not
-    circular, unlike every conv."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    circular, unlike every conv: edge-clamped. Under a space axis the rank's
+    rows get one exchanged row on each side (the image's edge row repeated
+    at its top and bottom), and the interior of the upsampled rows is kept."""
+    space = spatial.current_space()
+    if space is None:
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    h = x.shape[2]
+    y = F.interpolate(spatial.pad_rows(x, space, circular=False), scale_factor=2,
+                      mode="bilinear", align_corners=False)
+    return y[:, :, 2:2 * h + 2]
 
 
 class CondUNetTiny(nn.Module):
@@ -169,8 +181,13 @@ class CondUNetTiny(nn.Module):
 
     def forward(self, x_t: torch.Tensor, t: torch.Tensor, y_cat: torch.Tensor,
                 y_cont: torch.Tensor) -> torch.Tensor:
+        """Under a space axis x_t holds this rank's rows of the image height
+        and so does the output."""
         b, h, w, _ = x_t.shape
         dt = self.dtype
+        space = spatial.current_space()
+        if space is not None:
+            spatial.check_stem_divisibility(h * space.space, space.space, self.stem)
         t_emb = timestep_embedding_continuous(t, self.emb_dim).to(dt)
         t_emb = linear(t_emb, self.Dense_0, dt)
         t_emb = linear(F.silu(t_emb), self.Dense_1, dt)
@@ -425,7 +442,7 @@ def draw_sampler_noise(img_shape, n_z: int, generator: torch.Generator | None, d
     the reverse SDE and 0 for the samplers that draw x_init alone. `lazy`
     returns z as `StepDraws`, drawn when the sampler reads each step's."""
     shape = _shape(img_shape)
-    x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    x = randn(shape, generator, device)
     if lazy:
         return x, StepDraws(n_z, shape, generator, device)
     z = torch.empty((int(n_z), *shape), device=device, dtype=torch.float32)
@@ -744,19 +761,26 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     batch_kw: extra per-item tensors (leading dim == n) passed to sampler_fn
     by keyword, sliced and padded per chunk like the condition rows.
 
-    On a data `mesh` (parallel/) the chunk is first rounded up to a multiple
-    of the mesh's ranks; every rank draws each chunk's noise for the whole
-    chunk, samples its own rows of it (`RowGenerator`), and the rows are
-    gathered back to every rank, so each rank returns the whole, unsharded
-    result. `apply_fn` is each rank's whole model."""
+    On a `mesh` (parallel/) the chunk is first rounded up to a multiple of
+    the data axis (the space axis splits the height, not the batch, as in
+    JAX); every rank draws each chunk's noise for the whole chunk and keeps
+    its rows of the batch and, on a ("data", "space") mesh, of the image
+    height (`RowGenerator`), as do the images of `batch_kw` (tensors whose
+    shape ends in (H, W, C): x_known and mask, or injected draws). The
+    sampler runs in the mesh's dispatch scope (parallel/spatial.py), and the
+    parts are gathered back to every rank, so each rank returns the whole,
+    unsharded result. `apply_fn` is each rank's whole model."""
     n, h, w, c = _shape(img_shape)
     chunk = max(1, min(int(chunk), n))
+    rows, hs = slice(0, h), None
     if mesh is not None:
-        check_data_mesh(mesh)
-        m = mesh.size()
+        check_data_mesh(mesh, space=True)
+        m = axis_size(mesh, AXIS)
         chunk = -(-chunk // m) * m
-        lo = mesh.get_local_rank() * (chunk // m)
+        lo = axis_rank(mesh, AXIS) * (chunk // m)
         mine = slice(lo, lo + chunk // m)
+        if axis_size(mesh, SPACE) > 1:
+            rows = hs = spatial.space_rows(mesh, h)
     else:
         mine = slice(0, chunk)
     dev = y_cat.device
@@ -764,17 +788,26 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     def pad(a, k):
         return a if k == 0 else torch.cat([a, a[-1:].repeat_interleave(k, dim=0)], dim=0)
 
+    def local(a):  # this rank's rows; and of H, for images [.., H, W, C]
+        a = a[mine]
+        if hs is None or tuple(a.shape[-3:]) != (h, w, c):
+            return a
+        return a[(slice(None),) * (a.dim() - 3) + (rows,)]
+
     outs = []
     for i0 in range(0, n, chunk):
         take = min(chunk, n - i0)
-        bkw = {k: pad(v[i0:i0 + take], chunk - take)[mine] for k, v in (batch_kw or {}).items()}
+        bkw = {k: local(pad(v[i0:i0 + take], chunk - take)) for k, v in (batch_kw or {}).items()}
         gen = torch.Generator(device=dev).manual_seed(chunk_seed(seed, i0))
         if mesh is not None:
-            gen = RowGenerator(gen, mine.start, mine.stop, chunk)
-        x = sampler_fn(apply_fn, sde, pad(y_cat[i0:i0 + take], chunk - take)[mine],
-                       pad(y_cont[i0:i0 + take], chunk - take)[mine],
-                       (mine.stop - mine.start, h, w, c), gen, **kw, **bkw)
-        outs.append(allgather_rows(mesh, x)[:take].cpu().numpy())
+            gen = RowGenerator(gen, mine.start, mine.stop, chunk,
+                               *((hs.start, hs.stop, h) if hs is not None else ()))
+        with spatial.dispatch_scope(mesh):
+            x = sampler_fn(apply_fn, sde, pad(y_cat[i0:i0 + take], chunk - take)[mine],
+                           pad(y_cont[i0:i0 + take], chunk - take)[mine],
+                           (mine.stop - mine.start, rows.stop - rows.start, w, c), gen,
+                           **kw, **bkw)
+        outs.append(spatial.gather_image(mesh, x)[:take].cpu().numpy())
     return np.concatenate(outs, axis=0)
 
 

@@ -20,6 +20,15 @@ Two SDPA backends on [B, N, heads, d] tensors (JAX's layout), picked by
   `torch.ops.toycrystals.flash_sdpa_fwd` (registered at import, built at its
   first CUDA call; CPU kernel: the plain version; a fake function for
   `torch.export`), so an exported graph launches it as eager serving does.
+
+Under a space axis (the dispatch scope of parallel/spatial.py) each rank holds
+rows of the image height, so its tokens are a contiguous share of the
+row-major sequence: Q stays on the rank's Nq tokens and K and V are gathered
+from every rank over the space group (Nk = Nq S), in rank order, which is the
+sequence's order. The GroupNorm adds its sums over the axis, and the backend
+is chosen on the whole image's token count, as an unsharded run chooses it.
+The flash forward takes Nq != Nk; its backward still needs Nq = Nk (training
+under space is queued).
 """
 
 from __future__ import annotations
@@ -32,7 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from toycrystals_torch.ops.groupnorm import group_norm_f32
+from toycrystals_torch.parallel import spatial
 
 _FLASH_TOKENS = 2048        # auto: flash from this many tokens on
 _FLASH_MAX_HEAD_DIM = 128
@@ -111,7 +123,7 @@ def _lib(head_dim: int) -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.flash_attn_head_dim.argtypes = []
     lib.flash_attn_head_dim.restype = i
-    lib.flash_attn_forward.argtypes = [p] * 5 + [i] * 3 + [ll] * 9 + [f, i, p]
+    lib.flash_attn_forward.argtypes = [p] * 5 + [i] * 4 + [ll] * 9 + [f, i, p]
     lib.flash_attn_forward.restype = i
     lib.flash_attn_backward.argtypes = [p] * 10 + [i] * 3 + [ll] * 12 + [f, i, p]
     lib.flash_attn_backward.restype = i
@@ -124,17 +136,21 @@ def _lib(head_dim: int) -> ctypes.CDLL:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"flash_sdpa expects q, k, v of one shape [B, N, heads, d], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    """q [B, Nq, heads, d] against k and v [B, Nk, heads, d]."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or (q.shape[0], q.shape[2], q.shape[3]) != (k.shape[0], k.shape[2], k.shape[3]):
+        raise ValueError(f"flash_sdpa expects k and v of one shape [B, Nk, heads, d] and q "
+                         f"[B, Nq, heads, d], got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_sdpa takes float32 or bfloat16 (one type for q, k, v), got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    n, d = q.shape[1], q.shape[3]
+    n, nk, d = q.shape[1], k.shape[1], q.shape[3]
     if d > _FLASH_MAX_HEAD_DIM:
         raise ValueError(f"flash path supports head_dim <= 128, got {d}; use xla")
-    if n % _FLASH_SEQ_MULTIPLE:
-        raise ValueError(f"flash path needs seq_len % 128 == 0, got {n}; use xla")
+    if n % _FLASH_SEQ_MULTIPLE or nk % _FLASH_SEQ_MULTIPLE:
+        raise ValueError(f"flash path needs seq_len % 128 == 0, got {n} queries and {nk} "
+                         f"keys; use xla")
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
@@ -157,9 +173,9 @@ def _raise_on(err: int, lib: ctypes.CDLL, what: str) -> None:
 
 
 def _flash_forward_cuda(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel. q, k, v: [B, N, heads, d] CUDA tensors with
-    d a multiple of 16. Returns O (contiguous, q.dtype) and the row
-    log-sum-exp L (f32 [B, heads, N])."""
+    """Launch the forward kernel. q: [B, N, heads, d], k, v: [B, Nk, heads,
+    d] CUDA tensors with d a multiple of 16. Returns O (contiguous, q.dtype,
+    q's shape) and the row log-sum-exp L (f32 [B, heads, N])."""
     _check_qkv(q, k, v)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attn kernel needs CUDA tensors on one device, got "
@@ -175,7 +191,8 @@ def _flash_forward_cuda(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tens
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_forward(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     lse.data_ptr(), b, n, h, *_strides(q), *_strides(k),
+                                     lse.data_ptr(), b, n, k.shape[1], h, *_strides(q),
+                                     *_strides(k),
                                      *_strides(v), float(scale), _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, lib, "forward")
     flash_sdpa.launches += 1
@@ -228,6 +245,9 @@ class _FlashKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
+        if q.shape != k.shape:
+            raise NotImplementedError("the flash backward needs as many queries as keys "
+                                      "(training under a space axis is not ported yet)")
         out, lse = _flash_forward_cuda(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -240,10 +260,10 @@ class _FlashKernel(torch.autograd.Function):
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Blockwise (flash) SDPA on [B, N, heads, d] tensors, exact math: the
-    counterpart of JAX's `_flash_sdpa`. CUDA tensors run the kernels
+    """Blockwise (flash) SDPA of q [B, Nq, heads, d] against k, v [B, Nk,
+    heads, d], exact math: the counterpart of JAX's `_flash_sdpa`. CUDA tensors run the kernels
     (differentiable: see `_FlashKernel`), CPU tensors the plain version.
-    N % 128 != 0 or d > 128 raises ValueError. A head dim that is no multiple
+    Nq or Nk % 128 != 0 or d > 128 raises ValueError. A head dim that is no multiple
     of 16 is zero-padded to the next one for the kernel, which is exact: zero
     columns add nothing to Q K^T and give zero output columns, which are cut."""
     _check_qkv(q, k, v)
@@ -263,6 +283,15 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 
 flash_sdpa.launches = 0
 flash_sdpa.backward_launches = 0
+
+
+def _gather_tokens(t: torch.Tensor, space: spatial.Shard) -> torch.Tensor:
+    """[B, n, heads, d] of this rank -> [B, n S, heads, d]: every rank's
+    tokens in space-rank order (the row-major order of the whole image)."""
+    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+             for _ in range(space.space)]
+    dist.all_gather(parts, t.contiguous(), group=space.space_group)
+    return torch.cat(parts, dim=1)
 
 
 class SelfAttention2d(nn.Module):
@@ -287,7 +316,10 @@ class SelfAttention2d(nn.Module):
         y = self.GroupNorm_0(x).reshape(b, c, n).transpose(1, 2)        # [B, N, C]
         qkv = linear(y, self.qkv, self.dtype).reshape(b, n, 3, self.num_heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]               # [B, N, heads, hd]
-        impl = select_attn_impl(self.attn_impl, n, hd, x.device.type)
+        space = spatial.current_space()
+        if space is not None:
+            k, v = _gather_tokens(k, space), _gather_tokens(v, space)
+        impl = select_attn_impl(self.attn_impl, k.shape[1], hd, x.device.type)
         o = flash_sdpa(q, k, v) if impl == "flash" else sdpa_reference(q, k, v)
         o = linear(o.reshape(b, n, c), self.proj, self.dtype)
         return x + o.transpose(1, 2).reshape(b, c, h, w)

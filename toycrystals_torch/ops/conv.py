@@ -18,6 +18,13 @@ per call, as the JAX module does. Three implementations, as in JAX:
   compute dtype. The JAX package computes this conv through XLA, not a Pallas
   kernel; here a CUDA tensor's product is `torch._int_mm` over an im2col, and
   a CPU tensor's the same im2col in f64, which is exact for these sums.
+
+On a mesh (the dispatch scope of parallel/spatial.py) the activation scale is
+the max over every rank that holds part of the tensor, as GSPMD's max over
+the global batch is, so a sharded int8 run quantises as one device does.
+Under a space axis every conv kind is the halo exchange (`pad_rows`: the
+neighbours' rows, wrapped between the last and the first rank) plus a VALID
+conv; "border" then computes what "pad" does.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from toycrystals_torch.parallel import spatial
 
 IMPLS = ("pad", "border", "int8")
 # im2col bytes per chunk of the int8 product (whole batch items per chunk)
@@ -46,11 +55,15 @@ def wrap_pad(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[..., -1:], x, x[..., :1]], dim=3)
 
 
-def quantize_int8(x: torch.Tensor, dims=None) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor, dims=None,
+                  shard: spatial.Shard | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, f32 scale): scale = max(max|x|, 1e-12) / 127 over `dims`
     (all of x when None; else one scale per remaining index), then
-    clip(round(x / scale), -127, 127) with round half to even (jnp.round)."""
+    clip(round(x / scale), -127, 127) with round half to even (jnp.round).
+    With `shard`, x is this rank's part of a tensor and the max is taken
+    over every rank of its mesh."""
     amax = x.abs().amax() if dims is None else x.abs().amax(dim=dims, keepdim=True)
+    amax = spatial.all_reduce_max(amax, shard)
     # a tensor divisor: CUDA computes division by a Python number as a multiply by
     # its reciprocal, which can miss JAX's (and the CPU's) quotient by one ulp
     scale = amax.float().clamp(min=1e-12) / torch.full((), 127.0, device=x.device)
@@ -130,11 +143,17 @@ def int8_conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride:
     """The int8 conv of the module docstring; `wrap` wrap-pads the quantised
     input first (CircularConv), else the conv is VALID (a Conv2d over a
     halo'd input: the halo copies values, so max|halo(x)| = max|x| and
-    quantise(pad(x)) == pad(quantise(x)))."""
-    xq, sx = quantize_int8(x)
+    quantise(pad(x)) == pad(quantise(x))). In a dispatch on a mesh the scale
+    is the whole mesh's; under a space axis the rows come from the exchange
+    before the quantisation (the same identity) and only W wraps here."""
+    shard = spatial.current()
+    space = spatial.current_space()
+    if wrap and space is not None:
+        x = spatial.pad_rows(x, space)
+    xq, sx = quantize_int8(x, shard=shard)
     wq, sw = quantize_int8(weight, dims=(1, 2, 3))
     if wrap:
-        xq = wrap_pad(xq)
+        xq = wrap_pad(xq) if space is None else torch.cat([xq[..., -1:], xq, xq[..., :1]], 3)
     return dequantize(int8_conv_acc(xq, wq, stride), sx, sw, bias, dtype)
 
 
@@ -202,6 +221,10 @@ class CircularConv(Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.impl == "int8":
             return int8_conv(x, self.weight, self.bias, self.stride, self.dtype, wrap=True)
+        space = spatial.current_space()
+        if space is not None:
+            xp = F.pad(spatial.pad_rows(x.to(self.dtype), space), (1, 1, 0, 0), mode="circular")
+            return conv_valid(xp, self.weight, self.bias, self.stride, self.dtype)
         if self.impl == "border":
             return border_conv(x, self.weight, self.bias, self.stride, self.dtype)
         xp = F.pad(x.to(self.dtype), (1, 1, 1, 1), mode="circular")

@@ -28,6 +28,19 @@ nothing is built until its first CUDA call). Its CUDA kernel is the forward
 kernel, its CPU kernel the plain version, and its fake function gives the
 output's shape and type, so `torch.export` records the op in a graph, and
 eager serving and an exported graph launch the same kernel.
+
+Under a space axis (the dispatch scope of parallel/spatial.py: each rank holds
+rows of the image height) a group's statistics span the ranks. The op then
+runs in two launches with an all-reduce between (`gn_silu_space`): the sums
+kernel writes each (item, group)'s partial sums of x and x^2 over the rank's
+rows (f32), the sums are added over the space group, and the apply kernel
+normalises with those statistics, mean = S1 / n and the fast variance
+S2 / n - mean^2 clipped at 0, as the one-launch kernel and the plain version
+form them, then applies scale, bias and SiLU. With `pad` it writes the W halo
+and a local H wrap whose rows the exchange then replaces with the
+neighbours'. `gn_silu.sums_launches` and `gn_silu.apply_launches` count
+them; the plain versions are `gn_sums_reference` and
+`gn_silu_apply_reference`. Forward only: training under space is queued.
 """
 
 from __future__ import annotations
@@ -39,17 +52,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from toycrystals_torch.parallel import spatial
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def group_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                    eps: float = 1e-6) -> torch.Tensor:
     """flax GroupNorm over [B, C, ...] in f32: f32 statistics, fast variance
-    E[x^2] - E[x]^2 clipped at 0, then the per-channel affine."""
+    E[x^2] - E[x]^2 clipped at 0, then the per-channel affine. In a dispatch
+    under a space axis x [B, C, h, W] is this rank's rows, and the group sums
+    are added over the axis first."""
     b, c = x.shape[:2]
     xf = x.float().reshape(b, groups, -1)
-    mean = xf.mean(dim=2, keepdim=True)
-    var = ((xf * xf).mean(dim=2, keepdim=True) - mean * mean).clamp(min=0.0)
+    space = spatial.current_space()
+    if space is not None:
+        sums = spatial.all_reduce_space_sum(
+            torch.stack([xf.sum(dim=2), (xf * xf).sum(dim=2)], dim=-1), space)
+        n = xf.shape[2] * space.space
+        mean = (sums[..., 0] / n)[..., None]
+        var = ((sums[..., 1] / n)[..., None] - mean * mean).clamp(min=0.0)
+    else:
+        mean = xf.mean(dim=2, keepdim=True)
+        var = ((xf * xf).mean(dim=2, keepdim=True) - mean * mean).clamp(min=0.0)
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     shape = (1, c) + (1,) * (x.dim() - 2)
     return y * scale.float().reshape(shape) + bias.float().reshape(shape)
@@ -60,6 +85,30 @@ def gn_silu_reference(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     """Plain version. x: [B, C, H, W]; scale/bias: [C]. Returns x.dtype,
     [B, C, H+2, W+2] with the circular halo when `pad`."""
     y = F.silu(group_norm_f32(x, scale, bias, groups, eps)).to(x.dtype)
+    return F.pad(y, (1, 1, 1, 1), mode="circular") if pad else y
+
+
+def gn_sums_reference(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Plain version of the sums kernel: [B, groups, 2] f32, the sum of x and
+    of x^2 over each (item, group) of x [B, C, h, W]."""
+    xf = x.float().reshape(x.shape[0], groups, -1)
+    return torch.stack([xf.sum(dim=2), (xf * xf).sum(dim=2)], dim=-1)
+
+
+def gn_silu_apply_reference(x: torch.Tensor, sums: torch.Tensor, count: int,
+                            scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                            eps: float = 1e-6, pad: bool = False) -> torch.Tensor:
+    """Plain version of the apply kernel: GroupNorm+SiLU of x [B, C, h, W]
+    with the statistics of `sums` ([B, groups, 2]: sums of x and x^2 over
+    `count` elements per group), mean = S1 / count and the fast variance
+    S2 / count - mean^2 clipped at 0; `pad` wraps one pixel on each side of
+    x's own rows and columns. Returns x.dtype."""
+    b, c = x.shape[:2]
+    mean = (sums[..., 0] / count)[..., None]
+    var = ((sums[..., 1] / count)[..., None] - mean * mean).clamp(min=0.0)
+    y = ((x.float().reshape(b, groups, -1) - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * scale.float().reshape(1, c, 1, 1) + bias.float().reshape(1, c, 1, 1)
+    y = F.silu(y).to(x.dtype)
     return F.pad(y, (1, 1, 1, 1), mode="circular") if pad else y
 
 
@@ -117,6 +166,11 @@ def _lib() -> ctypes.CDLL:
     lib.gn_silu_backward_launch.restype = i
     lib.gn_silu_plan.argtypes = [i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.gn_silu_plan.restype = i
+    lib.gn_silu_sums_launch.argtypes = [p, p, i, i, i, i, i, i, i, p]
+    lib.gn_silu_sums_launch.restype = i
+    lib.gn_silu_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
+                                         ctypes.c_float, i, i, p]
+    lib.gn_silu_apply_launch.restype = i
     lib.gn_silu_error_string.argtypes = [i]
     lib.gn_silu_error_string.restype = ctypes.c_char_p
     return lib
@@ -195,6 +249,79 @@ def _gn_silu_backward_cuda(x, scale, bias, grad_out, stats, groups: int, eps: fl
     return dx, sums[:, 1].to(scale.dtype), sums[:, 0].to(bias.dtype)
 
 
+def _sum_blocks(b: int, groups: int, rows: int, device) -> int:
+    """Blocks per (item, group) of the sums kernel: enough for two per SM in
+    all, at most 16, and none with fewer than 8 of the group's rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(16, -(-2 * sms // (b * groups)), rows // 8))
+
+
+def _gn_sums_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The sums kernel: [B, groups, 2] f32 (S1, S2) of this rank's rows. Each
+    (item, group) is split over a few blocks whose partials are added here in
+    block order."""
+    _check(x, torch.empty(x.shape[1]), torch.empty(x.shape[1]), groups)
+    b, c, h, w = x.shape
+    k = _sum_blocks(b, groups, c // groups * h, x.device)
+    part = torch.empty((b * groups, k, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().gn_silu_sums_launch(x.data_ptr(), part.data_ptr(), b, c, h, w, groups, k,
+                                         _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, "gn_silu sums kernel launch")
+    gn_silu.sums_launches += 1
+    return part.sum(dim=1).reshape(b, groups, 2)
+
+
+def _gn_silu_apply_cuda(x, sums, count: int, scale, bias, groups: int, eps: float,
+                        pad: bool) -> torch.Tensor:
+    """The apply kernel: GroupNorm+SiLU of x with the statistics of `sums`
+    ([B, groups, 2] f32 over `count` elements per group), as
+    `gn_silu_apply_reference`."""
+    _check(x, scale, bias, groups)
+    b, c, h, w = x.shape
+    scale, bias = _f32(scale, x.device), _f32(bias, x.device)
+    sums = _f32(sums, x.device)
+    p = 1 if pad else 0
+    out = torch.empty((b, c, h + 2 * p, w + 2 * p), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().gn_silu_apply_launch(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                          sums.data_ptr(), out.data_ptr(), b, c, h, w, groups,
+                                          float(count), float(eps), p, _DTYPE_CODE[x.dtype],
+                                          stream)
+    _raise_on(err, "gn_silu apply kernel launch")
+    gn_silu.apply_launches += 1
+    return out
+
+
+def gn_sums(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per-(item, group) [S1, S2] f32 of x: the sums kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    return gn_sums_reference(x, groups) if x.device.type == "cpu" else _gn_sums_cuda(x, groups)
+
+
+def gn_silu_apply(x, sums, count: int, scale, bias, groups: int, eps: float = 1e-6,
+                  pad: bool = False) -> torch.Tensor:
+    """GroupNorm+SiLU with given statistics: the apply kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return gn_silu_apply_reference(x, sums, count, scale, bias, groups, eps, pad)
+    return _gn_silu_apply_cuda(x, sums, count, scale, bias, groups, eps, pad)
+
+
+def gn_silu_space(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
+                  eps: float, pad: bool, space: spatial.Shard) -> torch.Tensor:
+    """GroupNorm+SiLU of this rank's rows x [B, C, h, W] of an image split by
+    height over `space`: the sums of every rank's rows, then the apply kernel;
+    with `pad`, the H halo rows are the neighbours' (the image's wrap)."""
+    x = x.contiguous()
+    sums = spatial.all_reduce_space_sum(gn_sums(x, groups), space)
+    count = x.shape[1] // groups * x.shape[2] * x.shape[3] * space.space
+    y = gn_silu_apply(x, sums, count, scale, bias, groups, eps, pad)
+    return spatial.fill_halo_rows(y, space) if pad else y
+
+
 @torch.library.custom_op("toycrystals::gn_silu", mutates_args=(), device_types="cuda")
 def gn_silu_op(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                eps: float, pad: bool) -> torch.Tensor:
@@ -263,6 +390,8 @@ def gn_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: in
 
 gn_silu.launches = 0
 gn_silu.backward_launches = 0
+gn_silu.sums_launches = 0   # the sums kernel (space axis)
+gn_silu.apply_launches = 0  # the apply kernel (space axis)
 
 
 class GroupNormSiLU(nn.Module):
@@ -275,4 +404,8 @@ class GroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        space = spatial.current_space()
+        if space is not None:
+            return gn_silu_space(x, self.weight, self.bias, self.groups, self.eps, self.pad,
+                                 space)
         return gn_silu(x, self.weight, self.bias, self.groups, self.eps, self.pad)

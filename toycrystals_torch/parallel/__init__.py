@@ -1,6 +1,7 @@
-"""The data axis of the port's parallelism: process groups, the data mesh,
-FSDP2 placement (counterpart of toycrystals_tpu/parallel/). The model axes
-(tensor, spatial, pipeline, expert) are not ported yet (ROADMAP.md queue 1,
+"""The port's parallelism (counterpart of toycrystals_tpu/parallel/): process
+groups, the data mesh, FSDP2 placement, and the space axis of sampling and
+serving (`spatial`, on a ("data", "space") mesh). Training under space and
+the tensor, pipeline and expert axes are not ported yet (ROADMAP.md queue 1,
 module 5)."""
 
 from toycrystals_torch.parallel.fsdp import (
@@ -11,10 +12,10 @@ from toycrystals_torch.parallel.fsdp import (
 )
 from toycrystals_torch.parallel.mesh import (
     RowGenerator,
-    allgather_rows,
     check_data_mesh,
     data_sharding,
     make_mesh,
+    make_mesh_2d,
     replicate,
     shard_batch,
 )
@@ -28,7 +29,6 @@ from toycrystals_torch.parallel.multihost import (
 
 __all__ = [
     "RowGenerator",
-    "allgather_rows",
     "check_data_mesh",
     "data_sharding",
     "fsdp_coverage",
@@ -37,6 +37,7 @@ __all__ = [
     "is_primary",
     "launch",
     "make_mesh",
+    "make_mesh_2d",
     "maybe_initialize",
     "place_state",
     "process_count",

@@ -1,4 +1,4 @@
-"""The data mesh: a batch split by rows over the ranks of a process group.
+"""The data mesh, and the 2-D (data, space) mesh of parallel/spatial.py.
 
 Counterpart of toycrystals_tpu/parallel/mesh.py. A JAX mesh lays one
 array's batch dim over N devices and GSPMD inserts the collectives; here the
@@ -12,6 +12,12 @@ draws the whole batch's randomness from the same generator and keeps its
 rows [r B / N, (r + 1) B / N) (`row_generator`; the draws are
 utils/rng.py's, re-exported here), as JAX's sharded draws do, so a sharded step differs from the unsharded one
 only in the order of its reductions.
+
+`make_mesh_2d(D, S)` lays the ranks out as a ("data", "space") mesh, "space"
+varying fastest as in JAX's `make_mesh_2d`: rank d S + s holds rows
+[d B / D, (d + 1) B / D) of the batch and rows [s H / S, (s + 1) H / S) of
+the image height. Only the forward paths (the samplers, `sample_chunked`,
+inpainting and the service) take it; training under space is still queued.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch.distributed as dist
 from toycrystals_torch.utils.rng import RowGenerator, rand, randint, randn  # noqa: F401
 
 AXIS = "data"
+SPACE = "space"
 DEFERRED = "ROADMAP.md queue 1, module 5: parallel axes"
 
 
@@ -40,20 +47,58 @@ def make_mesh(n: int | None = None, device_type: str = "cuda"):
     return init_device_mesh(device_type, (n,), mesh_dim_names=(AXIS,))
 
 
-def check_data_mesh(mesh) -> None:
-    """Only the ("data",) axis is ported: any other axis raises."""
-    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if names != (AXIS,):
-        raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
-                                  f"only the ('data',) axis is")
+def make_mesh_2d(n_data: int, n_space: int, device_type: str = "cuda"):
+    """The ("data", "space") mesh over all n_data * n_space ranks of the
+    process group, "space" varying fastest (H-neighbours are adjacent ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = int(n_data) * int(n_space)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not dist.is_initialized() or need != world:
+        raise ValueError(f"asked for {need} devices, have {world} (a (data, space) mesh of "
+                         f"{n_data} x {n_space} spans every rank of a process group)")
+    return init_device_mesh(device_type, (int(n_data), int(n_space)),
+                            mesh_dim_names=(AXIS, SPACE))
+
+
+def mesh_axes(mesh) -> tuple[str, ...]:
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def check_data_mesh(mesh, space: bool = False) -> None:
+    """Only the ("data",) axis is ported, and ("data", "space") where `space`
+    (the forward paths); any other axis raises."""
+    names = mesh_axes(mesh)
+    if names == (AXIS,) or (space and names == (AXIS, SPACE)):
+        return
+    ported = "the ('data',) and, for sampling and serving, ('data', 'space') axes are" \
+        if space else "only the ('data',) axis is (('data', 'space') samples and serves)"
+    raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
+                              f"{ported}")
+
+
+def axis_size(mesh, axis: str) -> int:
+    """The size of `axis` in the mesh (1 where it has none, or for no mesh)."""
+    return mesh.size(mesh_axes(mesh).index(axis)) if axis in mesh_axes(mesh) else 1
+
+
+def axis_rank(mesh, axis: str) -> int:
+    """This rank's coordinate along `axis` (0 where the mesh has none)."""
+    return mesh.get_local_rank(axis) if axis in mesh_axes(mesh) else 0
+
+
+def mesh_group(mesh):
+    """The process group of every rank of the mesh."""
+    return mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
 
 
 def mesh_size(mesh) -> int:
-    return 1 if mesh is None else mesh.size()
+    """The ranks of the data axis (a batch splits over these)."""
+    return 1 if mesh is None else axis_size(mesh, AXIS)
 
 
 def mesh_rank(mesh) -> int:
-    return 0 if mesh is None else mesh.get_local_rank()
+    return 0 if mesh is None else axis_rank(mesh, AXIS)
 
 
 def data_sharding(mesh, n: int) -> slice:
@@ -91,16 +136,6 @@ def replicate(mesh, tensors) -> None:
     with torch.no_grad():
         for t in tensors:
             dist.broadcast(t.data, src=src, group=group)
-
-
-def allgather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of x, concatenated in rank order, on every rank:
-    the counterpart of `process_allgather`. mesh=None returns x."""
-    if mesh is None:
-        return x
-    parts = [torch.empty_like(x) for _ in range(mesh.size())]
-    dist.all_gather(parts, x.contiguous(), group=mesh.get_group())
-    return torch.cat(parts, dim=0)
 
 
 def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:

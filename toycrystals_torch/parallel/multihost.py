@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import os
 import queue
+import signal
 import tempfile
 import time
 import traceback
@@ -45,7 +46,8 @@ def default_backend(device_type: str) -> str:
 
 
 def maybe_initialize(coordinator: str | None = None, num_processes: int | None = None,
-                     process_id: int | None = None, *, device_type: str = "cuda") -> bool:
+                     process_id: int | None = None, *, device_type: str = "cuda",
+                     backend: str | None = None) -> bool:
     """Join (or form) a process group; True when it has more than one rank.
 
     - no flags, or num_processes 1: a no-op (one process);
@@ -55,7 +57,8 @@ def maybe_initialize(coordinator: str | None = None, num_processes: int | None =
       rendezvous at rank 0's address.
 
     A process group that already exists (a rank that `launch` started) is
-    kept as it is."""
+    kept as it is. `backend` overrides the device type's default (gloo on
+    CUDA: ranks that share a card)."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     if coordinator is None and num_processes is None and process_id is None:
@@ -65,7 +68,7 @@ def maybe_initialize(coordinator: str | None = None, num_processes: int | None =
                          "cluster environment; do not also pass --num-processes/--process-id")
     if num_processes is not None and num_processes <= 1:
         return False
-    backend = default_backend(device_type)
+    backend = backend or default_backend(device_type)
     if coordinator == "auto":
         if device_type == "cuda":
             torch.cuda.set_device(local_device_index())
@@ -129,12 +132,30 @@ def global_batch(mesh, batch: Any) -> Any:
 # ---------------------------------------------------------------------------
 
 
+def _exit_with_parent() -> None:
+    """End this process when the launcher that started it is gone (killed,
+    say): no one would collect its result, and a rank that waits for work
+    (a server's follower) would otherwise wait forever."""
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while True:
+            time.sleep(1.0)
+            if os.getppid() != parent:
+                os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
 def _rank_main(rank: int, world: int, init_method: str, backend: str, device_type: str,
                device_ids: Sequence[int] | None, fn: Callable, args: tuple,
                results) -> None:
     import faulthandler
 
     faulthandler.enable()  # a crash in native code still names its Python frame
+    _exit_with_parent()
     torch.set_num_threads(1)
     try:
         if device_type == "cuda":
@@ -153,7 +174,7 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device_typ
 
 def launch(fn: Callable, nprocs: int, args: tuple = (), *, device_type: str = "cpu",
            backend: str | None = None, device_ids: Sequence[int] | None = None,
-           timeout: float = 900.0) -> list:
+           timeout: float = 900.0, sigterm_rank: int | None = None) -> list:
     """Run `fn(*args)` in `nprocs` spawned ranks of one process group and
     return their results, rank by rank.
 
@@ -162,7 +183,11 @@ def launch(fn: Callable, nprocs: int, args: tuple = (), *, device_type: str = "c
     CUDA device (`device_ids[rank]`, default the rank) and joins a file
     rendezvous in a temporary directory. When a rank raises, exits or the
     whole run exceeds `timeout` seconds, every rank is killed and this
-    raises RuntimeError (TimeoutError) with the failing rank's traceback."""
+    raises RuntimeError (TimeoutError) with the failing rank's traceback; a
+    rank whose launcher dies exits within a second.
+    With `sigterm_rank`, a SIGTERM to this process (from the main thread's
+    handler) is sent on to that rank, which decides how the run ends (a
+    server drains and stops the others)."""
     import multiprocessing as mp
 
     backend = backend or default_backend(device_type)
@@ -176,9 +201,15 @@ def launch(fn: Callable, nprocs: int, args: tuple = (), *, device_type: str = "c
                  for r in range(nprocs)]
         for p in procs:
             p.start()
+        old = None
+        if sigterm_rank is not None:
+            old = signal.signal(signal.SIGTERM,
+                                lambda signum, frame: os.kill(procs[sigterm_rank].pid, signum))
         try:
             out = _collect(procs, results, time.monotonic() + timeout)
         finally:
+            if old is not None:
+                signal.signal(signal.SIGTERM, old)
             for p in procs:
                 p.join(timeout=30)
                 if p.is_alive():

@@ -10,7 +10,10 @@ chip_smoke.py's phase 15 runs the same cases on the card. It is the rank
 entry of those 2-rank jobs (`parallel.multihost.launch(run_cases, 2,
 (spec,))`), so it imports neither JAX nor a test.
 
-`spec` = {"device": "cpu" | "cuda", "tf32": bool, "cases": [...]}; every
+`spec` = {"device": "cpu" | "cuda", "tf32": bool (default False; None keeps
+torch's defaults, as a CLI's process has them), "mesh": [D, S] (optional:
+a ("data", "space") mesh; default a ("data",) mesh of every rank), "cases":
+[...]}; every
 case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
 draws included), of which each rank takes its rows:
 
@@ -23,14 +26,26 @@ draws included), of which each rank takes its rows:
   with its global route statistics) on injected (t, eps);
 - "distill": one `make_distill_train_step` on injected (i, eps), teacher
   whole on every rank, student under DDP;
-- "sample": `sample_chunked` of the reverse SDE, once on per-row injected
-  noise and once on its own chunk generators;
+- "sample": `sample_chunked` of a sampler ("sampler": sde, ode, dpm, ddim or rf;
+  default sde; "param" v wraps the model by `eps_apply_from_v`), once on
+  per-row injected noise and once on its own chunk generators ("drawn",
+  unless "drawn" is False); "record_scale" also returns the first int8
+  activation scale of the injected run with this rank's own max;
+- "forward": one forward of CondUNetTiny(**model) on (x, t, y_cat, y_cont);
+- "inpaint": `sample_chunked` of `sample_inpaint_reverse_sde` on injected
+  draws, with x_known and mask ("param" as for "sample");
+- "service": `ScoreModelService(config, params, mesh=...)` answering its
+  "requests", (y_cat, y_cont, seed) each, in order (SPMD: every rank calls
+  `sample` with the same arguments), each timed;
+- "halo": this rank's rows of x [B, C, H, W] with the halo exchange's rows
+  on each side, wrapped and clamped (parallel/spatial.py `pad_rows`);
 - "dcp_save" / "dcp_load": a state written to / read from a
   `ShardedCheckpointManager` directory under FSDP2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any
 
@@ -190,33 +205,135 @@ def _distill(mesh, case: dict, device) -> dict:
     return {"loss": float(loss), "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
 
 
-def _sample(mesh, case: dict, device) -> dict:
-    from toycrystals_torch.models.sde_score_model import (
-        VPSDE,
-        CondUNetTiny,
-        sample_chunked,
-        sample_reverse_sde_euler_maruyama,
-    )
+def _score_model(case: dict, device):
+    from toycrystals_torch.models.sde_score_model import CondUNetTiny
 
     model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
-    model.eval().requires_grad_(False)
+    return model.eval().requires_grad_(False)
+
+
+def _apply_fn(case: dict, sde, device):
+    from toycrystals_torch.models.sde_score_model import eps_apply_from_v
+
+    model = _score_model(case, device)
+    return eps_apply_from_v(sde, model) if case.get("param") == "v" else model
+
+
+@contextlib.contextmanager
+def _first_int8_scale(out: dict | None):
+    """With `out`, record the first int8 activation scale of the block as
+    out["int8_scale"] = (this rank's own max|x|, the scale used): the first
+    conv's input is the injected noise and its maps, the same bits on a mesh
+    and in one process, so its scale shows whether the max spans the mesh."""
+    if out is None:
+        yield
+        return
+    from toycrystals_torch.ops import conv
+
+    real = conv.quantize_int8
+
+    def recording(x, dims=None, shard=None):
+        q, scale = real(x, dims, shard)
+        if dims is None and "int8_scale" not in out:
+            out["int8_scale"] = (float(x.abs().amax().float()), float(scale))
+        return q, scale
+
+    conv.quantize_int8 = recording
+    try:
+        yield
+    finally:
+        conv.quantize_int8 = real
+
+
+def _sample(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models import sde_score_model as sm
+    from toycrystals_torch.models.flow_matching import sample_rectified_flow
+
+    samplers = {"sde": sm.sample_reverse_sde_euler_maruyama,
+                "ode": sm.sample_probability_flow_ode, "dpm": sm.sample_dpmpp_2m,
+                "ddim": sm.sample_ddim, "rf": sample_rectified_flow}
+    sampler = samplers[case.get("sampler", "sde")]
+    sde = sm.VPSDE(0.1, 30.0)
+    model = _apply_fn(case, sde, device)
     yc, yv = _t(case["y_cat"], device), _t(case["y_cont"], device)
-    sde = VPSDE(0.1, 30.0)
     kw = dict(n_steps=case["n_steps"], guidance_scale=case["cfg"], n_types=4)
 
-    def injected(apply_fn, sde, y_cat, y_cont, shape, gen, *, x_init, z, **kw):
-        return sample_reverse_sde_euler_maruyama(apply_fn, sde, y_cat, y_cont, shape,
-                                                 noise=(x_init, z.transpose(0, 1)), **kw)
+    def injected(apply_fn, sde, y_cat, y_cont, shape, gen, *, x_init, z=None, **kw):
+        noise = x_init if z is None else (x_init, z.transpose(0, 1))
+        return sampler(apply_fn, sde, y_cat, y_cont, shape, noise=noise, **kw)
 
     shape = tuple(case["shape"])
+    bkw = {k: _t(case[k], device) for k in ("x_init", "z") if k in case}
+    out = {}
+    with torch.inference_mode(), _first_int8_scale(out if case.get("record_scale") else None):
+        out["injected"] = sm.sample_chunked(injected, model, sde, yc, yv, shape, case["seed"],
+                                            chunk=case["chunk"], mesh=mesh, batch_kw=bkw, **kw)
     with torch.inference_mode():
-        inj = sample_chunked(injected, model, sde, yc, yv, shape, case["seed"],
-                             chunk=case["chunk"], mesh=mesh,
-                             batch_kw={"x_init": _t(case["x_init"], device),
-                                       "z": _t(case["z"], device)}, **kw)
-        drawn = sample_chunked(sample_reverse_sde_euler_maruyama, model, sde, yc, yv, shape,
-                               case["seed"], chunk=case["chunk"], mesh=mesh, **kw)
-    return {"injected": inj, "drawn": drawn}
+        if case.get("drawn", True):
+            out["drawn"] = sm.sample_chunked(sampler, model, sde, yc, yv, shape, case["seed"],
+                                             chunk=case["chunk"], mesh=mesh, **kw)
+    return out
+
+
+def _forward(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.parallel import spatial
+    from toycrystals_torch.parallel.mesh import data_sharding
+
+    model = _score_model(case, device)
+    x, t, yc, yv = (_t(case[k], device) for k in ("x", "t", "y_cat", "y_cont"))
+    rows = data_sharding(mesh, x.shape[0])
+    hs = spatial.space_rows(mesh, x.shape[1]) if mesh is not None else slice(None)
+    with torch.inference_mode(), spatial.dispatch_scope(mesh):
+        out = model(x[rows][:, hs], t[rows], yc[rows], yv[rows])
+    return {"out": spatial.gather_image(mesh, out).cpu().numpy()}
+
+
+def _inpaint(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models import sde_score_model as sm
+
+    sde = sm.VPSDE(0.1, 30.0)
+    model = _apply_fn(case, sde, device)
+    yc, yv = _t(case["y_cat"], device), _t(case["y_cont"], device)
+
+    def injected(apply_fn, sde, y_cat, y_cont, shape, gen, *, x_init, draws, **kw):
+        # draws arrive [B, n_steps, resample, 3, H, W, 1], the batch first
+        return sm.sample_inpaint_reverse_sde(apply_fn, sde, y_cat, y_cont, shape,
+                                             noise=(x_init, draws.permute(1, 2, 3, 0, 4, 5, 6)),
+                                             **kw)
+
+    bkw = {k: _t(case[k], device) for k in ("x_init", "draws", "x_known", "mask")}
+    with torch.inference_mode():
+        x = sm.sample_chunked(injected, model, sde, yc, yv,
+                              tuple(case["shape"]), 0, chunk=case["shape"][0], mesh=mesh,
+                              batch_kw=bkw, n_steps=case["n_steps"], guidance_scale=case["cfg"],
+                              n_types=4, resample=case["resample"])
+    return {"injected": x}
+
+
+def _halo(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.parallel import spatial
+    from toycrystals_torch.parallel.mesh import data_sharding
+
+    x = _t(case["x"], device)
+    x = x[data_sharding(mesh, x.shape[0])][:, :, spatial.space_rows(mesh, x.shape[2])]
+    with spatial.dispatch_scope(mesh) as shard:
+        return {k: spatial.pad_rows(x, shard, circular=k == "wrap").cpu().numpy()
+                for k in ("wrap", "clamp")}
+
+
+def _service(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.serve import ScoreModelService
+
+    svc = ScoreModelService(case["config"], case["params"], device=device, mesh=mesh,
+                            buckets=case["buckets"], **case.get("settings", {}))
+    xs, seconds = [], []
+    for y_cat, y_cont, seed in case["requests"]:
+        _sync(device)
+        t0 = time.perf_counter()
+        xs.append(svc.sample(y_cat, y_cont, seed=seed))
+        _sync(device)
+        seconds.append(time.perf_counter() - t0)
+    return {"x": xs, "buckets": list(svc.buckets), "seconds": seconds}
 
 
 def _dcp(mesh, case: dict, device) -> dict:
@@ -255,7 +372,28 @@ def _fill(state, seed: int) -> None:
 
 
 CASES = {"sde": _sde, "vae": _vae, "prior": _prior, "distill": _distill, "sample": _sample,
+         "forward": _forward, "inpaint": _inpaint, "service": _service, "halo": _halo,
          "dcp_save": _dcp, "dcp_load": _dcp}
+
+
+def halo_probe(device_type: str) -> tuple[float, float, float, float]:
+    """One rank of a (1, world) mesh: x [1, 1, 2, 3] filled with the rank;
+    returns the (top, bottom) halo rows of the wrapped and of the clamped
+    exchange (parallel/spatial.py), each as the one value it holds."""
+    from toycrystals_torch.parallel import spatial
+    from toycrystals_torch.parallel.mesh import make_mesh_2d
+
+    device = torch.device("cpu") if device_type == "cpu" else \
+        torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh_2d(1, dist.get_world_size(), device_type=device.type)
+    x = torch.full((1, 1, 2, 3), float(dist.get_rank()), device=device)
+    with spatial.dispatch_scope(mesh) as shard:
+        rows = [*spatial.halo_rows(x, shard, True), *spatial.halo_rows(x, shard, False)]
+    out = []
+    for r in rows:
+        assert r.shape == (1, 1, 1, 3) and bool((r == r.flatten()[0]).all())
+        out.append(float(r.flatten()[0]))
+    return tuple(out)
 
 
 def _counters():
@@ -265,6 +403,8 @@ def _counters():
 
     return {"gn_silu": (gn.gn_silu, "launches"),
             "gn_silu_backward": (gn.gn_silu, "backward_launches"),
+            "gn_silu_sums": (gn.gn_silu, "sums_launches"),
+            "gn_silu_apply": (gn.gn_silu, "apply_launches"),
             "rasterize": (rz.rasterize, "launches"),
             "flash_attn": (at.flash_sdpa, "launches"),
             "flash_attn_backward": (at.flash_sdpa, "backward_launches")}
@@ -290,14 +430,18 @@ def run_cases(spec: dict) -> list[dict]:
     the launches of the port's kernels in the case ("launches", counted from
     0 by each wrapper), and on a CUDA device the case's peak device memory
     of this process ("peak_bytes")."""
-    from toycrystals_torch.parallel.mesh import make_mesh
+    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d
 
     device = torch.device(spec.get("device", "cpu"))
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-        torch.backends.cuda.matmul.allow_tf32 = bool(spec.get("tf32", False))
-        torch.backends.cudnn.allow_tf32 = bool(spec.get("tf32", False))
-    mesh = make_mesh(device_type=device.type) if dist.is_initialized() else None
+        if spec.get("tf32", False) is not None:
+            torch.backends.cuda.matmul.allow_tf32 = bool(spec.get("tf32", False))
+            torch.backends.cudnn.allow_tf32 = bool(spec.get("tf32", False))
+    mesh = None
+    if dist.is_initialized():
+        mesh = make_mesh_2d(*spec["mesh"], device_type=device.type) if spec.get("mesh") \
+            else make_mesh(device_type=device.type)
     out = []
     for case in spec["cases"]:
         if device.type == "cuda":

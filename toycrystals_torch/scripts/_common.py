@@ -1,12 +1,14 @@
 """Shared plumbing of the port's CLIs (counterpart of scripts/_common.py):
 device selection, the data mesh and its process group (--shard, --fsdp and
-the cluster flags), checkpoint-name resolution, a disk archive resident on
-the device, and the flags whose paths are not ported yet.
+the cluster flags), the (data, space) mesh of the sampling and serving CLIs
+(--shard-space), checkpoint-name resolution, a disk archive resident on the
+device, and the flags whose paths are not ported yet.
 
-`--shard N` with no cluster flags runs the CLI in N spawned local ranks
-(`spawn_shards`), one per device (parallel/multihost.py); the cluster flags
-join a process group whose ranks were started elsewhere, one per device, and
-then --shard must equal its size."""
+`--shard N` (with `--shard-space S`: N x S) with no cluster flags runs the
+CLI in that many spawned local ranks (`spawn_shards`), one per device
+(parallel/multihost.py); the cluster flags join a process group whose ranks
+were started elsewhere, one per device, and then the mesh must equal its
+size."""
 
 from __future__ import annotations
 
@@ -56,20 +58,29 @@ def add_dist_flags(p: argparse.ArgumentParser) -> None:
                    help="Total number of processes (ranks) in the process group.")
     p.add_argument("--process-id", type=int, default=None,
                    help="This process's rank in [0, --num-processes).")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="The process group's backend: nccl on CUDA devices and gloo on the "
+                        "CPU by default. gloo on CUDA lets several ranks share a card (rank r "
+                        "takes card r modulo the cards visible), which nccl refuses.")
 
 
 def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        space: bool = True) -> None:
     """The JAX CLIs' mesh and multi-process flags: --shard (and --fsdp for a
-    trainer) and the cluster flags run; --shard-space and --shard-model are
-    kept so that the command lines match, and any value but the default
-    raises (`refuse_deferred`). `space=False` leaves out --shard-space, as
+    trainer) and the cluster flags run, and so does --shard-space for the
+    sampling and serving CLIs (train=False); a trainer's --shard-space and
+    every --shard-model are kept so that the command lines match, and any
+    value but the default raises. `space=False` leaves out --shard-space, as
     the VAE trainer's JAX CLI does."""
     add_shard_flag(p)
-    for flag in ("--shard-space", "--shard-model"):
-        if flag == "--shard-space" and not space:
-            continue
-        p.add_argument(flag, type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    if space:
+        p.add_argument("--shard-space", type=int, default=0,
+                       help=f"not ported yet for training ({PARALLEL})" if train else
+                       "Spatial parallelism: split every image's height over S ranks (a "
+                       "2-D data x space mesh of --shard x S ranks, one per device): the "
+                       "hi-res case whose activations outgrow one device. H/4 must divide "
+                       "by S.")
+    p.add_argument("--shard-model", type=int, default=0, help=f"not ported yet ({PARALLEL})")
     if train:
         p.add_argument("--fsdp", action="store_true",
                        help="ZeRO-3 placement: with --shard N, also shard every weight, its "
@@ -78,7 +89,6 @@ def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
     add_dist_flags(p)
 
 
-PARALLEL_DESTS = ("shard_space", "shard_model")
 CLUSTER_DESTS = ("coordinator", "num_processes", "process_id")
 
 
@@ -92,7 +102,8 @@ def init_distributed(args: argparse.Namespace, device: str = "cuda") -> bool:
     multi = maybe_initialize(getattr(args, "coordinator", None),
                              getattr(args, "num_processes", None),
                              getattr(args, "process_id", None),
-                             device_type="cpu" if device == "cpu" else "cuda")
+                             device_type="cpu" if device == "cpu" else "cuda",
+                             backend=getattr(args, "dist_backend", None))
     if multi and cluster:
         import torch.distributed as dist
 
@@ -105,31 +116,44 @@ def _run_rank(fn, argv) -> None:
 
 
 def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
-                 batch_sizes: tuple[int, ...] = ()) -> bool:
-    """--shard N > 1 with no cluster flags and no process group yet: run
-    `fn(argv)` (a CLI's module-level entry) in N spawned local ranks on
-    `cuda:0..N-1`, or on the CPU under --device cpu, and return True once
-    all finished; False when this process should run the CLI itself. Any
-    rank's failure exits non-zero with its traceback."""
+                 batch_sizes: tuple[int, ...] = (), space: bool = False,
+                 sigterm_rank: int | None = None) -> bool:
+    """--shard N > 1 (or, where `space`, --shard N x --shard-space S > 1)
+    with no cluster flags and no process group yet: run `fn(argv)` (a CLI's
+    module-level entry) in that many spawned local ranks on `cuda:0..`, or on
+    the CPU under --device cpu, and return True once all finished; False
+    when this process should run the CLI itself. Any rank's failure exits
+    non-zero with its traceback; a SIGTERM to this process goes on to rank
+    `sigterm_rank` when one is named."""
     import torch.distributed as dist
 
     from toycrystals_torch.parallel.multihost import launch
 
     shard = getattr(args, "shard", 0)
-    if shard <= 1 or dist.is_initialized() or any(
+    n_space = getattr(args, "shard_space", 0) if space else 0
+    ranks = max(1, shard) * max(1, n_space)
+    if ranks <= 1 or dist.is_initialized() or any(
             getattr(args, d, None) is not None for d in CLUSTER_DESTS):
         return False
     check_shard_batches(shard, *batch_sizes)
     device_type = "cpu" if args.device == "cpu" else "cuda"
+    backend = getattr(args, "dist_backend", None)
+    device_ids = None
     if device_type == "cuda":
         select_device(args.device)
         n_dev = torch.cuda.device_count()
-        if shard > n_dev:
-            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible")
-    print(f"data-parallel mesh: {shard} ranks on {device_type}")
+        if backend == "gloo":
+            device_ids = [r % n_dev for r in range(ranks)]
+        elif ranks > n_dev:
+            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible" if n_space <= 1
+                             else f"--shard {shard} x --shard-space {n_space} needs {ranks} "
+                                  f"devices, have {n_dev}")
+    print(f"data-parallel mesh: {shard} ranks on {device_type}" if n_space <= 1 else
+          f"2-D mesh: {max(1, shard)} data x {n_space} space ranks on {device_type}")
     try:
-        launch(_run_rank, shard, (fn, list(argv) if argv is not None else None),
-               device_type=device_type, timeout=24 * 3600.0)
+        launch(_run_rank, ranks, (fn, list(argv) if argv is not None else None),
+               device_type=device_type, backend=backend, device_ids=device_ids,
+               timeout=24 * 3600.0, sigterm_rank=sigterm_rank)
     except (RuntimeError, TimeoutError) as e:
         raise SystemExit(f"--shard {shard}: {e}") from None
     return True
@@ -144,19 +168,29 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
-               shard_space: int = 0, shard_model: int = 0):
+               shard_space: int = 0, shard_model: int = 0, space: bool = False):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
-    exactly N ranks; --shard-space and --shard-model refuse, naming their
-    ROADMAP item."""
-    from toycrystals_torch.parallel.mesh import make_mesh
+    exactly N ranks. Where `space` (the sampling and serving CLIs),
+    --shard-space S > 1 makes the ("data", "space") mesh of N x S ranks
+    (the image size is checked once the checkpoint is read:
+    parallel/spatial.py `check_stem_divisibility`); otherwise --shard-space
+    refuses, and --shard-model always does, naming their ROADMAP item."""
+    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d
     from toycrystals_torch.parallel.multihost import process_count
 
-    for flag, value in (("--shard-space", shard_space), ("--shard-model", shard_model)):
+    for flag, value in (("--shard-space", 0 if space else shard_space),
+                        ("--shard-model", shard_model)):
         if value > 1:
             raise SystemExit(f"{flag} {value} is not ported yet ({PARALLEL})")
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
+    if shard_space > 1:
+        need = max(1, shard) * shard_space
+        if need != world:
+            raise SystemExit(f"--shard {shard} x --shard-space {shard_space} needs {need} "
+                             f"devices, have {world} (one per rank)")
+        return make_mesh_2d(max(1, shard), shard_space, torch.device(device).type)
     if shard in (0, 1) and world == 1:
         return None
     if shard != world:

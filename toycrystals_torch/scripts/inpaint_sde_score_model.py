@@ -20,7 +20,9 @@ to the CPU; the grid is utils/figures.py's 8-bit PNG of the pixels, with no
 title. --shard N inpaints each chunk's rows over N ranks (one process per
 device, spawned here unless the cluster flags join ranks started elsewhere),
 each drawing the chunk's whole noise, and rank 0 writes the grid and the
-line; --shard-space and --shard-model exit naming their ROADMAP item.
+line; --shard-space S also splits every image's height (and the sources'
+and masks') over S ranks (a --shard x S mesh, parallel/spatial.py);
+--shard-model exits naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ from toycrystals_torch.models.sde_score_model import (
     sample_grid_conditions,
     sample_inpaint_reverse_sde,
 )
+from toycrystals_torch.parallel.mesh import mesh_size
 from toycrystals_torch.parallel.multihost import is_primary
+from toycrystals_torch.parallel.spatial import check_stem_divisibility
 from toycrystals_torch.scripts._common import (
     add_device_flag,
     add_parallel_flags,
@@ -137,7 +141,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model)
+                      shard_model=args.shard_model, space=True)
     primary = is_primary()
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
@@ -148,6 +152,12 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     params = state["params"]
     if args.use_ema == 1 and state.get("ema_params") is not None:
         params = state["ema_params"]
+    if args.shard_space > 1:
+        try:
+            check_stem_divisibility(int(cfg.get("img_size", 64)), args.shard_space,
+                                    str(cfg.get("stem", "none")))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     param = str(cfg.get("param", "eps"))
     if param == "fm":
         raise SystemExit("inpainting runs the reverse-SDE repaint loop, which needs a VP "
@@ -208,13 +218,13 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
         print(f"Saved inpainting grid -> {args.out_path}")
         print(json.dumps(line))
     if mesh is not None:
-        chunk = -(-min(chunk, args.n) // mesh.size()) * mesh.size()
+        chunk = -(-min(chunk, args.n) // mesh_size(mesh)) * mesh_size(mesh)
     return InpaintRun(x_out, x_src_np, mask_np, line, args.out_path, min(chunk, args.n))
 
 
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `inpaint(argv)` in this process, or in --shard N spawned ranks."""
-    if not spawn_shards(build_parser().parse_args(argv), inpaint, argv):
+    if not spawn_shards(build_parser().parse_args(argv), inpaint, argv, space=True):
         inpaint(argv)
     return 0
 

@@ -21,8 +21,11 @@ themselves (utils/figures.py).
 spawned here unless the cluster flags join ranks started elsewhere): every
 rank draws the chunk's whole noise and samples its rows, and rank 0 writes
 the grid, which equals the one-device grid at the same (mesh-rounded)
-chunk. --ckpt may name a --ckpt-format orbax directory of the port's
-trainer. --shard-space and --shard-model raise, naming their ROADMAP item.
+chunk, --quantize int8 included (the activation scale is the whole mesh's
+max). --shard-space S also splits every image's height over S ranks (a
+--shard x S mesh, parallel/spatial.py); H/4 must divide by S, and for the
+s2d stems H/8 too. --ckpt may name a --ckpt-format orbax directory of the
+port's trainer. --shard-model raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from toycrystals_torch.models.sde_score_model import (
     sample_probability_flow_ode,
     sample_reverse_sde_euler_maruyama,
 )
+from toycrystals_torch.parallel.mesh import mesh_size
 from toycrystals_torch.parallel.multihost import is_primary
+from toycrystals_torch.parallel.spatial import check_stem_divisibility
 from toycrystals_torch.scripts._common import (
     add_device_flag,
     add_parallel_flags,
@@ -138,7 +143,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model)
+                      shard_model=args.shard_model, space=True)
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
 
@@ -152,6 +157,12 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         "time_ch": args.time_ch, "beta_min": args.beta_min, "beta_max": args.beta_max,
         "param": args.param,
     }
+    img_size = int(cfg.get("img_size", 64))
+    if args.shard_space > 1:
+        try:
+            check_stem_divisibility(img_size, args.shard_space, str(cfg.get("stem", "none")))
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     ckpt_param = str(cfg.get("param", "eps"))
     dtype_name = str(cfg.get("dtype", "float32")) if args.dtype == "auto" else args.dtype
     model = CondUNetTiny(
@@ -223,14 +234,13 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     n_types = int(cfg["n_types"])
     y_cat, y_cont = sample_grid_conditions(args.n, n_types, int(cfg["y_cont_dim"]),
                                            args.theta_max, device=device)
-    img_size = int(cfg.get("img_size", 64))
     chunk = args.chunk
     if chunk is None:
         chunk = auto_chunk(img_size, args.steps, args.sampler)
     if chunk == 0:
         chunk = args.n
     if mesh is not None:
-        chunk = -(-chunk // mesh.size()) * mesh.size()  # as sample_chunked rounds it
+        chunk = -(-chunk // mesh_size(mesh)) * mesh_size(mesh)  # as sample_chunked rounds it
     if chunk < args.n:
         say(f"sampling {args.n} images in calls of {chunk} (--chunk 0 to disable)")
     with torch.inference_mode():
@@ -247,7 +257,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
 
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `sample(argv)` in this process, or in --shard N spawned ranks."""
-    if not spawn_shards(build_parser().parse_args(argv), sample, argv):
+    if not spawn_shards(build_parser().parse_args(argv), sample, argv, space=True):
         sample(argv)
     return 0
 

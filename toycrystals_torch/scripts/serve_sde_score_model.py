@@ -14,6 +14,15 @@ requests into shared dispatches. Endpoints:
                             "seed": optional int}
   GET  /sample?type=0&theta=0.0&n=36&format=png
 
+--shard N and --shard-space S serve on a (data, space) mesh of N x S ranks
+(one process per device, spawned here unless the cluster flags join ranks
+started elsewhere; parallel/spatial.py): rank 0 binds the port and holds the
+batcher, the others follow its dispatches (`ScoreModelService.follow`), and
+each answer is the one-process service's `sample_chunked` at the mesh's
+bucket. SIGTERM to this process goes on to rank 0, which drains, stops the
+followers, and every rank exits 0; a rank that dies ends the whole server
+with a non-zero exit.
+
 png is a square grid (`grid_png_bytes`), png_raw the direct-pixel grid
 (`raw_png_bytes`), npy the array itself (float32 in [0, 1], or uint8 in
 [0, 255] under --out-dtype uint8). A bad body or bad conditions answer 400,
@@ -26,8 +35,8 @@ Differences from the JAX CLI: --device defaults to cuda (cpu only when
 asked) and never falls back; the service is built by
 `ScoreModelService.from_checkpoint(path, ...)`; png is utils/figures.py's PNG
 of the pixels, not a matplotlib figure; the listen backlog is 128, not the
-stdlib's 5, which resets a burst of concurrent connections; --shard and the
-other mesh flags are not ported yet and exit naming their ROADMAP item.
+stdlib's 5, which resets a burst of concurrent connections; --shard-model is
+not ported yet and exits naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,14 +50,16 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from toycrystals_torch.parallel.multihost import is_primary, process_index
 from toycrystals_torch.scripts._common import (
-    CLUSTER_DESTS,
     PARALLEL,
-    PARALLEL_DESTS,
     add_device_flag,
     add_parallel_flags,
+    init_distributed,
     refuse_deferred,
     select_device,
+    setup_mesh,
+    spawn_shards,
 )
 from toycrystals_torch.serve import (
     MicroBatcher,
@@ -225,18 +236,30 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
+def serve(argv: list[str] | None = None) -> int:
+    """The server in this process: the whole of it, or one rank of a mesh
+    (rank 0 serves HTTP, the others follow)."""
     p = build_parser()
     args = p.parse_args(argv)
-    # serving on a mesh is the model axes' slice: every mesh flag still refuses
-    refuse_deferred(p, args, {d: PARALLEL for d in ("shard", *PARALLEL_DESTS, *CLUSTER_DESTS)})
+    refuse_deferred(p, args, {"shard_model": PARALLEL})
+    init_distributed(args, args.device)
     device = select_device(args.device)
+    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space, space=True)
     service = ScoreModelService.from_checkpoint(
         args.ckpt, device=device, use_ema=not args.no_ema, sampler=args.sampler,
         steps=args.steps, guidance_scale=args.guidance_scale, t_end=args.t_end,
         clip_x0=args.clip_x0, dtype=args.dtype, attn_impl=args.attn_impl,
         quantize=args.quantize, out_dtype=args.out_dtype,
-        buckets=[int(b) for b in args.buckets.split(",")])
+        buckets=[int(b) for b in args.buckets.split(",")], mesh=mesh)
+    if mesh is not None and not is_primary():
+        print(f"rank {process_index()}: following rank 0's dispatches (pid {os.getpid()})",
+              flush=True)
+        service.follow()
+        return 0
+    if mesh is not None:
+        service.lead()
+        print(f"mesh: {service.stats['mesh'][0]} data x {service.stats['mesh'][1]} space "
+              f"ranks; rank 0 serves")
     print(f"model: {service.describe()}")
     print(f"serving: sampler={service.sampler_name} steps={service.steps} "
           f"cfg={service.guidance_scale} buckets={list(service.buckets)} "
@@ -267,8 +290,20 @@ def main(argv: list[str] | None = None) -> int:
         # the batcher's worker dispatches them; only then drain the worker
         srv.server_close()
         srv.batcher.close()
+        service.stop_followers()
     print("serving stopped (in-flight requests completed)", flush=True)
     return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    """The CLI: `serve(argv)` in this process, or in --shard x --shard-space
+    spawned ranks."""
+    p = build_parser()
+    args = p.parse_args(argv)
+    refuse_deferred(p, args, {"shard_model": PARALLEL})
+    if spawn_shards(args, serve, argv, space=True, sigterm_rank=0):
+        return 0
+    return serve(argv)
 
 
 if __name__ == "__main__":

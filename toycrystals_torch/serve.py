@@ -35,17 +35,29 @@ a title, which the card machine cannot, so this writes utils/figures.py's PNG
 of the pixels and takes no title. `raw_png_bytes` and `npy_bytes` give JAX's
 bytes.
 
-Not ported yet (each raises NotImplementedError and is queued in ROADMAP.md):
-meshes and orbax checkpoints.
+On a mesh (`mesh=`: the ("data",) or ("data", "space") mesh of
+parallel/mesh.py, one rank per device) every rank holds the weights, the
+buckets round up to multiples of the data axis, and every request runs
+through `sample_chunked` at its bucket, as JAX's does: each rank samples its
+rows of the batch and of the image height, and every rank returns the whole
+result. `sample` is then collective: every rank calls it with the same
+arguments. A server puts one rank in front (`lead`, rank 0, with the
+`MicroBatcher` and the HTTP front end) and the others in `follow`: rank 0
+announces each dispatch's (n, seed, y_cat, y_cont) on the process group's
+store and the followers run the same `sample`. A follower waits for the next
+announcement on the store, outside any collective, so an idle server never
+meets the collectives' timeout; `stop_followers` ends their loops.
 """
 
 from __future__ import annotations
 
 import io
 import math
+import pickle
 import queue
 import threading
 import time
+from datetime import timedelta
 from concurrent.futures import Future
 from typing import Any, Mapping, Sequence
 
@@ -64,6 +76,8 @@ from toycrystals_torch.models.sde_score_model import (
     sample_probability_flow_ode,
     sample_reverse_sde_euler_maruyama,
 )
+from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel.mesh import AXIS, SPACE, axis_size, check_data_mesh
 from toycrystals_torch.utils.figures import _grid_png, png_gray
 from toycrystals_torch.utils.params import load_flax_params
 
@@ -78,7 +92,9 @@ _SAMPLERS = {"sde": sample_reverse_sde_euler_maruyama,
              "ddim": sample_ddim,
              "rf": sample_rectified_flow}
 
-_DEFERRED = "ROADMAP.md, 'Deferred from the serving slice'"
+# a follower's wait for rank 0's next announcement, re-armed until it comes
+_FOLLOW_POLL = timedelta(seconds=1)
+_ANNOUNCE_KEY = "toycrystals/serve/{}"
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -154,7 +170,7 @@ class ScoreModelService:
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
         if mesh is not None:
-            raise NotImplementedError(f"serving on a mesh is not ported yet ({_DEFERRED})")
+            check_data_mesh(mesh, space=True)
         if out_dtype not in ("float32", "uint8"):
             raise ValueError(f"out_dtype must be 'float32' or 'uint8', got {out_dtype!r}")
         if steps is None:
@@ -177,6 +193,10 @@ class ScoreModelService:
         self.n_types = int(cfg["n_types"])
         self.y_cont_dim = int(cfg["y_cont_dim"])
         self.img_size = int(cfg.get("img_size", 64))
+        self.mesh = mesh
+        if mesh is not None and axis_size(mesh, SPACE) > 1:
+            spatial.check_stem_divisibility(self.img_size, axis_size(mesh, SPACE),
+                                            str(cfg.get("stem", "none")))
         model = CondUNetTiny(
             n_types=self.n_types, y_cont_dim=self.y_cont_dim,
             base_ch=int(cfg["base_ch"]), emb_dim=int(cfg["emb_dim"]),
@@ -214,8 +234,11 @@ class ScoreModelService:
 
             self._sampler_fn = _quantized
 
-        self.buckets = tuple(sorted({max(1, int(b)) for b in buckets}))
+        mult = 1 if mesh is None else axis_size(mesh, AXIS)
+        self.buckets = tuple(sorted({-(-max(1, int(b)) // mult) * mult for b in buckets}))
         self._lock = threading.Lock()  # one sampling call at a time per device
+        self._store = None  # rank 0 of a served mesh: where dispatches are announced
+        self._announced = 0
         self._stats_lock = threading.Lock()
         self._stats = {"requests": 0, "images": 0, "dispatches": 0}
 
@@ -243,7 +266,9 @@ class ScoreModelService:
                  t_end=self.t_end, img_size=self.img_size,
                  distilled=bool(self.config.get("distilled")),
                  quantize=self.quantize, out_dtype=self.out_dtype,
-                 device=str(self.device))
+                 device=str(self.device),
+                 mesh=None if self.mesh is None else [axis_size(self.mesh, AXIS),
+                                                      axis_size(self.mesh, SPACE)])
         return s
 
     def describe(self) -> dict[str, Any]:
@@ -252,8 +277,8 @@ class ScoreModelService:
         return {k: self.config[k] for k in keep if k in self.config}
 
     def _pick_bucket(self, n: int) -> int:
-        """The smallest bucket that holds n rows (n <= the top bucket)."""
-        return next(b for b in self.buckets if b >= n)
+        """The smallest bucket that holds n rows; the top one beyond it."""
+        return next((b for b in self.buckets if b >= n), self.buckets[-1])
 
     def conditions(self, types, thetas=None):
         """(y_cat, y_cont) rows from lattice types and rotation angles, in
@@ -292,8 +317,9 @@ class ScoreModelService:
         return draw_sampler_noise((batch, s, s, 1), self.noise_steps, generator, self.device,
                                   lazy=lazy)
 
-    def sampler_callable(self, batch: int):
-        """The serving dispatch at one static batch:
+    def sampler_callable(self, batch: int, img_shape=None):
+        """The serving dispatch at one static batch (and `img_shape`, default
+        the whole image; a rank of a space axis gives its own rows):
         ``run(y_cat int32 [batch], y_cont f32 [batch, D], x_init f32
         [batch, H, W, 1], z f32 [noise_steps, batch, H, W, 1]) -> [batch, H,
         W, 1]``, with the resolved sampler, steps, CFG and t_end baked in and
@@ -302,7 +328,8 @@ class ScoreModelService:
         draws (z as `StepDraws`); toycrystals_torch/export.py exports it with
         z a tensor."""
         sampler_fn, apply_fn, sde = self._sampler_fn, self._apply_fn, self.sde
-        shape = (int(batch), self.img_size, self.img_size, 1)
+        shape = (int(batch), self.img_size, self.img_size, 1) if img_shape is None \
+            else tuple(int(v) for v in img_shape)
         kw = dict(n_steps=self.steps, guidance_scale=self.guidance_scale, t_end=self.t_end,
                   n_types=self.n_types, clip_x0=self.clip_x0, **self._extra_kw)
         sde_noise = self.sampler_name == "sde"
@@ -316,8 +343,9 @@ class ScoreModelService:
     def _dispatch(self, _apply_fn, _sde, y_cat, y_cont, img_shape, generator):
         """One call of `sampler_callable` on `generator`'s draws; it takes a
         sampler's arguments, so `sample_chunked` drives it as a sampler."""
-        x_init, z = self.draw_noise(int(img_shape[0]), generator, lazy=True)
-        return self.sampler_callable(int(img_shape[0]))(y_cat, y_cont, x_init, z)
+        x_init, z = draw_sampler_noise(img_shape, self.noise_steps, generator, self.device,
+                                       lazy=True)
+        return self.sampler_callable(int(img_shape[0]), img_shape)(y_cat, y_cont, x_init, z)
 
     def sample(self, y_cat, y_cont, *, seed: int = 0) -> np.ndarray:
         """One image per condition row: (n, H, W, 1) float32 in [0, 1], or
@@ -333,6 +361,8 @@ class ScoreModelService:
         yc = np.asarray(y_cat, np.int32)
         yv = np.asarray(y_cont, np.float32)
         size, top = self.img_size, self.buckets[-1]
+        if self.mesh is not None:
+            return self._sample_mesh(yc, yv, seed)
         if n > top:
             with self._lock, torch.inference_mode():
                 yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
@@ -353,6 +383,63 @@ class ScoreModelService:
                                gen)[:n].cpu().numpy()
         self._count(n, 1)
         return x
+
+    def _sample_mesh(self, yc: np.ndarray, yv: np.ndarray, seed: int) -> np.ndarray:
+        """`sample` on a mesh: `sample_chunked` at the request's bucket, on
+        every rank; rank 0 of a served mesh first announces the dispatch."""
+        n, size = yc.shape[0], self.img_size
+        bucket = self._pick_bucket(n)
+        with self._lock:
+            if self._store is not None:
+                self._announce((yc, yv, seed))
+            with torch.inference_mode():
+                yc_t, yv_t = (torch.from_numpy(a).to(self.device) for a in (yc, yv))
+                x = sample_chunked(self._dispatch, self._apply_fn, self.sde, yc_t, yv_t,
+                                   (n, size, size, 1), seed, chunk=bucket, mesh=self.mesh)
+        self._count(n, -(-n // bucket))
+        return x
+
+    def lead(self) -> None:
+        """Rank 0 of a served mesh: announce every later dispatch to the ranks
+        in `follow`, on the process group's store."""
+        if self.mesh is None:
+            raise ValueError("lead() serves a mesh; this service has none")
+        self._store = _group_store()
+
+    def _announce(self, message) -> None:
+        self._store.set(_ANNOUNCE_KEY.format(self._announced), pickle.dumps(message))
+        self._announced += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' loops (after its last dispatch)."""
+        if self._store is not None:
+            with self._lock:
+                self._announce(None)
+
+    def follow(self) -> None:
+        """A rank other than 0 of a served mesh: run each dispatch that rank 0
+        announces, in order, until it stops. Between dispatches the rank
+        waits on the store with no deadline; a store that is gone (rank 0
+        died) raises."""
+        if self.mesh is None:
+            raise ValueError("follow() serves a mesh; this service has none")
+        store = _group_store()
+        i = 0
+        while True:
+            key = _ANNOUNCE_KEY.format(i)
+            while True:
+                try:
+                    store.wait([key], _FOLLOW_POLL)
+                    break
+                except RuntimeError:  # the wait timed out, or the store is gone
+                    if store.check([key]):  # raises if the store is gone
+                        break
+            message = pickle.loads(store.get(key))
+            i += 1
+            if message is None:
+                return
+            yc, yv, seed = message
+            self.sample(yc, yv, seed=seed)
 
     def _count(self, images: int, dispatches: int) -> None:
         with self._stats_lock:
@@ -461,6 +548,15 @@ class MicroBatcher:
             n = yc.shape[0]
             fut.set_result(x[i:i + n])
             i += n
+
+
+def _group_store():
+    """The store of the default process group (the launcher's rendezvous)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise RuntimeError("serving a mesh needs a process group")
+    return dist.distributed_c10d._get_default_store()
 
 
 def grid_png_bytes(x: np.ndarray) -> bytes:
