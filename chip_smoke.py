@@ -218,6 +218,28 @@ result line:
    torch leaves them) and beside the one-process service's dispatch of the
    same layout (the gap printed, beside what TF32 alone moves in one
    process), then SIGTERM: every rank exits 0 within 60 s.
+17. Training under the space axis, on one card: two ranks share cuda:0 over
+   gloo, so nothing here times NCCL or a collective across cards. The
+   GroupNorm backward pair of the space axis (backward sums and backward
+   apply kernels) at one rank's rows of the 256x256 step ([32, 96, 128, 256]
+   bf16, pad on and off) and the flash backward of Nq 2,048 queries against
+   4,096 gathered keys ([32, ., 4, 48], bf16 and f32), each against its plain
+   version and timed beside it (and beside autograd of
+   F.scaled_dot_product_attention); the GroupNorm pair has no single library
+   call. A (1, 1) mesh at world 1 over NCCL: one f32 step bit-equal to no
+   mesh. The 256x256 model at full width (base_ch 96, stem none, param v,
+   logsnr_shift -2.77) on a (data 1, space 2) mesh: one f32 step at batch 2
+   against one process (the loss within 1e-5 relative, every gradient leaf
+   within phase 7's limits, the parameters within lr/10 and the EMA within
+   (1 - decay) lr/10 plus 4 f32 ulps, where the first moment is at least a
+   tenth of its leaf's largest and at least 1e-5), then 2 bf16 steps
+   at batch 32, timed, each rank's peak memory beside one process's, with
+   exactly 10 sums, 10 apply, 10 backward sums and 10 backward apply
+   launches, 1 flash forward and 1 flash backward per rank per step. Last,
+   the 64x64 train CLI with --shard-space 2 --dist-backend gloo on the s2dr
+   stem (the stem the 256x256 step does not run; cut from both stems at once
+   for time), 1 epoch into a DCP checkpoint and --resume to 2, ending in a
+   grid sampled on the mesh.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included.
@@ -872,22 +894,25 @@ def sm_clock_max_hz() -> float:
 
 
 def flash_bound(shape, elem_bytes: int, backward: bool,
-                clock_hz: float = H100_SM_CLOCK_MAX_HZ) -> tuple[float, str, str]:
-    """Least time for one call: the largest of three. Tensor operations: the
-    forward's 2 products of 2 B H N^2 d operations, the backward's 5 (S, dP,
-    dV, dK, dQ), at the tensor cores' bf16 rate, or at the f32 rate for f32
-    inputs, which run on no tensor core. Exponentials: one exp2 per logit,
-    B H N^2 (the backward's least work too), at 16 per clock per SM on 132 SMs
-    at the top SM clock. Bytes: q, k, v read and O and the f32 row log-sum-exp
-    written once (backward: q, k, v, O, dO and L read, dq, dk, dv written).
+                clock_hz: float = H100_SM_CLOCK_MAX_HZ, nk: int | None = None
+                ) -> tuple[float, str, str]:
+    """Least time for one call of q [B, N, H, d] against Nk keys (default N):
+    the largest of three. Tensor operations: the forward's 2 products of
+    2 B H N Nk d operations, the backward's 5 (S, dP, dV, dK, dQ), at the
+    tensor cores' bf16 rate, or at the f32 rate for f32 inputs, which run on
+    no tensor core. Exponentials: one exp2 per logit, B H N Nk (the
+    backward's least work too), at 16 per clock per SM on 132 SMs at the top
+    SM clock. Bytes: q, k, v read and O and the f32 row log-sum-exp written
+    once (backward: q, k, v, O, dO and L read, dq, dk, dv written).
     Returns (ms, "operations" or "bytes", which operations or "bytes")."""
     b, n, h, d = shape
-    ops = (10 if backward else 4) * b * h * n * n * d
-    elems = (8 if backward else 4) * b * n * h * d
+    nk = n if nk is None else nk
+    ops = (10 if backward else 4) * b * h * n * nk * d
+    elems = ((4 * n + 4 * nk) if backward else (2 * n + 2 * nk)) * b * h * d
     terms = {
         "tensor operations" if elem_bytes == 2 else "f32 operations":
             ops / (BF16_OPS_PER_S if elem_bytes == 2 else F32_OPS_PER_S) * 1e3,
-        "exponentials": b * h * n * n / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
+        "exponentials": b * h * n * nk / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
         "bytes": (elems * elem_bytes + b * h * n * 4) / HBM_BYTES_PER_S * 1e3,
     }
     what = max(terms, key=terms.get)
@@ -2836,7 +2861,8 @@ def _par_world2() -> dict:
         for rank, res in enumerate((r0, r1)):
             out["launches"][f"data_w2_{name}_rank{rank}"] = res["launches"]
             wl = {"gn_silu": 10 * steps, "gn_silu_backward": 10 * steps, "gn_silu_sums": 0,
-                  "gn_silu_apply": 0, "rasterize": 0, "flash_attn": 0, "flash_attn_backward": 0}
+                  "gn_silu_apply": 0, "gn_silu_backward_sums": 0, "gn_silu_backward_apply": 0,
+                  "rasterize": 0, "flash_attn": 0, "flash_attn_backward": 0}
             if res["launches"] != wl:
                 raise AssertionError(f"world 2 {name} rank {rank}: launches "
                                      f"{res['launches']}, expected {wl}")
@@ -3018,16 +3044,8 @@ def _space_flash_rows(at) -> tuple[list[dict], dict]:
                                                warmup=1)
                 row["library_ms"] = cuda_time_ms(
                     lambda: F.scaled_dot_product_attention(qh, kh, vh), iters=10)
-            ops = 4 * b * h * n * nk * d
-            terms = {"tensor operations" if dtype == torch.bfloat16 else "f32 operations":
-                     ops / (BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S) * 1e3,
-                     "exponentials": b * h * n * nk
-                     / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
-                     "bytes": (2 * b * n * h * d + 2 * b * nk * h * d) * q.element_size()
-                     / HBM_BYTES_PER_S * 1e3 + b * h * n * 4 / HBM_BYTES_PER_S * 1e3}
-            what = max(terms, key=terms.get)
-            row["bound_ms"], row["bound_operations"] = terms[what], what
-            row["bound_by"] = "bytes" if what == "bytes" else "operations"
+            row["bound_ms"], row["bound_by"], row["bound_operations"] = flash_bound(
+                shape, q.element_size(), False, clock_hz, nk=nk)
             rows.append(row)
             log("kernel flash_attn Nq != Nk " + json.dumps(row))
             if not err <= FLASH_TOL[name] * big:
@@ -3293,7 +3311,8 @@ def phase_space(set_counts_to_zero, counts, card: str, params: dict) -> dict:
         for name in ("hi_f32", "hi_bf16"):
             got = two[rank][names.index(name)]["launches"]
             want = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 10 * evals,
-                    "gn_silu_apply": 10 * evals, "rasterize": 0, "flash_attn": evals,
+                    "gn_silu_apply": 10 * evals, "gn_silu_backward_sums": 0,
+                    "gn_silu_backward_apply": 0, "rasterize": 0, "flash_attn": evals,
                     "flash_attn_backward": 0}
             if got != want:
                 raise AssertionError(f"space {name} rank {rank}: launches {got}, expected {want}")
@@ -3341,6 +3360,374 @@ def phase_space(set_counts_to_zero, counts, card: str, params: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["serve_cli"] = _space_serve_cli(card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+
+# Phase 17: training under the space axis, on one card: two ranks share cuda:0
+# over gloo, so nothing here times NCCL or a collective across cards
+SPACE_TRAIN_DIR = os.path.join(ROOT, "runs", "chip_smoke_space_train")
+ST_GN_SHAPE = (32, 96, 128, 256)    # one rank's rows of down1/up1 at 256x256, batch 32, S = 2
+ST_FLASH = ((32, 2048, 4, 48), 4096)  # a rank's queries against the gathered keys, S = 2
+ST_F32_BATCH, ST_BF16_BATCH, ST_BF16_STEPS = 2, 32, 2
+ST_CLI = ["--procedural", "--img-size", "64", "--base-ch", "96", "--dtype", "bfloat16",
+          "--n-samples", "64", "--batch-size", "32", "--sample-steps", "4",
+          "--shard-space", "2", "--dist-backend", "gloo", "--ckpt-format", "orbax"]
+# the stem the 256x256 step does not run (cut from both stems at once for time)
+ST_CLI_STEMS = ("s2dr",)
+
+
+def _st_gn_rows(gn) -> tuple[list[dict], dict]:
+    """The space axis's GroupNorm backward pair at one rank's rows of the
+    256x256 path (bf16, pad on and off) against its plain versions; the other
+    rank's share of the group's sums added in-process. Timed beside the
+    plain versions; bound: bytes (sums: x and the gradient read once; apply:
+    those and dx written once)."""
+    rows, headline = [], {}
+    gen = torch.Generator(device=DEVICE).manual_seed(21)
+    b, c, h, w = ST_GN_SHAPE
+    x = (torch.randn(ST_GN_SHAPE, generator=gen, device=DEVICE) * 2 + 0.5).to(torch.bfloat16)
+    scale = torch.randn(c, generator=gen, device=DEVICE) * 0.1 + 1.0
+    bias = torch.randn(c, generator=gen, device=DEVICE) * 0.1
+    sums = gn.gn_sums_reference(x, 8) * 2.0
+    count = c // 8 * h * w * 2
+    for pad in (False, True):
+        p = 1 if pad else 0
+        g = torch.randn((b, c, h + 2 * p, w + 2 * p), generator=gen,
+                        device=DEVICE).to(torch.bfloat16)
+        edge = torch.randn((b, c, 2, w + 2), generator=gen,
+                           device=DEVICE).to(torch.bfloat16) if pad else None
+        args = (x, g, edge, sums, count, scale, bias, 8)
+        chan = gn.gn_silu_backward_sums(*args, pad=pad)
+        want = gn.gn_silu_backward_sums_reference(*args, pad=pad)
+        sums_err = float((chan - want).abs().max()) / float(want.abs().max())
+        dsums = (want * scale.reshape(1, -1, 1)).reshape(b, 8, -1, 2).sum(2) * 2.0
+        dx = gn.gn_silu_backward_apply(x, g, edge, sums, dsums, count, scale, bias, 8, pad=pad)
+        want_dx = gn.gn_silu_backward_apply_reference(x, g, edge, sums, dsums, count, scale,
+                                                      bias, 8, pad=pad)
+        torch.cuda.synchronize()
+        err = float((dx.float() - want_dx.float()).abs().max())
+        big = float(want_dx.float().abs().max())
+        row = dict(shape="256 down1/up1 rank rows, S = 2", dims=list(ST_GN_SHAPE),
+                   dtype="bfloat16", pad=pad, sums_max_err_share=sums_err, max_abs_err=err,
+                   max_abs=big, grad_tol=GRAD_TOL["bfloat16"])
+        if not (sums_err <= GRAD_TOL["float32"] and err <= GRAD_TOL["bfloat16"] * big):
+            raise AssertionError(f"gn_silu space backward pair disagrees: {row}")
+        del want_dx, dx, chan
+        row["sums_ms"] = cuda_time_ms(lambda: gn.gn_silu_backward_sums(*args, pad=pad))
+        row["sums_plain_ms"] = cuda_time_ms(
+            lambda: gn.gn_silu_backward_sums_reference(*args, pad=pad), iters=3, warmup=1)
+        row["apply_ms"] = cuda_time_ms(lambda: gn.gn_silu_backward_apply(
+            x, g, edge, sums, dsums, count, scale, bias, 8, pad=pad))
+        row["apply_plain_ms"] = cuda_time_ms(lambda: gn.gn_silu_backward_apply_reference(
+            x, g, edge, sums, dsums, count, scale, bias, 8, pad=pad), iters=3, warmup=1)
+        read = (x.numel() + g.numel() + (0 if edge is None else edge.numel())) * 2
+        row["sums_bound_ms"] = (read + b * c * 2 * 4) / HBM_BYTES_PER_S * 1e3
+        row["apply_bound_ms"] = (read + x.numel() * 2) / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        log("kernel gn_silu space backward " + json.dumps(row))
+        if pad:
+            headline = row
+        del g, edge
+    del x
+    torch.cuda.empty_cache()
+    return rows, headline
+
+
+def _st_flash_rows(at) -> tuple[list[dict], dict]:
+    """The flash backward of a rank's Nq queries against Nk gathered keys
+    (bf16: wgmma; f32: the FMA bodies) against autograd of `sdpa_reference`
+    in f32 (8 items at a time), timed beside it and beside autograd of
+    F.scaled_dot_product_attention at the same shapes."""
+    rows, headline = [], {}
+    clock_hz = sm_clock_max_hz()
+    gen = torch.Generator(device=DEVICE).manual_seed(22)
+    shape, nk = ST_FLASH
+    b, n, h, d = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        kv = torch.randn((b, nk, 2, h, d), generator=gen, device=DEVICE).to(dtype)
+        up = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        leaves = [t.detach().requires_grad_(True) for t in (q, kv[:, :, 0], kv[:, :, 1])]
+        before = (at.flash_sdpa.launches, at.flash_sdpa.backward_launches)
+        out = at.flash_sdpa(*leaves)
+        grads = torch.autograd.grad(out, leaves, up, retain_graph=True)
+        torch.cuda.synchronize()
+        if (at.flash_sdpa.launches, at.flash_sdpa.backward_launches) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"flash_sdpa did not launch its kernels at Nq {n} / Nk {nk}")
+        errs = {k: 0.0 for k in ("dq", "dk", "dv")}
+        maxs = dict(errs)
+        for i0 in range(0, b, 8):
+            sl = slice(i0, i0 + 8)
+            ref = [t[sl].detach().float().requires_grad_(True) for t in leaves]
+            want_g = torch.autograd.grad(at.sdpa_reference(*ref), ref, up[sl].float())
+            for k, got, w in zip(errs, grads, want_g):
+                errs[k] = max(errs[k], float((got[sl].float() - w).abs().max()))
+                maxs[k] = max(maxs[k], float(w.abs().max()))
+            del ref, want_g
+        row = dict(shape="S=2", dims=list(shape), nk=nk, dtype=name, tol_share=FLASH_TOL[name])
+        bad = []
+        for k in errs:
+            row[f"{k}_max_abs_err"], row[f"{k}_max_abs"] = errs[k], maxs[k]
+            if not errs[k] <= FLASH_TOL[name] * maxs[k]:
+                bad.append(k)
+        # the f32 bodies take seconds a call here: one timed call each
+        it, warm = (10, 3) if dtype == torch.bfloat16 else (1, 1)
+        row["backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(out, leaves, up, retain_graph=True), iters=it,
+            warmup=warm)
+        plain = at.sdpa_reference(*leaves)
+        row["plain_backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(plain, leaves, up, retain_graph=True), iters=min(it, 3),
+            warmup=1)
+        del plain
+        lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in leaves]
+        lib = F.scaled_dot_product_attention(*lib_leaves)
+        row["library_backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(lib, lib_leaves, up.transpose(1, 2), retain_graph=True),
+            iters=it, warmup=warm)
+        del lib, lib_leaves
+        row["backward_bound_ms"], row["bound_by"], row["backward_bound_operations"] = \
+            flash_bound(shape, q.element_size(), True, clock_hz, nk=nk)
+        rows.append(row)
+        log("kernel flash_attn backward Nq != Nk " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"flash backward at Nq {n} / Nk {nk} {name} disagrees in {bad}: "
+                                 f"{row}")
+        if dtype == torch.bfloat16:
+            headline = row
+        del q, kv, up, leaves, out, grads
+        torch.cuda.empty_cache()
+    return rows, headline
+
+
+def _st_cases() -> dict:
+    """The 256x256 model (base_ch 96, stem none, param v, logsnr_shift -2.77)
+    at full width: one f32 step at batch ST_F32_BATCH, and ST_BF16_STEPS bf16
+    steps at batch ST_BF16_BATCH, each on rendered images and injected (t, eps)."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.torch_init import flax_default_init
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    model = flax_default_init(make_model("none", "float32"), np.random.default_rng(23))
+    sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    r = np.random.default_rng(24)
+    cases = []
+    for dtype, b, steps in ((torch.float32, ST_F32_BATCH, 1),
+                            (torch.bfloat16, ST_BF16_BATCH, ST_BF16_STEPS)):
+        x0 = np.stack([generate_batch(LatticeConfig(img_size=HI_SIZE, rot_only=True), 0,
+                                      np.arange(i * b, (i + 1) * b), device="cpu")[0].numpy()
+                       for i in range(steps)])
+        cases.append(dict(kind="sde", model=dict(kw, stem="none", dtype=dtype), state_dict=sd,
+                          param="v", sde=dict(beta_min=0.1, beta_max=30.0,
+                                              logsnr_shift=HI_CFG["logsnr_shift"]),
+                          opt={"lr": TRAIN_LR, "ema": 0.999}, x0=x0,
+                          y_cat=r.integers(0, 5, (steps, b)).astype(np.int32),
+                          y_cont=r.normal(size=(steps, b, 4)).astype(np.float32),
+                          t=r.uniform(0.02, 1.0, (steps, b)).astype(np.float32),
+                          eps=r.normal(size=x0.shape).astype(np.float32)))
+    return {"device": torch.device(DEVICE).type, "tf32": False, "cases": cases}
+
+
+def _st_hold_updated(got: dict, want: dict, lr: float, decay: float) -> tuple[float, float, int]:
+    """After one Adam step, where the one-process first moment is at least a
+    tenth of its leaf's largest entry and at least 1e-5 (a gradient at
+    rounding-noise level may take either sign elsewhere, and Adam's first
+    step moves every entry by about lr either way): the parameters within
+    lr/10 and the EMA within (1 - decay) lr/10 plus 4 f32 ulps of its value.
+    Returns the largest share of its limit each used and the entries held."""
+    worst_p = worst_e = 0.0
+    held = 0
+    for k, m in want["mu"].items():
+        mask = np.abs(m) >= max(0.1 * float(np.abs(m).max()), 1e-5)
+        held += int(mask.sum())
+        if not mask.any():
+            continue
+        dp = np.abs(got["params"][k] - want["params"][k])[mask]
+        worst_p = max(worst_p, float(dp.max()) / (lr / 10))
+        ew = want["ema"][k][mask]
+        lim = (1.0 - decay) * lr / 10 + 4 * np.finfo(np.float32).eps * np.abs(ew)
+        worst_e = max(worst_e, float((np.abs(got["ema"][k][mask] - ew) / lim).max()))
+    if not (held > 1000 and worst_p <= 1.0 and worst_e <= 1.0):
+        raise AssertionError(f"space training f32 against one process: parameters at "
+                             f"{worst_p:.3f} and EMA at {worst_e:.3f} of their limits on "
+                             f"{held} entries")
+    return worst_p, worst_e, held
+
+
+def _st_world1() -> dict:
+    """A (1, 1) mesh at world 1 in this process over NCCL: one f32 SDE step
+    at 64x64 under DDP bit-equal to the same step with no mesh (both under
+    deterministic algorithms, as phase 15's: the bilinear upsample's and
+    cuDNN's backward are atomic otherwise)."""
+    import torch.distributed as dist
+
+    from toycrystals_torch.parallel import place_state
+    from toycrystals_torch.parallel.mesh import make_mesh_2d
+    from toycrystals_torch.train.steps import make_sde_train_step
+
+    x0, y_cat, y_cont = (torch.from_numpy(a).to(DEVICE) for a in (
+        np.random.default_rng(25).uniform(size=(8, 64, 64, 1)).astype(np.float32),
+        np.arange(8, dtype=np.int32) % 4, np.zeros((8, 4), np.float32)))
+    r = np.random.default_rng(26)
+    noise = (torch.from_numpy(r.uniform(0.02, 1.0, 8).astype(np.float32)).to(DEVICE),
+             torch.from_numpy(r.normal(size=(8, 64, 64, 1)).astype(np.float32)).to(DEVICE))
+    params = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for with_mesh in (True, False):
+            model, tx, sde, state = train_pieces("none", "float32", DEVICE)
+            mesh = None
+            if with_mesh:
+                dist.init_process_group(
+                    "nccl" if torch.device(DEVICE).type == "cuda" else "gloo",
+                    init_method=f"file://{os.path.join(SPACE_TRAIN_DIR, 'world1')}", rank=0,
+                    world_size=1, timeout=timedelta(seconds=300))
+                mesh = make_mesh_2d(1, 1, torch.device(DEVICE).type)
+            try:
+                module, state = place_state(mesh, model, state)
+                step = make_sde_train_step(module, tx, sde, **TRAIN_KW, mesh=mesh)
+                state, _ = step(state, x0, y_cat, y_cont, noise=noise)
+                params.append({k: v.detach().cpu().numpy() for k, v in state.params.items()})
+            finally:
+                if with_mesh:
+                    dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k, v in params[1].items():
+        if not np.array_equal(params[0][k], v):
+            raise AssertionError(f"(1, 1) mesh at world 1: parameter {k} differs from no mesh")
+    log("space training (1, 1) mesh at world 1 over NCCL: one f32 step bit-equal to no mesh")
+    return {"bit_equal": True}
+
+
+def _st_cli(card: str) -> dict:
+    """The 64x64 train CLI with --shard-space 2 --dist-backend gloo on the
+    ST_CLI_STEMS (a launcher and two ranks on cuda:0 each): 1 epoch of 2
+    steps into a DCP checkpoint, then --resume to 2 epochs, which ends in a
+    grid sampled on the mesh."""
+    from toycrystals_torch.utils.orbax_io import load_orbax_meta
+
+    out = {}
+    for epochs, more in ((1, ["--sample-every", "0"]), (2, ["--resume", "--sample-every", "1"])):
+        t0 = time.perf_counter()
+        procs = {}
+        for stem in ST_CLI_STEMS:
+            argv = [sys.executable, "-u", "-m", "toycrystals_torch.scripts.train_sde_score_model",
+                    *ST_CLI, "--stem", stem, "--epochs", str(epochs), *more,
+                    "--out-dir", os.path.join(SPACE_TRAIN_DIR, f"cli_{stem}")]
+            if DEVICE == "cpu":
+                argv += ["--device", "cpu"]
+            procs[stem] = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        for stem, proc in procs.items():
+            try:
+                text, _ = proc.communicate(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+            if proc.returncode != 0:
+                raise AssertionError(f"train CLI --shard-space 2 {stem} (epochs {epochs}) "
+                                     f"exited {proc.returncode}:\n{text[-4000:]}")
+        out[f"epochs_{epochs}_seconds"] = time.perf_counter() - t0
+    for stem in ST_CLI_STEMS:
+        run = os.path.join(SPACE_TRAIN_DIR, f"cli_{stem}")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        meta = load_orbax_meta(os.path.join(run, "checkpoints", "sde_score_model_last.orbax"))
+        grids = sorted(os.listdir(os.path.join(run, "results")))
+        losses = [r["loss"] for r in rows]
+        if not ([r["epoch"] for r in rows] == [1, 2] and np.isfinite(losses).all()
+                and int(meta["epoch_next"]) == 2 and grids == ["sde_samples_epoch_002.png"]):
+            raise AssertionError(f"train CLI --shard-space 2 {stem}: metrics {rows}, "
+                                 f"epoch_next {meta.get('epoch_next')}, grids {grids}")
+        out[stem] = {"losses": losses, "grids": grids}
+    log(f"space training CLI (64x64, base_ch 96, bf16, --shard-space 2 over gloo on {card}): "
+        f"stems {', '.join(ST_CLI_STEMS)} trained 1 epoch into DCP and resumed to 2: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_space_train(card: str) -> dict:
+    """Phase 17: training under the space axis (module docstring)."""
+    from toycrystals_torch.ops import attention as at
+    from toycrystals_torch.ops import groupnorm as gn
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+
+    shutil.rmtree(SPACE_TRAIN_DIR, ignore_errors=True)
+    os.makedirs(SPACE_TRAIN_DIR)
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "launches": {}}
+    out["gn_rows"], out["gn_headline"] = _st_gn_rows(gn)
+    out["flash_rows"], out["flash_headline"] = _st_flash_rows(at)
+    out["world1"] = _st_world1()
+    spec = _st_cases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    two = launch(run_cases, 2, ({**spec, "mesh": [1, 2]},), device_type=spec["device"],
+                 backend="gloo", device_ids=[0, 0], timeout=600)
+    out["mesh_job_s"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = run_cases(spec)
+    for i, (name, steps) in enumerate((("f32", 1), ("bf16", ST_BF16_STEPS))):
+        per_step = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 10, "gn_silu_apply": 10,
+                    "gn_silu_backward_sums": 10, "gn_silu_backward_apply": 10, "rasterize": 0,
+                    "flash_attn": 1, "flash_attn_backward": 1}
+        want_launches = {k: v * steps for k, v in per_step.items()}
+        for rank in (0, 1):
+            got = two[rank][i]["launches"]
+            out["launches"][f"space_train_{name}_rank{rank}"] = got
+            if got != want_launches:
+                raise AssertionError(f"space training {name} rank {rank}: launches {got}, "
+                                     f"expected {want_launches}")
+        r0, r1, want = two[0][i], two[1][i], one[i]
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"space training {name}: the ranks' losses differ")
+        rec = {"losses": r0["losses"], "losses_one_process": want["losses"],
+               "step_ms_rank0": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+               "step_ms_one_process": want["step_ms"],
+               "peak_bytes": [r0.get("peak_bytes", 0), r1.get("peak_bytes", 0)],
+               "peak_bytes_one_process": want.get("peak_bytes", 0),
+               "launches_per_rank_per_step": per_step}
+        rec["loss_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                                      want["losses"]))
+        if name == "f32":
+            rec["grad_worst_share"] = _leafwise(r0["grads"], want["grads"],
+                                                "space training f32 gradient")
+            rec["param_max_abs_diff"] = max(float(np.abs(r0["params"][k] - want["params"][k])
+                                                  .max()) for k in want["params"])
+            rec["param_worst_share"], rec["ema_worst_share"], rec["entries_held"] = \
+                _st_hold_updated(r0, want, TRAIN_LR, 0.999)
+            if not rec["loss_rel_diff"] <= 1e-5:
+                raise AssertionError(f"space training f32 against one process: {rec}")
+        elif not np.isfinite(r0["losses"]).all():
+            raise AssertionError(f"space training bf16: losses {r0['losses']}")
+        out[name] = rec
+        gib = 2.0**30
+        log(f"space training 256x256 {name} on a (1, 2) mesh (two ranks on one card over gloo, "
+            f"{card}): losses {r0['losses']} against {want['losses']} in one process "
+            f"({rec['loss_rel_diff']:.3e} relative"
+            + (f"; gradients {rec['grad_worst_share']:.3f} of phase 7's limits, parameters "
+               f"{rec['param_worst_share']:.3f} and EMA {rec['ema_worst_share']:.3f} of theirs "
+               f"on {rec['entries_held']} entries, parameters {rec['param_max_abs_diff']:.3e} "
+               f"apart in all" if name == "f32" else "")
+            + f"); step ms per rank {r0['step_ms']} / {r1['step_ms']} against "
+            f"{want['step_ms']}; peak {rec['peak_bytes'][0] / gib:.2f} / "
+            f"{rec['peak_bytes'][1] / gib:.2f} GiB against "
+            f"{rec['peak_bytes_one_process'] / gib:.2f}; launches per rank per step "
+            f"{json.dumps(per_step)}")
+    del two, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = _st_cli(card)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3421,6 +3808,7 @@ def main() -> int:
         def set_counts_to_zero():
             gn.gn_silu.launches = gn.gn_silu.backward_launches = rz.rasterize.launches = 0
             gn.gn_silu.sums_launches = gn.gn_silu.apply_launches = 0
+            gn.gn_silu.backward_sums_launches = gn.gn_silu.backward_apply_launches = 0
             at.flash_sdpa.launches = at.flash_sdpa.backward_launches = 0
 
         def counts():
@@ -3488,13 +3876,16 @@ def main() -> int:
         log(f"phase 15 took {report['parallel']['seconds']:.1f} s")
         report["space"] = phase_space(set_counts_to_zero, counts, card, params)
         log(f"phase 16 took {report['space']['seconds']:.1f} s")
+        report["space_train"] = phase_space_train(card)
+        log(f"phase 17 took {report['space_train']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
                               **report["serving_rest"]["launches"],
                               **report["export_vae"]["launches"],
                               **report["prior_data"]["launches"],
-                              **report["parallel"]["launches"], **report["space"]["launches"]}
+                              **report["parallel"]["launches"], **report["space"]["launches"],
+                              **report["space_train"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -3512,6 +3903,8 @@ def main() -> int:
                 f"per step ({tr['gn_share']:.3f})")
         flash_train, flash_serve = flash_headline["train batch 32"], flash_headline["serve 12 img"]
         gn_space, flash_space = report["space"]["gn_headline"], report["space"]["flash_headline"]
+        gn_bwd_space = report["space_train"]["gn_headline"]
+        flash_bwd_space = report["space_train"]["flash_headline"]
         tr, sl = report["train_256"], report["slice_256"]
         tr["flash_ms_per_step"] = flash_train["ms"] + flash_train["backward_ms"]
         tr["flash_share"] = tr["flash_ms_per_step"] * tr["steps_per_s"] / 1e3
@@ -3574,8 +3967,10 @@ def main() -> int:
             ("space_int8_none_rank0", ("gn_silu",)), ("space_int8_s2dr_rank0", ("gn_silu",)),
             *((f"space_{name}_rank{r}", ("gn_silu_sums", "gn_silu_apply", "flash_attn"))
               for name in ("hi_f32", "hi_bf16") for r in (0, 1)),
-            *((f"space_{stem}_64_rank{r}", ("gn_silu_sums", "gn_silu_apply"))
-              for stem in ("none", "s2dr") for r in (0, 1)))
+            *((f"space_train_{name}_rank{r}", ("gn_silu_sums", "gn_silu_apply",
+                                               "gn_silu_backward_sums", "gn_silu_backward_apply",
+                                               "flash_attn", "flash_attn_backward"))
+              for name in ("f32", "bf16") for r in (0, 1)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -3743,6 +4138,19 @@ def main() -> int:
             "bound_by": flash_space["bound_by"],
             "bound_operations": flash_space["bound_operations"],
             "library_ms": flash_space["library_ms"]},
+        "space_backward_at": {
+            "at": f"backward (delta, dK/dV, dQ), q {flash_bwd_space['dims']} against K and V "
+                  f"of {flash_bwd_space['nk']} gathered keys, bf16 (a rank of the 256x256 "
+                  f"training step at S = 2)",
+            "launches_space_train": {k: paths[k]["flash_attn_backward"]
+                                     for k in report["space_train"]["launches"]},
+            "max_abs_err": max(flash_bwd_space[f"{k}_max_abs_err"] for k in ("dq", "dk", "dv")),
+            "ms": flash_bwd_space["backward_ms"], "plain_ms": flash_bwd_space["plain_backward_ms"],
+            "bound_ms": flash_bwd_space["backward_bound_ms"],
+            "bound_by": flash_bwd_space["bound_by"],
+            "bound_operations": flash_bwd_space["backward_bound_operations"],
+            "library_ms": flash_bwd_space["library_backward_ms"],
+            "library_call": "autograd of F.scaled_dot_product_attention"},
     }, {
         "name": "gn_silu_sums", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:53 (the statistics, under a space axis)",
@@ -3762,6 +4170,31 @@ def main() -> int:
         "plain_ms": gn_space["apply_plain_ms"], "bound_ms": gn_space["apply_bound_ms"],
         "bound_by": gn_space["apply_bound_by"], "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16 pad=True, one rank's rows at S = 2",
+    }, {
+        "name": "gn_silu_backward_sums", "route": "cuda",
+        "source": "toycrystals_torch/csrc/gn_silu.cu",
+        "replaces": "toycrystals_tpu/ops/groupnorm.py:155 (the custom VJP's backward: its sums, "
+                    "under a space axis)",
+        "launches": sum(path.get("gn_silu_backward_sums", 0) for path in paths.values()),
+        "launches_space_train": {k: paths[k]["gn_silu_backward_sums"]
+                                 for k in report["space_train"]["launches"]},
+        "max_abs_err": gn_bwd_space["sums_max_err_share"],
+        "max_err_is": "of the largest per-(item, channel) sum",
+        "ms": gn_bwd_space["sums_ms"], "plain_ms": gn_bwd_space["sums_plain_ms"],
+        "bound_ms": gn_bwd_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "at": f"{gn_bwd_space['shape']} {gn_bwd_space['dims']} bf16 pad=True",
+    }, {
+        "name": "gn_silu_backward_apply", "route": "cuda",
+        "source": "toycrystals_torch/csrc/gn_silu.cu",
+        "replaces": "toycrystals_tpu/ops/groupnorm.py:155 (the custom VJP's backward: dx, under "
+                    "a space axis)",
+        "launches": sum(path.get("gn_silu_backward_apply", 0) for path in paths.values()),
+        "launches_space_train": {k: paths[k]["gn_silu_backward_apply"]
+                                 for k in report["space_train"]["launches"]},
+        "max_abs_err": gn_bwd_space["max_abs_err"], "ms": gn_bwd_space["apply_ms"],
+        "plain_ms": gn_bwd_space["apply_plain_ms"], "bound_ms": gn_bwd_space["apply_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "at": f"{gn_bwd_space['shape']} {gn_bwd_space['dims']} bf16 pad=True",
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

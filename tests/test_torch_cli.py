@@ -308,10 +308,10 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    # the data axis, and the space axis of sampling and serving, run; their
-    # refusals are JAX's
+    # the data and space axes run; their refusals are JAX's, and FSDP2 on a
+    # space axis is still to port
     ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
-    ("train", ["--shard-space", "2"], MODULE_5),
+    ("train", ["--shard-space", "2", "--fsdp"], MODULE_5),
     ("train", ["--shard-model", "2"], MODULE_5), ("serve", ["--shard-model", "2"], MODULE_5),
     ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
     ("serve", ["--coordinator", "localhost:1"], "--coordinator host:port, --num-processes"),

@@ -218,8 +218,10 @@ def test_setup_mesh_refuses_as_jax_does(shard, batch, match):
 
 @pytest.mark.parametrize("flag", ["shard_space", "shard_model"])
 def test_setup_mesh_refuses_the_model_axes(flag):
+    """--shard-model alone, and with --shard-space (JAX's 3-D mesh)."""
+    axes = {"shard_model": 2, flag: 2}
     with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
-        setup_mesh(2, 16, device=torch.device("cpu"), **{flag: 2})
+        setup_mesh(2, 16, device=torch.device("cpu"), **axes)
 
 
 def test_a_mesh_with_a_model_axis_raises():

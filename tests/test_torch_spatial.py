@@ -302,7 +302,7 @@ def test_too_few_devices_refuse_as_jax_does():
     with pytest.raises(SystemExit, match=msg):
         jax_setup_mesh(2, shard_space=8)
     with pytest.raises(SystemExit, match=msg):
-        setup_mesh(2, device=torch.device("cpu"), shard_space=8, space=True)
+        setup_mesh(2, device=torch.device("cpu"), shard_space=8)
     with pytest.raises(ValueError, match="asked for 16 devices, have"):
         jspatial.make_mesh_2d(4, 4)
     with pytest.raises(ValueError, match="asked for 16 devices, have"):

@@ -1,9 +1,10 @@
 """The space axis's kernels on the card: the GroupNorm sums and apply kernels
 (toycrystals_torch/csrc/gn_silu.cu) against their plain versions, the flash
-forward of Nq queries against Nk gathered keys (csrc/flash_attn.cu) against
-the plain SDPA, and the halo exchange of parallel/spatial.py between two ranks
-that share the card over gloo (torch documents gloo's send and recv as
-CPU-only; the exchange is an all_gather, which gloo runs on CUDA tensors).
+forward and backward of Nq queries against Nk gathered keys
+(csrc/flash_attn.cu) against the plain SDPA and its autograd, and the halo
+exchange of parallel/spatial.py between two ranks that share the card over
+gloo (torch documents gloo's send and recv as CPU-only; the exchange is an
+all_gather, which gloo runs on CUDA tensors).
 
 Every test here is marked `cuda` and skips without a card. On a machine with
 one NVIDIA GPU and nvcc, run them without tests/conftest.py, which imports
@@ -92,11 +93,30 @@ def test_flash_forward_of_fewer_queries_than_keys(cuda, shape, nk, dtype):
     assert err <= SHARE[dtype] * float(want.abs().max()), err
 
 
-def test_flash_backward_refuses_fewer_queries_than_keys(cuda):
-    q = torch.randn((1, 128, 2, 16), device=cuda, requires_grad=True)
-    k = torch.randn((1, 256, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="space axis"):
-        at.flash_sdpa(q, k, k)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,nk", [((2, 2048, 4, 48), 4096), ((2, 1024, 4, 48), 4096),
+                                      ((2, 128, 2, 24), 384)])
+def test_flash_backward_of_fewer_queries_than_keys(cuda, shape, nk, dtype):
+    """dq [B, Nq, heads, d], and dk, dv [B, Nk, heads, d] (this rank's queries'
+    share of every gathered key's gradient) against autograd of the plain
+    version, within the share of each largest entry of
+    tests/test_torch_flash_attention_cuda.py."""
+    b, n, h, d = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    kv = torch.randn((b, nk, 2, h, d), generator=g, device=cuda).to(dtype)
+    upstream = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, kv[:, :, 0], kv[:, :, 1])]
+    fwd, bwd = at.flash_sdpa.launches, at.flash_sdpa.backward_launches
+    got = torch.autograd.grad(at.flash_sdpa(*leaves), leaves, upstream)
+    torch.cuda.synchronize()
+    assert (at.flash_sdpa.launches, at.flash_sdpa.backward_launches) == (fwd + 1, bwd + 1)
+    ref = [t.detach().float().requires_grad_(True) for t in leaves]
+    want = torch.autograd.grad(at.sdpa_reference(*ref), ref, upstream.float())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        err = float((a.float() - w).abs().max())
+        assert err <= SHARE[dtype] * float(w.abs().max()), (name, err)
 
 
 def test_halo_exchange_over_gloo_between_two_ranks_on_one_card(cuda):

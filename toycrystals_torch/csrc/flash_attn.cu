@@ -50,10 +50,12 @@
 //
 // One head dim per build: compile with -DFLASH_HEAD_DIM=<multiple of 16, at
 // most 128>. q, k, v arrive as [B, N, H, d] views given by element strides (d
-// contiguous, rows 16-byte aligned); N must be a multiple of 128. The forward
-// also takes K and V of Nk rows against Q of N (sequence-parallel attention:
+// contiguous, rows 16-byte aligned); N must be a multiple of 128. Both passes
+// also take K and V of Nk rows against Q of N (sequence-parallel attention:
 // a rank's queries against the keys gathered from every rank), Nk a multiple
-// of 128 too; the backward takes Nk = N. The bf16
+// of 128 too: the forward and dQ loop over Nk keys, dK/dV has a block per 128
+// of the Nk keys and loops over the N queries, so dK and dV are [B, Nk, H, D],
+// this rank's queries' share of every key's gradient. The bf16
 // kernels read q, k, v and dO through TMA tensor maps encoded per call.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
@@ -92,12 +94,12 @@ struct Params {
   void* out;         // forward: O, contiguous [B, N, H, D]
   float* lse;        // [B, H, N]
   float* delta;      // [B, H, N]
-  void* dq;          // gradients: element strides gsb, gsn, gsh
-  void* dk;
+  void* dq;          // gradient of q: element strides gsb, gsn, gsh
+  void* dk;          // gradients of k and v: element strides dsb, dsn, dsh
   void* dv;
-  long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh;
+  long long qsb, qsn, qsh, ksb, ksn, ksh, vsb, vsn, vsh, gsb, gsn, gsh, dsb, dsn, dsh;
   int B, N, H;
-  int Nk;  // rows of K and V (the forward's key loop); N in the backward
+  int Nk;  // rows of K and V: the key loop of the forward and of dQ, dK/dV's blocks
   float scale;
 };
 
@@ -706,7 +708,7 @@ __device__ void dq_wgmma(const Params& p, const CUtensorMap* qmap, const CUtenso
   uint64_t* empty = full + kDqStages;
   uint64_t* qbar = empty + kDqStages;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = p.N / kRows;
+  const int tiles = p.Nk / kRows;
   const int wg = threadIdx.x / 128;
   init_ring(full, empty, qbar, kDqStages);
 
@@ -925,10 +927,10 @@ __device__ void dkv_wgmma(const Params& p, const CUtensorMap* kmap, const CUtens
     keep(dk);
     keep(dv);
     const int row0 = k0 + wg * 64 + warp * 16;
-    bf16* gk = static_cast<bf16*>(p.dk) + b * p.gsb + h * p.gsh;
-    bf16* gv = static_cast<bf16*>(p.dv) + b * p.gsb + h * p.gsh;
-    store_rows(gk, p.gsn, row0, dk, p.scale, p.scale, lane);
-    store_rows(gv, p.gsn, row0, dv, 1.f, 1.f, lane);
+    bf16* gk = static_cast<bf16*>(p.dk) + b * p.dsb + h * p.dsh;
+    bf16* gv = static_cast<bf16*>(p.dv) + b * p.dsb + h * p.dsh;
+    store_rows(gk, p.dsn, row0, dk, p.scale, p.scale, lane);
+    store_rows(gv, p.dsn, row0, dv, 1.f, 1.f, lane);
   }
 }
 
@@ -1073,8 +1075,8 @@ __device__ void dkv_fma(const Params& p) {
       axpy_f32(dk, dsij, qs + i * D);
     }
   }
-  store_row_f32(static_cast<float*>(p.dk) + b * p.gsb + h * p.gsh + row * p.gsn, dk, p.scale);
-  store_row_f32(static_cast<float*>(p.dv) + b * p.gsb + h * p.gsh + row * p.gsn, dv, 1.f);
+  store_row_f32(static_cast<float*>(p.dk) + b * p.dsb + h * p.dsh + row * p.dsn, dk, p.scale);
+  store_row_f32(static_cast<float*>(p.dv) + b * p.dsb + h * p.dsh + row * p.dsn, dv, 1.f);
 }
 
 __device__ void dq_fma(const Params& p) {
@@ -1094,7 +1096,7 @@ __device__ void dq_fma(const Params& p) {
 #pragma unroll
   for (int d = 0; d < D; ++d) dq[d] = 0.f;
 
-  for (int k0 = 0; k0 < p.N; k0 += kTileF) {
+  for (int k0 = 0; k0 < p.Nk; k0 += kTileF) {
     __syncthreads();
     load_rows_f32(ks, k + k0 * p.ksn, p.ksn, kTileF);
     load_rows_f32(vs, v + k0 * p.vsn, p.vsn, kTileF);
@@ -1217,7 +1219,8 @@ template <typename T>
 bool misaligned(const Params& p) {
   constexpr long long per16 = 16 / sizeof(T);
   const long long strides[] = {p.qsb, p.qsn, p.qsh, p.ksb, p.ksn, p.ksh,
-                               p.vsb, p.vsn, p.vsh, p.gsb, p.gsn, p.gsh};
+                               p.vsb, p.vsn, p.vsh, p.gsb, p.gsn, p.gsh,
+                               p.dsb, p.dsn, p.dsh};
   for (long long st : strides) {
     if (st % per16 != 0) return true;
   }
@@ -1336,25 +1339,28 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
                           s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  // dQ: a block per 128 queries; dK/dV: a block per 128 of the Nk keys
   const dim3 grid(static_cast<unsigned>(p.N / kRows), static_cast<unsigned>(p.H),
                   static_cast<unsigned>(p.B));
+  const dim3 kgrid(static_cast<unsigned>(p.Nk / kRows), static_cast<unsigned>(p.H),
+                   static_cast<unsigned>(p.B));
   if constexpr (sizeof(T) == 2) {
     // dO is contiguous [B, N, H, D]; dK/dV reads Q and dO in tiles of kQRows rows
     const long long on = static_cast<long long>(p.H) * D, ob = p.N * on;
     CUtensorMap qmap, kmap, vmap, omap, qrows, orows;
     err = tile_map(&qmap, p.q, p, p.N, p.qsb, p.qsn, p.qsh);
-    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.N, p.ksb, p.ksn, p.ksh);
-    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.N, p.vsb, p.vsn, p.vsh);
+    if (err == cudaSuccess) err = tile_map(&kmap, p.k, p, p.Nk, p.ksb, p.ksn, p.ksh);
+    if (err == cudaSuccess) err = tile_map(&vmap, p.v, p, p.Nk, p.vsb, p.vsn, p.vsh);
     if (err == cudaSuccess) err = tile_map(&omap, p.dout, p, p.N, ob, on, D);
     if (err == cudaSuccess) err = tile_map(&qrows, p.q, p, p.N, p.qsb, p.qsn, p.qsh, kQRows);
     if (err == cudaSuccess) err = tile_map(&orows, p.dout, p, p.N, ob, on, D, kQRows);
     if (err != cudaSuccess) return err;
-    flash_dkv_wgmma_kernel<<<grid, kFwdThreads, dkv_smem<T>(), s>>>(p, kmap, vmap, qrows, orows);
+    flash_dkv_wgmma_kernel<<<kgrid, kFwdThreads, dkv_smem<T>(), s>>>(p, kmap, vmap, qrows, orows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     flash_dq_wgmma_kernel<<<grid, kFwdThreads, dq_smem<T>(), s>>>(p, qmap, kmap, vmap, omap);
   } else {
-    flash_dkv_f32_kernel<<<grid, kThreads, dkv_smem<T>(), s>>>(p);
+    flash_dkv_f32_kernel<<<kgrid, kThreads, dkv_smem<T>(), s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     flash_dq_f32_kernel<<<grid, kThreads, dq_smem<T>(), s>>>(p);
@@ -1387,15 +1393,18 @@ extern "C" int flash_attn_forward(const void* q, const void* k, const void* v, v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The three backward kernels in order: delta, dK/dV, dQ. o, dout: contiguous
-// [B, N, H, D]; lse, delta (scratch): f32 [B, H, N]; dq, dk, dv: [B, N, H, D]
-// views sharing the element strides (gsb, gsn, gsh). Returns a cudaError_t.
+// The three backward kernels in order: delta, dK/dV, dQ. q: [B, N, H, D], k, v:
+// [B, Nk, H, D] views as for flash_attn_forward; o, dout: contiguous [B, N, H, D];
+// lse, delta (scratch): f32 [B, H, N]; dq: a [B, N, H, D] view with element strides
+// (gsb, gsn, gsh); dk, dv: [B, Nk, H, D] views sharing the strides (dsb, dsn, dsh).
+// Returns a cudaError_t.
 extern "C" int flash_attn_backward(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, float* lse, float* delta, void* dq, void* dk,
-                                   void* dv, int B, int N, int H, long long qsb, long long qsn,
-                                   long long qsh, long long ksb, long long ksn, long long ksh,
-                                   long long vsb, long long vsn, long long vsh, long long gsb,
-                                   long long gsn, long long gsh, float scale, int dtype,
+                                   void* dv, int B, int N, int Nk, int H, long long qsb,
+                                   long long qsn, long long qsh, long long ksb, long long ksn,
+                                   long long ksh, long long vsb, long long vsn, long long vsh,
+                                   long long gsb, long long gsn, long long gsh, long long dsb,
+                                   long long dsn, long long dsh, float scale, int dtype,
                                    void* stream) {
   Params p = {};
   p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout; p.lse = lse; p.delta = delta;
@@ -1404,7 +1413,8 @@ extern "C" int flash_attn_backward(const void* q, const void* k, const void* v, 
   p.ksb = ksb; p.ksn = ksn; p.ksh = ksh;
   p.vsb = vsb; p.vsn = vsn; p.vsh = vsh;
   p.gsb = gsb; p.gsn = gsn; p.gsh = gsh;
-  p.B = B; p.N = N; p.Nk = N; p.H = H; p.scale = scale;
+  p.dsb = dsb; p.dsn = dsn; p.dsh = dsh;
+  p.B = B; p.N = N; p.Nk = Nk; p.H = H; p.scale = scale;
   if (bad_shape(p)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return static_cast<int>(backward<float>(p, s));

@@ -62,6 +62,28 @@
 // Both are bound by bytes: the sums kernel reads x once, the apply kernel
 // reads x once and writes the output once.
 //
+// Training under a space axis cuts the backward at the same place, into two
+// more plain grids with an all-reduce between them (the caller first returns
+// the padded gradient's two H halo rows to the ranks that own them, the
+// `edge` rows below):
+//
+// - gn_silu_bwd_sums_kernel: k blocks per (item, channel), each over a share
+//   of the channel's rows, sum dz and dz * xhat (f32) over the rank's rows,
+//   where dz = g * SiLU'(z) is the upstream gradient folded over the W halo
+//   (and the edge rows) at z = xhat * scale_c + bias_c; the caller adds the
+//   k partials in block order into the per-(item, channel) sums (dbias and
+//   dscale once added over the batch), weights them by scale_c into the
+//   group's sums of dxhat and dxhat * xhat, and adds those over the ranks.
+// - gn_silu_bwd_apply_kernel: dx = inv * (dz * scale_c - m1 - xhat * m2) with
+//   m1, m2 the group's sums over its whole count (m2 = 0 where the variance
+//   was clipped), as gn_silu_bwd_kernel's pass B.
+//
+// A warp takes a row, each lane 16 bytes of x (and of an unpadded gradient,
+// and of dx) at a time; the padded gradient's rows start one element in, so
+// a lane reads them an element at a time. The sums kernel reads x and the
+// gradient once; the apply kernel reads both again and writes dx once: bound
+// by bytes, like the rest.
+//
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/groupnorm.py). Launches go on the caller's stream;
 // each entry returns cudaGetLastError() of its launch.
@@ -909,6 +931,201 @@ gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+constexpr int kBwdSpaceThreads = 256;
+
+// What the space backward kernels read for one row: x's row, the upstream
+// gradient's padded row, and with pad the edge rows returned by the ranks
+// that read this row as their halo (null where none does).
+template <typename T>
+struct SpaceRow {
+  const T *x, *g, *e0, *e1;
+};
+
+template <typename T>
+__device__ __forceinline__ SpaceRow<T> space_row(const T* x, const T* g, const T* edge,
+                                                 const Dims& d, long long bc, int i) {
+  SpaceRow<T> r;
+  r.x = x + (bc * d.H + i) * d.W;
+  r.g = g + (bc * d.ho + i + d.pad) * d.wo;
+  r.e0 = d.pad && i == 0 ? edge + (2 * bc) * d.wo : nullptr;
+  r.e1 = d.pad && i == d.H - 1 ? edge + (2 * bc + 1) * d.wo : nullptr;
+  return r;
+}
+
+// A padded gradient row at interior column j, folded over the W halo.
+template <typename T>
+__device__ __forceinline__ float fold_col(const T* row, int j, const Dims& d) {
+  float v = to_f32(row[j + d.pad]);
+  if (d.pad) {
+    if (j == d.W - 1) v += to_f32(row[0]);
+    if (j == 0) v += to_f32(row[d.W + 1]);
+  }
+  return v;
+}
+
+// V consecutive values of x and of the folded gradient at columns [j, j + V)
+// of one row, in f32; V > 1 reads x (and an unpadded gradient) 16 bytes at a time.
+template <typename T, int V>
+__device__ __forceinline__ void load_row_chunk(const SpaceRow<T>& r, int j, const Dims& d,
+                                               float (&xv)[V], float (&gv)[V]) {
+  if constexpr (V > 1) {
+    const uint4 u = *reinterpret_cast<const uint4*>(r.x + j);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int q = 0; q < V; ++q) xv[q] = to_f32(e[q]);
+    if (!d.pad) {
+      const uint4 w = *reinterpret_cast<const uint4*>(r.g + j);
+      const T* f = reinterpret_cast<const T*>(&w);
+#pragma unroll
+      for (int q = 0; q < V; ++q) gv[q] = to_f32(f[q]);
+      return;
+    }
+  } else {
+    xv[0] = to_f32(r.x[j]);
+  }
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    float v = fold_col(r.g, j + q, d);
+    if (r.e0 != nullptr) v += fold_col(r.e0, j + q, d);
+    if (r.e1 != nullptr) v += fold_col(r.e1, j + q, d);
+    gv[q] = v;
+  }
+}
+
+// Mean and inv of group `grp` from its sums (S1, S2) over `count` elements,
+// as the apply kernel forms them; clipped where the fast variance is negative.
+__device__ __forceinline__ void group_stats(const float* sums, int grp, float count, float eps,
+                                            float& mean, float& inv, bool& clipped) {
+  mean = sums[2 * grp] / count;
+  const float var = sums[2 * grp + 1] / count - mean * mean;
+  clipped = var < 0.f;
+  inv = rsqrtf(fmaxf(var, 0.f) + eps);
+}
+
+// Block j of the k blocks of (item, channel) `bc` sums dz and dz * xhat over
+// its share of the channel's rows: part[bc * k + j] = (sum dz, sum dz xhat).
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdSpaceThreads)
+gn_silu_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                        const T* __restrict__ edge, const float* __restrict__ scale,
+                        const float* __restrict__ bias, const float* __restrict__ sums,
+                        float* __restrict__ part, Dims d, float count, int k) {
+  __shared__ float red[64];
+  const int bc = blockIdx.x / k, j = blockIdx.x - bc * k;
+  const int c = bc % d.C;
+  const int grp = bc / d.C * d.groups + c / d.cg;
+  float mean, inv;
+  bool clipped;
+  group_stats(sums, grp, count, d.eps, mean, inv, clipped);
+  const float sc = scale[c], bi = bias[c];
+  const int share = (d.H + k - 1) / k;
+  const int i0 = min(j * share, d.H), i1 = min(i0 + share, d.H);
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = i0 + (threadIdx.x >> 5); i < i1; i += warps) {
+    const SpaceRow<T> r = space_row(x, g, edge, d, bc, i);
+    for (int col = lane * V; col < d.W; col += 32 * V) {
+      float xv[V], gv[V];
+      load_row_chunk<T, V>(r, col, d, xv, gv);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float xhat = (xv[q] - mean) * inv;
+        const float z = xhat * sc + bi;
+        const float sg = sigmoid(z);
+        const float dz = gv[q] * sg * (1.f + z * (1.f - sg));
+        s1 += dz;
+        s2 += dz * xhat;
+      }
+    }
+  }
+  block_sum2(s1, s2, red);
+  if (threadIdx.x == 0) {
+    part[2 * (static_cast<long long>(bc) * k + j)] = s1;
+    part[2 * (static_cast<long long>(bc) * k + j) + 1] = s2;
+  }
+}
+
+// Block j of the k blocks of (item, channel) `bc` writes dx over its share of
+// the channel's rows; dsums [B * groups * 2] holds each group's (sum dxhat,
+// sum dxhat * xhat) over every rank's rows.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdSpaceThreads)
+gn_silu_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         const T* __restrict__ edge, const float* __restrict__ scale,
+                         const float* __restrict__ bias, const float* __restrict__ sums,
+                         const float* __restrict__ dsums, T* __restrict__ dx, Dims d,
+                         float count, int k) {
+  const int bc = blockIdx.x / k, j = blockIdx.x - bc * k;
+  const int c = bc % d.C;
+  const int grp = bc / d.C * d.groups + c / d.cg;
+  float mean, inv;
+  bool clipped;
+  group_stats(sums, grp, count, d.eps, mean, inv, clipped);
+  const float m1 = dsums[2 * grp] / count;
+  const float m2 = clipped ? 0.f : dsums[2 * grp + 1] / count;
+  const float sc = scale[c], bi = bias[c];
+  const int share = (d.H + k - 1) / k;
+  const int i0 = min(j * share, d.H), i1 = min(i0 + share, d.H);
+  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
+  for (int i = i0 + (threadIdx.x >> 5); i < i1; i += warps) {
+    const SpaceRow<T> r = space_row(x, g, edge, d, bc, i);
+    T* out = dx + (static_cast<long long>(bc) * d.H + i) * d.W;
+    for (int col = lane * V; col < d.W; col += 32 * V) {
+      float xv[V], gv[V];
+      load_row_chunk<T, V>(r, col, d, xv, gv);
+      alignas(16) T res[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float xhat = (xv[q] - mean) * inv;
+        const float z = xhat * sc + bi;
+        const float sg = sigmoid(z);
+        const float dz = gv[q] * sg * (1.f + z * (1.f - sg));
+        res[q] = from_f32<T>(inv * (dz * sc - m1 - xhat * m2));
+      }
+      if constexpr (V > 1) {
+        *reinterpret_cast<uint4*>(out + col) = *reinterpret_cast<const uint4*>(res);
+      } else {
+        out[col] = res[0];
+      }
+    }
+  }
+}
+
+template <typename T>
+int space_bwd(bool apply, const void* x, const void* g, const void* edge, const void* scale,
+              const void* bias, const void* sums, const void* dsums, void* out, int B,
+              const Dims& d, float count, int k, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const unsigned blocks = static_cast<unsigned>(B) * d.C * k;
+  const T *xt = static_cast<const T*>(x), *gt = static_cast<const T*>(g);
+  const T* et = static_cast<const T*>(edge);
+  const float *sct = static_cast<const float*>(scale), *bit = static_cast<const float*>(bias);
+  const float* st = static_cast<const float*>(sums);
+  // 16-byte rows: x (and dx) hold W elements a row from a 16-byte aligned start
+  const bool vec = d.W % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   (d.pad || reinterpret_cast<uintptr_t>(g) % 16 == 0);
+  if (apply) {
+    const float* dt = static_cast<const float*>(dsums);
+    T* o = static_cast<T*>(out);
+    if (vec)
+      gn_silu_bwd_apply_kernel<T, V><<<blocks, kBwdSpaceThreads, 0, s>>>(xt, gt, et, sct, bit,
+                                                                         st, dt, o, d, count, k);
+    else
+      gn_silu_bwd_apply_kernel<T, 1><<<blocks, kBwdSpaceThreads, 0, s>>>(xt, gt, et, sct, bit,
+                                                                         st, dt, o, d, count, k);
+  } else {
+    float* o = static_cast<float*>(out);
+    if (vec)
+      gn_silu_bwd_sums_kernel<T, V><<<blocks, kBwdSpaceThreads, 0, s>>>(xt, gt, et, sct, bit, st,
+                                                                        o, d, count, k);
+    else
+      gn_silu_bwd_sums_kernel<T, 1><<<blocks, kBwdSpaceThreads, 0, s>>>(xt, gt, et, sct, bit, st,
+                                                                        o, d, count, k);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int space_sums(const void* x, void* part, int B, const Dims& d, int k, cudaStream_t s) {
   gn_silu_sums_kernel<T><<<static_cast<unsigned>(B) * d.groups * k, kSumThreads, 0, s>>>(
@@ -1010,6 +1227,53 @@ extern "C" int gn_silu_apply_launch(const void* x, const void* scale, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return space_apply<float>(x, scale, bias, sums, out, B, d, count, s);
   if (dtype == 1) return space_apply<__nv_bfloat16>(x, scale, bias, sums, out, B, d, count, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The space axis's backward sums kernel. g: the upstream gradient [B, C, H+2pad,
+// W+2pad] in x's type; edge: with pad, [B, C, 2, W+2] in x's type, the gradient
+// rows that the ranks above and below return to this rank's first and last
+// rows (else unused); sums: the forward's [B * groups * 2] (S1, S2) over `count`
+// elements per (item, group); part [B * C * k * 2] f32 receives (sum dz, sum dz
+// xhat) of each of the k shares of every (item, channel). Returns a cudaError_t.
+extern "C" int gn_silu_backward_sums_launch(const void* x, const void* g, const void* edge,
+                                            const void* scale, const void* bias,
+                                            const void* sums, void* part, int B, int C, int H,
+                                            int W, int groups, float count, float eps, int pad,
+                                            int k, int dtype, void* stream) {
+  Dims d;
+  if (!make_dims(B, C, H, W, groups, eps, pad, &d) || !(count > 0.f) || k < 1 || k > H ||
+      (pad && edge == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return space_bwd<float>(false, x, g, edge, scale, bias, sums, nullptr, part, B, d, count,
+                            k, s);
+  if (dtype == 1)
+    return space_bwd<__nv_bfloat16>(false, x, g, edge, scale, bias, sums, nullptr, part, B, d,
+                                    count, k, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The space axis's backward apply kernel: dsums [B * groups * 2] f32 holds each
+// group's (sum dxhat, sum dxhat * xhat) over every rank's rows; dx: [B, C, H, W]
+// in x's type; the rest as gn_silu_backward_sums_launch's. Returns a cudaError_t.
+extern "C" int gn_silu_backward_apply_launch(const void* x, const void* g, const void* edge,
+                                             const void* scale, const void* bias,
+                                             const void* sums, const void* dsums, void* dx,
+                                             int B, int C, int H, int W, int groups,
+                                             float count, float eps, int pad, int k, int dtype,
+                                             void* stream) {
+  Dims d;
+  if (!make_dims(B, C, H, W, groups, eps, pad, &d) || !(count > 0.f) || k < 1 || k > H ||
+      (pad && edge == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return space_bwd<float>(true, x, g, edge, scale, bias, sums, dsums, dx, B, d, count, k, s);
+  if (dtype == 1)
+    return space_bwd<__nv_bfloat16>(true, x, g, edge, scale, bias, sums, dsums, dx, B, d,
+                                    count, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

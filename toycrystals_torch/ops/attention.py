@@ -26,9 +26,13 @@ rows of the image height, so its tokens are a contiguous share of the
 row-major sequence: Q stays on the rank's Nq tokens and K and V are gathered
 from every rank over the space group (Nk = Nq S), in rank order, which is the
 sequence's order. The GroupNorm adds its sums over the axis, and the backend
-is chosen on the whole image's token count, as an unsharded run chooses it.
-The flash forward takes Nq != Nk; its backward still needs Nq = Nk (training
-under space is queued).
+is chosen on the whole image's token count, as an unsharded run chooses it
+(`attn_backend`); where auto picks flash but the rank's own Nq is no
+multiple of 128, which the kernel needs, the plain version runs against the
+gathered K and V (the same math), and a forced "flash" is refused there. The flash kernels take Nq != Nk forward and backward: the backward
+gives dK and dV of every gathered key, this rank's queries' share, and the
+gather's backward (parallel/spatial.py `gather_space`) sums them onto the
+ranks that own the keys.
 """
 
 from __future__ import annotations
@@ -40,8 +44,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-import torch.distributed as dist
 
 from toycrystals_torch.ops.groupnorm import group_norm_f32
 from toycrystals_torch.parallel import spatial
@@ -108,6 +110,21 @@ def select_attn_impl(attn_impl: str, n: int, head_dim: int, device_type: str) ->
     return "flash" if flash else "xla"
 
 
+def attn_backend(attn_impl: str, n_image: int, n_rank: int, head_dim: int,
+                 device_type: str) -> str:
+    """The backend of a rank's `n_rank` queries against the `n_image` tokens
+    of the whole image: `select_attn_impl` on the whole image, as an
+    unsharded run (and JAX's GSPMD) chooses, except that where auto picks
+    flash and the rank's own query count is no multiple of 128, which the
+    kernel needs, the plain version ("xla") runs against the gathered keys,
+    the same math. A forced "flash" stays flash (`flash_sdpa` refuses what
+    the kernel cannot take)."""
+    impl = select_attn_impl(attn_impl, n_image, head_dim, device_type)
+    if attn_impl == "auto" and impl == "flash" and n_rank % _FLASH_SEQ_MULTIPLE:
+        return "xla"
+    return impl
+
+
 def _kernel_head_dim(d: int) -> int:
     """The head dim the kernel is built for: the next multiple of 16."""
     return -(-d // 16) * 16
@@ -125,7 +142,7 @@ def _lib(head_dim: int) -> ctypes.CDLL:
     lib.flash_attn_head_dim.restype = i
     lib.flash_attn_forward.argtypes = [p] * 5 + [i] * 4 + [ll] * 9 + [f, i, p]
     lib.flash_attn_forward.restype = i
-    lib.flash_attn_backward.argtypes = [p] * 10 + [i] * 3 + [ll] * 12 + [f, i, p]
+    lib.flash_attn_backward.argtypes = [p] * 10 + [i] * 4 + [ll] * 15 + [f, i, p]
     lib.flash_attn_backward.restype = i
     lib.flash_attn_error_string.argtypes = [i]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
@@ -201,13 +218,23 @@ def _flash_forward_cuda(q, k, v, scale: float) -> tuple[torch.Tensor, torch.Tens
 
 def _flash_backward_cuda(q, k, v, out, lse, grad_out, scale: float):
     """Launch the backward kernels (delta, dK/dV, dQ) at the forward's
-    saved tensors. Returns (dq, dk, dv), views of one [B, N, 3, heads, d]
-    buffer, which is the layout of the qkv projection they flow back into."""
+    saved tensors, q [B, N, heads, d] against k and v [B, Nk, heads, d].
+    Returns (dq, dk, dv). At Nk = N they are views of one [B, N, 3, heads, d]
+    buffer, the layout of the qkv projection they flow back into; at Nk != N
+    (a rank's queries against gathered keys) dq is [B, N, heads, d] and dk,
+    dv views of one [B, Nk, 2, heads, d] buffer: this rank's queries' share of
+    every key's gradient."""
     b, n, h, d = q.shape
+    nk = k.shape[1]
     q, k, v = (_kernel_view(t) for t in (q, k, v))
     grad_out = grad_out.contiguous()
-    grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
-    dq, dk, dv = grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
+    if nk == n:
+        grads = torch.empty((b, n, 3, h, d), dtype=q.dtype, device=q.device)
+        dq, dk, dv = grads[:, :, 0], grads[:, :, 1], grads[:, :, 2]
+    else:
+        dq = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
+        dkv = torch.empty((b, nk, 2, h, d), dtype=q.dtype, device=q.device)
+        dk, dv = dkv[:, :, 0], dkv[:, :, 1]
     delta = torch.empty_like(lse)
     lib = _lib(d)
     with torch.cuda.device(q.device):
@@ -215,8 +242,8 @@ def _flash_backward_cuda(q, k, v, out, lse, grad_out, scale: float):
         err = lib.flash_attn_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), grad_out.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, n, h, *_strides(q), *_strides(k), *_strides(v), *_strides(dq), float(scale),
-            _DTYPE_CODE[q.dtype], stream)
+            b, n, nk, h, *_strides(q), *_strides(k), *_strides(v), *_strides(dq),
+            *_strides(dk), float(scale), _DTYPE_CODE[q.dtype], stream)
     _raise_on(err, lib, "backward")
     flash_sdpa.backward_launches += 1
     return dq, dk, dv
@@ -245,9 +272,6 @@ class _FlashKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        if q.shape != k.shape:
-            raise NotImplementedError("the flash backward needs as many queries as keys "
-                                      "(training under a space axis is not ported yet)")
         out, lse = _flash_forward_cuda(q, k, v, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale = scale
@@ -285,15 +309,6 @@ flash_sdpa.launches = 0
 flash_sdpa.backward_launches = 0
 
 
-def _gather_tokens(t: torch.Tensor, space: spatial.Shard) -> torch.Tensor:
-    """[B, n, heads, d] of this rank -> [B, n S, heads, d]: every rank's
-    tokens in space-rank order (the row-major order of the whole image)."""
-    parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
-             for _ in range(space.space)]
-    dist.all_gather(parts, t.contiguous(), group=space.space_group)
-    return torch.cat(parts, dim=1)
-
-
 class SelfAttention2d(nn.Module):
     """Multi-head self-attention over the H*W tokens of [B, C, H, W]."""
 
@@ -317,9 +332,9 @@ class SelfAttention2d(nn.Module):
         qkv = linear(y, self.qkv, self.dtype).reshape(b, n, 3, self.num_heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]               # [B, N, heads, hd]
         space = spatial.current_space()
-        if space is not None:
-            k, v = _gather_tokens(k, space), _gather_tokens(v, space)
-        impl = select_attn_impl(self.attn_impl, k.shape[1], hd, x.device.type)
+        if space is not None:  # every rank's tokens, in the whole image's row-major order
+            k, v = (spatial.gather_space(t, space, dim=1) for t in (k, v))
+        impl = attn_backend(self.attn_impl, k.shape[1], n, hd, x.device.type)
         o = flash_sdpa(q, k, v) if impl == "flash" else sdpa_reference(q, k, v)
         o = linear(o.reshape(b, n, c), self.proj, self.dtype)
         return x + o.transpose(1, 2).reshape(b, c, h, w)

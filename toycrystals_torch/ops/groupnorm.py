@@ -40,7 +40,20 @@ form them, then applies scale, bias and SiLU. With `pad` it writes the W halo
 and a local H wrap whose rows the exchange then replaces with the
 neighbours'. `gn_silu.sums_launches` and `gn_silu.apply_launches` count
 them; the plain versions are `gn_sums_reference` and
-`gn_silu_apply_reference`. Forward only: training under space is queued.
+`gn_silu_apply_reference`.
+
+Its gradient (`_GnSiluSpace`) is cut at the same place: the padded gradient's
+two H halo rows go back to the ranks that own them (parallel/spatial.py
+`return_halo_rows`; they arrive as `edge` rows), the backward sums kernel
+writes each (item, channel)'s sums of dz and dz * xhat over the rank's rows
+(the W halo folded as it reads), the group's sums of dxhat = dz * scale_c and
+dxhat * xhat are added over the space group, and the backward apply kernel
+writes dx = inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) with the means
+over the whole group, as `gn_silu_backward_reference` forms them on the whole
+image. dscale and dbias stay each rank's own sums: the data-parallel gradient
+average adds them over every rank. `gn_silu.backward_sums_launches` and
+`gn_silu.backward_apply_launches` count the launches; the plain versions are
+`gn_silu_backward_sums_reference` and `gn_silu_backward_apply_reference`.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -62,7 +76,8 @@ def group_norm_f32(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, gro
     """flax GroupNorm over [B, C, ...] in f32: f32 statistics, fast variance
     E[x^2] - E[x]^2 clipped at 0, then the per-channel affine. In a dispatch
     under a space axis x [B, C, h, W] is this rank's rows, and the group sums
-    are added over the axis first."""
+    are added over the axis first (differentiably: parallel/spatial.py
+    `all_reduce_space_sum`)."""
     b, c = x.shape[:2]
     xf = x.float().reshape(b, groups, -1)
     space = spatial.current_space()
@@ -112,12 +127,76 @@ def gn_silu_apply_reference(x: torch.Tensor, sums: torch.Tensor, count: int,
     return F.pad(y, (1, 1, 1, 1), mode="circular") if pad else y
 
 
-def _fold_halo(g: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """[B, C, H+2, W+2] -> [B, C, H, W]: each padded position adds onto the
-    interior pixel it copies (the opposite edge for the halo)."""
+def _fold_w(g: torch.Tensor, w: int) -> torch.Tensor:
+    """[..., W+2] -> [..., W]: the W halo added onto the columns it copies."""
     gc = g[..., 1:w + 1].clone()
     gc[..., w - 1] += g[..., 0]
     gc[..., 0] += g[..., w + 1]
+    return gc
+
+
+def _rank_grad(grad_out: torch.Tensor, edge: torch.Tensor | None, pad: bool) -> torch.Tensor:
+    """This rank's rows' share of the upstream gradient, f32 [B, C, h, W]: the
+    padded gradient's interior rows plus, with `pad`, the edge rows [B, C, 2,
+    W+2] that the neighbours return onto the first and last rows, the W halo
+    folded."""
+    g = grad_out.float()
+    if not pad:
+        return g
+    gi = g[:, :, 1:-1].clone()
+    gi[:, :, :1] += edge[:, :, :1].float()
+    gi[:, :, -1:] += edge[:, :, 1:].float()
+    return _fold_w(gi, gi.shape[3] - 2)
+
+
+def _space_terms(x, grad_out, edge, sums, count: int, scale, bias, groups: int, eps: float,
+                 pad: bool):
+    """(xhat, dz, inv, clipped) of this rank's rows with the whole group's
+    statistics `sums`, f32."""
+    b, c = x.shape[:2]
+    mean = (sums[..., 0] / count)[..., None]
+    var = (sums[..., 1] / count)[..., None] - mean * mean
+    inv = torch.rsqrt(var.clamp(min=0.0) + eps)
+    xhat = ((x.float().reshape(b, groups, -1) - mean) * inv).reshape(x.shape)
+    z = xhat * scale.float().reshape(1, c, 1, 1) + bias.float().reshape(1, c, 1, 1)
+    s = torch.sigmoid(z)
+    dz = _rank_grad(grad_out, edge, pad) * s * (1.0 + z * (1.0 - s))
+    return xhat, dz, inv, var < 0
+
+
+def gn_silu_backward_sums_reference(x, grad_out, edge, sums, count: int, scale, bias,
+                                    groups: int, eps: float = 1e-6,
+                                    pad: bool = False) -> torch.Tensor:
+    """Plain version of the backward sums kernel: [B, C, 2] f32, per (item,
+    channel) the sums of dz and dz * xhat over this rank's rows x [B, C, h, W],
+    with the statistics of the forward's `sums` ([B, groups, 2] over `count`
+    elements per group) and the upstream gradient of `gn_silu_apply_reference`'s
+    output (with `pad`, plus the neighbours' `edge` rows [B, C, 2, W+2])."""
+    xhat, dz, _, _ = _space_terms(x, grad_out, edge, sums, count, scale, bias, groups, eps, pad)
+    return torch.stack([dz.sum(dim=(2, 3)), (dz * xhat).sum(dim=(2, 3))], dim=-1)
+
+
+def gn_silu_backward_apply_reference(x, grad_out, edge, sums, dsums, count: int, scale, bias,
+                                     groups: int, eps: float = 1e-6,
+                                     pad: bool = False) -> torch.Tensor:
+    """Plain version of the backward apply kernel: dx of this rank's rows in
+    x.dtype, dx = inv (dz scale_c - m1 - xhat m2) with m1, m2 = `dsums`
+    ([B, groups, 2]: the sums of dxhat and dxhat * xhat over the whole group)
+    over `count`, and m2 = 0 where the variance was clipped."""
+    b, c = x.shape[:2]
+    xhat, dz, inv, clipped = _space_terms(x, grad_out, edge, sums, count, scale, bias, groups,
+                                          eps, pad)
+    m1 = (dsums[..., 0] / count)[..., None]
+    m2 = torch.where(clipped, 0.0, (dsums[..., 1] / count)[..., None])
+    dxhat = (dz * scale.float().reshape(1, c, 1, 1)).reshape(b, groups, -1)
+    dx = inv * (dxhat - m1 - xhat.reshape(b, groups, -1) * m2)
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+def _fold_halo(g: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, C, H+2, W+2] -> [B, C, H, W]: each padded position adds onto the
+    interior pixel it copies (the opposite edge for the halo)."""
+    gc = _fold_w(g, w)
     gi = gc[:, :, 1:h + 1].clone()
     gi[:, :, h - 1] += gc[:, :, 0]
     gi[:, :, 0] += gc[:, :, h + 1]
@@ -171,6 +250,12 @@ def _lib() -> ctypes.CDLL:
     lib.gn_silu_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
                                          ctypes.c_float, i, i, p]
     lib.gn_silu_apply_launch.restype = i
+    lib.gn_silu_backward_sums_launch.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] * 2 \
+        + [i] * 3 + [p]
+    lib.gn_silu_backward_sums_launch.restype = i
+    lib.gn_silu_backward_apply_launch.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float] * 2 \
+        + [i] * 3 + [p]
+    lib.gn_silu_backward_apply_launch.restype = i
     lib.gn_silu_error_string.argtypes = [i]
     lib.gn_silu_error_string.restype = ctypes.c_char_p
     return lib
@@ -310,16 +395,128 @@ def gn_silu_apply(x, sums, count: int, scale, bias, groups: int, eps: float = 1e
     return _gn_silu_apply_cuda(x, sums, count, scale, bias, groups, eps, pad)
 
 
+def _bwd_blocks(b: int, c: int, h: int, device) -> int:
+    """Blocks per (item, channel) of the space backward kernels: enough for
+    four per SM in all, at most 16, and at most one per row."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(16, -(-4 * sms // (b * c)), h))
+
+
+def _space_bwd_args(x, grad_out, edge, sums, scale, bias, groups: int, pad: bool):
+    _check(x, scale, bias, groups)
+    b, c, h, w = x.shape
+    p = 1 if pad else 0
+    if grad_out.shape != (b, c, h + 2 * p, w + 2 * p):
+        raise ValueError(f"grad_out must be {(b, c, h + 2 * p, w + 2 * p)}, got "
+                         f"{tuple(grad_out.shape)}")
+    if pad and (edge is None or edge.shape != (b, c, 2, w + 2)):
+        raise ValueError(f"pad needs edge rows [{b}, {c}, 2, {w + 2}], got "
+                         f"{None if edge is None else tuple(edge.shape)}")
+    g = grad_out.to(x.dtype).contiguous()
+    e = edge.to(x.dtype).contiguous() if pad else None
+    return (g, e, _f32(sums, x.device), _f32(scale, x.device), _f32(bias, x.device),
+            _bwd_blocks(b, c, h, x.device))
+
+
+def _gn_bwd_sums_cuda(x, grad_out, edge, sums, count: int, scale, bias, groups: int,
+                      eps: float, pad: bool) -> torch.Tensor:
+    """The backward sums kernel: [B, C, 2] f32, as
+    `gn_silu_backward_sums_reference`; each (item, channel)'s k partials are
+    added here in block order."""
+    g, e, st, sc, bi, k = _space_bwd_args(x, grad_out, edge, sums, scale, bias, groups, pad)
+    b, c, h, w = x.shape
+    part = torch.empty((b * c, k, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().gn_silu_backward_sums_launch(
+            x.data_ptr(), g.data_ptr(), None if e is None else e.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), st.data_ptr(), part.data_ptr(), b, c, h, w, groups, float(count),
+            float(eps), 1 if pad else 0, k, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, "gn_silu backward sums kernel launch")
+    gn_silu.backward_sums_launches += 1
+    return part.sum(dim=1).reshape(b, c, 2)
+
+
+def _gn_bwd_apply_cuda(x, grad_out, edge, sums, dsums, count: int, scale, bias, groups: int,
+                       eps: float, pad: bool) -> torch.Tensor:
+    """The backward apply kernel: dx in x.dtype, as
+    `gn_silu_backward_apply_reference`."""
+    g, e, st, sc, bi, k = _space_bwd_args(x, grad_out, edge, sums, scale, bias, groups, pad)
+    b, c, h, w = x.shape
+    ds = _f32(dsums, x.device)
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().gn_silu_backward_apply_launch(
+            x.data_ptr(), g.data_ptr(), None if e is None else e.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), st.data_ptr(), ds.data_ptr(), dx.data_ptr(), b, c, h, w, groups,
+            float(count), float(eps), 1 if pad else 0, k, _DTYPE_CODE[x.dtype], stream)
+    _raise_on(err, "gn_silu backward apply kernel launch")
+    gn_silu.backward_apply_launches += 1
+    return dx
+
+
+def gn_silu_backward_sums(x, grad_out, edge, sums, count: int, scale, bias, groups: int,
+                          eps: float = 1e-6, pad: bool = False) -> torch.Tensor:
+    """Per-(item, channel) [sum dz, sum dz xhat] f32 of this rank's rows: the
+    backward sums kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    fn = gn_silu_backward_sums_reference if x.device.type == "cpu" else _gn_bwd_sums_cuda
+    return fn(x, grad_out, edge, sums, count, scale, bias, groups, eps, pad)
+
+
+def gn_silu_backward_apply(x, grad_out, edge, sums, dsums, count: int, scale, bias,
+                           groups: int, eps: float = 1e-6, pad: bool = False) -> torch.Tensor:
+    """dx of this rank's rows: the backward apply kernel on a CUDA tensor,
+    the plain version on a CPU tensor."""
+    fn = gn_silu_backward_apply_reference if x.device.type == "cpu" else _gn_bwd_apply_cuda
+    return fn(x, grad_out, edge, sums, dsums, count, scale, bias, groups, eps, pad)
+
+
+class _GnSiluSpace(torch.autograd.Function):
+    """GroupNorm+SiLU of this rank's rows of an image split by height over
+    `shard`'s space axis (module docstring). The backward reads the shard kept
+    here, never the dispatch scope."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups, eps, pad, shard):
+        x = x.contiguous()
+        sums = spatial.all_reduce_space_sum(gn_sums(x, groups), shard)
+        count = x.shape[1] // groups * x.shape[2] * x.shape[3] * shard.space
+        y = gn_silu_apply(x, sums, count, scale, bias, groups, eps, pad)
+        if pad:
+            spatial.fill_halo_rows(y, shard)
+        ctx.save_for_backward(x, scale, bias, sums)
+        ctx.args = (groups, eps, pad, shard, count)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, scale, bias, sums = ctx.saved_tensors
+        groups, eps, pad, shard, count = ctx.args
+        edge = None
+        if pad:
+            first, last = spatial.return_halo_rows(grad_out[:, :, :1], grad_out[:, :, -1:],
+                                                   shard, circular=True)
+            edge = torch.cat([first, last], dim=2)
+        b, c = x.shape[:2]
+        chan = gn_silu_backward_sums(x, grad_out, edge, sums, count, scale, bias, groups, eps,
+                                     pad)
+        dsums = (chan * scale.float().reshape(1, c, 1)).reshape(b, groups, -1, 2).sum(dim=2)
+        dist.all_reduce(dsums, op=dist.ReduceOp.SUM, group=shard.space_group)
+        dx = gn_silu_backward_apply(x, grad_out, edge, sums, dsums, count, scale, bias, groups,
+                                    eps, pad)
+        sums_c = chan.sum(dim=0)
+        return (dx, sums_c[:, 1].to(scale.dtype), sums_c[:, 0].to(bias.dtype), None, None,
+                None, None)
+
+
 def gn_silu_space(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int,
                   eps: float, pad: bool, space: spatial.Shard) -> torch.Tensor:
     """GroupNorm+SiLU of this rank's rows x [B, C, h, W] of an image split by
     height over `space`: the sums of every rank's rows, then the apply kernel;
-    with `pad`, the H halo rows are the neighbours' (the image's wrap)."""
-    x = x.contiguous()
-    sums = spatial.all_reduce_space_sum(gn_sums(x, groups), space)
-    count = x.shape[1] // groups * x.shape[2] * x.shape[3] * space.space
-    y = gn_silu_apply(x, sums, count, scale, bias, groups, eps, pad)
-    return spatial.fill_halo_rows(y, space) if pad else y
+    with `pad`, the H halo rows are the neighbours' (the image's wrap).
+    Differentiable (`_GnSiluSpace`)."""
+    return _GnSiluSpace.apply(x, scale, bias, groups, eps, pad, space)
 
 
 @torch.library.custom_op("toycrystals::gn_silu", mutates_args=(), device_types="cuda")
@@ -392,6 +589,8 @@ gn_silu.launches = 0
 gn_silu.backward_launches = 0
 gn_silu.sums_launches = 0   # the sums kernel (space axis)
 gn_silu.apply_launches = 0  # the apply kernel (space axis)
+gn_silu.backward_sums_launches = 0   # the backward sums kernel (space axis)
+gn_silu.backward_apply_launches = 0  # the backward apply kernel (space axis)
 
 
 class GroupNormSiLU(nn.Module):

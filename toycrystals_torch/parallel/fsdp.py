@@ -26,7 +26,14 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from toycrystals_torch.parallel.mesh import check_data_mesh, replicate
+from toycrystals_torch.parallel.mesh import (
+    DEFERRED,
+    SPACE,
+    check_data_mesh,
+    mesh_axes,
+    mesh_group,
+    replicate,
+)
 
 
 def flax_order(module: nn.Module, name: str, p: torch.Tensor) -> tuple[int, ...]:
@@ -147,7 +154,7 @@ def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
     leaves whole (plain tensors among DTensors), in place."""
     if mesh is None or mesh.size() == 1:
         return
-    group = mesh.get_group()
+    group = mesh_group(mesh)
     for p in params:
         if not is_sharded(p) and p.grad is not None:
             dist.all_reduce(p.grad, op=dist.ReduceOp.SUM, group=group)
@@ -155,18 +162,25 @@ def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
 
 
 def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
-    """Place `model` and its `TrainState` on a data mesh; returns (the
-    module to train through, the state). mesh=None passes both through.
+    """Place `model` and its `TrainState` on a data mesh, or a ("data",
+    "space") one; returns (the module to train through, the state).
+    mesh=None passes both through.
 
     Every rank first takes rank 0's parameters, moments and EMA. Then
-    without `fsdp` the model is wrapped in DistributedDataParallel (the
-    gradients averaged over the ranks) and the state keeps the model's own
+    without `fsdp` the model is wrapped in DistributedDataParallel over every
+    rank of the mesh (the gradients averaged over all of them: the weights
+    are replicated over "space" too) and the state keeps the model's own
     parameters; with `fsdp` the model is sharded in place
     (`shard_params_fsdp`) and the state is rebuilt on its DTensor
-    parameters, with the moments and the EMA on the same shards."""
+    parameters, with the moments and the EMA on the same shards. FSDP2 on a
+    space axis (JAX: each weight sharded over "data" and replicated over
+    "space", HSDP) is not ported yet and raises."""
     if mesh is None:
         return model, state
-    check_data_mesh(mesh)
+    check_data_mesh(mesh, space=True)
+    if fsdp and SPACE in mesh_axes(mesh):
+        raise NotImplementedError(f"FSDP2 on a ('data', 'space') mesh is not ported yet "
+                                  f"({DEFERRED})")
     names = list(state.params)
     opt = state.opt_state
     replicate(mesh, [*model.parameters(), *model.buffers(), *opt.mu, *opt.nu,
@@ -176,7 +190,7 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
 
         dev = next(model.parameters()).device
         ddp = DistributedDataParallel(model, device_ids=[dev] if dev.type == "cuda" else None,
-                                      process_group=mesh.get_group())
+                                      process_group=mesh_group(mesh))
         return ddp, state
     shard_params_fsdp(mesh, model)
     params = dict(model.named_parameters())

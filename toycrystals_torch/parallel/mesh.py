@@ -16,8 +16,9 @@ only in the order of its reductions.
 `make_mesh_2d(D, S)` lays the ranks out as a ("data", "space") mesh, "space"
 varying fastest as in JAX's `make_mesh_2d`: rank d S + s holds rows
 [d B / D, (d + 1) B / D) of the batch and rows [s H / S, (s + 1) H / S) of
-the image height. Only the forward paths (the samplers, `sample_chunked`,
-inpainting and the service) take it; training under space is still queued.
+the image height. The samplers, `sample_chunked`, inpainting, the service and
+training (the step and epoch factories and `place_state`, under DDP over all
+D S ranks) take it; FSDP2 on it is not ported yet.
 """
 
 from __future__ import annotations
@@ -67,12 +68,14 @@ def mesh_axes(mesh) -> tuple[str, ...]:
 
 def check_data_mesh(mesh, space: bool = False) -> None:
     """Only the ("data",) axis is ported, and ("data", "space") where `space`
-    (the forward paths); any other axis raises."""
+    (sampling, serving and the score model's training); any other axis
+    raises."""
     names = mesh_axes(mesh)
     if names == (AXIS,) or (space and names == (AXIS, SPACE)):
         return
-    ported = "the ('data',) and, for sampling and serving, ('data', 'space') axes are" \
-        if space else "only the ('data',) axis is (('data', 'space') samples and serves)"
+    ported = "the ('data',) and ('data', 'space') axes are" if space else \
+        "only the ('data',) axis is (('data', 'space') samples, serves and trains the score " \
+        "model)"
     raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
                               f"{ported}")
 
@@ -88,7 +91,8 @@ def axis_rank(mesh, axis: str) -> int:
 
 
 def mesh_group(mesh):
-    """The process group of every rank of the mesh."""
+    """The process group of every rank of the mesh (a 2-D `DeviceMesh` has no
+    single group of its own: its ranks are the whole process group's)."""
     return mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
 
 
@@ -131,7 +135,7 @@ def replicate(mesh, tensors) -> None:
     place, so that all ranks hold rank 0's values; mesh=None does nothing."""
     if mesh is None:
         return
-    group = mesh.get_group()
+    group = mesh_group(mesh)
     src = dist.get_global_rank(group, 0)
     with torch.no_grad():
         for t in tensors:
@@ -143,11 +147,21 @@ def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:
     if mesh is None:
         return x
     x = x.clone()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh_group(mesh))
     return x
 
 
-def row_generator(mesh, generator: torch.Generator, local_rows: int) -> RowGenerator:
-    """The `RowGenerator` of this rank's `local_rows` rows of the global batch."""
+def row_generator(mesh, generator: torch.Generator, local_rows: int,
+                  local_height: int | None = None) -> RowGenerator:
+    """The `RowGenerator` of this rank's `local_rows` rows of the global batch
+    and, on a mesh with a space axis, of its `local_height` rows of the image
+    height (4-D draws: images [b, h, W, C])."""
     lo = mesh_rank(mesh) * int(local_rows)
-    return RowGenerator(generator, lo, lo + int(local_rows), int(local_rows) * mesh_size(mesh))
+    hs = ()
+    n_space = axis_size(mesh, SPACE)
+    if n_space > 1 and local_height is not None:
+        h = int(local_height)
+        h_lo = axis_rank(mesh, SPACE) * h
+        hs = (h_lo, h_lo + h, h * n_space)
+    return RowGenerator(generator, lo, lo + int(local_rows), int(local_rows) * mesh_size(mesh),
+                        *hs)

@@ -15,12 +15,24 @@ torch's defaults, as a CLI's process has them), "mesh": [D, S] (optional:
 a ("data", "space") mesh; default a ("data",) mesh of every rank), "cases":
 [...]}; every
 case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
-draws included), of which each rank takes its rows:
+draws included), of which each rank takes its rows (and, on a mesh with a
+space axis, its rows of the height of every 4-D [B, H, W, C] input); a case's
+own "mesh": [D, S] runs it on that mesh instead:
 
 - "sde": `make_sde_train_step` on CondUNetTiny(**model) from `state_dict`,
   under DDP or FSDP2 ("fsdp"), with (x0, y_cat, y_cont, t, eps) per step;
   returns the first step's gradients, the losses, and the parameters, Adam
   moments and EMA after the last step;
+- "epoch": `make_sde_train_epoch` on CondUNetTiny(**model) over images
+  rendered from `lattice` (a LatticeConfig's fields) with the epoch's own
+  draws from `seed`; returns the mean loss, every step's gradients and the
+  parameters after;
+- "space_grads": the gradients, on this rank, of the space axis's
+  differentiable collectives (parallel/spatial.py) and of GroupNorm+SiLU
+  under space (ops/groupnorm.py), each for the upstream gradient of this
+  space rank given in the case (see `_space_grads`);
+- "attention": one SelfAttention2d(**model) on x [B, C, H, W]: the output,
+  and the gradients for the upstream gradient `cot`, of this rank's rows;
 - "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep);
 - "prior": one `make_prior_train_step` ("moe" > 0 experts: the MoE prior,
   with its global route statistics) on injected (t, eps);
@@ -98,9 +110,14 @@ def _place(mesh, model, tx, fsdp: bool, ema: bool = False):
 
 
 def _rows(mesh, case: dict, keys, device) -> list[torch.Tensor]:
-    from toycrystals_torch.parallel.mesh import shard_batch
+    """This rank's rows of each input, and of the height of 4-D ones."""
+    from toycrystals_torch.parallel.mesh import SPACE, axis_size, shard_batch
+    from toycrystals_torch.parallel.spatial import space_rows
 
-    return [shard_batch(mesh, _t(case[k], device)) for k in keys]
+    out = [shard_batch(mesh, _t(case[k], device)) for k in keys]
+    if mesh is None or axis_size(mesh, SPACE) == 1:
+        return out
+    return [t[:, space_rows(mesh, t.shape[1])] if t.dim() == 4 else t for t in out]
 
 
 def _opt(case: dict):
@@ -144,6 +161,82 @@ def _sde(mesh, case: dict, device) -> dict:
     out["grads"] = _grads_np(module, tx.seen[0])
     out.update(_state_np(state))
     return out
+
+
+def _epoch(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.sde_score_model import VPSDE, CondUNetTiny
+    from toycrystals_torch.train.steps import make_sde_train_epoch
+
+    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    tx = _opt(case)
+    module, state = _place(mesh, model, tx, False)
+    epoch = make_sde_train_epoch(module, tx, VPSDE(0.1, 30.0), case["model"]["n_types"],
+                                 case.get("p_uncond", 0.1), 1.0, 0.0, case["batch"],
+                                 case["items"], lattice_cfg=LatticeConfig(**case["lattice"]),
+                                 dataset_seed=case["seed"], mesh=mesh,
+                                 parameterization=case.get("param", "eps"))
+    gen = torch.Generator(device=device).manual_seed(case["seed"])
+    state, loss = epoch(state, gen)
+    return {"loss": float(loss), "grads": [_grads_np(module, g) for g in tx.seen],
+            "params": _np(state.params)}
+
+
+def _space_grads(mesh, case: dict, device) -> dict:
+    """On this rank of a mesh with a space axis: x [B, C, H, W] (its rows of
+    H), v [S, ...] (its entry) and t [B, N, heads, d] (its share of the N
+    tokens); for each op, the gradient of sum(op(input) * cot[s]) with the
+    case's upstream gradient cot of this space rank s: the halo exchange
+    wrapped and clamped (`pad_rows`), the sum over "space"
+    (`all_reduce_space_sum`), the gather of tokens (`gather_space`), and
+    GroupNorm+SiLU under space with pad off and on (`gn_silu_space`: dx,
+    dscale and dbias, this rank's own sums)."""
+    from toycrystals_torch.ops.groupnorm import gn_silu_space
+    from toycrystals_torch.parallel import spatial
+    from toycrystals_torch.parallel.mesh import SPACE, axis_rank, axis_size
+
+    s, n = axis_rank(mesh, SPACE), axis_size(mesh, SPACE)
+    x = _t(case["x"], device)
+    x = x[:, :, spatial.space_rows(mesh, x.shape[2])]
+    t = _t(case["t"], device)
+    t = t.chunk(n, dim=1)[s]
+    v = _t(case["v"], device)[s]
+    scale, bias = _t(case["scale"], device), _t(case["bias"], device)
+    out = {}
+
+    def grads(fn, *inputs, cot):
+        leaves = [a.detach().clone().requires_grad_(True) for a in inputs]
+        (fn(*leaves) * _t(cot, device)[s]).sum().backward()
+        return [a.grad.cpu().numpy() for a in leaves]
+
+    with spatial.dispatch_scope(mesh) as shard:
+        for name, circular in (("wrap", True), ("clamp", False)):
+            out[f"halo_{name}"], = grads(lambda a: spatial.pad_rows(a, shard, circular), x,
+                                         cot=case[f"cot_halo_{name}"])
+        out["space_sum"], = grads(lambda a: spatial.all_reduce_space_sum(a, shard), v,
+                                  cot=case["cot_sum"])
+        out["gather"], = grads(lambda a: spatial.gather_space(a, shard, 1), t,
+                               cot=case["cot_gather"])
+        for pad in (False, True):
+            out[f"gn_pad{int(pad)}"] = grads(
+                lambda a, sc, bi: gn_silu_space(a, sc, bi, case["groups"], 1e-6, pad, shard),
+                x, scale, bias, cot=case[f"cot_gn_pad{int(pad)}"])
+    return out
+
+
+def _attention(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.ops.attention import SelfAttention2d
+    from toycrystals_torch.parallel import spatial
+
+    block = _load(SelfAttention2d(**case["model"]), case["state_dict"], device)
+    x = _t(case["x"], device)
+    hs = spatial.space_rows(mesh, x.shape[2]) if mesh is not None else slice(None)
+    x = x[:, :, hs].clone().requires_grad_(True)
+    with spatial.dispatch_scope(mesh):
+        y = block(x)
+        (y * _t(case["cot"], device)[:, :, hs]).sum().backward()
+    return {"out": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy(),
+            "grads": {k: p.grad.cpu().numpy() for k, p in block.named_parameters()}}
 
 
 def _vae(mesh, case: dict, device) -> dict:
@@ -371,8 +464,9 @@ def _fill(state, seed: int) -> None:
     state.step, state.opt_state.count = 7, 5
 
 
-CASES = {"sde": _sde, "vae": _vae, "prior": _prior, "distill": _distill, "sample": _sample,
-         "forward": _forward, "inpaint": _inpaint, "service": _service, "halo": _halo,
+CASES = {"sde": _sde, "epoch": _epoch, "vae": _vae, "prior": _prior, "distill": _distill,
+         "sample": _sample, "forward": _forward, "inpaint": _inpaint, "service": _service,
+         "halo": _halo, "space_grads": _space_grads, "attention": _attention,
          "dcp_save": _dcp, "dcp_load": _dcp}
 
 
@@ -405,6 +499,8 @@ def _counters():
             "gn_silu_backward": (gn.gn_silu, "backward_launches"),
             "gn_silu_sums": (gn.gn_silu, "sums_launches"),
             "gn_silu_apply": (gn.gn_silu, "apply_launches"),
+            "gn_silu_backward_sums": (gn.gn_silu, "backward_sums_launches"),
+            "gn_silu_backward_apply": (gn.gn_silu, "backward_apply_launches"),
             "rasterize": (rz.rasterize, "launches"),
             "flash_attn": (at.flash_sdpa, "launches"),
             "flash_attn_backward": (at.flash_sdpa, "backward_launches")}
@@ -438,12 +534,19 @@ def run_cases(spec: dict) -> list[dict]:
         if spec.get("tf32", False) is not None:
             torch.backends.cuda.matmul.allow_tf32 = bool(spec.get("tf32", False))
             torch.backends.cudnn.allow_tf32 = bool(spec.get("tf32", False))
-    mesh = None
-    if dist.is_initialized():
-        mesh = make_mesh_2d(*spec["mesh"], device_type=device.type) if spec.get("mesh") \
-            else make_mesh(device_type=device.type)
+    meshes: dict = {}
+
+    def mesh_of(shape):
+        if not dist.is_initialized():
+            return None
+        if shape not in meshes:  # every rank builds the same meshes in the same order
+            meshes[shape] = make_mesh_2d(*shape, device_type=device.type) if shape \
+                else make_mesh(device_type=device.type)
+        return meshes[shape]
+
     out = []
     for case in spec["cases"]:
+        mesh = mesh_of(tuple(case.get("mesh") or spec.get("mesh") or ()))
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         _zero_launches()

@@ -23,6 +23,16 @@ group, from which each rank takes its neighbours' rows: one collective that
 gloo (two ranks on one card) and NCCL both run on CUDA tensors, where gloo's
 point-to-point send and recv take CPU tensors only.
 
+Training differentiates through every exchange: each collective here is a
+`torch.autograd.Function` whose backward is the adjoint collective. The halo
+rows' gradients go back to the ranks that own the rows (`return_halo_rows`,
+an `all_gather` of each rank's two halo-row gradients), a sum over "space"
+gets the same sum of its gradients, and a gather over "space" (attention's K
+and V, ops/attention.py) gets the sum of each part's gradients on the rank
+that owns it. A backward never reads the dispatch scope: on CUDA autograd runs
+it on a thread of its own, where the scope is not set, so each Function keeps
+the `Shard` of its forward.
+
 One deliberate difference: GSPMD pads a height that does not split evenly,
 and the port cannot. JAX checks H/4 against the space axis
 (`check_spatial_divisibility`); the s2d stems' trunk runs at H/2 and reaches
@@ -113,11 +123,7 @@ def space_rows(mesh, h: int) -> slice:
     return slice(s * (h // n), (s + 1) * (h // n))
 
 
-def halo_rows(x: torch.Tensor, shard: Shard, circular: bool):
-    """(top, bottom) rows [B, C, 1, W] beside this rank's rows of x [B, C, h, W]:
-    the last row of the rank above and the first of the rank below, wrapped
-    between the last and the first rank when `circular`, else the image's
-    own edge row repeated at its top and bottom."""
+def _halo_rows(x: torch.Tensor, shard: Shard, circular: bool):
     edges = torch.cat([x[:, :, :1], x[:, :, -1:]], dim=2).contiguous()
     parts = [torch.empty_like(edges) for _ in range(shard.space)]
     dist.all_gather(parts, edges, group=shard.space_group)
@@ -125,6 +131,46 @@ def halo_rows(x: torch.Tensor, shard: Shard, circular: bool):
     top = parts[(s - 1) % n][:, :, 1:2] if circular or s > 0 else x[:, :, :1]
     bottom = parts[(s + 1) % n][:, :, 0:1] if circular or s < n - 1 else x[:, :, -1:]
     return top, bottom
+
+
+def return_halo_rows(g_top: torch.Tensor, g_bottom: torch.Tensor, shard: Shard,
+                     circular: bool):
+    """The adjoint of `halo_rows`: from the gradients of this rank's (top,
+    bottom) halo rows [B, C, 1, W], the gradients that land on its (first,
+    last) rows, each the halo gradient of the rank that read the row (this
+    rank's own, at a clamped image edge)."""
+    edges = torch.cat([g_top, g_bottom], dim=2).contiguous()
+    parts = [torch.empty_like(edges) for _ in range(shard.space)]
+    dist.all_gather(parts, edges, group=shard.space_group)
+    s, n = shard.space_rank, shard.space
+    first = parts[(s - 1) % n][:, :, 1:2] if circular or s > 0 else g_top
+    last = parts[(s + 1) % n][:, :, 0:1] if circular or s < n - 1 else g_bottom
+    return first, last
+
+
+class _HaloRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard, circular):
+        ctx.shard, ctx.circular, ctx.h = shard, circular, x.shape[2]
+        return tuple(t.clone() for t in _halo_rows(x, shard, circular))
+
+    @staticmethod
+    def backward(ctx, g_top, g_bottom):
+        first, last = return_halo_rows(g_top, g_bottom, ctx.shard, ctx.circular)
+        shape = (*first.shape[:2], ctx.h, first.shape[3])
+        dx = first.new_zeros(shape)
+        dx[:, :, :1] += first
+        dx[:, :, -1:] += last
+        return dx, None, None
+
+
+def halo_rows(x: torch.Tensor, shard: Shard, circular: bool):
+    """(top, bottom) rows [B, C, 1, W] beside this rank's rows of x [B, C, h, W]:
+    the last row of the rank above and the first of the rank below, wrapped
+    between the last and the first rank when `circular`, else the image's
+    own edge row repeated at its top and bottom. Differentiable: the rows'
+    gradients return to their owners (`return_halo_rows`)."""
+    return _HaloRows.apply(x, shard, circular)
 
 
 def pad_rows(x: torch.Tensor, shard: Shard, circular: bool = True) -> torch.Tensor:
@@ -136,8 +182,9 @@ def pad_rows(x: torch.Tensor, shard: Shard, circular: bool = True) -> torch.Tens
 def fill_halo_rows(y: torch.Tensor, shard: Shard) -> torch.Tensor:
     """A circular-padded [B, C, h + 2, W + 2] plane whose rows 0 and h + 1
     hold this rank's own wrap: overwrite them, in place, with the
-    neighbours' rows (the image's wrap). Returns y."""
-    top, bottom = halo_rows(y[:, :, 1:-1], shard, circular=True)
+    neighbours' rows (the image's wrap). Returns y. Not differentiable:
+    `ops/groupnorm.py`'s space Function returns the rows' gradients itself."""
+    top, bottom = _halo_rows(y[:, :, 1:-1], shard, circular=True)
     y[:, :, :1] = top
     y[:, :, -1:] = bottom
     return y
@@ -153,10 +200,56 @@ def all_reduce_max(x: torch.Tensor, shard: Shard | None) -> torch.Tensor:
     return x
 
 
+class _SpaceSum(torch.autograd.Function):
+    """x summed over the space axis; every rank reads the sum, so the
+    gradient of each rank's x is the sum of every rank's gradient."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        ctx.shard = shard
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=shard.space_group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.shard.space_group)
+        return g, None
+
+
 def all_reduce_space_sum(x: torch.Tensor, shard: Shard) -> torch.Tensor:
-    """x summed over the space axis, in place."""
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=shard.space_group)
-    return x
+    """x summed over the space axis (a new tensor; differentiable)."""
+    return _SpaceSum.apply(x, shard)
+
+
+class _GatherSpace(torch.autograd.Function):
+    """Every rank's x along `dim`, in space-rank order. The backward sums each
+    part's gradient over the ranks onto the rank that owns the part, as an
+    all-reduce and this rank's slice: gloo has no reduce-scatter for CUDA
+    tensors, and a reduce-scatter on NCCL (half the bytes) waits for a
+    multi-card cell that can time it against this."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim = shard, dim
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(shard.space)]
+        dist.all_gather(parts, x.contiguous(), group=shard.space_group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        shard, dim = ctx.shard, ctx.dim
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=shard.space_group)
+        return g.chunk(shard.space, dim=dim)[shard.space_rank].contiguous(), None, None
+
+
+def gather_space(x: torch.Tensor, shard: Shard, dim: int) -> torch.Tensor:
+    """Every rank's x concatenated along `dim` in space-rank order (each rank
+    holds a contiguous share of the whole); differentiable."""
+    return _GatherSpace.apply(x, shard, dim)
 
 
 def gather_image(mesh, x: torch.Tensor) -> torch.Tensor:

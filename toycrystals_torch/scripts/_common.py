@@ -1,8 +1,8 @@
 """Shared plumbing of the port's CLIs (counterpart of scripts/_common.py):
 device selection, the data mesh and its process group (--shard, --fsdp and
-the cluster flags), the (data, space) mesh of the sampling and serving CLIs
-(--shard-space), checkpoint-name resolution, a disk archive resident on the
-device, and the flags whose paths are not ported yet.
+the cluster flags), the (data, space) mesh of the sampling, serving and
+score-model training CLIs (--shard-space), checkpoint-name resolution, a disk
+archive resident on the device, and the flags whose paths are not ported yet.
 
 `--shard N` (with `--shard-space S`: N x S) with no cluster flags runs the
 CLI in that many spawned local ranks (`spawn_shards`), one per device
@@ -67,19 +67,19 @@ def add_dist_flags(p: argparse.ArgumentParser) -> None:
 def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        space: bool = True) -> None:
     """The JAX CLIs' mesh and multi-process flags: --shard (and --fsdp for a
-    trainer) and the cluster flags run, and so does --shard-space for the
-    sampling and serving CLIs (train=False); a trainer's --shard-space and
-    every --shard-model are kept so that the command lines match, and any
-    value but the default raises. `space=False` leaves out --shard-space, as
-    the VAE trainer's JAX CLI does."""
+    trainer) and the cluster flags run, and so does --shard-space (the
+    sampling, serving and score-model training CLIs); every --shard-model is
+    kept so that the command lines match, and any value but the default
+    raises. `space=False` leaves out --shard-space, as the VAE trainer's and
+    the prior trainer's JAX CLIs do."""
     add_shard_flag(p)
     if space:
         p.add_argument("--shard-space", type=int, default=0,
-                       help=f"not ported yet for training ({PARALLEL})" if train else
-                       "Spatial parallelism: split every image's height over S ranks (a "
+                       help="Spatial parallelism: split every image's height over S ranks (a "
                        "2-D data x space mesh of --shard x S ranks, one per device): the "
                        "hi-res case whose activations outgrow one device. H/4 must divide "
-                       "by S.")
+                       "by S." + (" The weights are replicated over all the ranks (not with "
+                                  "--fsdp yet)." if train else ""))
     p.add_argument("--shard-model", type=int, default=0, help=f"not ported yet ({PARALLEL})")
     if train:
         p.add_argument("--fsdp", action="store_true",
@@ -168,21 +168,19 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
-               shard_space: int = 0, shard_model: int = 0, space: bool = False):
+               shard_space: int = 0, shard_model: int = 0):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
-    exactly N ranks. Where `space` (the sampling and serving CLIs),
-    --shard-space S > 1 makes the ("data", "space") mesh of N x S ranks
-    (the image size is checked once the checkpoint is read:
-    parallel/spatial.py `check_stem_divisibility`); otherwise --shard-space
-    refuses, and --shard-model always does, naming their ROADMAP item."""
+    exactly N ranks. --shard-space S > 1 (the sampling, serving and
+    score-model training CLIs) makes the ("data", "space") mesh of N x S
+    ranks (the caller checks the image size against S: parallel/spatial.py
+    `check_stem_divisibility`); --shard-model refuses, alone or in JAX's 3-D
+    mesh with --shard-space, naming its ROADMAP item."""
     from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d
     from toycrystals_torch.parallel.multihost import process_count
 
-    for flag, value in (("--shard-space", 0 if space else shard_space),
-                        ("--shard-model", shard_model)):
-        if value > 1:
-            raise SystemExit(f"{flag} {value} is not ported yet ({PARALLEL})")
+    if shard_model > 1:
+        raise SystemExit(f"--shard-model {shard_model} is not ported yet ({PARALLEL})")
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
     if shard_space > 1:

@@ -141,7 +141,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model, space=True)
+                      shard_model=args.shard_model)
     primary = is_primary()
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)

@@ -143,7 +143,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model, space=True)
+                      shard_model=args.shard_model)
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
 

@@ -244,7 +244,7 @@ def serve(argv: list[str] | None = None) -> int:
     refuse_deferred(p, args, {"shard_model": PARALLEL})
     init_distributed(args, args.device)
     device = select_device(args.device)
-    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space, space=True)
+    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space)
     service = ScoreModelService.from_checkpoint(
         args.ckpt, device=device, use_ema=not args.no_ema, sampler=args.sampler,
         steps=args.steps, guidance_scale=args.guidance_scale, t_end=args.t_end,

@@ -29,8 +29,14 @@ process per device, parallel/; spawned here unless the cluster flags
 --ckpt-format orbax writes sharded torch.distributed.checkpoint directories
 (utils/orbax_io.py; JAX's orbax directories are not readable here). The
 numbers are the single-device run's up to the order of reductions. Only
-rank 0 writes the msgpack checkpoint, metrics.jsonl and the grids. The
-model axes (--shard-space, --shard-model) raise, naming their ROADMAP item.
+rank 0 writes the msgpack checkpoint, metrics.jsonl and the grids.
+--shard-space S also splits every image's height over S ranks (a --shard x S
+("data", "space") mesh, parallel/spatial.py): each rank renders or gathers
+its rows of the batch and keeps its rows of the image height, the ops of the
+U-Net exchange rows with their neighbours forward and backward, DDP averages
+the gradients over all the ranks, and the epoch-end grids sample on the same
+mesh. H/4 must divide by S (and H/8 for the s2d stems). --fsdp with
+--shard-space and --shard-model raise, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -65,7 +71,9 @@ from toycrystals_torch.models.torch_init import flax_default_init, torch_like_in
 from toycrystals_torch.parallel.fsdp import full
 from toycrystals_torch.parallel.mesh import data_sharding
 from toycrystals_torch.parallel.multihost import is_primary
+from toycrystals_torch.parallel.spatial import check_stem_divisibility, space_rows
 from toycrystals_torch.scripts._common import (
+    PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
@@ -294,6 +302,9 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # clipping changes the opt_state layout, so it follows the checkpoint
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
+    if args.fsdp and args.shard_space > 1:
+        raise SystemExit(f"--fsdp with --shard-space {args.shard_space} is not ported yet "
+                         f"({PARALLEL})")
     mesh = setup_mesh(args.shard, args.batch_size, device=device,
                       shard_space=args.shard_space, shard_model=args.shard_model)
     if multihost and args.fsdp and not orbax_fmt:
@@ -343,6 +354,11 @@ def train(argv: list[str] | None = None) -> TrainRun:
     steps_per_epoch = n_items // args.batch_size
     if steps_per_epoch == 0:
         raise SystemExit(f"{n_items} items make no batch of {args.batch_size}")
+    if args.shard_space > 1:
+        try:
+            check_stem_divisibility(img_size, args.shard_space, args.stem)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
     # --- model, SDE, optimizer, state ---
     model = CondUNetTiny(
@@ -462,13 +478,18 @@ def train(argv: list[str] | None = None) -> TrainRun:
     def epoch_batches(epoch: int, offset: int):
         """The per-batch path's batches on the device: the host shuffle of
         (seed, epoch), streamed or gathered from the resident source; on a
-        mesh, this rank's rows of each."""
+        mesh, this rank's rows of each, and of the image height."""
         mine = data_sharding(mesh, args.batch_size)
         idx_it = (bidx[mine] + offset for bidx in batch_iterator(
             n_items, args.batch_size, rng=np.random.default_rng([args.seed, epoch])))
         if args.stream:
-            return sds.device_batches(idx_it, args.stream)
-        return (get_batch(torch.as_tensor(bidx, device=device)) for bidx in idx_it)
+            batches = sds.device_batches(idx_it, args.stream)
+        else:
+            batches = (get_batch(torch.as_tensor(bidx, device=device)) for bidx in idx_it)
+        if args.shard_space <= 1:
+            return batches
+        return ((x0[:, space_rows(mesh, x0.shape[1])], y_cat, y_cont)
+                for x0, y_cat, y_cont in batches)
 
     # the second epoch of this process (the first carries the warm-up)
     profile_epoch = start_epoch + 1 if args.epochs - start_epoch > 1 else start_epoch
@@ -581,9 +602,10 @@ def _profiler(device: torch.device) -> torch.profiler.profile:
 
 
 def main(argv: list[str] | None = None) -> int:
-    """The CLI: `train(argv)` in this process, or in --shard N spawned ranks."""
+    """The CLI: `train(argv)` in this process, or in --shard N (x
+    --shard-space S) spawned ranks."""
     args = build_parser().parse_args(argv)
-    if not spawn_shards(args, train, argv, (args.batch_size,)):
+    if not spawn_shards(args, train, argv, (args.batch_size,), space=True):
         train(argv)
     return 0
 

@@ -24,8 +24,17 @@ rank shuffles and draws the whole batch's randomness from the same
 generator and keeps its own rows (`utils.rng.RowGenerator`); the
 gradients are averaged over the ranks, gradient accumulation syncs only on
 its last micro-batch, and the metrics are reduced over the ranks, so each
-rank reports the single-device run's values. A mesh with an axis other than
-"data" raises (ROADMAP.md queue 1, module 5).
+rank reports the single-device run's values.
+
+The SDE step and epoch also take a ("data", "space") mesh (parallel/spatial.py):
+each rank then holds its rows of the batch and of the image height, draws the
+global batch's eps and keeps both cuts of it, and runs its forward and
+backward in the mesh's dispatch scope, where every exchange of rows has its
+adjoint in the backward. The weights are replicated over both axes and DDP
+averages the gradients over all D S ranks; each rank's loss is the mean over
+its own pixels, so that average is the gradient of the global mean, as in
+JAX's GSPMD step. A mesh with any other axis raises (ROADMAP.md queue 1,
+module 5), and so does a space axis in the other models' steps.
 """
 
 from __future__ import annotations
@@ -42,8 +51,16 @@ from toycrystals_torch.models.sde_score_model import (
     draw_diffusion_loss_noise,
 )
 from toycrystals_torch.models.vae import kl_stats
+from toycrystals_torch.parallel import spatial
 from toycrystals_torch.parallel.fsdp import local, reduce_replicated_grads
-from toycrystals_torch.parallel.mesh import check_data_mesh, data_sharding, row_generator
+from toycrystals_torch.parallel.mesh import (
+    SPACE,
+    axis_size,
+    check_data_mesh,
+    data_sharding,
+    mesh_group,
+    row_generator,
+)
 from toycrystals_torch.train.state import Optimizer, TrainState, ema_update
 from toycrystals_torch.utils.rng import RowGenerator, rand, randn
 
@@ -54,12 +71,13 @@ def _is_fsdp(model: nn.Module) -> bool:
     return isinstance(model, FSDPModule)
 
 
-def check_placed(model: nn.Module, mesh) -> None:
+def check_placed(model: nn.Module, mesh, space: bool = False) -> None:
     """On a mesh of several ranks, `model` must be the module that
-    `parallel.place_state` returns: its gradients are then averaged."""
+    `parallel.place_state` returns: its gradients are then averaged. A
+    ("data", "space") mesh only where `space` (the score model's steps)."""
     if mesh is None:
         return
-    check_data_mesh(mesh)
+    check_data_mesh(mesh, space)
     from torch.nn.parallel import DistributedDataParallel
 
     if mesh.size() > 1 and not isinstance(model, DistributedDataParallel) \
@@ -130,7 +148,7 @@ def mesh_metrics(mesh, metrics, sums: tuple[str, ...] = ()):
 
     items = metrics if isinstance(metrics, dict) else {"": metrics}
     flat = torch.cat([v.reshape(-1).float() for v in items.values()])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group())
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh_group(mesh))
     out, i = {}, 0
     for k, v in items.items():
         part = flat[i:i + v.numel()].reshape(v.shape)
@@ -139,12 +157,12 @@ def mesh_metrics(mesh, metrics, sums: tuple[str, ...] = ()):
     return out if isinstance(metrics, dict) else out[""]
 
 
-def _rows_generator(mesh, generator, local_rows: int):
+def _rows_generator(mesh, generator, local_rows: int, local_height: int | None = None):
     """On a mesh, a plain generator becomes the `RowGenerator` of this
-    rank's rows of the global batch."""
+    rank's rows of the global batch (and of the image height)."""
     if mesh is None or generator is None or isinstance(generator, RowGenerator):
         return generator
-    return row_generator(mesh, generator, local_rows)
+    return row_generator(mesh, generator, local_rows, local_height)
 
 
 def sde_loss_and_grads(model: nn.Module, sde: VPSDE, x0, y_cat, y_cont, t, eps,
@@ -155,8 +173,10 @@ def sde_loss_and_grads(model: nn.Module, sde: VPSDE, x0, y_cat, y_cont, t, eps,
     `model`, in `model.parameters()` order. grad_accum k > 1 runs k chunks of
     the batch one after the other and averages, which equals the unsplit
     batch (mean of equal-sized chunk means) at 1/k of the activations. On a
-    mesh the rows are this rank's, the loss is this rank's mean and the
-    gradients are averaged over the ranks (`accumulate_grads`)."""
+    mesh the rows are this rank's (and, with a space axis, its rows of the
+    image height), the loss is this rank's mean and the gradients are
+    averaged over the ranks (`accumulate_grads`); the forwards and backwards
+    run in the mesh's dispatch scope."""
     b, k = x0.shape[0], max(int(grad_accum), 1)
     if b % k:
         raise ValueError(f"batch {b} not divisible by grad_accum {k}")
@@ -167,7 +187,8 @@ def sde_loss_and_grads(model: nn.Module, sde: VPSDE, x0, y_cat, y_cont, t, eps,
         return diffusion_loss_eps_given(model, sde, x0[sl], y_cat[sl], y_cont[sl], t[sl],
                                         eps[sl], parameterization, min_snr_gamma)
 
-    return accumulate_grads(model, chunk_loss, k, mesh)
+    with spatial.dispatch_scope(mesh):
+        return accumulate_grads(model, chunk_loss, k, mesh)
 
 
 def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: int,
@@ -183,10 +204,12 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
     (on x0's device). noise=(t, eps) replaces the draw; the conditioning is
     then taken as given (tests inject JAX's draws). On a step the optimizer
     skips as non-finite, neither the parameters nor the EMA move. On a
-    `mesh` the batch and `noise` are this rank's rows, the generator's draws
-    are the global batch's (module docstring) and `loss` is the global mean.
+    `mesh` the batch and `noise` are this rank's rows (and, with a space axis,
+    its rows of the image height: x0 and eps [b, H / S, W, 1]), the
+    generator's draws are the global batch's (module docstring) and `loss`
+    is the global mean.
     """
-    check_placed(model, mesh)
+    check_placed(model, mesh, space=True)
 
     def step(state: TrainState, x0, y_cat, y_cont, generator: torch.Generator | None = None,
              noise=None):
@@ -197,7 +220,7 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
                              "draws from the global generator")
         else:
             t, eps, y_cat, y_cont = draw_diffusion_loss_noise(
-                x0, y_cat, y_cont, _rows_generator(mesh, generator, x0.shape[0]), n_types,
+                x0, y_cat, y_cont, _rows_generator(mesh, generator, *x0.shape[:2]), n_types,
                 p_uncond, t_power, t_shift)
         loss, grads = sde_loss_and_grads(model, sde, x0, y_cat, y_cont, t, eps,
                                          parameterization, min_snr_gamma, grad_accum, mesh)
@@ -397,7 +420,9 @@ def make_sde_train_epoch(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: i
 
     On a `mesh` (`model` placed by `parallel.place_state`, `batch_size`
     global) each rank renders or gathers only its rows of every batch: one
-    rasterizer launch per step per rank on the procedural source.
+    rasterizer launch per step per rank on the procedural source. With a
+    space axis it renders its rows' whole images and keeps its rows of the
+    image height.
     """
     if fresh_data and lattice_cfg is None:
         raise ValueError("fresh_data needs the procedural (lattice_cfg) source: a resident "
@@ -444,11 +469,13 @@ def _make_epoch(step_fn: Callable, get_batch: Callable, n_items: int, batch_size
     y_cat, y_cont, *extra, generator)` per batch of `get_batch(idx +
     offset)`. A step's metric is a tensor or a dict of them; `reduce` runs
     over the steps' stack of each. On a mesh every rank draws the same
-    shuffle and takes its rows of each batch."""
+    shuffle and takes its rows of each batch, and with a space axis (only the
+    SDE step takes one) its rows of the image height of x0 (`space_rows`)."""
     n_steps = n_items // batch_size
     if n_steps == 0:
         raise ValueError(f"n_items {n_items} < batch_size {batch_size}")
     mine = data_sharding(mesh, batch_size)
+    space = mesh is not None and axis_size(mesh, SPACE) > 1
 
     def epoch_fn(state: TrainState, generator: torch.Generator, offset: int = 0, *extra):
         order = torch.randperm(n_items, generator=generator, device=device)
@@ -456,6 +483,8 @@ def _make_epoch(step_fn: Callable, get_batch: Callable, n_items: int, batch_size
         metrics = []
         for idx in order:
             x0, y_cat, y_cont = get_batch(idx + offset)
+            if space:
+                x0 = x0[:, spatial.space_rows(mesh, x0.shape[1])]
             state, m = step_fn(state, x0, y_cat, y_cont, *extra, generator)
             metrics.append(m)
         if isinstance(metrics[0], dict):
