@@ -275,6 +275,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 on the tensor cores, dense
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 on the tensor cores, dense
 SMS = 132                     # H100 SXM streaming multiprocessors
 SFU_EXP2_PER_CLOCK_PER_SM = 16  # ex2 throughput, compute capability 9.0
 H100_SM_CLOCK_MAX_HZ = 1.98e9   # H100 SXM top SM clock
@@ -899,8 +900,9 @@ def flash_bound(shape, elem_bytes: int, backward: bool,
     """Least time for one call of q [B, N, H, d] against Nk keys (default N):
     the largest of three. Tensor operations: the forward's 2 products of
     2 B H N Nk d operations, the backward's 5 (S, dP, dV, dK, dQ), at the
-    tensor cores' bf16 rate, or at the f32 rate for f32 inputs, which run on
-    no tensor core. Exponentials: one exp2 per logit, B H N Nk (the
+    tensor cores' bf16 rate; for f32 inputs three TF32 products each (hi hi,
+    hi lo, lo hi: f32 accuracy from TF32 halves) at the TF32 rate.
+    Exponentials: one exp2 per logit, B H N Nk (the
     backward's least work too), at 16 per clock per SM on 132 SMs at the top
     SM clock. Bytes: q, k, v read and O and the f32 row log-sum-exp written
     once (backward: q, k, v, O, dO and L read, dq, dk, dv written).
@@ -910,8 +912,8 @@ def flash_bound(shape, elem_bytes: int, backward: bool,
     ops = (10 if backward else 4) * b * h * n * nk * d
     elems = ((4 * n + 4 * nk) if backward else (2 * n + 2 * nk)) * b * h * d
     terms = {
-        "tensor operations" if elem_bytes == 2 else "f32 operations":
-            ops / (BF16_OPS_PER_S if elem_bytes == 2 else F32_OPS_PER_S) * 1e3,
+        "tensor operations" if elem_bytes == 2 else "TF32 operations, 3 per product":
+            (ops / BF16_OPS_PER_S if elem_bytes == 2 else 3 * ops / TF32_OPS_PER_S) * 1e3,
         "exponentials": b * h * n * nk / (SFU_EXP2_PER_CLOCK_PER_SM * SMS * clock_hz) * 1e3,
         "bytes": (elems * elem_bytes + b * h * n * 4) / HBM_BYTES_PER_S * 1e3,
     }
@@ -919,11 +921,21 @@ def flash_bound(shape, elem_bytes: int, backward: bool,
     return terms[what], ("bytes" if what == "bytes" else "operations"), what
 
 
+# what the kernels line keeps of each f32 flash row
+F32_FLASH_KEYS = ("dims", "nk", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                  "bound_operations", "backward_ms", "plain_backward_ms", "library_backward_ms",
+                  "backward_bound_ms", "backward_bound_operations", "out_max_abs_err",
+                  "max_abs_err", "dq_max_abs_err", "dk_max_abs_err", "dv_max_abs_err",
+                  "rerun_bit_equal")
+
+
 def phase_flash(at) -> tuple[list[dict], dict]:
     """The flash kernels against `sdpa_reference` in f32 on the same values
     (bf16 inputs upcast; 8 items at a time, since the plain version holds the
     [B, heads, N, N] logits): output and the gradients of q, k, v under a
-    random cotangent, each within FLASH_TOL of the reference's largest entry."""
+    random cotangent, each within FLASH_TOL of the reference's largest entry.
+    Timed f32 rows also rerun forward and backward and must repeat their bits
+    (no atomics). `headline` keys: the label, and the label + " f32"."""
     rows, headline = [], {}
     clock_hz = sm_clock_max_hz()
     gen = torch.Generator(device=DEVICE).manual_seed(4)
@@ -958,8 +970,16 @@ def phase_flash(at) -> tuple[list[dict], dict]:
                 row[f"{k}_max_abs_err"], row[f"{k}_max_abs"] = errs[k], maxs[k]
                 if not errs[k] <= FLASH_TOL[name] * maxs[k]:
                     bad.append(k)
+            if iters and dtype == torch.float32:
+                again = at.flash_sdpa(*leaves)
+                row["rerun_bit_equal"] = bool(torch.equal(again, out)) and all(
+                    torch.equal(a, g) for a, g in
+                    zip(torch.autograd.grad(again, leaves, up), grads))
+                del again
+                if not row["rerun_bit_equal"]:
+                    bad.append("rerun bits")
             if iters:
-                it = iters if dtype == torch.bfloat16 else 3
+                it = iters
                 qh, kh, vh = (t.detach().transpose(1, 2) for t in leaves)
                 with torch.no_grad():
                     row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(*leaves), iters=it)
@@ -986,8 +1006,7 @@ def phase_flash(at) -> tuple[list[dict], dict]:
                     shape, qkv.element_size(), True, clock_hz)
                 row["tflops"] = 4 * b * h * n * n * d / row["ms"] / 1e9
                 row["backward_tflops"] = 10 * b * h * n * n * d / row["backward_ms"] / 1e9
-                if dtype == torch.bfloat16:
-                    headline[label] = row
+                headline[label if dtype == torch.bfloat16 else label + " f32"] = row
             rows.append(row)
             log("kernel flash_attn " + json.dumps(row))
             if bad:
@@ -3038,8 +3057,7 @@ def _space_flash_rows(at) -> tuple[list[dict], dict]:
                        max_abs=big, tol_share=FLASH_TOL[name])
             qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
             with torch.no_grad():
-                row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(q, k, v),
-                                         iters=10 if dtype == torch.bfloat16 else 3)
+                row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(q, k, v), iters=10)
                 row["plain_ms"] = cuda_time_ms(lambda: at.sdpa_reference(q, k, v), iters=3,
                                                warmup=1)
                 row["library_ms"] = cuda_time_ms(
@@ -3051,7 +3069,9 @@ def _space_flash_rows(at) -> tuple[list[dict], dict]:
             if not err <= FLASH_TOL[name] * big:
                 raise AssertionError(f"flash forward at Nq {n} / Nk {nk} {name}: {row}")
             if label == "S=2" and dtype == torch.bfloat16:
-                headline = row
+                headline.update(row)
+            elif label == "S=2":
+                headline["f32"] = row
             del q, kv, k, v, out
     torch.cuda.empty_cache()
     return rows, headline
@@ -3437,9 +3457,10 @@ def _st_gn_rows(gn) -> tuple[list[dict], dict]:
 
 def _st_flash_rows(at) -> tuple[list[dict], dict]:
     """The flash backward of a rank's Nq queries against Nk gathered keys
-    (bf16: wgmma; f32: the FMA bodies) against autograd of `sdpa_reference`
-    in f32 (8 items at a time), timed beside it and beside autograd of
-    F.scaled_dot_product_attention at the same shapes."""
+    (bf16: wgmma; f32: TF32 mma, three products each) against autograd of
+    `sdpa_reference` in f32 (8 items at a time), timed beside it and beside
+    autograd of F.scaled_dot_product_attention at the same shapes; the f32
+    backward rerun must repeat its bits."""
     rows, headline = [], {}
     clock_hz = sm_clock_max_hz()
     gen = torch.Generator(device=DEVICE).manual_seed(22)
@@ -3474,8 +3495,13 @@ def _st_flash_rows(at) -> tuple[list[dict], dict]:
             row[f"{k}_max_abs_err"], row[f"{k}_max_abs"] = errs[k], maxs[k]
             if not errs[k] <= FLASH_TOL[name] * maxs[k]:
                 bad.append(k)
-        # the f32 bodies take seconds a call here: one timed call each
-        it, warm = (10, 3) if dtype == torch.bfloat16 else (1, 1)
+        if dtype == torch.float32:
+            again = torch.autograd.grad(out, leaves, up, retain_graph=True)
+            row["rerun_bit_equal"] = all(torch.equal(a, g) for a, g in zip(again, grads))
+            del again
+            if not row["rerun_bit_equal"]:
+                bad.append("rerun bits")
+        it, warm = 10, 3
         row["backward_ms"] = cuda_time_ms(
             lambda: torch.autograd.grad(out, leaves, up, retain_graph=True), iters=it,
             warmup=warm)
@@ -3498,7 +3524,9 @@ def _st_flash_rows(at) -> tuple[list[dict], dict]:
             raise AssertionError(f"flash backward at Nq {n} / Nk {nk} {name} disagrees in {bad}: "
                                  f"{row}")
         if dtype == torch.bfloat16:
-            headline = row
+            headline.update(row)
+        else:
+            headline["f32"] = row
         del q, kv, up, leaves, out, grads
         torch.cuda.empty_cache()
     return rows, headline
@@ -4110,7 +4138,8 @@ def main() -> int:
         "launches_space": {k: paths[k]["flash_attn"] for k in report["space"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
-                         "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups)",
+                         "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups; f32: "
+                         "TF32 mma.sync, three products each)",
         "max_abs_err": flash_serve["out_max_abs_err"], "ms": flash_serve["ms"],
         "plain_ms": flash_serve["plain_ms"], "bound_ms": flash_serve["bound_ms"],
         "bound_by": flash_serve["bound_by"], "bound_operations": flash_serve["bound_operations"],
@@ -4151,6 +4180,14 @@ def main() -> int:
             "bound_operations": flash_bwd_space["backward_bound_operations"],
             "library_ms": flash_bwd_space["library_backward_ms"],
             "library_call": "autograd of F.scaled_dot_product_attention"},
+        "f32_at": {
+            "kernels": "flash_fwd_tf32, flash_dkv_tf32, flash_dq_tf32: mma.sync TF32, each "
+                       "product as hi lo + lo hi + hi hi of split operands",
+            **{short: {k: row[k] for k in F32_FLASH_KEYS if k in row}
+               for short, row in (("s", flash_headline["serve 12 img f32"]),
+                                  ("t", flash_headline["train batch 32 f32"]),
+                                  ("sq", flash_space["f32"]),
+                                  ("sqb", flash_bwd_space["f32"]))}},
     }, {
         "name": "gn_silu_sums", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:53 (the statistics, under a space axis)",

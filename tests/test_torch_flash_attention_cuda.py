@@ -1,7 +1,9 @@
 """The CUDA flash-attention kernels (toycrystals_torch/csrc/flash_attn.cu)
 against the plain PyTorch version, on the card: forward and the gradients of
 q, k and v, in f32 and bf16, and the bf16 forward and backward (wgmma, TMA rings)
-at every head dim that chip_smoke.py builds, its O and its row log-sum-exp.
+and the f32 ones (TF32 mma, three products each) at every head dim that
+chip_smoke.py builds, their O and row log-sum-exp, at Nq != Nk, and bit for bit
+from run to run.
 
 Every test here is marked `cuda` and skips without a card. On a machine with
 one NVIDIA GPU and nvcc, run them without tests/conftest.py, which imports
@@ -110,6 +112,75 @@ def test_bf16_gradients_at_every_built_head_dim(cuda, d, n, layout):
         _close(a, w, SHARE[torch.bfloat16])
 
 
+@pytest.mark.parametrize("layout", ["qkv_views", "contiguous"])
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_f32_forward_at_every_built_head_dim(cuda, d, n, layout):
+    """The TF32 forward: one key tile per block and many (N 128 to 4,096), a
+    block of 64 queries at d 128 and of 128 below, on the strided views of the
+    qkv projection and on contiguous tensors; O within 2e-5 of the largest
+    entry and L within 3e-5 of the log-sum-exp (about 8 here; f32 sums of up
+    to 4,096 exponentials in another order)."""
+    b, h = (2, 3) if n == 128 else (1, 2)
+    q, k, v = _qkv(cuda, (b, n, h, d), torch.float32, seed=d + n)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    before = at.flash_sdpa.launches
+    out, lse = at._flash_forward_cuda(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert at.flash_sdpa.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32 and out.is_contiguous()
+    _close(out, at.sdpa_reference(q, k, v), SHARE[torch.float32])
+    logits = torch.einsum("bnhd,bmhd->bhnm", q, k) * d ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(logits, dim=-1), atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["qkv_views", "contiguous"])
+@pytest.mark.parametrize("n", [128, 2048, 4096])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+def test_f32_gradients_at_every_built_head_dim(cuda, d, n, layout):
+    """The TF32 backward (dK/dV: K and V packed once, tiles of 64, 32 or 16
+    queries; dQ: Q and dO packed once, tiles of keys): q, k and v gradients
+    against autograd of the plain version within 2e-5 of each largest entry."""
+    b, h = (2, 3) if n == 128 else (1, 2)
+    q, k, v = _qkv(cuda, (b, n, h, d), torch.float32, seed=d + n)
+    if layout == "contiguous":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    g = torch.Generator(device=cuda).manual_seed(d * n)
+    upstream = torch.randn(q.shape, generator=g, device=cuda)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = at.flash_sdpa.backward_launches
+    got = torch.autograd.grad(at.flash_sdpa(*leaves), leaves, upstream)
+    torch.cuda.synchronize()
+    assert at.flash_sdpa.backward_launches == before + 1
+    ref = [t.detach().requires_grad_(True) for t in leaves]
+    want = torch.autograd.grad(at.sdpa_reference(*ref), ref, upstream)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        _close(a, w, SHARE[torch.float32])
+
+
+@pytest.mark.parametrize("d", [16, 48, 128])
+@pytest.mark.parametrize("n,nk", [(256, 1024), (512, 128)])
+def test_f32_fewer_or_more_queries_than_keys(cuda, d, n, nk):
+    """Nq != Nk in all three TF32 kernels: O and the three gradients of q
+    [B, Nq, heads, d] against k, v [B, Nk, heads, d], views of one tensor."""
+    b, h = 2, 2
+    g = torch.Generator(device=cuda).manual_seed(n + nk + d)
+    q = torch.randn((b, n, h, d), generator=g, device=cuda)
+    kv = torch.randn((b, nk, 2, h, d), generator=g, device=cuda)
+    upstream = torch.randn((b, n, h, d), generator=g, device=cuda)
+    leaves = [t.detach().requires_grad_(True) for t in (q, kv[:, :, 0], kv[:, :, 1])]
+    out = at.flash_sdpa(*leaves)
+    got = torch.autograd.grad(out, leaves, upstream)
+    ref = [t.detach().requires_grad_(True) for t in leaves]
+    want_out = at.sdpa_reference(*ref)
+    want = torch.autograd.grad(want_out, ref, upstream)
+    for a, w in zip((out.detach(), *got), (want_out.detach(), *want)):
+        assert a.shape == w.shape
+        _close(a, w, SHARE[torch.float32])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", [(2, 1024, 4, 48), (2, 256, 4, 64), (3, 256, 4, 16),
                                    (2, 128, 1, 128), (2, 128, 2, 24)])
@@ -140,6 +211,24 @@ def test_results_repeat_bit_for_bit(cuda):
         runs.append((out.detach(), *torch.autograd.grad(out, leaves, upstream)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nk", [None, 1024])
+def test_f32_results_repeat_bit_for_bit(cuda, nk):
+    """The TF32 kernels have no atomics either: two runs of the forward and
+    the backward give the same bits, at Nq = Nk and against more keys."""
+    b, n, h, d = 2, 512, 4, 48
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((b, n, h, d), generator=g, device=cuda)
+    kv = torch.randn((b, nk or n, 2, h, d), generator=g, device=cuda)
+    upstream = torch.randn((b, n, h, d), generator=g, device=cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, kv[:, :, 0], kv[:, :, 1])]
+        out = at.flash_sdpa(*leaves)
+        runs.append((out.detach(), *torch.autograd.grad(out, leaves, upstream)))
+    for a, b2 in zip(*runs):
+        assert torch.equal(a, b2)
 
 
 def test_module_auto_launches_the_kernel_at_4096_tokens(cuda):

@@ -44,9 +44,24 @@
 // warpgroups that take turns at the tensor cores, each running its
 // exponentials while the other's products run.
 //
-// float32 inputs are the checking type, not the working one: f32 forward,
-// dK/dV and dQ kernels run a plain f32-FMA body (one thread per row, tiles in
-// shared memory, expf), with no tensor cores and no TF32.
+// float32 is a working type too: the SDE trainer and the sampling CLIs run
+// in f32 unless told otherwise. Its kernels (fwd_tf32, dkv_tf32, dq_tf32) do
+// the same work with the same blocks' roles, and f32 accuracy on the tensor
+// cores: each operand is split into two TF32 values, hi and lo, and each
+// product formed as lo hi + hi lo + hi hi (see "float32 on the tensor cores"
+// below). That triples the tensor operations, so they, not the
+// exponentials, bound the f32 forward too: 3 x 4 B H N^2 d at the TF32 rate
+// (1.87 ms at [24, 4096, 4, 48], the exponentials 0.39). The f32 kernels run
+// mma.sync, which reached about 300 TFLOP/s of TF32 on an H100 SXM, 0.62 of
+// that peak: the first cap. Every operand is split once per block into
+// shared memory, packed in fragment order (one conflict-free 16-byte load per
+// fragment), P and dS split in registers. Each warp reads every B fragment
+// itself, 12 operations per byte of shared memory for 16 rows a warp (24 for
+// the forward's 32), near the 16 that mma.sync's rate needs from 128 bytes a
+// clock: the second. The third is the split between two barriers, when no
+// product runs (a third of the forward's time on the H100 at 16 rows a warp,
+// less at 32 with two blocks an SM). The kernels read
+// no `allow_tf32` flag: the split is always on.
 //
 // One head dim per build: compile with -DFLASH_HEAD_DIM=<multiple of 16, at
 // most 128>. q, k, v arrive as [B, N, H, d] views given by element strides (d
@@ -54,9 +69,10 @@
 // also take K and V of Nk rows against Q of N (sequence-parallel attention:
 // a rank's queries against the keys gathered from every rank), Nk a multiple
 // of 128 too: the forward and dQ loop over Nk keys, dK/dV has a block per 128
-// of the Nk keys and loops over the N queries, so dK and dV are [B, Nk, H, D],
-// this rank's queries' share of every key's gradient. The bf16
-// kernels read q, k, v and dO through TMA tensor maps encoded per call.
+// (f32 at d > 64: 64) of the Nk keys and loops over the N queries, so dK and
+// dV are [B, Nk, H, D], this rank's queries' share of every key's gradient.
+// The bf16 kernels read q, k, v and dO through TMA tensor maps encoded per
+// call, the f32 ones with 4- and 8-byte loads into registers.
 //
 // Plain C interface, built with nvcc and loaded through ctypes
 // (toycrystals_torch/ops/attention.py). Launches go on the caller's stream;
@@ -79,9 +95,7 @@ typedef __nv_bfloat16 bf16;
 constexpr int D = FLASH_HEAD_DIM;
 static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head dim: a multiple of 16 up to 128");
 
-constexpr int kThreads = 128;   // f32 bodies and the delta kernel
-constexpr int kRowsF = 128;  // f32 bodies: rows per block, one per thread
-constexpr int kTileF = 32;   // f32 bodies: rows per shared-memory tile
+constexpr int kThreads = 128;  // the delta kernel
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -935,185 +949,533 @@ __device__ void dkv_wgmma(const Params& p, const CUtensorMap* kmap, const CUtens
 }
 
 // ---------------------------------------------------------------------------
-// float32 with plain FMAs: one thread per row
+// float32 on the tensor cores: three TF32 products per product
 // ---------------------------------------------------------------------------
+//
+// Every f32 operand x is split in two TF32 values, hi = tf32(x) and
+// lo = tf32(x - hi), each rounded to nearest (cvt.rna), and every product is
+// formed as lo hi + hi lo + hi hi in f32 accumulators by
+// mma.sync.m16n8k8.tf32; lo lo, 2^-22 of the product, is dropped. One TF32
+// product would keep 10 bits (5e-4 of attention's largest entry); the three
+// keep f32's (1e-6).
+//
+// A warp owns 16 or 32 rows (queries; keys in dK/dV) and keeps its
+// accumulators in the mma C layout. Operands wait in shared memory split and packed in the
+// mma fragment order, 8 x 8 blocks of them: per block and lane one float4
+// {hi, hi, lo, lo} of a B operand, or two ({hi x4}, {lo x4}) of an A operand,
+// so that every fragment is one 16-byte load and a warp reads 512 contiguous
+// bytes: no bank conflicts. Within each 8-wide step of a contraction, mma
+// slot t holds element 2t and slot t + 4 element 2t + 1. The C fragment of
+// S (columns 2t and 2t + 1 of each 8) is then the A fragment of P V, dS K,
+// P^T dO or dS^T Q as it stands, split in registers, and a lane's two
+// values of an operand contracted over d are one 8-byte load.
+//
+// Tiles come from device memory by cp.async while the previous tile's
+// products run, each thread copying the elements of its own slots into a
+// staging area in slot order; between two barriers each thread then splits
+// and packs what it copied, so the block splits every element once for all
+// of its warps. The transposed operands of the products that contract over
+// rows (V in P V, K in dS K, Q and dO in dK/dV) are copied 4 bytes at a
+// time, the others 8.
+//
+// The tensor cores' f32 sums drift over a long chain of products: O at d 16
+// against 4,096 keys accumulated in them ended 2.4e-5 of its largest entry
+// from the plain version on the card. So the products over a tile's keys or
+// queries are summed in the tensor cores per tile (12 or 24 mma) and added
+// to the f32 accumulators by the f32 adds.
 
-// `rows` rows of D floats (row r at src + r * stride) into dst[r * D].
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long stride,
-                                              int rows) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i - r * kChunks;
-    reinterpret_cast<float4*>(dst)[i] = *reinterpret_cast<const float4*>(src + r * stride + c * 4);
+// The forward's warps own kFwdMt m-tiles of 16 query rows each, so that each
+// B fragment a warp loads from shared memory feeds kFwdMt products: 32 rows a
+// warp halve its fragment bytes per product, and its blocks of 4 warps run 2
+// to an SM. The backward's warps own 16 rows (queries in dQ, keys in dK/dV):
+// with 32, their accumulators spilled and they ran slower on the H100.
+constexpr int kFwdMt = D <= 64 ? 2 : 1;
+constexpr int kFwdWarps = 4;
+constexpr int kBwdWarps = D <= 64 ? 8 : 4;
+constexpr int kFwdRows = 16 * kFwdMt * kFwdWarps;  // a forward block's queries
+constexpr int kBwdRows = 16 * kBwdWarps;           // a dQ block's queries, a dK/dV block's keys
+static_assert(128 % kFwdRows == 0 && 128 % kBwdRows == 0, "blocks tile N and Nk, multiples of 128");
+constexpr int kFwdKeysF = D <= 64 ? 32 : 16;  // forward: keys per tile
+constexpr int kDqKeysF = D <= 48 ? 64 : (D <= 64 ? 32 : 16);  // dQ: keys per tile
+constexpr int kDkvRowsF = D <= 64 ? 32 : 16;  // dK/dV: queries per tile
+
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// x = hi + lo to within 2^-22 |x|, hi and lo TF32 values
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// c += A B: A 16 x 8 (a0..a3), B 8 x 8 (b0, b1), TF32 in, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const float4& a, float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(__float_as_uint(a.x)), "r"(__float_as_uint(a.y)), "r"(__float_as_uint(a.z)),
+        "r"(__float_as_uint(a.w)), "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// c += A B to f32 accuracy, the small terms first: b = {hi0, hi1, lo0, lo1}
+__device__ __forceinline__ void mma3(float (&c)[4], const float4& ahi, const float4& alo,
+                                     const float4& b) {
+  mma_tf32(c, alo, b.x, b.y);
+  mma_tf32(c, ahi, b.z, b.w);
+  mma_tf32(c, ahi, b.x, b.y);
+}
+
+// The A fragment (hi, lo) of a product over the 8 columns of C block c:
+// columns 2t and 2t + 1 are slots t and t + 4, so a0, a1, a2, a3 = c0, c2, c1, c3.
+__device__ __forceinline__ void split_c(const float (&c)[4], float4& hi, float4& lo) {
+  split_tf32(c[0], hi.x, lo.x);
+  split_tf32(c[2], hi.y, lo.y);
+  split_tf32(c[1], hi.z, lo.z);
+  split_tf32(c[3], hi.w, lo.w);
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The 16 MT rows per warp of a [.., D] tensor at `src` (row stride `stride`
+// elements) as A operands: block (mb, kb) = rows 16 mb.., d 8 kb..; lane
+// (g, t) holds rows 16 mb + g and + 8 at d 8 kb + 2t (a0, a1) and + 1 (a2,
+// a3), {hi x4} then {lo x4} 512 bytes on. Each warp packs its own MT m-tiles.
+template <int MT>
+__device__ __forceinline__ void pack_a(float4* dst, const float* src, long long stride) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int mb = warp * MT + mt;
+    const float* r0 = src + (16 * mb + (lane >> 2)) * stride + 2 * (lane & 3);
+    const float* r1 = r0 + 8 * stride;
+#pragma unroll
+    for (int kb = 0; kb < D / 8; ++kb) {
+      const float2 x0 = *reinterpret_cast<const float2*>(r0 + 8 * kb);
+      const float2 x1 = *reinterpret_cast<const float2*>(r1 + 8 * kb);
+      float4 hi, lo;
+      split_tf32(x0.x, hi.x, lo.x);
+      split_tf32(x1.x, hi.y, lo.y);
+      split_tf32(x0.y, hi.z, lo.z);
+      split_tf32(x1.y, hi.w, lo.w);
+      float4* blk = dst + (mb * (D / 8) + kb) * 64;
+      blk[lane] = hi;
+      blk[32 + lane] = lo;
+    }
   }
 }
 
-__device__ __forceinline__ void load_row_f32(float (&dst)[D], const float* src) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src + d);
-    dst[d] = t.x;
-    dst[d + 1] = t.y;
-    dst[d + 2] = t.z;
-    dst[d + 3] = t.w;
-  }
-}
+// ROWS rows x D of a [.., D] tensor as a B operand. kByD: the product
+// contracts over d; block kb * ROWS / 8 + nb holds d 8 kb.. of rows 8 nb..,
+// lane (g, t) row 8 nb + g at d 8 kb + 2t and + 1. Otherwise it contracts over
+// the rows; block kb * D / 8 + nb holds rows 8 kb.. at d 8 nb.., lane (g, t)
+// rows 8 kb + 2t and + 1 at d 8 nb + g. Of a block of WARPS warps, a thread
+// takes the same lane of every WARPS-th block from its warp's on: `copy`
+// starts the copies of its raw values into `raw` (a float2 per slot, in slot
+// order), `pack` splits them into the pack (a float4 per slot) once they have
+// arrived.
+template <int ROWS, bool kByD, int WARPS>
+struct BPack {
+  static constexpr int kBlocks = ROWS / 8 * (D / 8);
+  static constexpr int kPer = kBlocks / WARPS;
+  static constexpr int kSlots = kBlocks * 32;
+  static_assert(kBlocks % WARPS == 0, "a warp's share of the blocks");
 
-__device__ __forceinline__ void store_row_f32(float* dst, const float (&src)[D], float mul) {
+  static __device__ __forceinline__ void copy(float2* raw, const float* src, long long stride) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    *reinterpret_cast<float4*>(dst + d) =
-        make_float4(src[d] * mul, src[d + 1] * mul, src[d + 2] * mul, src[d + 3] * mul);
-  }
-}
-
-__device__ __forceinline__ float dot_f32(const float (&a)[D], const float* b) {
-  float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(b + d);
-    acc += a[d] * t.x;
-    acc += a[d + 1] * t.y;
-    acc += a[d + 2] * t.z;
-    acc += a[d + 3] * t.w;
-  }
-  return acc;
-}
-
-__device__ __forceinline__ void axpy_f32(float (&acc)[D], float a, const float* x) {
-#pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    const float4 t = *reinterpret_cast<const float4*>(x + d);
-    acc[d] += a * t.x;
-    acc[d + 1] += a * t.y;
-    acc[d + 2] += a * t.z;
-    acc[d + 3] += a * t.w;
-  }
-}
-
-__device__ void fwd_fma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + kTileF * D;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * kRowsF + threadIdx.x;
-  const float* k = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
-  const float* v = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
-  float qr[D], acc[D];
-  load_row_f32(qr, static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh + row * p.qsn);
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < p.Nk; k0 += kTileF) {
-    __syncthreads();
-    load_rows_f32(ks, k + k0 * p.ksn, p.ksn, kTileF);
-    load_rows_f32(vs, v + k0 * p.vsn, p.vsn, kTileF);
-    __syncthreads();
-#pragma unroll 1
-    for (int j0 = 0; j0 < kTileF; j0 += 8) {
-      float s[8];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j] = dot_f32(qr, ks + (j0 + j) * D) * p.scale;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float mn = fmaxf(m, mx);
-      const float corr = expf(m - mn);  // 0 on the first keys, where m = -inf
-      m = mn;
-      l *= corr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= corr;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float pj = expf(s[j] - mn);
-        l += pj;
-        axpy_f32(acc, pj, vs + (j0 + j) * D);
+    for (int r = 0; r < kPer; ++r) {
+      const int blk = threadIdx.x / 32 + r * WARPS;
+      float2* dst = raw + blk * 32 + lane;
+      if constexpr (kByD) {
+        const int kb = blk / (ROWS / 8), nb = blk % (ROWS / 8);
+        cp_async8(dst, src + (8 * nb + g) * stride + 8 * kb + 2 * t);
+      } else {
+        const int kb = blk / (D / 8), nb = blk % (D / 8);
+        const float* e = src + (8 * kb + 2 * t) * stride + 8 * nb + g;
+        cp_async4(&dst->x, e);
+        cp_async4(&dst->y, e + stride);
       }
     }
   }
-  float* o = static_cast<float*>(p.out) + ((static_cast<long long>(b) * p.N + row) * p.H + h) * D;
-  store_row_f32(o, acc, 1.f / l);
-  p.lse[(static_cast<long long>(b) * p.H + h) * p.N + row] = m + logf(l);
+
+  static __device__ __forceinline__ void pack(float4* dst, const float2* raw) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = (threadIdx.x / 32 + r * WARPS) * 32 + lane;
+      const float2 x = raw[i];
+      float4 v;
+      split_tf32(x.x, v.x, v.z);
+      split_tf32(x.y, v.y, v.w);
+      dst[i] = v;
+    }
+  }
+};
+
+// A warp's 16 x D accumulator, times `mul[0]` (rows g) and `mul[1]` (rows
+// g + 8), to rows row0.. of an f32 [.., D] tensor with row stride `stride`.
+__device__ __forceinline__ void store_rows_f32(float* dst, long long stride, int row0,
+                                               const float (&acc)[D / 8][4], float mul0,
+                                               float mul1, int lane) {
+  float* r0 = dst + static_cast<long long>(row0 + (lane >> 2)) * stride + (lane & 3) * 2;
+  float* r1 = r0 + 8 * stride;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    *reinterpret_cast<float2*>(r0 + dn * 8) = make_float2(acc[dn][0] * mul0, acc[dn][1] * mul0);
+    *reinterpret_cast<float2*>(r1 + dn * 8) = make_float2(acc[dn][2] * mul1, acc[dn][3] * mul1);
+  }
 }
 
-__device__ void dkv_fma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* dos = qs + kTileF * D;
-  float* ls = dos + kTileF * D;
-  float* dl = ls + kTileF;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * kRowsF + threadIdx.x;  // this thread's key
-  const float* q = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
-  const long long row_stride = static_cast<long long>(p.H) * D;
-  const float* dout =
-      static_cast<const float*>(p.dout) + (static_cast<long long>(b) * p.N * p.H + h) * D;
+// One block: kFwdRows query rows of one (item, head), Q packed once; a loop
+// over tiles of kFwdKeysF keys: S = Q K^T, the online softmax of the bf16
+// forward (exp2 with scale * log2(e) folded, running max and sum in f32),
+// O = O * corr + P V with P split in registers.
+__device__ void fwd_tf32(const Params& p) {
+  constexpr int kKeys = kFwdKeysF, MT = kFwdMt, W = kFwdWarps;
+  using KPack = BPack<kKeys, true, W>;   // S = Q K^T contracts over d
+  using VPack = BPack<kKeys, false, W>;  // O += P V over the keys
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float4* qs = reinterpret_cast<float4*>(f32_smem);
+  float4* ks = qs + kFwdRows * D / 2;
+  float4* vs = ks + KPack::kSlots;
+  float2* kraw = reinterpret_cast<float2*>(vs + VPack::kSlots);
+  float2* vraw = kraw + KPack::kSlots;
+  const int q0 = blockIdx.x * kFwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const float* k = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
+  const float* v = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
+  KPack::copy(kraw, k, p.ksn);
+  VPack::copy(vraw, v, p.vsn);
+  cp_async_commit();
+  pack_a<MT>(qs, static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qsn, p.qsn);
+
+  const float4* qw = qs + warp * MT * (D / 8) * 64;  // this warp's rows
+  const float sl2 = p.scale * kLog2e;
+  float o[MT][D / 8][4] = {};
+  float m[MT][2], l[MT][2] = {};  // running row max (log2 units); this thread's share of the sum
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) m[mt][0] = m[mt][1] = -INFINITY;
+  const int tiles = p.Nk / kKeys;
+  for (int j = 0; j < tiles; ++j) {
+    __syncthreads();  // every warp is done with the previous tile
+    cp_async_wait_all();
+    KPack::pack(ks, kraw);
+    VPack::pack(vs, vraw);
+    __syncthreads();
+    if (j + 1 < tiles) {
+      KPack::copy(kraw, k + (j + 1) * kKeys * p.ksn, p.ksn);
+      VPack::copy(vraw, v + (j + 1) * kKeys * p.vsn, p.vsn);
+      cp_async_commit();
+    }
+    float s[MT][kKeys / 8][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < D / 8; ++kb) {
+      float4 ahi[MT], alo[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ahi[mt] = qw[(mt * (D / 8) + kb) * 64 + lane];
+        alo[mt] = qw[(mt * (D / 8) + kb) * 64 + 32 + lane];
+      }
+#pragma unroll
+      for (int nb = 0; nb < kKeys / 8; ++nb) {
+        const float4 bk = ks[(kb * (kKeys / 8) + nb) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(s[mt][nb], ahi[mt], alo[mt], bk);
+      }
+    }
+    float corr[MT][2];
+    float4 phi[MT][kKeys / 8], plo[MT][kKeys / 8];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < kKeys / 8; ++nb) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][nb][0], s[mt][nb][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][nb][2], s[mt][nb][3]));
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // scale > 0, so the max commutes with the scaling; m = -inf on the
+        // first tile gives corr = exp2(-inf) = 0 against a finite new max
+        const float mn = fmaxf(m[mt][r], quad_max(mx[r]) * sl2);
+        corr[mt][r] = exp2f(m[mt][r] - mn);
+        m[mt][r] = mn;
+        l[mt][r] *= corr[mt][r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < kKeys / 8; ++nb) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[mt][nb][i] = exp2f(s[mt][nb][i] * sl2 - m[mt][i >> 1]);
+        l[mt][0] += s[mt][nb][0] + s[mt][nb][1];
+        l[mt][1] += s[mt][nb][2] + s[mt][nb][3];
+        split_c(s[mt][nb], phi[mt][nb], plo[mt][nb]);
+      }
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      float t[MT][4] = {};
+#pragma unroll
+      for (int kb = 0; kb < kKeys / 8; ++kb) {
+        const float4 bv = vs[(kb * (D / 8) + dn) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3(t[mt], phi[mt][kb], plo[mt][kb], bv);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[mt][dn][i] = o[mt][dn][i] * corr[mt][i >> 1] + t[mt][i];
+      }
+    }
+  }
+
+  float* out = static_cast<float*>(p.out) + (static_cast<long long>(b) * p.N * p.H + h) * D;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const float l0 = quad_sum(l[mt][0]), l1 = quad_sum(l[mt][1]);
+    const int row0 = q0 + (warp * MT + mt) * 16;
+    store_rows_f32(out, static_cast<long long>(p.H) * D, row0, o[mt], 1.f / l0, 1.f / l1, lane);
+    if ((lane & 3) == 0) {
+      float* lse = p.lse + (static_cast<long long>(b) * p.H + h) * p.N + row0 + (lane >> 2);
+      lse[0] = m[mt][0] * kLn2 + logf(l0);
+      lse[8] = m[mt][1] * kLn2 + logf(l1);
+    }
+  }
+}
+
+// One block: kBwdRows query rows of one (item, head), Q and dO packed once,
+// L and delta of the thread's two rows in registers; a loop over tiles of
+// kDqKeysF keys: S = Q K^T, dP = dO V^T,
+// dS = exp2(S * scale * log2(e) - L * log2(e)) * (dP - delta), dQ += dS K;
+// dQ scaled at the end.
+__device__ void dq_tf32(const Params& p) {
+  constexpr int kKeys = kDqKeysF;
+  using KPack = BPack<kKeys, true, kBwdWarps>;    // K in S = Q K^T, V in dP = dO V^T: over d
+  using KtPack = BPack<kKeys, false, kBwdWarps>;  // K in dQ += dS K: over the keys
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float4* qs = reinterpret_cast<float4*>(f32_smem);
+  float4* dos = qs + kBwdRows * D / 2;
+  float4* ks = dos + kBwdRows * D / 2;
+  float4* kts = ks + KPack::kSlots;
+  float4* vs = kts + KtPack::kSlots;
+  float2* kraw = reinterpret_cast<float2*>(vs + KPack::kSlots);
+  float2* ktraw = kraw + KPack::kSlots;
+  float2* vraw = ktraw + KtPack::kSlots;
+  const int q0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const long long on = static_cast<long long>(p.H) * D;  // dO: contiguous [B, N, H, D]
+  const float* k = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
+  const float* v = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
+  KPack::copy(kraw, k, p.ksn);
+  KtPack::copy(ktraw, k, p.ksn);
+  KPack::copy(vraw, v, p.vsn);
+  cp_async_commit();
+  pack_a<1>(qs, static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh + q0 * p.qsn, p.qsn);
+  pack_a<1>(dos, static_cast<const float*>(p.dout) + (static_cast<long long>(b) * p.N + q0) * on +
+                     h * D, on);
+
+  const int row0 = q0 + warp * 16;
+  const long long row = (static_cast<long long>(b) * p.H + h) * p.N + row0 + (lane >> 2);
+  const float l2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+  const float dl[2] = {p.delta[row], p.delta[row + 8]};
+  const float sl2 = p.scale * kLog2e;
+  const float4* qw = qs + warp * (D / 8) * 64;
+  const float4* ow = dos + warp * (D / 8) * 64;
+  float dq[D / 8][4] = {};
+  const int tiles = p.Nk / kKeys;
+  for (int j = 0; j < tiles; ++j) {
+    __syncthreads();
+    cp_async_wait_all();
+    KPack::pack(ks, kraw);
+    KtPack::pack(kts, ktraw);
+    KPack::pack(vs, vraw);
+    __syncthreads();
+    if (j + 1 < tiles) {
+      KPack::copy(kraw, k + (j + 1) * kKeys * p.ksn, p.ksn);
+      KtPack::copy(ktraw, k + (j + 1) * kKeys * p.ksn, p.ksn);
+      KPack::copy(vraw, v + (j + 1) * kKeys * p.vsn, p.vsn);
+      cp_async_commit();
+    }
+    float s[kKeys / 8][4] = {}, dp[kKeys / 8][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < D / 8; ++kb) {
+      const float4 qhi = qw[kb * 64 + lane], qlo = qw[kb * 64 + 32 + lane];
+      const float4 ohi = ow[kb * 64 + lane], olo = ow[kb * 64 + 32 + lane];
+#pragma unroll
+      for (int nb = 0; nb < kKeys / 8; ++nb) {
+        mma3(s[nb], qhi, qlo, ks[(kb * (kKeys / 8) + nb) * 32 + lane]);
+        mma3(dp[nb], ohi, olo, vs[(kb * (kKeys / 8) + nb) * 32 + lane]);
+      }
+    }
+    float4 dhi[kKeys / 8], dlo[kKeys / 8];
+#pragma unroll
+    for (int nb = 0; nb < kKeys / 8; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nb][i] = exp2_ftz(s[nb][i] * sl2 - l2[i >> 1]) * (dp[nb][i] - dl[i >> 1]);
+      }
+      split_c(s[nb], dhi[nb], dlo[nb]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      float t[4] = {};
+#pragma unroll
+      for (int kb = 0; kb < kKeys / 8; ++kb) {
+        mma3(t, dhi[kb], dlo[kb], kts[(kb * (D / 8) + dn) * 32 + lane]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) dq[dn][i] += t[i];
+    }
+  }
+  float* gq = static_cast<float*>(p.dq) + b * p.gsb + h * p.gsh;
+  store_rows_f32(gq, p.gsn, row0, dq, p.scale, p.scale, lane);
+}
+
+// One block: kBwdRows keys of one (item, head), K and V packed once; a loop
+// over tiles of kDkvRowsF query rows with their L and delta: S^T = K Q^T,
+// dP^T = V dO^T, P^T = exp2(S^T * scale * log2(e) - L * log2(e)),
+// dS^T = P^T * (dP^T - delta) (L and delta per column), dV += P^T dO,
+// dK += dS^T Q; dK scaled at the end.
+__device__ void dkv_tf32(const Params& p) {
+  constexpr int kRowsQ = kDkvRowsF;
+  using QPack = BPack<kRowsQ, true, kBwdWarps>;    // Q in S^T = K Q^T, dO in dP^T = V dO^T: over d
+  using QtPack = BPack<kRowsQ, false, kBwdWarps>;  // Q in dK += dS^T Q, dO in dV += P^T dO
+  static_assert(kBwdWarps * 32 >= kRowsQ, "a thread per row copies L and delta");
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float4* ks = reinterpret_cast<float4*>(f32_smem);
+  float4* vs = ks + kBwdRows * D / 2;
+  float4* qs = vs + kBwdRows * D / 2;
+  float4* qts = qs + QPack::kSlots;
+  float4* dos = qts + QtPack::kSlots;
+  float4* dots = dos + QPack::kSlots;
+  float2* qraw = reinterpret_cast<float2*>(dots + QtPack::kSlots);
+  float2* qtraw = qraw + QPack::kSlots;
+  float2* oraw = qtraw + QtPack::kSlots;
+  float2* otraw = oraw + QPack::kSlots;
+  float* ls = reinterpret_cast<float*>(otraw + QtPack::kSlots);  // L log2(e) of the tile's rows
+  float* dls = ls + kRowsQ;                                       // their delta
+  float* lraw = dls + kRowsQ;                                     // L and delta as copied
+  float* draw = lraw + kRowsQ;
+  const int k0 = blockIdx.x * kBwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const long long on = static_cast<long long>(p.H) * D;  // dO: contiguous [B, N, H, D]
   const long long bh = (static_cast<long long>(b) * p.H + h) * p.N;
-  float kr[D], vr[D], dk[D], dv[D];
-  load_row_f32(kr, static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh + row * p.ksn);
-  load_row_f32(vr, static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh + row * p.vsn);
-#pragma unroll
-  for (int d = 0; d < D; ++d) dk[d] = dv[d] = 0.f;
+  const float* q = static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh;
+  const float* dout = static_cast<const float*>(p.dout) + static_cast<long long>(b) * p.N * on +
+                      h * D;
+  const bool lrow = threadIdx.x < kRowsQ;  // copies one row's L and delta
+  QPack::copy(qraw, q, p.qsn);
+  QtPack::copy(qtraw, q, p.qsn);
+  QPack::copy(oraw, dout, on);
+  QtPack::copy(otraw, dout, on);
+  if (lrow) {
+    cp_async4(lraw + threadIdx.x, p.lse + bh + threadIdx.x);
+    cp_async4(draw + threadIdx.x, p.delta + bh + threadIdx.x);
+  }
+  cp_async_commit();
+  pack_a<1>(ks, static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh + k0 * p.ksn, p.ksn);
+  pack_a<1>(vs, static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh + k0 * p.vsn, p.vsn);
 
-  for (int q0 = 0; q0 < p.N; q0 += kTileF) {
+  const float4* kw = ks + warp * (D / 8) * 64;
+  const float4* vw = vs + warp * (D / 8) * 64;
+  const float sl2 = p.scale * kLog2e;
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};
+  const int tiles = p.N / kRowsQ;
+  for (int i = 0; i < tiles; ++i) {
     __syncthreads();
-    load_rows_f32(qs, q + q0 * p.qsn, p.qsn, kTileF);
-    load_rows_f32(dos, dout + q0 * row_stride, row_stride, kTileF);
-    if (threadIdx.x < kTileF) {
-      ls[threadIdx.x] = p.lse[bh + q0 + threadIdx.x];
-      dl[threadIdx.x] = p.delta[bh + q0 + threadIdx.x];
+    cp_async_wait_all();
+    QPack::pack(qs, qraw);
+    QtPack::pack(qts, qtraw);
+    QPack::pack(dos, oraw);
+    QtPack::pack(dots, otraw);
+    if (lrow) {
+      ls[threadIdx.x] = lraw[threadIdx.x] * kLog2e;
+      dls[threadIdx.x] = draw[threadIdx.x];
     }
     __syncthreads();
-#pragma unroll 1
-    for (int i = 0; i < kTileF; ++i) {
-      const float pij = expf(dot_f32(kr, qs + i * D) * p.scale - ls[i]);
-      const float dsij = pij * (dot_f32(vr, dos + i * D) - dl[i]);
-      axpy_f32(dv, pij, dos + i * D);
-      axpy_f32(dk, dsij, qs + i * D);
+    if (i + 1 < tiles) {
+      const long long r1 = static_cast<long long>(i + 1) * kRowsQ;
+      QPack::copy(qraw, q + r1 * p.qsn, p.qsn);
+      QtPack::copy(qtraw, q + r1 * p.qsn, p.qsn);
+      QPack::copy(oraw, dout + r1 * on, on);
+      QtPack::copy(otraw, dout + r1 * on, on);
+      if (lrow) {
+        cp_async4(lraw + threadIdx.x, p.lse + bh + r1 + threadIdx.x);
+        cp_async4(draw + threadIdx.x, p.delta + bh + r1 + threadIdx.x);
+      }
+      cp_async_commit();
+    }
+    float st[kRowsQ / 8][4] = {}, dpt[kRowsQ / 8][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < D / 8; ++kb) {
+      const float4 khi = kw[kb * 64 + lane], klo = kw[kb * 64 + 32 + lane];
+      const float4 vhi = vw[kb * 64 + lane], vlo = vw[kb * 64 + 32 + lane];
+#pragma unroll
+      for (int nb = 0; nb < kRowsQ / 8; ++nb) {
+        mma3(st[nb], khi, klo, qs[(kb * (kRowsQ / 8) + nb) * 32 + lane]);
+        mma3(dpt[nb], vhi, vlo, dos[(kb * (kRowsQ / 8) + nb) * 32 + lane]);
+      }
+    }
+    // this thread's columns: nb * 8 + 2t and the next
+    const float* lt = ls + (lane & 3) * 2;
+    const float* dt = dls + (lane & 3) * 2;
+    float4 phi[kRowsQ / 8], plo[kRowsQ / 8], dhi[kRowsQ / 8], dlo[kRowsQ / 8];
+#pragma unroll
+    for (int nb = 0; nb < kRowsQ / 8; ++nb) {
+      const float2 lc = *reinterpret_cast<const float2*>(lt + nb * 8);
+      const float2 dc = *reinterpret_cast<const float2*>(dt + nb * 8);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pt = exp2_ftz(st[nb][c] * sl2 - ((c & 1) ? lc.y : lc.x));
+        st[nb][c] = pt;
+        dpt[nb][c] = pt * (dpt[nb][c] - ((c & 1) ? dc.y : dc.x));
+      }
+      split_c(st[nb], phi[nb], plo[nb]);
+      split_c(dpt[nb], dhi[nb], dlo[nb]);
+    }
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      float tv[4] = {}, tk[4] = {};
+#pragma unroll
+      for (int kb = 0; kb < kRowsQ / 8; ++kb) {
+        mma3(tv, phi[kb], plo[kb], dots[(kb * (D / 8) + dn) * 32 + lane]);
+        mma3(tk, dhi[kb], dlo[kb], qts[(kb * (D / 8) + dn) * 32 + lane]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dv[dn][c] += tv[c];
+        dk[dn][c] += tk[c];
+      }
     }
   }
-  store_row_f32(static_cast<float*>(p.dk) + b * p.dsb + h * p.dsh + row * p.dsn, dk, p.scale);
-  store_row_f32(static_cast<float*>(p.dv) + b * p.dsb + h * p.dsh + row * p.dsn, dv, 1.f);
-}
-
-__device__ void dq_fma(const Params& p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + kTileF * D;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int row = blockIdx.x * kRowsF + threadIdx.x;  // this thread's query
-  const float* k = static_cast<const float*>(p.k) + b * p.ksb + h * p.ksh;
-  const float* v = static_cast<const float*>(p.v) + b * p.vsb + h * p.vsh;
-  const long long bhn = (static_cast<long long>(b) * p.H + h) * p.N + row;
-  const float lr = p.lse[bhn], dr = p.delta[bhn];
-  float qr[D], dor[D], dq[D];
-  load_row_f32(qr, static_cast<const float*>(p.q) + b * p.qsb + h * p.qsh + row * p.qsn);
-  load_row_f32(dor, static_cast<const float*>(p.dout) +
-                        ((static_cast<long long>(b) * p.N + row) * p.H + h) * D);
-#pragma unroll
-  for (int d = 0; d < D; ++d) dq[d] = 0.f;
-
-  for (int k0 = 0; k0 < p.Nk; k0 += kTileF) {
-    __syncthreads();
-    load_rows_f32(ks, k + k0 * p.ksn, p.ksn, kTileF);
-    load_rows_f32(vs, v + k0 * p.vsn, p.vsn, kTileF);
-    __syncthreads();
-#pragma unroll 1
-    for (int j = 0; j < kTileF; ++j) {
-      const float pij = expf(dot_f32(qr, ks + j * D) * p.scale - lr);
-      const float dsij = pij * (dot_f32(dor, vs + j * D) - dr);
-      axpy_f32(dq, dsij, ks + j * D);
-    }
-  }
-  store_row_f32(static_cast<float*>(p.dq) + b * p.gsb + h * p.gsh + row * p.gsn, dq, p.scale);
+  const int row0 = k0 + warp * 16;
+  float* gk = static_cast<float*>(p.dk) + b * p.dsb + h * p.dsh;
+  float* gv = static_cast<float*>(p.dv) + b * p.dsb + h * p.dsh;
+  store_rows_f32(gk, p.dsn, row0, dk, p.scale, p.scale, lane);
+  store_rows_f32(gv, p.dsn, row0, dv, 1.f, 1.f, lane);
 }
 
 // ---------------------------------------------------------------------------
-// The kernels: wgmma kernels for bf16, FMA ones for f32; the delta kernel
-// serves both types.
+// The kernels: wgmma kernels for bf16, TF32 mma ones for f32; the delta
+// kernel serves both types.
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kFwdThreads, 1)
@@ -1123,7 +1485,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   fwd_wgmma(p, &qmap, &kmap, &vmap);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(const Params p) { fwd_fma(p); }
+__global__ void __launch_bounds__(32 * kFwdWarps, 1)
+    flash_fwd_tf32_kernel(const Params p) {
+  fwd_tf32(p);
+}
 
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_dkv_wgmma_kernel(const Params p, const __grid_constant__ CUtensorMap kmap,
@@ -1141,9 +1506,15 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   dq_wgmma(p, &qmap, &kmap, &vmap, &omap);
 }
 
-__global__ void __launch_bounds__(kThreads) flash_dkv_f32_kernel(const Params p) { dkv_fma(p); }
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
+    flash_dkv_tf32_kernel(const Params p) {
+  dkv_tf32(p);
+}
 
-__global__ void __launch_bounds__(kThreads) flash_dq_f32_kernel(const Params p) { dq_fma(p); }
+__global__ void __launch_bounds__(32 * kBwdWarps, 1)
+    flash_dq_tf32_kernel(const Params p) {
+  dq_tf32(p);
+}
 
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -1186,26 +1557,34 @@ __global__ void __launch_bounds__(kThreads) flash_delta_kernel(const Params p) {
   p.delta[(b * p.H + h) * p.N + n] = acc;
 }
 
+// f32: a packed row of D values takes 8 D bytes (hi and lo)
 template <typename T>
 constexpr int fwd_smem() {
-  // bf16: Q, the K and V ring, then 2 kStages + 1 mbarriers
+  // bf16: Q, the K and V ring, then 2 kStages + 1 mbarriers; f32: Q, K and V
+  // packed, K and V as copied (half a pack each)
   return sizeof(T) == 2 ? (1 + 2 * kStages) * kTileBytes + (2 * kStages + 1) * 8
-                        : 2 * kTileF * D * 4;
+                        : (kFwdRows + 3 * kFwdKeysF) * D * 8;
 }
 
 template <typename T>
 constexpr int dkv_smem() {
-  // bf16: K, V, the ring of Q, dO, L and delta, then 2 kDkvStages + 1 mbarriers
+  // bf16: K, V, the ring of Q, dO, L and delta, then 2 kDkvStages + 1 mbarriers;
+  // f32: K, V, Q and dO each packed twice and as copied, L and delta twice
   return sizeof(T) == 2 ? 2 * kTileBytes + kDkvStages * kDkvStageBytes + (2 * kDkvStages + 1) * 8
-                        : 2 * kTileF * D * 4 + 2 * kTileF * 4;
+                        : (2 * kBwdRows + 6 * kDkvRowsF) * D * 8 + 4 * kDkvRowsF * 4;
 }
 
 template <typename T>
 constexpr int dq_smem() {
-  // bf16: Q, dO, the K and V ring, then 2 kDqStages + 1 mbarriers
+  // bf16: Q, dO, the K and V ring, then 2 kDqStages + 1 mbarriers; f32: Q, dO,
+  // K packed twice, V, and as copied
   return sizeof(T) == 2 ? (2 + 2 * kDqStages) * kTileBytes + (2 * kDqStages + 1) * 8
-                        : 2 * kTileF * D * 4;
+                        : (2 * kBwdRows + 3 * kDqKeysF) * D * 8 + 3 * kDqKeysF * D * 4;
 }
+
+static_assert(fwd_smem<float>() <= kSmemPerBlock && dkv_smem<float>() <= kSmemPerBlock &&
+                  dq_smem<float>() <= kSmemPerBlock,
+              "f32 tiles exceed a block's shared memory");
 
 bool bad_shape(const Params& p) {
   return p.B <= 0 || p.N <= 0 || p.H <= 0 || p.N % 128 != 0 || p.Nk <= 0 ||
@@ -1300,9 +1679,9 @@ cudaError_t ensure_smem_limits() {
     if (err == cudaSuccess) err = max_smem(flash_dkv_wgmma_kernel, dkv_smem<T>());
     if (err == cudaSuccess) err = max_smem(flash_dq_wgmma_kernel, dq_smem<T>());
   } else {
-    err = max_smem(flash_fwd_f32_kernel, fwd_smem<T>());
-    if (err == cudaSuccess) err = max_smem(flash_dkv_f32_kernel, dkv_smem<T>());
-    if (err == cudaSuccess) err = max_smem(flash_dq_f32_kernel, dq_smem<T>());
+    err = max_smem(flash_fwd_tf32_kernel, fwd_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dkv_tf32_kernel, dkv_smem<T>());
+    if (err == cudaSuccess) err = max_smem(flash_dq_tf32_kernel, dq_smem<T>());
   }
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < kMaxDevices) done[dev] = true;
@@ -1314,7 +1693,9 @@ cudaError_t forward(const Params& p, cudaStream_t s) {
   if (misaligned<T>(p)) return cudaErrorMisalignedAddress;
   cudaError_t err = ensure_smem_limits<T>();
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>(p.N / kRows), static_cast<unsigned>(p.H),
+  // a block per kRows (f32: kFwdRows) queries
+  const int rows = sizeof(T) == 2 ? kRows : kFwdRows;
+  const dim3 grid(static_cast<unsigned>(p.N / rows), static_cast<unsigned>(p.H),
                   static_cast<unsigned>(p.B));
   if constexpr (sizeof(T) == 2) {
     CUtensorMap qmap, kmap, vmap;
@@ -1324,7 +1705,7 @@ cudaError_t forward(const Params& p, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     flash_fwd_wgmma_kernel<<<grid, kFwdThreads, fwd_smem<T>(), s>>>(p, qmap, kmap, vmap);
   } else {
-    flash_fwd_f32_kernel<<<grid, kThreads, fwd_smem<T>(), s>>>(p);
+    flash_fwd_tf32_kernel<<<grid, 32 * kFwdWarps, fwd_smem<T>(), s>>>(p);
   }
   return cudaGetLastError();
 }
@@ -1339,10 +1720,11 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
                           s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // dQ: a block per 128 queries; dK/dV: a block per 128 of the Nk keys
-  const dim3 grid(static_cast<unsigned>(p.N / kRows), static_cast<unsigned>(p.H),
+  // dQ: a block per kRows (f32: kBwdRows) queries; dK/dV: per as many of the Nk keys
+  const int brows = sizeof(T) == 2 ? kRows : kBwdRows;
+  const dim3 grid(static_cast<unsigned>(p.N / brows), static_cast<unsigned>(p.H),
                   static_cast<unsigned>(p.B));
-  const dim3 kgrid(static_cast<unsigned>(p.Nk / kRows), static_cast<unsigned>(p.H),
+  const dim3 kgrid(static_cast<unsigned>(p.Nk / brows), static_cast<unsigned>(p.H),
                    static_cast<unsigned>(p.B));
   if constexpr (sizeof(T) == 2) {
     // dO is contiguous [B, N, H, D]; dK/dV reads Q and dO in tiles of kQRows rows
@@ -1360,10 +1742,10 @@ cudaError_t backward(const Params& p, cudaStream_t s) {
     if (err != cudaSuccess) return err;
     flash_dq_wgmma_kernel<<<grid, kFwdThreads, dq_smem<T>(), s>>>(p, qmap, kmap, vmap, omap);
   } else {
-    flash_dkv_f32_kernel<<<kgrid, kThreads, dkv_smem<T>(), s>>>(p);
+    flash_dkv_tf32_kernel<<<kgrid, 32 * kBwdWarps, dkv_smem<T>(), s>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    flash_dq_f32_kernel<<<grid, kThreads, dq_smem<T>(), s>>>(p);
+    flash_dq_tf32_kernel<<<grid, 32 * kBwdWarps, dq_smem<T>(), s>>>(p);
   }
   return cudaGetLastError();
 }
