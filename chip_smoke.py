@@ -196,7 +196,8 @@ result line:
    collective across cards. The kernels of the space axis against their
    plain versions: the GroupNorm sums and apply kernels at the 256x256
    path's sharded shapes ([24, 96, 128, 256] and the lower levels; bf16 and
-   f32, pad on and off; the ranks' sums added in-process), and the flash
+   f32, pad on and off; the ranks' sums added in-process; each kernel's
+   device time from torch.profiler in a `bench_gn --space` process), and the flash
    forward of Nq 2,048 and 1,024 queries against 4,096 gathered keys ([24,
    ., 4, 48], bf16 and f32), each timed beside its plain version (and
    F.scaled_dot_product_attention at the same shapes). A (1, 1) mesh at
@@ -2975,10 +2976,27 @@ SPACE_GN_SHAPES = [("256 down1/up1", (24, 96, 128, 256)), ("256 down2", (24, 192
 SPACE_FLASH_SHAPES = [("S=2", (24, 2048, 4, 48), 4096), ("S=4", (24, 1024, 4, 48), 4096)]
 
 
+def _space_kernel_ms() -> dict:
+    """Each SPACE_GN_SHAPES case's sums and apply kernel device ms, from
+    torch.profiler in a process of its own (`bench_gn --space`, the same
+    shapes): in this process, after the earlier phases, the profiler recorded
+    no device time for them."""
+    proc = subprocess.run([sys.executable, "-m", "toycrystals_torch.bench_gn", "--space",
+                           "--iters", "10"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench_gn --space failed:\n{proc.stdout}\n{proc.stderr}")
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])["rows"]
+    return {(r["shape"], r["dtype"], r["pad"]): (r["sums_kernel_ms"], r["apply_kernel_ms"])
+            for r in rows}
+
+
 def _space_gn_rows(gn) -> tuple[list[dict], dict]:
     """The sums and apply kernels at the 256x256 path's sharded shapes, one
     rank's rows against their plain versions, the all-reduce done here (the
-    other rank's sums added); timed against the plain versions."""
+    other rank's sums added); timed against the plain versions, each call by
+    CUDA events and each kernel's device time by torch.profiler."""
+    kernel_ms = _space_kernel_ms()
     rows, headline = [], {}
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     for label, shape in SPACE_GN_SHAPES:
@@ -3013,6 +3031,10 @@ def _space_gn_rows(gn) -> tuple[list[dict], dict]:
                     lambda: gn.gn_silu_apply_reference(x, sums, count, scale, bias, 8, pad=pad),
                     iters=5)
                 row["apply_bound_ms"], row["apply_bound_by"] = gn_bound(shape, pad, elem)
+                row["sums_kernel_ms"], row["apply_kernel_ms"] = kernel_ms[(label, name, pad)]
+                if not (row["sums_kernel_ms"] > 0.0 and row["apply_kernel_ms"] > 0.0):
+                    raise AssertionError(f"gn space kernels at {label} {name}: torch.profiler "
+                                         f"saw no device time")
                 # the one-launch kernel on the whole image's rows, for scale
                 whole = torch.cat([x, other], dim=2)
                 row["one_launch_whole_image_ms"] = cuda_time_ms(
@@ -4194,7 +4216,8 @@ def main() -> int:
         "launches": sum(path.get("gn_silu_sums", 0) for path in paths.values()),
         "launches_space": {k: paths[k]["gn_silu_sums"] for k in report["space"]["launches"]},
         "max_abs_err": gn_space["sums_max_rel_err"], "max_err_is": "relative, of each sum",
-        "ms": gn_space["sums_ms"], "plain_ms": gn_space["sums_plain_ms"],
+        "ms": gn_space["sums_kernel_ms"], "wrapper_ms": gn_space["sums_ms"],
+        "plain_ms": gn_space["sums_plain_ms"],
         "bound_ms": gn_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16, one rank's rows at S = 2",
     }, {
@@ -4203,9 +4226,10 @@ def main() -> int:
                     "space axis)",
         "launches": sum(path.get("gn_silu_apply", 0) for path in paths.values()),
         "launches_space": {k: paths[k]["gn_silu_apply"] for k in report["space"]["launches"]},
-        "max_abs_err": gn_space["max_abs_err"], "ms": gn_space["apply_ms"],
-        "plain_ms": gn_space["apply_plain_ms"], "bound_ms": gn_space["apply_bound_ms"],
-        "bound_by": gn_space["apply_bound_by"], "library_ms": None,
+        "max_abs_err": gn_space["max_abs_err"], "ms": gn_space["apply_kernel_ms"],
+        "wrapper_ms": gn_space["apply_ms"], "plain_ms": gn_space["apply_plain_ms"],
+        "bound_ms": gn_space["apply_bound_ms"], "bound_by": gn_space["apply_bound_by"],
+        "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16 pad=True, one rank's rows at S = 2",
     }, {
         "name": "gn_silu_backward_sums", "route": "cuda",

@@ -74,6 +74,74 @@ def test_sums_and_apply_kernels_match_plain_versions(cuda, shape, groups, dtype,
                                whole[:, :, :shape[2]].float(), atol=atol, rtol=rtol)
 
 
+# Each side of the space pair's splits: the apply kernel's 16-byte layout (W
+# whole vectors: bf16 W % 8, f32 W % 4) or an element a lane, W under one
+# vector, h = 1, padded rows starting at every alignment, more rows than the
+# grid holds at once; the sums kernel's cluster of 1 (B x groups at least two
+# per SM) and of several.
+LAYOUT_SHAPES = [((3, 12, 5, 7), 4), ((2, 8, 4, 4), 4), ((2, 16, 1, 256), 8),
+                 ((2, 16, 3, 12), 8), ((2, 8, 6, 24), 2), ((1, 8, 2, 8), 8),
+                 ((4, 16, 5, 264), 4), ((40, 64, 4, 64), 8), ((64, 128, 8, 64), 8)]
+
+
+def test_layout_shapes_reach_both_cluster_sizes_and_both_layouts(cuda):
+    plans = {(shape, dtype): gn.space_kernel_plan(shape, groups, dtype, True)
+             for shape, groups in LAYOUT_SHAPES for dtype in (torch.float32, torch.bfloat16)}
+    assert {p["sums_cluster"] == 1 for p in plans.values()} == {True, False}, plans
+    assert {p["apply_vector"] for p in plans.values()} == {1, 4, 8}, plans
+
+
+@pytest.mark.parametrize("pad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,groups", LAYOUT_SHAPES)
+def test_space_pair_at_each_layout(cuda, shape, groups, dtype, pad):
+    """One launch of each kernel per call, the same bits from call to call,
+    the plain versions' values; the apply kernel on x stored one element past
+    a 16-byte boundary (an element a lane) gives the same bits."""
+    x, scale, bias = _inputs(cuda, shape, dtype, seed=2)
+    s0, a0 = gn.gn_silu.sums_launches, gn.gn_silu.apply_launches
+    sums = gn.gn_sums(x, groups)
+    assert gn.gn_silu.sums_launches == s0 + 1
+    assert torch.equal(sums, gn.gn_sums(x, groups))
+    torch.testing.assert_close(sums, gn.gn_sums_reference(x, groups), atol=1e-3, rtol=1e-5)
+    count = shape[1] // groups * shape[2] * shape[3]
+    got = gn.gn_silu_apply(x, sums, count, scale, bias, groups, pad=pad)
+    assert gn.gn_silu.apply_launches == a0 + 1
+    assert torch.equal(got, gn.gn_silu_apply(x, sums, count, scale, bias, groups, pad=pad))
+    want = gn.gn_silu_apply_reference(x, sums, count, scale, bias, groups, pad=pad)
+    atol, rtol = TOL[dtype]
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xu = flat[1:].view(shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0
+    assert torch.equal(gn.gn_silu_apply(xu, sums, count, scale, bias, groups, pad=pad), got)
+    torch.testing.assert_close(gn.gn_sums(xu, groups), sums, atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_space_pair_calls_launch_one_kernel_each(cuda, dtype):
+    """torch.profiler sees exactly one kernel per call: no reduction after the
+    sums kernel, nothing around the apply kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, scale, bias = _inputs(cuda, (24, 96, 128, 256), dtype, seed=3)
+    sums = gn.gn_sums(x, 8)
+    count = 12 * 128 * 256 * 2
+    gn.gn_silu_apply(x, sums, count, scale, bias, 8, pad=True)
+    torch.cuda.synchronize()
+    for name, fn in (("gn_silu_sums", lambda: gn.gn_sums(x, 8)),
+                     ("gn_silu_apply",
+                      lambda: gn.gn_silu_apply(x, sums, count, scale, bias, 8, pad=True))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and name in names[0], names
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape,nk", [((24, 2048, 4, 48), 4096), ((24, 1024, 4, 48), 4096),
                                       ((2, 128, 4, 48), 384), ((2, 256, 2, 64), 128)])

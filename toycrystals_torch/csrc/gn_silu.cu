@@ -48,16 +48,27 @@
 //
 // Under a space axis (an image split by rows over several ranks) a group's
 // statistics span the ranks, so the op runs as two kernels with an all-reduce
-// between them, both plain one-pass grids with no clusters:
+// between them:
 //
-// - gn_silu_sums_kernel: k blocks per (item, group) each sum a contiguous
-//   share of the group's elements (x and x^2, f32) and write their partials;
-//   the caller adds the k partials in block order and the ranks' sums.
+// - gn_silu_sums_kernel: the k CTAs of an (item, group) form a cluster (k = 1
+//   where the groups alone give two CTAs per SM); each sums a contiguous share
+//   of the group's elements (x and x^2, f32, 16-byte loads), and rank 0 adds
+//   the k partials in rank order through distributed shared memory and writes
+//   the group's (S1, S2). One launch, no reduction after it; the caller adds
+//   the ranks' sums.
 // - gn_silu_apply_kernel: normalises with the given sums exactly as the
 //   forward forms its statistics (mean = S1 / n, var = S2 / n - mean^2
 //   clipped at 0, a_c = inv * scale_c, b_c = bias_c - mean * a_c), applies
 //   SiLU, and with pad = 1 writes the [H+2, W+2] plane wrapped over the rank's
 //   own rows; the caller replaces the two H halo rows by its neighbours'.
+//   A group of lanes takes an output row; each lane loads 16 bytes of x and
+//   stores 16 bytes at a 16-byte boundary of the output, the one-column shift
+//   of a padded row done in registers (a shuffle brings the neighbouring
+//   lane's vector, and selects pick the window). A padded bf16 row is 2 W + 4
+//   bytes, so a row starts 4-byte aligned: its first few and last few columns
+//   go an element a lane. Rows of x that are not whole 16-byte vectors take
+//   the same kernel an element at a time. The grid holds as many CTAs as the
+//   card runs at once, and every warp streams rows through it.
 //
 // Both are bound by bytes: the sums kernel reads x once, the apply kernel
 // reads x once and writes the output once.
@@ -639,6 +650,7 @@ gn_silu_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
 struct Plan {
   int k, threads, in_smem, nseg;
   size_t smem;
+  int ctas;  // the space apply kernel's grid (the cluster kernels launch k per group)
 };
 
 // Threads per CTA: 1,024 where one CTA holds an SM, else by the CTA's rows.
@@ -744,10 +756,11 @@ Plan make_plan(const void* kernel, bool backward, const Dims& d, int bg, int elt
   return Plan{0, 0, 0, 0, 0};
 }
 
-// make_plan's answer per (kernel, device, shape), kept so that a call's host
-// work is a table lookup; prepare runs at a kernel's first plan on a device.
-cudaError_t cached_plan(const void* kernel, bool backward, const Dims& d, int B, int elt,
-                        Plan* out) {
+// A kernel's plan per (kernel, device, shape), kept so that a call's host work
+// is a table lookup: `make(sms)` plans a shape not seen before; prepare runs
+// at a kernel's first plan on a device.
+template <typename Make>
+cudaError_t cached_plan(const void* kernel, const Dims& d, int B, Plan* out, Make make) {
   struct Entry {
     const void* kernel;
     int dev, B, C, H, W, groups, pad;
@@ -775,7 +788,7 @@ cudaError_t cached_plan(const void* kernel, bool backward, const Dims& d, int B,
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  *out = make_plan(kernel, backward, d, B * d.groups, elt, sms);
+  *out = make(sms);
   if (out->k == 0) return cudaErrorInvalidConfiguration;
   cache[next] = Entry{kernel, dev, B, d.C, d.H, d.W, d.groups, d.pad, *out};
   next = (next + 1) % 128;
@@ -842,7 +855,10 @@ const void* kernel_of(bool backward) {
 
 template <typename T>
 cudaError_t plan_for(bool backward, int B, Dims* d, Plan* p) {
-  const cudaError_t err = cached_plan(kernel_of<T>(backward), backward, *d, B, sizeof(T), p);
+  const void* kernel = kernel_of<T>(backward);
+  const cudaError_t err = cached_plan(kernel, *d, B, p, [&](int sms) {
+    return make_plan(kernel, backward, *d, B * d->groups, sizeof(T), sms);
+  });
   if (err == cudaSuccess) finish_dims(*p, d);
   return err;
 }
@@ -879,54 +895,195 @@ int backward(const void* x, const void* g, const void* scale, const void* bias,
 constexpr int kSumThreads = 512;
 constexpr int kApplyThreads = 256;
 
-// Block j of the k blocks of (item, group) `grp` sums elements [lo, hi) of the
-// group's `per_group` contiguous elements; part[grp * k + j] = (S1, S2).
+// The k CTAs of (item, group) `grp` form a cluster. CTA j sums its share of
+// the group's `per_group` contiguous elements (whole 16-byte vectors where the
+// group starts on one) and stores its partial into slot j of rank 0's shared
+// memory; after one cluster barrier rank 0 adds the k slots in rank order:
+// sums[grp] = (S1, S2), the same bits every call. The CTAs arrive at a first
+// barrier as they start and wait on it only before their remote store (no
+// CTA writes into one that has not started), so the reduction costs one
+// barrier's wait, not two.
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-gn_silu_sums_kernel(const T* __restrict__ x, float* __restrict__ part, int per_group, int k) {
+gn_silu_sums_kernel(const T* __restrict__ x, float* __restrict__ sums, int per_group, int k) {
   __shared__ float red[64];
-  const int grp = blockIdx.x / k, j = blockIdx.x - grp * k;
-  // shares are whole 16-byte vectors where the group starts on one
+  __shared__ float slot[2 * kMaxCluster];
+  if (k > 1) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = static_cast<int>(cluster.block_rank());
+  const int grp = blockIdx.x / k;
   const int vec = 16 / static_cast<int>(sizeof(T));
   const int share = ((per_group + k - 1) / k + vec - 1) / vec * vec;
   const int lo = min(j * share, per_group), hi = min(lo + share, per_group);
   float s1 = 0.f, s2 = 0.f;
   sum_sq(x + static_cast<long long>(grp) * per_group + lo, hi - lo, s1, s2);
   block_sum2(s1, s2, red);
+  if (k == 1) {
+    if (threadIdx.x == 0) {
+      sums[2 * grp] = s1;
+      sums[2 * grp + 1] = s2;
+    }
+    return;
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   if (threadIdx.x == 0) {
-    part[2 * (static_cast<long long>(grp) * k + j)] = s1;
-    part[2 * (static_cast<long long>(grp) * k + j) + 1] = s2;
+    float* dst = cluster.map_shared_rank(slot, 0);
+    dst[2 * j] = s1;
+    dst[2 * j + 1] = s2;
+  }
+  cluster.sync();  // the slots are written; rank 0 reads only its own memory
+  if (j == 0 && threadIdx.x == 0) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int r = 0; r < k; ++r) {
+      t1 += slot[2 * r];
+      t2 += slot[2 * r + 1];
+    }
+    sums[2 * grp] = t1;
+    sums[2 * grp + 1] = t2;
   }
 }
 
-// Block j of the k blocks of (item, group) `grp` writes every k-th run of
-// output rows of the group's [cg, ho, wo] plane, a warp per row: the row's
-// channel, source row and coefficients once, then the lanes along its columns
-// (coalesced loads and stores, no division per element).
+// The apply kernel's row geometry for one call.
+struct ApplyDims {
+  int gw;    // lanes per output row: a power of two, at most 32
+  int umax;  // most V-element output vectors of one row
+  int nvec;  // x vectors per row, W / V
+  int rows;  // B * C * ho output rows
+  FastDiv dC, dcg;
+};
+
+// V elements of T moved as one load or store: 16 bytes, or one element.
+template <typename T, int V>
+using VecOf = typename std::conditional<V == 1, T, uint4>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ VecOf<T, V> shfl_down(const VecOf<T, V>& v, int width) {
+  if constexpr (V == 1) {
+    return v;
+  } else {
+    uint4 r;
+    r.x = __shfl_down_sync(0xffffffffu, v.x, 1, width);
+    r.y = __shfl_down_sync(0xffffffffu, v.y, 1, width);
+    r.z = __shfl_down_sync(0xffffffffu, v.z, 1, width);
+    r.w = __shfl_down_sync(0xffffffffu, v.w, 1, width);
+    return r;
+  }
+}
+
+// Elements [s, s + V) of the 2V elements (a, b), 0 <= s < V: a shift by
+// whole 32-bit words through selects with constant indices (no local memory),
+// then by half a word for bf16.
 template <typename T>
+__device__ __forceinline__ uint4 window(const uint4& a, const uint4& b, int s) {
+  constexpr int per_word = 4 / sizeof(T);
+  unsigned w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int sw = s / per_word;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) w[i] = (sw & 2) ? w[i + 2] : w[i];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) w[i] = (sw & 1) ? w[i + 1] : w[i];
+  if (per_word == 2 && (s & 1)) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __funnelshift_r(w[i], w[i + 1], 16);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ float silu_affine(float v, float a, float b) {
+  const float y = v * a + b;
+  return y * sigmoid(y);
+}
+
+// y = SiLU(x a + b) of each element of a vector.
+template <typename T, int V>
+__device__ __forceinline__ VecOf<T, V> apply_vec(const VecOf<T, V>& v, float a, float b) {
+  if constexpr (V == 1) {
+    return from_f32<T>(silu_affine(to_f32(v), a, b));
+  } else {
+    uint4 r = v;
+    unsigned* w = reinterpret_cast<unsigned*>(&r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (sizeof(T) == 2) {
+        __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+        const float2 f = __bfloat1622float2(p);
+        p = __floats2bfloat162_rn(silu_affine(f.x, a, b), silu_affine(f.y, a, b));
+        w[i] = *reinterpret_cast<const unsigned*>(&p);
+      } else {
+        w[i] = __float_as_uint(silu_affine(__uint_as_float(w[i]), a, b));
+      }
+    }
+    return r;
+  }
+}
+
+// Lane group g of a warp (gw lanes) writes output row r of the flat [B * C *
+// ho] rows of the [B, C, ho, wo] output, rows taken warp by warp through the
+// grid. Output column j is x's column (j - pad) mod W of the row's source
+// row: with pad the row is a window of x's row read circularly from column
+// W - 1. The row's first j0 < V columns (up to its first 16-byte boundary)
+// and its last few go one element a lane; between them lane u of the group
+// writes the aligned V-element vector u, which is elements [s, s + V) of x's
+// vectors q + u and q + u + 1 (mod W / V): one 16-byte load of its own, the
+// next vector from the neighbouring lane by a shuffle, and one 16-byte store.
+// V = 1 takes any W and any alignment, an element a lane.
+template <typename T, int V>
 __global__ void __launch_bounds__(kApplyThreads)
 gn_silu_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                      const float* __restrict__ bias, const float* __restrict__ sums,
-                     T* __restrict__ out, Dims d, float count, int k) {
-  const int grp = blockIdx.x / k, j = blockIdx.x - grp * k;
-  const int g = grp % d.groups;
-  const float mean = sums[2 * grp] / count;
-  const float var = sums[2 * grp + 1] / count - mean * mean;
-  const float inv = rsqrtf(fmaxf(var, 0.f) + d.eps);
-  // an item's groups are consecutive: group grp starts at channel grp * cg
-  const T* xg = x + static_cast<long long>(grp) * d.cg * d.H * d.W;
-  T* og = out + static_cast<long long>(grp) * d.cg * d.ho * d.wo;
-  const int warps = blockDim.x >> 5, lane = threadIdx.x & 31;
-  const int rows = d.cg * d.ho;
-  for (int r = j * warps + (threadIdx.x >> 5); r < rows; r += k * warps) {
-    const int c = fdiv(r, d.dho);
-    const float a = inv * scale[g * d.cg + c];
-    const float b = bias[g * d.cg + c] - mean * a;
-    const T* src = xg + static_cast<long long>(c * d.H + wrap(r - c * d.ho, d.pad, d.H)) * d.W;
-    T* dst = og + static_cast<long long>(r) * d.wo;
-    for (int col = lane; col < d.wo; col += 32) {
-      const float y = to_f32(src[wrap(col, d.pad, d.W)]) * a + b;
-      dst[col] = from_f32<T>(y * sigmoid(y));
+                     T* __restrict__ out, Dims d, ApplyDims a, float count) {
+  using Vec = VecOf<T, V>;
+  const int lane = threadIdx.x & 31, sub = lane & (a.gw - 1);
+  const int per_warp = 32 / a.gw;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int stride = (gridDim.x * blockDim.x >> 5) * per_warp;
+  for (int r0 = warp * per_warp; r0 < a.rows; r0 += stride) {
+    const int r = r0 + lane / a.gw;
+    const bool valid = r < a.rows;
+    const int rc = valid ? r : a.rows - 1;
+    const int bc = fdiv(rc, d.dho);  // item * C + channel
+    const int i = rc - bc * d.ho;
+    const int grp = fdiv(bc, a.dcg), ch = bc - fdiv(bc, a.dC) * d.C;
+    const float mean = sums[2 * grp] / count;
+    const float var = sums[2 * grp + 1] / count - mean * mean;
+    const float inv = rsqrtf(fmaxf(var, 0.f) + d.eps);
+    const float ca = inv * scale[ch];
+    const float cb = bias[ch] - mean * ca;
+    const T* xrow = x + (static_cast<long long>(bc) * d.H + wrap(i, d.pad, d.H)) * d.W;
+    const Vec* xv = reinterpret_cast<const Vec*>(xrow);
+    T* orow = out + static_cast<long long>(rc) * d.wo;
+    int j0 = 0;
+    if constexpr (V > 1)
+      j0 = min(d.wo, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(orow) & 15)) & 15) /
+                                      sizeof(T)));
+    const int nv = (d.wo - j0) / V;
+    const int s = (j0 - d.pad + V) % V;
+    const int q = j0 - d.pad < 0 ? a.nvec - 1 : 0;
+    for (int u0 = 0; u0 < a.umax; u0 += a.gw) {
+      const int u = u0 + sub;
+      const bool act = valid && u < nv;
+      int qv = q + u;
+      if (qv >= a.nvec) qv -= a.nvec;
+      if (V == 1 && qv >= a.nvec) qv -= a.nvec;
+      Vec v{};
+      if (act) v = xv[qv];
+      if constexpr (V > 1) {
+        Vec nxt = shfl_down<T, V>(v, a.gw);
+        if (act && s != 0 && (sub == a.gw - 1 || u + 1 >= nv))
+          nxt = xv[qv + 1 == a.nvec ? 0 : qv + 1];
+        v = window<T>(v, nxt, s);
+      }
+      if (act) reinterpret_cast<Vec*>(orow + j0)[u] = apply_vec<T, V>(v, ca, cb);
+    }
+    if constexpr (V > 1) {
+      const int nh = d.wo - nv * V;  // the columns before j0 and after the vectors
+      for (int t = sub; valid && t < nh; t += a.gw) {
+        const int col = t < j0 ? t : j0 + nv * V + (t - j0);
+        int xc = col - d.pad;
+        if (xc < 0) xc += d.W;
+        if (xc >= d.W) xc -= d.W;
+        orow[col] = from_f32<T>(silu_affine(to_f32(xrow[xc]), ca, cb));
+      }
     }
   }
 }
@@ -1126,29 +1283,105 @@ int space_bwd(bool apply, const void* x, const void* g, const void* edge, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int space_sums(const void* x, void* part, int B, const Dims& d, int k, cudaStream_t s) {
-  gn_silu_sums_kernel<T><<<static_cast<unsigned>(B) * d.groups * k, kSumThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), d.rows * d.W, k);
-  return static_cast<int>(cudaGetLastError());
+// The sums kernel's cluster: enough CTAs for two per SM in all, at most 16,
+// none with fewer than 8 of the group's rows, and a cluster that fits.
+Plan sums_plan(const void* kernel, const Dims& d, int bg, int sms) {
+  const int kmax = max(1, min(kMaxCluster, d.rows / 8));
+  int k = min(kmax, max(1, (2 * sms + bg - 1) / bg));
+  while (k > 1 && !can_launch(kernel, k, kSumThreads, 0, 1)) --k;
+  return Plan{k, kSumThreads, 0, 0, 0, bg * k};
 }
 
 template <typename T>
-int space_apply(const void* x, const void* scale, const void* bias, const void* sums, void* out,
-                int B, const Dims& d, float count, cudaStream_t s) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+cudaError_t sums_plan_for(int B, const Dims& d, Plan* p) {
+  const void* kernel = reinterpret_cast<const void*>(gn_silu_sums_kernel<T>);
+  return cached_plan(kernel, d, B, p, [&](int sms) {
+    return sums_plan(kernel, d, B * d.groups, sms);
+  });
+}
+
+template <typename T>
+int space_sums(const void* x, void* sums, int B, const Dims& d, cudaStream_t s) {
+  Plan p;
+  cudaError_t err = sums_plan_for<T>(B, d, &p);
+  if (err == cudaSuccess)
+    err = launch(gn_silu_sums_kernel<T>, p, B * d.groups, s, static_cast<const T*>(x),
+                 static_cast<float*>(sums), d.rows * d.W, p.k);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+ApplyDims apply_dims(const Dims& d, int B, int V) {
+  ApplyDims a;
+  a.nvec = d.W / V;
+  a.umax = V == 1 ? d.wo : a.nvec;  // with V > 1 a row has at most W / V whole vectors
+  a.gw = 1;
+  while (a.gw < 32 && a.gw < a.umax) a.gw *= 2;
+  a.rows = B * d.C * d.ho;
+  a.dC = make_div(d.C);
+  a.dcg = make_div(d.cg);
+  return a;
+}
+
+// The apply kernel's grid: as many CTAs as the card holds at once, fewer
+// where the rows run out first.
+template <typename T, int V>
+cudaError_t apply_plan_for(int B, const Dims& d, const ApplyDims& a, Plan* p) {
+  const void* kernel = reinterpret_cast<const void*>(gn_silu_apply_kernel<T, V>);
+  return cached_plan(kernel, d, B, p, [&](int sms) {
+    int per_sm = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kApplyThreads, 0) !=
+            cudaSuccess || per_sm < 1)
+      return Plan{0, 0, 0, 0, 0, 0};
+    const int rows_per_cta = kApplyThreads / 32 * (32 / a.gw);
+    const long long need = (static_cast<long long>(a.rows) + rows_per_cta - 1) / rows_per_cta;
+    const long long most = static_cast<long long>(sms) * per_sm;
+    return Plan{1, kApplyThreads, 0, 0, 0, static_cast<int>(need < most ? need : most)};
+  });
+}
+
+template <typename T, int V>
+int space_apply_v(const void* x, const void* scale, const void* bias, const void* sums,
+                  void* out, int B, const Dims& d, float count, cudaStream_t s) {
+  const ApplyDims a = apply_dims(d, B, V);
+  Plan p;
+  const cudaError_t err = apply_plan_for<T, V>(B, d, a, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // enough blocks for four per SM, no more than the plane has rows for their warps
-  const int bg = B * d.groups;
-  const int runs = (d.cg * d.ho + kApplyThreads / 32 - 1) / (kApplyThreads / 32);
-  const int k = max(1, min(runs, (4 * sms + bg - 1) / bg));
-  gn_silu_apply_kernel<T><<<static_cast<unsigned>(bg) * k, kApplyThreads, 0, s>>>(
+  gn_silu_apply_kernel<T, V><<<p.ctas, kApplyThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<const float*>(sums), static_cast<T*>(out), d,
-      count, k);
+      a, count);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte vectors where x's rows are whole 16-byte vectors from a 16-byte
+// aligned start, else one element a lane.
+template <typename T>
+int space_apply(const void* x, const void* scale, const void* bias, const void* sums, void* out,
+                int B, const Dims& d, float count, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  if (d.W % V == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    return space_apply_v<T, V>(x, scale, bias, sums, out, B, d, count, s);
+  return space_apply_v<T, 1>(x, scale, bias, sums, out, B, d, count, s);
+}
+
+// The space kernels' launch for one shape: out[0..4] = the sums kernel's
+// cluster size, its CTAs, and the apply kernel's CTAs, elements per vector and
+// lanes per output row (for an x that starts 16-byte aligned).
+template <typename T>
+cudaError_t space_plan(int B, const Dims& d, int* out) {
+  Plan p;
+  cudaError_t err = sums_plan_for<T>(B, d, &p);
+  if (err != cudaSuccess) return err;
+  out[0] = p.k;
+  out[1] = p.ctas;
+  constexpr int V = 16 / sizeof(T);
+  const int v = d.W % V == 0 ? V : 1;
+  const ApplyDims a = apply_dims(d, B, v);
+  err = v == 1 ? apply_plan_for<T, 1>(B, d, a, &p) : apply_plan_for<T, V>(B, d, a, &p);
+  out[2] = p.ctas;
+  out[3] = v;
+  out[4] = a.gw;
+  return err;
 }
 
 }  // namespace
@@ -1201,16 +1434,15 @@ extern "C" int gn_silu_plan(int B, int C, int H, int W, int groups, int pad, int
   return static_cast<int>(err);
 }
 
-// The space axis's sums kernel: part [B * groups * k * 2] f32 receives (S1,
-// S2) of each of the k shares of every (item, group). Returns a cudaError_t.
-extern "C" int gn_silu_sums_launch(const void* x, void* part, int B, int C, int H, int W,
-                                   int groups, int k, int dtype, void* stream) {
+// The space axis's sums kernel: sums [B * groups * 2] f32 receives (S1, S2)
+// of every (item, group), in one launch. Returns a cudaError_t.
+extern "C" int gn_silu_sums_launch(const void* x, void* sums, int B, int C, int H, int W,
+                                   int groups, int dtype, void* stream) {
   Dims d;
-  if (!make_dims(B, C, H, W, groups, 1e-6f, 0, &d) || k < 1 || k > 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!make_dims(B, C, H, W, groups, 1e-6f, 0, &d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return space_sums<float>(x, part, B, d, k, s);
-  if (dtype == 1) return space_sums<__nv_bfloat16>(x, part, B, d, k, s);
+  if (dtype == 0) return space_sums<float>(x, sums, B, d, s);
+  if (dtype == 1) return space_sums<__nv_bfloat16>(x, sums, B, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1222,7 +1454,8 @@ extern "C" int gn_silu_apply_launch(const void* x, const void* scale, const void
                                     int groups, float count, float eps, int pad, int dtype,
                                     void* stream) {
   Dims d;
-  if (!make_dims(B, C, H, W, groups, eps, pad, &d) || !(count > 0.f))
+  if (!make_dims(B, C, H, W, groups, eps, pad, &d) || !(count > 0.f) ||
+      static_cast<long long>(B) * C * d.ho >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return space_apply<float>(x, scale, bias, sums, out, B, d, count, s);
@@ -1275,6 +1508,16 @@ extern "C" int gn_silu_backward_apply_launch(const void* x, const void* g, const
     return space_bwd<__nv_bfloat16>(true, x, g, edge, scale, bias, sums, dsums, dx, B, d,
                                     count, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The space kernels' plan for a call of this shape: out[0..4] as space_plan's.
+extern "C" int gn_silu_space_plan(int B, int C, int H, int W, int groups, int pad, int dtype,
+                                  int* out) {
+  Dims d;
+  if (!make_dims(B, C, H, W, groups, 1e-6f, pad, &d) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dtype == 0 ? space_plan<float>(B, d, out)
+                                     : space_plan<__nv_bfloat16>(B, d, out));
 }
 
 extern "C" const char* gn_silu_error_string(int code) {

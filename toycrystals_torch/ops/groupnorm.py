@@ -245,7 +245,7 @@ def _lib() -> ctypes.CDLL:
     lib.gn_silu_backward_launch.restype = i
     lib.gn_silu_plan.argtypes = [i, i, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     lib.gn_silu_plan.restype = i
-    lib.gn_silu_sums_launch.argtypes = [p, p, i, i, i, i, i, i, i, p]
+    lib.gn_silu_sums_launch.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.gn_silu_sums_launch.restype = i
     lib.gn_silu_apply_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
                                          ctypes.c_float, i, i, p]
@@ -256,6 +256,8 @@ def _lib() -> ctypes.CDLL:
     lib.gn_silu_backward_apply_launch.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float] * 2 \
         + [i] * 3 + [p]
     lib.gn_silu_backward_apply_launch.restype = i
+    lib.gn_silu_space_plan.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.gn_silu_space_plan.restype = i
     lib.gn_silu_error_string.argtypes = [i]
     lib.gn_silu_error_string.restype = ctypes.c_char_p
     return lib
@@ -334,28 +336,19 @@ def _gn_silu_backward_cuda(x, scale, bias, grad_out, stats, groups: int, eps: fl
     return dx, sums[:, 1].to(scale.dtype), sums[:, 0].to(bias.dtype)
 
 
-def _sum_blocks(b: int, groups: int, rows: int, device) -> int:
-    """Blocks per (item, group) of the sums kernel: enough for two per SM in
-    all, at most 16, and none with fewer than 8 of the group's rows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(16, -(-2 * sms // (b * groups)), rows // 8))
-
-
 def _gn_sums_cuda(x: torch.Tensor, groups: int) -> torch.Tensor:
-    """The sums kernel: [B, groups, 2] f32 (S1, S2) of this rank's rows. Each
-    (item, group) is split over a few blocks whose partials are added here in
-    block order."""
+    """The sums kernel: [B, groups, 2] f32 (S1, S2) of this rank's rows, in
+    one launch (each (item, group)'s partials are added inside it)."""
     _check(x, torch.empty(x.shape[1]), torch.empty(x.shape[1]), groups)
     b, c, h, w = x.shape
-    k = _sum_blocks(b, groups, c // groups * h, x.device)
-    part = torch.empty((b * groups, k, 2), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, groups, 2), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().gn_silu_sums_launch(x.data_ptr(), part.data_ptr(), b, c, h, w, groups, k,
+        err = _lib().gn_silu_sums_launch(x.data_ptr(), sums.data_ptr(), b, c, h, w, groups,
                                          _DTYPE_CODE[x.dtype], stream)
     _raise_on(err, "gn_silu sums kernel launch")
     gn_silu.sums_launches += 1
-    return part.sum(dim=1).reshape(b, groups, 2)
+    return sums
 
 
 def _gn_silu_apply_cuda(x, sums, count: int, scale, bias, groups: int, eps: float,
@@ -548,6 +541,18 @@ def kernel_plan(shape, groups: int, dtype: torch.dtype, pad: bool,
               "gn_silu launch plan")
     return dict(cluster=out[0], threads=out[1], rows_in_shared_memory=bool(out[2]),
                 shared_memory_bytes=out[3])
+
+
+def space_kernel_plan(shape, groups: int, dtype: torch.dtype, pad: bool) -> dict:
+    """The launches a call of the space pair at this shape gets on the current
+    card (x 16-byte aligned): the sums kernel's cluster size and CTAs, and the
+    apply kernel's CTAs, elements per vector and lanes per output row."""
+    b, c, h, w = shape
+    out = (ctypes.c_int * 5)()
+    _raise_on(_lib().gn_silu_space_plan(b, c, h, w, groups, 1 if pad else 0,
+                                        _DTYPE_CODE[dtype], out), "gn_silu space plan")
+    return dict(sums_cluster=out[0], sums_ctas=out[1], apply_ctas=out[2],
+                apply_vector=out[3], apply_lanes_per_row=out[4])
 
 
 class _GnSiluKernel(torch.autograd.Function):
