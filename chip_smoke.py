@@ -136,7 +136,7 @@ result line:
    checkpoint stopped by SIGTERM while it samples: the request in flight
    answers 200 and the process exits 0.
 13. Export and the VAE trainer, at full width. Export: phase 10's checkpoint
-   at SDE-16 (CFG 1.5, the step loop unrolled into the graph; first the
+   at SDE-8 (CFG 1.5, the step loop unrolled into the graph; first the
    service's dispatch against the sampler on its own generator, bit-equal),
    phase 11's 4-step student and a 256x256 service at DPM-4 (4,096 tokens:
    the flash op inside the graph), each at one small batch, exported by
@@ -196,8 +196,9 @@ result line:
    collective across cards. The kernels of the space axis against their
    plain versions: the GroupNorm sums and apply kernels at the 256x256
    path's sharded shapes ([24, 96, 128, 256] and the lower levels; bf16 and
-   f32, pad on and off; the ranks' sums added in-process; each kernel's
-   device time from torch.profiler in a `bench_gn --space` process), and the flash
+   f32, pad on and off; the ranks' sums added in-process; with --profile each
+   kernel's device time from torch.profiler in a `bench_gn --space` process,
+   cut from the default run for phase 18's time), and the flash
    forward of Nq 2,048 and 1,024 queries against 4,096 gathered keys ([24,
    ., 4, 48], bf16 and f32), each timed beside its plain version (and
    F.scaled_dot_product_attention at the same shapes). A (1, 1) mesh at
@@ -236,14 +237,33 @@ result line:
    tenth of its leaf's largest and at least 1e-5), then 2 bf16 steps
    at batch 32, timed, each rank's peak memory beside one process's, with
    exactly 10 sums, 10 apply, 10 backward sums and 10 backward apply
-   launches, 1 flash forward and 1 flash backward per rank per step. Last,
-   the 64x64 train CLI with --shard-space 2 --dist-backend gloo on the s2dr
-   stem (the stem the 256x256 step does not run; cut from both stems at once
-   for time), 1 epoch into a DCP checkpoint and --resume to 2, ending in a
-   grid sampled on the mesh.
+   launches, 1 flash forward and 1 flash backward per rank per step. Its
+   64x64 train CLI with --shard-space 2 --dist-backend gloo on the s2dr stem
+   (the stem the 256x256 step does not run; cut from both stems at once for
+   time), 1 epoch into a DCP checkpoint and --resume to 2, ending in a grid
+   sampled on the mesh, runs beside phase 18's train CLIs (cut from its own
+   launches for time).
+18. The "model" axis and HSDP (parallel/tensor.py, parallel/fsdp.py), on
+   one card: the ranks share cuda:0 over gloo, so every time here is host
+   copies and time-slicing, not NVLink. The 256x256 model at full width
+   (base_ch 96, stem none, param v, logsnr_shift -2.77) on a (data 1, model 2)
+   mesh, each rank holding its block of every weight: a 2-image SDE-20 request
+   in f32 through ScoreModelService(mesh=) against the one-process service's
+   dispatch (1e-3, phase 16's tolerance), with exactly 210 gn_silu forwards
+   (on the rank's channel blocks) and 21 flash forwards (on its 2 of the 4
+   heads) per rank per dispatch; one f32 step at batch 2 against one process
+   (phase 17's limits), then 2 bf16 steps at batch 8, timed, each with
+   exactly 10 + 10 gn_silu and 1 + 1 flash launches per rank per step; each
+   rank's seconds and peak memory beside one process's. Last, side by side
+   with phase 17's, the 64x64 train CLI with --shard-model 2 (s2dr, 2 ranks)
+   and with --shard 2 --shard-space 2 --fsdp (HSDP into DCP, stem none, 4
+   ranks), 1 epoch and --resume to 2 (ending in a grid sampled on each mesh),
+   and beside the resumes the sample CLI with --shard-model 2 on the first
+   run's epoch-1 msgpack checkpoint.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
-those at 256x256 included.
+those at 256x256 included, and phase 16's space pair's kernel ms by
+torch.profiler in a `bench_gn --space` process.
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them lists every kernel.
@@ -2202,7 +2222,8 @@ def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
 # checkpoint, of phase 11's student and of a 256x256 service, each bit-equal to
 # its live service; then train_vae at full width.
 EXPORT_BATCH = 4                    # images per exported dispatch
-EXPORT_SDE_STEPS = 16               # the SDE export's steps: its graph unrolls them
+EXPORT_SDE_STEPS = 8                # the SDE export's steps: its graph unrolls them (cut
+                                    # from 16 for phase 18's card time)
 EXPORT_HI_STEPS = 4                 # DPM steps of the 256x256 export (flash inside)
 VAE_DIR = os.path.join(ROOT, "runs", "chip_smoke_vae")
 VAE_ITEMS, VAE_BATCH, VAE_Z = 12800, 128, 32  # the CLI's defaults but for the item count
@@ -2991,12 +3012,13 @@ def _space_kernel_ms() -> dict:
             for r in rows}
 
 
-def _space_gn_rows(gn) -> tuple[list[dict], dict]:
+def _space_gn_rows(gn, profile: bool = False) -> tuple[list[dict], dict]:
     """The sums and apply kernels at the 256x256 path's sharded shapes, one
     rank's rows against their plain versions, the all-reduce done here (the
     other rank's sums added); timed against the plain versions, each call by
-    CUDA events and each kernel's device time by torch.profiler."""
-    kernel_ms = _space_kernel_ms()
+    CUDA events and, with `profile` (--profile), each kernel's device time by
+    torch.profiler in a `bench_gn --space` process."""
+    kernel_ms = _space_kernel_ms() if profile else None
     rows, headline = [], {}
     gen = torch.Generator(device=DEVICE).manual_seed(9)
     for label, shape in SPACE_GN_SHAPES:
@@ -3031,10 +3053,11 @@ def _space_gn_rows(gn) -> tuple[list[dict], dict]:
                     lambda: gn.gn_silu_apply_reference(x, sums, count, scale, bias, 8, pad=pad),
                     iters=5)
                 row["apply_bound_ms"], row["apply_bound_by"] = gn_bound(shape, pad, elem)
-                row["sums_kernel_ms"], row["apply_kernel_ms"] = kernel_ms[(label, name, pad)]
-                if not (row["sums_kernel_ms"] > 0.0 and row["apply_kernel_ms"] > 0.0):
-                    raise AssertionError(f"gn space kernels at {label} {name}: torch.profiler "
-                                         f"saw no device time")
+                if kernel_ms is not None:
+                    row["sums_kernel_ms"], row["apply_kernel_ms"] = kernel_ms[(label, name, pad)]
+                    if not (row["sums_kernel_ms"] > 0.0 and row["apply_kernel_ms"] > 0.0):
+                        raise AssertionError(f"gn space kernels at {label} {name}: "
+                                             f"torch.profiler saw no device time")
                 # the one-launch kernel on the whole image's rows, for scale
                 whole = torch.cat([x, other], dim=2)
                 row["one_launch_whole_image_ms"] = cuda_time_ms(
@@ -3288,7 +3311,8 @@ def _space_serve_cli(card: str) -> dict:
     return out_d
 
 
-def phase_space(set_counts_to_zero, counts, card: str, params: dict) -> dict:
+def phase_space(set_counts_to_zero, counts, card: str, params: dict,
+                profile: bool = False) -> dict:
     """Phase 16: the space axis and serving on a mesh (module docstring)."""
     from toycrystals_torch.ops import attention as at
     from toycrystals_torch.ops import groupnorm as gn
@@ -3300,7 +3324,7 @@ def phase_space(set_counts_to_zero, counts, card: str, params: dict) -> dict:
     os.makedirs(SPACE_DIR)
     t0 = time.perf_counter()
     out: dict = {"card": card, "launches": {}}
-    out["gn_rows"], out["gn_headline"] = _space_gn_rows(gn)
+    out["gn_rows"], out["gn_headline"] = _space_gn_rows(gn, profile)
     out["flash_rows"], out["flash_headline"] = _space_flash_rows(at)
     out["world1"] = _space_world1(ScoreModelService, params)
     cases = _space_cases(params)
@@ -3416,7 +3440,8 @@ ST_F32_BATCH, ST_BF16_BATCH, ST_BF16_STEPS = 2, 32, 2
 ST_CLI = ["--procedural", "--img-size", "64", "--base-ch", "96", "--dtype", "bfloat16",
           "--n-samples", "64", "--batch-size", "32", "--sample-steps", "4",
           "--shard-space", "2", "--dist-backend", "gloo", "--ckpt-format", "orbax"]
-# the stem the 256x256 step does not run (cut from both stems at once for time)
+# the stem the 256x256 step does not run (cut from both stems at once for time); its
+# train CLI runs in phase 18's side-by-side CLI stage (`_train_clis`)
 ST_CLI_STEMS = ("s2dr",)
 
 
@@ -3656,53 +3681,6 @@ def _st_world1() -> dict:
     return {"bit_equal": True}
 
 
-def _st_cli(card: str) -> dict:
-    """The 64x64 train CLI with --shard-space 2 --dist-backend gloo on the
-    ST_CLI_STEMS (a launcher and two ranks on cuda:0 each): 1 epoch of 2
-    steps into a DCP checkpoint, then --resume to 2 epochs, which ends in a
-    grid sampled on the mesh."""
-    from toycrystals_torch.utils.orbax_io import load_orbax_meta
-
-    out = {}
-    for epochs, more in ((1, ["--sample-every", "0"]), (2, ["--resume", "--sample-every", "1"])):
-        t0 = time.perf_counter()
-        procs = {}
-        for stem in ST_CLI_STEMS:
-            argv = [sys.executable, "-u", "-m", "toycrystals_torch.scripts.train_sde_score_model",
-                    *ST_CLI, "--stem", stem, "--epochs", str(epochs), *more,
-                    "--out-dir", os.path.join(SPACE_TRAIN_DIR, f"cli_{stem}")]
-            if DEVICE == "cpu":
-                argv += ["--device", "cpu"]
-            procs[stem] = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True)
-        for stem, proc in procs.items():
-            try:
-                text, _ = proc.communicate(timeout=600)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-            if proc.returncode != 0:
-                raise AssertionError(f"train CLI --shard-space 2 {stem} (epochs {epochs}) "
-                                     f"exited {proc.returncode}:\n{text[-4000:]}")
-        out[f"epochs_{epochs}_seconds"] = time.perf_counter() - t0
-    for stem in ST_CLI_STEMS:
-        run = os.path.join(SPACE_TRAIN_DIR, f"cli_{stem}")
-        with open(os.path.join(run, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f if line.strip()]
-        meta = load_orbax_meta(os.path.join(run, "checkpoints", "sde_score_model_last.orbax"))
-        grids = sorted(os.listdir(os.path.join(run, "results")))
-        losses = [r["loss"] for r in rows]
-        if not ([r["epoch"] for r in rows] == [1, 2] and np.isfinite(losses).all()
-                and int(meta["epoch_next"]) == 2 and grids == ["sde_samples_epoch_002.png"]):
-            raise AssertionError(f"train CLI --shard-space 2 {stem}: metrics {rows}, "
-                                 f"epoch_next {meta.get('epoch_next')}, grids {grids}")
-        out[stem] = {"losses": losses, "grids": grids}
-    log(f"space training CLI (64x64, base_ch 96, bf16, --shard-space 2 over gloo on {card}): "
-        f"stems {', '.join(ST_CLI_STEMS)} trained 1 epoch into DCP and resumed to 2: "
-        f"{json.dumps(out)}")
-    return out
-
-
 def phase_space_train(card: str) -> dict:
     """Phase 17: training under the space axis (module docstring)."""
     from toycrystals_torch.ops import attention as at
@@ -3777,7 +3755,257 @@ def phase_space_train(card: str) -> dict:
     del two, one
     gc.collect()
     torch.cuda.empty_cache()
-    out["cli"] = _st_cli(card)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# Phase 18: the "model" axis and HSDP, on one card: ranks share cuda:0 over gloo
+TENSOR_DIR = os.path.join(ROOT, "runs", "chip_smoke_tensor")
+# one 2-image SDE-20 request (4 rows under CFG; 4 images took 72 s per rank over gloo)
+TP_HI_STEPS, TP_HI_IMAGES = 20, 2
+TP_F32_BATCH, TP_BF16_BATCH, TP_BF16_STEPS = 2, 8, 2
+TP_CLI = ["--procedural", "--img-size", "64", "--base-ch", "96", "--dtype", "bfloat16",
+          "--n-samples", "64", "--batch-size", "32", "--sample-steps", "4",
+          "--dist-backend", "gloo"]
+
+
+def _train_cli_runs() -> dict:
+    """name -> (run directory, the train CLI's flags, its stem): phase 17's
+    space run, then phase 18's model-axis and HSDP runs (`_train_clis`)."""
+    return {
+        **{f"space_{stem}": (os.path.join(SPACE_TRAIN_DIR, f"cli_{stem}"), ST_CLI, stem)
+           for stem in ST_CLI_STEMS},
+        "tp": (os.path.join(TENSOR_DIR, "cli_tp"), TP_CLI + ["--shard-model", "2"], "s2dr"),
+        "hsdp": (os.path.join(TENSOR_DIR, "cli_hsdp"),
+                 TP_CLI + ["--shard", "2", "--shard-space", "2", "--fsdp", "--ckpt-format",
+                           "orbax"], "none")}
+
+
+def _tp_cases() -> dict:
+    """The 256x256 model (base_ch 96, stem none, param v, logsnr_shift -2.77)
+    at full width: a TP_HI_IMAGES-image SDE-20 request in f32 through
+    ScoreModelService, one f32 step at batch TP_F32_BATCH and TP_BF16_STEPS
+    bf16 steps at batch TP_BF16_BATCH on rendered images and injected (t, eps)."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.sde_score_model import sample_grid_conditions
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.utils.params import flax_from_torch_state_dict
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    model = flax_default_init(make_model("none", "float32"), np.random.default_rng(27))
+    sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    yc, yv = (a.numpy() for a in sample_grid_conditions(TP_HI_IMAGES, 4, 4))
+    cases = [dict(kind="service", config=dict(HI_CFG, dtype="float32"),
+                  params=flax_from_torch_state_dict(sd), buckets=(TP_HI_IMAGES,),
+                  settings=dict(steps=TP_HI_STEPS), requests=[(yc, yv, 18)])]
+    r = np.random.default_rng(28)
+    for dtype, b, steps in ((torch.float32, TP_F32_BATCH, 1),
+                            (torch.bfloat16, TP_BF16_BATCH, TP_BF16_STEPS)):
+        x0 = np.stack([generate_batch(LatticeConfig(img_size=HI_SIZE, rot_only=True), 0,
+                                      np.arange(i * b, (i + 1) * b), device="cpu")[0].numpy()
+                       for i in range(steps)])
+        cases.append(dict(kind="sde", model=dict(kw, stem="none", dtype=dtype), state_dict=sd,
+                          param="v", sde=dict(beta_min=0.1, beta_max=30.0,
+                                              logsnr_shift=HI_CFG["logsnr_shift"]),
+                          opt={"lr": TRAIN_LR, "ema": 0.999}, x0=x0,
+                          y_cat=r.integers(0, 5, (steps, b)).astype(np.int32),
+                          y_cont=r.normal(size=(steps, b, 4)).astype(np.float32),
+                          t=r.uniform(0.02, 1.0, (steps, b)).astype(np.float32),
+                          eps=r.normal(size=x0.shape).astype(np.float32)))
+    return {"device": torch.device(DEVICE).type, "tf32": False, "cases": cases}
+
+
+def _run_side_by_side(argvs: dict) -> dict:
+    """Each argv (`python -m` and its module and flags) in a process of its own,
+    all at once; their outputs once every one exited 0."""
+    procs = {}
+    for name, argv in argvs.items():
+        argv = [sys.executable, "-u", "-m", *argv] + (["--device", "cpu"]
+                                                      if DEVICE == "cpu" else [])
+        procs[name] = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    texts = {}
+    for name, proc in procs.items():
+        try:
+            texts[name], _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} exited {proc.returncode}:\n{texts[name][-4000:]}")
+    return texts
+
+
+def _train_clis(card: str) -> dict:
+    """The 64x64 train CLI on each mesh of `_train_cli_runs`, side by side on
+    cuda:0 over gloo: phase 17's --shard-space 2 (DDP over both ranks, into
+    DCP), --shard-model 2 (2 ranks) and --shard 2 --shard-space 2 --fsdp
+    (HSDP into DCP, 4 ranks). 1 epoch, then --resume to 2, which ends in a
+    grid sampled on each run's mesh; beside the resumes, the sample CLI with
+    --shard-model 2 on the model-axis run's first msgpack checkpoint."""
+    from toycrystals_torch.utils.checkpoint import load_checkpoint
+    from toycrystals_torch.utils.orbax_io import load_orbax_meta
+
+    out, train, runs = {}, "toycrystals_torch.scripts.train_sde_score_model", _train_cli_runs()
+    first = os.path.join(TENSOR_DIR, "tp_epoch_1.msgpack")
+    png = os.path.join(TENSOR_DIR, "tp_sample.png")
+    for epochs, more in ((1, ["--sample-every", "0"]), (2, ["--resume", "--sample-every", "1"])):
+        t0 = time.perf_counter()
+        argvs = {name: [train, *flags, "--stem", stem, "--epochs", str(epochs), *more,
+                        "--out-dir", run] for name, (run, flags, stem) in runs.items()}
+        if epochs == 2:  # the sample CLI beside the resumes, on the first epoch's checkpoint
+            argvs["sample"] = ["toycrystals_torch.scripts.sample_sde_score_model", "--out-dir",
+                               TENSOR_DIR, "--ckpt", first, "--steps", "4", "--n", "4",
+                               "--shard-model", "2", "--dist-backend", "gloo",
+                               "--out-path", png]
+        texts = _run_side_by_side(argvs)
+        out[f"train_epochs_{epochs}_seconds"] = time.perf_counter() - t0
+        for name in runs:
+            out.setdefault(name, {})["coverage"] = re.findall(
+                r"(?:tensor parallelism|fsdp): .*", texts[name])
+        if epochs == 1:
+            shutil.copy(os.path.join(runs["tp"][0], "checkpoints", "sde_score_model_last.msgpack"),
+                        first)
+    for name, (run, flags, _) in runs.items():
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        orbax = "orbax" in flags
+        ckpt = os.path.join(run, "checkpoints", "sde_score_model_last" +
+                            (".orbax" if orbax else ".msgpack"))
+        meta = load_orbax_meta(ckpt) if orbax else load_checkpoint(ckpt)
+        grids = sorted(os.listdir(os.path.join(run, "results")))
+        losses = [r["loss"] for r in rows]
+        covered = bool(out[name]["coverage"]) or name.startswith("space")
+        if not ([r["epoch"] for r in rows] == [1, 2] and np.isfinite(losses).all()
+                and int(meta["epoch_next"]) == 2 and grids == ["sde_samples_epoch_002.png"]
+                and covered):
+            raise AssertionError(f"train CLI {name}: metrics {rows}, epoch_next "
+                                 f"{meta.get('epoch_next')}, grids {grids}, "
+                                 f"coverage {out[name]['coverage']}")
+        out[name].update(losses=losses, grids=grids)
+    img = read_png_gray(png)
+    if not (img.size and np.isfinite(img).all()):
+        raise AssertionError(f"sample CLI --shard-model 2 wrote no grid at {png}")
+    log(f"train CLIs side by side (64x64, base_ch 96, bf16, ranks on one card over gloo, "
+        f"{card}; the times are the ranks' host copies and time-slicing, not NVLink): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_tensor(card: str) -> dict:
+    """Phase 18: the "model" axis and HSDP (module docstring)."""
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+    from toycrystals_torch.serve import ScoreModelService
+
+    shutil.rmtree(TENSOR_DIR, ignore_errors=True)
+    os.makedirs(TENSOR_DIR)
+    t0 = time.perf_counter()
+    out: dict = {"card": card, "launches": {}}
+    spec = _tp_cases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    two = launch(run_cases, 2, ({**spec, "mesh": [1, 2, "model"]},), device_type=spec["device"],
+                 backend="gloo", device_ids=[0, 0], timeout=600)
+    out["mesh_job_s"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = run_cases({**spec, "cases": spec["cases"][1:]})
+    gib = 2.0**30
+    zero = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 0, "gn_silu_apply": 0,
+            "gn_silu_backward_sums": 0, "gn_silu_backward_apply": 0, "rasterize": 0,
+            "flash_attn": 0, "flash_attn_backward": 0}
+    # (a) the request against the one-process service's dispatch
+    evals = TP_HI_STEPS + 1
+    per_dispatch = dict(zero, gn_silu=10 * evals, flash_attn=evals)
+    case = spec["cases"][0]
+    for rank in (0, 1):
+        got = two[rank][0]["launches"]
+        out["launches"][f"tensor_hi_rank{rank}"] = got
+        if got != per_dispatch:
+            raise AssertionError(f"tensor request rank {rank}: launches {got}, expected "
+                                 f"{per_dispatch}")
+    svc = ScoreModelService(case["config"], case["params"], device=DEVICE,
+                            buckets=case["buckets"], **case["settings"])
+    (y_cat, y_cont, seed), = case["requests"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    want = _one_process_dispatch(svc, y_cat, y_cont, seed, len(y_cat))
+    torch.cuda.synchronize()
+    got = two[0][0]["x"][0]
+    d = float(np.abs(got - want).max())
+    req = {"max_abs_diff": d, "seconds": [two[0][0]["seconds"][0], two[1][0]["seconds"][0]],
+           "seconds_one_process": time.perf_counter() - s0,
+           "peak_bytes": [two[0][0].get("peak_bytes", 0), two[1][0].get("peak_bytes", 0)],
+           "peak_bytes_one_process": int(torch.cuda.max_memory_allocated()),
+           "launches_per_rank_per_dispatch": per_dispatch}
+    if not (np.array_equal(got, two[1][0]["x"][0]) and got.shape == want.shape
+            and d <= SPACE_TOL):
+        raise AssertionError(f"tensor request: {d:.3e} from one process")
+    out["request"] = req
+    del svc
+    log(f"tensor 256x256 {TP_HI_IMAGES} images SDE-{TP_HI_STEPS} f32 on a (data 1, model 2) "
+        f"mesh (two ranks on one card over gloo, {card}; the times are the ranks' host "
+        f"copies and time-slicing, not NVLink): {d:.3e} from the one-process dispatch "
+        f"(tolerance {SPACE_TOL}); {req['seconds'][0]:.2f} / {req['seconds'][1]:.2f} s per "
+        f"rank against {req['seconds_one_process']:.2f} s in one process; peak "
+        f"{req['peak_bytes'][0] / gib:.2f} / {req['peak_bytes'][1] / gib:.2f} GiB against "
+        f"{req['peak_bytes_one_process'] / gib:.2f}; launches per rank per dispatch "
+        f"{json.dumps(per_dispatch)} (gn_silu on each rank's [{2 * TP_HI_IMAGES}, 48|96, H, W] "
+        f"channel blocks of 4 groups, flash on its 2 of the 4 heads, "
+        f"[{2 * TP_HI_IMAGES}, 4096, 2, 48])")
+    # (b) the train steps against one process
+    for i, (name, steps) in enumerate((("f32", 1), ("bf16", TP_BF16_STEPS)), start=1):
+        per_step = dict(zero, gn_silu=10, gn_silu_backward=10, flash_attn=1,
+                        flash_attn_backward=1)
+        want_launches = {k: v * steps for k, v in per_step.items()}
+        for rank in (0, 1):
+            got = two[rank][i]["launches"]
+            out["launches"][f"tensor_train_{name}_rank{rank}"] = got
+            if got != want_launches:
+                raise AssertionError(f"tensor training {name} rank {rank}: launches {got}, "
+                                     f"expected {want_launches}")
+        r0, r1, want = two[0][i], two[1][i], one[i - 1]
+        if r0["losses"] != r1["losses"]:
+            raise AssertionError(f"tensor training {name}: the ranks' losses differ")
+        rec = {"losses": r0["losses"], "losses_one_process": want["losses"],
+               "step_ms_rank0": r0["step_ms"], "step_ms_rank1": r1["step_ms"],
+               "step_ms_one_process": want["step_ms"],
+               "peak_bytes": [r0.get("peak_bytes", 0), r1.get("peak_bytes", 0)],
+               "peak_bytes_one_process": want.get("peak_bytes", 0),
+               "launches_per_rank_per_step": per_step}
+        rec["loss_rel_diff"] = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                                      want["losses"]))
+        if name == "f32":
+            rec["grad_worst_share"] = _leafwise(r0["grads"], want["grads"],
+                                                "tensor training f32 gradient")
+            rec["param_worst_share"], rec["ema_worst_share"], rec["entries_held"] = \
+                _st_hold_updated(r0, want, TRAIN_LR, 0.999)
+            if not rec["loss_rel_diff"] <= 1e-5:
+                raise AssertionError(f"tensor training f32 against one process: {rec}")
+        elif not np.isfinite(r0["losses"]).all():
+            raise AssertionError(f"tensor training bf16: losses {r0['losses']}")
+        out[name] = rec
+        log(f"tensor training 256x256 {name} batch {len(spec['cases'][i]['y_cat'][0])} on a "
+            f"(data 1, model 2) mesh (two ranks on one card over gloo, {card}; host copies and "
+            f"time-slicing, not NVLink): losses {r0['losses']} against {want['losses']} in one "
+            f"process ({rec['loss_rel_diff']:.3e} relative"
+            + (f"; gradients {rec['grad_worst_share']:.3f} of phase 7's limits, parameters "
+               f"{rec['param_worst_share']:.3f} and EMA {rec['ema_worst_share']:.3f} of theirs "
+               f"on {rec['entries_held']} entries" if name == "f32" else "")
+            + f"); step ms per rank {r0['step_ms']} / {r1['step_ms']} against "
+            f"{want['step_ms']}; peak {rec['peak_bytes'][0] / gib:.2f} / "
+            f"{rec['peak_bytes'][1] / gib:.2f} GiB against "
+            f"{rec['peak_bytes_one_process'] / gib:.2f}; launches per rank per step "
+            f"{json.dumps(per_step)}")
+    del two, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = _train_clis(card)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3788,7 +4016,8 @@ def main() -> int:
                     help="also write every measured number to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="after the main paths, profile U-Net forwards and train steps by "
-                         "kernel category")
+                         "kernel category; phase 16 also times the space pair's kernels "
+                         "by torch.profiler in a bench_gn --space process")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3924,10 +4153,12 @@ def main() -> int:
         log(f"phase 14 took {report['prior_data']['seconds']:.1f} s")
         report["parallel"] = phase_parallel(set_counts_to_zero, counts, card)
         log(f"phase 15 took {report['parallel']['seconds']:.1f} s")
-        report["space"] = phase_space(set_counts_to_zero, counts, card, params)
+        report["space"] = phase_space(set_counts_to_zero, counts, card, params, args.profile)
         log(f"phase 16 took {report['space']['seconds']:.1f} s")
         report["space_train"] = phase_space_train(card)
         log(f"phase 17 took {report['space_train']['seconds']:.1f} s")
+        report["tensor"] = phase_tensor(card)
+        log(f"phase 18 took {report['tensor']['seconds']:.1f} s")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
@@ -3935,7 +4166,8 @@ def main() -> int:
                               **report["export_vae"]["launches"],
                               **report["prior_data"]["launches"],
                               **report["parallel"]["launches"], **report["space"]["launches"],
-                              **report["space_train"]["launches"]}
+                              **report["space_train"]["launches"],
+                              **report["tensor"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -4020,6 +4252,10 @@ def main() -> int:
             *((f"space_train_{name}_rank{r}", ("gn_silu_sums", "gn_silu_apply",
                                                "gn_silu_backward_sums", "gn_silu_backward_apply",
                                                "flash_attn", "flash_attn_backward"))
+              for name in ("f32", "bf16") for r in (0, 1)),
+            *((f"tensor_hi_rank{r}", ("gn_silu", "flash_attn")) for r in (0, 1)),
+            *((f"tensor_train_{name}_rank{r}", ("gn_silu", "gn_silu_backward", "flash_attn",
+                                                "flash_attn_backward"))
               for name in ("f32", "bf16") for r in (0, 1)))
             for k in ks if paths[path][k] == 0]
         if missing:
@@ -4050,6 +4286,7 @@ def main() -> int:
         "launches_prior_data": {k: paths[k]["gn_silu"] for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["gn_silu"] for k in report["parallel"]["launches"]},
         "launches_space": {k: paths[k]["gn_silu"] for k in report["space"]["launches"]},
+        "launches_tensor": {k: paths[k]["gn_silu"] for k in report["tensor"]["launches"]},
         "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
@@ -4086,6 +4323,7 @@ def main() -> int:
                              for k in report["quality"]["launches"]},
         "launches_prior_data": {k: paths[k]["gn_silu_backward"]
                                 for k in report["prior_data"]["launches"]},
+        "launches_tensor": {k: paths[k]["gn_silu_backward"] for k in report["tensor"]["launches"]},
         "launches_parallel": {k: paths[k]["gn_silu_backward"]
                               for k in report["parallel"]["launches"]},
         "max_abs_err": train_headline["grad_x_closed_form_max_abs_err"],
@@ -4158,6 +4396,9 @@ def main() -> int:
                                 for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["flash_attn"] for k in report["parallel"]["launches"]},
         "launches_space": {k: paths[k]["flash_attn"] for k in report["space"]["launches"]},
+        "launches_tensor": {k: paths[k]["flash_attn"] for k in report["tensor"]["launches"]},
+        "launches_tensor_backward": {k: paths[k]["flash_attn_backward"]
+                                     for k in report["tensor"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",
         "backward_pass": "three kernels: delta (one thread per row), then dK/dV and dQ "
                          "(bf16: wgmma, TMA rings, 128-row blocks of 3 warpgroups; f32: "
@@ -4216,8 +4457,9 @@ def main() -> int:
         "launches": sum(path.get("gn_silu_sums", 0) for path in paths.values()),
         "launches_space": {k: paths[k]["gn_silu_sums"] for k in report["space"]["launches"]},
         "max_abs_err": gn_space["sums_max_rel_err"], "max_err_is": "relative, of each sum",
-        "ms": gn_space["sums_kernel_ms"], "wrapper_ms": gn_space["sums_ms"],
-        "plain_ms": gn_space["sums_plain_ms"],
+        "ms": gn_space.get("sums_kernel_ms", gn_space["sums_ms"]),
+        "ms_is": "torch.profiler's kernel time under --profile, else the call's CUDA events",
+        "wrapper_ms": gn_space["sums_ms"], "plain_ms": gn_space["sums_plain_ms"],
         "bound_ms": gn_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16, one rank's rows at S = 2",
     }, {
@@ -4226,7 +4468,9 @@ def main() -> int:
                     "space axis)",
         "launches": sum(path.get("gn_silu_apply", 0) for path in paths.values()),
         "launches_space": {k: paths[k]["gn_silu_apply"] for k in report["space"]["launches"]},
-        "max_abs_err": gn_space["max_abs_err"], "ms": gn_space["apply_kernel_ms"],
+        "max_abs_err": gn_space["max_abs_err"],
+        "ms": gn_space.get("apply_kernel_ms", gn_space["apply_ms"]),
+        "ms_is": "torch.profiler's kernel time under --profile, else the call's CUDA events",
         "wrapper_ms": gn_space["apply_ms"], "plain_ms": gn_space["apply_plain_ms"],
         "bound_ms": gn_space["apply_bound_ms"], "bound_by": gn_space["apply_bound_by"],
         "library_ms": None,

@@ -308,18 +308,19 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    # the data and space axes run; their refusals are JAX's, and FSDP2 on a
-    # space axis is still to port
+    # the data, space and model axes run; their refusals are JAX's, and the 3-D
+    # mesh and FSDP2 on a model axis are still to port
     ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
-    ("train", ["--shard-space", "2", "--fsdp"], MODULE_5),
-    ("train", ["--shard-model", "2"], MODULE_5), ("serve", ["--shard-model", "2"], MODULE_5),
+    ("train", ["--fsdp", "--shard-model", "2"], MODULE_5),
+    ("train", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
+    ("serve", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
     ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
     ("serve", ["--coordinator", "localhost:1"], "--coordinator host:port, --num-processes"),
     ("prior", ["--shard-model", "2"], MODULE_5),
     ("prior", ["--pipe-micro", "2"], MODULE_5), ("prior", ["--shard-pipe", "2"], MODULE_5),
     ("prior", ["--shard-expert", "2"], MODULE_5),
     ("sample", ["--shard-space", "2"], "--shard 0 x --shard-space 2 needs 2 devices, have 1"),
-    ("sample", ["--shard-model", "2"], MODULE_5),
+    ("sample", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
 ])
 def test_deferred_flags_exit_naming_their_roadmap_item(tmp_path, cli, flags, item):
     """The model axes still to port refuse, naming their ROADMAP item; the

@@ -320,7 +320,7 @@ def test_http_errors(server, case, code):
 
 def test_cli_refusals(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="module 5"):
-        ssm.main(["x.msgpack", "--device", "cpu", "--shard-model", "2"])
+        ssm.main(["x.msgpack", "--device", "cpu", "--shard-model", "2", "--shard-space", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ssm.main([str(tmp_path / "x.msgpack")])

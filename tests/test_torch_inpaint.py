@@ -186,7 +186,7 @@ def test_cli_writes_the_grid_and_the_jax_line(ckpt, tmp_path, capsys):
 def test_cli_refusals(ckpt, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="module 5"):
         inpaint_cli.inpaint(["--device", "cpu", "--out-dir", str(tmp_path), "--ckpt", ckpt,
-                             "--shard-model", "2"])
+                             "--shard-model", "2", "--shard-space", "2"])
     fm = tmp_path / "fm.msgpack"
     raw = {"epoch_next": 1, "config": dict(CFG, param="fm"),
            "state": {"params": {}, "ema_params": {}}}

@@ -218,17 +218,18 @@ def test_setup_mesh_refuses_as_jax_does(shard, batch, match):
 
 @pytest.mark.parametrize("flag", ["shard_space", "shard_model"])
 def test_setup_mesh_refuses_the_model_axes(flag):
-    """--shard-model alone, and with --shard-space (JAX's 3-D mesh)."""
+    """--shard-model with --shard-space (JAX's 3-D mesh), and --shard-model
+    where the caller takes no model axis (the VAE and prior trainers)."""
     axes = {"shard_model": 2, flag: 2}
     with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
-        setup_mesh(2, 16, device=torch.device("cpu"), **axes)
+        setup_mesh(2, 16, device=torch.device("cpu"), model=flag == "shard_space", **axes)
 
 
 def test_a_mesh_with_a_model_axis_raises():
     from toycrystals_torch.parallel import place_state
 
     model = tm.CondUNetTiny(**KW)
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "space", "model"))
     with pytest.raises(NotImplementedError, match="queue 1, module 5"):
         place_state(mesh, model, create_train_state(model, Optimizer(1e-3)))
 

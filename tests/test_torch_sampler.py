@@ -300,7 +300,7 @@ def test_sample_chunked_pads_trims_and_seeds_each_chunk(models):
     np.testing.assert_array_equal(got[6:], want.numpy()[:1])
     with pytest.raises(NotImplementedError, match="module 5"):
         tm.sample_chunked(sampler, tmodel, ts, yc, yv, (7, 16, 16, 1), 0, chunk=3,
-                          mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
+                          mesh=types.SimpleNamespace(mesh_dim_names=("data", "space", "model")))
 
 
 def test_sample_chunked_one_chunk_when_chunk_exceeds_n(models):

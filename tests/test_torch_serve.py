@@ -121,8 +121,8 @@ def test_unported_parts_raise(params, case, tmp_path):
         with ShardedCheckpointManager(tmp_path / "j.orbax") as mgr:
             mgr.save(1, {"w": jnp.zeros(2)}, {"epoch_next": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "mesh":  # the data and space axes serve; a "model" axis is not ported
-            _svc(params, mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
+        if case == "mesh":  # the data, space and model axes serve; JAX's 3-D mesh does not
+            _svc(params, mesh=types.SimpleNamespace(mesh_dim_names=("data", "space", "model")))
         else:
             serve.load_score_payload(str(tmp_path / "j.orbax"))
 

@@ -353,7 +353,8 @@ def test_epoch_sources_and_arguments():
         make_sde_train_epoch(*args, 4, lattice_cfg=cfg)
     with pytest.raises(NotImplementedError, match="module 5"):
         make_sde_train_epoch(*args, 16, lattice_cfg=cfg,
-                             mesh=types.SimpleNamespace(mesh_dim_names=("data", "model")))
+                             mesh=types.SimpleNamespace(mesh_dim_names=("data", "space",
+                                                                        "model")))
     # resident source: u8 images decoded on the fly; fresh_data shifts the items
     r = np.random.default_rng(1)
     resident = (torch.tensor(r.integers(0, 256, size=(16, SIZE, SIZE, 1), dtype=np.uint8)),

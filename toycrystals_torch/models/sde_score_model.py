@@ -22,7 +22,10 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
   calls of a sampler, pulled to the host as they finish; on a ("data",) or
   ("data", "space") mesh each rank samples its rows of the batch and of the
   image height (parallel/spatial.py), and the ops of `CondUNetTiny` exchange
-  what crosses the ranks.
+  what crosses the ranks. On a ("data", "model") mesh each rank runs its
+  rows with its block of the weights (parallel/tensor.py `shard_params`),
+  and every concat of the U-Net gathers its operands' channels first, so the
+  channels keep the order that JAX's weights expect.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from toycrystals_torch.ops.conv import CircularConv, Conv2d
 from toycrystals_torch.ops.groupnorm import GroupNormSiLU
 from toycrystals_torch.parallel import spatial
 from toycrystals_torch.parallel.mesh import AXIS, SPACE, axis_rank, axis_size, check_data_mesh
+from toycrystals_torch.parallel.tensor import whole
 from toycrystals_torch.utils.rng import RowGenerator, rand, randn
 
 ApplyFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -83,7 +87,8 @@ class ConditionEmbedding(nn.Module):
         e_cat = self.cat_emb.weight.to(dt)[y_cat]
         h = linear(y, self.Dense_0, dt)
         e_cont = linear(F.silu(h), self.Dense_1, dt)
-        fused = F.silu(torch.cat([e_cat, e_cont], dim=1))
+        emb = self.cat_emb.embedding_dim
+        fused = F.silu(torch.cat([whole(e_cat, emb, -1), whole(e_cont, emb, -1)], dim=1))
         return linear(fused, self.out, dt)
 
 
@@ -192,8 +197,10 @@ class CondUNetTiny(nn.Module):
         t_emb = linear(t_emb, self.Dense_0, dt)
         t_emb = linear(F.silu(t_emb), self.Dense_1, dt)
         c_emb = self.ConditionEmbedding_0(y_cat, y_cont)
-        maps = torch.cat([linear(t_emb, self.to_time_map, dt),
-                          linear(c_emb, self.to_cond_map, dt)], dim=-1)
+        maps = torch.cat([whole(linear(t_emb, self.to_time_map, dt), self.to_time_map.out_features,
+                                -1),
+                          whole(linear(c_emb, self.to_cond_map, dt), self.to_cond_map.out_features,
+                                -1)], dim=-1)
         maps = maps[:, :, None, None].expand(b, maps.shape[1], h, w)
         x = torch.cat([x_t.to(dt).permute(0, 3, 1, 2), maps], dim=1)
         x_full = x
@@ -203,15 +210,18 @@ class CondUNetTiny(nn.Module):
         h1 = self.down1(x)
         h2 = self.down2(self.ds1(h1))
         hh = self.attn(self.mid(self.ds2(h2)))
-        hh = self.up2(torch.cat([self.us2_conv(_bilinear_up2(hh)), h2], dim=1))
-        hh = self.up1(torch.cat([self.us1_conv(_bilinear_up2(hh)), h1], dim=1))
+        c1, c2 = self.us1_conv.out_ch, self.us2_conv.out_ch
+        hh = self.up2(torch.cat([whole(self.us2_conv(_bilinear_up2(hh)), c2), whole(h2, c2)],
+                                dim=1))
+        hh = self.up1(torch.cat([whole(self.us1_conv(_bilinear_up2(hh)), c1), whole(h1, c1)],
+                                dim=1))
 
-        out = self.out(hh)
+        out = whole(self.out(hh), self.out.out_ch)
         if self.stem != "none":
             out = _depth_to_space2(out)
             if self.stem == "s2dr":
                 r = self.refine1(torch.cat([out.to(dt), x_full], dim=1))
-                out = out + self.refine2(F.silu(r))
+                out = out + whole(self.refine2(F.silu(r)), 1)
         return out.float().permute(0, 2, 3, 1)
 
 
@@ -769,12 +779,15 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     shape ends in (H, W, C): x_known and mask, or injected draws). The
     sampler runs in the mesh's dispatch scope (parallel/spatial.py), and the
     parts are gathered back to every rank, so each rank returns the whole,
-    unsharded result. `apply_fn` is each rank's whole model."""
+    unsharded result. `apply_fn` is each rank's whole model, or on a
+    ("data", "model") mesh its model placed by parallel/tensor.py
+    `shard_params`: the model ranks of a data coordinate then sample the same
+    rows with the same draws, and the gather runs over "data" alone."""
     n, h, w, c = _shape(img_shape)
     chunk = max(1, min(int(chunk), n))
     rows, hs = slice(0, h), None
     if mesh is not None:
-        check_data_mesh(mesh, space=True)
+        check_data_mesh(mesh, space=True, model=True)
         m = axis_size(mesh, AXIS)
         chunk = -(-chunk // m) * m
         lo = axis_rank(mesh, AXIS) * (chunk // m)

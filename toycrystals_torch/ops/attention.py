@@ -33,6 +33,15 @@ gathered K and V (the same math), and a forced "flash" is refused there. The fla
 gives dK and dV of every gathered key, this rank's queries' share, and the
 gather's backward (parallel/spatial.py `gather_space`) sums them onto the
 ranks that own the keys.
+
+Under a model axis (parallel/tensor.py) the GroupNorm runs on the rank's
+channel block, `qkv` reads the gathered channels and gives the rank's heads
+(its weight placed by head), the backend runs on those heads ([B, N, heads /
+M, d]), `proj` reads the gathered heads and gives the rank's block of output
+channels, and the residual adds the block to the rank's block of x. Where
+the heads do not divide by M, `qkv` holds JAX's contiguous block of its
+columns, the columns are gathered and every rank runs all heads.
+`linear` is the flax Dense under either layout.
 """
 
 from __future__ import annotations
@@ -45,8 +54,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from toycrystals_torch.ops.groupnorm import group_norm_f32
+from toycrystals_torch.ops.groupnorm import group_norm_f32, model_groupwise
 from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel import tensor as tp
 
 _FLASH_TOKENS = 2048        # auto: flash from this many tokens on
 _FLASH_MAX_HEAD_DIM = 128
@@ -67,16 +77,24 @@ class GroupNorm(nn.Module):
 
     def __init__(self, channels: int, groups: int, eps: float = 1e-6):
         super().__init__()
-        self.groups, self.eps = groups, eps
+        self.channels, self.groups, self.eps = channels, groups, eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm_f32(x, self.weight, self.bias, self.groups, self.eps).to(x.dtype)
+        def norm(a, sc, bi, g):
+            return group_norm_f32(a, sc, bi, g, self.eps).to(a.dtype)
+
+        if spatial.current_model() is not None:
+            return model_groupwise(norm, x, self.weight, self.bias, self.channels, self.groups)
+        return norm(x, self.weight, self.bias, self.groups)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax Dense(dtype=...): input and weights cast to `dtype` per call."""
+    """flax Dense(dtype=...): input and weights cast to `dtype` per call.
+    Under a model axis the input is gathered whole, and a layer whose weight
+    is a block gives the rank's block of output features."""
+    x = tp.sharded_input(x, layer.weight, layer.in_features, dim=-1)
     return torch.nn.functional.linear(x.to(dtype), layer.weight.to(dtype),
                                       layer.bias.to(dtype))
 
@@ -319,22 +337,28 @@ class SelfAttention2d(nn.Module):
             raise ValueError(f"ch ({ch}) must be divisible by num_heads ({num_heads})")
         if attn_impl not in ("auto", "xla", "flash"):
             raise ValueError(f"attn_impl must be auto|xla|flash, got {attn_impl!r}")
-        self.num_heads, self.dtype, self.attn_impl = num_heads, dtype, attn_impl
+        self.ch, self.num_heads, self.dtype, self.attn_impl = ch, num_heads, dtype, attn_impl
         self.GroupNorm_0 = GroupNorm(ch, gn_groups(ch))
         self.qkv = nn.Linear(ch, 3 * ch)
         self.proj = nn.Linear(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        n = h * w
+        b, _, h, w = x.shape
+        c, n = self.ch, h * w
         hd = c // self.num_heads
-        y = self.GroupNorm_0(x).reshape(b, c, n).transpose(1, 2)        # [B, N, C]
-        qkv = linear(y, self.qkv, self.dtype).reshape(b, n, 3, self.num_heads, hd)
+        y = tp.whole(self.GroupNorm_0(x), c).reshape(b, c, n).transpose(1, 2)   # [B, N, C]
+        qkv = linear(y, self.qkv, self.dtype)
+        blk = tp.block_of(self.qkv.weight)
+        if blk is not None and blk.parts == 1:  # heads that do not split: all of them here
+            qkv = tp.whole(qkv, 3 * c, dim=-1)
+        heads = self.num_heads // blk.size if blk is not None and blk.parts == 3 \
+            else self.num_heads
+        qkv = qkv.reshape(b, n, 3, heads, hd)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]               # [B, N, heads, hd]
         space = spatial.current_space()
         if space is not None:  # every rank's tokens, in the whole image's row-major order
             k, v = (spatial.gather_space(t, space, dim=1) for t in (k, v))
         impl = attn_backend(self.attn_impl, k.shape[1], n, hd, x.device.type)
         o = flash_sdpa(q, k, v) if impl == "flash" else sdpa_reference(q, k, v)
-        o = linear(o.reshape(b, n, c), self.proj, self.dtype)
-        return x + o.transpose(1, 2).reshape(b, c, h, w)
+        o = linear(o.reshape(b, n, heads * hd), self.proj, self.dtype)
+        return x + o.transpose(1, 2).reshape(b, -1, h, w)

@@ -25,6 +25,12 @@ the global batch is, so a sharded int8 run quantises as one device does.
 Under a space axis every conv kind is the halo exchange (`pad_rows`: the
 neighbours' rows, wrapped between the last and the first rank) plus a VALID
 conv; "border" then computes what "pad" does.
+
+Under a model axis (parallel/tensor.py) a conv whose weight is a block of its
+output channels computes that block from the whole input, gathered over
+"model" where it arrives as a block; a conv whose weight the rule keeps whole
+computes every channel. The int8 weight scale is per output channel, so a
+block quantises alone; the activation scale stays the max over the whole mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel.tensor import sharded_input
 
 IMPLS = ("pad", "border", "int8")
 # im2col bytes per chunk of the int8 product (whole batch items per chunk)
@@ -194,11 +201,13 @@ class Conv2d(nn.Module):
                  dtype: torch.dtype = torch.float32, int8: bool = False):
         super().__init__()
         self.stride, self.dtype, self.int8 = stride, dtype, int8
+        self.in_ch, self.out_ch = in_ch, out_ch
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_ch * kernel_size * kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = sharded_input(x, self.weight, self.in_ch)
         if self.int8:
             return int8_conv(x, self.weight, self.bias, self.stride, self.dtype, wrap=False)
         return conv_valid(x, self.weight, self.bias, self.stride, self.dtype)
@@ -219,6 +228,7 @@ class CircularConv(Conv2d):
         self.impl = impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = sharded_input(x, self.weight, self.in_ch)
         if self.impl == "int8":
             return int8_conv(x, self.weight, self.bias, self.stride, self.dtype, wrap=True)
         space = spatial.current_space()

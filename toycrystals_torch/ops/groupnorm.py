@@ -54,6 +54,14 @@ image. dscale and dbias stay each rank's own sums: the data-parallel gradient
 average adds them over every rank. `gn_silu.backward_sums_launches` and
 `gn_silu.backward_apply_launches` count the launches; the plain versions are
 `gn_silu_backward_sums_reference` and `gn_silu_backward_apply_reference`.
+
+Under a model axis (parallel/tensor.py: each rank holds a block of the
+channels and of `weight` / `bias`) the op runs on the rank's channel block
+where the block holds whole groups (`groups % M == 0`): the one-launch kernels
+on [B, C / M, H, W] with groups / M groups, forward and backward, and with
+`pad` the block's halo, which the next conv gathers. Where the groups do not
+split, it runs on the gathered whole (the weights gathered too) and keeps
+the rank's block (`model_groupwise`), as JAX computes such an M.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel import tensor as tp
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -598,16 +607,37 @@ gn_silu.backward_sums_launches = 0   # the backward sums kernel (space axis)
 gn_silu.backward_apply_launches = 0  # the backward apply kernel (space axis)
 
 
+def model_groupwise(fn, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    channels: int, groups: int) -> torch.Tensor:
+    """A per-group op `fn(x, scale, bias, groups)` of x [B, C, ...] in a
+    dispatch under a model axis, x the rank's block of the C channels where
+    the weights are blocks (the output of a sharded conv), else whole: on the
+    block where it holds whole groups (groups / M of them), else on the
+    gathered whole, keeping the rank's block where the weights are blocks."""
+    shard = spatial.current_model()
+    sharded = tp.block_of(scale) is not None
+    if sharded and groups % shard.model == 0:
+        return fn(x, scale, bias, groups // shard.model)
+    if sharded:
+        scale, bias = (tp.gather_model(t, shard, 0) for t in (scale, bias))
+    y = fn(tp.whole(x, channels), scale, bias, groups)
+    return tp.take_model(y, shard, 1) if sharded else y
+
+
 class GroupNormSiLU(nn.Module):
     """`weight`/`bias` of shape [C] (flax's `scale`/`bias`), eps 1e-6."""
 
     def __init__(self, channels: int, groups: int, pad: bool = False, eps: float = 1e-6):
         super().__init__()
-        self.groups, self.pad, self.eps = groups, pad, eps
+        self.channels, self.groups, self.pad, self.eps = channels, groups, pad, eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.current_model() is not None:
+            return model_groupwise(
+                lambda a, sc, bi, g: gn_silu(a, sc, bi, g, self.eps, self.pad), x, self.weight,
+                self.bias, self.channels, self.groups)
         space = spatial.current_space()
         if space is not None:
             return gn_silu_space(x, self.weight, self.bias, self.groups, self.eps, self.pad,

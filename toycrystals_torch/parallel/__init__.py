@@ -1,8 +1,8 @@
 """The port's parallelism (counterpart of toycrystals_tpu/parallel/): process
-groups, the data mesh, FSDP2 placement, and the space axis of sampling and
-serving (`spatial`, on a ("data", "space") mesh). Training under space and
-the tensor, pipeline and expert axes are not ported yet (ROADMAP.md queue 1,
-module 5)."""
+groups, the data mesh, FSDP2 placement (HSDP on a space axis), the space axis
+(`spatial`, on a ("data", "space") mesh) and the "model" axis of the score
+model (`tensor`, on a ("data", "model") mesh). The pipeline and expert axes
+and the 3-D mesh are not ported yet (ROADMAP.md queue 1, module 5)."""
 
 from toycrystals_torch.parallel.fsdp import (
     fsdp_coverage,
@@ -16,6 +16,7 @@ from toycrystals_torch.parallel.mesh import (
     data_sharding,
     make_mesh,
     make_mesh_2d,
+    make_mesh_tp,
     replicate,
     shard_batch,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "launch",
     "make_mesh",
     "make_mesh_2d",
+    "make_mesh_tp",
     "maybe_initialize",
     "place_state",
     "process_count",

@@ -15,6 +15,19 @@ biases and the MoE prior's stacked expert weights keep their layout.
 Whole leaves are given to FSDP2 as `ignored_params`, and their gradients are
 averaged over the ranks after the backward (`reduce_replicated_grads`), as
 GSPMD does for a replicated leaf; nothing is padded.
+
+On a ("data", "space") mesh FSDP2 runs as HSDP, as JAX places it: each leaf
+sharded over "data" by the same rule and replicated over "space". FSDP2
+takes a 2-D mesh as (replicate, shard), the transpose of the mesh's rank
+order d S + s, so `fsdp_mesh` builds it from arange(D S).reshape(D, S).T
+with the names ("space", "data"); the gradients are averaged over all D S
+ranks, as DDP does there, and the clip norm and the finite check of
+train/state.py sum over the "data" shards only (each is held S times).
+
+On a ("data", "model") mesh (parallel/tensor.py) each rank holds its model
+block of the sharded leaves, and DDP averages the gradients over the "data"
+group of the rank's model coordinate. `full`, `like` and `copy_full_` read
+either layout: a DTensor, or a tensor tagged with its model `Block`.
 """
 
 from __future__ import annotations
@@ -27,8 +40,11 @@ import torch.distributed as dist
 from torch import nn
 
 from toycrystals_torch.parallel.mesh import (
-    DEFERRED,
+    AXIS,
+    MODEL,
     SPACE,
+    axis_group,
+    axis_size,
     check_data_mesh,
     mesh_axes,
     mesh_group,
@@ -81,19 +97,33 @@ def fsdp_coverage(n: int, model: nn.Module) -> float:
     return sh / max(tot, 1)
 
 
+def fsdp_mesh(mesh):
+    """The mesh FSDP2 shards over: a ("data",) mesh itself; on ("data",
+    "space"), the 2-D mesh (replicate "space", shard "data") of the same
+    ranks, built anew (a collective: every rank calls it)."""
+    if SPACE not in mesh_axes(mesh):
+        return mesh
+    from torch.distributed.device_mesh import DeviceMesh
+
+    d, s = axis_size(mesh, AXIS), axis_size(mesh, SPACE)
+    return DeviceMesh(mesh.device_type, torch.arange(d * s).reshape(d, s).T,
+                      mesh_dim_names=(SPACE, AXIS))
+
+
 def shard_params_fsdp(mesh, model: nn.Module) -> nn.Module:
     """ZeRO-3 placement of `model`, in place, with FSDP2 over `mesh`: each
     leaf sharded along the dim of `fsdp_sharding`, leaves with none kept
-    whole (FSDP2's `ignored_params`). The model's parameters must already
-    agree on every rank. Returns the model (now an FSDPModule)."""
+    whole (FSDP2's `ignored_params`); on a ("data", "space") mesh, HSDP
+    (`fsdp_mesh`). The model's parameters must already agree on every rank.
+    Returns the model (now an FSDPModule)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    n = mesh.size()
+    n = axis_size(mesh, AXIS)
     dims = {id(p): fsdp_sharding(n, tuple(p.shape), order)
             for _, p, order in param_layouts(model)}
     whole = {p for p in model.parameters() if dims[id(p)] is None}
-    fully_shard(model, mesh=mesh, shard_placement_fn=lambda p: Shard(dims[id(p)]),
+    fully_shard(model, mesh=fsdp_mesh(mesh), shard_placement_fn=lambda p: Shard(dims[id(p)]),
                 ignored_params=whole or None)
     return model
 
@@ -109,30 +139,58 @@ def local(t: torch.Tensor) -> torch.Tensor:
     return t._local_tensor if is_sharded(t) else t
 
 
+def _shard_dim(t) -> tuple[int, object] | None:
+    """(mesh dim, placement) of the one dim a DTensor is sharded along, or
+    None when it is replicated on every mesh dim."""
+    return next(((i, pl) for i, pl in enumerate(t.placements) if pl.is_shard()), None)
+
+
+def shard_group(t: torch.Tensor):
+    """The process group over whose ranks the shards or blocks of `t` are
+    spread: a DTensor's shard dim of its mesh, a model block's group; None
+    for a whole tensor."""
+    from toycrystals_torch.parallel.tensor import block_of
+
+    if is_sharded(t):
+        sd = _shard_dim(t)
+        return None if sd is None else t.device_mesh.get_group(sd[0])
+    blk = block_of(t)
+    return None if blk is None else blk.group
+
+
 def full(t: torch.Tensor) -> torch.Tensor:
-    """The whole value of a DTensor sharded evenly on a 1-D mesh (a
-    collective: every rank calls it); a tensor itself. One c10d all_gather
-    of the shards, concatenated along the sharded dim: DTensor's own
-    `full_tensor` goes through functional collectives, which crash on gloo
-    with CUDA tensors (torch 2.11)."""
+    """The whole value of a DTensor sharded evenly along one dim (over the
+    "data" dim of an HSDP mesh too), or of a model block (parallel/tensor.py);
+    a collective that every rank calls. A whole tensor is returned itself.
+    One c10d all_gather of the shards, concatenated along the sharded dim:
+    DTensor's own `full_tensor` goes through functional collectives, which
+    crash on gloo with CUDA tensors (torch 2.11)."""
+    from toycrystals_torch.parallel.tensor import block_of, gather_block
+
     if not is_sharded(t):
-        return t
-    (placement,) = t.placements
+        blk = block_of(t)
+        return t if blk is None else gather_block(t, blk)
     shard = local(t).detach().contiguous()
-    if not placement.is_shard():
+    sd = _shard_dim(t)
+    if sd is None:
         return shard
-    group = t.device_mesh.get_group()
-    parts = [torch.empty_like(shard) for _ in range(t.device_mesh.size())]
-    dist.all_gather(parts, shard, group=group)
+    i, placement = sd
+    parts = [torch.empty_like(shard) for _ in range(t.device_mesh.size(i))]
+    dist.all_gather(parts, shard, group=t.device_mesh.get_group(i))
     return torch.cat(parts, dim=placement.dim)
 
 
 def like(template: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     """`value` (the whole tensor, on every rank) laid out as `template`: the
-    rank's shard as a DTensor when the template is one (no communication),
-    else a copy."""
+    rank's shard as a DTensor when the template is one, the rank's model
+    block (tagged) when it holds one (no communication), else a copy."""
     if not is_sharded(template):
-        return value.detach().clone()
+        from toycrystals_torch.parallel.tensor import block_of, tag, take_block
+
+        blk = block_of(template)
+        if blk is None:
+            return value.detach().clone()
+        return tag(take_block(value.detach(), blk), blk)
     from torch.distributed.tensor import distribute_tensor
 
     return distribute_tensor(value.detach(), template.device_mesh, template.placements,
@@ -141,9 +199,11 @@ def like(template: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 def copy_full_(target: torch.Tensor, value: torch.Tensor) -> None:
     """Copy the whole `value` into `target` in place: into the rank's shard
-    when `target` is a DTensor."""
+    when `target` is a DTensor, its block when it holds a model block."""
+    from toycrystals_torch.parallel.tensor import block_of
+
     with torch.no_grad():
-        if is_sharded(target):
+        if is_sharded(target) or block_of(target) is not None:
             local(target).copy_(local(like(target, value.to(target.device))))
         else:
             target.copy_(value)
@@ -162,37 +222,45 @@ def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
 
 
 def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
-    """Place `model` and its `TrainState` on a data mesh, or a ("data",
-    "space") one; returns (the module to train through, the state).
-    mesh=None passes both through.
+    """Place `model` and its `TrainState` on a ("data",), ("data", "space")
+    or ("data", "model") mesh; returns (the module to train through, the
+    state). mesh=None passes both through.
 
-    Every rank first takes rank 0's parameters, moments and EMA. Then
-    without `fsdp` the model is wrapped in DistributedDataParallel over every
-    rank of the mesh (the gradients averaged over all of them: the weights
-    are replicated over "space" too) and the state keeps the model's own
-    parameters; with `fsdp` the model is sharded in place
-    (`shard_params_fsdp`) and the state is rebuilt on its DTensor
-    parameters, with the moments and the EMA on the same shards. FSDP2 on a
-    space axis (JAX: each weight sharded over "data" and replicated over
-    "space", HSDP) is not ported yet and raises."""
+    Every rank first takes rank 0's parameters, moments and EMA. Then:
+
+    - without `fsdp`, the model is wrapped in DistributedDataParallel over
+      every rank of the mesh (the gradients averaged over all of them: the
+      weights are replicated over "space" too) and the state keeps the
+      model's own parameters;
+    - with `fsdp` the model is sharded in place (`shard_params_fsdp`; HSDP
+      on a space axis) and the state is rebuilt on its DTensor parameters,
+      with the moments and the EMA on the same shards;
+    - on a ("data", "model") mesh each rank keeps its block of every leaf
+      that parallel/tensor.py's rule shards (`shard_params`), the moments and
+      the EMA are rebuilt on the blocks, and DDP averages over the "data"
+      group of the rank's model coordinate. `fsdp` there (JAX's 2-D weight
+      sharding) is not ported yet and raises."""
     if mesh is None:
         return model, state
-    check_data_mesh(mesh, space=True)
-    if fsdp and SPACE in mesh_axes(mesh):
-        raise NotImplementedError(f"FSDP2 on a ('data', 'space') mesh is not ported yet "
-                                  f"({DEFERRED})")
+    check_data_mesh(mesh, space=True, model=True)
+    model_axis = MODEL in mesh_axes(mesh)
+    if fsdp and model_axis:
+        from toycrystals_torch.parallel.mesh import DEFERRED
+
+        raise NotImplementedError(f"FSDP2 on a ('data', 'model') mesh (JAX's 2-D weight "
+                                  f"sharding) is not ported yet ({DEFERRED})")
     names = list(state.params)
     opt = state.opt_state
     replicate(mesh, [*model.parameters(), *model.buffers(), *opt.mu, *opt.nu,
                      *(state.ema_params or {}).values()])
-    if not fsdp:
-        from torch.nn.parallel import DistributedDataParallel
+    if model_axis:
+        from toycrystals_torch.parallel.tensor import shard_params
 
-        dev = next(model.parameters()).device
-        ddp = DistributedDataParallel(model, device_ids=[dev] if dev.type == "cuda" else None,
-                                      process_group=mesh_group(mesh))
-        return ddp, state
-    shard_params_fsdp(mesh, model)
+        shard_params(model, mesh)
+    elif fsdp:
+        shard_params_fsdp(mesh, model)
+    else:
+        return _ddp(model, mesh_group(mesh)), state
     params = dict(model.named_parameters())
     if list(params) != names:
         raise ValueError("the state's parameters are not the model's")
@@ -200,6 +268,15 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
     nu = [like(params[k], v) for k, v in zip(names, opt.nu)]
     ema = (None if state.ema_params is None
            else {k: like(params[k], v) for k, v in state.ema_params.items()})
-    return model, dataclasses.replace(state, params=params,
-                                      opt_state=dataclasses.replace(opt, mu=mu, nu=nu),
-                                      ema_params=ema)
+    state = dataclasses.replace(state, params=params,
+                                opt_state=dataclasses.replace(opt, mu=mu, nu=nu),
+                                ema_params=ema)
+    return (_ddp(model, axis_group(mesh, AXIS)) if model_axis else model), state
+
+
+def _ddp(model: nn.Module, group):
+    from torch.nn.parallel import DistributedDataParallel
+
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(model, device_ids=[dev] if dev.type == "cuda" else None,
+                                   process_group=group)

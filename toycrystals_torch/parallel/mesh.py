@@ -18,7 +18,13 @@ varying fastest as in JAX's `make_mesh_2d`: rank d S + s holds rows
 [d B / D, (d + 1) B / D) of the batch and rows [s H / S, (s + 1) H / S) of
 the image height. The samplers, `sample_chunked`, inpainting, the service and
 training (the step and epoch factories and `place_state`, under DDP over all
-D S ranks) take it; FSDP2 on it is not ported yet.
+D S ranks, or HSDP under FSDP2) take it.
+
+`make_mesh_tp(D, M)` lays them out as a ("data", "model") mesh, "model"
+varying fastest as in JAX's `make_mesh_tp`: rank d M + m holds rows
+[d B / D, (d + 1) B / D) of the batch and block m of every weight that
+parallel/tensor.py shards. The model ranks of one data coordinate hold the
+same rows and draw the same noise (`row_generator` reads the data rank).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from toycrystals_torch.utils.rng import RowGenerator, rand, randint, randn  # no
 
 AXIS = "data"
 SPACE = "space"
+MODEL = "model"
 DEFERRED = "ROADMAP.md queue 1, module 5: parallel axes"
 
 
@@ -62,22 +69,37 @@ def make_mesh_2d(n_data: int, n_space: int, device_type: str = "cuda"):
                             mesh_dim_names=(AXIS, SPACE))
 
 
+def make_mesh_tp(n_data: int, n_model: int, device_type: str = "cuda"):
+    """The ("data", "model") mesh over all n_data * n_model ranks of the
+    process group, "model" varying fastest (a weight's blocks sit on adjacent
+    ranks; the gradient average over "data" is once per step)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = int(n_data) * int(n_model)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not dist.is_initialized() or need != world:
+        raise ValueError(f"asked for {need} devices, have {world} (a (data, model) mesh of "
+                         f"{n_data} x {n_model} spans every rank of a process group)")
+    return init_device_mesh(device_type, (int(n_data), int(n_model)),
+                            mesh_dim_names=(AXIS, MODEL))
+
+
 def mesh_axes(mesh) -> tuple[str, ...]:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
 
 
-def check_data_mesh(mesh, space: bool = False) -> None:
-    """Only the ("data",) axis is ported, and ("data", "space") where `space`
-    (sampling, serving and the score model's training); any other axis
+def check_data_mesh(mesh, space: bool = False, model: bool = False) -> None:
+    """Only the ("data",) axis is ported, ("data", "space") where `space` and
+    ("data", "model") where `model` (the score model's sampling, serving and
+    training); any other axis, or JAX's 3-D ("data", "space", "model") mesh,
     raises."""
     names = mesh_axes(mesh)
-    if names == (AXIS,) or (space and names == (AXIS, SPACE)):
+    if names == (AXIS,) or (space and names == (AXIS, SPACE)) \
+            or (model and names == (AXIS, MODEL)):
         return
-    ported = "the ('data',) and ('data', 'space') axes are" if space else \
-        "only the ('data',) axis is (('data', 'space') samples, serves and trains the score " \
-        "model)"
+    ported = ["('data',)"] + ["('data', 'space')"] * space + ["('data', 'model')"] * model
     raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
-                              f"{ported}")
+                              f"the ported axes here are {', '.join(ported)}")
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -94,6 +116,23 @@ def mesh_group(mesh):
     """The process group of every rank of the mesh (a 2-D `DeviceMesh` has no
     single group of its own: its ranks are the whole process group's)."""
     return mesh.get_group() if mesh.ndim == 1 else dist.group.WORLD
+
+
+def axis_group(mesh, axis: str):
+    """The process group of this rank's line along `axis`: on a ("data",
+    "model") mesh, `axis_group(mesh, AXIS)` holds the ranks with this rank's
+    block of every weight (its gradient average), `axis_group(mesh, MODEL)`
+    the ranks that hold the blocks of this rank's rows."""
+    return mesh.get_group(axis) if mesh.ndim > 1 else mesh.get_group()
+
+
+def replica_group(mesh) -> tuple[object, int]:
+    """(group, size) over which a step's metrics are averaged: every rank of
+    the mesh, except that the model ranks of a data coordinate compute the
+    same loss, so a ("data", "model") mesh averages over "data" only."""
+    if MODEL in mesh_axes(mesh):
+        return axis_group(mesh, AXIS), axis_size(mesh, AXIS)
+    return mesh_group(mesh), mesh.size()
 
 
 def mesh_size(mesh) -> int:

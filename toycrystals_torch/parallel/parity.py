@@ -12,17 +12,21 @@ entry of those 2-rank jobs (`parallel.multihost.launch(run_cases, 2,
 
 `spec` = {"device": "cpu" | "cuda", "tf32": bool (default False; None keeps
 torch's defaults, as a CLI's process has them), "mesh": [D, S] (optional:
-a ("data", "space") mesh; default a ("data",) mesh of every rank), "cases":
-[...]}; every
+a ("data", "space") mesh; [D, M, "model"] a ("data", "model") mesh; default
+a ("data",) mesh of every rank), "cases": [...]}; every
 case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
 draws included), of which each rank takes its rows (and, on a mesh with a
 space axis, its rows of the height of every 4-D [B, H, W, C] input); a case's
-own "mesh": [D, S] runs it on that mesh instead:
+own "mesh" runs it on that mesh instead. On a model axis every model is
+placed by parallel/tensor.py (`place_state`, or `shard_params` for the
+sampling cases), and the parameters, moments, EMA and gradients come back
+whole:
 
 - "sde": `make_sde_train_step` on CondUNetTiny(**model) from `state_dict`,
   under DDP or FSDP2 ("fsdp"), with (x0, y_cat, y_cont, t, eps) per step;
   returns the first step's gradients, the losses, and the parameters, Adam
-  moments and EMA after the last step;
+  moments and EMA after the last step (whole), and this rank's own shard or
+  block of each parameter ("shards");
 - "epoch": `make_sde_train_epoch` on CondUNetTiny(**model) over images
   rendered from `lattice` (a LatticeConfig's fields) with the epoch's own
   draws from `seed`; returns the mean loss, every step's gradients and the
@@ -31,8 +35,13 @@ own "mesh": [D, S] runs it on that mesh instead:
   differentiable collectives (parallel/spatial.py) and of GroupNorm+SiLU
   under space (ops/groupnorm.py), each for the upstream gradient of this
   space rank given in the case (see `_space_grads`);
-- "attention": one SelfAttention2d(**model) on x [B, C, H, W]: the output,
-  and the gradients for the upstream gradient `cot`, of this rank's rows;
+- "attention" / "groupnorm": one SelfAttention2d(**model) or
+  GroupNormSiLU(**model) on x [B, C, H, W]: the output, and the gradients
+  for the upstream gradient `cot`, of this rank's rows (on a model axis, x
+  enters as the rank's channel block, as in the U-Net, and the output, dx
+  and the gradients come back whole);
+- "full_params": the flax tree that parallel/tensor.py's `full_params`
+  gathers from the rank's blocks of CondUNetTiny(**model);
 - "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep);
 - "prior": one `make_prior_train_step` ("moe" > 0 experts: the MoE prior,
   with its global route statistics) on injected (t, eps);
@@ -85,8 +94,21 @@ def _state_np(state) -> dict:
 
 
 def _grads_np(model, grads) -> dict[str, np.ndarray]:
-    names = [k for k, _ in _inner(model).named_parameters()]
-    return _np(dict(zip(names, grads)))
+    """Gradients by name, whole: a model block's gathered by its parameter's
+    `Block`."""
+    from toycrystals_torch.parallel.tensor import block_of, gather_block
+
+    out = {}
+    for (k, p), g in zip(_inner(model).named_parameters(), grads):
+        blk = block_of(p)
+        out[k] = g if blk is None else gather_block(g, blk)
+    return _np(out)
+
+
+def _model_axis(mesh) -> bool:
+    from toycrystals_torch.parallel.mesh import MODEL, mesh_axes
+
+    return mesh is not None and MODEL in mesh_axes(mesh)
 
 
 def _inner(model):
@@ -138,6 +160,7 @@ def _opt(case: dict):
 
 def _sde(mesh, case: dict, device) -> dict:
     from toycrystals_torch.models.sde_score_model import VPSDE, CondUNetTiny
+    from toycrystals_torch.parallel.fsdp import local
     from toycrystals_torch.train.steps import make_sde_train_step
 
     model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
@@ -160,6 +183,7 @@ def _sde(mesh, case: dict, device) -> dict:
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
     out["grads"] = _grads_np(module, tx.seen[0])
     out.update(_state_np(state))
+    out["shards"] = {k: local(p).detach().cpu().numpy().copy() for k, p in state.params.items()}
     return out
 
 
@@ -224,19 +248,40 @@ def _space_grads(mesh, case: dict, device) -> dict:
     return out
 
 
-def _attention(mesh, case: dict, device) -> dict:
+def _block(mesh, case: dict, device) -> dict:
+    """One layer ("attention": SelfAttention2d, "groupnorm": GroupNormSiLU)
+    on this rank's part of x, forward and backward."""
     from toycrystals_torch.ops.attention import SelfAttention2d
+    from toycrystals_torch.ops.groupnorm import GroupNormSiLU
     from toycrystals_torch.parallel import spatial
+    from toycrystals_torch.parallel import tensor as tp
 
-    block = _load(SelfAttention2d(**case["model"]), case["state_dict"], device)
+    from toycrystals_torch.parallel.mesh import SPACE, axis_size
+
+    cls = SelfAttention2d if case["kind"] == "attention" else GroupNormSiLU
+    block = _load(cls(**case["model"]), case["state_dict"], device)
     x = _t(case["x"], device)
-    hs = spatial.space_rows(mesh, x.shape[2]) if mesh is not None else slice(None)
-    x = x[:, :, hs].clone().requires_grad_(True)
+    hs = slice(None) if mesh is None or axis_size(mesh, SPACE) == 1 \
+        else spatial.space_rows(mesh, x.shape[2])
+    cs = slice(None)
+    if _model_axis(mesh):
+        tp.shard_params(block, mesh)
+        blk = tp.block_of(block.weight if cls is GroupNormSiLU else block.proj.weight)
+        cs = slice(None) if blk is None else tp.take_block(torch.arange(x.shape[1]), blk)
+    x = x[:, cs][:, :, hs].clone().requires_grad_(True)
     with spatial.dispatch_scope(mesh):
         y = block(x)
-        (y * _t(case["cot"], device)[:, :, hs]).sum().backward()
-    return {"out": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy(),
-            "grads": {k: p.grad.cpu().numpy() for k, p in block.named_parameters()}}
+        (y * _t(case["cot"], device)[:, cs][:, :, hs]).sum().backward()
+        out, dx = (tp.whole(t, case["x"].shape[1]) for t in (y.detach(), x.grad))
+    return {"out": out.cpu().numpy(), "dx": dx.cpu().numpy(),
+            "grads": _grads_np(block, [p.grad for p in block.parameters()])}
+
+
+def _full_params(mesh, case: dict, device) -> dict:
+    """The flax tree that `full_params` gathers from this rank's blocks."""
+    from toycrystals_torch.parallel.tensor import full_params
+
+    return {"flax": full_params(_score_model(case, device, mesh))}
 
 
 def _vae(mesh, case: dict, device) -> dict:
@@ -298,17 +343,20 @@ def _distill(mesh, case: dict, device) -> dict:
     return {"loss": float(loss), "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
 
 
-def _score_model(case: dict, device):
+def _score_model(case: dict, device, mesh=None):
     from toycrystals_torch.models.sde_score_model import CondUNetTiny
+    from toycrystals_torch.parallel.tensor import shard_params
 
     model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    if _model_axis(mesh):
+        shard_params(model, mesh)
     return model.eval().requires_grad_(False)
 
 
-def _apply_fn(case: dict, sde, device):
+def _apply_fn(case: dict, sde, device, mesh=None):
     from toycrystals_torch.models.sde_score_model import eps_apply_from_v
 
-    model = _score_model(case, device)
+    model = _score_model(case, device, mesh)
     return eps_apply_from_v(sde, model) if case.get("param") == "v" else model
 
 
@@ -347,7 +395,7 @@ def _sample(mesh, case: dict, device) -> dict:
                 "ddim": sm.sample_ddim, "rf": sample_rectified_flow}
     sampler = samplers[case.get("sampler", "sde")]
     sde = sm.VPSDE(0.1, 30.0)
-    model = _apply_fn(case, sde, device)
+    model = _apply_fn(case, sde, device, mesh)
     yc, yv = _t(case["y_cat"], device), _t(case["y_cont"], device)
     kw = dict(n_steps=case["n_steps"], guidance_scale=case["cfg"], n_types=4)
 
@@ -372,7 +420,7 @@ def _forward(mesh, case: dict, device) -> dict:
     from toycrystals_torch.parallel import spatial
     from toycrystals_torch.parallel.mesh import data_sharding
 
-    model = _score_model(case, device)
+    model = _score_model(case, device, mesh)
     x, t, yc, yv = (_t(case[k], device) for k in ("x", "t", "y_cat", "y_cont"))
     rows = data_sharding(mesh, x.shape[0])
     hs = spatial.space_rows(mesh, x.shape[1]) if mesh is not None else slice(None)
@@ -385,7 +433,7 @@ def _inpaint(mesh, case: dict, device) -> dict:
     from toycrystals_torch.models import sde_score_model as sm
 
     sde = sm.VPSDE(0.1, 30.0)
-    model = _apply_fn(case, sde, device)
+    model = _apply_fn(case, sde, device, mesh)
     yc, yv = _t(case["y_cat"], device), _t(case["y_cont"], device)
 
     def injected(apply_fn, sde, y_cat, y_cont, shape, gen, *, x_init, draws, **kw):
@@ -466,8 +514,16 @@ def _fill(state, seed: int) -> None:
 
 CASES = {"sde": _sde, "epoch": _epoch, "vae": _vae, "prior": _prior, "distill": _distill,
          "sample": _sample, "forward": _forward, "inpaint": _inpaint, "service": _service,
-         "halo": _halo, "space_grads": _space_grads, "attention": _attention,
-         "dcp_save": _dcp, "dcp_load": _dcp}
+         "halo": _halo, "space_grads": _space_grads, "attention": _block, "groupnorm": _block,
+         "full_params": _full_params, "dcp_save": _dcp, "dcp_load": _dcp}
+
+
+def cli_images(fn, argv) -> dict:
+    """A rank's entry for a sampling CLI's `fn(argv)` (sample_sde_score_model's
+    `sample`, inpaint_sde_score_model's `inpaint`): the images it returned
+    and, where it prints one, its JSON line."""
+    run = fn(argv)
+    return {"x": run.x, "line": getattr(run, "line", None)}
 
 
 def halo_probe(device_type: str) -> tuple[float, float, float, float]:
@@ -526,7 +582,7 @@ def run_cases(spec: dict) -> list[dict]:
     the launches of the port's kernels in the case ("launches", counted from
     0 by each wrapper), and on a CUDA device the case's peak device memory
     of this process ("peak_bytes")."""
-    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d, make_mesh_tp
 
     device = torch.device(spec.get("device", "cpu"))
     if device.type == "cuda":
@@ -540,8 +596,12 @@ def run_cases(spec: dict) -> list[dict]:
         if not dist.is_initialized():
             return None
         if shape not in meshes:  # every rank builds the same meshes in the same order
-            meshes[shape] = make_mesh_2d(*shape, device_type=device.type) if shape \
-                else make_mesh(device_type=device.type)
+            if not shape:
+                meshes[shape] = make_mesh(device_type=device.type)
+            elif shape[2:] == ("model",):
+                meshes[shape] = make_mesh_tp(*shape[:2], device_type=device.type)
+            else:
+                meshes[shape] = make_mesh_2d(*shape, device_type=device.type)
         return meshes[shape]
 
     out = []

@@ -48,19 +48,32 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from toycrystals_torch.parallel.mesh import SPACE, axis_rank, axis_size, mesh_group
+from toycrystals_torch.parallel.mesh import (
+    AXIS,
+    MODEL,
+    SPACE,
+    axis_group,
+    axis_rank,
+    axis_size,
+    mesh_axes,
+    mesh_group,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
     """What the ops of one dispatch need of its mesh: the group of every
-    rank (the int8 scale's max), and the space axis's group, size and this
-    rank's place on it (size 1: no height sharding)."""
+    rank (the int8 scale's max), the space axis's group, size and this
+    rank's place on it (size 1: no height sharding), and the same of the
+    model axis (size 1: whole weights; parallel/tensor.py)."""
 
     group: object
     space_group: object
     space: int
     space_rank: int
+    model_group: object = None
+    model: int = 1
+    model_rank: int = 0
 
 
 _SCOPE: contextvars.ContextVar[Shard | None] = contextvars.ContextVar("toycrystals_shard",
@@ -78,15 +91,23 @@ def current_space() -> Shard | None:
     return s if s is not None and s.space > 1 else None
 
 
+def current_model() -> Shard | None:
+    """The dispatch's mesh when it shards the weights' channels, else None."""
+    s = _SCOPE.get()
+    return s if s is not None and s.model > 1 else None
+
+
 @contextlib.contextmanager
 def dispatch_scope(mesh):
     """Run the block's ops on this rank's part of `mesh` (None: no mesh).
     The scope belongs to the calling thread and ends with the block."""
     shard = None
     if mesh is not None:
-        space = axis_size(mesh, SPACE)
+        space, model = axis_size(mesh, SPACE), axis_size(mesh, MODEL)
         shard = Shard(mesh_group(mesh), mesh.get_group(SPACE) if space > 1 else None,
-                      space, axis_rank(mesh, SPACE))
+                      space, axis_rank(mesh, SPACE),
+                      mesh.get_group(MODEL) if model > 1 else None, model,
+                      axis_rank(mesh, MODEL))
     token = _SCOPE.set(shard)
     try:
         yield shard
@@ -255,12 +276,16 @@ def gather_space(x: torch.Tensor, shard: Shard, dim: int) -> torch.Tensor:
 def gather_image(mesh, x: torch.Tensor) -> torch.Tensor:
     """Every rank's part of a [b, h, W, ...] batch of images back to the
     whole [b D, h S, W, ...] on every rank: the batch in data-rank order,
-    the height in space-rank order. mesh=None returns x."""
+    the height in space-rank order. On a ("data", "model") mesh the model
+    ranks of a data coordinate hold the same images, so the gather runs over
+    "data" alone. mesh=None returns x."""
     if mesh is None:
         return x
-    n = mesh.size()
+    model = MODEL in mesh_axes(mesh)
+    n = axis_size(mesh, AXIS) if model else mesh.size()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=mesh_group(mesh))
+    dist.all_gather(parts, x.contiguous(),
+                    group=axis_group(mesh, AXIS) if model else mesh_group(mesh))
     s = axis_size(mesh, SPACE)
     rows = [torch.cat(parts[d * s:(d + 1) * s], dim=1) for d in range(n // s)]
     return torch.cat(rows, dim=0)

@@ -1,11 +1,13 @@
 """Shared plumbing of the port's CLIs (counterpart of scripts/_common.py):
 device selection, the data mesh and its process group (--shard, --fsdp and
-the cluster flags), the (data, space) mesh of the sampling, serving and
-score-model training CLIs (--shard-space), checkpoint-name resolution, a disk
-archive resident on the device, and the flags whose paths are not ported yet.
+the cluster flags), the (data, space) and (data, model) meshes of the
+score model's sampling, inpainting, serving and training CLIs (--shard-space,
+--shard-model), checkpoint-name resolution, a disk archive resident on the
+device, and the flags whose paths are not ported yet.
 
-`--shard N` (with `--shard-space S`: N x S) with no cluster flags runs the
-CLI in that many spawned local ranks (`spawn_shards`), one per device
+`--shard N` (with `--shard-space S`: N x S; with `--shard-model M`: N x M)
+with no cluster flags runs the CLI in that many spawned local ranks
+(`spawn_shards`), one per device
 (parallel/multihost.py); the cluster flags join a process group whose ranks
 were started elsewhere, one per device, and then the mesh must equal its
 size."""
@@ -67,20 +69,28 @@ def add_dist_flags(p: argparse.ArgumentParser) -> None:
 def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        space: bool = True) -> None:
     """The JAX CLIs' mesh and multi-process flags: --shard (and --fsdp for a
-    trainer) and the cluster flags run, and so does --shard-space (the
-    sampling, serving and score-model training CLIs); every --shard-model is
-    kept so that the command lines match, and any value but the default
-    raises. `space=False` leaves out --shard-space, as the VAE trainer's and
-    the prior trainer's JAX CLIs do."""
+    trainer) and the cluster flags run, and so do --shard-space and
+    --shard-model (the score model's CLIs). `space=False` leaves out
+    --shard-space, as the VAE trainer's and the prior trainer's JAX CLIs do;
+    their --shard-model is kept so that the command lines match, and any
+    value but the default raises."""
     add_shard_flag(p)
     if space:
         p.add_argument("--shard-space", type=int, default=0,
                        help="Spatial parallelism: split every image's height over S ranks (a "
                        "2-D data x space mesh of --shard x S ranks, one per device): the "
                        "hi-res case whose activations outgrow one device. H/4 must divide "
-                       "by S." + (" The weights are replicated over all the ranks (not with "
-                                  "--fsdp yet)." if train else ""))
-    p.add_argument("--shard-model", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+                       "by S." + (" The weights are replicated over all the ranks, or with "
+                                  "--fsdp sharded over --shard and replicated over S (HSDP)."
+                                  if train else ""))
+        p.add_argument("--shard-model", type=int, default=0,
+                       help="Tensor parallelism: split every weight's output channels over M "
+                            "ranks (a 2-D data x model mesh of --shard x M ranks, one per "
+                            "device, parallel/tensor.py); leaves whose channels do not divide "
+                            "by M stay whole. Not with --shard-space (JAX's 3-D mesh) " +
+                            ("or --fsdp " if train else "") + f"yet ({PARALLEL}).")
+    else:
+        p.add_argument("--shard-model", type=int, default=0, help=f"not ported yet ({PARALLEL})")
     if train:
         p.add_argument("--fsdp", action="store_true",
                        help="ZeRO-3 placement: with --shard N, also shard every weight, its "
@@ -115,23 +125,34 @@ def _run_rank(fn, argv) -> None:
     fn(argv)
 
 
+def check_model_axes(shard_space: int, shard_model: int) -> None:
+    """JAX's 3-D ("data", "space", "model") mesh is not ported yet: exit
+    naming its ROADMAP item."""
+    if shard_model > 1 and shard_space > 1:
+        raise SystemExit(f"--shard-model {shard_model} with --shard-space {shard_space} (the "
+                         f"3-D data x space x model mesh) is not ported yet ({PARALLEL})")
+
+
 def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
                  batch_sizes: tuple[int, ...] = (), space: bool = False,
                  sigterm_rank: int | None = None) -> bool:
-    """--shard N > 1 (or, where `space`, --shard N x --shard-space S > 1)
-    with no cluster flags and no process group yet: run `fn(argv)` (a CLI's
-    module-level entry) in that many spawned local ranks on `cuda:0..`, or on
-    the CPU under --device cpu, and return True once all finished; False
-    when this process should run the CLI itself. Any rank's failure exits
-    non-zero with its traceback; a SIGTERM to this process goes on to rank
-    `sigterm_rank` when one is named."""
+    """--shard N > 1 (or, where `space` (the score model's CLIs), --shard N x
+    --shard-space S or x --shard-model M > 1) with no cluster flags and no
+    process group yet: run `fn(argv)` (a CLI's module-level entry) in that
+    many spawned local ranks on `cuda:0..`, or on the CPU under --device cpu,
+    and return True once all finished; False when this process should run
+    the CLI itself. Any rank's failure exits non-zero with its traceback; a
+    SIGTERM to this process goes on to rank `sigterm_rank` when one is
+    named."""
     import torch.distributed as dist
 
     from toycrystals_torch.parallel.multihost import launch
 
     shard = getattr(args, "shard", 0)
     n_space = getattr(args, "shard_space", 0) if space else 0
-    ranks = max(1, shard) * max(1, n_space)
+    n_model = getattr(args, "shard_model", 0) if space else 0
+    check_model_axes(n_space, n_model)
+    ranks = max(1, shard) * max(1, n_space) * max(1, n_model)
     if ranks <= 1 or dist.is_initialized() or any(
             getattr(args, d, None) is not None for d in CLUSTER_DESTS):
         return False
@@ -145,11 +166,13 @@ def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
         if backend == "gloo":
             device_ids = [r % n_dev for r in range(ranks)]
         elif ranks > n_dev:
-            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible" if n_space <= 1
-                             else f"--shard {shard} x --shard-space {n_space} needs {ranks} "
-                                  f"devices, have {n_dev}")
-    print(f"data-parallel mesh: {shard} ranks on {device_type}" if n_space <= 1 else
-          f"2-D mesh: {max(1, shard)} data x {n_space} space ranks on {device_type}")
+            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible"
+                             if max(n_space, n_model) <= 1
+                             else f"--shard {shard} x --shard-{'space' if n_space > 1 else 'model'}"
+                                  f" {max(n_space, n_model)} needs {ranks} devices, have {n_dev}")
+    print(f"data-parallel mesh: {shard} ranks on {device_type}" if max(n_space, n_model) <= 1
+          else f"2-D mesh: {max(1, shard)} data x {max(n_space, n_model)} "
+               f"{'space' if n_space > 1 else 'model'} ranks on {device_type}")
     try:
         launch(_run_rank, ranks, (fn, list(argv) if argv is not None else None),
                device_type=device_type, backend=backend, device_ids=device_ids,
@@ -168,21 +191,30 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
-               shard_space: int = 0, shard_model: int = 0):
+               shard_space: int = 0, shard_model: int = 0, model: bool = False):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
-    exactly N ranks. --shard-space S > 1 (the sampling, serving and
-    score-model training CLIs) makes the ("data", "space") mesh of N x S
-    ranks (the caller checks the image size against S: parallel/spatial.py
-    `check_stem_divisibility`); --shard-model refuses, alone or in JAX's 3-D
-    mesh with --shard-space, naming its ROADMAP item."""
-    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d
+    exactly N ranks. --shard-space S > 1 (the score model's CLIs) makes the
+    ("data", "space") mesh of N x S ranks (the caller checks the image size
+    against S: parallel/spatial.py `check_stem_divisibility`), and where
+    `model` (the score model's CLIs) --shard-model M > 1 the ("data",
+    "model") mesh of N x M ranks. --shard-model refuses elsewhere, and with
+    --shard-space (JAX's 3-D mesh), naming its ROADMAP item."""
+    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d, make_mesh_tp
     from toycrystals_torch.parallel.multihost import process_count
 
-    if shard_model > 1:
-        raise SystemExit(f"--shard-model {shard_model} is not ported yet ({PARALLEL})")
+    check_model_axes(shard_space, shard_model)
+    if shard_model > 1 and not model:
+        raise SystemExit(f"--shard-model {shard_model} is not ported yet for this model "
+                         f"({PARALLEL})")
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
+    if shard_model > 1:
+        need = max(1, shard) * shard_model
+        if need != world:
+            raise SystemExit(f"--shard {shard} x --shard-model {shard_model} needs {need} "
+                             f"devices, have {world} (one per rank)")
+        return make_mesh_tp(max(1, shard), shard_model, torch.device(device).type)
     if shard_space > 1:
         need = max(1, shard) * shard_space
         if need != world:
@@ -210,16 +242,23 @@ def any_rank(mesh, flag: bool, device) -> bool:
 
 
 def place_state(mesh, model, state, fsdp: bool = False):
-    """The trainers' placement: DistributedDataParallel, or FSDP2 under
-    `fsdp` (printing the share of parameter elements it shards, as JAX
-    does); mesh=None passes through. Returns (module to train, state)."""
+    """The trainers' placement: DistributedDataParallel, FSDP2 under `fsdp`
+    (HSDP on a space axis), or the model axis's blocks, printing the share of
+    parameter elements that FSDP2 or the model axis shards, as JAX does;
+    mesh=None passes through. Returns (module to train, state)."""
     from toycrystals_torch.parallel import fsdp_coverage
     from toycrystals_torch.parallel import place_state as _place
+    from toycrystals_torch.parallel.mesh import AXIS, MODEL, axis_size
     from toycrystals_torch.parallel.multihost import is_primary
+    from toycrystals_torch.parallel.tensor import shard_report
 
-    if mesh is not None and fsdp and is_primary():
-        print(f"fsdp: {fsdp_coverage(mesh.size(), model):.0%} of param elements sharded "
-              f"over 'data'")
+    fsdp = fsdp and mesh is not None and axis_size(mesh, AXIS) > 1  # JAX: no-op otherwise
+    if mesh is not None and is_primary():
+        if fsdp:
+            print(f"fsdp: {fsdp_coverage(axis_size(mesh, AXIS), model):.0%} of param elements "
+                  f"sharded over 'data'")
+        if axis_size(mesh, MODEL) > 1:
+            print(shard_report(axis_size(mesh, MODEL), model))
     return _place(mesh, model, state, fsdp)
 
 

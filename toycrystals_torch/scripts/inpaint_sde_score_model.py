@@ -22,7 +22,10 @@ device, spawned here unless the cluster flags join ranks started elsewhere),
 each drawing the chunk's whole noise, and rank 0 writes the grid and the
 line; --shard-space S also splits every image's height (and the sources'
 and masks') over S ranks (a --shard x S mesh, parallel/spatial.py);
---shard-model exits naming its ROADMAP item.
+--shard-model M splits every weight's output channels over M ranks (a
+--shard x M mesh, parallel/tensor.py), each model rank inpainting its data
+rank's rows with its block of the weights. --shard-model with --shard-space
+(JAX's 3-D mesh) exits naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from toycrystals_torch.models.sde_score_model import (
 from toycrystals_torch.parallel.mesh import mesh_size
 from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.parallel.spatial import check_stem_divisibility
+from toycrystals_torch.parallel.tensor import shard_params, shard_report
 from toycrystals_torch.scripts._common import (
     add_device_flag,
     add_parallel_flags,
@@ -141,7 +145,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model)
+                      shard_model=args.shard_model, model=True)
     primary = is_primary()
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
@@ -172,6 +176,10 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
         attn_impl=args.attn_impl, stem=str(cfg.get("stem", "none")))
     load_flax_params(model, params)
     model = model.to(device).eval().requires_grad_(False)
+    if args.shard_model > 1:
+        if primary:
+            print(shard_report(args.shard_model, model))
+        shard_params(model, mesh)
     sde = VPSDE(beta_min=float(cfg.get("beta_min", 0.1)),
                 beta_max=float(cfg.get("beta_max", 30.0)),
                 logsnr_shift=float(cfg.get("logsnr_shift", 0.0)))

@@ -24,8 +24,12 @@ the grid, which equals the one-device grid at the same (mesh-rounded)
 chunk, --quantize int8 included (the activation scale is the whole mesh's
 max). --shard-space S also splits every image's height over S ranks (a
 --shard x S mesh, parallel/spatial.py); H/4 must divide by S, and for the
-s2d stems H/8 too. --ckpt may name a --ckpt-format orbax directory of the
-port's trainer. --shard-model raises, naming its ROADMAP item.
+s2d stems H/8 too. --shard-model M splits every weight's output channels
+over M ranks instead (a --shard x M mesh, parallel/tensor.py): the model
+ranks of each data rank sample the same rows, each with its block of the
+weights. --ckpt may name a --ckpt-format orbax directory of the port's
+trainer. --shard-model with --shard-space (JAX's 3-D mesh) raises, naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from toycrystals_torch.models.sde_score_model import (
 from toycrystals_torch.parallel.mesh import mesh_size
 from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.parallel.spatial import check_stem_divisibility
+from toycrystals_torch.parallel.tensor import shard_params, shard_report
 from toycrystals_torch.scripts._common import (
     add_device_flag,
     add_parallel_flags,
@@ -143,7 +148,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model)
+                      shard_model=args.shard_model, model=True)
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
 
@@ -178,6 +183,9 @@ def sample(argv: list[str] | None = None) -> SampleRun:
         params = state["ema_params"]
     load_flax_params(model, params)
     model = model.to(device).eval().requires_grad_(False)
+    if args.shard_model > 1:
+        say(shard_report(args.shard_model, model))
+        shard_params(model, mesh)
     sde = VPSDE(beta_min=float(cfg.get("beta_min", 0.1)),
                 beta_max=float(cfg.get("beta_max", 30.0)),
                 logsnr_shift=float(cfg.get("logsnr_shift", args.logsnr_shift)))

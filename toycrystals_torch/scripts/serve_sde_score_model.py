@@ -35,8 +35,10 @@ Differences from the JAX CLI: --device defaults to cuda (cpu only when
 asked) and never falls back; the service is built by
 `ScoreModelService.from_checkpoint(path, ...)`; png is utils/figures.py's PNG
 of the pixels, not a matplotlib figure; the listen backlog is 128, not the
-stdlib's 5, which resets a burst of concurrent connections; --shard-model is
-not ported yet and exits naming its ROADMAP item.
+stdlib's 5, which resets a burst of concurrent connections. --shard-model M
+serves on a --shard x M ("data", "model") mesh (parallel/tensor.py): every
+rank holds its block of the weights and runs every dispatch; with
+--shard-space (JAX's 3-D mesh) it exits naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -52,11 +54,9 @@ from urllib.parse import parse_qs, urlparse
 
 from toycrystals_torch.parallel.multihost import is_primary, process_index
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
     add_device_flag,
     add_parallel_flags,
     init_distributed,
-    refuse_deferred,
     select_device,
     setup_mesh,
     spawn_shards,
@@ -241,10 +241,10 @@ def serve(argv: list[str] | None = None) -> int:
     (rank 0 serves HTTP, the others follow)."""
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {"shard_model": PARALLEL})
     init_distributed(args, args.device)
     device = select_device(args.device)
-    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space)
+    mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
+                      shard_model=args.shard_model, model=True)
     service = ScoreModelService.from_checkpoint(
         args.ckpt, device=device, use_ema=not args.no_ema, sampler=args.sampler,
         steps=args.steps, guidance_scale=args.guidance_scale, t_end=args.t_end,
@@ -258,8 +258,9 @@ def serve(argv: list[str] | None = None) -> int:
         return 0
     if mesh is not None:
         service.lead()
-        print(f"mesh: {service.stats['mesh'][0]} data x {service.stats['mesh'][1]} space "
-              f"ranks; rank 0 serves")
+        shape = service.stats["mesh"]
+        print(f"mesh: {shape[0]} data x " + (f"{shape[2]} model" if len(shape) > 2 else
+                                              f"{shape[1]} space") + " ranks; rank 0 serves")
     print(f"model: {service.describe()}")
     print(f"serving: sampler={service.sampler_name} steps={service.steps} "
           f"cfg={service.guidance_scale} buckets={list(service.buckets)} "
@@ -297,10 +298,9 @@ def serve(argv: list[str] | None = None) -> int:
 
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `serve(argv)` in this process, or in --shard x --shard-space
-    spawned ranks."""
+    (or x --shard-model) spawned ranks."""
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_deferred(p, args, {"shard_model": PARALLEL})
     if spawn_shards(args, serve, argv, space=True, sigterm_rank=0):
         return 0
     return serve(argv)

@@ -35,8 +35,16 @@ rank 0 writes the msgpack checkpoint, metrics.jsonl and the grids.
 its rows of the batch and keeps its rows of the image height, the ops of the
 U-Net exchange rows with their neighbours forward and backward, DDP averages
 the gradients over all the ranks, and the epoch-end grids sample on the same
-mesh. H/4 must divide by S (and H/8 for the s2d stems). --fsdp with
---shard-space and --shard-model raise, naming their ROADMAP item.
+mesh. H/4 must divide by S (and H/8 for the s2d stems). With --fsdp the
+weights, moments and EMA are sharded over --shard and replicated over S
+(HSDP, parallel/fsdp.py). --shard-model M splits every weight's output
+channels over M ranks instead (a --shard x M ("data", "model") mesh,
+parallel/tensor.py): each rank holds its block of the weights, of Adam's
+moments and of the EMA, the ops of the U-Net gather and reduce channels
+forward and backward, and DDP averages over --shard; the msgpack checkpoint
+is gathered to the flax layout, so it is one process's. --shard-model with
+--shard-space (JAX's 3-D mesh) or with --fsdp raises, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from toycrystals_torch.models.sde_score_model import (
 )
 from toycrystals_torch.models.torch_init import flax_default_init, torch_like_init
 from toycrystals_torch.parallel.fsdp import full
+from toycrystals_torch.parallel.tensor import shard_params
 from toycrystals_torch.parallel.mesh import data_sharding
 from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.parallel.spatial import check_stem_divisibility, space_rows
@@ -302,12 +311,10 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # clipping changes the opt_state layout, so it follows the checkpoint
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
-    if args.fsdp and args.shard_space > 1:
-        raise SystemExit(f"--fsdp with --shard-space {args.shard_space} is not ported yet "
-                         f"({PARALLEL})")
+    _refuse_fsdp_model(args)
     mesh = setup_mesh(args.shard, args.batch_size, device=device,
-                      shard_space=args.shard_space, shard_model=args.shard_model)
-    if multihost and args.fsdp and not orbax_fmt:
+                      shard_space=args.shard_space, shard_model=args.shard_model, model=True)
+    if multihost and (args.fsdp or args.shard_model > 1) and not orbax_fmt:
         # msgpack saves gather the whole state to rank 0; the JAX trainer
         # refuses this across hosts, and so does the port
         raise SystemExit("multi-host --fsdp/--shard-model needs --ckpt-format orbax (per-shard "
@@ -460,6 +467,8 @@ def train(argv: list[str] | None = None) -> TrainRun:
             dtype=model.dtype, attn_impl=args.attn_impl, stem=args.stem)
         grid_model.load_state_dict({k: full(v).detach() for k, v in prm.items()}, strict=True)
         grid_model = grid_model.to(device).eval().requires_grad_(False)
+        if args.shard_model > 1:
+            shard_params(grid_model, mesh)
         apply_fn = eps_apply_from_v(sde, grid_model) if args.param == "v" else grid_model
         grid_sampler, grid_name, grid_kw = sample_probability_flow_ode, "ode", {}
         if args.param == "fm":
@@ -505,12 +514,12 @@ def train(argv: list[str] | None = None) -> TrainRun:
     def write_ckpt(which: str, epoch: int) -> None:
         """One checkpoint write ('last' or 'best'), either format: orbax on
         every rank (each its shards); msgpack gathered whole (a collective
-        under --fsdp) and written by rank 0."""
+        under --fsdp and --shard-model) and written by rank 0."""
         meta = {"epoch_next": epoch + 1, "loss_hist": loss_hist, "config": config}
         if orbax_fmt:
             (ckpt_mgr if which == "last" else best_mgr).save(epoch + 1, state, tx, meta)
             return
-        if primary or args.fsdp and mesh is not None:
+        if primary or (args.fsdp or args.shard_model > 1) and mesh is not None:
             tree = train_state_to_checkpoint(state, tx)
         if primary:
             save_ckpt(ckpt_path if which == "last" else
@@ -601,10 +610,17 @@ def _profiler(device: torch.device) -> torch.profiler.profile:
     return torch.profiler.profile(activities=acts)
 
 
+def _refuse_fsdp_model(args) -> None:
+    if args.fsdp and args.shard_model > 1:
+        raise SystemExit(f"--fsdp with --shard-model {args.shard_model} (2-D weight sharding) "
+                         f"is not ported yet ({PARALLEL})")
+
+
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `train(argv)` in this process, or in --shard N (x
-    --shard-space S) spawned ranks."""
+    --shard-space S, or x --shard-model M) spawned ranks."""
     args = build_parser().parse_args(argv)
+    _refuse_fsdp_model(args)
     if not spawn_shards(args, train, argv, (args.batch_size,), space=True):
         train(argv)
     return 0

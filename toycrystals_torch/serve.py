@@ -35,12 +35,13 @@ a title, which the card machine cannot, so this writes utils/figures.py's PNG
 of the pixels and takes no title. `raw_png_bytes` and `npy_bytes` give JAX's
 bytes.
 
-On a mesh (`mesh=`: the ("data",) or ("data", "space") mesh of
-parallel/mesh.py, one rank per device) every rank holds the weights, the
-buckets round up to multiples of the data axis, and every request runs
-through `sample_chunked` at its bucket, as JAX's does: each rank samples its
-rows of the batch and of the image height, and every rank returns the whole
-result. `sample` is then collective: every rank calls it with the same
+On a mesh (`mesh=`: the ("data",), ("data", "space") or ("data", "model")
+mesh of parallel/mesh.py, one rank per device) every rank holds the weights
+(on a model axis its block of them, parallel/tensor.py), the buckets round
+up to multiples of the data axis, and every request runs through
+`sample_chunked` at its bucket, as JAX's does: each rank samples its rows of
+the batch and of the image height (the model ranks of a data rank the same
+rows, each with its channels), and every rank returns the whole result. `sample` is then collective: every rank calls it with the same
 arguments. A server puts one rank in front (`lead`, rank 0, with the
 `MicroBatcher` and the HTTP front end) and the others in `follow`: rank 0
 announces each dispatch's (n, seed, y_cat, y_cont) on the process group's
@@ -77,7 +78,7 @@ from toycrystals_torch.models.sde_score_model import (
     sample_reverse_sde_euler_maruyama,
 )
 from toycrystals_torch.parallel import spatial
-from toycrystals_torch.parallel.mesh import AXIS, SPACE, axis_size, check_data_mesh
+from toycrystals_torch.parallel.mesh import AXIS, MODEL, SPACE, axis_size, check_data_mesh
 from toycrystals_torch.utils.figures import _grid_png, png_gray
 from toycrystals_torch.utils.params import load_flax_params
 
@@ -170,7 +171,7 @@ class ScoreModelService:
         if quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8', got {quantize!r}")
         if mesh is not None:
-            check_data_mesh(mesh, space=True)
+            check_data_mesh(mesh, space=True, model=True)
         if out_dtype not in ("float32", "uint8"):
             raise ValueError(f"out_dtype must be 'float32' or 'uint8', got {out_dtype!r}")
         if steps is None:
@@ -207,6 +208,10 @@ class ScoreModelService:
         )
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        if mesh is not None and axis_size(mesh, MODEL) > 1:
+            from toycrystals_torch.parallel.tensor import shard_params
+
+            shard_params(self.model, mesh)
         self.sde = VPSDE(
             beta_min=float(cfg.get("beta_min", 0.1)),
             beta_max=float(cfg.get("beta_max", 30.0)),
@@ -267,9 +272,13 @@ class ScoreModelService:
                  distilled=bool(self.config.get("distilled")),
                  quantize=self.quantize, out_dtype=self.out_dtype,
                  device=str(self.device),
-                 mesh=None if self.mesh is None else [axis_size(self.mesh, AXIS),
-                                                      axis_size(self.mesh, SPACE)])
+                 mesh=None if self.mesh is None else self._mesh_shape())
         return s
+
+    def _mesh_shape(self) -> list[int]:
+        """[data, space] ranks, and the model ranks after them on a model axis."""
+        shape = [axis_size(self.mesh, AXIS), axis_size(self.mesh, SPACE)]
+        return shape + [axis_size(self.mesh, MODEL)] * (axis_size(self.mesh, MODEL) > 1)
 
     def describe(self) -> dict[str, Any]:
         keep = ("n_types", "y_cont_dim", "base_ch", "emb_dim", "param",

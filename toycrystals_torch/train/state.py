@@ -11,11 +11,13 @@ here is updated in place: `TrainState.params` are the model's own parameters
 copy of every tensor per step.
 
 On a data mesh (parallel/) the parameters are those of the module that
-DistributedDataParallel wraps, replicated on every rank, or FSDP2's sharded
-DTensors; the moments and the EMA are laid out as their parameters, and the
-updates act on each rank's shard. Global-norm clipping and the non-finite
-check then reduce over the shards, so every rank takes the decision the
-single-device step takes.
+DistributedDataParallel wraps, replicated on every rank, FSDP2's sharded
+DTensors, or on a "model" axis each rank's blocks (parallel/tensor.py); the
+moments and the EMA are laid out as their parameters, and the updates act on
+each rank's shard. Global-norm clipping and the non-finite check then reduce
+over the group that holds the shards (under HSDP the "data" group: each
+shard is held by every space rank, and summing over all of them would count
+it S times), so every rank takes the decision the single-device step takes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from toycrystals_torch.parallel.fsdp import is_sharded, local
+from toycrystals_torch.parallel.fsdp import local, shard_group
 
 Schedule = Callable[[int], float]
 
@@ -108,10 +110,12 @@ class Optimizer:
     def update(self, params: list[torch.Tensor], grads: list[torch.Tensor],
                state: OptState) -> bool:
         """One update of `params` and `state` in place from `grads`; returns
-        False when the step was skipped as non-finite. Sharded (DTensor)
-        gradients take the norm and the finiteness over all their shards."""
-        group = next((g.device_mesh.get_group() for g in grads if is_sharded(g)), None)
-        sharded = [is_sharded(g) for g in grads]
+        False when the step was skipped as non-finite. Sharded gradients (of
+        DTensors or model blocks) take the norm and the finiteness over all
+        their shards."""
+        groups = [shard_group(g) or shard_group(p) for p, g in zip(params, grads)]
+        group = next((gr for gr in groups if gr is not None), None)
+        sharded = [gr is not None for gr in groups]
         params, grads = [local(p) for p in params], [local(g) for g in grads]
         mu, nu = [local(m) for m in state.mu], [local(v) for v in state.nu]
         if self.skip_nonfinite > 0:

@@ -33,8 +33,17 @@ backward in the mesh's dispatch scope, where every exchange of rows has its
 adjoint in the backward. The weights are replicated over both axes and DDP
 averages the gradients over all D S ranks; each rank's loss is the mean over
 its own pixels, so that average is the gradient of the global mean, as in
-JAX's GSPMD step. A mesh with any other axis raises (ROADMAP.md queue 1,
-module 5), and so does a space axis in the other models' steps.
+JAX's GSPMD step. Under --fsdp the same mesh runs HSDP (parallel/fsdp.py).
+
+They also take a ("data", "model") mesh (parallel/tensor.py): each rank holds
+its rows of the batch, the model ranks of a data coordinate the same rows
+and the same draws, and its block of the sharded weights; the forward and
+backward run in the mesh's dispatch scope, where every channel collective
+has its adjoint, and the loss is the replicated output's, not summed over
+"model". DDP averages over the "data" group, and the whole leaves' gradients
+are then broadcast over "model" so that the replicas keep the same bits. A
+mesh with any other axis raises (ROADMAP.md queue 1, module 5), and so do a
+space or a model axis in the other models' steps.
 """
 
 from __future__ import annotations
@@ -58,9 +67,10 @@ from toycrystals_torch.parallel.mesh import (
     axis_size,
     check_data_mesh,
     data_sharding,
-    mesh_group,
+    replica_group,
     row_generator,
 )
+from toycrystals_torch.parallel.tensor import sync_whole_grads
 from toycrystals_torch.train.state import Optimizer, TrainState, ema_update
 from toycrystals_torch.utils.rng import RowGenerator, rand, randn
 
@@ -74,10 +84,11 @@ def _is_fsdp(model: nn.Module) -> bool:
 def check_placed(model: nn.Module, mesh, space: bool = False) -> None:
     """On a mesh of several ranks, `model` must be the module that
     `parallel.place_state` returns: its gradients are then averaged. A
-    ("data", "space") mesh only where `space` (the score model's steps)."""
+    ("data", "space") or ("data", "model") mesh only where `space` (the
+    score model's steps)."""
     if mesh is None:
         return
-    check_data_mesh(mesh, space)
+    check_data_mesh(mesh, space, model=space)
     from torch.nn.parallel import DistributedDataParallel
 
     if mesh.size() > 1 and not isinstance(model, DistributedDataParallel) \
@@ -129,6 +140,7 @@ def accumulate_grads(model: nn.Module, chunk_loss: Callable[[int], torch.Tensor]
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
     if _is_fsdp(model):
         reduce_replicated_grads(mesh, params)
+    sync_whole_grads(mesh, params)
     grads = [p.grad for p in params]
     for p in params:
         p.grad = None
@@ -140,19 +152,21 @@ def accumulate_grads(model: nn.Module, chunk_loss: Callable[[int], torch.Tensor]
 
 def mesh_metrics(mesh, metrics, sums: tuple[str, ...] = ()):
     """A step's metrics (a tensor or a dict of tensors) reduced over the
-    mesh in one all-reduce: the mean over the ranks, or the sum for the
-    keys in `sums`. mesh=None, or one rank, returns them as they are."""
+    mesh in one all-reduce: the mean over the ranks (over "data" alone on a
+    model axis, whose ranks hold the same loss), or the sum for the keys in
+    `sums`. mesh=None, or one rank, returns them as they are."""
     if mesh is None or mesh.size() == 1:
         return metrics
     import torch.distributed as dist
 
+    group, n = replica_group(mesh)
     items = metrics if isinstance(metrics, dict) else {"": metrics}
     flat = torch.cat([v.reshape(-1).float() for v in items.values()])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh_group(mesh))
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     out, i = {}, 0
     for k, v in items.items():
         part = flat[i:i + v.numel()].reshape(v.shape)
-        out[k] = part if k in sums else part / mesh.size()
+        out[k] = part if k in sums else part / n
         i += v.numel()
     return out if isinstance(metrics, dict) else out[""]
 

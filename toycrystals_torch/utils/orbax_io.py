@@ -8,8 +8,11 @@ package wrote is refused here with a message that says so and points to
 msgpack (utils/checkpoint.py), which both packages read and write
 (NotImplementedError).
 
-- per-shard IO: under FSDP2 each rank writes and reads its own shards of
-  every DTensor; replicated tensors are written once;
+- per-shard IO: under FSDP2 (HSDP too) each rank writes and reads its own
+  shards of every DTensor, and on a model axis its blocks (parallel/tensor.py;
+  given to DCP as a ShardedTensor of the whole leaf with one local shard per
+  piece, so a qkv placed by head is read back by any layout); replicated
+  tensors and blocks held by several data ranks are written once;
 - resharding restore: `restore_onto` loads into whatever layout the target
   state has (FSDP over N ranks, DistributedDataParallel, one process), so a
   checkpoint saved on two ranks restores on one and the other way round;
@@ -19,7 +22,9 @@ msgpack (utils/checkpoint.py), which both packages read and write
 - asynchronous: `save` stages the tensors to the host and writes them on a
   thread (`dcp.async_save`) over a gloo group of its own, so the training
   collectives never interleave with the checkpoint's; `wait()` is the
-  durability barrier.
+  durability barrier. DCP's stager cannot copy a ShardedTensor, so a state
+  with model blocks is copied to the host here and written before `save`
+  returns (`dcp.save`).
 
 Layout on disk: `<path>/<step>/state/` (DCP: `.metadata` and one `.distcp`
 file per writing rank) holding the `TrainState` under torch names
@@ -82,19 +87,35 @@ def _step_dir(path: str | Path, step: int | None) -> Path:
     return d
 
 
-def _state_dict(state) -> dict[str, torch.Tensor]:
+def _state_dict(state, host: bool = False) -> dict[str, torch.Tensor]:
     """The tensors of a `TrainState` (train/state.py) under DCP keys, as
-    they are laid out (DTensors stay sharded)."""
+    they are laid out (DTensors stay sharded, model blocks become
+    ShardedTensors over their storage, or with `host` over copies of them on
+    the host)."""
+    from toycrystals_torch.parallel.tensor import block_of, sharded_tensor
+
+    def laid(t):
+        blk = block_of(t)
+        if blk is None:
+            return t.detach().to("cpu", copy=True) if host else t
+        return sharded_tensor(t.detach().to("cpu", copy=True) if host else t, blk)
+
     opt = state.opt_state
     dev = next(iter(state.params.values())).device
-    sd: dict[str, torch.Tensor] = {f"params.{k}": v for k, v in state.params.items()}
-    sd.update({f"mu.{k}": m for k, m in zip(state.params, opt.mu)})
-    sd.update({f"nu.{k}": v for k, v in zip(state.params, opt.nu)})
+    sd: dict[str, torch.Tensor] = {f"params.{k}": laid(v) for k, v in state.params.items()}
+    sd.update({f"mu.{k}": laid(m) for k, m in zip(state.params, opt.mu)})
+    sd.update({f"nu.{k}": laid(v) for k, v in zip(state.params, opt.nu)})
     if state.ema_params is not None:
-        sd.update({f"ema.{k}": v for k, v in state.ema_params.items()})
+        sd.update({f"ema.{k}": laid(v) for k, v in state.ema_params.items()})
     sd["counters"] = torch.tensor([state.step, opt.count, opt.notfinite_count,
                                    opt.total_notfinite], dtype=torch.int64, device=dev)
     return sd
+
+
+def _has_blocks(state) -> bool:
+    from toycrystals_torch.parallel.tensor import block_of
+
+    return any(block_of(p) is not None for p in state.params.values())
 
 
 def _opt_layout(tx) -> dict:
@@ -134,8 +155,16 @@ class ShardedCheckpointManager:
             tmp.mkdir(parents=True)
         if self._group is not None:
             dist.barrier(group=self._group)
-        fut = dcp.async_save(_state_dict(state), checkpoint_id=str(tmp / "state"),
-                             **self._dcp_kw())
+        if _has_blocks(state):
+            from concurrent.futures import Future
+
+            dcp.save(_state_dict(state, host=True), checkpoint_id=str(tmp / "state"),
+                     **self._dcp_kw())
+            fut = Future()
+            fut.set_result(None)
+        else:
+            fut = dcp.async_save(_state_dict(state), checkpoint_id=str(tmp / "state"),
+                                 **self._dcp_kw())
         self._pending = (fut, step, {**meta, "opt_layout": _opt_layout(tx)})
 
     def wait(self) -> None:
