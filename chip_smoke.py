@@ -136,7 +136,7 @@ result line:
    checkpoint stopped by SIGTERM while it samples: the request in flight
    answers 200 and the process exits 0.
 13. Export and the VAE trainer, at full width. Export: phase 10's checkpoint
-   at SDE-8 (CFG 1.5, the step loop unrolled into the graph; first the
+   at SDE-4 (CFG 1.5, the step loop unrolled into the graph; first the
    service's dispatch against the sampler on its own generator, bit-equal),
    phase 11's 4-step student and a 256x256 service at DPM-4 (4,096 tokens:
    the flash op inside the graph), each at one small batch, exported by
@@ -156,8 +156,8 @@ result line:
    build_dataset writes 12,800 rot-only 64x64 items as .npz and as .pt (7
    rasterizer launches each at 2,048 per batch), both read back equal to
    generate_batch quantised on the card; preview_data's grid (1 launch).
-   The SDE trainer (base_ch 96, bf16, batch 128) on that archive for 2
-   epochs, streamed (--stream 2) and resident (--fused-epoch 0), both under
+   The SDE trainer (base_ch 96, bf16, batch 128) on that archive for 1
+   epoch (cut from 2 for time), streamed (--stream 2) and resident (--fused-epoch 0), both under
    torch's deterministic algorithms: the losses and parameters equal bit for
    bit, 10 + 10 gn_silu launches per step, steps/s; a --profile-dir run on
    the first 1,280 items (the trace's bytes and top kernel classes). The
@@ -165,7 +165,7 @@ result line:
    blocks, batch 256, lr 1e-4, mu, DDIM-50) on phase 13's VAE and the
    archive's latents: 2 epochs, --resume 1, --sample-only (z/s, cache and
    DDIM seconds, bucket losses), its grid scored by the eval CLI beside
-   phase 13's MoP grid; MoE-4 for 2 epochs and moe_route_stats on it
+   phase 13's MoP grid; MoE-4 for 1 epoch (cut from 2) and moe_route_stats on it
    (fractions summing to 1 per block); a procedural cache build (25
    rasterizer launches); no gn_silu or flash launch on the prior's path.
    Card against CPU, TF32 off: 2 f32 prior steps dense and MoE-4 on
@@ -208,13 +208,13 @@ result line:
    equal to the one-process scale (the max over both ranks' rows); the grids'
    gap printed (int8 rounding amplifies the last bits in which the other
    ops' half-batch calls differ). A (data 1, space 2) mesh: a 12-image 256x256 request through
-   ScoreModelService(mesh=) at SDE-20 (cut from 300 for time; stem none,
-   param v, logsnr_shift -2.77), f32 against the one-process service's
+   ScoreModelService(mesh=) at SDE-10 (cut from 300, then 20, for time; stem
+   none, param v, logsnr_shift -2.77), f32 against the one-process service's
    dispatch (1e-3), then bf16, timed, each rank's peak memory beside one
-   process's, and exactly 21 flash forwards and 210 sums and 210 apply
+   process's, and exactly 11 flash forwards and 110 sums and 110 apply
    launches (no one-launch gn_silu) per rank per dispatch; 64x64 at SDE-10,
    both stems, f32, against one process. Last, the serve CLI with --shard 2
-   --dist-backend gloo on phase 10's checkpoint (f32, SDE-4): 16 concurrent
+   --dist-backend gloo on phase 10's checkpoint (f32, SDE-4): 8 concurrent
    seeded one-image requests, each bit-equal to the same dispatch of a 2-rank
    mesh launched here with the CLI's settings (its f32 convs run TF32, as
    torch leaves them) and beside the one-process service's dispatch of the
@@ -247,19 +247,33 @@ result line:
    one card: the ranks share cuda:0 over gloo, so every time here is host
    copies and time-slicing, not NVLink. The 256x256 model at full width
    (base_ch 96, stem none, param v, logsnr_shift -2.77) on a (data 1, model 2)
-   mesh, each rank holding its block of every weight: a 2-image SDE-20 request
-   in f32 through ScoreModelService(mesh=) against the one-process service's
-   dispatch (1e-3, phase 16's tolerance), with exactly 210 gn_silu forwards
-   (on the rank's channel blocks) and 21 flash forwards (on its 2 of the 4
-   heads) per rank per dispatch; one f32 step at batch 2 against one process
+   mesh, each rank holding its block of every weight: a 2-image SDE-6 request
+   (cut from 20 for time) in f32 through ScoreModelService(mesh=) against the
+   one-process service's dispatch (1e-3, phase 16's tolerance), with exactly
+   70 gn_silu forwards (on the rank's channel blocks) and 7 flash forwards (on
+   its 2 of the 4 heads) per rank per dispatch; one f32 step at batch 2 against one process
    (phase 17's limits), then 2 bf16 steps at batch 8, timed, each with
    exactly 10 + 10 gn_silu and 1 + 1 flash launches per rank per step; each
-   rank's seconds and peak memory beside one process's. Last, side by side
-   with phase 17's, the 64x64 train CLI with --shard-model 2 (s2dr, 2 ranks)
-   and with --shard 2 --shard-space 2 --fsdp (HSDP into DCP, stem none, 4
+   rank's seconds and peak memory beside one process's. On the same mesh the
+   VAE and the priors at the README's widths, one f32 step each against one
+   process (the loss within 1e-5 relative, the gradients within phase 7's
+   limits, the MoE route fractions within 1e-6): the VAE (z 32, batch 128)
+   on images each rank renders, with exactly 1 rasterizer launch and no
+   other per rank per step; the FiLM prior (width 1024, 8 blocks, batch 256)
+   and the MoE-4 prior, with none. A (data 2, model 2) job of four ranks
+   under FSDP2 (2-D weight sharding): one 64x64 f32 SDE step (base_ch 96,
+   clipped, exactly 10 + 10 gn_silu launches per rank on its channel blocks)
+   and the VAE's step, each against one process. Last, side by side with
+   phase 17's, the 64x64 train CLI with --shard-model 2 (s2dr, 2 ranks) and
+   with --shard 2 --shard-space 2 --fsdp (HSDP into DCP, stem none, 4
    ranks), 1 epoch and --resume to 2 (ending in a grid sampled on each mesh),
-   and beside the resumes the sample CLI with --shard-model 2 on the first
-   run's epoch-1 msgpack checkpoint.
+   the VAE trainer with --shard 2 --shard-model 2 --fsdp (4 ranks, 1,280
+   items, 1 epoch and --resume to 2, its three grids from the gathered
+   state), the prior trainer at the README's recipe with --shard-model 2 (1
+   epoch on a cache of 2,560 procedural items that its ranks encode with
+   phase 13's VAE, a DDIM-10 grid through the placed model), and beside the
+   resumes the sample CLI with --shard-model 2 on the first run's epoch-1
+   msgpack checkpoint.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included, and phase 16's space pair's kernel ms by
@@ -2222,8 +2236,8 @@ def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
 # checkpoint, of phase 11's student and of a 256x256 service, each bit-equal to
 # its live service; then train_vae at full width.
 EXPORT_BATCH = 4                    # images per exported dispatch
-EXPORT_SDE_STEPS = 8                # the SDE export's steps: its graph unrolls them (cut
-                                    # from 16 for phase 18's card time)
+EXPORT_SDE_STEPS = 4                # the SDE export's steps: its graph unrolls them (cut
+                                    # from 16, then 8, for phase 18's card time)
 EXPORT_HI_STEPS = 4                 # DPM steps of the 256x256 export (flash inside)
 VAE_DIR = os.path.join(ROOT, "runs", "chip_smoke_vae")
 VAE_ITEMS, VAE_BATCH, VAE_Z = 12800, 128, 32  # the CLI's defaults but for the item count
@@ -2461,9 +2475,12 @@ DATA_DIR = os.path.join(ROOT, "runs", "chip_smoke_data")
 PRIOR_DIR = os.path.join(ROOT, "runs", "chip_smoke_prior")
 DATA_ITEMS, DATA_BUILD_BATCH = 12800, 2048   # build_dataset: 50,000 items cut to 12,800
 STREAM_BATCH = 128
-STREAM_ARGS = ["--epochs", "2", "--dtype", "bfloat16", "--base-ch", "96", "--stem", "none",
-               "--sample-every", "0", "--ckpt-every", "0"]
-PROFILE_ITEMS = 1280                         # the --profile-dir run's archive: 10 steps/epoch
+# --stream against the resident path: 2 epochs (the reshuffle and the stream's second
+# pass) on the first PROFILE_ITEMS items, cut from 2 epochs on all 12,800 for card time
+STREAM_EPOCHS = 2
+STREAM_ARGS = ["--epochs", str(STREAM_EPOCHS), "--dtype", "bfloat16", "--base-ch", "96",
+               "--stem", "none", "--sample-every", "0", "--ckpt-every", "0"]
+PROFILE_ITEMS = 1280               # the stream's and --profile-dir's archive: 10 steps/epoch
 # the README's recipe for the prior (README.md, Quickstart step 3) at DDIM-50
 PRIOR_RECIPE = ["--T", "1000", "--beta-end", "0.05", "--width", "1024", "--batch-size", "256",
                 "--lr", "1e-4", "--z-target", "mu", "--ddim-steps", "50", "--z-dim", str(VAE_Z)]
@@ -2533,15 +2550,16 @@ def _phase14_data(set_counts_to_zero, counts, card: str, launches: dict) -> tupl
     return out, paths["npz"]
 
 
-def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict, archive: str) -> dict:
-    """b. The SDE trainer on the archive, streamed (--stream 2) and resident
-    (--fused-epoch 0) under torch's deterministic algorithms (bilinear
-    upsample's backward and cuDNN's are atomic otherwise): equal losses and
-    parameters bit for bit, 10 + 10 gn_silu launches per step; then a
-    --profile-dir run on the first PROFILE_ITEMS items."""
+def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict) -> dict:
+    """b. The SDE trainer on the first PROFILE_ITEMS items of the archive,
+    STREAM_EPOCHS epochs streamed (--stream 2) and resident (--fused-epoch 0)
+    under torch's deterministic algorithms (bilinear upsample's backward and
+    cuDNN's are atomic otherwise): equal losses and parameters bit for bit,
+    10 + 10 gn_silu launches per step; then a one-epoch --profile-dir run."""
     from toycrystals_torch.scripts import train_sde_score_model as train_cli
 
-    steps = 2 * (DATA_ITEMS // STREAM_BATCH)
+    small = os.path.join(DATA_DIR, "small.npz")
+    steps = STREAM_EPOCHS * (PROFILE_ITEMS // STREAM_BATCH)
     argv = [*STREAM_ARGS, "--batch-size", str(STREAM_BATCH)]
     runs, out = {}, {}
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -2550,7 +2568,7 @@ def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict, archi
                             ("train_stream", ["--stream", "2"])):
             set_counts_to_zero()  # the trainer's path starts here
             t0 = time.perf_counter()
-            runs[name] = run = train_cli.train(["--data-path", archive, *argv, *extra,
+            runs[name] = run = train_cli.train(["--data-path", small, *argv, *extra,
                                                 "--out-dir", os.path.join(DATA_DIR, name)])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
@@ -2559,7 +2577,7 @@ def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict, archi
                     or c["rasterize"] or c["flash_attn"]:
                 raise AssertionError(f"{name}: launches {c} for {steps} steps")
             out[name] = dict(seconds=seconds, loss=run.loss_hist,
-                             steps_per_s=[DATA_ITEMS // STREAM_BATCH / s
+                             steps_per_s=[PROFILE_ITEMS // STREAM_BATCH / s
                                           for s in run.epoch_seconds],
                              launches=c)
             log(f"phase 14 {name} ({card}, deterministic algorithms): " + json.dumps(out[name]))
@@ -2571,7 +2589,7 @@ def _phase14_stream(set_counts_to_zero, counts, card: str, launches: dict, archi
         raise AssertionError(f"--stream differs from the resident path: {a.loss_hist} against "
                              f"{b.loss_hist}")
     set_counts_to_zero()
-    run = train_cli.train(["--data-path", os.path.join(DATA_DIR, "small.npz"), *argv,
+    run = train_cli.train(["--data-path", small, *argv, "--epochs", "1",
                            "--stream", "2", "--profile-dir", os.path.join(DATA_DIR, "trace"),
                            "--out-dir", os.path.join(DATA_DIR, "train_profile")])
     launches["train_profile"] = counts()
@@ -2676,7 +2694,7 @@ def _phase14_prior(set_counts_to_zero, counts, card: str, launches: dict, archiv
     for name, extra in (("prior_train", ["--epochs", "2", "--rebuild-latents"]),
                         ("prior_resume", ["--epochs", "1", "--resume"]),
                         ("prior_sample", ["--sample-only"]),
-                        ("prior_moe4", ["--epochs", "2", "--moe-experts", "4", "--sample-every",
+                        ("prior_moe4", ["--epochs", "1", "--moe-experts", "4", "--sample-every",
                                         "0", "--ckpt-every", "0", "--prior-ckpt",
                                         "checkpoints/moe4.msgpack"]),
                         ("prior_cache_procedural", ["--procedural", "--max-items",
@@ -2732,7 +2750,7 @@ def phase_prior_data(set_counts_to_zero, counts, card: str, mop_scores: dict) ->
     """The latent prior and the rest of the data path (module docstring, phase 14)."""
     launches: dict = {}
     out, archive = _phase14_data(set_counts_to_zero, counts, card, launches)
-    out["stream"] = _phase14_stream(set_counts_to_zero, counts, card, launches, archive)
+    out["stream"] = _phase14_stream(set_counts_to_zero, counts, card, launches)
     prior, trained = _phase14_prior(set_counts_to_zero, counts, card, launches, archive,
                                     mop_scores)
     out.update(prior)
@@ -2982,11 +3000,11 @@ def phase_parallel(set_counts_to_zero, counts, card: str) -> dict:
 # Phase 16: the space axis and serving on a mesh, on one card: two ranks share
 # cuda:0 over gloo, so nothing here times NCCL or a collective across cards
 SPACE_DIR = os.path.join(ROOT, "runs", "chip_smoke_space")
-SPACE_HI_STEPS = 20          # SDE steps of the 256x256 request (cut from 300 for time)
+SPACE_HI_STEPS = 10          # SDE steps of the 256x256 request (cut from 300, then 20)
 SPACE_HI_IMAGES = 12         # one 12-image dispatch, 24 rows under CFG
 SPACE_64_STEPS, SPACE_64_IMAGES = 10, 8
 SPACE_F4 = dict(n=8, n_steps=10, cfg=1.5)  # int8 sample_chunked, bf16, chunk 8
-SPACE_SERVE_STEPS, SPACE_SERVE_REQUESTS = 4, 16
+SPACE_SERVE_STEPS, SPACE_SERVE_REQUESTS = 4, 8  # requests cut from 16 for time
 # against one process: phase 15's tolerance (each rank's calls have other shapes,
 # and cuDNN picks its f32 algorithms by shape)
 SPACE_TOL = PAR_SAMPLE_TOL
@@ -3201,10 +3219,11 @@ def _space_world1(svc_cls, params: dict) -> dict:
 def _space_serve_cli(card: str) -> dict:
     """The serve CLI with --shard 2 on one card over gloo (phase 10's
     checkpoint, f32): a burst of seeded one-image requests, each answer
-    bit-equal to the same dispatch of a 2-rank mesh launched here with the
-    CLI's settings (TF32 as torch leaves it), and beside the one-process
-    service's dispatch of the same layout; then SIGTERM."""
+    bit-equal to the same dispatch of a 2-rank mesh launched here beside the
+    server with the CLI's settings (TF32 as torch leaves it), and beside the
+    one-process service's dispatch of the same layout; then SIGTERM."""
     import threading
+    from concurrent.futures import ThreadPoolExecutor
 
     from toycrystals_torch.parallel.multihost import launch
     from toycrystals_torch.parallel.parity import run_cases
@@ -3218,6 +3237,24 @@ def _space_serve_cli(card: str) -> dict:
     if DEVICE == "cpu":
         argv += ["--device", "cpu"]
     conds = [([i % 4], [0.05 * i], 200 + i) for i in range(SPACE_SERVE_REQUESTS)]
+    # the same dispatches on a 2-rank mesh launched here, with the CLI's settings,
+    # beside the server (their processes' start is most of their time)
+    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, steps=SPACE_SERVE_STEPS,
+                                            dtype="float32", buckets=(2,))
+    payload = load_score_payload(ckpt64)
+    requests = [(*svc.conditions(types, thetas), seed) for types, thetas, seed in conds]
+    case = dict(kind="service", config=payload["config"],
+                params=payload["state"].get("ema_params") or payload["state"]["params"],
+                buckets=(1, 4), settings=dict(steps=SPACE_SERVE_STEPS, dtype="float32"),
+                requests=requests)
+    dev_type = torch.device(DEVICE).type
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = ThreadPoolExecutor(1)
+    mesh_run = pool.submit(launch, run_cases, 2,
+                           ({"device": dev_type, "tf32": None, "cases": [case]},),
+                           device_type=dev_type, backend="gloo", device_ids=[0, 0], timeout=600)
+    pool.shutdown(wait=False)
     t0 = time.perf_counter()
     proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
@@ -3265,20 +3302,7 @@ def _space_serve_cli(card: str) -> dict:
         if code != 200:
             raise AssertionError(f"sharded server request {i}: {code}")
         answers.append(np.load(io.BytesIO(body)))
-    # the same dispatches on a 2-rank mesh launched here, with the CLI's settings
-    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, steps=SPACE_SERVE_STEPS,
-                                            dtype="float32", buckets=(2,))
-    payload = load_score_payload(ckpt64)
-    requests = [(*svc.conditions(types, thetas), seed) for types, thetas, seed in conds]
-    case = dict(kind="service", config=payload["config"],
-                params=payload["state"].get("ema_params") or payload["state"]["params"],
-                buckets=(1, 4), settings=dict(steps=SPACE_SERVE_STEPS, dtype="float32"),
-                requests=requests)
-    dev_type = torch.device(DEVICE).type
-    gc.collect()
-    torch.cuda.empty_cache()
-    two = launch(run_cases, 2, ({"device": dev_type, "tf32": None, "cases": [case]},),
-                 device_type=dev_type, backend="gloo", device_ids=[0, 0], timeout=600)
+    two = mesh_run.result()
     for i, x in enumerate(answers):
         if not np.array_equal(x, two[0][0]["x"][i]):
             raise AssertionError(f"sharded server request {i}: "
@@ -3761,12 +3785,31 @@ def phase_space_train(card: str) -> dict:
 
 # Phase 18: the "model" axis and HSDP, on one card: ranks share cuda:0 over gloo
 TENSOR_DIR = os.path.join(ROOT, "runs", "chip_smoke_tensor")
-# one 2-image SDE-20 request (4 rows under CFG; 4 images took 72 s per rank over gloo)
-TP_HI_STEPS, TP_HI_IMAGES = 20, 2
+# one 2-image SDE-6 request (4 rows under CFG; 4 images at SDE-20 took 72 s per rank over
+# gloo, 2 images 38 s, at SDE-10 29 s; cut to SDE-6 for the VAE's and the priors' cases)
+TP_HI_STEPS, TP_HI_IMAGES = 6, 2
 TP_F32_BATCH, TP_BF16_BATCH, TP_BF16_STEPS = 2, 8, 2
 TP_CLI = ["--procedural", "--img-size", "64", "--base-ch", "96", "--dtype", "bfloat16",
           "--n-samples", "64", "--batch-size", "32", "--sample-steps", "4",
           "--dist-backend", "gloo"]
+# the VAE and the priors at the README's widths: one f32 step each on the (1, 2) mesh, the
+# VAE's on images rendered by each rank (one rasterizer launch per rank per step)
+TP_VAE = dict(z_dim=VAE_Z, n_types=4, y_cont_dim=4, cond_drop=0.1)
+TP_PRIOR_BATCH, TP_THIN = 256, 1 << 16  # gradient entries kept per leaf from the ranks
+# the (data 2, model 2) job under FSDP2: one 64x64 f32 SDE step and one VAE step
+TP2D_SDE_BATCH = 8
+# the VAE and prior train CLIs beside phase 17's and 18's score-model CLIs
+# Phase 18 runs its (data 1, model 2) job, its (data 2, model 2) job and the train CLIs
+# on the card at once, and its one-process references while the CLIs still run: every
+# time it reports carries this note
+TP_CONTENDED = ("contended: phase 18's two mesh jobs and its train CLIs shared the card, so "
+                "these times are not comparable with a phase run alone")
+TP_VAE_CLI = ["--procedural", "--n-samples", "1280", "--batch-size", str(VAE_BATCH),
+              "--z-dim", str(VAE_Z), "--dist-backend", "gloo"]
+# the prior CLI: the README's recipe on a cache of its own, 2,560 procedural items (10
+# steps), and a DDIM-10 grid (cut from 50 for time)
+TP_PRIOR_CLI = [*PRIOR_RECIPE, "--ddim-steps", "10", "--procedural", "--max-items", "2560",
+                "--rebuild-latents", "--dist-backend", "gloo"]
 
 
 def _train_cli_runs() -> dict:
@@ -3783,7 +3826,7 @@ def _train_cli_runs() -> dict:
 
 def _tp_cases() -> dict:
     """The 256x256 model (base_ch 96, stem none, param v, logsnr_shift -2.77)
-    at full width: a TP_HI_IMAGES-image SDE-20 request in f32 through
+    at full width: a TP_HI_IMAGES-image SDE-TP_HI_STEPS request in f32 through
     ScoreModelService, one f32 step at batch TP_F32_BATCH and TP_BF16_STEPS
     bf16 steps at batch TP_BF16_BATCH on rendered images and injected (t, eps)."""
     from toycrystals_torch.data.datasets import generate_batch
@@ -3814,7 +3857,56 @@ def _tp_cases() -> dict:
                           y_cont=r.normal(size=(steps, b, 4)).astype(np.float32),
                           t=r.uniform(0.02, 1.0, (steps, b)).astype(np.float32),
                           eps=r.normal(size=x0.shape).astype(np.float32)))
+    cases += _tp_trainer_cases()
     return {"device": torch.device(DEVICE).type, "tf32": False, "cases": cases}
+
+
+def _tp_trainer_cases() -> list:
+    """The VAE (z 32, batch 128, its epoch on images each rank renders) and
+    the FiLM and MoE-4 priors (width 1024, 8 blocks, batch 256, the README's
+    schedule) at full width, one f32 step each, the weights drawn on every
+    rank from a seed."""
+    from toycrystals_torch.models.diffusion_prior import DiffusionSchedule
+
+    r = np.random.default_rng(29)
+    b, z = TP_PRIOR_BATCH, PRIOR_KW["z_dim"]
+    sched = DiffusionSchedule.linear(1000, 1e-4, 0.05)
+    cases = [dict(kind="vae_epoch", model=TP_VAE, init_seed=30, batch=VAE_BATCH,
+                  items=VAE_BATCH, lattice=dict(img_size=64, n_types=4, rot_only=True),
+                  seed=31, beta_eff=3e-4 / 5, free_bits=0.05, opt={"lr": 2e-3})]
+    for i, extra in enumerate(({}, {"n_experts": 4})):
+        cases.append(dict(kind="prior", model=dict(PRIOR_KW, **extra), init_seed=32 + i,
+                          betas=sched.betas.numpy(), alpha_bars=sched.alpha_bars.numpy(),
+                          z0n=r.normal(size=(b, z)).astype(np.float32),
+                          y_cat=r.integers(0, 4, b).astype(np.int32),
+                          y_cont=r.uniform(0, 1, (b, 4)).astype(np.float32),
+                          t=r.integers(0, 1000, b).astype(np.int32),
+                          eps=r.normal(size=(b, z)).astype(np.float32),
+                          aux_weight=0.01 if extra else 0.0, opt={"lr": 1e-4}, thin=TP_THIN))
+    return cases
+
+
+def _tp2d_cases() -> dict:
+    """The (data 2, model 2) job under FSDP2: one 64x64 f32 SDE step of the
+    full-width stem-none model on rendered images and injected (t, eps), and
+    the VAE's epoch of `_tp_trainer_cases`."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    r, b = np.random.default_rng(34), TP2D_SDE_BATCH
+    x0 = generate_batch(LatticeConfig(img_size=64, rot_only=True), 1, np.arange(b),
+                        device="cpu")[0].numpy()[None]
+    sde = dict(kind="sde", model=dict(kw, stem="none"), init_seed=35,
+               opt={"lr": TRAIN_LR, "ema": 0.999, "clip": 1.0}, x0=x0,
+               y_cat=r.integers(0, 5, (1, b)).astype(np.int32),
+               y_cont=r.normal(size=(1, b, 4)).astype(np.float32),
+               t=r.uniform(0.02, 1.0, (1, b)).astype(np.float32),
+               eps=r.normal(size=x0.shape).astype(np.float32))
+    vae = _tp_trainer_cases()[0]
+    return {"device": torch.device(DEVICE).type, "tf32": False,
+            "cases": [dict(c, fsdp=True) for c in (sde, vae)]}
 
 
 def _run_side_by_side(argvs: dict) -> dict:
@@ -3844,17 +3936,32 @@ def _train_clis(card: str) -> dict:
     DCP), --shard-model 2 (2 ranks) and --shard 2 --shard-space 2 --fsdp
     (HSDP into DCP, 4 ranks). 1 epoch, then --resume to 2, which ends in a
     grid sampled on each run's mesh; beside the resumes, the sample CLI with
-    --shard-model 2 on the model-axis run's first msgpack checkpoint."""
+    --shard-model 2 on the model-axis run's first msgpack checkpoint. Beside
+    them, the VAE trainer with --shard 2 --shard-model 2 --fsdp (4 ranks, 1
+    epoch, then --resume to 2) and, beside the first epochs, the prior
+    trainer at the README's recipe with --shard-model 2 (2 ranks, 1 epoch on
+    the latents of phase 13's VAE, DDIM-10)."""
     from toycrystals_torch.utils.checkpoint import load_checkpoint
     from toycrystals_torch.utils.orbax_io import load_orbax_meta
 
     out, train, runs = {}, "toycrystals_torch.scripts.train_sde_score_model", _train_cli_runs()
     first = os.path.join(TENSOR_DIR, "tp_epoch_1.msgpack")
     png = os.path.join(TENSOR_DIR, "tp_sample.png")
+    vae_dir, prior_dir = os.path.join(TENSOR_DIR, "cli_vae_2d"), os.path.join(TENSOR_DIR,
+                                                                              "cli_prior_tp")
+    vae = ["toycrystals_torch.scripts.train_vae", *TP_VAE_CLI, "--shard", "2", "--shard-model",
+           "2", "--fsdp", "--out-dir", vae_dir]
     for epochs, more in ((1, ["--sample-every", "0"]), (2, ["--resume", "--sample-every", "1"])):
         t0 = time.perf_counter()
         argvs = {name: [train, *flags, "--stem", stem, "--epochs", str(epochs), *more,
                         "--out-dir", run] for name, (run, flags, stem) in runs.items()}
+        argvs["vae_2d"] = vae + ["--epochs", str(epochs)] + (["--resume"] if epochs == 2 else [])
+        if epochs == 1:
+            argvs["prior_tp"] = ["toycrystals_torch.scripts.train_diffusion_prior",
+                                 *TP_PRIOR_CLI, "--shard-model", "2", "--epochs", "1",
+                                 "--vae-ckpt", os.path.join(VAE_DIR, "checkpoints",
+                                                            "vae_last.msgpack"),
+                                 "--out-dir", prior_dir]
         if epochs == 2:  # the sample CLI beside the resumes, on the first epoch's checkpoint
             argvs["sample"] = ["toycrystals_torch.scripts.sample_sde_score_model", "--out-dir",
                                TENSOR_DIR, "--ckpt", first, "--steps", "4", "--n", "4",
@@ -3862,9 +3969,18 @@ def _train_clis(card: str) -> dict:
                                "--out-path", png]
         texts = _run_side_by_side(argvs)
         out[f"train_epochs_{epochs}_seconds"] = time.perf_counter() - t0
-        for name in runs:
+        for name in [*runs, "vae_2d"] + (["prior_tp"] if epochs == 1 else []):
             out.setdefault(name, {})["coverage"] = re.findall(
                 r"(?:tensor parallelism|fsdp): .*", texts[name])
+        if epochs == 1:
+            losses = [float(v) for v in re.findall(r"diffusion_loss=(\S+)", texts["prior_tp"])]
+            ckpt = os.path.join(prior_dir, "checkpoints", "diffusion_prior_last.msgpack")
+            grid = os.path.join(prior_dir, "results", "diffusion_samples.png")
+            if not (len(losses) == 1 and np.isfinite(losses).all() and os.path.exists(ckpt)
+                    and read_png_gray(grid).size and len(out["prior_tp"]["coverage"]) == 1):
+                raise AssertionError(f"prior CLI --shard-model 2: losses {losses}, "
+                                     f"{texts['prior_tp'][-2000:]}")
+            out["prior_tp"]["losses"] = losses
         if epochs == 1:
             shutil.copy(os.path.join(runs["tp"][0], "checkpoints", "sde_score_model_last.msgpack"),
                         first)
@@ -3888,29 +4004,45 @@ def _train_clis(card: str) -> dict:
     img = read_png_gray(png)
     if not (img.size and np.isfinite(img).all()):
         raise AssertionError(f"sample CLI --shard-model 2 wrote no grid at {png}")
+    raw = load_checkpoint(os.path.join(vae_dir, "checkpoints", "vae_last.msgpack"))
+    hist = [float(raw["hists"]["loss"][str(i)]) for i in range(len(raw["hists"]["loss"]))]
+    grids = sorted(os.listdir(os.path.join(vae_dir, "results")))
+    if not (int(raw["epoch_next"]) == 2 and len(hist) == 2 and np.isfinite(hist).all()
+            and grids == ["vae_recon.png", "vae_samples_mop.png", "vae_samples_prior.png"]
+            and len(out["vae_2d"]["coverage"]) == 2):
+        raise AssertionError(f"VAE CLI --shard 2 --shard-model 2 --fsdp: epoch_next "
+                             f"{raw['epoch_next']}, losses {hist}, grids {grids}, coverage "
+                             f"{out['vae_2d']['coverage']}")
+    out["vae_2d"].update(losses=hist, grids=grids)
     log(f"train CLIs side by side (64x64, base_ch 96, bf16, ranks on one card over gloo, "
-        f"{card}; the times are the ranks' host copies and time-slicing, not NVLink): "
-        f"{json.dumps(out)}")
+        f"{card}; the times are the ranks' host copies and time-slicing, not NVLink; "
+        f"{TP_CONTENDED}): {json.dumps(out)}")
     return out
 
 
 def phase_tensor(card: str) -> dict:
     """Phase 18: the "model" axis and HSDP (module docstring)."""
-    from toycrystals_torch.parallel.multihost import launch
+    from concurrent.futures import ThreadPoolExecutor
+
     from toycrystals_torch.parallel.parity import run_cases
     from toycrystals_torch.serve import ScoreModelService
 
     shutil.rmtree(TENSOR_DIR, ignore_errors=True)
     os.makedirs(TENSOR_DIR)
     t0 = time.perf_counter()
-    out: dict = {"card": card, "launches": {}}
+    out: dict = {"card": card, "launches": {}, "times": TP_CONTENDED}
     spec = _tp_cases()
     gc.collect()
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    two = launch(run_cases, 2, ({**spec, "mesh": [1, 2, "model"]},), device_type=spec["device"],
-                 backend="gloo", device_ids=[0, 0], timeout=600)
-    out["mesh_job_s"] = time.perf_counter() - t1
+    pool = ThreadPoolExecutor(2)
+    # the train CLIs and the (data 2, model 2) job beside the (data 1, model 2)
+    # job: most of their time is their processes' start and gloo's host copies
+    clis = pool.submit(_train_clis, card)
+    job_2d = pool.submit(_launch_timed, _tp2d_cases(), [2, 2, "model"], 4)
+    try:
+        two, out["mesh_job_s"] = _launch_timed(spec, [1, 2, "model"], 2)
+    finally:
+        four, job_2d_s = job_2d.result()
     gc.collect()
     torch.cuda.empty_cache()
     one = run_cases({**spec, "cases": spec["cases"][1:]})
@@ -3950,7 +4082,8 @@ def phase_tensor(card: str) -> dict:
     del svc
     log(f"tensor 256x256 {TP_HI_IMAGES} images SDE-{TP_HI_STEPS} f32 on a (data 1, model 2) "
         f"mesh (two ranks on one card over gloo, {card}; the times are the ranks' host "
-        f"copies and time-slicing, not NVLink): {d:.3e} from the one-process dispatch "
+        f"copies and time-slicing, not NVLink; {TP_CONTENDED}): {d:.3e} from the "
+        f"one-process dispatch "
         f"(tolerance {SPACE_TOL}); {req['seconds'][0]:.2f} / {req['seconds'][1]:.2f} s per "
         f"rank against {req['seconds_one_process']:.2f} s in one process; peak "
         f"{req['peak_bytes'][0] / gib:.2f} / {req['peak_bytes'][1] / gib:.2f} GiB against "
@@ -3992,7 +4125,8 @@ def phase_tensor(card: str) -> dict:
         out[name] = rec
         log(f"tensor training 256x256 {name} batch {len(spec['cases'][i]['y_cat'][0])} on a "
             f"(data 1, model 2) mesh (two ranks on one card over gloo, {card}; host copies and "
-            f"time-slicing, not NVLink): losses {r0['losses']} against {want['losses']} in one "
+            f"time-slicing, not NVLink; {TP_CONTENDED}): losses {r0['losses']} against "
+            f"{want['losses']} in one "
             f"process ({rec['loss_rel_diff']:.3e} relative"
             + (f"; gradients {rec['grad_worst_share']:.3f} of phase 7's limits, parameters "
                f"{rec['param_worst_share']:.3f} and EMA {rec['ema_worst_share']:.3f} of theirs "
@@ -4002,12 +4136,99 @@ def phase_tensor(card: str) -> dict:
             f"{rec['peak_bytes'][1] / gib:.2f} GiB against "
             f"{rec['peak_bytes_one_process'] / gib:.2f}; launches per rank per step "
             f"{json.dumps(per_step)}")
+    # (c) the VAE's and the priors' steps at full width against one process
+    for i, name in enumerate(("vae", "film", "moe4"), start=3):
+        out[name] = _tp_hold_trainer_step(name, [res[i] for res in two], one[i - 1], zero,
+                                          out["launches"], card)
     del two, one
     gc.collect()
     torch.cuda.empty_cache()
-    out["cli"] = _train_clis(card)
+    out["mesh_2d"] = _tp2d_hold(four, zero, out["launches"], card)
+    out["mesh_2d"]["job_s"] = job_2d_s
+    out["cli"] = clis.result()
+    pool.shutdown()
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def _tp_hold_trainer_step(name: str, ranks: list, want: dict, zero: dict, launches: dict,
+                          card: str) -> dict:
+    """One step of `_tp_trainer_cases` (or `_tp2d_cases`) on the ranks of a
+    model mesh against one process: exact launches per rank (the VAE 1
+    rasterizer launch and nothing else, the priors none, the SDE step 10 +
+    10 gn_silu), the same loss on every rank and within 1e-5 relative of one
+    process, the gradients within phase 7's limits (`_leafwise`), and the MoE
+    route fractions within 1e-6."""
+    sde = name.endswith("sde")
+    per_step = dict(zero, gn_silu=10, gn_silu_backward=10) if sde else \
+        dict(zero, rasterize=1 if name.endswith("vae") else 0)
+    for rank, res in enumerate(ranks):
+        launches[f"tensor_{name}_rank{rank}"] = res["launches"]
+        if res["launches"] != per_step:
+            raise AssertionError(f"tensor {name} rank {rank}: launches {res['launches']}, "
+                                 f"expected {per_step}")
+
+    def loss(res):
+        return res["losses"][0] if sde else float(np.asarray(res["metrics"]["loss"]))
+
+    if len({loss(res) for res in ranks}) != 1:
+        raise AssertionError(f"tensor {name}: the ranks' losses differ: "
+                             f"{[loss(res) for res in ranks]}")
+    r0 = ranks[0]
+    grads = [r["grads"][0] if isinstance(r["grads"], list) else r["grads"] for r in (r0, want)]
+    ms = "epoch_ms" if "epoch_ms" in want else "step_ms"
+    rec = {"loss": loss(r0), "loss_one_process": loss(want),
+           "loss_rel_diff": abs(loss(r0) - loss(want)) / abs(loss(want)),
+           "grad_worst_share": _leafwise(*grads, f"tensor {name} gradient"),
+           "ms_per_rank": [res[ms] if not sde else res[ms][0] for res in ranks],
+           "ms_one_process": want[ms] if not sde else want[ms][0],
+           "peak_bytes": [res.get("peak_bytes", 0) for res in ranks],
+           "peak_bytes_one_process": want.get("peak_bytes", 0),
+           "launches_per_rank_per_step": per_step}
+    if r0.get("route_fraction") is not None:
+        rec["route_max_abs_diff"] = max(float(np.abs(a - b).max()) for a, b in zip(
+            r0["route_fraction"], want["route_fraction"]))
+        if not rec["route_max_abs_diff"] <= 1e-6:
+            raise AssertionError(f"tensor {name}: route fractions {rec['route_max_abs_diff']}")
+    if not rec["loss_rel_diff"] <= 1e-5:
+        raise AssertionError(f"tensor {name} against one process: {rec}")
+    gib = 2.0**30
+    log(f"tensor training {name} on {len(ranks)} ranks of a model mesh (one card over gloo, "
+        f"{card}; host copies and time-slicing, not NVLink; {TP_CONTENDED}): loss "
+        f"{rec['loss']} against "
+        f"{rec['loss_one_process']} in one process ({rec['loss_rel_diff']:.3e} relative), "
+        f"gradients {rec['grad_worst_share']:.3f} of phase 7's limits"
+        + (f", route fractions {rec['route_max_abs_diff']:.1e} apart" if "route_max_abs_diff"
+           in rec else "")
+        + f"; ms per rank {[round(v, 1) for v in rec['ms_per_rank']]} against "
+        f"{rec['ms_one_process']:.1f}; peak "
+        f"{' / '.join(f'{v / gib:.2f}' for v in rec['peak_bytes'])} GiB against "
+        f"{rec['peak_bytes_one_process'] / gib:.2f}; launches per rank per step "
+        f"{json.dumps(per_step)}")
+    return rec
+
+
+def _launch_timed(spec: dict, mesh: list, n: int) -> tuple[list, float]:
+    """`run_cases` of `spec` on `mesh` in n ranks on cuda:0 over gloo, and the
+    job's seconds."""
+    from toycrystals_torch.parallel.multihost import launch
+    from toycrystals_torch.parallel.parity import run_cases
+
+    t0 = time.perf_counter()
+    out = launch(run_cases, n, ({**spec, "mesh": mesh},), device_type=spec["device"],
+                 backend="gloo", device_ids=[0] * n, timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def _tp2d_hold(four: list, zero: dict, launches: dict, card: str) -> dict:
+    """The (data 2, model 2) job under FSDP2 (`_tp2d_cases`, four ranks)
+    against the same cases in this process."""
+    from toycrystals_torch.parallel.parity import run_cases
+
+    one = run_cases(_tp2d_cases())
+    return {name: _tp_hold_trainer_step(name, [res[i] for res in four], one[i], zero, launches,
+                                        card)
+            for i, name in enumerate(("2d_sde", "2d_vae"))}
 
 
 def main() -> int:
@@ -4256,7 +4477,10 @@ def main() -> int:
             *((f"tensor_hi_rank{r}", ("gn_silu", "flash_attn")) for r in (0, 1)),
             *((f"tensor_train_{name}_rank{r}", ("gn_silu", "gn_silu_backward", "flash_attn",
                                                 "flash_attn_backward"))
-              for name in ("f32", "bf16") for r in (0, 1)))
+              for name in ("f32", "bf16") for r in (0, 1)),
+            *((f"tensor_vae_rank{r}", ("rasterize",)) for r in (0, 1)),
+            *((f"tensor_2d_sde_rank{r}", ("gn_silu", "gn_silu_backward")) for r in range(4)),
+            *((f"tensor_2d_vae_rank{r}", ("rasterize",)) for r in range(4)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -4349,6 +4573,7 @@ def main() -> int:
         "launches_prior_data": {k: paths[k]["rasterize"]
                                 for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["rasterize"] for k in report["parallel"]["launches"]},
+        "launches_tensor": {k: paths[k]["rasterize"] for k in report["tensor"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",

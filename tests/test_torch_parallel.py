@@ -218,11 +218,19 @@ def test_setup_mesh_refuses_as_jax_does(shard, batch, match):
 
 @pytest.mark.parametrize("flag", ["shard_space", "shard_model"])
 def test_setup_mesh_refuses_the_model_axes(flag):
-    """--shard-model with --shard-space (JAX's 3-D mesh), and --shard-model
-    where the caller takes no model axis (the VAE and prior trainers)."""
-    axes = {"shard_model": 2, flag: 2}
+    """--shard-model with --shard-space (JAX's 3-D mesh): `setup_mesh`
+    refuses it, and so does `spawn_shards` before any rank starts (every
+    trainer takes --shard-model now, the VAE's and the prior's too)."""
+    import argparse
+
+    from toycrystals_torch.scripts._common import spawn_shards
+
     with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
-        setup_mesh(2, 16, device=torch.device("cpu"), model=flag == "shard_space", **axes)
+        if flag == "shard_space":
+            setup_mesh(2, 16, device=torch.device("cpu"), shard_space=2, shard_model=2)
+        else:
+            spawn_shards(argparse.Namespace(shard=2, shard_space=2, shard_model=2,
+                                            device="cpu"), None, [])
 
 
 def test_a_mesh_with_a_model_axis_raises():

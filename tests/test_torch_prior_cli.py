@@ -175,8 +175,11 @@ def test_moe_prior_trains_and_reports_routes(runs, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--shard-pipe", "2"], ["--shard-expert", "2"],
-                                   ["--shard-model", "2"], ["--pipe-micro", "2"]])
+                                   ["--shard-model", "2", "--pipe-micro", "2"],
+                                   ["--pipe-micro", "2"]])
 def test_deferred_flags_exit_naming_module_5(runs, flags):
+    """The pipeline and expert axes refuse, naming their ROADMAP item; with
+    --shard-model, which runs, as well."""
     _, common, _, _ = runs
     with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
         prior_cli.train(common + flags)

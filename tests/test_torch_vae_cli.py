@@ -111,8 +111,11 @@ def test_uncond_per_batch_trains_and_draws(tmp_path):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="module 5"):
-        vae_cli.train(TINY + ["--shard-model", "2", "--out-dir", str(tmp_path)])
+    with monkeypatch.context() as m:  # ranks joined by the cluster flags: JAX's refusal
+        m.setattr(vae_cli, "init_distributed", lambda *a: True)
+        for flag in (["--shard-model", "2"], ["--fsdp"]):
+            with pytest.raises(SystemExit, match="multi-host --fsdp/--shard-model"):
+                vae_cli.train(TINY + flag + ["--out-dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="--coordinator auto detects"):
         vae_cli.train(TINY + ["--coordinator", "auto", "--num-processes", "2",
                               "--out-dir", str(tmp_path)])

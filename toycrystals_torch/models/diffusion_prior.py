@@ -24,6 +24,16 @@ Counterpart of toycrystals_tpu/models/diffusion_prior.py:
 LayerNorms use flax's epsilon 1e-6; torch computes the variance in two
 passes where flax takes E[x^2] - E[x]^2, a difference of rounding only. The
 math is f32: the JAX module's `dtype` knob is not ported.
+
+Under a "model" axis (parallel/tensor.py; the train step's dispatch scope)
+every dense layer and embedding whose weight the trailing-dim rule shards
+gives the rank's block of its output features from the whole input, and the
+residual stream, the conditioning vector and every concat are whole: each
+block is gathered where it is consumed. Two consumers need the whole first:
+a block's FiLM chunk of its `cond` output (JAX's contiguous block puts all
+of gamma on one rank and all of beta on the other at M = 2), and the
+LayerNorms, which normalise over the whole width and gather their sharded
+affine (`tp.layer_norm`).
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from toycrystals_torch.parallel import tensor as tp
 from toycrystals_torch.utils.rng import randn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon
@@ -70,6 +81,12 @@ def _mlp(d_in: int, d_hidden: int, d_out: int) -> nn.Sequential:
     return nn.Sequential(nn.Linear(d_in, d_hidden), nn.SiLU(), nn.Linear(d_hidden, d_out))
 
 
+def silu_mlp(first: nn.Linear, second: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """second(silu(first(x))), its output whole: under a model axis the SiLU
+    runs on the hidden layer's block, which the second layer gathers."""
+    return tp.dense(second, F.silu(tp.apply(first, x, first.in_features, -1)))
+
+
 class FiLMResBlock(nn.Module):
     """LayerNorm -> FiLM (gamma, beta from the cond vector) -> MLP (mult x
     width, SiLU) -> residual."""
@@ -82,11 +99,11 @@ class FiLMResBlock(nn.Module):
         self.fc2 = nn.Linear(mult * width, width)
 
     def film(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        gamma, beta = self.cond(cond).chunk(2, dim=-1)
-        return self.norm(x) * (1.0 + gamma) + beta
+        gamma, beta = tp.dense(self.cond, cond).chunk(2, dim=-1)  # whole before the chunk
+        return tp.layer_norm(self.norm, x) * (1.0 + gamma) + beta
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        return x + self.fc2(F.silu(self.fc1(self.film(x, cond))))
+        return x + silu_mlp(self.fc1, self.fc2, self.film(x, cond))
 
 
 class DiffusionPriorFiLM(nn.Module):
@@ -114,17 +131,19 @@ class DiffusionPriorFiLM(nn.Module):
 
     def cond(self, t: torch.Tensor, y_cat: torch.Tensor, y_cont: torch.Tensor) -> torch.Tensor:
         """The FiLM conditioning vector [B, 2 width]: t features ++ y features."""
-        t_feat = self.t_mlp(timestep_embedding_discrete(t, self.t_emb_dim, self.t_freqs))
-        y_feat = torch.cat([self.y_cat_emb(y_cat.long()), self.y_cont_mlp(y_cont.float())],
-                           dim=-1)
-        return torch.cat([t_feat, self.y_fuse(y_feat)], dim=-1)
+        t_feat = silu_mlp(self.t_mlp[0], self.t_mlp[2],
+                          timestep_embedding_discrete(t, self.t_emb_dim, self.t_freqs))
+        emb = tp.whole(self.y_cat_emb(y_cat.long()), self.y_cat_emb.embedding_dim, -1)
+        cont = silu_mlp(self.y_cont_mlp[0], self.y_cont_mlp[2], y_cont.float())
+        y_feat = torch.cat([emb, cont], dim=-1)
+        return torch.cat([t_feat, silu_mlp(self.y_fuse[0], self.y_fuse[2], y_feat)], dim=-1)
 
     def forward(self, z_t, t, y_cat, y_cont) -> torch.Tensor:
         cond = self.cond(t, y_cat, y_cont)
-        h = self.in_proj(z_t.float())
+        h = tp.dense(self.in_proj, z_t.float())
         for block in self.blocks:
             h = block(h, cond)
-        return self.out_proj(self.out_norm(h))
+        return tp.dense(self.out_proj, tp.layer_norm(self.out_norm, h))
 
 
 class DiffusionPrior(nn.Module):

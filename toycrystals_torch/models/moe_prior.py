@@ -19,8 +19,15 @@ replaced by `n_experts` switch-routed expert MLPs (`MoEFiLMResBlock`):
   block]}). The module keeps no state between calls;
 - on a data mesh (`forward(..., mesh=)`, each rank holding its rows of the
   batch) f_e and p_e are the global batch's, as under JAX's GSPMD: both means
-  are averaged over the ranks, p_e by a differentiable all-reduce, so the
-  term and its gradient are those of the unsharded batch.
+  are averaged over the ranks of the "data" axis (the model ranks of a data
+  coordinate hold the same rows), p_e by a differentiable all-reduce, so the
+  term and its gradient are those of the unsharded batch;
+- under a "model" axis (parallel/tensor.py) the FiLM stem and head run as
+  models/diffusion_prior.py says, the router's E logits are gathered before
+  the softmax and the argmax, and the experts' weights are sharded on their
+  trailing dims: each rank computes its block of the f hidden features, the
+  second layer gathers them and gives its block of the d outputs, which the
+  combine gathers.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.models.diffusion_prior import LN_EPS, DiffusionPriorFiLM
-from toycrystals_torch.parallel.mesh import all_reduce_sum
+from toycrystals_torch.parallel import spatial
+from toycrystals_torch.parallel import tensor as tp
+from toycrystals_torch.parallel.mesh import replica_group
 
 
 class MoEFiLMResBlock(nn.Module):
@@ -40,7 +49,7 @@ class MoEFiLMResBlock(nn.Module):
     def __init__(self, width: int, cond_dim: int, n_experts: int, mult: int = 4):
         super().__init__()
         d, f, e = width, mult * width, n_experts
-        self.n_experts = e
+        self.n_experts, self.width, self.hidden = e, d, f
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
         self.cond = nn.Linear(cond_dim, 2 * d)
         self.router = nn.Linear(cond_dim, e)
@@ -50,21 +59,30 @@ class MoEFiLMResBlock(nn.Module):
         self.b2 = nn.Parameter(torch.zeros(e, d))
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor, mesh=None):
-        gamma, beta = self.cond(cond).chunk(2, dim=-1)
-        h = self.norm(x) * (1.0 + gamma) + beta
-        probs = torch.softmax(self.router(cond.float()), dim=-1)        # [B, E]
+        gamma, beta = tp.dense(self.cond, cond).chunk(2, dim=-1)
+        h = tp.layer_norm(self.norm, x) * (1.0 + gamma) + beta
+        probs = torch.softmax(tp.dense(self.router, cond.float()), dim=-1)  # [B, E]
         onehot = F.one_hot(probs.argmax(dim=-1), self.n_experts).to(probs.dtype)
         combine = onehot * (probs * onehot).sum(dim=-1, keepdim=True)
         f_e, p_e = onehot.mean(dim=0), probs.mean(dim=0)
         if mesh is not None and mesh.size() > 1:
+            import torch.distributed as dist
             from torch.distributed.nn.functional import all_reduce
 
-            f_e = all_reduce_sum(mesh, f_e) / mesh.size()
-            p_e = all_reduce(p_e, group=mesh.get_group()) / mesh.size()
+            group, n = replica_group(mesh)
+            f_e = f_e.clone()
+            dist.all_reduce(f_e, group=group)
+            f_e, p_e = f_e / n, all_reduce(p_e, group=group) / n
         aux = self.n_experts * (f_e * p_e).sum()
+        d, f, shard = self.width, self.hidden, spatial.current_model()
+        h = tp.sharded_input(h, tp.param_block(self, "w1"), d, -1)
         he = torch.einsum("bd,edf->ebf", h, self.w1) + self.b1[:, None, :]   # [E, B, f]
-        he = torch.einsum("ebf,efd->ebd", F.silu(he), self.w2) + self.b2[:, None, :]
-        return x + torch.einsum("ebd,be->bd", he, combine), aux, f_e
+        second = tp.param_block(self, "w2")
+        he = tp.sharded_input(F.silu(he), second, f, -1)
+        he = torch.einsum("ebf,efd->ebd", he, self.w2) + self.b2[:, None, :]
+        if second is not None and shard is not None:  # the combine's share of each block
+            combine = tp.copy_to_model(combine, shard)
+        return x + tp.whole(torch.einsum("ebd,be->bd", he, combine), d, -1), aux, f_e
 
 
 class DiffusionPriorMoE(DiffusionPriorFiLM):
@@ -84,11 +102,11 @@ class DiffusionPriorMoE(DiffusionPriorFiLM):
 
     def forward(self, z_t, t, y_cat, y_cont, return_stats: bool = False, mesh=None):
         cond = self.cond(t, y_cat, y_cont)
-        h = self.in_proj(z_t.float())
+        h = tp.dense(self.in_proj, z_t.float())
         stats: dict[str, list[torch.Tensor]] = {"moe_aux": [], "route_fraction": []}
         for block in self.blocks:
             h, aux, frac = block(h, cond, mesh)
             stats["moe_aux"].append(aux)
             stats["route_fraction"].append(frac)
-        eps = self.out_proj(self.out_norm(h))
+        eps = tp.dense(self.out_proj, tp.layer_norm(self.out_norm, h))
         return (eps, stats) if return_stats else eps

@@ -24,6 +24,16 @@ with the plain per-leaf transposes of utils/params.py
 (the reparameterisation's eps, then the cond-drop mask) come from an
 explicit `torch.Generator`, or are injected (`noise=`, `keep=`). The math is
 f32: the JAX module's `dtype` knob is not ported.
+
+Under a "model" axis (parallel/tensor.py; the train step's dispatch scope)
+each conv, transposed conv and dense layer whose weight the trailing-dim rule
+shards computes the rank's block of its output channels or features from
+the whole input, and the next layer gathers them. Three consumers gather
+first: the encoder's HWC flatten (a channel block is no block of the
+flattened features), the decoder's reshape of its dense output (a contiguous
+block of its 4,096 HWC columns is a band of rows, not of channels), and the
+reparameterisation and the KL (mu and logvar whole). The last transposed
+conv (1 channel) stays whole.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from toycrystals_torch.parallel import tensor as tp
 from toycrystals_torch.utils.rng import rand, randn
 
 _ENC_CH = (32, 64, 128, 256)
@@ -53,12 +64,14 @@ class _Encoder(nn.Module):
                 y: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         h = x.float().permute(0, 3, 1, 2)
         for i in range(4):
-            h = F.relu(getattr(self, f"Conv_{i}")(h))
+            conv = getattr(self, f"Conv_{i}")
+            h = F.relu(tp.apply(conv, h, conv.in_channels))
+        h = tp.whole(h, _C)  # every channel before the flatten
         h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)  # flax's HWC flatten order
         if y is not None:
             h = torch.cat([h, y], dim=1)
-        h = F.relu(self.Dense_0(h))
-        return self.mu(h), self.logvar(h)
+        h = F.relu(tp.dense(self.Dense_0, h))
+        return tp.dense(self.mu, h), tp.dense(self.logvar, h)
 
 
 class _Decoder(nn.Module):
@@ -73,10 +86,11 @@ class _Decoder(nn.Module):
 
     def forward(self, z: torch.Tensor, y: torch.Tensor | None = None) -> torch.Tensor:
         h = z.float() if y is None else torch.cat([z.float(), y], dim=1)
-        h = self.Dense_0(h)
+        h = tp.dense(self.Dense_0, h)  # every column before the reshape
         h = h.reshape(-1, _HW, _HW, _C).permute(0, 3, 1, 2)  # flax's NHWC reshape
         for i in range(4):
-            h = getattr(self, f"ConvTranspose_{i}")(h)
+            conv = getattr(self, f"ConvTranspose_{i}")
+            h = tp.apply(conv, h, conv.in_channels)
             h = F.relu(h) if i < 3 else torch.sigmoid(h)
         return h.permute(0, 2, 3, 1)
 

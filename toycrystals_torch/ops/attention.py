@@ -86,7 +86,8 @@ class GroupNorm(nn.Module):
             return group_norm_f32(a, sc, bi, g, self.eps).to(a.dtype)
 
         if spatial.current_model() is not None:
-            return model_groupwise(norm, x, self.weight, self.bias, self.channels, self.groups)
+            return model_groupwise(norm, x, self.weight, self.bias, self.channels, self.groups,
+                                   tp.param_block(self, "weight"))
         return norm(x, self.weight, self.bias, self.groups)
 
 
@@ -94,7 +95,7 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     """flax Dense(dtype=...): input and weights cast to `dtype` per call.
     Under a model axis the input is gathered whole, and a layer whose weight
     is a block gives the rank's block of output features."""
-    x = tp.sharded_input(x, layer.weight, layer.in_features, dim=-1)
+    x = tp.sharded_input(x, tp.param_block(layer, "weight"), layer.in_features, dim=-1)
     return torch.nn.functional.linear(x.to(dtype), layer.weight.to(dtype),
                                       layer.bias.to(dtype))
 
@@ -348,7 +349,7 @@ class SelfAttention2d(nn.Module):
         hd = c // self.num_heads
         y = tp.whole(self.GroupNorm_0(x), c).reshape(b, c, n).transpose(1, 2)   # [B, N, C]
         qkv = linear(y, self.qkv, self.dtype)
-        blk = tp.block_of(self.qkv.weight)
+        blk = tp.param_block(self.qkv, "weight")
         if blk is not None and blk.parts == 1:  # heads that do not split: all of them here
             qkv = tp.whole(qkv, 3 * c, dim=-1)
         heads = self.num_heads // blk.size if blk is not None and blk.parts == 3 \

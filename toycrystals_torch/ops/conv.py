@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from toycrystals_torch.parallel import spatial
-from toycrystals_torch.parallel.tensor import sharded_input
+from toycrystals_torch.parallel.tensor import param_block, sharded_input
 
 IMPLS = ("pad", "border", "int8")
 # im2col bytes per chunk of the int8 product (whole batch items per chunk)
@@ -207,7 +207,7 @@ class Conv2d(nn.Module):
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_ch * kernel_size * kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = sharded_input(x, self.weight, self.in_ch)
+        x = sharded_input(x, param_block(self, "weight"), self.in_ch)
         if self.int8:
             return int8_conv(x, self.weight, self.bias, self.stride, self.dtype, wrap=False)
         return conv_valid(x, self.weight, self.bias, self.stride, self.dtype)
@@ -228,7 +228,7 @@ class CircularConv(Conv2d):
         self.impl = impl
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = sharded_input(x, self.weight, self.in_ch)
+        x = sharded_input(x, param_block(self, "weight"), self.in_ch)
         if self.impl == "int8":
             return int8_conv(x, self.weight, self.bias, self.stride, self.dtype, wrap=True)
         space = spatial.current_space()

@@ -608,14 +608,15 @@ gn_silu.backward_apply_launches = 0  # the backward apply kernel (space axis)
 
 
 def model_groupwise(fn, x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                    channels: int, groups: int) -> torch.Tensor:
+                    channels: int, groups: int, blk) -> torch.Tensor:
     """A per-group op `fn(x, scale, bias, groups)` of x [B, C, ...] in a
     dispatch under a model axis, x the rank's block of the C channels where
-    the weights are blocks (the output of a sharded conv), else whole: on the
-    block where it holds whole groups (groups / M of them), else on the
-    gathered whole, keeping the rank's block where the weights are blocks."""
+    the weights are blocks (`blk`, the output of a sharded conv), else whole:
+    on the block where it holds whole groups (groups / M of them), else on
+    the gathered whole, keeping the rank's block where the weights are
+    blocks."""
     shard = spatial.current_model()
-    sharded = tp.block_of(scale) is not None
+    sharded = blk is not None
     if sharded and groups % shard.model == 0:
         return fn(x, scale, bias, groups // shard.model)
     if sharded:
@@ -637,7 +638,7 @@ class GroupNormSiLU(nn.Module):
         if spatial.current_model() is not None:
             return model_groupwise(
                 lambda a, sc, bi, g: gn_silu(a, sc, bi, g, self.eps, self.pad), x, self.weight,
-                self.bias, self.channels, self.groups)
+                self.bias, self.channels, self.groups, tp.param_block(self, "weight"))
         space = spatial.current_space()
         if space is not None:
             return gn_silu_space(x, self.weight, self.bias, self.groups, self.eps, self.pad,

@@ -1,7 +1,8 @@
 """The port's parallelism (counterpart of toycrystals_tpu/parallel/): process
-groups, the data mesh, FSDP2 placement (HSDP on a space axis), the space axis
-(`spatial`, on a ("data", "space") mesh) and the "model" axis of the score
-model (`tensor`, on a ("data", "model") mesh). The pipeline and expert axes
+groups, the data mesh, FSDP2 placement (HSDP on a space axis, 2-D weight
+sharding on a model axis), the space axis (`spatial`, on a ("data",
+"space") mesh) and the "model" axis of the score model, the VAE and the
+priors (`tensor`, on a ("data", "model") mesh). The pipeline and expert axes
 and the 3-D mesh are not ported yet (ROADMAP.md queue 1, module 5)."""
 
 from toycrystals_torch.parallel.fsdp import (

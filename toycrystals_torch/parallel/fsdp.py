@@ -26,8 +26,13 @@ train/state.py sum over the "data" shards only (each is held S times).
 
 On a ("data", "model") mesh (parallel/tensor.py) each rank holds its model
 block of the sharded leaves, and DDP averages the gradients over the "data"
-group of the rank's model coordinate. `full`, `like` and `copy_full_` read
-either layout: a DTensor, or a tensor tagged with its model `Block`.
+group of the rank's model coordinate. With `fsdp` there (JAX's 2-D weight
+sharding) the rule runs with the leaf's "model" dim excluded, as JAX's does
+where the trailing-dim rule shards the leaf, and FSDP2 shards each rank's
+blocks over the "data" sub-mesh of its model coordinate: a leaf may then be
+both a model block and a "data" shard, and the clip norm sums it over both
+axes. `full`, `like` and `copy_full_` read every layout: a DTensor, a
+tensor tagged with its model `Block`, or a DTensor so tagged.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from toycrystals_torch.parallel.mesh import (
     check_data_mesh,
     mesh_axes,
     mesh_group,
+    replica_group,
     replicate,
 )
 
@@ -63,14 +69,20 @@ def flax_order(module: nn.Module, name: str, p: torch.Tensor) -> tuple[int, ...]
     return tuple(range(p.dim()))
 
 
-def fsdp_sharding(n: int, shape: tuple[int, ...], order: tuple[int, ...] | None = None):
+def fsdp_sharding(n: int, shape: tuple[int, ...], order: tuple[int, ...] | None = None,
+                  model: int = 1):
     """The torch dim that JAX's rule shards over n ranks, or None (whole).
 
-    The rule runs on the flax layout (`order`, default the identity): the
-    largest dim evenly divisible by n, ties to the later flax dim."""
+    The rule runs on the flax layout (`order`, default the identity) of the
+    whole leaf: the largest dim evenly divisible by n, ties to the later
+    flax dim. On a mesh with a "model" axis of `model` > 1 ranks the last
+    flax dim is excluded where the model rule shards it (it divides by
+    `model`), as JAX's `fsdp_sharding` excludes it."""
     order = tuple(range(len(shape))) if order is None else tuple(order)
     logical = [int(shape[d]) for d in order]
-    cands = [i for i, d in enumerate(logical) if d % n == 0 and d >= n]
+    taken = len(logical) - 1 if model > 1 and logical and logical[-1] % model == 0 \
+        and logical[-1] >= model else None
+    cands = [i for i, d in enumerate(logical) if d % n == 0 and d >= n and i != taken]
     if not cands:
         return None
     return order[max(cands, key=lambda i: (logical[i], i))]
@@ -86,21 +98,25 @@ def param_layouts(model: nn.Module) -> list[tuple[str, nn.Parameter, tuple[int, 
     return out
 
 
-def fsdp_coverage(n: int, model: nn.Module) -> float:
-    """The share of parameter elements that the rule shards over n ranks:
-    print it when --fsdp is on, so that indivisible configs show."""
+def fsdp_coverage(n: int, model: nn.Module, m: int = 1) -> float:
+    """The share of parameter elements that the rule shards over n ranks
+    (on a mesh with a "model" axis of m ranks, the 2-D rule) of the whole
+    model: print it when --fsdp is on, so that indivisible configs show."""
     tot = sh = 0
     for _, p, order in param_layouts(model):
         tot += p.numel()
-        if fsdp_sharding(n, tuple(p.shape), order) is not None:
+        if fsdp_sharding(n, tuple(p.shape), order, m) is not None:
             sh += p.numel()
     return sh / max(tot, 1)
 
 
 def fsdp_mesh(mesh):
     """The mesh FSDP2 shards over: a ("data",) mesh itself; on ("data",
-    "space"), the 2-D mesh (replicate "space", shard "data") of the same
-    ranks, built anew (a collective: every rank calls it)."""
+    "model"), the "data" sub-mesh of this rank's model coordinate; on
+    ("data", "space"), the 2-D mesh (replicate "space", shard "data") of
+    the same ranks, built anew (a collective: every rank calls it)."""
+    if MODEL in mesh_axes(mesh):
+        return mesh[AXIS]
     if SPACE not in mesh_axes(mesh):
         return mesh
     from torch.distributed.device_mesh import DeviceMesh
@@ -114,17 +130,29 @@ def shard_params_fsdp(mesh, model: nn.Module) -> nn.Module:
     """ZeRO-3 placement of `model`, in place, with FSDP2 over `mesh`: each
     leaf sharded along the dim of `fsdp_sharding`, leaves with none kept
     whole (FSDP2's `ignored_params`); on a ("data", "space") mesh, HSDP
-    (`fsdp_mesh`). The model's parameters must already agree on every rank.
-    Returns the model (now an FSDPModule)."""
+    (`fsdp_mesh`). On a ("data", "model") mesh the model holds its blocks
+    already (parallel/tensor.py `shard_params`): the rule runs on each whole
+    leaf with its "model" dim excluded, FSDP2 shards the rank's block over
+    the "data" sub-mesh, and each sharded parameter keeps its `Block` tag.
+    The model's parameters must already agree on every rank of the "data"
+    group. Returns the model (now an FSDPModule)."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    n = axis_size(mesh, AXIS)
-    dims = {id(p): fsdp_sharding(n, tuple(p.shape), order)
-            for _, p, order in param_layouts(model)}
+    from toycrystals_torch.parallel.tensor import param_block, tag, whole_shape
+
+    n, m = axis_size(mesh, AXIS), axis_size(mesh, MODEL)
+    dims = {}
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            shape = whole_shape(p, param_block(module, name))
+            dims[id(p)] = fsdp_sharding(n, shape, flax_order(module, name, p), m)
     whole = {p for p in model.parameters() if dims[id(p)] is None}
     fully_shard(model, mesh=fsdp_mesh(mesh), shard_placement_fn=lambda p: Shard(dims[id(p)]),
                 ignored_params=whole or None)
+    for module in model.modules():  # the DTensors that replaced the blocks
+        for name, p in module.named_parameters(recurse=False):
+            tag(p, param_block(module, name))
     return model
 
 
@@ -145,56 +173,76 @@ def _shard_dim(t) -> tuple[int, object] | None:
     return next(((i, pl) for i, pl in enumerate(t.placements) if pl.is_shard()), None)
 
 
-def shard_group(t: torch.Tensor):
-    """The process group over whose ranks the shards or blocks of `t` are
-    spread: a DTensor's shard dim of its mesh, a model block's group; None
-    for a whole tensor."""
+def data_shard(t: torch.Tensor) -> tuple[int, int, int] | None:
+    """(tensor dim, this rank's index along it, the number of shards) of a
+    DTensor's shard over its mesh's sharded dim; None for a tensor that is
+    no DTensor or is replicated."""
+    if not is_sharded(t):
+        return None
+    sd = _shard_dim(t)
+    if sd is None:
+        return None
+    i, placement = sd
+    return placement.dim, t.device_mesh.get_local_rank(i), t.device_mesh.size(i)
+
+
+def shard_axes(t: torch.Tensor) -> tuple[tuple[str, object], ...]:
+    """(axis name, process group) of each mesh axis over whose ranks the
+    pieces of `t` are spread: a DTensor's shard dim of its mesh ("data"),
+    a model block's ("model"), both for a block that FSDP2 shards; () for a
+    whole tensor."""
     from toycrystals_torch.parallel.tensor import block_of
 
+    axes = []
     if is_sharded(t):
         sd = _shard_dim(t)
-        return None if sd is None else t.device_mesh.get_group(sd[0])
+        if sd is not None:
+            axes.append((t.device_mesh.mesh_dim_names[sd[0]], t.device_mesh.get_group(sd[0])))
     blk = block_of(t)
-    return None if blk is None else blk.group
+    if blk is not None:
+        axes.append((MODEL, blk.group))
+    return tuple(axes)
 
 
 def full(t: torch.Tensor) -> torch.Tensor:
     """The whole value of a DTensor sharded evenly along one dim (over the
-    "data" dim of an HSDP mesh too), or of a model block (parallel/tensor.py);
-    a collective that every rank calls. A whole tensor is returned itself.
-    One c10d all_gather of the shards, concatenated along the sharded dim:
-    DTensor's own `full_tensor` goes through functional collectives, which
-    crash on gloo with CUDA tensors (torch 2.11)."""
+    "data" dim of an HSDP mesh too), of a model block (parallel/tensor.py),
+    or of a block that FSDP2 shards (gathered over "data", then over
+    "model"); a collective that every rank calls. A whole tensor is
+    returned itself. One c10d all_gather of the shards, concatenated along
+    the sharded dim: DTensor's own `full_tensor` goes through functional
+    collectives, which crash on gloo with CUDA tensors (torch 2.11)."""
     from toycrystals_torch.parallel.tensor import block_of, gather_block
 
-    if not is_sharded(t):
-        blk = block_of(t)
-        return t if blk is None else gather_block(t, blk)
-    shard = local(t).detach().contiguous()
-    sd = _shard_dim(t)
-    if sd is None:
-        return shard
-    i, placement = sd
-    parts = [torch.empty_like(shard) for _ in range(t.device_mesh.size(i))]
-    dist.all_gather(parts, shard, group=t.device_mesh.get_group(i))
-    return torch.cat(parts, dim=placement.dim)
+    blk = block_of(t)
+    if is_sharded(t):
+        shard = local(t).detach().contiguous()
+        sd = _shard_dim(t)
+        if sd is None:
+            t = shard
+        else:
+            i, placement = sd
+            parts = [torch.empty_like(shard) for _ in range(t.device_mesh.size(i))]
+            dist.all_gather(parts, shard, group=t.device_mesh.get_group(i))
+            t = torch.cat(parts, dim=placement.dim)
+    return t if blk is None else gather_block(t, blk)
 
 
 def like(template: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
     """`value` (the whole tensor, on every rank) laid out as `template`: the
-    rank's shard as a DTensor when the template is one, the rank's model
-    block (tagged) when it holds one (no communication), else a copy."""
-    if not is_sharded(template):
-        from toycrystals_torch.parallel.tensor import block_of, tag, take_block
+    rank's model block where the template holds one, then its shard as a
+    DTensor where the template is one (no communication), else a copy;
+    tagged with the template's `Block`."""
+    from toycrystals_torch.parallel.tensor import block_of, tag, take_block
 
-        blk = block_of(template)
-        if blk is None:
-            return value.detach().clone()
-        return tag(take_block(value.detach(), blk), blk)
+    blk = block_of(template)
+    value = value.detach() if blk is None else take_block(value.detach(), blk)
+    if not is_sharded(template):
+        return tag(value.clone() if blk is None else value, blk)
     from torch.distributed.tensor import distribute_tensor
 
-    return distribute_tensor(value.detach(), template.device_mesh, template.placements,
-                             src_data_rank=None)
+    return tag(distribute_tensor(value, template.device_mesh, template.placements,
+                                 src_data_rank=None), blk)
 
 
 def copy_full_(target: torch.Tensor, value: torch.Tensor) -> None:
@@ -210,15 +258,17 @@ def copy_full_(target: torch.Tensor, value: torch.Tensor) -> None:
 
 
 def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
-    """Average over the mesh the gradients of the parameters that FSDP2
-    leaves whole (plain tensors among DTensors), in place."""
+    """Average the gradients of the parameters that FSDP2 leaves whole (plain
+    tensors among DTensors) in place: over the mesh, and on a ("data",
+    "model") mesh over the "data" group (the model ranks hold different
+    blocks)."""
     if mesh is None or mesh.size() == 1:
         return
-    group = mesh_group(mesh)
+    group, n = replica_group(mesh)
     for p in params:
         if not is_sharded(p) and p.grad is not None:
             dist.all_reduce(p.grad, op=dist.ReduceOp.SUM, group=group)
-            p.grad.div_(mesh.size())
+            p.grad.div_(n)
 
 
 def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
@@ -238,17 +288,13 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
     - on a ("data", "model") mesh each rank keeps its block of every leaf
       that parallel/tensor.py's rule shards (`shard_params`), the moments and
       the EMA are rebuilt on the blocks, and DDP averages over the "data"
-      group of the rank's model coordinate. `fsdp` there (JAX's 2-D weight
-      sharding) is not ported yet and raises."""
+      group of the rank's model coordinate; with `fsdp` (JAX's 2-D weight
+      sharding) FSDP2 then shards those blocks over the "data" sub-mesh
+      instead, and the moments and the EMA sit on the same 2-D shards."""
     if mesh is None:
         return model, state
     check_data_mesh(mesh, space=True, model=True)
     model_axis = MODEL in mesh_axes(mesh)
-    if fsdp and model_axis:
-        from toycrystals_torch.parallel.mesh import DEFERRED
-
-        raise NotImplementedError(f"FSDP2 on a ('data', 'model') mesh (JAX's 2-D weight "
-                                  f"sharding) is not ported yet ({DEFERRED})")
     names = list(state.params)
     opt = state.opt_state
     replicate(mesh, [*model.parameters(), *model.buffers(), *opt.mu, *opt.nu,
@@ -257,9 +303,9 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
         from toycrystals_torch.parallel.tensor import shard_params
 
         shard_params(model, mesh)
-    elif fsdp:
+    if fsdp:
         shard_params_fsdp(mesh, model)
-    else:
+    elif not model_axis:
         return _ddp(model, mesh_group(mesh)), state
     params = dict(model.named_parameters())
     if list(params) != names:
@@ -271,7 +317,7 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
     state = dataclasses.replace(state, params=params,
                                 opt_state=dataclasses.replace(opt, mu=mu, nu=nu),
                                 ema_params=ema)
-    return (_ddp(model, axis_group(mesh, AXIS)) if model_axis else model), state
+    return (_ddp(model, axis_group(mesh, AXIS)) if model_axis and not fsdp else model), state
 
 
 def _ddp(model: nn.Module, group):

@@ -89,10 +89,10 @@ def mesh_axes(mesh) -> tuple[str, ...]:
 
 
 def check_data_mesh(mesh, space: bool = False, model: bool = False) -> None:
-    """Only the ("data",) axis is ported, ("data", "space") where `space` and
-    ("data", "model") where `model` (the score model's sampling, serving and
-    training); any other axis, or JAX's 3-D ("data", "space", "model") mesh,
-    raises."""
+    """Only the ("data",) axis is ported, ("data", "space") where `space`
+    (the score model's sampling, serving and training) and ("data",
+    "model") where `model` (those, and the VAE's and the prior's training);
+    any other axis, or JAX's 3-D ("data", "space", "model") mesh, raises."""
     names = mesh_axes(mesh)
     if names == (AXIS,) or (space and names == (AXIS, SPACE)) \
             or (model and names == (AXIS, MODEL)):

@@ -22,11 +22,11 @@ placed by parallel/tensor.py (`place_state`, or `shard_params` for the
 sampling cases), and the parameters, moments, EMA and gradients come back
 whole:
 
-- "sde": `make_sde_train_step` on CondUNetTiny(**model) from `state_dict`,
-  under DDP or FSDP2 ("fsdp"), with (x0, y_cat, y_cont, t, eps) per step;
-  returns the first step's gradients, the losses, and the parameters, Adam
-  moments and EMA after the last step (whole), and this rank's own shard or
-  block of each parameter ("shards");
+- "sde": `make_sde_train_step` on CondUNetTiny(**model) from `state_dict`
+  (or "init_seed"), under DDP or FSDP2 ("fsdp"), with (x0, y_cat, y_cont,
+  t, eps) per step; returns the first step's gradients, the losses, and the
+  parameters, Adam moments and EMA after the last step (whole), and this
+  rank's own shard or block of each parameter ("shards");
 - "epoch": `make_sde_train_epoch` on CondUNetTiny(**model) over images
   rendered from `lattice` (a LatticeConfig's fields) with the epoch's own
   draws from `seed`; returns the mean loss, every step's gradients and the
@@ -42,9 +42,15 @@ whole:
   and the gradients come back whole);
 - "full_params": the flax tree that parallel/tensor.py's `full_params`
   gathers from the rank's blocks of CondUNetTiny(**model);
-- "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep);
-- "prior": one `make_prior_train_step` ("moe" > 0 experts: the MoE prior,
-  with its global route statistics) on injected (t, eps);
+- "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep),
+  under DDP or FSDP2 ("fsdp");
+- "vae_epoch": `make_vae_train_epoch` on CondVAE over images rendered from
+  `lattice` (each rank its rows: one rasterizer launch per step per rank)
+  with the epoch's own draws from `seed`; returns the mean metrics, every
+  step's gradients and the state after;
+- "prior": one `make_prior_train_step` ("n_experts" in the model: the MoE
+  prior, with its global route statistics) on injected (t, eps), under DDP
+  or FSDP2 ("fsdp");
 - "distill": one `make_distill_train_step` on injected (i, eps), teacher
   whole on every rank, student under DDP;
 - "sample": `sample_chunked` of a sampler ("sampler": sde, ode, dpm, ddim or rf;
@@ -61,7 +67,21 @@ whole:
 - "halo": this rank's rows of x [B, C, H, W] with the halo exchange's rows
   on each side, wrapped and clamped (parallel/spatial.py `pad_rows`);
 - "dcp_save" / "dcp_load": a state written to / read from a
-  `ShardedCheckpointManager` directory under FSDP2.
+  `ShardedCheckpointManager` directory under FSDP2 (default; "fsdp" False:
+  the model axis's blocks alone), of CondUNetTiny or of the "net" "vae";
+- "msgpack": the bytes of the JAX checkpoint's `state` that a trainer writes
+  (`train_state_to_checkpoint`, gathered whole) of a placed state whose
+  moments and EMA hold values of their own (net "unet", "vae" or "prior").
+
+A case with "thin": n returns each gradient leaf as every k-th entry of
+its flattened values (at most n of them) and no state: a large model's
+tensors need not travel back from the ranks.
+
+The "sde", "vae" and "prior" cases on a model axis also return "tags": the
+`Block` (dim, parts, size, rank) of each parameter, moment and EMA tensor
+of the state, and of each parameter as the ops saw it at the first forward
+(`param_block`, beside its live shape and whether it was a DTensor), so
+that FSDP2's swaps of the parameters show whether the blocks survive.
 """
 
 from __future__ import annotations
@@ -94,15 +114,68 @@ def _state_np(state) -> dict:
 
 
 def _grads_np(model, grads) -> dict[str, np.ndarray]:
-    """Gradients by name, whole: a model block's gathered by its parameter's
-    `Block`."""
+    """Gradients by name, whole: an FSDP2 shard's gathered over "data", a
+    model block's by its parameter's `Block`."""
+    from toycrystals_torch.parallel.fsdp import full
     from toycrystals_torch.parallel.tensor import block_of, gather_block
 
     out = {}
     for (k, p), g in zip(_inner(model).named_parameters(), grads):
-        blk = block_of(p)
+        blk, g = block_of(p), full(g)
         out[k] = g if blk is None else gather_block(g, blk)
     return _np(out)
+
+
+def _thinned(case: dict, out: dict) -> dict:
+    """`out` as a "thin" case returns it (module docstring)."""
+    n = case.get("thin")
+    if not n:
+        return out
+
+    def thin(g):
+        return g.reshape(-1)[::max(1, g.size // n)].copy()
+
+    out = {k: v for k, v in out.items() if k not in ("params", "mu", "nu", "ema", "tags")}
+    out["grads"] = ([{k: thin(v) for k, v in g.items()} for g in out["grads"]]
+                    if isinstance(out["grads"], list) else
+                    {k: thin(v) for k, v in out["grads"].items()})
+    return out
+
+
+def _blk(b) -> list[int] | None:
+    return None if b is None else [b.dim, b.parts, b.size, b.rank]
+
+
+def _tags(state, live: dict) -> dict:
+    """What the "tags" of a model-axis case hold (module docstring)."""
+    from toycrystals_torch.parallel.tensor import block_of
+
+    names = list(state.params)
+    parts = {"params": state.params, "mu": dict(zip(names, state.opt_state.mu)),
+             "nu": dict(zip(names, state.opt_state.nu)), "ema": state.ema_params or {}}
+    return {"live": live, **{part: {k: _blk(block_of(v)) for k, v in tensors.items()}
+                             for part, tensors in parts.items()}}
+
+
+def _watch_blocks(model, live: dict):
+    """A forward pre-hook on the model (inside DDP, or the FSDP2 module,
+    whose own hook gathers the parameters first) that records, at the first
+    forward, every sharded parameter as the ops see it; returns its
+    handle."""
+    from toycrystals_torch.parallel.fsdp import is_sharded
+    from toycrystals_torch.parallel.tensor import param_block
+
+    net = _inner(model)
+
+    def hook(*_):
+        for name, module in net.named_modules():
+            for pname in getattr(module, "tp_blocks", {}):
+                key = f"{name}.{pname}" if name else pname
+                p = getattr(module, pname)
+                live.setdefault(key, {"shape": list(p.shape), "dtensor": is_sharded(p),
+                                      "block": _blk(param_block(module, pname))})
+
+    return net.register_forward_pre_hook(hook)
 
 
 def _model_axis(mesh) -> bool:
@@ -131,6 +204,33 @@ def _place(mesh, model, tx, fsdp: bool, ema: bool = False):
     return place_state(mesh, model, state, fsdp)
 
 
+def _net(case: dict, device):
+    """The case's model ("net": "unet" (default), "vae" or "prior"; the MoE
+    prior where the model has "n_experts") from its state_dict, or drawn by
+    flax's initializers from "init_seed" (the same on every rank: a large
+    model need not travel to the ranks), and its flax bridge
+    (utils/params.py)."""
+    from toycrystals_torch.models.diffusion_prior import DiffusionPriorFiLM
+    from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
+    from toycrystals_torch.models.sde_score_model import CondUNetTiny
+    from toycrystals_torch.models.vae import CondVAE
+    from toycrystals_torch.utils import params
+
+    kw, net = case["model"], case.get("net", "unet")
+    if net == "prior":
+        model, bridge = (DiffusionPriorMoE(**kw) if "n_experts" in kw
+                         else DiffusionPriorFiLM(**kw)), params.PRIOR
+    else:
+        model, bridge = ((CondVAE(**kw), params.VAE) if net == "vae"
+                         else (CondUNetTiny(**kw), params.UNET))
+    if "state_dict" not in case:
+        from toycrystals_torch.models.torch_init import flax_default_init
+
+        return flax_default_init(model, np.random.default_rng(case["init_seed"])).to(device), \
+            bridge
+    return _load(model, case["state_dict"], device), bridge
+
+
 def _rows(mesh, case: dict, keys, device) -> list[torch.Tensor]:
     """This rank's rows of each input, and of the height of 4-D ones."""
     from toycrystals_torch.parallel.mesh import SPACE, axis_size, shard_batch
@@ -143,7 +243,8 @@ def _rows(mesh, case: dict, keys, device) -> list[torch.Tensor]:
 
 
 def _opt(case: dict):
-    """Adam as the case asks, keeping every update's gradients in `seen`."""
+    """Adam as the case asks ("opt": lr, clip, skip), keeping every update's
+    gradients in `seen`."""
     from toycrystals_torch.train.state import Optimizer
 
     class Recorded(Optimizer):
@@ -153,17 +254,18 @@ def _opt(case: dict):
 
     seen: list = []
     o = case.get("opt", {})
-    tx = Recorded(o.get("lr", 1e-3), clip_grad_norm=o.get("clip", 0.0))
+    tx = Recorded(o.get("lr", 1e-3), clip_grad_norm=o.get("clip", 0.0),
+                  skip_nonfinite=o.get("skip", 0))
     object.__setattr__(tx, "seen", seen)
     return tx
 
 
 def _sde(mesh, case: dict, device) -> dict:
-    from toycrystals_torch.models.sde_score_model import VPSDE, CondUNetTiny
+    from toycrystals_torch.models.sde_score_model import VPSDE
     from toycrystals_torch.parallel.fsdp import local
     from toycrystals_torch.train.steps import make_sde_train_step
 
-    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    model, _ = _net(case, device)
     tx = _opt(case)
     decay = case.get("opt", {}).get("ema", 0.0)
     module, state = _place(mesh, model, tx, case.get("fsdp", False), ema=decay > 0.0)
@@ -173,6 +275,8 @@ def _sde(mesh, case: dict, device) -> dict:
                                mesh=mesh)
     keys = ("x0", "y_cat", "y_cont", "t", "eps")
     out: dict[str, Any] = {"losses": [], "step_ms": []}
+    live: dict = {}
+    watch = _watch_blocks(module, live)
     for i in range(len(case["x0"])):
         x0, yc, yv, t, eps = _rows(mesh, {k: case[k][i] for k in keys}, keys, device)
         _sync(device)
@@ -181,9 +285,11 @@ def _sde(mesh, case: dict, device) -> dict:
         out["losses"].append(float(loss))
         _sync(device)
         out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+    watch.remove()
     out["grads"] = _grads_np(module, tx.seen[0])
     out.update(_state_np(state))
     out["shards"] = {k: local(p).detach().cpu().numpy().copy() for k, p in state.params.items()}
+    out["tags"] = _tags(state, live)
     return out
 
 
@@ -285,43 +391,77 @@ def _full_params(mesh, case: dict, device) -> dict:
 
 
 def _vae(mesh, case: dict, device) -> dict:
-    from toycrystals_torch.models.vae import CondVAE
     from toycrystals_torch.train.steps import make_vae_train_step
 
-    model = _load(CondVAE(**case["model"]), case["state_dict"], device)
+    model, _ = _net(dict(case, net="vae"), device)
     tx = _opt(case)
     module, state = _place(mesh, model, tx, case.get("fsdp", False))
     x, yc, yv, eps, keep = _rows(mesh, case, ("x", "y_cat", "y_cont", "eps", "keep"), device)
     beta, fb = case["beta_eff"], case["free_bits"]
+    live: dict = {}
+    watch = _watch_blocks(module, live)
+    _sync(device)
+    t0 = time.perf_counter()
     state, m = make_vae_train_step(module, tx, fb, mesh=mesh)(state, x, yc, yv, beta,
                                                               noise=(eps, keep))
-    return {"metrics": {k: float(v) for k, v in m.items()},
-            "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
+    metrics = {k: float(v) for k, v in m.items()}
+    step_ms = (time.perf_counter() - t0) * 1e3
+    watch.remove()
+    return {"metrics": metrics, "step_ms": step_ms, "grads": _grads_np(module, tx.seen[0]),
+            "tags": _tags(state, live), **_state_np(state)}
+
+
+def _vae_epoch(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.train.steps import make_vae_train_epoch
+
+    model, _ = _net(dict(case, net="vae"), device)
+    tx = _opt(case)
+    module, state = _place(mesh, model, tx, case.get("fsdp", False))
+    epoch = make_vae_train_epoch(module, tx, case["free_bits"], case["batch"], case["items"],
+                                 lattice_cfg=LatticeConfig(**case["lattice"]),
+                                 dataset_seed=case["seed"], mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(case["seed"])
+    _sync(device)
+    t0 = time.perf_counter()
+    state, m = epoch(state, case["beta_eff"], gen)
+    metrics = {k: float(v) for k, v in m.items()}
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    return {"metrics": metrics, "epoch_ms": epoch_ms,
+            "grads": [_grads_np(module, g) for g in tx.seen],
+            **({} if case.get("thin") else _state_np(state))}
 
 
 def _prior(mesh, case: dict, device) -> dict:
-    from toycrystals_torch.models.diffusion_prior import DiffusionPriorFiLM, DiffusionSchedule
-    from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
+    from toycrystals_torch.models.diffusion_prior import DiffusionSchedule
+    from toycrystals_torch.parallel import spatial
     from toycrystals_torch.train.steps import make_prior_train_step
 
-    kw = case["model"]
-    model = DiffusionPriorMoE(**kw) if "n_experts" in kw else DiffusionPriorFiLM(**kw)
-    model = _load(model, case["state_dict"], device)
+    model, _ = _net(dict(case, net="prior"), device)
     tx = _opt(case)
     module, state = _place(mesh, model, tx, case.get("fsdp", False))
     sched = DiffusionSchedule.from_arrays(case["betas"], case["alpha_bars"], device)
     z0n, yc, yv, t, eps = _rows(mesh, case, ("z0n", "y_cat", "y_cont", "t", "eps"), device)
     aux = case.get("aux_weight", 0.0)
     step = make_prior_train_step(module, tx, sched.T, aux, mesh)
+    live: dict = {}
+    watch = _watch_blocks(module, live)
+    _sync(device)
+    t0 = time.perf_counter()
     state, m = step(state, sched, z0n, yc, yv, noise=(t, eps))
-    route = None
-    if aux:
-        with torch.no_grad():
+    metrics = {k: v.cpu().numpy() for k, v in m.items()}
+    step_ms = (time.perf_counter() - t0) * 1e3
+    watch.remove()
+    out = {"metrics": metrics, "step_ms": step_ms, "route_fraction": None,
+           "grads": _grads_np(module, tx.seen[0])}
+    if not case.get("thin"):
+        out.update(tags=_tags(state, live), **_state_np(state))
+    if aux:  # last: a forward without backward leaves FSDP2's parameters gathered
+        with torch.no_grad(), spatial.dispatch_scope(mesh):
             _, stats = _inner(module)(sched.q_sample(z0n, t, eps), t, yc, yv,
                                       return_stats=True, mesh=mesh)
-        route = [f.cpu().numpy() for f in stats["route_fraction"]]
-    return {"metrics": {k: v.cpu().numpy() for k, v in m.items()}, "route_fraction": route,
-            "grads": _grads_np(module, tx.seen[0]), **_state_np(state)}
+        out["route_fraction"] = [f.cpu().numpy() for f in stats["route_fraction"]]
+    return out
 
 
 def _distill(mesh, case: dict, device) -> dict:
@@ -478,10 +618,9 @@ def _service(mesh, case: dict, device) -> dict:
 
 
 def _dcp(mesh, case: dict, device) -> dict:
-    from toycrystals_torch.models.sde_score_model import CondUNetTiny
     from toycrystals_torch.utils.orbax_io import ShardedCheckpointManager
 
-    model = _load(CondUNetTiny(**case["model"]), case["state_dict"], device)
+    model, _ = _net(case, device)
     tx = _opt(case)
     _, state = _place(mesh, model, tx, case.get("fsdp", True), ema=True)
     with ShardedCheckpointManager(case["path"], max_to_keep=case.get("keep", 1)) as mgr:
@@ -500,6 +639,18 @@ def _dcp(mesh, case: dict, device) -> dict:
     return {"ms": ms, **_state_np(state)}
 
 
+def _msgpack(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.utils.checkpoint import _to_plain
+    from toycrystals_torch.utils.msgpack_codec import packb
+    from toycrystals_torch.utils.params import train_state_to_checkpoint
+
+    model, bridge = _net(case, device)
+    tx = _opt(case)
+    _, state = _place(mesh, model, tx, case.get("fsdp", False), ema=True)
+    _fill(state, case["seed"])
+    return {"bytes": packb(_to_plain(train_state_to_checkpoint(state, tx, bridge)))}
+
+
 def _fill(state, seed: int) -> None:
     """Give the moments, the EMA and the counters values of their own, the
     same on every rank (each writes its shard of them)."""
@@ -512,10 +663,19 @@ def _fill(state, seed: int) -> None:
     state.step, state.opt_state.count = 7, 5
 
 
-CASES = {"sde": _sde, "epoch": _epoch, "vae": _vae, "prior": _prior, "distill": _distill,
-         "sample": _sample, "forward": _forward, "inpaint": _inpaint, "service": _service,
+CASES = {"sde": _sde, "epoch": _epoch, "vae": _vae, "vae_epoch": _vae_epoch, "prior": _prior,
+         "distill": _distill, "sample": _sample, "forward": _forward, "inpaint": _inpaint,
+         "service": _service,
          "halo": _halo, "space_grads": _space_grads, "attention": _block, "groupnorm": _block,
-         "full_params": _full_params, "dcp_save": _dcp, "dcp_load": _dcp}
+         "full_params": _full_params, "dcp_save": _dcp, "dcp_load": _dcp, "msgpack": _msgpack}
+
+
+def cli_state(fn, argv) -> dict:
+    """A rank's entry for a train CLI's `fn(argv)` (train_diffusion_prior's
+    `train`): its per-epoch losses and the state it ends with, whole (a
+    collective over the mesh)."""
+    run = fn(argv)
+    return {"losses": list(run.loss_hist), **_state_np(run.state)}
 
 
 def cli_images(fn, argv) -> dict:
@@ -610,7 +770,7 @@ def run_cases(spec: dict) -> list[dict]:
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         _zero_launches()
-        res = CASES[case["kind"]](mesh, case, device)
+        res = _thinned(case, CASES[case["kind"]](mesh, case, device))
         res["launches"] = _launches()
         if device.type == "cuda":
             res["peak_bytes"] = int(torch.cuda.max_memory_allocated())

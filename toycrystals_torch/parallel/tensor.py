@@ -25,8 +25,21 @@ the attention's `qkv` leaves (3C output columns, JAX: a contiguous block of
 them) are placed by head where the heads split, each rank holding the q, k
 and v columns of its heads (`Block.parts` = 3). The leaf, its size per rank
 and the coverage are JAX's; `full_params` and `gather_block` undo the
-permutation. Each sharded parameter carries its `Block` (`block_of`), which
-the optimizer's clip norm and finite check, the checkpoints and the EMA read.
+permutation. Each module records the `Block` of each of its sharded
+parameters (`param_block`), which the ops read: FSDP2 swaps a module's
+parameters for DTensors and, inside each forward and backward, for unsharded
+copies, and neither carries an attribute of the parameter it replaces. The
+state's tensors (parameters, moments, EMA) carry their `Block` too
+(`block_of`), which the optimizer's clip norm and finite check, the
+checkpoints and the EMA read.
+
+The VAE and the latent priors take the same rule (models/vae.py,
+models/diffusion_prior.py, models/moe_prior.py): each sharded layer computes
+its block from the whole input (`apply`; `dense` gathers the output too), a
+consumer that needs every channel or feature gathers them (`whole`), and a
+LayerNorm whose affine is sharded gathers its weights (`layer_norm`). Under
+--fsdp on the same mesh FSDP2 shards each rank's blocks over "data" as well
+(parallel/fsdp.py, JAX's 2-D weight sharding).
 
 The collectives are `torch.autograd.Function`s whose backward is the
 adjoint, so training differentiates through them (an all-reduce where
@@ -104,6 +117,13 @@ def block_of(t: torch.Tensor) -> Block | None:
     return getattr(t, "tp_block", None)
 
 
+def param_block(module: nn.Module, name: str) -> Block | None:
+    """The `Block` that parameter `name` of `module` holds, or None (whole):
+    recorded on the module by `shard_params`, where FSDP2's swaps of the
+    parameter cannot drop it."""
+    return getattr(module, "tp_blocks", {}).get(name)
+
+
 def tag(t: torch.Tensor, blk: Block | None) -> torch.Tensor:
     """`t`, marked as holding `blk`."""
     if blk is not None:
@@ -160,7 +180,16 @@ def shard_params(model: nn.Module, mesh) -> nn.Module:
             blk = Block(group, n, rank, dim, parts)
             block = nn.Parameter(take_block(p.detach(), blk), requires_grad=p.requires_grad)
             module._parameters[name] = tag(block, blk)
+            module.tp_blocks = {**getattr(module, "tp_blocks", {}), name: blk}
     return model
+
+
+def whole_shape(p: torch.Tensor, blk: Block | None) -> tuple[int, ...]:
+    """The shape of the whole leaf of which `p` is the block `blk`."""
+    shape = list(p.shape)
+    if blk is not None:
+        shape[blk.dim] *= blk.size
+    return tuple(shape)
 
 
 def full_params(model: nn.Module) -> dict:
@@ -176,30 +205,43 @@ def full_params(model: nn.Module) -> dict:
     return flax_from_torch_state_dict(whole)
 
 
-def sharded_tensor(t: torch.Tensor, blk: Block):
+def sharded_tensor(t: torch.Tensor, blk: Block, host: bool = False):
     """This rank's block `t` as a ShardedTensor of the whole leaf, one local
-    shard (a view of `t`) per piece, for torch.distributed.checkpoint: DCP
-    writes each piece at its offset in the whole leaf (once, whichever data
-    ranks hold it) and loads into the views in place."""
+    shard (a view of `t`, or with `host` of a copy on the host) per piece,
+    for torch.distributed.checkpoint: DCP writes each piece at its offset in
+    the whole leaf (once, whichever data ranks hold it) and loads into the
+    views in place. Where `t` is also an FSDP2 DTensor (2-D weight sharding)
+    the pieces are its local shard's, each at its offset along the "data"
+    dim too, and the ShardedTensor spans every rank."""
     from torch.distributed._shard.sharded_tensor import (
         Shard,
         ShardMetadata,
         init_from_local_shards,
     )
 
-    size = list(t.shape)
-    size[blk.dim] *= blk.size
-    k = t.shape[blk.dim] // blk.parts
+    from toycrystals_torch.parallel.fsdp import data_shard, local
+
+    loc = local(t).detach()
+    if host:
+        loc = loc.to("cpu", copy=True)
+    size = list(whole_shape(loc, blk))
+    offsets0, group = [0] * loc.dim(), blk.group
+    cut = data_shard(t)
+    if cut is not None:  # the local shard's place over "data"
+        d, r, n = cut
+        size[d] *= n
+        offsets0[d], group = r * loc.shape[d], None  # None: the whole process group
+    k = loc.shape[blk.dim] // blk.parts
     piece = size[blk.dim] // blk.parts
-    place = f"rank:{dist.get_rank()}/{t.device}"
+    place = f"rank:{dist.get_rank()}/{loc.device}"
     shards = []
     for j in range(blk.parts):
-        offsets, sizes = [0] * t.dim(), list(t.shape)
+        offsets, sizes = list(offsets0), list(loc.shape)
         offsets[blk.dim], sizes[blk.dim] = j * piece + blk.rank * k, k
-        shards.append(Shard(t.narrow(blk.dim, j * k, k), ShardMetadata(offsets, sizes, place)))
+        shards.append(Shard(loc.narrow(blk.dim, j * k, k), ShardMetadata(offsets, sizes, place)))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the ShardedTensor API warns of its successor
-        return init_from_local_shards(shards, *size, process_group=blk.group)
+        return init_from_local_shards(shards, *size, process_group=group)
 
 
 def sync_whole_grads(mesh, params) -> None:
@@ -209,7 +251,11 @@ def sync_whole_grads(mesh, params) -> None:
     library's backward does not repeat its bits."""
     if mesh is None or axis_size(mesh, MODEL) == 1:
         return
-    grads = [p.grad for p in params if p.grad is not None and block_of(p) is None]
+    from toycrystals_torch.parallel.fsdp import local
+
+    # under FSDP2 a whole leaf's gradient is its "data" shard, the same shard
+    # on every model rank of a data coordinate
+    grads = [local(p.grad) for p in params if p.grad is not None and block_of(p) is None]
     if not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
@@ -303,21 +349,54 @@ def whole(x: torch.Tensor, ch: int, dim: int = 1) -> torch.Tensor:
     return gather_model(x, shard, dim)
 
 
-def sharded_input(x: torch.Tensor, weight: torch.Tensor, in_ch: int,
+def sharded_input(x: torch.Tensor, blk: Block | None, in_ch: int,
                   dim: int = 1) -> torch.Tensor:
-    """The input of a layer with `in_ch` input channels along `dim` and this
-    `weight`: whole, and where the weight is a block, marked as the input of
-    a sharded consumer (`copy_to_model`). No model axis: x itself."""
+    """The input of a layer with `in_ch` input channels along `dim` whose
+    weight holds `blk` (`param_block`): whole, and where the weight is a
+    block, marked as the input of a sharded consumer (`copy_to_model`). No
+    model axis: x itself."""
     shard = spatial.current_model()
     if shard is None:
         return x
     x = whole(x, in_ch, dim)
-    return copy_to_model(x, shard) if block_of(weight) is not None else x
+    return copy_to_model(x, shard) if blk is not None else x
 
 
-def shard_report(n: int, model: nn.Module) -> str:
-    """The line the CLIs print under --shard-model (JAX's wording)."""
+def apply(layer: nn.Module, x: torch.Tensor, in_ch: int, dim: int = 1) -> torch.Tensor:
+    """`layer(x)` (a conv or linear layer with `in_ch` input channels along
+    `dim`) in a dispatch that may shard its weight: x gathered whole, and
+    this rank's block of the output where the weight is a block."""
+    return layer(sharded_input(x, param_block(layer, "weight"), in_ch, dim))
+
+
+def dense(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """`layer(x)` on the last dim, its output whole (gathered over "model"
+    where the weight is a block)."""
+    return whole(apply(layer, x, layer.in_features, -1), layer.out_features, -1)
+
+
+def whole_param(module: nn.Module, name: str) -> torch.Tensor:
+    """Parameter `name` of `module`, whole: gathered over "model" in a
+    dispatch that shards it (differentiable: the rank keeps its block's
+    gradient), else the parameter itself."""
+    p, blk = getattr(module, name), param_block(module, name)
+    shard = spatial.current_model()
+    if blk is None or shard is None:
+        return p
+    return gather_model(p, shard, blk.dim)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """`ln(x)` on a whole x, its affine gathered where the dispatch shards it:
+    the statistics are the whole width's."""
+    return torch.nn.functional.layer_norm(x, ln.normalized_shape, whole_param(ln, "weight"),
+                                          whole_param(ln, "bias"), ln.eps)
+
+
+def shard_report(n: int, model: nn.Module, what: str = "channel counts") -> str:
+    """The line the CLIs print under --shard-model (JAX's wording; the prior's
+    trainer names --width)."""
     cov = tp_coverage(n, model)
     return (f"tensor parallelism: {cov:.0%} of param elements sharded"
-            + (" — check channel counts divide --shard-model" if cov < 0.5 else ""))
+            + (f" — check {what} divide --shard-model" if cov < 0.5 else ""))
 

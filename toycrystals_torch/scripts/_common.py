@@ -1,9 +1,10 @@
 """Shared plumbing of the port's CLIs (counterpart of scripts/_common.py):
 device selection, the data mesh and its process group (--shard, --fsdp and
-the cluster flags), the (data, space) and (data, model) meshes of the
-score model's sampling, inpainting, serving and training CLIs (--shard-space,
---shard-model), checkpoint-name resolution, a disk archive resident on the
-device, and the flags whose paths are not ported yet.
+the cluster flags), the (data, space) mesh of the score model's sampling,
+inpainting, serving and training CLIs (--shard-space), the (data, model)
+mesh of those and of the VAE and prior trainers (--shard-model),
+checkpoint-name resolution, a disk archive resident on the device, and the
+flags whose paths are not ported yet.
 
 `--shard N` (with `--shard-space S`: N x S; with `--shard-model M`: N x M)
 with no cluster flags runs the CLI in that many spawned local ranks
@@ -69,11 +70,10 @@ def add_dist_flags(p: argparse.ArgumentParser) -> None:
 def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        space: bool = True) -> None:
     """The JAX CLIs' mesh and multi-process flags: --shard (and --fsdp for a
-    trainer) and the cluster flags run, and so do --shard-space and
-    --shard-model (the score model's CLIs). `space=False` leaves out
-    --shard-space, as the VAE trainer's and the prior trainer's JAX CLIs do;
-    their --shard-model is kept so that the command lines match, and any
-    value but the default raises."""
+    trainer), --shard-model and the cluster flags run, and so does
+    --shard-space (the score model's CLIs). `space=False` leaves out
+    --shard-space, as the VAE trainer's and the prior trainer's JAX CLIs
+    do."""
     add_shard_flag(p)
     if space:
         p.add_argument("--shard-space", type=int, default=0,
@@ -83,14 +83,14 @@ def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                        "by S." + (" The weights are replicated over all the ranks, or with "
                                   "--fsdp sharded over --shard and replicated over S (HSDP)."
                                   if train else ""))
-        p.add_argument("--shard-model", type=int, default=0,
-                       help="Tensor parallelism: split every weight's output channels over M "
-                            "ranks (a 2-D data x model mesh of --shard x M ranks, one per "
-                            "device, parallel/tensor.py); leaves whose channels do not divide "
-                            "by M stay whole. Not with --shard-space (JAX's 3-D mesh) " +
-                            ("or --fsdp " if train else "") + f"yet ({PARALLEL}).")
-    else:
-        p.add_argument("--shard-model", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--shard-model", type=int, default=0,
+                   help="Tensor parallelism: split every weight's output channels over M ranks "
+                        "(a 2-D data x model mesh of --shard x M ranks, one per device, "
+                        "parallel/tensor.py); leaves whose channels do not divide by M stay "
+                        "whole." + (" With --fsdp each rank's blocks are sharded over --shard "
+                                    "too (2-D weight sharding)." if train else "")
+                        + (f" Not with --shard-space (JAX's 3-D mesh) yet ({PARALLEL})."
+                           if space else ""))
     if train:
         p.add_argument("--fsdp", action="store_true",
                        help="ZeRO-3 placement: with --shard N, also shard every weight, its "
@@ -134,23 +134,21 @@ def check_model_axes(shard_space: int, shard_model: int) -> None:
 
 
 def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
-                 batch_sizes: tuple[int, ...] = (), space: bool = False,
-                 sigterm_rank: int | None = None) -> bool:
-    """--shard N > 1 (or, where `space` (the score model's CLIs), --shard N x
-    --shard-space S or x --shard-model M > 1) with no cluster flags and no
-    process group yet: run `fn(argv)` (a CLI's module-level entry) in that
-    many spawned local ranks on `cuda:0..`, or on the CPU under --device cpu,
-    and return True once all finished; False when this process should run
-    the CLI itself. Any rank's failure exits non-zero with its traceback; a
-    SIGTERM to this process goes on to rank `sigterm_rank` when one is
-    named."""
+                 batch_sizes: tuple[int, ...] = (), sigterm_rank: int | None = None) -> bool:
+    """--shard N > 1, or --shard N x --shard-space S or x --shard-model M > 1,
+    with no cluster flags and no process group yet: run `fn(argv)` (a CLI's
+    module-level entry) in that many spawned local ranks on `cuda:0..`, or
+    on the CPU under --device cpu, and return True once all finished; False
+    when this process should run the CLI itself. Any rank's failure exits
+    non-zero with its traceback; a SIGTERM to this process goes on to rank
+    `sigterm_rank` when one is named."""
     import torch.distributed as dist
 
     from toycrystals_torch.parallel.multihost import launch
 
     shard = getattr(args, "shard", 0)
-    n_space = getattr(args, "shard_space", 0) if space else 0
-    n_model = getattr(args, "shard_model", 0) if space else 0
+    n_space = getattr(args, "shard_space", 0)
+    n_model = getattr(args, "shard_model", 0)
     check_model_axes(n_space, n_model)
     ranks = max(1, shard) * max(1, n_space) * max(1, n_model)
     if ranks <= 1 or dist.is_initialized() or any(
@@ -191,22 +189,18 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
-               shard_space: int = 0, shard_model: int = 0, model: bool = False):
+               shard_space: int = 0, shard_model: int = 0):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
     exactly N ranks. --shard-space S > 1 (the score model's CLIs) makes the
     ("data", "space") mesh of N x S ranks (the caller checks the image size
-    against S: parallel/spatial.py `check_stem_divisibility`), and where
-    `model` (the score model's CLIs) --shard-model M > 1 the ("data",
-    "model") mesh of N x M ranks. --shard-model refuses elsewhere, and with
-    --shard-space (JAX's 3-D mesh), naming its ROADMAP item."""
+    against S: parallel/spatial.py `check_stem_divisibility`), and
+    --shard-model M > 1 the ("data", "model") mesh of N x M ranks. Both
+    together (JAX's 3-D mesh) refuse, naming their ROADMAP item."""
     from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d, make_mesh_tp
     from toycrystals_torch.parallel.multihost import process_count
 
     check_model_axes(shard_space, shard_model)
-    if shard_model > 1 and not model:
-        raise SystemExit(f"--shard-model {shard_model} is not ported yet for this model "
-                         f"({PARALLEL})")
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
     if shard_model > 1:
@@ -241,10 +235,11 @@ def any_rank(mesh, flag: bool, device) -> bool:
     return bool(all_reduce_sum(mesh, torch.tensor([float(flag)], device=device)).item())
 
 
-def place_state(mesh, model, state, fsdp: bool = False):
+def place_state(mesh, model, state, fsdp: bool = False, what: str = "channel counts"):
     """The trainers' placement: DistributedDataParallel, FSDP2 under `fsdp`
-    (HSDP on a space axis), or the model axis's blocks, printing the share of
-    parameter elements that FSDP2 or the model axis shards, as JAX does;
+    (HSDP on a space axis), the model axis's blocks, or both (2-D weight
+    sharding), printing the share of parameter elements that FSDP2 and the
+    model axis shard, as JAX does (`what` the flag its warning names);
     mesh=None passes through. Returns (module to train, state)."""
     from toycrystals_torch.parallel import fsdp_coverage
     from toycrystals_torch.parallel import place_state as _place
@@ -253,12 +248,13 @@ def place_state(mesh, model, state, fsdp: bool = False):
     from toycrystals_torch.parallel.tensor import shard_report
 
     fsdp = fsdp and mesh is not None and axis_size(mesh, AXIS) > 1  # JAX: no-op otherwise
+    m = axis_size(mesh, MODEL)
     if mesh is not None and is_primary():
         if fsdp:
-            print(f"fsdp: {fsdp_coverage(axis_size(mesh, AXIS), model):.0%} of param elements "
-                  f"sharded over 'data'")
-        if axis_size(mesh, MODEL) > 1:
-            print(shard_report(axis_size(mesh, MODEL), model))
+            print(f"fsdp: {fsdp_coverage(axis_size(mesh, AXIS), model, m):.0%} of param "
+                  f"elements sharded over 'data'")
+        if m > 1:
+            print(shard_report(m, model, what))
     return _place(mesh, model, state, fsdp)
 
 

@@ -145,7 +145,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model, model=True)
+                      shard_model=args.shard_model)
     primary = is_primary()
 
     ckpt_path = infer_score_ckpt_path(args.out_dir, args.ckpt)
@@ -232,7 +232,7 @@ def inpaint(argv: list[str] | None = None) -> InpaintRun:
 
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `inpaint(argv)` in this process, or in --shard N spawned ranks."""
-    if not spawn_shards(build_parser().parse_args(argv), inpaint, argv, space=True):
+    if not spawn_shards(build_parser().parse_args(argv), inpaint, argv):
         inpaint(argv)
     return 0
 

@@ -148,7 +148,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model, model=True)
+                      shard_model=args.shard_model)
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
 
@@ -265,7 +265,7 @@ def sample(argv: list[str] | None = None) -> SampleRun:
 
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `sample(argv)` in this process, or in --shard N spawned ranks."""
-    if not spawn_shards(build_parser().parse_args(argv), sample, argv, space=True):
+    if not spawn_shards(build_parser().parse_args(argv), sample, argv):
         sample(argv)
     return 0
 

@@ -244,7 +244,7 @@ def serve(argv: list[str] | None = None) -> int:
     init_distributed(args, args.device)
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, device=device, shard_space=args.shard_space,
-                      shard_model=args.shard_model, model=True)
+                      shard_model=args.shard_model)
     service = ScoreModelService.from_checkpoint(
         args.ckpt, device=device, use_ema=not args.no_ema, sampler=args.sampler,
         steps=args.steps, guidance_scale=args.guidance_scale, t_end=args.t_end,
@@ -301,7 +301,7 @@ def main(argv: list[str] | None = None) -> int:
     (or x --shard-model) spawned ranks."""
     p = build_parser()
     args = p.parse_args(argv)
-    if spawn_shards(args, serve, argv, space=True, sigterm_rank=0):
+    if spawn_shards(args, serve, argv, sigterm_rank=0):
         return 0
     return serve(argv)
 

@@ -40,10 +40,16 @@ started elsewhere), each with its rows of every batch, under
 DistributedDataParallel, or FSDP2 with --fsdp; the MoE prior's routing
 statistics, the losses and the bucket diagnostics are the global batch's,
 so the numbers are the one-device run's up to the order of reductions.
-Rank 0 writes the cache, the checkpoint and the grid. Across hosts --fsdp
-is refused, as in JAX (msgpack checkpoints only). --shard-model,
---shard-pipe, --pipe-micro and --shard-expert raise, naming their ROADMAP
-item.
+Rank 0 writes the cache, the checkpoint and the grid. --shard-model M
+splits every dense layer's and embedding's output features over M ranks as
+well (a --shard x M ("data", "model") mesh, parallel/tensor.py; with --fsdp
+each rank's blocks are sharded over --shard too); the checkpoint is gathered
+to one process's bytes and the DDIM grid runs through the placed model on
+every rank, as under --fsdp. Across hosts --fsdp and --shard-model are
+refused, as in JAX (msgpack checkpoints only). JAX's exclusions hold
+(--shard-expert with --shard-pipe or --shard-model, --shard-pipe with
+--shard-model); --shard-pipe, --pipe-micro and --shard-expert raise,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ from toycrystals_torch.models.vae import CondVAE
 from toycrystals_torch.parallel.fsdp import full
 from toycrystals_torch.parallel.mesh import data_sharding
 from toycrystals_torch.parallel.multihost import is_primary
+from toycrystals_torch.parallel.spatial import dispatch_scope
 from toycrystals_torch.scripts._common import (
     PARALLEL,
     ResidentDiskDataset,
@@ -235,10 +242,11 @@ def build_latent_cache(vae: CondVAE, get_batch, n_items: int, z_target: str,
 def train(argv: list[str] | None = None) -> PriorTrainRun:
     p = build_parser()
     args = p.parse_args(argv)
+    _refuse_exclusive(args)
     refuse_deferred(p, args, {d: PARALLEL for d in ("shard_pipe", "pipe_micro",
                                                      "shard_expert")})
     multihost = init_distributed(args, args.device)
-    if multihost and args.fsdp:
+    if multihost and (args.fsdp or args.shard_model > 1):
         # msgpack-only checkpoints: the save gathers the whole state to one host
         raise SystemExit("multi-host --fsdp/--shard-model/--shard-pipe/--shard-expert is "
                          "unsupported in this trainer (msgpack checkpoints gather every "
@@ -357,9 +365,16 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
         return run(None)
 
     tx = Optimizer(args.lr, clip_grad_norm=args.clip_grad_norm)
-    module, state = place_state(mesh, prior, create_train_state(prior, tx), fsdp=args.fsdp)
-    if args.fsdp and mesh is not None:
-        sampler = module  # the sharded module gathers its weights in forward
+    module, state = place_state(mesh, prior, create_train_state(prior, tx), fsdp=args.fsdp,
+                                what="--width")
+    if mesh is not None and (args.fsdp or args.shard_model > 1):
+        # the placed model: FSDP2 gathers its weights in forward, the model
+        # axis's ops gather its blocks in the mesh's dispatch scope
+        placed = getattr(module, "module", module)  # inside DDP
+
+        def sampler(*a):
+            with dispatch_scope(mesh):
+                return placed(*a)
     aux_weight = args.moe_aux_weight if args.moe_experts else 0.0
     if args.fused_epoch:
         epoch_fn = make_prior_train_epoch(module, tx, args.T, args.batch_size,
@@ -424,6 +439,22 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
             say("  bucket loss (low t -> high t):", [f"{v:.3f}" for v in bucket_avg])
     say(f"saved: {figure or 'no grid'}, {prior_ckpt}")
     return run(state)
+
+
+def _refuse_exclusive(args) -> None:
+    """JAX's exclusions between the ways to split the prior
+    (scripts/train_diffusion_prior.py), checked before the flags that are
+    still to port refuse."""
+    pipe, ep, tp = (args.shard_pipe > 1, args.shard_expert > 1, args.shard_model > 1)
+    if ep and pipe:
+        raise SystemExit("--shard-expert and --shard-pipe are mutually exclusive (pick one way "
+                         "to split the blocks)")
+    if ep and tp:
+        raise SystemExit("--shard-expert and --shard-model are mutually exclusive (pick one way "
+                         "to split the weights)")
+    if pipe and tp:
+        raise SystemExit("--shard-pipe and --shard-model are mutually exclusive (pick one way "
+                         "to split the weights)")
 
 
 def main(argv: list[str] | None = None) -> int:

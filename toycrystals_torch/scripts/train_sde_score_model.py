@@ -42,9 +42,10 @@ channels over M ranks instead (a --shard x M ("data", "model") mesh,
 parallel/tensor.py): each rank holds its block of the weights, of Adam's
 moments and of the EMA, the ops of the U-Net gather and reduce channels
 forward and backward, and DDP averages over --shard; the msgpack checkpoint
-is gathered to the flax layout, so it is one process's. --shard-model with
---shard-space (JAX's 3-D mesh) or with --fsdp raises, naming its ROADMAP
-item.
+is gathered to the flax layout, so it is one process's. With --fsdp FSDP2
+shards each rank's blocks over --shard as well (JAX's 2-D weight sharding,
+parallel/fsdp.py). --shard-model with --shard-space (JAX's 3-D mesh) raises,
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -82,7 +83,6 @@ from toycrystals_torch.parallel.mesh import data_sharding
 from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.parallel.spatial import check_stem_divisibility, space_rows
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
@@ -311,9 +311,8 @@ def train(argv: list[str] | None = None) -> TrainRun:
     # clipping changes the opt_state layout, so it follows the checkpoint
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
-    _refuse_fsdp_model(args)
     mesh = setup_mesh(args.shard, args.batch_size, device=device,
-                      shard_space=args.shard_space, shard_model=args.shard_model, model=True)
+                      shard_space=args.shard_space, shard_model=args.shard_model)
     if multihost and (args.fsdp or args.shard_model > 1) and not orbax_fmt:
         # msgpack saves gather the whole state to rank 0; the JAX trainer
         # refuses this across hosts, and so does the port
@@ -610,18 +609,11 @@ def _profiler(device: torch.device) -> torch.profiler.profile:
     return torch.profiler.profile(activities=acts)
 
 
-def _refuse_fsdp_model(args) -> None:
-    if args.fsdp and args.shard_model > 1:
-        raise SystemExit(f"--fsdp with --shard-model {args.shard_model} (2-D weight sharding) "
-                         f"is not ported yet ({PARALLEL})")
-
-
 def main(argv: list[str] | None = None) -> int:
     """The CLI: `train(argv)` in this process, or in --shard N (x
     --shard-space S, or x --shard-model M) spawned ranks."""
     args = build_parser().parse_args(argv)
-    _refuse_fsdp_model(args)
-    if not spawn_shards(args, train, argv, (args.batch_size,), space=True):
+    if not spawn_shards(args, train, argv, (args.batch_size,)):
         train(argv)
     return 0
 

@@ -29,7 +29,13 @@ the cluster flags --coordinator/--num-processes/--process-id join ranks
 started elsewhere), each with its rows of every batch, under
 DistributedDataParallel, or FSDP2 with --fsdp; the numbers are the one-device
 run's up to the order of reductions, and rank 0 writes the checkpoint and the
-grids. --shard-model raises, naming its ROADMAP item.
+grids. --shard-model M splits every conv's, transposed conv's and dense
+layer's output channels over M ranks as well (a --shard x M ("data",
+"model") mesh, parallel/tensor.py; with --fsdp each rank's blocks are
+sharded over --shard too). The checkpoint is gathered to one process's
+bytes, and the grids are drawn from the gathered state, as under --fsdp.
+Across hosts --fsdp and --shard-model are refused, as in JAX (msgpack
+checkpoints only).
 """
 
 from __future__ import annotations
@@ -151,7 +157,11 @@ class VaeTrainRun:
 def train(argv: list[str] | None = None) -> VaeTrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    init_distributed(args, args.device)
+    if init_distributed(args, args.device) and (args.fsdp or args.shard_model > 1):
+        # msgpack-only checkpoints: the save gathers the whole state to one host
+        raise SystemExit("multi-host --fsdp/--shard-model is unsupported in this trainer "
+                         "(msgpack checkpoints gather every shard to one host); drop the flag "
+                         "or train single-host")
     device = select_device(args.device)
     mesh = setup_mesh(args.shard, args.batch_size, device=device, shard_model=args.shard_model)
     primary = is_primary()
@@ -211,6 +221,7 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
         say(f"resumed from: {ckpt_path} (next epoch {start_epoch + 1})")
 
     module, state = place_state(mesh, model, state, fsdp=args.fsdp)
+    sharded = mesh is not None and (args.fsdp or args.shard_model > 1)  # no rank holds it all
     if args.fused_epoch:
         epoch_fn = make_vae_train_epoch(
             module, tx, args.free_bits, args.batch_size, n_items, uncond=args.uncond,
@@ -259,7 +270,7 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
             ips_hist.append(n_batches * args.batch_size / dt)
             say(f"epoch {epoch + 1:02d}/{args.epochs} loss={avg['loss']:.4f} "
                 f"recon={avg['recon']:.4f} kl={avg['kl']:.6f} ({ips_hist[-1]:.0f} img/s)")
-            if primary or args.fsdp and mesh is not None:  # gathered whole under --fsdp
+            if primary or sharded:  # a collective under --fsdp and --shard-model
                 ck = train_state_to_checkpoint(state, tx, bridge=VAE_BRIDGE)
             if primary:
                 # `params` stays top-level, the schema the latent prior's trainer reads
@@ -272,7 +283,7 @@ def train(argv: list[str] | None = None) -> VaeTrainRun:
                 return VaeTrainRun(state, module, tx, config, hists, epoch_seconds, ips_hist,
                                    {}, {})
     model.eval()
-    if args.fsdp and mesh is not None:
+    if sharded:
         # the grids run outside the sharded forward: a whole copy (gathered
         # on every rank, drawn by rank 0)
         whole = {k: full(v).detach() for k, v in state.params.items()}

@@ -15,9 +15,10 @@ DistributedDataParallel wraps, replicated on every rank, FSDP2's sharded
 DTensors, or on a "model" axis each rank's blocks (parallel/tensor.py); the
 moments and the EMA are laid out as their parameters, and the updates act on
 each rank's shard. Global-norm clipping and the non-finite check then reduce
-over the group that holds the shards (under HSDP the "data" group: each
-shard is held by every space rank, and summing over all of them would count
-it S times), so every rank takes the decision the single-device step takes.
+over the axes that hold each leaf's pieces (under HSDP the "data" group:
+each shard is held by every space rank, and summing over all of them would
+count it S times; a model block over "model"; a block that FSDP2 shards
+over both), so every rank takes the decision the single-device step takes.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from toycrystals_torch.parallel.fsdp import local, shard_group
+from toycrystals_torch.parallel.fsdp import local, shard_axes
 
 Schedule = Callable[[int], float]
 
@@ -113,16 +114,17 @@ class Optimizer:
         False when the step was skipped as non-finite. Sharded gradients (of
         DTensors or model blocks) take the norm and the finiteness over all
         their shards."""
-        groups = [shard_group(g) or shard_group(p) for p, g in zip(params, grads)]
-        group = next((gr for gr in groups if gr is not None), None)
-        sharded = [gr is not None for gr in groups]
+        axes = [shard_axes(p) or shard_axes(g) for p, g in zip(params, grads)]
+        groups = {name: group for ax in axes for name, group in ax}  # this rank's, per axis
+        kinds = [tuple(sorted(name for name, _ in ax)) for ax in axes]
         params, grads = [local(p) for p in params], [local(g) for g in grads]
         mu, nu = [local(m) for m in state.mu], [local(v) for v in state.nu]
         if self.skip_nonfinite > 0:
             flag = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-            if group is not None:
+            if groups:
                 flag = flag.to(torch.int32)
-                dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+                for name in sorted(groups):  # over each axis in turn: over the whole mesh
+                    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=groups[name])
             finite = bool(flag)
             state.notfinite_count = 0 if finite else state.notfinite_count + 1
             if not finite:
@@ -131,13 +133,20 @@ class Optimizer:
                     return False
         if self.clip_grad_norm > 0.0:
             norms = torch.stack(torch._foreach_norm(grads))
-            if group is None:
+            if not groups:
                 norm = torch.linalg.vector_norm(norms)
             else:
-                mask = torch.tensor(sharded, device=norms.device)
-                sq = (norms[mask] ** 2).sum()
-                dist.all_reduce(sq, op=dist.ReduceOp.SUM, group=group)
-                norm = torch.sqrt(sq + (norms[~mask] ** 2).sum())
+                # each kind of leaf summed over the axes its pieces spread
+                # over: every element once (a 2-D leaf over "data" and "model")
+                sq = None
+                for kind in sorted(set(kinds) - {()}):
+                    mask = torch.tensor([k == kind for k in kinds], device=norms.device)
+                    part = (norms[mask] ** 2).sum()
+                    for name in kind:
+                        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=groups[name])
+                    sq = part if sq is None else sq + part
+                whole = torch.tensor([not k for k in kinds], device=norms.device)
+                norm = torch.sqrt(sq + (norms[whole] ** 2).sum())
             scale = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
                                 self.clip_grad_norm / norm)
             grads = torch._foreach_mul(grads, scale)

@@ -35,15 +35,17 @@ averages the gradients over all D S ranks; each rank's loss is the mean over
 its own pixels, so that average is the gradient of the global mean, as in
 JAX's GSPMD step. Under --fsdp the same mesh runs HSDP (parallel/fsdp.py).
 
-They also take a ("data", "model") mesh (parallel/tensor.py): each rank holds
-its rows of the batch, the model ranks of a data coordinate the same rows
-and the same draws, and its block of the sharded weights; the forward and
-backward run in the mesh's dispatch scope, where every channel collective
-has its adjoint, and the loss is the replicated output's, not summed over
-"model". DDP averages over the "data" group, and the whole leaves' gradients
-are then broadcast over "model" so that the replicas keep the same bits. A
-mesh with any other axis raises (ROADMAP.md queue 1, module 5), and so do a
-space or a model axis in the other models' steps.
+They, and the VAE's and the prior's steps and epochs, also take a ("data",
+"model") mesh (parallel/tensor.py): each rank holds its rows of the batch,
+the model ranks of a data coordinate the same rows and the same draws, and
+its block of the sharded weights; the forward and backward run in the mesh's
+dispatch scope, where every channel collective has its adjoint, and the loss
+is the replicated output's, not summed over "model". DDP averages over the
+"data" group (FSDP2 under --fsdp, its reduce-scatter over the same group),
+and the whole leaves' gradients are then broadcast over "model" so that the
+replicas keep the same bits. A mesh with any other axis raises (ROADMAP.md
+queue 1, module 5), and so does a space axis in the other models' steps, or
+a model axis in the distillation step.
 """
 
 from __future__ import annotations
@@ -81,14 +83,15 @@ def _is_fsdp(model: nn.Module) -> bool:
     return isinstance(model, FSDPModule)
 
 
-def check_placed(model: nn.Module, mesh, space: bool = False) -> None:
+def check_placed(model: nn.Module, mesh, space: bool = False, tp: bool = False) -> None:
     """On a mesh of several ranks, `model` must be the module that
     `parallel.place_state` returns: its gradients are then averaged. A
-    ("data", "space") or ("data", "model") mesh only where `space` (the
-    score model's steps)."""
+    ("data", "space") mesh only where `space` (the score model's steps), a
+    ("data", "model") one only where `tp` (the score model's, the VAE's and
+    the prior's)."""
     if mesh is None:
         return
-    check_data_mesh(mesh, space, model=space)
+    check_data_mesh(mesh, space, model=tp)
     from torch.nn.parallel import DistributedDataParallel
 
     if mesh.size() > 1 and not isinstance(model, DistributedDataParallel) \
@@ -223,7 +226,7 @@ def make_sde_train_step(model: nn.Module, tx: Optimizer, sde: VPSDE, n_types: in
     generator's draws are the global batch's (module docstring) and `loss`
     is the global mean.
     """
-    check_placed(model, mesh, space=True)
+    check_placed(model, mesh, space=True, tp=True)
 
     def step(state: TrainState, x0, y_cat, y_cont, generator: torch.Generator | None = None,
              noise=None):
@@ -259,7 +262,7 @@ def make_vae_train_step(model: nn.Module, tx: Optimizer, free_bits: float,
     > 0) the cond-drop mask from `generator`; noise=(eps [B, z_dim], keep
     [B, 1] or None) replaces the draws (tests inject JAX's). On a `mesh`, as
     `make_sde_train_step` says; the metrics are the global batch's."""
-    check_placed(model, mesh)
+    check_placed(model, mesh, tp=True)
 
     def step(state: TrainState, x, y_cat, y_cont, beta_eff: float,
              generator: torch.Generator | None = None, noise=None):
@@ -298,7 +301,8 @@ def vae_loss_and_grads(model: nn.Module, x, y_cat, y_cont, beta_eff: float, free
         out.update(recon=recon.detach(), kl=kl_used.detach(), kl_raw=kl_raw.detach())
         return recon + float(beta_eff) * kl_used
 
-    loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
+    with spatial.dispatch_scope(mesh):
+        loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
     return {"loss": loss, **out}, grads
 
 
@@ -323,7 +327,8 @@ def prior_loss_and_grads(model: nn.Module, sched, z0n, y_cat, y_cont, t, eps,
         out["per"] = ((eps_pred - eps) ** 2).mean(dim=1)  # [B]
         return out["per"].mean() + aux_weight * out["aux"]
 
-    loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
+    with spatial.dispatch_scope(mesh):
+        loss, grads = accumulate_grads(model, loss_fn, 1, mesh)
     aux, per = out["aux"].detach(), out["per"].detach()
     q = ((t.to(torch.float32) / sched.T * 4).to(torch.int64)).clamp(0, 3)
     return ({"loss": loss, "aux": aux,
@@ -350,7 +355,7 @@ def make_prior_train_step(model: nn.Module, tx: Optimizer, T: int,
     JAX's). aux_weight > 0 needs the MoE prior. On a `mesh`, as
     `make_sde_train_step` says; `loss` and `aux` are the global batch's and
     the buckets sum over the ranks."""
-    check_placed(model, mesh)
+    check_placed(model, mesh, tp=True)
 
     def step(state: TrainState, sched, z0n, y_cat, y_cont,
              generator: torch.Generator | None = None, noise=None):

@@ -91,14 +91,15 @@ def _state_dict(state, host: bool = False) -> dict[str, torch.Tensor]:
     """The tensors of a `TrainState` (train/state.py) under DCP keys, as
     they are laid out (DTensors stay sharded, model blocks become
     ShardedTensors over their storage, or with `host` over copies of them on
-    the host)."""
+    the host; a block that FSDP2 shards becomes one over its local shard)."""
+    from toycrystals_torch.parallel.fsdp import is_sharded
     from toycrystals_torch.parallel.tensor import block_of, sharded_tensor
 
     def laid(t):
         blk = block_of(t)
         if blk is None:
-            return t.detach().to("cpu", copy=True) if host else t
-        return sharded_tensor(t.detach().to("cpu", copy=True) if host else t, blk)
+            return t.detach().to("cpu", copy=True) if host and not is_sharded(t) else t
+        return sharded_tensor(t, blk, host)
 
     opt = state.opt_state
     dev = next(iter(state.params.values())).device

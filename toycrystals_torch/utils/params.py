@@ -23,7 +23,8 @@ functions carry them; `train_state_to_flax` / `load_train_state_from_flax` do
 so for a whole `TrainState` of toycrystals_torch/train/state.py, and
 `train_state_to_checkpoint` / `load_train_state_from_checkpoint` map it onto
 the JAX checkpoint's `state`: the optax `opt_state` layout that the
-trainer's flags give. Each takes `bridge`: `UNET` (the default) or `VAE`.
+trainer's flags give. Each takes `bridge`: `UNET` (the default), `VAE` or
+`PRIOR`.
 `torch_state_dict_from_flax_prior` / `flax_prior_from_torch_state_dict`
 map the latent priors of models/diffusion_prior.py and models/moe_prior.py,
 whose torch names are the original implementation's (`t_mlp.0`, `y_cat_emb`,
@@ -201,6 +202,7 @@ def flax_prior_from_torch_state_dict(sd: Mapping[str, Any]) -> dict:
 # (flax tree -> state_dict, state_dict -> flax tree) of each model family
 UNET = (torch_state_dict_from_flax, flax_from_torch_state_dict)
 VAE = (torch_state_dict_from_flax_vae, flax_vae_from_torch_state_dict)
+PRIOR = (torch_state_dict_from_flax_prior, flax_prior_from_torch_state_dict)
 
 
 def load_flax_params(model, params: Mapping[str, Any]) -> None:
