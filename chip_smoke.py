@@ -33,7 +33,9 @@ result line:
    launch plan and the mean and largest count of atoms kept per tile; the
    training batches and the last two cases are rerun bit for bit, and render
    the same bits with the cull switched off. Times of the kernel (its device
-   time from torch.profiler) and of the wrapper's calls (CUDA events), of the
+   time from torch.profiler, from the first of up to 5 windows in which
+   every kernel launch has its record: a window can lose kernel records)
+   and of the wrapper's calls (CUDA events), of the
    plain version with TF32 off and on, and the bound (bytes, against the f32
    operations of the (row, column) pairs whose factors are non-zero).
 4. Flash-attention kernels (forward; delta, dK/dV and dQ backward) against
@@ -274,10 +276,33 @@ result line:
    phase 13's VAE, a DDIM-10 grid through the placed model), and beside the
    resumes the sample CLI with --shard-model 2 on the first run's epoch-1
    msgpack checkpoint.
+19. The prior's pipeline and expert axes (parallel/pipeline.py,
+   parallel/expert.py), beside phase 18, in four jobs side by side with one
+   spawn each: per axis, one on its (data 1, 2) mesh and its one-process
+   reference in a process of its own, so every time is contended. Each job
+   runs the prior CLI, with --shard-pipe 2 --pipe-micro 4 or with
+   --moe-experts 4 --shard-expert 2 (the reference: the same flags but the
+   mesh's), at phase 18's recipe (a 2,560-item procedural cache, 1 epoch,
+   DDIM-10), then --resume, then the README's prior (width 1024, 8 blocks,
+   batch 256, f32; FiLM at 4 microbatches, MoE-4) for two steps on injected
+   draws and DDIM-50 of the 36 grid conditions from injected noise. Held
+   against one process: the second step's loss (which follows the first
+   step's update) within 1e-5 relative, the first step's gradients within
+   phase 7's limits, the MoE route fractions within 1e-6 (the second step
+   timed, each rank's state, allocation and peak beside one process's, the
+   pipe's 10 hops a step and their seconds a tick); DDIM-50 to 1e-3 of the
+   largest |z0| and of each entry's size or 1, with no kernel launch; each
+   CLI run's loss, the same on every rank, within 1e-5 relative, its
+   checkpoint's parameters within 2e-4 (two Adam steps of the recipe's lr),
+   exactly 5 rasterizer launches (the cache build) and no other kernel per
+   rank a run, the mesh lines JAX prints, and the grid written.
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
-those at 256x256 included, and phase 16's space pair's kernel ms by
-torch.profiler in a `bench_gn --space` process.
+those at 256x256 included, phase 16's space pair's kernel ms by
+torch.profiler in a `bench_gn --space` process, and a probe of what
+torch.profiler's windows keep before phase 3 and after phase 19 (how many
+windows of each kind kept no kernel, the launches left without a kernel
+record, the lag of the kernels' timestamps after their launch calls).
 
 The last two lines are the card's name and power limit, then
 {"ok": true, "device": {...}}; the line before them lists every kernel.
@@ -809,6 +834,24 @@ def survivors_per_tile(rz, points, weights, sigma, h: int, w: int, tile: int) ->
                 survivors_per_tile_max=int(counts.max()))
 
 
+def profiler_window_probe(rz, when: str) -> dict:
+    """`bench_flash.window_probe` on phase 3's shortest timed calls (the
+    rasterizer at the full 32x32 budget, batch TRAIN_BATCH): profiled windows
+    of 20 calls, each counted empty where it kept no device time, the
+    launches left without a kernel record, and the lag of each kernel's
+    timestamp after its launch call's, in this process at `when`."""
+    from toycrystals_torch.bench_flash import window_probe
+    from toycrystals_torch.data.lattice import LatticeConfig, generate_item, static_point_budget
+
+    cfg = LatticeConfig(img_size=32)
+    pts, wts, sigma, *_ = generate_item(cfg, static_point_budget(cfg), 0,
+                                        torch.arange(TRAIN_BATCH), DEVICE)
+    probe = dict(when=when, **window_probe(lambda: rz.rasterize(pts, wts, sigma, 32, 32), 20,
+                                           "rasterize"))
+    log("profiler window probe " + json.dumps(probe))
+    return probe
+
+
 def phase_raster(rz) -> tuple[list[dict], dict]:
     from toycrystals_torch.bench_flash import kernel_ms
     from toycrystals_torch.data.lattice import LatticeConfig, generate_item, static_point_budget
@@ -887,8 +930,9 @@ def phase_raster(rz) -> tuple[list[dict], dict]:
             row["cull_off_bit_equal"] = bool(torch.equal(
                 got, rz._rasterize_cuda(pts, wts, sigma, h, w, cull=False)))
         if timed:
-            # the kernel's device time; at these shapes CUDA events around the
-            # calls time the wrapper's host cost, kept as wrapper_ms
+            # the kernel's device time (torch.profiler, from a window that kept
+            # every kernel's record: bench_flash.kernel_ms); at these shapes CUDA
+            # events around the calls time the wrapper's host cost, kept as wrapper_ms
             row["ms"] = kernel_ms(lambda: rz.rasterize(pts, wts, sigma, h, w), 20,
                                   ("rasterize",))["rasterize"]
             if not row["ms"] > 0.0:
@@ -4231,6 +4275,241 @@ def _tp2d_hold(four: list, zero: dict, launches: dict, card: str) -> dict:
             for i, name in enumerate(("2d_sde", "2d_vae"))}
 
 
+# Phase 19: the prior's pipeline and expert axes, on one card: ranks share cuda:0
+# over gloo, so every time here is host copies and time-slicing, not NVLink. It
+# runs beside phase 18 (its jobs and its train CLIs), so every time is contended.
+PE_DIR = os.path.join(ROOT, "runs", "chip_smoke_pipe_expert")
+PE_MICRO = 4                 # --pipe-micro: 64-row microbatches of the 256-row step
+PE_DDIM_STEPS = 50
+PE_CONTENDED = ("contended: phase 19 ran beside phase 18's mesh jobs and train CLIs, and its "
+                "own jobs beside each other, so these times are not comparable with a phase "
+                "run alone")
+# each CLI checkpoint's parameters against one process's: two Adam steps of the
+# recipe's lr (1e-4). A rank that skipped its updates would stand up to 10 steps (an
+# epoch of 2,560 items at batch 256), 1e-3, away; the card's readings were at most 2.4e-5
+PE_CLI_PARAM_TOL = 2e-4
+PE_CACHE_LAUNCHES = 5               # the 2,560-item cache, 512 items a rasterizer launch
+PE_MESHES = {"pipe": [1, 2, "pipe"], "expert": [1, 2, "expert"]}
+PE_CLI_FLAGS = {"pipe": ["--shard-pipe", "2", "--pipe-micro", str(PE_MICRO)],
+                "expert": ["--moe-experts", "4", "--shard-expert", "2"]}
+
+
+def _pe_cases() -> list:
+    """Per axis, one case: two f32 steps of the README's prior (width 1024, 8
+    blocks, batch 256; FiLM on the pipe mesh with PE_MICRO microbatches,
+    MoE-4 on the expert mesh) on injected draws (the first one's gradients
+    are compared, the second one, warm, is timed), then DDIM-50 of the 36
+    grid conditions from injected start noise and the forward on the same
+    rows, the weights drawn from a seed on the card."""
+    from toycrystals_torch.models.diffusion_prior import DiffusionSchedule
+    from toycrystals_torch.models.sde_score_model import sample_grid_conditions
+
+    r = np.random.default_rng(36)
+    b, z = TP_PRIOR_BATCH, PRIOR_KW["z_dim"]
+    sched = DiffusionSchedule.linear(1000, 1e-4, 0.05)
+    s = dict(betas=sched.betas.numpy(), alpha_bars=sched.alpha_bars.numpy())
+    yg_cat, yg_cont = (a.numpy() for a in sample_grid_conditions(36, 4, 4))
+    cases = []
+    for i, (axis, mesh) in enumerate(PE_MESHES.items()):
+        model = dict(PRIOR_KW, **({"n_experts": 4} if axis == "expert" else {}))
+        ddim = dict(z_t=r.normal(size=(36, z)).astype(np.float32),
+                    t=r.integers(0, 1000, 36).astype(np.int32), y_cat=yg_cat, y_cont=yg_cont,
+                    z=r.normal(size=(36, z)).astype(np.float32), ddim_steps=PE_DDIM_STEPS)
+        cases.append(dict(kind="prior", model=model, init_seed=37 + i, mesh=mesh, micro=PE_MICRO,
+                          z0n=r.normal(size=(b, z)).astype(np.float32),
+                          y_cat=r.integers(0, 4, b).astype(np.int32),
+                          y_cont=r.uniform(0, 1, (b, 4)).astype(np.float32),
+                          t=r.integers(0, 1000, b).astype(np.int32),
+                          eps=r.normal(size=(b, z)).astype(np.float32),
+                          aux_weight=0.01 if axis == "expert" else 0.0, opt={"lr": 1e-4},
+                          thin=TP_THIN, steps=2, ddim=ddim, **s))
+    return cases
+
+
+def _pe_cli(axis: str, mesh: bool, resume: bool) -> list:
+    """The argv of the prior trainer at the README's recipe on its own
+    2,560-item procedural cache (phase 18's recipe, DDIM-10), 1 epoch, on the
+    axis's (1, 2) mesh or in one process with the same model."""
+    flags = PE_CLI_FLAGS[axis] if mesh else PE_CLI_FLAGS[axis][:2] * (axis == "expert")
+    run = os.path.join(PE_DIR, f"cli_{axis}" + ("" if mesh else "_one"))
+    return [*TP_PRIOR_CLI, *flags, "--epochs", "1",
+            *(["--device", "cpu"] if DEVICE == "cpu" else []),
+            "--vae-ckpt", os.path.join(VAE_DIR, "checkpoints", "vae_last.msgpack"),
+            *(["--resume"] if resume else []), "--out-dir", run]
+
+
+def _pe_run(axis: str, mesh: bool, cases: list, ref=None) -> tuple[list, float, list]:
+    """One of phase 19's four jobs, one spawn (`parity.in_turn`): the
+    axis's CLI, 1 epoch (its checkpoint kept aside), then --resume, then
+    `cases` (the pipe jobs take both axes' step and DDIM cases, so that the
+    expert jobs, the longest, run the CLIs alone), on the axis's (1, 2) mesh
+    or in one process. The CLIs run first, so they run with the torch
+    defaults a CLI's process has; the cases then set TF32 off. Returns each
+    rank's [(result, seconds)] of the calls, the job's seconds, and per
+    checkpoint (its state_dict, its config), read here while other jobs
+    still run; with `ref`, the future of the one-process job of the same
+    axis, per checkpoint (the largest parameter difference from the
+    reference's, whether the two hold the same leaves and config) instead."""
+    from toycrystals_torch.parallel.parity import cli_state, in_turn, keep_copy, run_cases
+    from toycrystals_torch.scripts import train_diffusion_prior as prior_cli
+    from toycrystals_torch.utils.checkpoint import load_checkpoint
+    from toycrystals_torch.utils.params import torch_state_dict_from_flax_prior
+
+    first, resumed = (_pe_cli(axis, mesh, r) for r in (False, True))
+    last = os.path.join(first[-1], "checkpoints", "diffusion_prior_last.msgpack")
+    kept = os.path.join(first[-1], "epoch_1.msgpack")
+    calls = [(cli_state, (prior_cli.train, first, False)), (keep_copy, (last, kept)),
+             (cli_state, (prior_cli.train, resumed, False))]
+    if cases:
+        calls.append((run_cases, ({"device": torch.device(DEVICE).type, "tf32": False,
+                                   "one_process": not mesh,
+                                   "cases": [c if mesh else dict(c, mesh=None)
+                                             for c in cases]},)))
+    ranks, seconds = _pe_launch(in_turn, 2 if mesh else 1, (calls,))
+    ckpts = [load_checkpoint(path) for path in (kept, last)]
+    ckpts = [(torch_state_dict_from_flax_prior(c["params"]), c["config"]) for c in ckpts]
+    if ref is None:
+        return ranks, seconds, ckpts
+    held = []
+    for (g, got), (w, want) in zip(ckpts, ref.result()[2]):
+        same = set(g) == set(w) and got == want
+        held.append((max(float(np.abs(np.asarray(g[k]) - np.asarray(v)).max())
+                         for k, v in w.items()) if same else float("inf"), same))
+    return ranks, seconds, held
+
+
+def _pe_launch(fn, n: int, args: tuple) -> tuple[list, float]:
+    """`fn(*args)` in n ranks on cuda:0 over gloo (n = 1: a one-process
+    reference in a process of its own, with the ranks' torch defaults), and
+    the seconds."""
+    from toycrystals_torch.parallel.multihost import launch
+
+    t0 = time.perf_counter()
+    cuda = torch.device(DEVICE).type == "cuda"
+    out = launch(fn, n, args, device_type=torch.device(DEVICE).type, backend="gloo",
+                 device_ids=[0] * n if cuda else None, timeout=600)
+    return out, time.perf_counter() - t0
+
+
+def phase_pipe_expert(card: str) -> dict:
+    """Phase 19: the FiLM prior's pipeline (--shard-pipe 2, --pipe-micro 4)
+    and the MoE-4 prior's experts over ranks (--shard-expert 2), each on a
+    (1, 2) mesh of two ranks on cuda:0 over gloo (module docstring). Four
+    jobs side by side, one spawn each (`_pe_run`): per axis the mesh's and
+    the one-process reference's, so this phase may run beside phase 18: it
+    uses no CUDA memory of this process."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    shutil.rmtree(PE_DIR, ignore_errors=True)
+    os.makedirs(PE_DIR)
+    t0 = time.perf_counter()
+    gib = 2.0**30
+    out: dict = {"card": card, "launches": {}, "times": PE_CONTENDED}
+    zero = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 0, "gn_silu_apply": 0,
+            "gn_silu_backward_sums": 0, "gn_silu_backward_apply": 0, "rasterize": 0,
+            "flash_attn": 0, "flash_attn_backward": 0}
+    cases = _pe_cases()
+    with ThreadPoolExecutor(4) as pool:
+        futures = {}
+        for axis in PE_MESHES:
+            mine = cases if axis == "pipe" else []
+            futures[axis, False] = pool.submit(_pe_run, axis, False, mine)
+            futures[axis, True] = pool.submit(_pe_run, axis, True, mine, futures[axis, False])
+        done = {k: f.result() for k, f in futures.items()}
+    out["job_s"] = {f"{axis}_{'mesh' if mesh else 'one_process'}": s
+                    for (axis, mesh), (_, s, _) in done.items()}
+    # each rank's [(epoch-1 run, s), (keep_copy, s), (resumed run, s), ([pipe case,
+    # expert case], s) in the pipe jobs]
+    step_ranks, (step_one,) = done["pipe", True][0], done["pipe", False][0]
+    for i, axis in enumerate(PE_MESHES):
+        # (a) the steps and DDIM-50 against one process
+        step = ddim = [r[3][0][i] for r in step_ranks]
+        want = want_ddim = step_one[3][0][i]
+        for rank, res in enumerate(step):
+            out["launches"][f"pipe_expert_{axis}_rank{rank}"] = res["launches"]
+            if res["launches"] != zero:
+                raise AssertionError(f"{axis} step and DDIM rank {rank}: launches "
+                                     f"{res['launches']}, expected none")
+        # the last (second) step's loss: it follows the first step's update
+        losses = [float(np.asarray(r["metrics"]["loss"])) for r in step]
+        loss_one = float(np.asarray(want["metrics"]["loss"]))
+        rec = {"loss": losses, "loss_one_process": loss_one,
+               "loss_rel_diff": abs(losses[0] - loss_one) / abs(loss_one),
+               "grad_worst_share": _leafwise(step[0]["grads"], want["grads"],
+                                             f"{axis} step gradient"),
+               "step_ms": [r["step_ms"] for r in step], "step_ms_one_process": want["step_ms"],
+               **{f"{k}_gib": [r.get(f"{k}_bytes", 0) / gib for r in step]
+                  for k in ("state", "allocated", "step_peak", "peak")},
+               **{f"{k}_gib_one_process": want.get(f"{k}_bytes", 0) / gib
+                  for k in ("state", "allocated", "step_peak", "peak")}}
+        if len(set(losses)) != 1 or not rec["loss_rel_diff"] <= 1e-5:
+            raise AssertionError(f"{axis} step against one process: {rec}")
+        if axis == "pipe":
+            rec["hop_s_per_tick"] = [r["hop_s_per_tick"] for r in step]
+            rec["hops"] = [r["hops"] for r in step]
+            if rec["hops"] != [2 * (PE_MICRO + 2 - 1)] * 2:
+                raise AssertionError(f"pipe step: hops {rec['hops']}, expected "
+                                     f"{2 * (PE_MICRO + 1)} per rank")
+        else:
+            rec["route_max_abs_diff"] = max(
+                float(np.abs(a - b).max()) for r in step
+                for a, b in zip(r["route_fraction"], want["route_fraction"]))
+            if not rec["route_max_abs_diff"] <= 1e-6:
+                raise AssertionError(f"expert route fractions: {rec['route_max_abs_diff']}")
+        z0, z0_one = ddim[0]["ddim"], want_ddim["ddim"]
+        scale = float(np.abs(z0_one).max())
+        # random weights put the last step's z0 at up to 1e6 (1 / sqrt(abar) at t
+        # 999), so each entry is held as well: to DDIM_TOL of its size, or of 1
+        rel = float((np.abs(z0 - z0_one) / (np.abs(z0_one) + 1.0)).max())
+        rec["ddim50"] = dict(max_abs_diff=float(np.abs(z0 - z0_one).max()), max_abs=scale,
+                             tolerance=DDIM_TOL * scale, max_entry_rel_diff=rel,
+                             seconds=[r["ddim_s"] for r in ddim],
+                             seconds_one_process=want_ddim["ddim_s"],
+                             forward_max_abs_diff=float(np.abs(
+                                 ddim[0]["forward"] - want_ddim["forward"]).max()))
+        if not (np.array_equal(z0, ddim[1]["ddim"]) and np.isfinite(z0).all()
+                and rec["ddim50"]["max_abs_diff"] <= DDIM_TOL * scale and rel <= DDIM_TOL):
+            raise AssertionError(f"{axis} DDIM-50 against one process: {rec['ddim50']}")
+        out[axis] = rec
+        log(f"pipe/expert {axis} on a (data 1, {axis} 2) mesh (two ranks on one card over gloo, "
+            f"{card}; host copies and time-slicing, not NVLink; {PE_CONTENDED}): "
+            + json.dumps(rec))
+        # (b) the train CLI, 1 epoch then --resume, against one process
+        rec = {}
+        (ranks, _, held), ((one,), _, _) = done[axis, True], done[axis, False]
+        for (call, label), (diff, same) in zip(((0, "epoch_1"), (2, "resumed")), held):
+            runs = [r[call][0] for r in ranks]
+            ref = one[call][0]
+            for rank, res in enumerate(runs):
+                out["launches"][f"pipe_expert_cli_{axis}_{label}_rank{rank}"] = res["launches"]
+                if res["launches"] != dict(zero, rasterize=PE_CACHE_LAUNCHES):
+                    raise AssertionError(f"prior CLI {axis} {label} rank {rank}: launches "
+                                         f"{res['launches']}, expected {PE_CACHE_LAUNCHES} "
+                                         f"rasterizer launches")
+            losses = [r["losses"][0] for r in runs]
+            rec[label] = {"losses": losses, "loss_one_process": ref["losses"][0],
+                          "loss_rel_diff": abs(losses[0] - ref["losses"][0]) / ref["losses"][0],
+                          "param_max_abs_diff": diff, "param_limit": PE_CLI_PARAM_TOL,
+                          "seconds": ranks[0][call][1], "seconds_one_process": one[call][1]}
+            grid = os.path.join(_pe_cli(axis, True, False)[-1], "results",
+                                "diffusion_samples.png")
+            lines = runs[0]["stdout"].splitlines()
+            what = "pipe stages" if axis == "pipe" else "expert devices"
+            mesh_line = f"2-D mesh: 1 data x 2 {what}"
+            if not (same and len(set(losses)) == 1 and rec[label]["loss_rel_diff"] <= 1e-5
+                    and diff <= PE_CLI_PARAM_TOL and read_png_gray(grid).size
+                    and mesh_line in lines and (axis == "pipe" or any(
+                        line.startswith("expert parallelism: ") for line in lines))):
+                raise AssertionError(f"prior CLI {axis} {label} against one process: "
+                                     f"{rec[label]}; {runs[0]['stdout'][-2000:]}")
+        out[f"cli_{axis}"] = rec
+        log(f"prior CLI {' '.join(PE_CLI_FLAGS[axis])} (README recipe, 2,560-item cache, "
+            f"DDIM-10; two ranks on one card over gloo, {card}; {PE_CONTENDED}): "
+            + json.dumps(rec))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -4238,7 +4517,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="after the main paths, profile U-Net forwards and train steps by "
                          "kernel category; phase 16 also times the space pair's kernels "
-                         "by torch.profiler in a bench_gn --space process")
+                         "by torch.profiler in a bench_gn --space process; a probe of what "
+                         "torch.profiler's windows keep runs before phase 3 and after "
+                         "phase 19")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4286,6 +4567,8 @@ def main() -> int:
         report["gn_training_rows"] = gn_training_rows(gn)
         log(f"kernel gn_silu under autograd: output and gradients equal the plain version's "
             f"on {len(report['gn_training_rows'])} training cases")
+        if args.profile:  # what the process's first profiled windows keep
+            report["profiler_probe_start"] = profiler_window_probe(rz, "before phase 3")
         raster_rows, raster_headline = phase_raster(rz)
         report["raster_rows"] = raster_rows
         log(f"kernel rasterize parity passed on {len(raster_rows)} cases")
@@ -4378,8 +4661,20 @@ def main() -> int:
         log(f"phase 16 took {report['space']['seconds']:.1f} s")
         report["space_train"] = phase_space_train(card)
         log(f"phase 17 took {report['space_train']['seconds']:.1f} s")
-        report["tensor"] = phase_tensor(card)
-        log(f"phase 18 took {report['tensor']['seconds']:.1f} s")
+        # phase 19 beside phase 18: its jobs and references run in processes of
+        # their own, so this process's CUDA memory and counters stay phase 18's
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(1) as beside:
+            pipe_expert = beside.submit(phase_pipe_expert, card)
+            try:
+                report["tensor"] = phase_tensor(card)
+                log(f"phase 18 took {report['tensor']['seconds']:.1f} s")
+            finally:
+                report["pipe_expert"] = pipe_expert.result()
+        log(f"phase 19 took {report['pipe_expert']['seconds']:.1f} s (beside phase 18)")
+        if args.profile:  # and its last ones
+            report["profiler_probe_end"] = profiler_window_probe(rz, "after phase 19")
         report["launches"] = {"serving": served, "training": trained,
                               "serving_256": served_hi, "training_256": trained_hi,
                               **report["cli"]["launches"], **report["quality"]["launches"],
@@ -4388,7 +4683,8 @@ def main() -> int:
                               **report["prior_data"]["launches"],
                               **report["parallel"]["launches"], **report["space"]["launches"],
                               **report["space_train"]["launches"],
-                              **report["tensor"]["launches"]}
+                              **report["tensor"]["launches"],
+                              **report["pipe_expert"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -4480,7 +4776,9 @@ def main() -> int:
               for name in ("f32", "bf16") for r in (0, 1)),
             *((f"tensor_vae_rank{r}", ("rasterize",)) for r in (0, 1)),
             *((f"tensor_2d_sde_rank{r}", ("gn_silu", "gn_silu_backward")) for r in range(4)),
-            *((f"tensor_2d_vae_rank{r}", ("rasterize",)) for r in range(4)))
+            *((f"tensor_2d_vae_rank{r}", ("rasterize",)) for r in range(4)),
+            *((f"pipe_expert_cli_{axis}_{label}_rank{r}", ("rasterize",))
+              for axis in PE_MESHES for label in ("epoch_1", "resumed") for r in (0, 1)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -4511,6 +4809,8 @@ def main() -> int:
         "launches_parallel": {k: paths[k]["gn_silu"] for k in report["parallel"]["launches"]},
         "launches_space": {k: paths[k]["gn_silu"] for k in report["space"]["launches"]},
         "launches_tensor": {k: paths[k]["gn_silu"] for k in report["tensor"]["launches"]},
+        "launches_pipe_expert": {k: paths[k]["gn_silu"]
+                                 for k in report["pipe_expert"]["launches"]},
         "torch_op": "toycrystals::gn_silu (no-grad forward, eager and exported)",
         "cluster": headline["plan"]["cluster"],
         "max_abs_err": headline["max_abs_err"],
@@ -4574,6 +4874,8 @@ def main() -> int:
                                 for k in report["prior_data"]["launches"]},
         "launches_parallel": {k: paths[k]["rasterize"] for k in report["parallel"]["launches"]},
         "launches_tensor": {k: paths[k]["rasterize"] for k in report["tensor"]["launches"]},
+        "launches_pipe_expert": {k: paths[k]["rasterize"]
+                                 for k in report["pipe_expert"]["launches"]},
         "max_abs_err": raster_headline["max_abs_err"], "ms": raster_headline["ms"],
         "ms_is": "the kernel's device time (torch.profiler); wrapper_ms: CUDA events "
                  "around the wrapper's calls",
@@ -4622,6 +4924,8 @@ def main() -> int:
         "launches_parallel": {k: paths[k]["flash_attn"] for k in report["parallel"]["launches"]},
         "launches_space": {k: paths[k]["flash_attn"] for k in report["space"]["launches"]},
         "launches_tensor": {k: paths[k]["flash_attn"] for k in report["tensor"]["launches"]},
+        "launches_pipe_expert": {k: paths[k]["flash_attn"]
+                                 for k in report["pipe_expert"]["launches"]},
         "launches_tensor_backward": {k: paths[k]["flash_attn_backward"]
                                      for k in report["tensor"]["launches"]},
         "torch_op": "toycrystals::flash_sdpa_fwd (no-grad forward, eager and exported)",

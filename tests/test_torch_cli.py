@@ -308,9 +308,9 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    # the data, space and model axes run, FSDP2 on a model axis too; their
-    # refusals are JAX's, and the 3-D mesh and the prior's pipeline and expert
-    # axes are still to port
+    # the data, space and model axes run, FSDP2 on a model axis too, and the
+    # prior's pipeline and expert axes; their refusals are JAX's, and the 3-D
+    # mesh is still to port
     ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
     ("train", ["--fsdp", "--shard-model", "2"], "--shard 0 x --shard-model 2 needs 2 devices"),
     ("train", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
@@ -318,8 +318,11 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
     ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
     ("serve", ["--coordinator", "localhost:1"], "--coordinator host:port, --num-processes"),
     ("prior", ["--shard-model", "2"], "--shard 0 x --shard-model 2 needs 2 devices, have 1"),
-    ("prior", ["--pipe-micro", "2"], MODULE_5), ("prior", ["--shard-pipe", "2"], MODULE_5),
-    ("prior", ["--shard-expert", "2"], MODULE_5),
+    ("prior", ["--shard-pipe", "3"], "--shard-pipe 3 must divide the prior's 8 blocks"),
+    ("prior", ["--moe-experts", "4", "--shard-pipe", "2"],
+     "--moe-experts does not support --shard-pipe"),
+    ("prior", ["--shard-expert", "2"], r"--shard-expert 2 requires --moe-experts divisible by "
+                                       r"it \(got 0\)"),
     ("sample", ["--shard-space", "2"], "--shard 0 x --shard-space 2 needs 2 devices, have 1"),
     ("sample", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
 ])

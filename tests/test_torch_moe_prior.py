@@ -60,10 +60,18 @@ def test_aux_weighted_step_matches_jax_grad():
 
 
 def test_init_statistics_match_flax_per_leaf():
+    _check_init_statistics(np.random.default_rng(24))
+
+
+def test_init_statistics_match_flax_per_leaf_from_a_torch_generator():
+    _check_init_statistics(torch.Generator().manual_seed(24))
+
+
+def _check_init_statistics(rng):
     kw = dict(MOE_KW, width=128, n_blocks=1)
     want = jax.tree.map(np.asarray, _init(jm_.DiffusionPriorMoE(**kw), 23))
     got = flax_prior_from_torch_state_dict(
-        flax_default_init(tm_.DiffusionPriorMoE(**kw), np.random.default_rng(24)).state_dict())
+        flax_default_init(tm_.DiffusionPriorMoE(**kw), rng).state_dict())
     leaves = jax.tree_util.tree_leaves_with_path(want)
     assert len(leaves) == len(jax.tree.leaves(got))
     for path, w in leaves:

@@ -303,9 +303,9 @@ def test_epoch_is_its_shuffle_then_its_steps():
     assert all(torch.equal(e1[k], e2[k]) for k in e1)
     assert all(torch.equal(p1[k], p2[k]) for k in p1)
     assert math.isfinite(float(e1["loss"]))
-    with pytest.raises(NotImplementedError, match="module 5"):  # JAX's pipeline mesh
-        make_prior_train_epoch(tm, tx, T, B, lat,
-                               mesh=types.SimpleNamespace(mesh_dim_names=("data", "pipe")))
+    with pytest.raises(NotImplementedError, match="module 5"):  # JAX's 3-D mesh
+        make_prior_train_epoch(tm, tx, T, B, lat, mesh=types.SimpleNamespace(
+            mesh_dim_names=("data", "space", "model")))
 
 
 def test_layernorm_variance_formula_costs_under_2e6_at_width_1024():

@@ -174,15 +174,21 @@ def test_moe_prior_trains_and_reports_routes(runs, capsys):
             d / "port" / "checkpoints" / "diffusion_prior_last.msgpack")])
 
 
-@pytest.mark.parametrize("flags", [["--shard-pipe", "2"], ["--shard-expert", "2"],
-                                   ["--shard-model", "2", "--pipe-micro", "2"],
-                                   ["--pipe-micro", "2"]])
-def test_deferred_flags_exit_naming_module_5(runs, flags):
-    """The pipeline and expert axes refuse, naming their ROADMAP item; with
-    --shard-model, which runs, as well."""
+@pytest.mark.parametrize("flags, message", [
+    (["--shard-pipe", "3"], "--shard-pipe 3 must divide the prior's 8 blocks"),
+    (["--shard-expert", "2"], r"--shard-expert 2 requires --moe-experts divisible by it"),
+    (["--shard-model", "2", "--shard-pipe", "2", "--pipe-micro", "2"],
+     "--shard-pipe and --shard-model are mutually exclusive"),
+    (["--shard-pipe", "2", "--pipe-micro", "3"], "must divide by --shard 1 x --pipe-micro 3"),
+])
+def test_deferred_flags_exit_naming_module_5(runs, flags, message):
+    """The pipeline and expert axes run now (ROADMAP.md queue 1, module 5);
+    what they cannot run refuses with JAX's words, before any rank starts."""
     _, common, _, _ = runs
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
+    with pytest.raises(SystemExit, match=message):
         prior_cli.train(common + flags)
+    with pytest.raises(SystemExit, match=message):
+        prior_cli.main(common + flags)
 
 
 def test_without_device_flag_the_clis_refuse_to_run_on_the_cpu(runs, monkeypatch):

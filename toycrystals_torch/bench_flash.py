@@ -46,6 +46,12 @@ DEFAULT_SHAPES = {"bfloat16": ("24,4096,4,48", "32,4096,4,48"),
 # is three TF32 products
 OPS_PER_S = {"bfloat16": 989e12, "float32": 495e12 / 3}
 BACKWARD_KERNELS = ("flash_delta", "flash_dkv", "flash_dq")
+# torch.profiler can lose kernel records: a window may keep fewer kernels
+# than were launched in it, or none (`window_probe`). `kernel_ms` takes the
+# first of up to PROFILE_TRIES windows in which every kernel launch has its
+# record; `window_probe` opens PROBE_WINDOWS windows of each kind.
+PROFILE_TRIES = 5
+PROBE_WINDOWS = 10
 
 
 def nvidia_smi(fields: str) -> str:
@@ -68,24 +74,93 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters: int, names=BACKWARD_KERNELS) -> dict[str, float]:
-    """Device ms per call of `fn` of each kernel whose name holds one of
-    `names`, from `torch.profiler` over `iters` calls after one warm-up."""
+def _profiled(fn, iters: int, cpu: bool = False):
+    """`torch.profiler` over `iters` calls of `fn` (after one warm-up); with
+    `cpu`, the host's runtime calls too."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    return prof
+
+
+def _records(prof, names=("",)) -> tuple[list, set]:
+    """(the window's kernel records whose names hold one of `names`, the
+    correlation ids of its kernel launch calls that have no kernel record)."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    kernels = [e for e in events if e.device_type() == DeviceType.CUDA]
+    launched = {e.correlation_id() for e in events
+                if e.device_type() != DeviceType.CUDA and "LaunchKernel" in e.name()}
+    return ([k for k in kernels if any(n in k.name() for n in names)],
+            launched - {k.correlation_id() for k in kernels})
+
+
+def kernel_ms(fn, iters: int, names=BACKWARD_KERNELS) -> dict[str, float]:
+    """Device ms per call of `fn` of each kernel whose name holds one of
+    `names`, from `torch.profiler` (CPU and CUDA activities) over `iters`
+    calls after one warm-up: from the first of up to PROFILE_TRIES windows
+    in which every kernel launch of the host has its kernel's record
+    (RuntimeError where none had)."""
+    from torch.autograd import DeviceType
+
+    for _ in range(PROFILE_TRIES):
+        prof = _profiled(fn, iters, cpu=True)
+        if not _records(prof)[1]:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler lost kernel records in each of {PROFILE_TRIES} "
+                           f"windows")
     out = dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         hit = [n for n in names if n in e.key]
         if e.device_type == DeviceType.CUDA and hit:
             out[hit[0]] += e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def window_probe(fn, iters: int, name: str) -> dict:
+    """What torch.profiler keeps in this process: PROBE_WINDOWS windows of
+    `iters` calls of `fn` with CUDA activity alone and as many with CPU and
+    CUDA activities, each kind counted empty where a window kept no kernel
+    `name`, with the fewest of the `iters` kernels any of its windows kept;
+    and, in the CPU and CUDA windows, the kernel launches left without a
+    record, and the lag, in ms, of each kernel's start after its launch
+    call's start (the same correlation id; positive and a few microseconds
+    where the two clocks agree)."""
+    import statistics
+
+    from torch.autograd import DeviceType
+
+    out = {"iters": iters, "windows": PROBE_WINDOWS}
+    lost, lags = 0, []
+    for label, cpu in (("cuda", False), ("cpu_cuda", True)):
+        counts = []
+        for _ in range(PROBE_WINDOWS):
+            prof = _profiled(fn, iters, cpu)
+            if cpu:
+                kernels, missing = _records(prof, (name,))
+                counts.append(len(kernels))
+                lost += len(missing)
+                events = prof.profiler.kineto_results.events()
+                launch = {e.correlation_id(): e.start_ns() for e in events
+                          if e.device_type() != DeviceType.CUDA and "LaunchKernel" in e.name()}
+                lags += [(k.start_ns() - launch[k.correlation_id()]) / 1e6 for k in kernels
+                         if k.correlation_id() in launch]
+            else:
+                counts.append(sum(e.count for e in prof.key_averages()
+                                  if e.device_type == DeviceType.CUDA and name in e.key))
+        out[f"empty_{label}"] = sum(c == 0 for c in counts)
+        out[f"fewest_kept_{label}"] = min(counts)
+    out.update(launches_without_record=lost,
+               launch_lag_ms=[min(lags), statistics.median(lags), max(lags)] if lags else None)
     return out
 
 

@@ -131,19 +131,42 @@ class DiffusionPriorFiLM(nn.Module):
 
     def cond(self, t: torch.Tensor, y_cat: torch.Tensor, y_cont: torch.Tensor) -> torch.Tensor:
         """The FiLM conditioning vector [B, 2 width]: t features ++ y features."""
-        t_feat = silu_mlp(self.t_mlp[0], self.t_mlp[2],
-                          timestep_embedding_discrete(t, self.t_emb_dim, self.t_freqs))
-        emb = tp.whole(self.y_cat_emb(y_cat.long()), self.y_cat_emb.embedding_dim, -1)
-        cont = silu_mlp(self.y_cont_mlp[0], self.y_cont_mlp[2], y_cont.float())
-        y_feat = torch.cat([emb, cont], dim=-1)
-        return torch.cat([t_feat, silu_mlp(self.y_fuse[0], self.y_fuse[2], y_feat)], dim=-1)
+        return film_cond(self, t, y_cat, y_cont)
 
     def forward(self, z_t, t, y_cat, y_cont) -> torch.Tensor:
-        cond = self.cond(t, y_cat, y_cont)
-        h = tp.dense(self.in_proj, z_t.float())
+        h, cond = film_stem(self, z_t, t, y_cat, y_cont)
         for block in self.blocks:
             h = block(h, cond)
-        return tp.dense(self.out_proj, tp.layer_norm(self.out_norm, h))
+        return film_head(self, h)
+
+
+# The stem and the head as calls on any module that holds their layers under
+# the prior's names: the prior itself, or a pipeline stage
+# (parallel/pipeline.py), which holds them beside its share of the blocks.
+
+
+def film_cond(m: nn.Module, t: torch.Tensor, y_cat: torch.Tensor,
+              y_cont: torch.Tensor) -> torch.Tensor:
+    """The FiLM conditioning vector [B, 2 width] of `m`'s t_mlp, y_cat_emb,
+    y_cont_mlp and y_fuse: t features ++ y features."""
+    t_feat = silu_mlp(m.t_mlp[0], m.t_mlp[2],
+                      timestep_embedding_discrete(t, m.t_emb_dim, m.t_freqs))
+    emb = tp.whole(m.y_cat_emb(y_cat.long()), m.y_cat_emb.embedding_dim, -1)
+    cont = silu_mlp(m.y_cont_mlp[0], m.y_cont_mlp[2], y_cont.float())
+    y_feat = torch.cat([emb, cont], dim=-1)
+    return torch.cat([t_feat, silu_mlp(m.y_fuse[0], m.y_fuse[2], y_feat)], dim=-1)
+
+
+def film_stem(m: nn.Module, z_t, t, y_cat, y_cont) -> tuple[torch.Tensor, torch.Tensor]:
+    """(h0 = in_proj(z_t) [B, width], cond [B, 2 width]): what the blocks
+    start from."""
+    cond = film_cond(m, t, y_cat, y_cont)
+    return tp.dense(m.in_proj, z_t.float()), cond
+
+
+def film_head(m: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    """eps [B, z_dim] = out_proj(out_norm(h))."""
+    return tp.dense(m.out_proj, tp.layer_norm(m.out_norm, h))
 
 
 class DiffusionPrior(nn.Module):

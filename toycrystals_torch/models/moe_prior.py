@@ -27,7 +27,11 @@ replaced by `n_experts` switch-routed expert MLPs (`MoEFiLMResBlock`):
   the softmax and the argmax, and the experts' weights are sharded on their
   trailing dims: each rank computes its block of the f hidden features, the
   second layer gathers them and gives its block of the d outputs, which the
-  combine gathers.
+  combine gathers;
+- under an "expert" axis (parallel/expert.py) each rank holds E / N experts
+  of every block (`expert_block`, this rank's `Block` of the stacks): it
+  runs them on all of its rows, weights them by its columns of `combine`,
+  and the partial outputs are summed over "expert".
 """
 
 from __future__ import annotations
@@ -36,9 +40,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from toycrystals_torch.models.diffusion_prior import LN_EPS, DiffusionPriorFiLM
+from toycrystals_torch.models.diffusion_prior import (
+    LN_EPS,
+    DiffusionPriorFiLM,
+    film_head,
+    film_stem,
+)
 from toycrystals_torch.parallel import spatial
 from toycrystals_torch.parallel import tensor as tp
+from toycrystals_torch.parallel.expert import copy_to_expert, reduce_from_expert
 from toycrystals_torch.parallel.mesh import replica_group
 
 
@@ -75,6 +85,13 @@ class MoEFiLMResBlock(nn.Module):
             f_e, p_e = f_e / n, all_reduce(p_e, group=group) / n
         aux = self.n_experts * (f_e * p_e).sum()
         d, f, shard = self.width, self.hidden, spatial.current_model()
+        ep = getattr(self, "expert_block", None)  # this rank's experts (parallel/expert.py)
+        if ep is not None:
+            # h and combine enter the rank's experts, each of which gives only
+            # its share of their gradients: summed over "expert" in the backward
+            k = self.n_experts // ep.size
+            h = copy_to_expert(h, ep)
+            combine = copy_to_expert(combine, ep)[:, ep.rank * k:(ep.rank + 1) * k]
         h = tp.sharded_input(h, tp.param_block(self, "w1"), d, -1)
         he = torch.einsum("bd,edf->ebf", h, self.w1) + self.b1[:, None, :]   # [E, B, f]
         second = tp.param_block(self, "w2")
@@ -82,7 +99,12 @@ class MoEFiLMResBlock(nn.Module):
         he = torch.einsum("ebf,efd->ebd", he, self.w2) + self.b2[:, None, :]
         if second is not None and shard is not None:  # the combine's share of each block
             combine = tp.copy_to_model(combine, shard)
-        return x + tp.whole(torch.einsum("ebd,be->bd", he, combine), d, -1), aux, f_e
+        out = torch.einsum("ebd,be->bd", he, combine)
+        if ep is not None:
+            # the sum over "expert" of the experts' partial outputs; its adjoint
+            # is the identity, since every expert rank's loss is the same
+            out = reduce_from_expert(out, ep)
+        return x + tp.whole(out, d, -1), aux, f_e
 
 
 class DiffusionPriorMoE(DiffusionPriorFiLM):
@@ -101,12 +123,11 @@ class DiffusionPriorMoE(DiffusionPriorFiLM):
         return MoEFiLMResBlock(self.width, 2 * self.width, self.n_experts)
 
     def forward(self, z_t, t, y_cat, y_cont, return_stats: bool = False, mesh=None):
-        cond = self.cond(t, y_cat, y_cont)
-        h = tp.dense(self.in_proj, z_t.float())
+        h, cond = film_stem(self, z_t, t, y_cat, y_cont)
         stats: dict[str, list[torch.Tensor]] = {"moe_aux": [], "route_fraction": []}
         for block in self.blocks:
             h, aux, frac = block(h, cond, mesh)
             stats["moe_aux"].append(aux)
             stats["route_fraction"].append(frac)
-        eps = tp.dense(self.out_proj, tp.layer_norm(self.out_norm, h))
+        eps = film_head(self, h)
         return (eps, stats) if return_stats else eps

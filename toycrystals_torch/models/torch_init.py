@@ -10,7 +10,9 @@ the JAX trainer starts from:
   counts them), biases zero, norm scales one, the U-Net's class embedding
   N(0, 1) and the prior's `y_cat_emb` N(0, 1/features) (flax's Embed
   default); from a numpy generator, so a seed gives the same weights on
-  every machine.
+  every machine, or from a `torch.Generator`, which draws the same
+  statistics on its own device (other values; a model of 10^8 parameters in
+  milliseconds on a GPU, where numpy takes seconds).
 - `torch_like_init`: torch's own layer defaults, which the original torch
   implementation trained from: conv and linear kernels and their biases
   U(+-1/sqrt(fan_in)), embeddings N(0, 1), norm scales and biases untouched;
@@ -30,26 +32,40 @@ from torch import nn
 from toycrystals_torch.ops.conv import Conv2d
 
 
-def flax_default_init(model: nn.Module, rng: np.random.Generator) -> nn.Module:
+def _flax_leaf(k: str, shape: tuple) -> tuple[str, float]:
+    """How flax draws the leaf `k` of `shape`: ("normal", the divisor of
+    N(0, 1)), ("ones", 1) or ("zeros", 1)."""
+    if k.endswith("y_cat_emb.weight"):
+        return "normal", math.sqrt(shape[1])
+    if k.endswith("cat_emb.weight"):
+        return "normal", 1.0
+    if k.endswith((".w1", ".w2")):  # [E, fan_in, fan_out], the flax layout
+        return "normal", math.sqrt(math.prod(shape[:-1]))
+    if k.endswith("weight") and "ConvTranspose" in k:  # [in, out, kh, kw]
+        return "normal", math.sqrt(shape[0] * math.prod(shape[2:]))
+    if k.endswith("weight") and len(shape) >= 2:
+        return "normal", math.sqrt(math.prod(shape[1:]))
+    return ("ones", 1.0) if k.endswith("weight") else ("zeros", 1.0)
+
+
+def flax_default_init(model: nn.Module,
+                      rng: np.random.Generator | torch.Generator) -> nn.Module:
     """Re-draw every parameter of `model` with flax's default statistics,
-    walking `state_dict()` in order (one `rng.normal` call per kernel)."""
+    walking `state_dict()` in order (one draw per kernel), from a numpy
+    generator or, on its device, a `torch.Generator`."""
     sd = {}
     for k, v in model.state_dict().items():
         shape = tuple(v.shape)
-        if k.endswith("y_cat_emb.weight"):
-            a = rng.normal(size=shape) / math.sqrt(shape[1])
-        elif k.endswith("cat_emb.weight"):
-            a = rng.normal(size=shape)
-        elif k.endswith((".w1", ".w2")):  # [E, fan_in, fan_out], the flax layout
-            a = rng.normal(size=shape) / math.sqrt(math.prod(shape[:-1]))
-        elif k.endswith("weight") and "ConvTranspose" in k:  # [in, out, kh, kw]
-            a = rng.normal(size=shape) / math.sqrt(shape[0] * math.prod(shape[2:]))
-        elif k.endswith("weight") and len(shape) >= 2:
-            a = rng.normal(size=shape) / math.sqrt(math.prod(shape[1:]))
-        elif k.endswith("weight"):
-            a = np.ones(shape)
+        kind, d = _flax_leaf(k, shape)
+        if isinstance(rng, torch.Generator):
+            fill = {"ones": torch.ones, "zeros": torch.zeros}.get(kind)
+            sd[k] = (torch.randn(shape, generator=rng, device=rng.device) / d if fill is None
+                     else fill(shape, device=rng.device))
+            continue
+        if kind == "normal":
+            a = rng.normal(size=shape) / d
         else:
-            a = np.zeros(shape)
+            a = np.ones(shape) if kind == "ones" else np.zeros(shape)
         sd[k] = torch.tensor(a.astype(np.float32))
     model.load_state_dict(sd, strict=True)
     return model

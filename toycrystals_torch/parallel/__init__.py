@@ -1,9 +1,11 @@
 """The port's parallelism (counterpart of toycrystals_tpu/parallel/): process
 groups, the data mesh, FSDP2 placement (HSDP on a space axis, 2-D weight
 sharding on a model axis), the space axis (`spatial`, on a ("data",
-"space") mesh) and the "model" axis of the score model, the VAE and the
-priors (`tensor`, on a ("data", "model") mesh). The pipeline and expert axes
-and the 3-D mesh are not ported yet (ROADMAP.md queue 1, module 5)."""
+"space") mesh), the "model" axis of the score model, the VAE and the priors
+(`tensor`, on a ("data", "model") mesh), and the FiLM prior's pipeline
+(`pipeline`, on a ("data", "pipe") mesh) and the MoE prior's experts over
+ranks (`expert`, on a ("data", "expert") mesh). JAX's 3-D ("data", "space",
+"model") mesh is not ported yet (ROADMAP.md queue 1, module 5)."""
 
 from toycrystals_torch.parallel.fsdp import (
     fsdp_coverage,
@@ -17,6 +19,8 @@ from toycrystals_torch.parallel.mesh import (
     data_sharding,
     make_mesh,
     make_mesh_2d,
+    make_mesh_ep,
+    make_mesh_pp,
     make_mesh_tp,
     replicate,
     shard_batch,
@@ -40,6 +44,8 @@ __all__ = [
     "launch",
     "make_mesh",
     "make_mesh_2d",
+    "make_mesh_ep",
+    "make_mesh_pp",
     "make_mesh_tp",
     "maybe_initialize",
     "place_state",

@@ -46,7 +46,9 @@ from torch import nn
 
 from toycrystals_torch.parallel.mesh import (
     AXIS,
+    EXPERT,
     MODEL,
+    PIPE,
     SPACE,
     axis_group,
     axis_size,
@@ -189,8 +191,10 @@ def data_shard(t: torch.Tensor) -> tuple[int, int, int] | None:
 def shard_axes(t: torch.Tensor) -> tuple[tuple[str, object], ...]:
     """(axis name, process group) of each mesh axis over whose ranks the
     pieces of `t` are spread: a DTensor's shard dim of its mesh ("data"),
-    a model block's ("model"), both for a block that FSDP2 shards; () for a
-    whole tensor."""
+    a block's axis ("model", or "expert": parallel/expert.py), both for a
+    block that FSDP2 shards, and "pipe" for a pipeline stage's block
+    (parallel/pipeline.py); () for a whole tensor."""
+    from toycrystals_torch.parallel.pipeline import stage_of
     from toycrystals_torch.parallel.tensor import block_of
 
     axes = []
@@ -200,7 +204,10 @@ def shard_axes(t: torch.Tensor) -> tuple[tuple[str, object], ...]:
             axes.append((t.device_mesh.mesh_dim_names[sd[0]], t.device_mesh.get_group(sd[0])))
     blk = block_of(t)
     if blk is not None:
-        axes.append((MODEL, blk.group))
+        axes.append((blk.axis, blk.group))
+    stage = stage_of(t)
+    if stage is not None:
+        axes.append((PIPE, stage.group))
     return tuple(axes)
 
 
@@ -271,10 +278,28 @@ def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
             p.grad.div_(n)
 
 
-def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
-    """Place `model` and its `TrainState` on a ("data",), ("data", "space")
-    or ("data", "model") mesh; returns (the module to train through, the
-    state). mesh=None passes both through.
+def full_tensors(tensors: dict, tags: dict | None = None) -> dict:
+    """`full` of every tensor of a state's dict (parameters, moments, EMA or,
+    with their parameters as `tags`, gradients), and on a ("data", "pipe")
+    mesh every stage's blocks as well, in the whole model's order
+    (parallel/pipeline.py `gather_stages`); a collective."""
+    from toycrystals_torch.parallel.pipeline import gather_stages
+    from toycrystals_torch.parallel.tensor import block_of, gather_block
+
+    tags = tensors if tags is None else tags
+    whole = {}
+    for k, v in tensors.items():
+        whole[k] = full(v)
+        blk = block_of(tags[k])
+        if blk is not None and block_of(v) is None:  # a gradient of a block
+            whole[k] = gather_block(whole[k], blk)
+    return gather_stages(whole, tags)
+
+
+def place_state(mesh, model: nn.Module, state, fsdp: bool = False, n_micro: int = 1):
+    """Place `model` and its `TrainState` on a ("data",), ("data", "space"),
+    ("data", "model"), ("data", "pipe") or ("data", "expert") mesh; returns
+    (the module to train through, the state). mesh=None passes both through.
 
     Every rank first takes rank 0's parameters, moments and EMA. Then:
 
@@ -290,10 +315,25 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False):
       the EMA are rebuilt on the blocks, and DDP averages over the "data"
       group of the rank's model coordinate; with `fsdp` (JAX's 2-D weight
       sharding) FSDP2 then shards those blocks over the "data" sub-mesh
-      instead, and the moments and the EMA sit on the same 2-D shards."""
+      instead, and the moments and the EMA sit on the same 2-D shards;
+    - on a ("data", "pipe") mesh the FiLM prior runs as a pipeline of
+      `n_micro` microbatches, each rank one stage with its blocks, their
+      moments and EMA (parallel/pipeline.py `place_pipeline_state`); on a
+      ("data", "expert") mesh the MoE prior keeps its block of every leaf
+      JAX's expert rule shards (parallel/expert.py `place_expert_state`).
+      Both average the gradients over "data" by hand after the backward.
+      `fsdp` changes neither placement, as in JAX."""
     if mesh is None:
         return model, state
-    check_data_mesh(mesh, space=True, model=True)
+    check_data_mesh(mesh, space=True, model=True, pipe=True, expert=True)
+    if PIPE in mesh_axes(mesh):
+        from toycrystals_torch.parallel.pipeline import place_pipeline_state
+
+        return place_pipeline_state(mesh, model, state, n_micro)
+    if EXPERT in mesh_axes(mesh):
+        from toycrystals_torch.parallel.expert import place_expert_state
+
+        return place_expert_state(mesh, model, state)
     model_axis = MODEL in mesh_axes(mesh)
     names = list(state.params)
     opt = state.opt_state

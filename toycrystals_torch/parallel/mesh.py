@@ -25,6 +25,14 @@ varying fastest as in JAX's `make_mesh_tp`: rank d M + m holds rows
 [d B / D, (d + 1) B / D) of the batch and block m of every weight that
 parallel/tensor.py shards. The model ranks of one data coordinate hold the
 same rows and draw the same noise (`row_generator` reads the data rank).
+
+`make_mesh_pp(D, S)` and `make_mesh_ep(D, N)` lay them out as ("data",
+"pipe") and ("data", "expert") meshes, the second axis varying fastest as in
+JAX's `make_mesh_pp` / `make_mesh_ep`: rank d S + s runs stage s of the
+prior's blocks on rows [d B / D, (d + 1) B / D) (parallel/pipeline.py), rank
+d N + e holds expert block e of the MoE prior (parallel/expert.py). The pipe
+and expert ranks of one data coordinate hold the same rows and draw the same
+noise, as the model axis's do.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from toycrystals_torch.utils.rng import RowGenerator, rand, randint, randn  # no
 AXIS = "data"
 SPACE = "space"
 MODEL = "model"
+PIPE = "pipe"
+EXPERT = "expert"
 DEFERRED = "ROADMAP.md queue 1, module 5: parallel axes"
 
 
@@ -69,35 +79,58 @@ def make_mesh_2d(n_data: int, n_space: int, device_type: str = "cuda"):
                             mesh_dim_names=(AXIS, SPACE))
 
 
+def _make_mesh_2(n_data: int, n: int, axis: str, device_type: str):
+    """The ("data", `axis`) mesh over all n_data * n ranks of the process
+    group, `axis` varying fastest."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    need = int(n_data) * int(n)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not dist.is_initialized() or need != world:
+        raise ValueError(f"asked for {need} devices, have {world} (a (data, {axis}) mesh of "
+                         f"{n_data} x {n} spans every rank of a process group)")
+    return init_device_mesh(device_type, (int(n_data), int(n)), mesh_dim_names=(AXIS, axis))
+
+
 def make_mesh_tp(n_data: int, n_model: int, device_type: str = "cuda"):
     """The ("data", "model") mesh over all n_data * n_model ranks of the
     process group, "model" varying fastest (a weight's blocks sit on adjacent
     ranks; the gradient average over "data" is once per step)."""
-    from torch.distributed.device_mesh import init_device_mesh
+    return _make_mesh_2(n_data, n_model, MODEL, device_type)
 
-    need = int(n_data) * int(n_model)
-    world = dist.get_world_size() if dist.is_initialized() else 1
-    if not dist.is_initialized() or need != world:
-        raise ValueError(f"asked for {need} devices, have {world} (a (data, model) mesh of "
-                         f"{n_data} x {n_model} spans every rank of a process group)")
-    return init_device_mesh(device_type, (int(n_data), int(n_model)),
-                            mesh_dim_names=(AXIS, MODEL))
+
+def make_mesh_pp(n_data: int, n_pipe: int, device_type: str = "cuda"):
+    """The ("data", "pipe") mesh over all n_data * n_pipe ranks of the
+    process group, "pipe" varying fastest (neighbouring stages are adjacent
+    ranks, so each tick's hand-off is one hop)."""
+    return _make_mesh_2(n_data, n_pipe, PIPE, device_type)
+
+
+def make_mesh_ep(n_data: int, n_expert: int, device_type: str = "cuda"):
+    """The ("data", "expert") mesh over all n_data * n_expert ranks of the
+    process group, "expert" varying fastest (each block's combine sums over
+    adjacent ranks; the gradient average over "data" is once per step)."""
+    return _make_mesh_2(n_data, n_expert, EXPERT, device_type)
 
 
 def mesh_axes(mesh) -> tuple[str, ...]:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
 
 
-def check_data_mesh(mesh, space: bool = False, model: bool = False) -> None:
+def check_data_mesh(mesh, space: bool = False, model: bool = False, pipe: bool = False,
+                    expert: bool = False) -> None:
     """Only the ("data",) axis is ported, ("data", "space") where `space`
-    (the score model's sampling, serving and training) and ("data",
-    "model") where `model` (those, and the VAE's and the prior's training);
-    any other axis, or JAX's 3-D ("data", "space", "model") mesh, raises."""
+    (the score model's sampling, serving and training), ("data", "model")
+    where `model` (those, and the VAE's and the prior's training), and
+    ("data", "pipe") and ("data", "expert") where `pipe` and `expert` (the
+    prior's step, epoch and placement); any other axis, or JAX's 3-D
+    ("data", "space", "model") mesh, raises."""
     names = mesh_axes(mesh)
-    if names == (AXIS,) or (space and names == (AXIS, SPACE)) \
-            or (model and names == (AXIS, MODEL)):
+    allowed = [(AXIS,)] + [(AXIS, a) for a, on in ((SPACE, space), (MODEL, model),
+                                                   (PIPE, pipe), (EXPERT, expert)) if on]
+    if names in allowed:
         return
-    ported = ["('data',)"] + ["('data', 'space')"] * space + ["('data', 'model')"] * model
+    ported = [str(a) for a in allowed]
     raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
                               f"the ported axes here are {', '.join(ported)}")
 
@@ -128,9 +161,11 @@ def axis_group(mesh, axis: str):
 
 def replica_group(mesh) -> tuple[object, int]:
     """(group, size) over which a step's metrics are averaged: every rank of
-    the mesh, except that the model ranks of a data coordinate compute the
-    same loss, so a ("data", "model") mesh averages over "data" only."""
-    if MODEL in mesh_axes(mesh):
+    the mesh, except that the model, pipe and expert ranks of a data
+    coordinate hold the same rows and compute the same loss, so a ("data",
+    "model"), ("data", "pipe") or ("data", "expert") mesh averages over
+    "data" only."""
+    if {MODEL, PIPE, EXPERT} & set(mesh_axes(mesh)):
         return axis_group(mesh, AXIS), axis_size(mesh, AXIS)
     return mesh_group(mesh), mesh.size()
 
@@ -171,14 +206,26 @@ def shard_batch(mesh, batch: Any) -> Any:
 
 def replicate(mesh, tensors) -> None:
     """Broadcast every tensor of the iterable from the mesh's rank 0, in
-    place, so that all ranks hold rank 0's values; mesh=None does nothing."""
+    place, so that all ranks hold rank 0's values; mesh=None does nothing.
+    A tensor whose bytes are all zero on rank 0 (a fresh state's Adam
+    moments) is zeroed on every rank instead of sent: one flag per tensor
+    travels, not its bytes."""
     if mesh is None:
+        return
+    tensors = [t.data for t in tensors]
+    if not tensors:
         return
     group = mesh_group(mesh)
     src = dist.get_global_rank(group, 0)
     with torch.no_grad():
-        for t in tensors:
-            dist.broadcast(t.data, src=src, group=group)
+        zero = torch.stack([t.reshape(-1).view(torch.uint8).any().eq(0).to(tensors[0].device)
+                            for t in tensors]).to(torch.uint8)
+        dist.broadcast(zero, src=src, group=group)
+        for t, z in zip(tensors, zero.tolist()):
+            if z:
+                t.zero_()
+            else:
+                dist.broadcast(t, src=src, group=group)
 
 
 def all_reduce_sum(mesh, x: torch.Tensor) -> torch.Tensor:

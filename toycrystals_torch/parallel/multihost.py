@@ -26,6 +26,7 @@ host-side artefacts (`is_primary`).
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import signal
 import tempfile
@@ -150,14 +151,15 @@ def _exit_with_parent() -> None:
 
 
 def _rank_main(rank: int, world: int, init_method: str, backend: str, device_type: str,
-               device_ids: Sequence[int] | None, fn: Callable, args: tuple,
-               results) -> None:
+               device_ids: Sequence[int] | None, call: str, results) -> None:
     import faulthandler
 
     faulthandler.enable()  # a crash in native code still names its Python frame
     _exit_with_parent()
     torch.set_num_threads(1)
     try:
+        with open(call, "rb") as f:
+            fn, args = pickle.load(f)
         if device_type == "cuda":
             torch.cuda.set_device(device_ids[rank] if device_ids is not None else rank)
         dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
@@ -195,9 +197,16 @@ def launch(fn: Callable, nprocs: int, args: tuple = (), *, device_type: str = "c
     results = ctx.Queue()
     with tempfile.TemporaryDirectory(prefix="toycrystals-rdzv-") as tmp:
         init = f"file://{os.path.join(tmp, 'store')}"
+        # fn and args reach the ranks through a file: a spawned process's
+        # arguments fill a pipe that `start` writes before it returns, so
+        # arguments larger than the pipe would hold each rank's start until the
+        # one before it had imported its modules and read them
+        call = os.path.join(tmp, "call.pkl")
+        with open(call, "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, nprocs, init, backend, device_type, device_ids,
-                                   fn, tuple(args), results))
+                             args=(r, nprocs, init, backend, device_type, device_ids, call,
+                                   results))
                  for r in range(nprocs)]
         for p in procs:
             p.start()

@@ -11,9 +11,12 @@ entry of those 2-rank jobs (`parallel.multihost.launch(run_cases, 2,
 (spec,))`), so it imports neither JAX nor a test.
 
 `spec` = {"device": "cpu" | "cuda", "tf32": bool (default False; None keeps
-torch's defaults, as a CLI's process has them), "mesh": [D, S] (optional:
-a ("data", "space") mesh; [D, M, "model"] a ("data", "model") mesh; default
-a ("data",) mesh of every rank), "cases": [...]}; every
+torch's defaults, as a CLI's process has them), "one_process": bool (no
+mesh even in a process group: a one-process reference in a spawned rank),
+"mesh": [D, S] (optional:
+a ("data", "space") mesh; [D, M, "model"] a ("data", "model") mesh, [D, S,
+"pipe"] a ("data", "pipe") mesh and [D, N, "expert"] a ("data", "expert")
+one; default a ("data",) mesh of every rank), "cases": [...]}; every
 case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
 draws included), of which each rank takes its rows (and, on a mesh with a
 space axis, its rows of the height of every 4-D [B, H, W, C] input); a case's
@@ -50,7 +53,19 @@ whole:
   step's gradients and the state after;
 - "prior": one `make_prior_train_step` ("n_experts" in the model: the MoE
   prior, with its global route statistics) on injected (t, eps), under DDP
-  or FSDP2 ("fsdp");
+  or FSDP2 ("fsdp"), or on a pipe mesh as a pipeline of "micro"
+  microbatches, or on an expert mesh; "steps": n repeats it on the same
+  inputs (the first step's gradients, the last one's metrics), and a
+  "ddim" dict of prior_apply's inputs runs that after the steps. It also
+  returns what the rank holds ("held": the shape of each of its parameters
+  and first moments), and of the last step its ms, on a CUDA device the
+  bytes of the rank's parameters and moments ("state_bytes"), all it had
+  allocated before the step ("allocated_bytes") and the step's peak
+  ("step_peak_bytes"), and on a pipe mesh its hops and their seconds per
+  hop ("hops", "hop_s_per_tick");
+- "prior_apply": the prior's forward on (z_t, t, y_cat, y_cont) and DDIM
+  ("ddim_steps") from the injected start noise z, each on this rank's rows,
+  placed as "prior" is, gathered over "data";
 - "distill": one `make_distill_train_step` on injected (i, eps), teacher
   whole on every rank, student under DDP;
 - "sample": `sample_chunked` of a sampler ("sampler": sde, ode, dpm, ddim or rf;
@@ -87,6 +102,8 @@ that FSDP2's swaps of the parameters show whether the blocks survive.
 from __future__ import annotations
 
 import contextlib
+import gc
+import shutil
 import time
 from typing import Any
 
@@ -99,10 +116,12 @@ def _t(a, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), device=device, dtype=dtype)
 
 
-def _np(tensors: dict) -> dict[str, np.ndarray]:
-    from toycrystals_torch.parallel.fsdp import full
+def _np(tensors: dict, tags: dict | None = None) -> dict[str, np.ndarray]:
+    """Each tensor whole (`fsdp.full_tensors`: a pipeline's blocks from every
+    stage too), as numpy."""
+    from toycrystals_torch.parallel.fsdp import full_tensors
 
-    return {k: full(v).detach().cpu().numpy().copy() for k, v in tensors.items()}
+    return {k: v.detach().cpu().numpy().copy() for k, v in full_tensors(tensors, tags).items()}
 
 
 def _state_np(state) -> dict:
@@ -115,15 +134,18 @@ def _state_np(state) -> dict:
 
 def _grads_np(model, grads) -> dict[str, np.ndarray]:
     """Gradients by name, whole: an FSDP2 shard's gathered over "data", a
-    model block's by its parameter's `Block`."""
-    from toycrystals_torch.parallel.fsdp import full
-    from toycrystals_torch.parallel.tensor import block_of, gather_block
+    model or expert block's by its parameter's `Block`, a pipeline stage's
+    blocks from every stage."""
+    params = dict(_params(model))
+    return _np(dict(zip(params, grads)), params)
 
-    out = {}
-    for (k, p), g in zip(_inner(model).named_parameters(), grads):
-        blk, g = block_of(p), full(g)
-        out[k] = g if blk is None else gather_block(g, blk)
-    return _np(out)
+
+def _params(model):
+    """(name, parameter) of the model inside its placement."""
+    from toycrystals_torch.parallel.expert import ExpertPlaced
+
+    inner = _inner(model)
+    return (inner.module if isinstance(inner, ExpertPlaced) else inner).named_parameters()
 
 
 def _thinned(case: dict, out: dict) -> dict:
@@ -196,20 +218,41 @@ def _load(model, state_dict: dict, device) -> Any:
     return model.to(device)
 
 
-def _place(mesh, model, tx, fsdp: bool, ema: bool = False):
+def _place(mesh, model, tx, fsdp: bool, ema: bool = False, n_micro: int = 1, fill=None):
     from toycrystals_torch.parallel import place_state
     from toycrystals_torch.train.state import create_train_state
 
     state = create_train_state(model, tx, ema=ema)
-    return place_state(mesh, model, state, fsdp)
+    if fill is not None:
+        _fill(state, fill)
+    return place_state(mesh, model, state, fsdp, n_micro=n_micro)
 
 
-def _net(case: dict, device):
+def _axis(mesh, axis: str) -> bool:
+    from toycrystals_torch.parallel.mesh import axis_size
+
+    return mesh is not None and axis_size(mesh, axis) > 1
+
+
+def _gather_rows(mesh, x: torch.Tensor) -> np.ndarray:
+    """The global batch's rows of x from every data rank's."""
+    from toycrystals_torch.parallel.mesh import AXIS, axis_group, axis_size
+
+    if mesh is not None and axis_size(mesh, AXIS) > 1:
+        parts = [torch.empty_like(x) for _ in range(axis_size(mesh, AXIS))]
+        dist.all_gather(parts, x.contiguous(), group=axis_group(mesh, AXIS))
+        x = torch.cat(parts)
+    return x.cpu().numpy()
+
+
+def _net(case: dict, device, mesh=None):
     """The case's model ("net": "unet" (default), "vae" or "prior"; the MoE
     prior where the model has "n_experts") from its state_dict, or drawn by
-    flax's initializers from "init_seed" (the same on every rank: a large
-    model need not travel to the ranks), and its flax bridge
-    (utils/params.py)."""
+    flax's initializers from "init_seed" (a large model need not travel to
+    the ranks; on a mesh rank 0 alone draws it, since the placement gives
+    every rank rank 0's weights) from a torch.Generator on the case's device
+    (a full-width prior in milliseconds, where numpy takes seconds), and its
+    flax bridge (utils/params.py)."""
     from toycrystals_torch.models.diffusion_prior import DiffusionPriorFiLM
     from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
     from toycrystals_torch.models.sde_score_model import CondUNetTiny
@@ -226,8 +269,10 @@ def _net(case: dict, device):
     if "state_dict" not in case:
         from toycrystals_torch.models.torch_init import flax_default_init
 
-        return flax_default_init(model, np.random.default_rng(case["init_seed"])).to(device), \
-            bridge
+        model.to(device)
+        if mesh is None or dist.get_rank() == 0:
+            flax_default_init(model, torch.Generator(device).manual_seed(case["init_seed"]))
+        return model, bridge
     return _load(model, case["state_dict"], device), bridge
 
 
@@ -265,7 +310,7 @@ def _sde(mesh, case: dict, device) -> dict:
     from toycrystals_torch.parallel.fsdp import local
     from toycrystals_torch.train.steps import make_sde_train_step
 
-    model, _ = _net(case, device)
+    model, _ = _net(case, device, mesh)
     tx = _opt(case)
     decay = case.get("opt", {}).get("ema", 0.0)
     module, state = _place(mesh, model, tx, case.get("fsdp", False), ema=decay > 0.0)
@@ -393,7 +438,7 @@ def _full_params(mesh, case: dict, device) -> dict:
 def _vae(mesh, case: dict, device) -> dict:
     from toycrystals_torch.train.steps import make_vae_train_step
 
-    model, _ = _net(dict(case, net="vae"), device)
+    model, _ = _net(dict(case, net="vae"), device, mesh)
     tx = _opt(case)
     module, state = _place(mesh, model, tx, case.get("fsdp", False))
     x, yc, yv, eps, keep = _rows(mesh, case, ("x", "y_cat", "y_cont", "eps", "keep"), device)
@@ -415,7 +460,7 @@ def _vae_epoch(mesh, case: dict, device) -> dict:
     from toycrystals_torch.data.lattice import LatticeConfig
     from toycrystals_torch.train.steps import make_vae_train_epoch
 
-    model, _ = _net(dict(case, net="vae"), device)
+    model, _ = _net(dict(case, net="vae"), device, mesh)
     tx = _opt(case)
     module, state = _place(mesh, model, tx, case.get("fsdp", False))
     epoch = make_vae_train_epoch(module, tx, case["free_bits"], case["batch"], case["items"],
@@ -437,23 +482,46 @@ def _prior(mesh, case: dict, device) -> dict:
     from toycrystals_torch.parallel import spatial
     from toycrystals_torch.train.steps import make_prior_train_step
 
-    model, _ = _net(dict(case, net="prior"), device)
+    from toycrystals_torch.parallel.mesh import PIPE
+
+    model, _ = _net(dict(case, net="prior"), device, mesh)
     tx = _opt(case)
-    module, state = _place(mesh, model, tx, case.get("fsdp", False))
+    module, state = _place(mesh, model, tx, case.get("fsdp", False),
+                           n_micro=case.get("micro", 1))
+    del model
     sched = DiffusionSchedule.from_arrays(case["betas"], case["alpha_bars"], device)
     z0n, yc, yv, t, eps = _rows(mesh, case, ("z0n", "y_cat", "y_cont", "t", "eps"), device)
     aux = case.get("aux_weight", 0.0)
     step = make_prior_train_step(module, tx, sched.T, aux, mesh)
     live: dict = {}
     watch = _watch_blocks(module, live)
-    _sync(device)
-    t0 = time.perf_counter()
-    state, m = step(state, sched, z0n, yc, yv, noise=(t, eps))
-    metrics = {k: v.cpu().numpy() for k, v in m.items()}
-    step_ms = (time.perf_counter() - t0) * 1e3
+    held = {"params": {k: list(v.shape) for k, v in state.params.items()},
+            "mu": {k: list(v.shape) for k, v in zip(state.params, state.opt_state.mu)}}
+    extra, steps_ms = {}, []
+    if device.type == "cuda":
+        held_tensors = [*state.params.values(), *state.opt_state.mu, *state.opt_state.nu]
+        extra["state_bytes"] = sum(t_.numel() * t_.element_size() for t_ in held_tensors)
+    for i in range(case.get("steps", 1)):  # the last step's time, peak and hops are kept
+        if i == case.get("steps", 1) - 1:
+            if device.type == "cuda":
+                extra["allocated_bytes"] = int(torch.cuda.memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            if _axis(mesh, PIPE):
+                module.hop_seconds, module.hops = 0.0, 0
+        _sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, sched, z0n, yc, yv, noise=(t, eps))
+        metrics = {k: v.cpu().numpy() for k, v in m.items()}
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
     watch.remove()
-    out = {"metrics": metrics, "step_ms": step_ms, "route_fraction": None,
-           "grads": _grads_np(module, tx.seen[0])}
+    if device.type == "cuda":
+        extra["step_peak_bytes"] = int(torch.cuda.max_memory_allocated())
+    if _axis(mesh, PIPE):
+        extra["hop_s_per_tick"] = module.hop_seconds / max(module.hops, 1)
+        extra["hops"] = module.hops
+    out = {"metrics": metrics, "step_ms": steps_ms[-1], "steps_ms": steps_ms,
+           "route_fraction": None, "held": held,
+           "grads": _grads_np(module, tx.seen[0]), **extra}
     if not case.get("thin"):
         out.update(tags=_tags(state, live), **_state_np(state))
     if aux:  # last: a forward without backward leaves FSDP2's parameters gathered
@@ -461,7 +529,37 @@ def _prior(mesh, case: dict, device) -> dict:
             _, stats = _inner(module)(sched.q_sample(z0n, t, eps), t, yc, yv,
                                       return_stats=True, mesh=mesh)
         out["route_fraction"] = [f.cpu().numpy() for f in stats["route_fraction"]]
+    if "ddim" in case:  # the updated prior's forward and DDIM (`_forward_ddim`)
+        out.update(_forward_ddim(mesh, module, sched, case["ddim"], device))
     return out
+
+
+def _forward_ddim(mesh, module, sched, case: dict, device) -> dict:
+    """The placed prior's forward on (z_t, t, y_cat, y_cont) and DDIM
+    ("ddim_steps") from the injected start noise z, each on this rank's rows,
+    gathered over "data"; with DDIM's seconds."""
+    from toycrystals_torch.models.diffusion_prior import ddim_sample
+    from toycrystals_torch.parallel import spatial
+
+    z_t, t, yc, yv, z = _rows(mesh, case, ("z_t", "t", "y_cat", "y_cont", "z"), device)
+    with torch.no_grad(), spatial.dispatch_scope(mesh):
+        eps = module(z_t, t, yc, yv)
+    _sync(device)
+    t0 = time.perf_counter()
+    z0 = ddim_sample(module, sched, yc, yv, case["ddim_steps"], z.shape[1], z=z)
+    _sync(device)
+    return {"forward": _gather_rows(mesh, eps), "ddim": _gather_rows(mesh, z0),
+            "ddim_s": time.perf_counter() - t0}
+
+
+def _prior_apply(mesh, case: dict, device) -> dict:
+    from toycrystals_torch.models.diffusion_prior import DiffusionSchedule
+
+    model, _ = _net(dict(case, net="prior"), device, mesh)
+    module, _ = _place(mesh, model, _opt(case), False, n_micro=case.get("micro", 1))
+    del model
+    sched = DiffusionSchedule.from_arrays(case["betas"], case["alpha_bars"], device)
+    return _forward_ddim(mesh, module, sched, case, device)
 
 
 def _distill(mesh, case: dict, device) -> dict:
@@ -620,7 +718,7 @@ def _service(mesh, case: dict, device) -> dict:
 def _dcp(mesh, case: dict, device) -> dict:
     from toycrystals_torch.utils.orbax_io import ShardedCheckpointManager
 
-    model, _ = _net(case, device)
+    model, _ = _net(case, device, mesh)
     tx = _opt(case)
     _, state = _place(mesh, model, tx, case.get("fsdp", True), ema=True)
     with ShardedCheckpointManager(case["path"], max_to_keep=case.get("keep", 1)) as mgr:
@@ -644,10 +742,17 @@ def _msgpack(mesh, case: dict, device) -> dict:
     from toycrystals_torch.utils.msgpack_codec import packb
     from toycrystals_torch.utils.params import train_state_to_checkpoint
 
-    model, bridge = _net(case, device)
+    from toycrystals_torch.parallel.mesh import EXPERT, PIPE
+
+    model, bridge = _net(case, device, mesh)
     tx = _opt(case)
-    _, state = _place(mesh, model, tx, case.get("fsdp", False), ema=True)
-    _fill(state, case["seed"])
+    if _axis(mesh, PIPE) or _axis(mesh, EXPERT):
+        # the whole state filled, then placed: each rank takes its pieces
+        _, state = _place(mesh, model, tx, False, ema=True, n_micro=case.get("micro", 1),
+                          fill=case["seed"])
+    else:
+        _, state = _place(mesh, model, tx, case.get("fsdp", False), ema=True)
+        _fill(state, case["seed"])
     return {"bytes": packb(_to_plain(train_state_to_checkpoint(state, tx, bridge)))}
 
 
@@ -664,18 +769,54 @@ def _fill(state, seed: int) -> None:
 
 
 CASES = {"sde": _sde, "epoch": _epoch, "vae": _vae, "vae_epoch": _vae_epoch, "prior": _prior,
+         "prior_apply": _prior_apply,
          "distill": _distill, "sample": _sample, "forward": _forward, "inpaint": _inpaint,
          "service": _service,
          "halo": _halo, "space_grads": _space_grads, "attention": _block, "groupnorm": _block,
          "full_params": _full_params, "dcp_save": _dcp, "dcp_load": _dcp, "msgpack": _msgpack}
 
 
-def cli_state(fn, argv) -> dict:
+def cli_state(fn, argv, state: bool = True) -> dict:
     """A rank's entry for a train CLI's `fn(argv)` (train_diffusion_prior's
-    `train`): its per-epoch losses and the state it ends with, whole (a
-    collective over the mesh)."""
-    run = fn(argv)
-    return {"losses": list(run.loss_hist), **_state_np(run.state)}
+    `train`): its per-epoch losses, with `state` the state it ends with,
+    whole (a collective over the mesh), and the last grid's images
+    ("samples", where it keeps them), what the rank printed ("stdout") and
+    the launches of the port's kernels in the run ("launches", from 0)."""
+    import io
+
+    buf = io.StringIO()
+    _zero_launches()
+    with contextlib.redirect_stdout(buf):
+        run = fn(argv)
+    out = {"losses": list(run.loss_hist), "samples": getattr(run, "samples", None),
+           "stdout": buf.getvalue(), "launches": _launches()}
+    return {**out, **_state_np(run.state)} if state else out
+
+
+def cli_states(fn, argvs, state: bool = True) -> list[dict]:
+    """`cli_state` of each argv in turn in the same ranks (an epoch, then its
+    --resume): one spawn for both."""
+    return [cli_state(fn, argv, state) for argv in argvs]
+
+
+def in_turn(calls) -> list:
+    """A rank's entry that makes each (fn, args) of `calls` in turn in the
+    same ranks (one spawn for them all) and returns (result, seconds) of
+    each; garbage is collected between calls, so what one call left behind
+    does not count in the next one's device memory."""
+    out = []
+    for fn, args in calls:
+        t0 = time.perf_counter()
+        out.append((fn(*args), time.perf_counter() - t0))
+        gc.collect()
+    return out
+
+
+def keep_copy(src: str, dst: str) -> None:
+    """Rank 0 copies file `src` to `dst` (a checkpoint that the next run in
+    the same ranks overwrites); the other ranks go on."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        shutil.copyfile(src, dst)
 
 
 def cli_images(fn, argv) -> dict:
@@ -742,7 +883,13 @@ def run_cases(spec: dict) -> list[dict]:
     the launches of the port's kernels in the case ("launches", counted from
     0 by each wrapper), and on a CUDA device the case's peak device memory
     of this process ("peak_bytes")."""
-    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d, make_mesh_tp
+    from toycrystals_torch.parallel.mesh import (
+        make_mesh,
+        make_mesh_2d,
+        make_mesh_ep,
+        make_mesh_pp,
+        make_mesh_tp,
+    )
 
     device = torch.device(spec.get("device", "cpu"))
     if device.type == "cuda":
@@ -753,13 +900,15 @@ def run_cases(spec: dict) -> list[dict]:
     meshes: dict = {}
 
     def mesh_of(shape):
-        if not dist.is_initialized():
+        if not dist.is_initialized() or spec.get("one_process"):
             return None
         if shape not in meshes:  # every rank builds the same meshes in the same order
             if not shape:
                 meshes[shape] = make_mesh(device_type=device.type)
-            elif shape[2:] == ("model",):
-                meshes[shape] = make_mesh_tp(*shape[:2], device_type=device.type)
+            elif shape[2:]:
+                make = {"model": make_mesh_tp, "pipe": make_mesh_pp,
+                        "expert": make_mesh_ep}[shape[2]]
+                meshes[shape] = make(*shape[:2], device_type=device.type)
             else:
                 meshes[shape] = make_mesh_2d(*shape, device_type=device.type)
         return meshes[shape]

@@ -103,13 +103,16 @@ class Block:
     """Where a rank's block lies in the whole leaf: `dim` is cut into `parts`
     equal pieces (1, or 3 for a qkv placed by head), each piece into `size`
     blocks, and this rank holds block `rank` of each piece, in piece order.
-    `group` is the model group that holds the other blocks."""
+    `group` is the group of the mesh axis `axis` that holds the other blocks:
+    "model" here, "expert" for the MoE prior's leaves that parallel/expert.py
+    shards."""
 
     group: object
     size: int
     rank: int
     dim: int
     parts: int = 1
+    axis: str = MODEL
 
 
 def block_of(t: torch.Tensor) -> Block | None:

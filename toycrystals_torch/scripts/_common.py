@@ -6,8 +6,9 @@ mesh of those and of the VAE and prior trainers (--shard-model),
 checkpoint-name resolution, a disk archive resident on the device, and the
 flags whose paths are not ported yet.
 
-`--shard N` (with `--shard-space S`: N x S; with `--shard-model M`: N x M)
-with no cluster flags runs the CLI in that many spawned local ranks
+`--shard N` (with `--shard-space S`: N x S; with `--shard-model M`, and in
+the prior's trainer `--shard-pipe S` or `--shard-expert E`: N x M, N x S,
+N x E) with no cluster flags runs the CLI in that many spawned local ranks
 (`spawn_shards`), one per device
 (parallel/multihost.py); the cluster flags join a process group whose ranks
 were started elsewhere, one per device, and then the mesh must equal its
@@ -133,9 +134,22 @@ def check_model_axes(shard_space: int, shard_model: int) -> None:
                          f"3-D data x space x model mesh) is not ported yet ({PARALLEL})")
 
 
+def second_axis(args: argparse.Namespace) -> tuple[str, int]:
+    """The mesh's second axis that the flags ask for: ("space", S), ("model",
+    M), ("pipe", S) or ("expert", E), else ("", 1). The prior's trainer
+    refuses two of them together before it gets here; JAX's 3-D mesh
+    (`check_model_axes`) too."""
+    for axis in ("space", "model", "pipe", "expert"):
+        n = getattr(args, f"shard_{axis}", 0) or 0
+        if n > 1:
+            return axis, n
+    return "", 1
+
+
 def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
                  batch_sizes: tuple[int, ...] = (), sigterm_rank: int | None = None) -> bool:
-    """--shard N > 1, or --shard N x --shard-space S or x --shard-model M > 1,
+    """--shard N > 1, or --shard N x --shard-space S, x --shard-model M, x
+    --shard-pipe S or x --shard-expert E > 1,
     with no cluster flags and no process group yet: run `fn(argv)` (a CLI's
     module-level entry) in that many spawned local ranks on `cuda:0..`, or
     on the CPU under --device cpu, and return True once all finished; False
@@ -147,10 +161,9 @@ def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
     from toycrystals_torch.parallel.multihost import launch
 
     shard = getattr(args, "shard", 0)
-    n_space = getattr(args, "shard_space", 0)
-    n_model = getattr(args, "shard_model", 0)
-    check_model_axes(n_space, n_model)
-    ranks = max(1, shard) * max(1, n_space) * max(1, n_model)
+    check_model_axes(getattr(args, "shard_space", 0), getattr(args, "shard_model", 0))
+    axis, n_axis = second_axis(args)
+    ranks = max(1, shard) * n_axis
     if ranks <= 1 or dist.is_initialized() or any(
             getattr(args, d, None) is not None for d in CLUSTER_DESTS):
         return False
@@ -164,13 +177,11 @@ def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
         if backend == "gloo":
             device_ids = [r % n_dev for r in range(ranks)]
         elif ranks > n_dev:
-            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible"
-                             if max(n_space, n_model) <= 1
-                             else f"--shard {shard} x --shard-{'space' if n_space > 1 else 'model'}"
-                                  f" {max(n_space, n_model)} needs {ranks} devices, have {n_dev}")
-    print(f"data-parallel mesh: {shard} ranks on {device_type}" if max(n_space, n_model) <= 1
-          else f"2-D mesh: {max(1, shard)} data x {max(n_space, n_model)} "
-               f"{'space' if n_space > 1 else 'model'} ranks on {device_type}")
+            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible" if not axis
+                             else f"--shard {shard} x --shard-{axis} {n_axis} needs {ranks} "
+                                  f"devices, have {n_dev}")
+    print(f"data-parallel mesh: {shard} ranks on {device_type}" if not axis
+          else f"2-D mesh: {max(1, shard)} data x {n_axis} {axis} ranks on {device_type}")
     try:
         launch(_run_rank, ranks, (fn, list(argv) if argv is not None else None),
                device_type=device_type, backend=backend, device_ids=device_ids,
@@ -189,32 +200,33 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
-               shard_space: int = 0, shard_model: int = 0):
+               shard_space: int = 0, shard_model: int = 0, shard_pipe: int = 0,
+               shard_expert: int = 0):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
     exactly N ranks. --shard-space S > 1 (the score model's CLIs) makes the
     ("data", "space") mesh of N x S ranks (the caller checks the image size
-    against S: parallel/spatial.py `check_stem_divisibility`), and
-    --shard-model M > 1 the ("data", "model") mesh of N x M ranks. Both
-    together (JAX's 3-D mesh) refuse, naming their ROADMAP item."""
-    from toycrystals_torch.parallel.mesh import make_mesh, make_mesh_2d, make_mesh_tp
+    against S: parallel/spatial.py `check_stem_divisibility`), --shard-model
+    M > 1 the ("data", "model") mesh of N x M ranks, and the prior's
+    --shard-pipe S / --shard-expert E the ("data", "pipe") / ("data",
+    "expert") mesh of N x S / N x E ranks. Space and model together (JAX's
+    3-D mesh) refuse, naming their ROADMAP item."""
+    from toycrystals_torch.parallel import mesh as pm
     from toycrystals_torch.parallel.multihost import process_count
 
     check_model_axes(shard_space, shard_model)
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
-    if shard_model > 1:
-        need = max(1, shard) * shard_model
-        if need != world:
-            raise SystemExit(f"--shard {shard} x --shard-model {shard_model} needs {need} "
-                             f"devices, have {world} (one per rank)")
-        return make_mesh_tp(max(1, shard), shard_model, torch.device(device).type)
-    if shard_space > 1:
-        need = max(1, shard) * shard_space
-        if need != world:
-            raise SystemExit(f"--shard {shard} x --shard-space {shard_space} needs {need} "
-                             f"devices, have {world} (one per rank)")
-        return make_mesh_2d(max(1, shard), shard_space, torch.device(device).type)
+    for axis, n, make in (("model", shard_model, pm.make_mesh_tp),
+                          ("space", shard_space, pm.make_mesh_2d),
+                          ("pipe", shard_pipe, pm.make_mesh_pp),
+                          ("expert", shard_expert, pm.make_mesh_ep)):
+        if n > 1:
+            need = max(1, shard) * n
+            if need != world:
+                raise SystemExit(f"--shard {shard} x --shard-{axis} {n} needs {need} "
+                                 f"devices, have {world} (one per rank)")
+            return make(max(1, shard), n, torch.device(device).type)
     if shard in (0, 1) and world == 1:
         return None
     if shard != world:
@@ -222,7 +234,7 @@ def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
         raise SystemExit(f"--shard {shard} but only {world} devices visible (one per rank: "
                          f"the CLI's main spawns --shard ranks, or start them with the "
                          f"cluster flags)")
-    return make_mesh(shard, torch.device(device).type)
+    return pm.make_mesh(shard, torch.device(device).type)
 
 
 def any_rank(mesh, flag: bool, device) -> bool:
@@ -235,19 +247,26 @@ def any_rank(mesh, flag: bool, device) -> bool:
     return bool(all_reduce_sum(mesh, torch.tensor([float(flag)], device=device)).item())
 
 
-def place_state(mesh, model, state, fsdp: bool = False, what: str = "channel counts"):
+def place_state(mesh, model, state, fsdp: bool = False, what: str = "channel counts",
+                n_micro: int = 1):
     """The trainers' placement: DistributedDataParallel, FSDP2 under `fsdp`
     (HSDP on a space axis), the model axis's blocks, or both (2-D weight
     sharding), printing the share of parameter elements that FSDP2 and the
-    model axis shard, as JAX does (`what` the flag its warning names);
-    mesh=None passes through. Returns (module to train, state)."""
+    model axis shard, as JAX does (`what` the flag its warning names); on
+    the prior's pipe mesh its stage (`n_micro` microbatches) and on its
+    expert mesh the experts' blocks, with JAX's coverage line, where `fsdp`
+    changes nothing, as in JAX. mesh=None passes through. Returns (module to
+    train, state)."""
     from toycrystals_torch.parallel import fsdp_coverage
     from toycrystals_torch.parallel import place_state as _place
-    from toycrystals_torch.parallel.mesh import AXIS, MODEL, axis_size
+    from toycrystals_torch.parallel.expert import ep_report
+    from toycrystals_torch.parallel.mesh import AXIS, EXPERT, MODEL, PIPE, axis_size
     from toycrystals_torch.parallel.multihost import is_primary
     from toycrystals_torch.parallel.tensor import shard_report
 
-    fsdp = fsdp and mesh is not None and axis_size(mesh, AXIS) > 1  # JAX: no-op otherwise
+    pipe, ep = axis_size(mesh, PIPE), axis_size(mesh, EXPERT)
+    # JAX: a no-op without a data axis, and under the pipe and expert axes
+    fsdp = fsdp and mesh is not None and axis_size(mesh, AXIS) > 1 and pipe == ep == 1
     m = axis_size(mesh, MODEL)
     if mesh is not None and is_primary():
         if fsdp:
@@ -255,7 +274,9 @@ def place_state(mesh, model, state, fsdp: bool = False, what: str = "channel cou
                   f"elements sharded over 'data'")
         if m > 1:
             print(shard_report(m, model, what))
-    return _place(mesh, model, state, fsdp)
+        if ep > 1:
+            print(ep_report(ep, model, model.n_experts))
+    return _place(mesh, model, state, fsdp, n_micro)
 
 
 def refuse_deferred(p: argparse.ArgumentParser, args: argparse.Namespace,

@@ -45,11 +45,22 @@ splits every dense layer's and embedding's output features over M ranks as
 well (a --shard x M ("data", "model") mesh, parallel/tensor.py; with --fsdp
 each rank's blocks are sharded over --shard too); the checkpoint is gathered
 to one process's bytes and the DDIM grid runs through the placed model on
-every rank, as under --fsdp. Across hosts --fsdp and --shard-model are
-refused, as in JAX (msgpack checkpoints only). JAX's exclusions hold
-(--shard-expert with --shard-pipe or --shard-model, --shard-pipe with
---shard-model); --shard-pipe, --pipe-micro and --shard-expert raise,
-naming their ROADMAP item.
+every rank, as under --fsdp. --shard-pipe S runs the FiLM prior's 8 blocks
+as S stages of a pipeline of --pipe-micro microbatches (a --shard x S
+("data", "pipe") mesh, parallel/pipeline.py): each rank holds the stem, the
+head and its stage's blocks with their Adam moments, and the DDIM grid runs
+through the pipeline where 36 divides by --shard x --pipe-micro, else on
+every rank from the gathered weights, as JAX's does. --moe-experts E
+--shard-expert N splits each block's experts, and every leaf JAX's expert
+rule shards, over N ranks (a --shard x N ("data", "expert") mesh,
+parallel/expert.py); the grid runs through the placed model. Under both the
+checkpoint is gathered to one process's bytes, and --fsdp changes nothing,
+as in JAX. Across hosts --fsdp, --shard-model, --shard-pipe and
+--shard-expert are refused, as in JAX (msgpack checkpoints only), and so are
+JAX's other exclusions (--shard-expert with --shard-pipe or --shard-model,
+--shard-pipe with --shard-model or --moe-experts, --shard-expert without
+--moe-experts divisible by it, 8 blocks that --shard-pipe does not divide,
+a batch that --shard x --pipe-micro does not divide).
 """
 
 from __future__ import annotations
@@ -75,19 +86,17 @@ from toycrystals_torch.models.moe_prior import DiffusionPriorMoE
 from toycrystals_torch.models.sde_score_model import chunk_seed, sample_grid_conditions
 from toycrystals_torch.models.torch_init import flax_default_init
 from toycrystals_torch.models.vae import CondVAE
-from toycrystals_torch.parallel.fsdp import full
-from toycrystals_torch.parallel.mesh import data_sharding
+from toycrystals_torch.parallel.fsdp import full_tensors
+from toycrystals_torch.parallel.mesh import AXIS, axis_group, axis_size, data_sharding
 from toycrystals_torch.parallel.multihost import is_primary
 from toycrystals_torch.parallel.spatial import dispatch_scope
 from toycrystals_torch.scripts._common import (
-    PARALLEL,
     ResidentDiskDataset,
     add_device_flag,
     add_parallel_flags,
     any_rank,
     init_distributed,
     place_state,
-    refuse_deferred,
     select_device,
     setup_mesh,
     spawn_shards,
@@ -102,6 +111,7 @@ from toycrystals_torch.utils.params import (
     torch_state_dict_from_flax_vae,
 )
 from toycrystals_torch.utils.preempt import GracefulShutdown
+from toycrystals_torch.utils.rng import randn
 from toycrystals_torch.utils.torch_interop import (
     load_torch_prior_checkpoint,
     load_torch_vae_checkpoint,
@@ -155,8 +165,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Encode and write checkpoints on a thread while the next epoch "
                         "trains; the process waits for the last write. 0 = synchronous.")
     add_parallel_flags(p, space=False)
-    p.add_argument("--shard-pipe", type=int, default=0, help=f"not ported yet ({PARALLEL})")
-    p.add_argument("--pipe-micro", type=int, default=4, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--shard-pipe", type=int, default=0,
+                   help="Pipeline parallelism: place the prior's 8 FiLM blocks on N stages of a "
+                        "('data','pipe') mesh and stream microbatches through them (one rank "
+                        "per stage, hand-placed hops between neighbouring stages, "
+                        "parallel/pipeline.py). Composes with --shard; 8 must divide by N. "
+                        "--fsdp changes nothing under it, as in JAX. 0/1 = off.")
+    p.add_argument("--pipe-micro", type=int, default=4,
+                   help="Microbatches per pipeline replica (bubble fraction = (stages-1)/"
+                        "(micro+stages-1)). batch-size must divide by max(1,--shard) * this. "
+                        "Ignored without --shard-pipe.")
     p.add_argument("--moe-experts", type=int, default=0,
                    help="Train the mixture-of-experts prior: E switch-routed expert MLPs per "
                         "block, routed on the (t, y) conditioning. 0 = dense. Recorded in the "
@@ -164,7 +182,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--moe-aux-weight", type=float, default=0.01,
                    help="Weight of the switch load-balancing auxiliary loss (only with "
                         "--moe-experts).")
-    p.add_argument("--shard-expert", type=int, default=0, help=f"not ported yet ({PARALLEL})")
+    p.add_argument("--shard-expert", type=int, default=0,
+                   help="Expert parallelism: shard the MoE prior's stacked experts (and their "
+                        "Adam moments) over N devices of a ('data','expert') mesh; the "
+                        "per-block combine is one sum over the expert ranks "
+                        "(parallel/expert.py). Requires --moe-experts divisible by N; "
+                        "composes with --shard; --fsdp changes nothing under it, as in JAX. "
+                        "0/1 = off.")
     p.add_argument("--sample-every", type=int, default=1,
                    help="epochs between DDIM grids; 0 disables in-training grids")
     p.add_argument("--out-dir", type=str, default=".",
@@ -242,19 +266,26 @@ def build_latent_cache(vae: CondVAE, get_batch, n_items: int, z_target: str,
 def train(argv: list[str] | None = None) -> PriorTrainRun:
     p = build_parser()
     args = p.parse_args(argv)
-    _refuse_exclusive(args)
-    refuse_deferred(p, args, {d: PARALLEL for d in ("shard_pipe", "pipe_micro",
-                                                     "shard_expert")})
+    pipe, ep = _refuse(args)
     multihost = init_distributed(args, args.device)
-    if multihost and (args.fsdp or args.shard_model > 1):
-        # msgpack-only checkpoints: the save gathers the whole state to one host
+    if multihost and (args.fsdp or args.shard_model > 1 or pipe or ep):
+        # msgpack-only checkpoints: the save gathers the whole state to one host,
+        # impossible under any weight-sharding axis that spans processes
         raise SystemExit("multi-host --fsdp/--shard-model/--shard-pipe/--shard-expert is "
                          "unsupported in this trainer (msgpack checkpoints gather every "
                          "shard to one host); drop the flag or train single-host")
     device = select_device(args.device)
-    mesh = setup_mesh(args.shard, args.batch_size, device=device, shard_model=args.shard_model)
+    mesh = setup_mesh(args.shard, args.batch_size, device=device, shard_model=args.shard_model,
+                      shard_pipe=pipe, shard_expert=ep)
     primary = is_primary()
     say = print if primary else (lambda *a, **k: None)
+    n_data = max(1, args.shard)
+    if pipe:
+        say(f"2-D mesh: {n_data} data x {pipe} pipe stages")
+    elif ep:
+        say(f"2-D mesh: {n_data} data x {ep} expert devices")
+    if mesh is not None and args.sample_only:
+        say("note: --shard only parallelises training; --sample-only runs on one device")
     vae_ckpt, cache_path, prior_ckpt = (_under(args.out_dir, a) for a in (
         args.vae_ckpt, args.latent_cache, args.prior_ckpt))
     results_dir = os.path.join(args.out_dir, "results")
@@ -310,7 +341,11 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
         prior = DiffusionPriorMoE(n_experts=args.moe_experts, **kw)
     else:
         prior = DiffusionPriorFiLM(**kw)
-    flax_default_init(prior, np.random.default_rng(args.seed))
+    # a checkpoint replaces the drawn weights, and on a mesh every rank takes
+    # rank 0's when the state is placed: draw them only where they are used
+    loads = (args.sample_only or args.resume) and os.path.exists(prior_ckpt)
+    if not loads and (primary or args.sample_only):
+        flax_default_init(prior, np.random.default_rng(args.seed))
     prior.to(device)
     sched = DiffusionSchedule.linear(args.T, args.beta_start, args.beta_end, device=device)
     config = {"z_dim": args.z_dim, "n_types": args.n_types, "y_cont_dim": args.y_cont_dim,
@@ -331,16 +366,41 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
     sample_seconds: list[float] = []
     figure, samples = None, None
 
+    def grid_latents(yg_cat, yg_cont, gen) -> torch.Tensor:
+        """DDIM of the grid's conditions: through the pipeline where 36 divides
+        by --shard x --pipe-micro (each data rank its rows, gathered over
+        "data"), else on every rank from the gathered weights (JAX's rule);
+        otherwise through `sampler`."""
+        if not pipe:
+            return ddim_sample(sampler, sched, yg_cat, yg_cont, args.ddim_steps, args.z_dim,
+                               generator=gen)
+        z = randn((N_GRID, args.z_dim), gen, device)  # what ddim_sample draws from `gen`
+        if N_GRID % (n_data * args.pipe_micro) == 0:
+            rows = data_sharding(mesh, N_GRID)
+            z_norm = ddim_sample(sampler, sched, yg_cat[rows], yg_cont[rows], args.ddim_steps,
+                                 args.z_dim, z=z[rows])
+            if axis_size(mesh, AXIS) == 1:
+                return z_norm
+            parts = [torch.empty_like(z_norm) for _ in range(axis_size(mesh, AXIS))]
+            torch.distributed.all_gather(parts, z_norm, group=axis_group(mesh, AXIS))
+            return torch.cat(parts)
+        whole = DiffusionPriorFiLM(**kw)
+        whole.load_state_dict({k: v.detach() for k, v in full_tensors(
+            dict(sampler.named_parameters())).items()})
+        return ddim_sample(whole.to(device), sched, yg_cat, yg_cont, args.ddim_steps,
+                           args.z_dim, z=z)
+
     def save_samples() -> None:
         """The DDIM grid, on every rank (under FSDP2 each forward gathers
-        the weights), written by rank 0."""
+        the weights, on a pipe mesh every stage takes part), written by
+        rank 0."""
         nonlocal figure, samples
         yg_cat, yg_cont = sample_grid_conditions(N_GRID, args.n_types, args.y_cont_dim,
                                                  device=device)
         _sync(device)
         t0 = time.perf_counter()
-        z_norm = ddim_sample(sampler, sched, yg_cat, yg_cont, args.ddim_steps, args.z_dim,
-                             generator=torch.Generator(device=device).manual_seed(args.seed + 1))
+        z_norm = grid_latents(yg_cat, yg_cont,
+                              torch.Generator(device=device).manual_seed(args.seed + 1))
         _sync(device)
         sample_seconds.append(time.perf_counter() - t0)
         with torch.no_grad():
@@ -360,14 +420,22 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
     z_per_second: list[float] = []
     sampler = prior
     if args.sample_only:
+        if pipe:  # JAX samples through the pipeline here too
+            from toycrystals_torch.parallel.pipeline import make_stage
+
+            sampler = prior = make_stage(mesh, prior, args.pipe_micro)
         save_samples()
         say(f"sample-only: saved {figure}")
         return run(None)
 
     tx = Optimizer(args.lr, clip_grad_norm=args.clip_grad_norm)
     module, state = place_state(mesh, prior, create_train_state(prior, tx), fsdp=args.fsdp,
-                                what="--width")
-    if mesh is not None and (args.fsdp or args.shard_model > 1):
+                                what="--width", n_micro=args.pipe_micro)
+    if pipe or ep:
+        # the stage (the other stages' blocks and their moments are not held
+        # here), or the experts' placement: each forward gathers what it needs
+        sampler = prior = module
+    elif mesh is not None and (args.fsdp or args.shard_model > 1):
         # the placed model: FSDP2 gathers its weights in forward, the model
         # axis's ops gather its blocks in the mesh's dispatch scope
         placed = getattr(module, "module", module)  # inside DDP
@@ -425,7 +493,7 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
             preempted = any_rank(mesh, stop.requested, device)
             if preempted or (args.ckpt_every > 0 and (epoch + 1) % args.ckpt_every == 0) \
                     or epoch == args.epochs - 1:
-                whole = {k: full(v) for k, v in state.params.items()}  # gathered under FSDP
+                whole = full_tensors(state.params)  # every shard, block and stage's blocks
                 if primary:
                     save_ckpt(prior_ckpt, {"params": flax_prior_from_torch_state_dict(whole),
                                            "config": config})
@@ -441,25 +509,45 @@ def train(argv: list[str] | None = None) -> PriorTrainRun:
     return run(state)
 
 
-def _refuse_exclusive(args) -> None:
-    """JAX's exclusions between the ways to split the prior
-    (scripts/train_diffusion_prior.py), checked before the flags that are
-    still to port refuse."""
-    pipe, ep, tp = (args.shard_pipe > 1, args.shard_expert > 1, args.shard_model > 1)
+def _refuse(args) -> tuple[int, int]:
+    """JAX's refusals of the ways to split the prior, in its order and words
+    (scripts/train_diffusion_prior.py); returns (pipe stages, expert ranks),
+    0 where the axis is off."""
+    pipe = args.shard_pipe if args.shard_pipe > 1 else 0
+    ep = args.shard_expert if args.shard_expert > 1 else 0
     if ep and pipe:
         raise SystemExit("--shard-expert and --shard-pipe are mutually exclusive (pick one way "
                          "to split the blocks)")
-    if ep and tp:
+    if ep and args.shard_model > 1:
         raise SystemExit("--shard-expert and --shard-model are mutually exclusive (pick one way "
                          "to split the weights)")
-    if pipe and tp:
-        raise SystemExit("--shard-pipe and --shard-model are mutually exclusive (pick one way "
-                         "to split the weights)")
+    if ep and (args.moe_experts <= 0 or args.moe_experts % ep):
+        raise SystemExit(f"--shard-expert {ep} requires --moe-experts divisible by it (got "
+                         f"{args.moe_experts})")
+    if args.moe_experts and pipe:
+        raise SystemExit("--moe-experts does not support --shard-pipe (the pipelined forward is "
+                         "the dense FiLM prior)")
+    n_data = max(1, args.shard)
+    if pipe:
+        if args.shard_model > 1:
+            raise SystemExit("--shard-pipe and --shard-model are mutually exclusive (pick one way "
+                             "to split the weights)")
+        if N_BLOCKS % pipe:
+            raise SystemExit(f"--shard-pipe {pipe} must divide the prior's {N_BLOCKS} blocks")
+        if args.batch_size % (n_data * args.pipe_micro):
+            raise SystemExit(f"batch size {args.batch_size} must divide by --shard {n_data} x "
+                             f"--pipe-micro {args.pipe_micro}")
+    elif ep and args.batch_size % n_data:
+        raise SystemExit(f"batch size {args.batch_size} not divisible by --shard {args.shard}")
+    return pipe, ep
 
 
 def main(argv: list[str] | None = None) -> int:
-    """The CLI: `train(argv)` in this process, or in --shard N spawned ranks."""
+    """The CLI: `train(argv)` in this process, or in --shard N (x --shard-model,
+    --shard-pipe or --shard-expert) spawned ranks; JAX's refusals come first,
+    before any rank starts."""
     args = build_parser().parse_args(argv)
+    _refuse(args)
     if not spawn_shards(args, train, argv, (args.batch_size,)):
         train(argv)
     return 0

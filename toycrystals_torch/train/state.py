@@ -18,7 +18,10 @@ each rank's shard. Global-norm clipping and the non-finite check then reduce
 over the axes that hold each leaf's pieces (under HSDP the "data" group:
 each shard is held by every space rank, and summing over all of them would
 count it S times; a model block over "model"; a block that FSDP2 shards
-over both), so every rank takes the decision the single-device step takes.
+over both; a pipeline stage's blocks over "pipe" and the expert axis's
+blocks over "expert", the leaves those axes replicate once: JAX's
+`clip_by_global_norm` over sharded leaves), so every rank takes the decision
+the single-device step takes.
 """
 
 from __future__ import annotations

@@ -43,9 +43,12 @@ dispatch scope, where every channel collective has its adjoint, and the loss
 is the replicated output's, not summed over "model". DDP averages over the
 "data" group (FSDP2 under --fsdp, its reduce-scatter over the same group),
 and the whole leaves' gradients are then broadcast over "model" so that the
-replicas keep the same bits. A mesh with any other axis raises (ROADMAP.md
-queue 1, module 5), and so does a space axis in the other models' steps, or
-a model axis in the distillation step.
+replicas keep the same bits. The prior's step and epoch also take ("data",
+"pipe") and ("data", "expert") meshes (parallel/pipeline.py,
+parallel/expert.py), whose placed modules reduce their own gradients. A mesh
+with any other axis raises (ROADMAP.md queue 1, module 5), and so does a
+space axis in the other models' steps, or a model axis in the distillation
+step.
 """
 
 from __future__ import annotations
@@ -65,9 +68,12 @@ from toycrystals_torch.models.vae import kl_stats
 from toycrystals_torch.parallel import spatial
 from toycrystals_torch.parallel.fsdp import local, reduce_replicated_grads
 from toycrystals_torch.parallel.mesh import (
+    EXPERT,
+    PIPE,
     SPACE,
     axis_size,
     check_data_mesh,
+    mesh_axes,
     data_sharding,
     replica_group,
     row_generator,
@@ -83,15 +89,27 @@ def _is_fsdp(model: nn.Module) -> bool:
     return isinstance(model, FSDPModule)
 
 
-def check_placed(model: nn.Module, mesh, space: bool = False, tp: bool = False) -> None:
+def check_placed(model: nn.Module, mesh, space: bool = False, tp: bool = False,
+                 pipe: bool = False, expert: bool = False) -> None:
     """On a mesh of several ranks, `model` must be the module that
     `parallel.place_state` returns: its gradients are then averaged. A
     ("data", "space") mesh only where `space` (the score model's steps), a
     ("data", "model") one only where `tp` (the score model's, the VAE's and
-    the prior's)."""
+    the prior's), ("data", "pipe") and ("data", "expert") only where `pipe`
+    and `expert` (the prior's: a `PipelineStage` or an `ExpertPlaced`)."""
     if mesh is None:
         return
-    check_data_mesh(mesh, space, model=tp)
+    check_data_mesh(mesh, space, model=tp, pipe=pipe, expert=expert)
+    axes = mesh_axes(mesh)
+    if PIPE in axes or EXPERT in axes:
+        from toycrystals_torch.parallel.expert import ExpertPlaced
+        from toycrystals_torch.parallel.pipeline import PipelineStage
+
+        want = PipelineStage if PIPE in axes else ExpertPlaced
+        if not isinstance(model, want):
+            raise ValueError(f"on a mesh with axes {axes}, train the {want.__name__} that "
+                             f"parallel.place_state returns")
+        return
     from torch.nn.parallel import DistributedDataParallel
 
     if mesh.size() > 1 and not isinstance(model, DistributedDataParallel) \
@@ -129,7 +147,9 @@ def accumulate_grads(model: nn.Module, chunk_loss: Callable[[int], torch.Tensor]
     order: one backward per chunk, accumulated in `.grad`, which is cleared
     before and after. Under DistributedDataParallel or FSDP2 the last
     backward averages the gradients over the ranks (FSDP2's whole leaves
-    too); the others do not communicate."""
+    too); the others do not communicate. A pipeline stage or the expert
+    axis's module reduces its gradients after the backward
+    (`reduce_grads`)."""
     if _is_fsdp(model):
         model.reshard()  # a forward without backward (sampling) leaves it gathered
     params = list(model.parameters())
@@ -144,6 +164,8 @@ def accumulate_grads(model: nn.Module, chunk_loss: Callable[[int], torch.Tensor]
     if _is_fsdp(model):
         reduce_replicated_grads(mesh, params)
     sync_whole_grads(mesh, params)
+    if hasattr(model, "reduce_grads"):  # a pipeline stage, the expert axis: by hand
+        model.reduce_grads()
     grads = [p.grad for p in params]
     for p in params:
         p.grad = None
@@ -354,8 +376,11 @@ def make_prior_train_step(model: nn.Module, tx: Optimizer, T: int,
     (`draw_prior_noise`); noise=(t, eps) replaces the draw (tests inject
     JAX's). aux_weight > 0 needs the MoE prior. On a `mesh`, as
     `make_sde_train_step` says; `loss` and `aux` are the global batch's and
-    the buckets sum over the ranks."""
-    check_placed(model, mesh, tp=True)
+    the buckets sum over the ranks. A ("data", "pipe") mesh trains the
+    FiLM prior's pipeline stage, a ("data", "expert") one the MoE prior's
+    experts over ranks (`parallel.place_state`); their ranks of a data
+    coordinate hold the same rows and the same draws."""
+    check_placed(model, mesh, tp=True, pipe=True, expert=True)
 
     def step(state: TrainState, sched, z0n, y_cat, y_cont,
              generator: torch.Generator | None = None, noise=None):

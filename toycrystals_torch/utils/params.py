@@ -18,6 +18,9 @@ out; `flax_from_torch_state_dict` is the exact inverse.
 same pair for the VAEs of models/vae.py (`VAE` and `CondVAE`: CondVAE's
 encoder `Dense_0` has the cond vector's y_dim input columns after the 4,096
 HWC ones, its decoder `Dense_0` y_dim input rows after z's, in both layouts).
+A sharded state (a mesh axis's blocks, a pipeline stage's blocks:
+toycrystals_torch/parallel/) is gathered to the flax tree for a save, and each
+rank takes its pieces of a whole tree on a load.
 Gradient and Adam moment trees have the parameters' structure, so the same
 functions carry them; `train_state_to_flax` / `load_train_state_from_flax` do
 so for a whole `TrainState` of toycrystals_torch/train/state.py, and
@@ -216,12 +219,13 @@ def train_state_to_flax(state, bridge=UNET) -> dict:
     """A `TrainState` of the port as flax-layout numpy trees: `params`,
     `ema_params` (None when the EMA is off), Adam's `mu` and `nu`, and the
     integers `step` (steps taken) and `count` (optimizer updates applied).
-    FSDP-sharded tensors are gathered whole, a collective that every rank
-    of the mesh must call."""
-    from toycrystals_torch.parallel.fsdp import full
+    Sharded tensors (FSDP2's, a model or expert axis's blocks, a pipeline
+    stage's blocks) are gathered whole, a collective that every rank of the
+    mesh must call."""
+    from toycrystals_torch.parallel.fsdp import full_tensors
 
     def to_flax(tensors: Mapping[str, torch.Tensor]) -> dict:
-        return bridge[1]({k: full(v) for k, v in tensors.items()})
+        return bridge[1](full_tensors(tensors))
 
     names = list(state.params)
     opt = state.opt_state
@@ -237,12 +241,16 @@ def train_state_to_flax(state, bridge=UNET) -> dict:
 
 def load_train_state_from_flax(state, trees: Mapping[str, Any], bridge=UNET) -> None:
     """Read what `train_state_to_flax` wrote back into `state`, in place
-    (strict: every parameter must be present with its shape); an
-    FSDP-sharded tensor takes its rank's shard."""
+    (strict: every parameter must be present with its shape); a sharded
+    tensor takes its rank's shard or block, and a pipeline stage's state
+    (parallel/pipeline.py) its stage's blocks of the whole tree."""
     from toycrystals_torch.parallel.fsdp import copy_full_
+    from toycrystals_torch.parallel.pipeline import stage_of
 
     def copy_into(targets: Mapping[str, torch.Tensor], tree) -> None:
         sd = bridge[0](tree)
+        if any(stage_of(t) is not None for t in targets.values()):
+            sd = {k: v for k, v in sd.items() if k in targets}  # the other stages' blocks
         if set(sd) != set(targets):
             raise KeyError(f"tree does not match the parameters: "
                            f"{sorted(set(sd) ^ set(targets))}")
