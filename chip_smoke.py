@@ -249,10 +249,10 @@ result line:
    one card: the ranks share cuda:0 over gloo, so every time here is host
    copies and time-slicing, not NVLink. The 256x256 model at full width
    (base_ch 96, stem none, param v, logsnr_shift -2.77) on a (data 1, model 2)
-   mesh, each rank holding its block of every weight: a 2-image SDE-6 request
+   mesh, each rank holding its block of every weight: a 2-image SDE-2 request
    (cut from 20 for time) in f32 through ScoreModelService(mesh=) against the
    one-process service's dispatch (1e-3, phase 16's tolerance), with exactly
-   70 gn_silu forwards (on the rank's channel blocks) and 7 flash forwards (on
+   30 gn_silu forwards (on the rank's channel blocks) and 3 flash forwards (on
    its 2 of the 4 heads) per rank per dispatch; one f32 step at batch 2 against one process
    (phase 17's limits), then 2 bf16 steps at batch 8, timed, each with
    exactly 10 + 10 gn_silu and 1 + 1 flash launches per rank per step; each
@@ -266,16 +266,19 @@ result line:
    under FSDP2 (2-D weight sharding): one 64x64 f32 SDE step (base_ch 96,
    clipped, exactly 10 + 10 gn_silu launches per rank on its channel blocks)
    and the VAE's step, each against one process. Last, side by side with
-   phase 17's, the 64x64 train CLI with --shard-model 2 (s2dr, 2 ranks) and
-   with --shard 2 --shard-space 2 --fsdp (HSDP into DCP, stem none, 4
-   ranks), 1 epoch and --resume to 2 (ending in a grid sampled on each mesh),
+   phase 17's, the 64x64 train CLI with --shard-model 2 (s2dr, 2 ranks), with
+   --shard 2 --shard-space 2 --fsdp (HSDP into DCP, stem none, 4 ranks) and
+   phase 20's with --shard-space 2 --shard-model 2 (JAX's 3-D mesh into DCP,
+   stem none, 4 ranks, at 32x32), 1 epoch and --resume to 2 (ending in a
+   grid sampled on each mesh),
    the VAE trainer with --shard 2 --shard-model 2 --fsdp (4 ranks, 1,280
    items, 1 epoch and --resume to 2, its three grids from the gathered
    state), the prior trainer at the README's recipe with --shard-model 2 (1
    epoch on a cache of 2,560 procedural items that its ranks encode with
    phase 13's VAE, a DDIM-10 grid through the placed model), and beside the
    resumes the sample CLI with --shard-model 2 on the first run's epoch-1
-   msgpack checkpoint.
+   msgpack checkpoint and phase 20's with --shard-space 2 --shard-model 2 on
+   a copy of the 3-D run's epoch-1 DCP checkpoint.
 19. The prior's pipeline and expert axes (parallel/pipeline.py,
    parallel/expert.py), beside phase 18, in four jobs side by side with one
    spawn each: per axis, one on its (data 1, 2) mesh and its one-process
@@ -296,6 +299,27 @@ result line:
    checkpoint's parameters within 2e-4 (two Adam steps of the recipe's lr),
    exactly 5 rasterizer launches (the cache build) and no other kernel per
    rank a run, the mesh lines JAX prints, and the grid written.
+20. JAX's 3-D ("data", "space", "model") mesh (parallel/mesh.py
+   `make_mesh_3d`), on one card: four ranks on a (data 1, space 2, model 2)
+   mesh share cuda:0 over gloo. Its mesh job runs beside phase 18 after
+   phase 19 and its CLIs in phase 18's CLI stages, so their times are
+   contended; the rest runs after phase 18. The 256x256 model at full width (base_ch
+   96, stem none, param v, logsnr_shift -2.77), each rank holding its rows
+   of the height and its block of every weight: a 2-image SDE-2 request in
+   f32 through ScoreModelService(mesh=) against the one-process service's
+   dispatch (phase 16's tolerance), with exactly 30 + 30 space-pair launches
+   (on the rank's channel blocks, 4 groups) and 3 flash forwards (its 2 of
+   the 4 heads against the gathered keys) per rank; one f32 step at batch 2
+   against one process (phase 17's limits) and an epoch of 2 bf16 steps at
+   batch 8 on images each rank renders, each step with exactly 10 + 10
+   space-pair, 10 + 10 backward-pair, 1 + 1 flash launches per rank (and 1
+   rasterizer launch in the epoch); each rank's state, seconds and peak
+   memory beside one process's. Its CLIs (phase 18's stages) each print
+   JAX's "3-D mesh" line. The space pair and its
+   backward pair at a rank's channel block ([8, 48, 128, 256] and [8, 96,
+   64, 128], 4 groups, pad on and off, bf16 and f32) and the flash forward
+   and backward at its 2 heads ([8, 2048, 2, 48] against 4,096 keys) against
+   their plain versions, timed beside them (and beside SDPA).
 
 --profile adds device ms by kernel class of U-Net forwards and train steps,
 those at 256x256 included, phase 16's space pair's kernel ms by
@@ -3829,9 +3853,10 @@ def phase_space_train(card: str) -> dict:
 
 # Phase 18: the "model" axis and HSDP, on one card: ranks share cuda:0 over gloo
 TENSOR_DIR = os.path.join(ROOT, "runs", "chip_smoke_tensor")
-# one 2-image SDE-6 request (4 rows under CFG; 4 images at SDE-20 took 72 s per rank over
-# gloo, 2 images 38 s, at SDE-10 29 s; cut to SDE-6 for the VAE's and the priors' cases)
-TP_HI_STEPS, TP_HI_IMAGES = 6, 2
+# one 2-image SDE-2 request (4 rows under CFG; 4 images at SDE-20 took 72 s per rank over
+# gloo, 2 images 38 s, at SDE-10 29 s; cut to SDE-6 for the VAE's and the priors' cases,
+# then to SDE-2 for phase 20's)
+TP_HI_STEPS, TP_HI_IMAGES = 2, 2
 TP_F32_BATCH, TP_BF16_BATCH, TP_BF16_STEPS = 2, 8, 2
 TP_CLI = ["--procedural", "--img-size", "64", "--base-ch", "96", "--dtype", "bfloat16",
           "--n-samples", "64", "--batch-size", "32", "--sample-steps", "4",
@@ -3865,7 +3890,11 @@ def _train_cli_runs() -> dict:
         "tp": (os.path.join(TENSOR_DIR, "cli_tp"), TP_CLI + ["--shard-model", "2"], "s2dr"),
         "hsdp": (os.path.join(TENSOR_DIR, "cli_hsdp"),
                  TP_CLI + ["--shard", "2", "--shard-space", "2", "--fsdp", "--ckpt-format",
-                           "orbax"], "none")}
+                           "orbax"], "none"),
+        # phase 20's: JAX's 3-D mesh, four ranks, at 32x32 (cut from 64x64 for time)
+        "mesh_3d": (os.path.join(TENSOR_DIR, "cli_3d"),
+                    TP_CLI + ["--img-size", "32", "--shard-space", "2", "--shard-model", "2",
+                              "--ckpt-format", "orbax"], "none")}
 
 
 def _tp_cases() -> dict:
@@ -3978,8 +4007,10 @@ def _train_clis(card: str) -> dict:
     """The 64x64 train CLI on each mesh of `_train_cli_runs`, side by side on
     cuda:0 over gloo: phase 17's --shard-space 2 (DDP over both ranks, into
     DCP), --shard-model 2 (2 ranks) and --shard 2 --shard-space 2 --fsdp
-    (HSDP into DCP, 4 ranks). 1 epoch, then --resume to 2, which ends in a
-    grid sampled on each run's mesh; beside the resumes, the sample CLI with
+    (HSDP into DCP, 4 ranks), and phase 20's --shard-space 2 --shard-model 2
+    (JAX's 3-D mesh into DCP, 4 ranks). 1 epoch, then --resume to 2, which
+    ends in a grid sampled on each run's mesh; beside the resumes, the sample
+    CLI on the 3-D mesh on a copy of that run's first checkpoint, and the sample CLI with
     --shard-model 2 on the model-axis run's first msgpack checkpoint. Beside
     them, the VAE trainer with --shard 2 --shard-model 2 --fsdp (4 ranks, 1
     epoch, then --resume to 2) and, beside the first epochs, the prior
@@ -3991,6 +4022,8 @@ def _train_clis(card: str) -> dict:
     out, train, runs = {}, "toycrystals_torch.scripts.train_sde_score_model", _train_cli_runs()
     first = os.path.join(TENSOR_DIR, "tp_epoch_1.msgpack")
     png = os.path.join(TENSOR_DIR, "tp_sample.png")
+    first_3d = os.path.join(TENSOR_DIR, "mesh_3d_epoch_1.orbax")
+    png_3d = os.path.join(TENSOR_DIR, "mesh_3d_sample.png")
     vae_dir, prior_dir = os.path.join(TENSOR_DIR, "cli_vae_2d"), os.path.join(TENSOR_DIR,
                                                                               "cli_prior_tp")
     vae = ["toycrystals_torch.scripts.train_vae", *TP_VAE_CLI, "--shard", "2", "--shard-model",
@@ -4011,6 +4044,10 @@ def _train_clis(card: str) -> dict:
                                TENSOR_DIR, "--ckpt", first, "--steps", "4", "--n", "4",
                                "--shard-model", "2", "--dist-backend", "gloo",
                                "--out-path", png]
+            argvs["sample_3d"] = ["toycrystals_torch.scripts.sample_sde_score_model",
+                                  "--out-dir", TENSOR_DIR, "--ckpt", first_3d, "--steps", "4",
+                                  "--n", "4", "--shard-space", "2", "--shard-model", "2",
+                                  "--dist-backend", "gloo", "--out-path", png_3d]
         texts = _run_side_by_side(argvs)
         out[f"train_epochs_{epochs}_seconds"] = time.perf_counter() - t0
         for name in [*runs, "vae_2d"] + (["prior_tp"] if epochs == 1 else []):
@@ -4028,6 +4065,13 @@ def _train_clis(card: str) -> dict:
         if epochs == 1:
             shutil.copy(os.path.join(runs["tp"][0], "checkpoints", "sde_score_model_last.msgpack"),
                         first)
+            shutil.copytree(os.path.join(runs["mesh_3d"][0], "checkpoints",
+                                         "sde_score_model_last.orbax"), first_3d)
+        # JAX's line for the 3-D mesh, printed by rank 0 of each run on it
+        out.setdefault("mesh_3d", {}).setdefault("mesh_lines", []).extend(
+            line for name in ("mesh_3d", "sample_3d") if name in texts
+            for line in texts[name].splitlines()
+            if line.startswith("3-D mesh: ") and line.endswith(" devices"))
     for name, (run, flags, _) in runs.items():
         with open(os.path.join(run, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f if line.strip()]
@@ -4045,9 +4089,12 @@ def _train_clis(card: str) -> dict:
                                  f"{meta.get('epoch_next')}, grids {grids}, "
                                  f"coverage {out[name]['coverage']}")
         out[name].update(losses=losses, grids=grids)
-    img = read_png_gray(png)
-    if not (img.size and np.isfinite(img).all()):
-        raise AssertionError(f"sample CLI --shard-model 2 wrote no grid at {png}")
+    for path, what in ((png, "--shard-model 2"), (png_3d, "--shard-space 2 --shard-model 2")):
+        img = read_png_gray(path)
+        if not (img.size and np.isfinite(img).all()):
+            raise AssertionError(f"sample CLI {what} wrote no grid at {path}")
+    if out["mesh_3d"]["mesh_lines"] != ["3-D mesh: 1 data x 2 space x 2 model devices"] * 3:
+        raise AssertionError(f"3-D CLIs: JAX's mesh lines {out['mesh_3d']['mesh_lines']}")
     raw = load_checkpoint(os.path.join(vae_dir, "checkpoints", "vae_last.msgpack"))
     hist = [float(raw["hists"]["loss"][str(i)]) for i in range(len(raw["hists"]["loss"]))]
     grids = sorted(os.listdir(os.path.join(vae_dir, "results")))
@@ -4510,6 +4557,343 @@ def phase_pipe_expert(card: str) -> dict:
     return out
 
 
+# Phase 20: JAX's 3-D ("data", "space", "model") mesh, on one card: four ranks share
+# cuda:0 over gloo, so every time here is host copies and time-slicing, not NVLink.
+# Its mesh job runs beside phase 18 after phase 19 (`_m3_jobs`, in processes of its
+# own: by then phase 19's processes have freed the card's memory; beside phase 19
+# they ran it out), and its train and sample CLIs in phase 18's CLI stages
+# (`_train_clis`), so their times are contended; the kernels, the one-process
+# references and the holds run here once phase 18 is done (`phase_mesh_3d`).
+M3_MESH = [1, 2, 2, "3d"]
+M3_HI_STEPS, M3_HI_IMAGES = 2, 2     # one 2-image SDE-2 request: 3 evaluations, 4 rows
+M3_F32_BATCH, M3_BF16_BATCH, M3_BF16_STEPS = 2, 8, 2
+# a rank's rows of its channel block at 256x256, S = 2, M = 2 (4 of the 8 groups), at
+# the bf16 steps' batch
+M3_GN_SHAPES = [("256 down1/up1 block", (M3_BF16_BATCH, 48, 128, 256)),
+                ("256 down2 block", (M3_BF16_BATCH, 96, 64, 128))]
+M3_FLASH = ((M3_BF16_BATCH, 2048, 2, 48), 4096)  # 2 of the 4 heads against the gathered keys
+M3_CONTENDED = ("contended: phase 20's mesh job ran beside phase 18's jobs and CLIs, so these "
+                "times are not comparable with a phase run alone")
+
+
+def _m3_cases() -> dict:
+    """The 256x256 model (base_ch 96, stem none, param v, logsnr_shift -2.77)
+    at full width: a M3_HI_IMAGES-image SDE-M3_HI_STEPS request in f32
+    through ScoreModelService, one f32 step at batch M3_F32_BATCH on
+    rendered images and injected (t, eps), and an epoch of M3_BF16_STEPS
+    bf16 steps at batch M3_BF16_BATCH on images each rank renders."""
+    from toycrystals_torch.data.datasets import generate_batch
+    from toycrystals_torch.data.lattice import LatticeConfig
+    from toycrystals_torch.models.sde_score_model import sample_grid_conditions
+    from toycrystals_torch.models.torch_init import flax_default_init
+    from toycrystals_torch.utils.params import flax_from_torch_state_dict
+
+    kw = {k: SLICE_CFG[k] for k in ("n_types", "y_cont_dim", "base_ch", "emb_dim", "cond_ch",
+                                    "time_ch")}
+    model = flax_default_init(make_model("none", "float32"), np.random.default_rng(40))
+    sd = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    yc, yv = (a.numpy() for a in sample_grid_conditions(M3_HI_IMAGES, 4, 4))
+    r, b = np.random.default_rng(41), M3_F32_BATCH
+    x0 = generate_batch(LatticeConfig(img_size=HI_SIZE, rot_only=True), 2, np.arange(b),
+                        device="cpu")[0].numpy()[None]
+    cases = [dict(kind="service", config=dict(HI_CFG, dtype="float32"),
+                  params=flax_from_torch_state_dict(sd), buckets=(M3_HI_IMAGES,),
+                  settings=dict(steps=M3_HI_STEPS), requests=[(yc, yv, 42)]),
+             dict(kind="sde", model=dict(kw, stem="none"), state_dict=sd, param="v",
+                  sde=dict(beta_min=0.1, beta_max=30.0, logsnr_shift=HI_CFG["logsnr_shift"]),
+                  opt={"lr": TRAIN_LR, "ema": 0.999}, x0=x0,
+                  y_cat=r.integers(0, 5, (1, b)).astype(np.int32),
+                  y_cont=r.normal(size=(1, b, 4)).astype(np.float32),
+                  t=r.uniform(0.02, 1.0, (1, b)).astype(np.float32),
+                  eps=r.normal(size=x0.shape).astype(np.float32)),
+             dict(kind="epoch", model=dict(kw, stem="none", dtype=torch.bfloat16),
+                  state_dict=sd, param="v", opt={"lr": TRAIN_LR}, batch=M3_BF16_BATCH,
+                  items=M3_BF16_BATCH * M3_BF16_STEPS,
+                  lattice=dict(img_size=HI_SIZE, rot_only=True), seed=43)]
+    return {"device": torch.device(DEVICE).type, "tf32": False, "cases": cases}
+
+
+def _m3_jobs() -> dict:
+    """Phase 20's mesh job (`_m3_cases` on the (1, 2, 2) mesh, four ranks on
+    cuda:0 over gloo); uses no CUDA memory of this process."""
+    four, job_s = _launch_timed(_m3_cases(), M3_MESH, 4)
+    return {"four": four, "job_s": job_s}
+
+
+def _m3_gn_rows(gn) -> tuple[list[dict], dict]:
+    """The space pair and its backward pair at a rank's rows of its channel
+    block on the 3-D mesh (M3_GN_SHAPES, 4 groups; bf16 and f32, pad off and
+    on) against their plain versions, the other space rank's sums added
+    here; timed beside the plain versions by CUDA events; bounds: bytes."""
+    rows, headline = [], {}
+    gen = torch.Generator(device=DEVICE).manual_seed(44)
+    g = 4
+    for label, shape in M3_GN_SHAPES:
+        b, c, h, w = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).replace("torch.", "")
+            elem = 2 if dtype == torch.bfloat16 else 4
+            x, other = ((torch.randn(shape, generator=gen, device=DEVICE) * 2 + 0.5).to(dtype)
+                        for _ in range(2))
+            scale = torch.randn(c, generator=gen, device=DEVICE) * 0.1 + 1.0
+            bias = torch.randn(c, generator=gen, device=DEVICE) * 0.1
+            sums = gn.gn_sums(x, g) + gn.gn_sums(other, g)
+            want_sums = gn.gn_sums_reference(x, g) + gn.gn_sums_reference(other, g)
+            count = c // g * h * w * 2
+            sums_err = float(((sums - want_sums).abs() / want_sums.abs().clamp(min=1.0)).max())
+            for pad in (False, True):
+                p = 1 if pad else 0
+                row = dict(shape=label, dims=list(shape), groups=g, dtype=name, pad=pad,
+                           sums_max_rel_err=sums_err)
+                got = gn.gn_silu_apply(x, sums, count, scale, bias, g, pad=pad)
+                want = gn.gn_silu_apply_reference(x, sums, count, scale, bias, g, pad=pad)
+                row["max_abs_err"] = float((got.float() - want.float()).abs().max())
+                atol, rtol = TOL[name]
+                torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+                del got, want
+                up = torch.randn((b, c, h + 2 * p, w + 2 * p), generator=gen,
+                                 device=DEVICE).to(dtype)
+                edge = torch.randn((b, c, 2, w + 2), generator=gen,
+                                   device=DEVICE).to(dtype) if pad else None
+                args = (x, up, edge, sums, count, scale, bias, g)
+                chan = gn.gn_silu_backward_sums(*args, pad=pad)
+                want_chan = gn.gn_silu_backward_sums_reference(*args, pad=pad)
+                row["backward_sums_max_err_share"] = float(
+                    (chan - want_chan).abs().max()) / float(want_chan.abs().max())
+                dsums = (want_chan * scale.reshape(1, -1, 1)).reshape(b, g, -1, 2).sum(2) * 2.0
+                dx = gn.gn_silu_backward_apply(x, up, edge, sums, dsums, count, scale, bias, g,
+                                               pad=pad)
+                want_dx = gn.gn_silu_backward_apply_reference(x, up, edge, sums, dsums, count,
+                                                              scale, bias, g, pad=pad)
+                row["backward_max_abs_err"] = float((dx.float() - want_dx.float()).abs().max())
+                row["backward_max_abs"] = float(want_dx.float().abs().max())
+                del chan, want_chan, dx, want_dx
+                if not (sums_err <= 1e-5 and row["backward_sums_max_err_share"] <= GRAD_TOL[
+                        "float32"] and row["backward_max_abs_err"] <= GRAD_TOL[name]
+                        * row["backward_max_abs"]):
+                    raise AssertionError(f"gn_silu space pairs at the 3-D block: {row}")
+                read = (x.numel() + up.numel() + (0 if edge is None else edge.numel())) * elem
+                row.update(
+                    sums_ms=cuda_time_ms(lambda: gn.gn_sums(x, g)),
+                    sums_plain_ms=cuda_time_ms(lambda: gn.gn_sums_reference(x, g), iters=5),
+                    sums_bound_ms=(x.numel() * elem + b * g * 8) / HBM_BYTES_PER_S * 1e3,
+                    apply_ms=cuda_time_ms(
+                        lambda: gn.gn_silu_apply(x, sums, count, scale, bias, g, pad=pad)),
+                    apply_plain_ms=cuda_time_ms(lambda: gn.gn_silu_apply_reference(
+                        x, sums, count, scale, bias, g, pad=pad), iters=5),
+                    backward_sums_ms=cuda_time_ms(lambda: gn.gn_silu_backward_sums(*args,
+                                                                                  pad=pad)),
+                    backward_sums_plain_ms=cuda_time_ms(
+                        lambda: gn.gn_silu_backward_sums_reference(*args, pad=pad), iters=3,
+                        warmup=1),
+                    backward_sums_bound_ms=(read + b * c * 8) / HBM_BYTES_PER_S * 1e3,
+                    backward_apply_ms=cuda_time_ms(lambda: gn.gn_silu_backward_apply(
+                        x, up, edge, sums, dsums, count, scale, bias, g, pad=pad)),
+                    backward_apply_plain_ms=cuda_time_ms(
+                        lambda: gn.gn_silu_backward_apply_reference(
+                            x, up, edge, sums, dsums, count, scale, bias, g, pad=pad), iters=3,
+                        warmup=1),
+                    backward_apply_bound_ms=(read + x.numel() * elem) / HBM_BYTES_PER_S * 1e3)
+                row["apply_bound_ms"], row["apply_bound_by"] = gn_bound(shape, pad, elem)
+                rows.append(row)
+                log("kernel gn_silu space pairs at a 3-D rank's block " + json.dumps(row))
+                if label == M3_GN_SHAPES[0][0] and name == "bfloat16" and pad:
+                    headline = row
+                del up, edge
+            del x, other
+    torch.cuda.empty_cache()
+    return rows, headline
+
+
+def _m3_flash_rows(at) -> tuple[list[dict], dict]:
+    """The flash forward and backward of a rank's 2 of the 4 heads at its
+    2,048 queries against the 4,096 gathered keys (M3_FLASH; bf16: wgmma,
+    f32: TF32 mma, three products each) against `sdpa_reference` in f32 and
+    autograd of it, timed beside them and beside
+    F.scaled_dot_product_attention and its autograd."""
+    rows, headline = [], {}
+    clock_hz = sm_clock_max_hz()
+    gen = torch.Generator(device=DEVICE).manual_seed(45)
+    shape, nk = M3_FLASH
+    b, n, h, d = shape
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        kv = torch.randn((b, nk, 2, h, d), generator=gen, device=DEVICE).to(dtype)
+        up = torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+        leaves = [t.detach().requires_grad_(True) for t in (q, kv[:, :, 0], kv[:, :, 1])]
+        before = (at.flash_sdpa.launches, at.flash_sdpa.backward_launches)
+        out = at.flash_sdpa(*leaves)
+        grads = torch.autograd.grad(out, leaves, up, retain_graph=True)
+        torch.cuda.synchronize()
+        if (at.flash_sdpa.launches, at.flash_sdpa.backward_launches) != \
+                (before[0] + 1, before[1] + 1):
+            raise AssertionError(f"flash_sdpa did not launch its kernels at {shape} / Nk {nk}")
+        ref = [t.detach().float().requires_grad_(True) for t in leaves]
+        want = at.sdpa_reference(*ref)
+        want_g = torch.autograd.grad(want, ref, up.float())
+        row = dict(dims=list(shape), nk=nk, dtype=name, tol_share=FLASH_TOL[name],
+                   max_abs_err=float((out.detach().float() - want.detach()).abs().max()),
+                   max_abs=float(want.detach().abs().max()))
+        bad = [] if row["max_abs_err"] <= FLASH_TOL[name] * row["max_abs"] else ["out"]
+        for k, got, w in zip(("dq", "dk", "dv"), grads, want_g):
+            row[f"{k}_max_abs_err"] = float((got.float() - w).abs().max())
+            row[f"{k}_max_abs"] = float(w.abs().max())
+            if not row[f"{k}_max_abs_err"] <= FLASH_TOL[name] * row[f"{k}_max_abs"]:
+                bad.append(k)
+        del ref, want, want_g
+        with torch.no_grad():
+            row["ms"] = cuda_time_ms(lambda: at.flash_sdpa(*leaves), iters=10)
+            row["plain_ms"] = cuda_time_ms(lambda: at.sdpa_reference(*leaves), iters=3,
+                                           warmup=1)
+            lib_leaves = [t.detach().transpose(1, 2) for t in leaves]
+            row["library_ms"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(*lib_leaves), iters=10)
+        row["backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(out, leaves, up, retain_graph=True), iters=10)
+        plain = at.sdpa_reference(*leaves)
+        row["plain_backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(plain, leaves, up, retain_graph=True), iters=3, warmup=1)
+        del plain
+        lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in leaves]
+        lib = F.scaled_dot_product_attention(*lib_leaves)
+        row["library_backward_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(lib, lib_leaves, up.transpose(1, 2), retain_graph=True),
+            iters=10)
+        del lib, lib_leaves
+        row["bound_ms"], row["bound_by"], row["bound_operations"] = flash_bound(
+            shape, q.element_size(), False, clock_hz, nk=nk)
+        row["backward_bound_ms"], row["backward_bound_by"], \
+            row["backward_bound_operations"] = flash_bound(shape, q.element_size(), True,
+                                                           clock_hz, nk=nk)
+        rows.append(row)
+        log("kernel flash_attn at a 3-D rank's heads " + json.dumps(row))
+        if bad:
+            raise AssertionError(f"flash at {shape} / Nk {nk} {name} disagrees in {bad}: {row}")
+        if dtype == torch.bfloat16:
+            headline.update(row)
+        else:
+            headline["f32"] = row
+        del q, kv, up, leaves, out, grads
+        torch.cuda.empty_cache()
+    return rows, headline
+
+
+def phase_mesh_3d(card: str, jobs: dict, cli: dict) -> dict:
+    """Phase 20: JAX's 3-D mesh (module docstring). `jobs` is what
+    `_m3_jobs` brought back from beside phase 18, `cli` what phase 18's CLI
+    stages recorded of the 3-D train and sample CLIs."""
+    from toycrystals_torch.ops import attention as at
+    from toycrystals_torch.ops import groupnorm as gn
+    from toycrystals_torch.parallel.parity import run_cases
+    from toycrystals_torch.serve import ScoreModelService
+
+    t0 = time.perf_counter()
+    gib = 2.0**30
+    out: dict = {"card": card, "launches": {}, "times": M3_CONTENDED, "job_s": jobs["job_s"],
+                 "cli": cli}
+    out["gn_rows"], out["gn_headline"] = _m3_gn_rows(gn)
+    out["flash_rows"], out["flash_headline"] = _m3_flash_rows(at)
+    four, spec = jobs["four"], _m3_cases()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = run_cases({**spec, "cases": spec["cases"][1:]})
+    zero = {"gn_silu": 0, "gn_silu_backward": 0, "gn_silu_sums": 0, "gn_silu_apply": 0,
+            "gn_silu_backward_sums": 0, "gn_silu_backward_apply": 0, "rasterize": 0,
+            "flash_attn": 0, "flash_attn_backward": 0}
+    # (a) the request against the one-process service's dispatch
+    evals = M3_HI_STEPS + 1
+    per_dispatch = dict(zero, gn_silu_sums=10 * evals, gn_silu_apply=10 * evals,
+                        flash_attn=evals)
+    for rank, res in enumerate(four):
+        out["launches"][f"mesh_3d_hi_rank{rank}"] = res[0]["launches"]
+        if res[0]["launches"] != per_dispatch:
+            raise AssertionError(f"3-D request rank {rank}: launches {res[0]['launches']}, "
+                                 f"expected {per_dispatch}")
+    case = spec["cases"][0]
+    svc = ScoreModelService(case["config"], case["params"], device=DEVICE,
+                            buckets=case["buckets"], **case["settings"])
+    (y_cat, y_cont, seed), = case["requests"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    want = _one_process_dispatch(svc, y_cat, y_cont, seed, len(y_cat))
+    torch.cuda.synchronize()
+    got = four[0][0]["x"][0]
+    d = float(np.abs(got - want).max())
+    req = {"max_abs_diff": d, "seconds": [res[0]["seconds"][0] for res in four],
+           "seconds_one_process": time.perf_counter() - s0,
+           "peak_bytes": [res[0].get("peak_bytes", 0) for res in four],
+           "peak_bytes_one_process": int(torch.cuda.max_memory_allocated()),
+           "launches_per_rank_per_dispatch": per_dispatch}
+    del svc
+    if not (all(np.array_equal(got, res[0]["x"][0]) for res in four)
+            and got.shape == want.shape and d <= SPACE_TOL):
+        raise AssertionError(f"3-D request: {d:.3e} from one process")
+    out["request"] = req
+    log(f"3-D 256x256 {M3_HI_IMAGES} images SDE-{M3_HI_STEPS} f32 on a (data 1, space 2, "
+        f"model 2) mesh (four ranks on one card over gloo, {card}; host copies and "
+        f"time-slicing, not NVLink; {M3_CONTENDED}): {d:.3e} from the one-process dispatch "
+        f"(tolerance {SPACE_TOL}); seconds per rank {[round(s, 2) for s in req['seconds']]} "
+        f"against {req['seconds_one_process']:.2f} in one process; peak "
+        f"{' / '.join(f'{v / gib:.3f}' for v in req['peak_bytes'])} GiB against "
+        f"{req['peak_bytes_one_process'] / gib:.3f}; launches per rank per dispatch "
+        f"{json.dumps(per_dispatch)} (the space pair on each rank's [{2 * M3_HI_IMAGES}, 48|96, "
+        f"H/2, W] channel blocks of 4 groups, flash on its 2 of the 4 heads against the "
+        f"gathered keys)")
+    # (b) the f32 step against one process, (c) the bf16 epoch's steps on rendered data
+    for i, (name, steps) in enumerate((("f32", 1), ("bf16", M3_BF16_STEPS)), start=1):
+        per_step = dict(zero, gn_silu_sums=10, gn_silu_apply=10, gn_silu_backward_sums=10,
+                        gn_silu_backward_apply=10, flash_attn=1, flash_attn_backward=1,
+                        rasterize=int(name == "bf16"))
+        want_launches = {k: v * steps for k, v in per_step.items()}
+        for rank, res in enumerate(four):
+            out["launches"][f"mesh_3d_train_{name}_rank{rank}"] = res[i]["launches"]
+            if res[i]["launches"] != want_launches:
+                raise AssertionError(f"3-D training {name} rank {rank}: launches "
+                                     f"{res[i]['launches']}, expected {want_launches}")
+        r0, want = four[0][i], one[i - 1]
+        rec = {"peak_bytes": [res[i].get("peak_bytes", 0) for res in four],
+               "peak_bytes_one_process": want.get("peak_bytes", 0),
+               "launches_per_rank_per_step": per_step}
+        if name == "f32":
+            if any(res[i]["losses"] != r0["losses"] for res in four):
+                raise AssertionError("3-D training f32: the ranks' losses differ")
+            rec.update(losses=r0["losses"], losses_one_process=want["losses"],
+                       step_ms=[res[i]["step_ms"][0] for res in four],
+                       step_ms_one_process=want["step_ms"][0],
+                       # the parameters, both moments and the EMA, each laid out as the
+                       # parameter: this rank's blocks against the whole
+                       state_bytes=[4 * sum(v.nbytes for v in res[i]["shards"].values())
+                                    for res in four],
+                       state_bytes_one_process=4 * sum(v.nbytes
+                                                       for v in want["params"].values()))
+            rec["loss_rel_diff"] = abs(r0["losses"][0] - want["losses"][0]) / abs(
+                want["losses"][0])
+            rec["grad_worst_share"] = _leafwise(r0["grads"], want["grads"],
+                                                "3-D training f32 gradient")
+            rec["param_worst_share"], rec["ema_worst_share"], rec["entries_held"] = \
+                _st_hold_updated(r0, want, TRAIN_LR, 0.999)
+            if not rec["loss_rel_diff"] <= 1e-5:
+                raise AssertionError(f"3-D training f32 against one process: {rec}")
+        else:
+            if len({res[i]["loss"] for res in four}) != 1 or not np.isfinite(r0["loss"]):
+                raise AssertionError(f"3-D training bf16: losses {[r[i]['loss'] for r in four]}")
+            rec.update(loss=r0["loss"], loss_one_process=want["loss"],
+                       epoch_ms=[res[i]["epoch_ms"] for res in four],
+                       epoch_ms_one_process=want["epoch_ms"])
+        out[name] = rec
+        log(f"3-D training 256x256 {name} at batch "
+            f"{M3_F32_BATCH if name == 'f32' else M3_BF16_BATCH} on a (data 1, space 2, model 2) "
+            f"mesh (four ranks on one card over gloo, {card}; host copies and time-slicing, not "
+            f"NVLink; {M3_CONTENDED}): " + json.dumps(rec))
+    del four, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json-out", default=None,
@@ -4661,18 +5045,24 @@ def main() -> int:
         log(f"phase 16 took {report['space']['seconds']:.1f} s")
         report["space_train"] = phase_space_train(card)
         log(f"phase 17 took {report['space_train']['seconds']:.1f} s")
-        # phase 19 beside phase 18: its jobs and references run in processes of
-        # their own, so this process's CUDA memory and counters stay phase 18's
+        # phase 19, then phase 20's mesh job, beside phase 18: they run in processes
+        # of their own, so this process's CUDA memory and counters stay phase 18's
         from concurrent.futures import ThreadPoolExecutor
 
+        def beside_phase_18():
+            return phase_pipe_expert(card), _m3_jobs()
+
         with ThreadPoolExecutor(1) as beside:
-            pipe_expert = beside.submit(phase_pipe_expert, card)
+            side = beside.submit(beside_phase_18)
             try:
                 report["tensor"] = phase_tensor(card)
                 log(f"phase 18 took {report['tensor']['seconds']:.1f} s")
             finally:
-                report["pipe_expert"] = pipe_expert.result()
+                report["pipe_expert"], m3_jobs = side.result()
         log(f"phase 19 took {report['pipe_expert']['seconds']:.1f} s (beside phase 18)")
+        report["mesh_3d"] = phase_mesh_3d(card, m3_jobs, report["tensor"]["cli"]["mesh_3d"])
+        log(f"phase 20 took {report['mesh_3d']['seconds']:.1f} s after phase 18, its mesh job "
+            f"{m3_jobs['job_s']:.1f} s beside it")
         if args.profile:  # and its last ones
             report["profiler_probe_end"] = profiler_window_probe(rz, "after phase 19")
         report["launches"] = {"serving": served, "training": trained,
@@ -4684,7 +5074,8 @@ def main() -> int:
                               **report["parallel"]["launches"], **report["space"]["launches"],
                               **report["space_train"]["launches"],
                               **report["tensor"]["launches"],
-                              **report["pipe_expert"]["launches"]}
+                              **report["pipe_expert"]["launches"],
+                              **report["mesh_3d"]["launches"]}
         log("launches " + json.dumps(report["launches"]))
         for tr in report["train"] + [report["train_256"]]:
             # share of the GroupNorm kernels, forward and backward, in a step
@@ -4704,6 +5095,8 @@ def main() -> int:
         gn_space, flash_space = report["space"]["gn_headline"], report["space"]["flash_headline"]
         gn_bwd_space = report["space_train"]["gn_headline"]
         flash_bwd_space = report["space_train"]["flash_headline"]
+        gn_m3, flash_m3 = report["mesh_3d"]["gn_headline"], report["mesh_3d"]["flash_headline"]
+        m3_paths = report["mesh_3d"]["launches"]
         tr, sl = report["train_256"], report["slice_256"]
         tr["flash_ms_per_step"] = flash_train["ms"] + flash_train["backward_ms"]
         tr["flash_share"] = tr["flash_ms_per_step"] * tr["steps_per_s"] / 1e3
@@ -4778,7 +5171,15 @@ def main() -> int:
             *((f"tensor_2d_sde_rank{r}", ("gn_silu", "gn_silu_backward")) for r in range(4)),
             *((f"tensor_2d_vae_rank{r}", ("rasterize",)) for r in range(4)),
             *((f"pipe_expert_cli_{axis}_{label}_rank{r}", ("rasterize",))
-              for axis in PE_MESHES for label in ("epoch_1", "resumed") for r in (0, 1)))
+              for axis in PE_MESHES for label in ("epoch_1", "resumed") for r in (0, 1)),
+            *((f"mesh_3d_hi_rank{r}", ("gn_silu_sums", "gn_silu_apply", "flash_attn"))
+              for r in range(4)),
+            *((f"mesh_3d_train_{name}_rank{r}", ("gn_silu_sums", "gn_silu_apply",
+                                                 "gn_silu_backward_sums",
+                                                 "gn_silu_backward_apply", "flash_attn",
+                                                 "flash_attn_backward")
+               + (("rasterize",) if name == "bf16" else ()))
+              for name in ("f32", "bf16") for r in range(4)))
             for k in ks if paths[path][k] == 0]
         if missing:
             raise AssertionError(f"a main path never launched one of its kernels: {missing}; "
@@ -4972,6 +5373,17 @@ def main() -> int:
             "bound_operations": flash_bwd_space["backward_bound_operations"],
             "library_ms": flash_bwd_space["library_backward_ms"],
             "library_call": "autograd of F.scaled_dot_product_attention"},
+        "mesh_3d_at": {
+            "at": f"forward and backward, q {flash_m3['dims']} (a rank's 2 of the 4 heads at "
+                  f"M = 2) against K and V of {flash_m3['nk']} gathered keys (S = 2), bf16",
+            "launches_mesh_3d": {k: paths[k]["flash_attn"] for k in m3_paths},
+            "launches_mesh_3d_backward": {k: paths[k]["flash_attn_backward"] for k in m3_paths},
+            **{k: flash_m3[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "bound_operations",
+                "library_ms", "backward_ms", "plain_backward_ms", "backward_bound_ms",
+                "backward_bound_operations", "library_backward_ms", "dq_max_abs_err",
+                "dk_max_abs_err", "dv_max_abs_err")},
+            "f32": {k: flash_m3["f32"][k] for k in F32_FLASH_KEYS if k in flash_m3["f32"]}},
         "f32_at": {
             "kernels": "flash_fwd_tf32, flash_dkv_tf32, flash_dq_tf32: mma.sync TF32, each "
                        "product as hi lo + lo hi + hi hi of split operands",
@@ -4991,6 +5403,13 @@ def main() -> int:
         "wrapper_ms": gn_space["sums_ms"], "plain_ms": gn_space["sums_plain_ms"],
         "bound_ms": gn_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16, one rank's rows at S = 2",
+        "mesh_3d_at": {
+            "at": f"{gn_m3['shape']} {gn_m3['dims']} bf16, {gn_m3['groups']} groups: a "
+                  f"rank's rows of its channel block at S = 2, M = 2",
+            "launches_mesh_3d": {k: paths[k]["gn_silu_sums"] for k in m3_paths},
+            "max_abs_err": gn_m3["sums_max_rel_err"], "ms": gn_m3["sums_ms"],
+            "plain_ms": gn_m3["sums_plain_ms"], "bound_ms": gn_m3["sums_bound_ms"],
+            "bound_by": "bytes", "library_ms": None},
     }, {
         "name": "gn_silu_apply", "route": "cuda", "source": "toycrystals_torch/csrc/gn_silu.cu",
         "replaces": "toycrystals_tpu/ops/groupnorm.py:53 (normalise, SiLU and halo, under a "
@@ -5004,6 +5423,13 @@ def main() -> int:
         "bound_ms": gn_space["apply_bound_ms"], "bound_by": gn_space["apply_bound_by"],
         "library_ms": None,
         "at": f"{gn_space['shape']} {gn_space['dims']} bf16 pad=True, one rank's rows at S = 2",
+        "mesh_3d_at": {
+            "at": f"{gn_m3['shape']} {gn_m3['dims']} bf16 pad=True, {gn_m3['groups']} groups: a "
+                  f"rank's rows of its channel block at S = 2, M = 2",
+            "launches_mesh_3d": {k: paths[k]["gn_silu_apply"] for k in m3_paths},
+            "max_abs_err": gn_m3["max_abs_err"], "ms": gn_m3["apply_ms"],
+            "plain_ms": gn_m3["apply_plain_ms"], "bound_ms": gn_m3["apply_bound_ms"],
+            "bound_by": gn_m3["apply_bound_by"], "library_ms": None},
     }, {
         "name": "gn_silu_backward_sums", "route": "cuda",
         "source": "toycrystals_torch/csrc/gn_silu.cu",
@@ -5017,6 +5443,13 @@ def main() -> int:
         "ms": gn_bwd_space["sums_ms"], "plain_ms": gn_bwd_space["sums_plain_ms"],
         "bound_ms": gn_bwd_space["sums_bound_ms"], "bound_by": "bytes", "library_ms": None,
         "at": f"{gn_bwd_space['shape']} {gn_bwd_space['dims']} bf16 pad=True",
+        "mesh_3d_at": {
+            "at": f"{gn_m3['shape']} {gn_m3['dims']} bf16 pad=True, {gn_m3['groups']} groups: a "
+                  f"rank's rows of its channel block at S = 2, M = 2",
+            "launches_mesh_3d": {k: paths[k]["gn_silu_backward_sums"] for k in m3_paths},
+            "max_abs_err": gn_m3["backward_sums_max_err_share"], "ms": gn_m3["backward_sums_ms"],
+            "plain_ms": gn_m3["backward_sums_plain_ms"],
+            "bound_ms": gn_m3["backward_sums_bound_ms"], "bound_by": "bytes", "library_ms": None},
     }, {
         "name": "gn_silu_backward_apply", "route": "cuda",
         "source": "toycrystals_torch/csrc/gn_silu.cu",
@@ -5029,6 +5462,13 @@ def main() -> int:
         "plain_ms": gn_bwd_space["apply_plain_ms"], "bound_ms": gn_bwd_space["apply_bound_ms"],
         "bound_by": "bytes", "library_ms": None,
         "at": f"{gn_bwd_space['shape']} {gn_bwd_space['dims']} bf16 pad=True",
+        "mesh_3d_at": {
+            "at": f"{gn_m3['shape']} {gn_m3['dims']} bf16 pad=True, {gn_m3['groups']} groups: a "
+                  f"rank's rows of its channel block at S = 2, M = 2",
+            "launches_mesh_3d": {k: paths[k]["gn_silu_backward_apply"] for k in m3_paths},
+            "max_abs_err": gn_m3["backward_max_abs_err"], "ms": gn_m3["backward_apply_ms"],
+            "plain_ms": gn_m3["backward_apply_plain_ms"],
+            "bound_ms": gn_m3["backward_apply_bound_ms"], "bound_by": "bytes", "library_ms": None},
     }]
     log(json.dumps({"kernels": kernels}))
     log(card)

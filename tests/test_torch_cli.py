@@ -304,17 +304,18 @@ def test_without_device_flag_both_clis_refuse_to_run_on_the_cpu(tmp_path, monkey
     assert not (tmp_path / "run").exists()
 
 
-MODULE_5 = "ROADMAP.md queue 1, module 5"
+# the 3-D flags with one rank: JAX's device count
+MESH_3D = "--shard 0 x --shard-space 2 x --shard-model 2 needs 4 devices, have 1"
 
 
 @pytest.mark.parametrize("cli, flags, item", [
-    # the data, space and model axes run, FSDP2 on a model axis too, and the
-    # prior's pipeline and expert axes; their refusals are JAX's, and the 3-D
-    # mesh is still to port
+    # the data, space and model axes run, FSDP2 on a model axis too, the 3-D
+    # mesh, and the prior's pipeline and expert axes; their refusals are JAX's
     ("train", ["--shard", "3"], "batch size 16 not divisible by --shard 3"),
     ("train", ["--fsdp", "--shard-model", "2"], "--shard 0 x --shard-model 2 needs 2 devices"),
-    ("train", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
-    ("serve", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
+    ("train", ["--shard-model", "2", "--shard-space", "2"], MESH_3D),
+    ("serve", ["--shard", "-1", "--shard-model", "2", "--shard-space", "2"],
+     "--shard must be >= 0, got -1"),
     ("train", ["--coordinator", "auto", "--num-processes", "2"], "--coordinator auto detects"),
     ("serve", ["--coordinator", "localhost:1"], "--coordinator host:port, --num-processes"),
     ("prior", ["--shard-model", "2"], "--shard 0 x --shard-model 2 needs 2 devices, have 1"),
@@ -324,11 +325,11 @@ MODULE_5 = "ROADMAP.md queue 1, module 5"
     ("prior", ["--shard-expert", "2"], r"--shard-expert 2 requires --moe-experts divisible by "
                                        r"it \(got 0\)"),
     ("sample", ["--shard-space", "2"], "--shard 0 x --shard-space 2 needs 2 devices, have 1"),
-    ("sample", ["--shard-model", "2", "--shard-space", "2"], MODULE_5),
+    ("sample", ["--shard-model", "2", "--shard-space", "2"], MESH_3D),
 ])
 def test_deferred_flags_exit_naming_their_roadmap_item(tmp_path, cli, flags, item):
-    """The model axes still to port refuse, naming their ROADMAP item; the
-    data and space axes' flags refuse as JAX's CLIs do."""
+    """Every parallel axis is ported: the flags of each refuse as JAX's CLIs
+    do (the serve CLI before it spawns any rank)."""
     from toycrystals_torch.scripts import serve_sde_score_model as serve_cli
 
     with pytest.raises(SystemExit, match=item):

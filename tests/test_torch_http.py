@@ -319,8 +319,9 @@ def test_http_errors(server, case, code):
 
 
 def test_cli_refusals(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="module 5"):
-        ssm.main(["x.msgpack", "--device", "cpu", "--shard-model", "2", "--shard-space", "2"])
+    with pytest.raises(SystemExit, match="--shard must be >= 0, got -1"):  # before any rank
+        ssm.main(["x.msgpack", "--device", "cpu", "--shard", "-1", "--shard-model", "2",
+                  "--shard-space", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         ssm.main([str(tmp_path / "x.msgpack")])

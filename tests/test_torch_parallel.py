@@ -218,27 +218,39 @@ def test_setup_mesh_refuses_as_jax_does(shard, batch, match):
 
 @pytest.mark.parametrize("flag", ["shard_space", "shard_model"])
 def test_setup_mesh_refuses_the_model_axes(flag):
-    """--shard-model with --shard-space (JAX's 3-D mesh): `setup_mesh`
-    refuses it, and so does `spawn_shards` before any rank starts (every
-    trainer takes --shard-model now, the VAE's and the prior's too)."""
+    """--shard-model with --shard-space (JAX's 3-D mesh) runs now; its flags
+    refuse as JAX's `setup_mesh` does: too few devices for `setup_mesh`, and
+    a batch that does not split over --shard in `spawn_shards` before any
+    rank starts."""
     import argparse
+
+    from scripts._common import setup_mesh as jax_setup_mesh
 
     from toycrystals_torch.scripts._common import spawn_shards
 
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, module 5"):
-        if flag == "shard_space":
-            setup_mesh(2, 16, device=torch.device("cpu"), shard_space=2, shard_model=2)
-        else:
-            spawn_shards(argparse.Namespace(shard=2, shard_space=2, shard_model=2,
-                                            device="cpu"), None, [])
+    if flag == "shard_space":
+        match = "--shard 4 x --shard-space 2 x --shard-model 2 needs 16 devices, have"
+        calls = (lambda: setup_mesh(4, 16, device=torch.device("cpu"), shard_space=2,
+                                    shard_model=2),
+                 lambda: jax_setup_mesh(4, 16, shard_space=2, shard_model=2))
+    else:
+        match = "batch size 15 not divisible by --shard 2"
+        calls = (lambda: spawn_shards(argparse.Namespace(shard=2, shard_space=2, shard_model=2,
+                                                         device="cpu"), None, [], (15,)),
+                 lambda: jax_setup_mesh(2, 15, shard_space=2, shard_model=2))
+    for fn in calls:
+        with pytest.raises(SystemExit, match=match):
+            fn()
 
 
 def test_a_mesh_with_a_model_axis_raises():
+    """JAX's CLIs build no ("data", "space", "pipe") mesh: `place_state`
+    refuses it (the 3-D ("data", "space", "model") mesh places)."""
     from toycrystals_torch.parallel import place_state
 
     model = tm.CondUNetTiny(**KW)
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "space", "model"))
-    with pytest.raises(NotImplementedError, match="queue 1, module 5"):
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "space", "pipe"))
+    with pytest.raises(NotImplementedError, match="JAX's CLIs offer no such mesh"):
         place_state(mesh, model, create_train_state(model, Optimizer(1e-3)))
 
 

@@ -303,7 +303,7 @@ def test_epoch_is_its_shuffle_then_its_steps():
     assert all(torch.equal(e1[k], e2[k]) for k in e1)
     assert all(torch.equal(p1[k], p2[k]) for k in p1)
     assert math.isfinite(float(e1["loss"]))
-    with pytest.raises(NotImplementedError, match="module 5"):  # JAX's 3-D mesh
+    with pytest.raises(NotImplementedError, match="JAX's CLIs offer no such mesh"):  # 3-D
         make_prior_train_epoch(tm, tx, T, B, lat, mesh=types.SimpleNamespace(
             mesh_dim_names=("data", "space", "model")))
 

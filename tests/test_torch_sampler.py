@@ -298,9 +298,9 @@ def test_sample_chunked_pads_trims_and_seeds_each_chunk(models):
     want = tm.sample_ddim(tmodel, ts, yc[6:].repeat(3), yv[6:].repeat(3, 1), (3, 16, 16, 1),
                           gen, n_steps=2, guidance_scale=1.5)
     np.testing.assert_array_equal(got[6:], want.numpy()[:1])
-    with pytest.raises(NotImplementedError, match="module 5"):
+    with pytest.raises(NotImplementedError, match="JAX's CLIs offer no such mesh"):
         tm.sample_chunked(sampler, tmodel, ts, yc, yv, (7, 16, 16, 1), 0, chunk=3,
-                          mesh=types.SimpleNamespace(mesh_dim_names=("data", "space", "model")))
+                          mesh=types.SimpleNamespace(mesh_dim_names=("data", "pipe")))
 
 
 def test_sample_chunked_one_chunk_when_chunk_exceeds_n(models):

@@ -40,10 +40,22 @@ one-process runs, on the CPU.
   2e-3 of its largest entry: the port's one-process step is as far from
   JAX's). Gradients are compared, not post-Adam weights: Adam turns rounding
   noise in a near-zero gradient into 2 lr.
+- JAX's 3-D ("data", "space", "model") mesh at (1, 2, 2), in the same job:
+  the forward of both stems against JAX's on `make_mesh_3d(1, 2, 2)`, the
+  f32 step of both stems against one process and against JAX's one-device
+  step and its own step on that mesh (which agrees with its one-device
+  step), 3-step SDE sampling and inpainting of a v model against JAX's
+  samplers on that mesh (its tensor-parallel tolerance, rtol 1e-2, atol 1e-3)
+  and against one process, GroupNorm+SiLU on a channel block (whole groups)
+  and on the gathered whole (no whole group), and an attention block, each
+  on a rank's rows, against one process, int8 sampling against one process
+  (the first activation scale bit for bit), `full_params` bit for bit, and a
+  DCP save restored on the mesh and in one process.
 - The CLIs: the trainer with --shard-model 2 against one process (its
   msgpack checkpoint read by the JAX package's sample CLI), the sample,
   inpaint and serve CLIs with --shard-model 2 against one process, and the
   trainer with --shard 2 --shard-space 2 --fsdp, then --resume.
+  (tests/test_torch_mesh_3d.py runs the CLIs on the 3-D mesh.)
 """
 
 import io
@@ -76,7 +88,7 @@ from toycrystals_torch.utils.params import (
     torch_state_dict_from_flax,
 )
 from toycrystals_tpu.models import sde_score_model as jm
-from toycrystals_tpu.parallel import data_sharding, make_mesh_tp, shard_params_fsdp
+from toycrystals_tpu.parallel import data_sharding, make_mesh_3d, make_mesh_tp, shard_params_fsdp
 from toycrystals_tpu.parallel import spatial as jspatial
 from toycrystals_tpu.parallel import tensor as jtp
 from toycrystals_tpu.train.state import create_train_state as jax_create_train_state
@@ -87,12 +99,18 @@ KW = dict(n_types=4, y_cont_dim=4, base_ch=8, emb_dim=16)
 SIZE, B = 16, 4
 LR, DECAY, P_UNCOND, CLIP = 1e-3, 0.9, 0.5, 0.05
 LOSS_RTOL, LEAF, FLOOR = 1e-6, 1e-5, 1e-6
-TP = {"2x2": [2, 2, "model"], "1x4": [1, 4, "model"]}
+TP = {"2x2": [2, 2, "model"], "1x4": [1, 4, "model"], "1x2x2": [1, 2, 2, "3d"]}
+MESH3 = TP["1x2x2"]  # JAX's make_mesh_3d(1, 2, 2): rank 2 s + m
 HSDP = [2, 2]
 SAMPLE_STEPS, SAMPLE_N, SAMPLE_CHUNK = 3, 6, 4
 # images in [0, 1] after 3 SDE steps against one process: JAX's own atol for its
 # tensor-parallel sampler against one device (tests/test_tensor_parallel.py)
 SAMPLE_TOL = 1e-3
+# the 3-D samplers against JAX's on make_mesh_3d: its tensor-parallel tolerance
+# (tests/test_tensor_parallel.py's 3-D sampler against one device)
+JAX_SAMPLE_RTOL, JAX_SAMPLE_ATOL = 1e-2, 1e-3
+# the port's loss against JAX's one-device loss (tests/test_torch_loss.py's)
+JAX_LOSS_RTOL = 2e-5
 # the forward against JAX's: JAX's own tolerance (tests/test_tensor_parallel.py, which
 # holds stem none); the s2dr stem at tests/test_torch_unet.py's whole-U-Net limit: JAX's
 # own s2dr forward on make_mesh_tp(2, 2) is 2.9x its tolerance from its one-device forward
@@ -227,39 +245,55 @@ def _forward_case(stem, seed, **model_kw):
                 y_cont=r.normal(size=(B, 4)).astype(np.float32))
 
 
+def _jax_mesh(shape):
+    """JAX's mesh of a port mesh spec: make_mesh_tp(D, M) or make_mesh_3d(D, S, M)."""
+    return make_mesh_3d(*shape[:3]) if shape[-1] == "3d" else make_mesh_tp(*shape[:2])
+
+
+def _images(mesh):
+    """Images over JAX's mesh: by (data, space) where it has a space axis."""
+    return (jspatial.image_sharding(mesh) if "space" in mesh.axis_names
+            else data_sharding(mesh, 4))
+
+
 def _jax_forward(case, shape):
-    """JAX's forward with channel-sharded weights on make_mesh_tp(*shape)."""
-    mesh = make_mesh_tp(*shape)
+    """JAX's forward with channel-sharded weights on the mesh of `shape`."""
+    mesh = _jax_mesh(shape)
     jmodel = jm.CondUNetTiny(**case["model"])
     params = jtp.shard_params(mesh, jax.tree.map(jnp.asarray,
                                                  flax_from_torch_state_dict(case["state_dict"])))
     out = jax.jit(lambda p, *a: jmodel.apply({"params": p}, *a))(
-        params, jax.device_put(case["x"], data_sharding(mesh, 4)),
+        params, jax.device_put(case["x"], _images(mesh)),
         jax.device_put(case["t"], data_sharding(mesh, 1)),
         jax.device_put(case["y_cat"], data_sharding(mesh, 1)),
         jax.device_put(case["y_cont"], data_sharding(mesh, 2)))
     return np.asarray(out)
 
 
-def _jax_sde_case(stem, seed, mesh, fsdp=False):
+def _jax_sde_case(stem, seed, mesh, fsdp=False, image=False):
     """One JAX step with the state placed on `mesh` by JAX's tensor-parallel
-    (or, `fsdp`, its FSDP) rule, its gradients kept by the optimizer, and the
-    draws its key makes (p_uncond 0.5, EMA 0.9)."""
+    (or, `fsdp`, its FSDP) rule (mesh None: one device), its gradients kept
+    by the optimizer, and the draws its key makes (p_uncond 0.5, EMA 0.9);
+    x0 by (data, space) under `fsdp` or `image`."""
     sd = _state_dict(seed, stem=stem)
     jtx = optax.chain(_keep_grads(), optax.adam(LR))
     state = jax_create_train_state(jax.tree.map(jnp.asarray, flax_from_torch_state_dict(sd)),
                                    jtx, ema=True)
-    state = shard_params_fsdp(mesh, state) if fsdp else jtp.shard_params(mesh, state)
+    if mesh is not None:
+        state = shard_params_fsdp(mesh, state) if fsdp else jtp.shard_params(mesh, state)
     step = jax_make_sde_train_step(jm.CondUNetTiny(**KW, stem=stem), jtx, jm.VPSDE(0.1, 30.0),
                                    4, P_UNCOND, 1.0, DECAY)
     x0, y_cat, y_cont = _batch(seed + 1)
     key = jax.random.key(seed + 2)
     t, eps, yc, yv = jm.draw_diffusion_loss_noise(jnp.asarray(x0), jnp.asarray(y_cat),
                                                   jnp.asarray(y_cont), key, 4, P_UNCOND)
-    xs = jspatial.image_sharding(mesh) if fsdp else data_sharding(mesh, 4)
-    state, loss = step(state, jax.device_put(x0, xs),
-                       jax.device_put(y_cat, data_sharding(mesh, 1)),
-                       jax.device_put(y_cont, data_sharding(mesh, 2)), key)
+    if mesh is None:
+        state, loss = step(state, jnp.asarray(x0), jnp.asarray(y_cat), jnp.asarray(y_cont), key)
+    else:
+        xs = jspatial.image_sharding(mesh) if fsdp or image else data_sharding(mesh, 4)
+        state, loss = step(state, jax.device_put(x0, xs),
+                           jax.device_put(y_cat, data_sharding(mesh, 1)),
+                           jax.device_put(y_cont, data_sharding(mesh, 2)), key)
     case = dict(kind="sde", model=dict(KW, stem=stem), state_dict=sd,
                 opt={"lr": LR, "ema": DECAY}, x0=x0[None], y_cat=np.array(yc)[None],
                 y_cont=np.array(yv)[None], t=np.array(t)[None], eps=np.array(eps)[None])
@@ -292,7 +326,56 @@ def _sample_cases(seed):
     return sample, inpaint
 
 
-def _layer_case(kind, model, seed):
+def _jax_3d_sampler_cases(seed):
+    """3 SDE steps and 2 inpainting steps (resample 2) of a v model (an eps
+    model's few steps from noise clip nearly every pixel) on JAX's
+    make_mesh_3d(1, 2, 2) with its weights placed by `shard_params`, and the
+    draws its keys make (tests/test_torch_spatial.py's cases)."""
+    sd = _state_dict(seed)
+    mesh = make_mesh_3d(*MESH3[:3])
+    jmodel = jm.CondUNetTiny(**KW)
+    sde = jm.VPSDE(0.1, 30.0)
+    apply = jm.eps_apply_from_v(sde, jax.jit(lambda p, *a: jmodel.apply({"params": p}, *a)))
+    params = jtp.shard_params(mesh, jax.tree.map(jnp.asarray, flax_from_torch_state_dict(sd)))
+    yc, yv = (np.asarray(a) for a in jm.sample_grid_conditions(B, 4, 4))
+    shape, img = (B, SIZE, SIZE, 1), jspatial.image_sharding(mesh)
+    conds = (jax.device_put(yc, data_sharding(mesh, 1)), jax.device_put(yv, data_sharding(mesh, 2)))
+    key = jax.random.key(seed + 1)
+    want = jm.sample_reverse_sde_euler_maruyama(apply, params, sde, *conds, shape, key,
+                                                n_steps=SAMPLE_STEPS, guidance_scale=1.5,
+                                                n_types=4, sharding=img)
+    k_init, k_noise = jax.random.split(key)
+    sample = dict(kind="sample", param="v", model=KW, state_dict=sd, y_cat=yc, y_cont=yv,
+                  shape=shape, seed=seed, chunk=B, n_steps=SAMPLE_STEPS, cfg=1.5,
+                  x_init=np.array(jax.random.normal(k_init, shape, jnp.float32)),
+                  z=np.stack([np.asarray(jax.random.normal(jax.random.fold_in(k_noise, i), shape,
+                                                           jnp.float32))
+                              for i in range(SAMPLE_STEPS)], axis=1), mesh=MESH3)
+    r = np.random.default_rng(seed)
+    x_known = r.uniform(-0.1, 1.1, size=shape).astype(np.float32)
+    mask = np.ones(shape, np.float32)
+    mask[:, 4:12, 3:11] = 0.0
+    n_steps, resample, key = 2, 2, jax.random.key(seed + 2)
+    want_inpaint = jm.sample_inpaint_reverse_sde(
+        apply, params, sde, *conds, shape, key, n_steps, 1.5, 1e-3, 4, resample,
+        x_known=jax.device_put(x_known, img), mask=jax.device_put(mask, img), sharding=img)
+    k_init, k_noise = jax.random.split(key)
+    draws = np.zeros((B, n_steps, resample, 3, SIZE, SIZE, 1), np.float32)
+    for i in range(n_steps):
+        for j in range(resample):
+            kr = jax.random.fold_in(jax.random.fold_in(k_noise, i), j)
+            for k in range(3):
+                draws[:, i, j, k] = np.asarray(jax.random.normal(jax.random.fold_in(kr, k),
+                                                                 shape, jnp.float32))
+    inpaint = dict(kind="inpaint", param="v", model=KW, state_dict=sd, y_cat=yc, y_cont=yv,
+                   shape=shape, n_steps=n_steps, resample=resample, cfg=1.5,
+                   x_init=np.array(jax.random.normal(k_init, shape, jnp.float32)), draws=draws,
+                   x_known=x_known, mask=mask, mesh=MESH3)
+    return {"sample_v_3d": (sample, np.asarray(want)),
+            "inpaint_v_3d": (inpaint, np.asarray(want_inpaint))}
+
+
+def _layer_case(kind, model, seed, mesh=TP["1x4"]):
     """A layer's weights, input and upstream gradient, from a numpy seed."""
     from toycrystals_torch.ops.attention import SelfAttention2d
     from toycrystals_torch.ops.groupnorm import GroupNormSiLU
@@ -303,7 +386,7 @@ def _layer_case(kind, model, seed):
           .astype(np.float32) for k, v in layer.state_dict().items()}
     ch = model.get("ch", model.get("channels"))
     pad = 2 if model.get("pad") else 0
-    return dict(kind=kind, mesh=TP["1x4"], model=model, state_dict=sd,
+    return dict(kind=kind, mesh=mesh, model=model, state_dict=sd,
                 x=r.normal(size=(2, ch, SIZE, SIZE)).astype(np.float32) * 2 + 0.5,
                 cot=r.normal(size=(2, ch, SIZE + pad, SIZE + pad)).astype(np.float32))
 
@@ -315,10 +398,14 @@ def suite(tmp_path_factory):
         f = _forward_case(stem, 3 if stem == "none" else 4)
         for name, shape in TP.items():
             cases[f"fwd_{stem}_{name}"] = dict(f, mesh=shape)
-            jax_out[f"fwd_{stem}_{name}"] = _jax_forward(f, shape[:2])
+            jax_out[f"fwd_{stem}_{name}"] = _jax_forward(f, shape)
     cases["fwd_int8"] = dict(_forward_case("s2dr", 6, conv_impl="int8"), mesh=TP["2x2"])
     for i, stem in enumerate(("none", "s2dr")):
         case, jax_out[f"sde_{stem}"] = _jax_sde_case(stem, 10 * i + 11, make_mesh_tp(2, 2))
+        # the same draws on JAX's 3-D mesh and on one device
+        jax_out[f"sde_{stem}_3d"] = _jax_sde_case(stem, 10 * i + 11, _jax_mesh(MESH3),
+                                                  image=True)[1]
+        jax_out[f"sde_{stem}_one_device"] = _jax_sde_case(stem, 10 * i + 11, None)[1]
         if stem == "s2dr":  # the clip norm sums the blocks over "model", the rest once
             case = dict(case, opt=dict(case["opt"], clip=CLIP))
         for name, shape in TP.items():
@@ -327,13 +414,28 @@ def suite(tmp_path_factory):
     for name, shape in TP.items():
         cases[f"sample_{name}"] = dict(sample, mesh=shape)
         cases[f"inpaint_{name}"] = dict(inpaint, mesh=shape)
+    for name, (case, want) in _jax_3d_sampler_cases(32).items():
+        cases[name], jax_out[name] = case, want
+    # the int8 convs on the 3-D mesh (the v model's draws), the first scale
+    # recorded (F4)
+    cases["sample_int8_3d"] = dict(cases["sample_v_3d"], model=dict(KW, conv_impl="int8"),
+                                   record_scale=True)
     cases["attention"] = _layer_case("attention", dict(ch=8, num_heads=2), 41)
     cases["groupnorm"] = _layer_case("groupnorm", dict(channels=8, groups=2, pad=True), 42)
+    # on the 3-D mesh: 2 of the 4 heads a rank, 2 of the 4 groups a rank (a
+    # channel block of whole groups) and 1 group (the gathered whole), each
+    # on a rank's rows
+    cases["attention_3d"] = _layer_case("attention", dict(ch=16, num_heads=4), 45, MESH3)
+    for name, groups in (("block", 4), ("whole", 1)):
+        cases[f"groupnorm_3d_{name}"] = _layer_case(
+            "groupnorm", dict(channels=8, groups=groups, pad=True), 46 + groups, MESH3)
     cases["full_params"] = dict(kind="full_params", mesh=TP["1x4"], model=dict(KW, stem="s2dr"),
                                 state_dict=_state_dict(43, stem="s2dr"))
+    cases["full_params_3d"] = dict(cases["full_params"], mesh=MESH3)
     d = tmp_path_factory.mktemp("dcp")
     sd = _state_dict(44)
-    for name, mesh, fsdp in (("tp", TP["2x2"], False), ("hsdp", HSDP, True)):
+    for name, mesh, fsdp in (("tp", TP["2x2"], False), ("hsdp", HSDP, True),
+                             ("3d", MESH3, False)):
         path = str(d / name)
         cases[f"dcp_save_{name}"] = dict(kind="dcp_save", model=KW, state_dict=sd, fsdp=fsdp,
                                          seed=8, path=path, mesh=mesh)
@@ -365,9 +467,33 @@ def one_process(suite):
              "sde_s2dr": c["sde_s2dr_2x2"], "sde_hsdp": c["sde_hsdp"],
              "sample": c["sample_2x2"], "inpaint": c["inpaint_2x2"],
              "attention": c["attention"], "groupnorm": c["groupnorm"],
-             "dcp_load_tp": c["dcp_load_tp"], "dcp_load_hsdp": c["dcp_load_hsdp"]}
+             "dcp_load_tp": c["dcp_load_tp"], "dcp_load_hsdp": c["dcp_load_hsdp"],
+             "dcp_load_3d": c["dcp_load_3d"], "sample_v_3d": c["sample_v_3d"],
+             "inpaint_v_3d": c["inpaint_v_3d"], "sample_int8_3d": c["sample_int8_3d"],
+             "attention_3d": c["attention_3d"]}
+    for name in ("groupnorm_3d_block", "groupnorm_3d_whole"):
+        # each space rank's padded rows read the plane's rows at its place, so
+        # the one-process block gets the sum of the space ranks' windows
+        cot = c[name]["cot"]
+        total = np.zeros_like(cot)
+        for win in _windows(cot.shape[2] - 2):
+            total[:, :, win] += cot[:, :, win]
+        cases[name] = dict(c[name], cot=total)
     cases = {k: dict(v, mesh=None, fsdp=False) for k, v in cases.items()}
     return dict(zip(cases, run_cases({"device": "cpu", "cases": list(cases.values())})))
+
+
+def _windows(h):
+    """Rows [s h / S, (s + 1) h / S + 2) of a plane of h rows padded by one
+    row a side: space rank s's padded rows on the 3-D mesh."""
+    n = MESH3[1]
+    return [slice(s * (h // n), (s + 1) * (h // n) + 2) for s in range(n)]
+
+
+def _space_ranks(four_ranks, m):
+    """The results of the space ranks s = 0 .. S - 1 of model rank m on the
+    3-D mesh (data rank 0; rank s M + m)."""
+    return [four_ranks[s * MESH3[2] + m] for s in range(MESH3[1])]
 
 
 def _hold_grads(got, want, what):
@@ -431,6 +557,106 @@ def test_sde_step_matches_jax_on_make_mesh_tp_2_2(suite, four_ranks, stem):
         np.testing.assert_allclose(got["grads"][k], w, rtol=0, atol=lim, err_msg=f"{stem} {k}")
 
 
+@pytest.mark.parametrize("stem", ["none", "s2dr"])
+def test_jax_3d_step_agrees_with_its_one_device_step(suite, stem):
+    """JAX's step on make_mesh_3d(1, 2, 2) against JAX's one-device step on
+    the same draws: the loss at JAX's own tolerance for its 3-D step
+    (tests/test_tensor_parallel.py, rtol 1e-5), the gradients leaf by leaf;
+    the 3-D step is a reference (no F6 here)."""
+    got, want = suite["jax"][f"sde_{stem}_3d"], suite["jax"][f"sde_{stem}_one_device"]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    for k, w in want["grads"].items():
+        lim = 1e-5 + 2e-3 * max(float(np.abs(w).max()), 1e-3)
+        np.testing.assert_allclose(got["grads"][k], w, rtol=0, atol=lim, err_msg=f"{stem} {k}")
+
+
+@pytest.mark.parametrize("ref", ["3d", "one_device"])
+@pytest.mark.parametrize("stem", ["none", "s2dr"])
+def test_sde_step_on_the_3d_mesh_matches_jax(suite, four_ranks, stem, ref):
+    """The port's f32 step on the (1, 2, 2) mesh against JAX's step on
+    make_mesh_3d(1, 2, 2) and against JAX's one-device step: the loss
+    (tests/test_torch_loss.py's rtol 2e-5 against JAX), and each gradient leaf
+    within 1e-5 + 2e-3 of its largest entry."""
+    got, want = four_ranks[0][f"sde_{stem}_1x2x2"], suite["jax"][f"sde_{stem}_{ref}"]
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=JAX_LOSS_RTOL)
+    assert set(got["grads"]) == set(want["grads"])
+    for k, w in want["grads"].items():
+        lim = 1e-5 + 2e-3 * max(float(np.abs(w).max()), 1e-3)
+        np.testing.assert_allclose(got["grads"][k], w, rtol=0, atol=lim, err_msg=f"{stem} {k}")
+
+
+@pytest.mark.parametrize("kind", ["sample_v_3d", "inpaint_v_3d"])
+def test_3d_samplers_match_jax_on_make_mesh_3d_and_one_process(suite, four_ranks, one_process,
+                                                                 kind):
+    """3 SDE steps, and 2 inpainting steps at resample 2, on JAX's draws: every
+    rank returns the same whole images, within JAX's tensor-parallel
+    tolerance of JAX's samplers on make_mesh_3d(1, 2, 2) and within SAMPLE_TOL
+    of one process."""
+    got = four_ranks[0][kind]["injected"]
+    np.testing.assert_allclose(got, suite["jax"][kind], rtol=JAX_SAMPLE_RTOL,
+                               atol=JAX_SAMPLE_ATOL)
+    np.testing.assert_allclose(got, one_process[kind]["injected"], rtol=0, atol=SAMPLE_TOL)
+    if kind == "sample_v_3d":
+        np.testing.assert_allclose(four_ranks[0][kind]["drawn"], one_process[kind]["drawn"],
+                                   rtol=0, atol=SAMPLE_TOL)
+    for rank in four_ranks[1:]:
+        np.testing.assert_array_equal(rank[kind]["injected"], got)
+
+
+def test_3d_int8_sampling_takes_the_mesh_wide_scale_and_matches_one_process(four_ranks,
+                                                                           one_process):
+    """The int8 convs on the 3-D mesh: the first activation scale is one
+    process's bit for bit, though some rank's own rows have a smaller max
+    (the max spans every rank: F4); the images are within SAMPLE_TOL of one
+    process's. Not bit for bit: the space axis sums each group's statistics
+    by rows, then over "space", and an f32 rounding apart moves an int8
+    rounding now and then, as on a ("data", "space") mesh."""
+    want = one_process["sample_int8_3d"]
+    own = [rank["sample_int8_3d"]["int8_scale"][0] for rank in four_ranks]
+    for rank in four_ranks:
+        got = rank["sample_int8_3d"]
+        assert got["int8_scale"][1] == want["int8_scale"][1]
+        for key in ("injected", "drawn"):
+            np.testing.assert_allclose(got[key], want[key], rtol=0, atol=SAMPLE_TOL, err_msg=key)
+            np.testing.assert_array_equal(got[key], four_ranks[0]["sample_int8_3d"][key])
+    assert min(own) < max(own) == want["int8_scale"][0]
+
+
+@pytest.mark.parametrize("kind", ["attention_3d", "groupnorm_3d_block", "groupnorm_3d_whole"])
+def test_3d_layers_on_a_ranks_rows_and_channels_match_one_process(four_ranks, one_process, kind):
+    """On the (1, 2, 2) mesh each rank runs its rows of its channel block:
+    attention with 2 of the 4 heads against K and V gathered over "space";
+    GroupNorm+SiLU (pad on) with 2 of the 4 groups (the block holds whole
+    groups) and with 1 group (gathered over "model", the block kept), its
+    statistics over every space rank's rows and its halo rows the
+    neighbours'. Each rank's output rows (padded: its window of the plane),
+    dx over the space ranks, and the parameters' gradients summed over them
+    are one process's."""
+    want = one_process[kind]
+    pad = want["out"].shape[2] != want["dx"].shape[2]
+    h = want["dx"].shape[2]
+    wins = _windows(h) if pad else [slice(w.start, w.stop - 2) for w in _windows(h)]
+    for m in range(MESH3[2]):
+        ranks = _space_ranks(four_ranks, m)
+        for rank, win in zip(ranks, wins):
+            np.testing.assert_allclose(rank[kind]["out"], want["out"][:, :, win], rtol=0,
+                                       atol=1e-5)
+        dx = np.concatenate([rank[kind]["dx"] for rank in ranks], axis=2)
+        np.testing.assert_allclose(dx, want["dx"], rtol=0,
+                                   atol=LEAF * float(np.abs(want["dx"]).max()) + 1e-12)
+        _hold_grads({k: sum(rank[kind]["grads"][k] for rank in ranks) for k in want["grads"]},
+                    want["grads"], kind)
+
+
+def test_full_params_on_the_3d_mesh_is_the_flax_tree_bit_for_bit(suite, four_ranks):
+    want = flax_from_torch_state_dict(suite["cases"]["full_params_3d"]["state_dict"])
+    for rank in four_ranks:
+        got = rank["full_params_3d"]["flax"]
+        for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(got),
+                                     jax.tree_util.tree_leaves_with_path(want)):
+            np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
 def test_every_model_rank_holds_the_same_whole_state(four_ranks):
     for name in [n for n in four_ranks[0] if n.startswith("sde_")]:
         for other in four_ranks[1:]:
@@ -482,7 +708,7 @@ def _state_equal(got, want, what):
     assert (got["step"], got["count"]) == (want["step"], want["count"]) == (7, 5)
 
 
-@pytest.mark.parametrize("name", ["tp", "hsdp"])
+@pytest.mark.parametrize("name", ["tp", "hsdp", "3d"])
 def test_dcp_saves_restore_on_the_mesh_and_in_one_process(four_ranks, one_process, name):
     saved = four_ranks[0][f"dcp_save_{name}"]
     for rank in four_ranks:

@@ -351,10 +351,10 @@ def test_epoch_sources_and_arguments():
         make_sde_train_epoch(*args, 16, resident=(None, None, None), fresh_data=True)
     with pytest.raises(ValueError, match="batch_size"):
         make_sde_train_epoch(*args, 4, lattice_cfg=cfg)
-    with pytest.raises(NotImplementedError, match="module 5"):
+    with pytest.raises(NotImplementedError, match="JAX's CLIs offer no such mesh"):
         make_sde_train_epoch(*args, 16, lattice_cfg=cfg,
                              mesh=types.SimpleNamespace(mesh_dim_names=("data", "space",
-                                                                        "model")))
+                                                                        "pipe")))
     # resident source: u8 images decoded on the fly; fresh_data shifts the items
     r = np.random.default_rng(1)
     resident = (torch.tensor(r.integers(0, 256, size=(16, SIZE, SIZE, 1), dtype=np.uint8)),

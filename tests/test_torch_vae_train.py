@@ -225,7 +225,7 @@ def test_vae_epoch_is_the_shuffle_then_the_steps():
                                    rtol=0, atol=0)
     for (k, a), b in zip(s1.params.items(), s2.params.values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=k)
-    with pytest.raises(NotImplementedError, match="module 5"):  # JAX's 3-D mesh
+    with pytest.raises(NotImplementedError, match="JAX's CLIs offer no such mesh"):  # 3-D
         make_vae_train_epoch(m1, tx1, 0.05, 4, 10, lattice_cfg=cfg,
                              mesh=types.SimpleNamespace(mesh_dim_names=("data", "space",
                                                                         "model")))

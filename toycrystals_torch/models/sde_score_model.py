@@ -25,7 +25,10 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
   what crosses the ranks. On a ("data", "model") mesh each rank runs its
   rows with its block of the weights (parallel/tensor.py `shard_params`),
   and every concat of the U-Net gathers its operands' channels first, so the
-  channels keep the order that JAX's weights expect.
+  channels keep the order that JAX's weights expect. On JAX's 3-D ("data",
+  "space", "model") mesh a rank runs its rows of the batch and of the height
+  with its block of the weights; the two kinds of exchange compose (a conv
+  gathers its input over "model", then exchanges rows over "space").
 """
 
 from __future__ import annotations
@@ -779,10 +782,12 @@ def sample_chunked(sampler_fn: Callable[..., torch.Tensor], apply_fn: ApplyFn, s
     shape ends in (H, W, C): x_known and mask, or injected draws). The
     sampler runs in the mesh's dispatch scope (parallel/spatial.py), and the
     parts are gathered back to every rank, so each rank returns the whole,
-    unsharded result. `apply_fn` is each rank's whole model, or on a
-    ("data", "model") mesh its model placed by parallel/tensor.py
-    `shard_params`: the model ranks of a data coordinate then sample the same
-    rows with the same draws, and the gather runs over "data" alone."""
+    unsharded result. `apply_fn` is each rank's whole model, or on a mesh
+    with a "model" axis ("data", "model", or JAX's 3-D ("data", "space",
+    "model")) its model placed by parallel/tensor.py `shard_params`: the
+    model ranks of a (data, space) coordinate then sample the same rows with
+    the same draws, and the gather runs over the D S ranks of the rank's
+    model coordinate."""
     n, h, w, c = _shape(img_shape)
     chunk = max(1, min(int(chunk), n))
     rows, hs = slice(0, h), None

@@ -62,6 +62,12 @@ on [B, C / M, H, W] with groups / M groups, forward and backward, and with
 `pad` the block's halo, which the next conv gathers. Where the groups do not
 split, it runs on the gathered whole (the weights gathered too) and keeps
 the rank's block (`model_groupwise`), as JAX computes such an M.
+
+On JAX's 3-D mesh both hold at once: each rank's x is its rows of its
+channel block, and the op runs `gn_silu_space` (the sums kernel, the sums
+added over "space" only, the apply kernel with the H neighbours' halo rows)
+on that block with groups / M groups, or, where the block holds no whole
+group, on the whole channels gathered over "model", keeping the block.
 """
 
 from __future__ import annotations
@@ -635,12 +641,14 @@ class GroupNormSiLU(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if spatial.current_model() is not None:
-            return model_groupwise(
-                lambda a, sc, bi, g: gn_silu(a, sc, bi, g, self.eps, self.pad), x, self.weight,
-                self.bias, self.channels, self.groups, tp.param_block(self, "weight"))
         space = spatial.current_space()
-        if space is not None:
-            return gn_silu_space(x, self.weight, self.bias, self.groups, self.eps, self.pad,
-                                 space)
-        return gn_silu(x, self.weight, self.bias, self.groups, self.eps, self.pad)
+
+        def norm(a, sc, bi, g):
+            if space is not None:
+                return gn_silu_space(a, sc, bi, g, self.eps, self.pad, space)
+            return gn_silu(a, sc, bi, g, self.eps, self.pad)
+
+        if spatial.current_model() is not None:
+            return model_groupwise(norm, x, self.weight, self.bias, self.channels, self.groups,
+                                   tp.param_block(self, "weight"))
+        return norm(x, self.weight, self.bias, self.groups)

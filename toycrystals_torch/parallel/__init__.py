@@ -4,8 +4,9 @@ sharding on a model axis), the space axis (`spatial`, on a ("data",
 "space") mesh), the "model" axis of the score model, the VAE and the priors
 (`tensor`, on a ("data", "model") mesh), and the FiLM prior's pipeline
 (`pipeline`, on a ("data", "pipe") mesh) and the MoE prior's experts over
-ranks (`expert`, on a ("data", "expert") mesh). JAX's 3-D ("data", "space",
-"model") mesh is not ported yet (ROADMAP.md queue 1, module 5)."""
+ranks (`expert`, on a ("data", "expert") mesh), and JAX's 3-D ("data",
+"space", "model") mesh of the score model, which composes the space and
+model axes."""
 
 from toycrystals_torch.parallel.fsdp import (
     fsdp_coverage,
@@ -19,6 +20,7 @@ from toycrystals_torch.parallel.mesh import (
     data_sharding,
     make_mesh,
     make_mesh_2d,
+    make_mesh_3d,
     make_mesh_ep,
     make_mesh_pp,
     make_mesh_tp,
@@ -44,6 +46,7 @@ __all__ = [
     "launch",
     "make_mesh",
     "make_mesh_2d",
+    "make_mesh_3d",
     "make_mesh_ep",
     "make_mesh_pp",
     "make_mesh_tp",

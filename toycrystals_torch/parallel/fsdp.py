@@ -33,6 +33,13 @@ blocks over the "data" sub-mesh of its model coordinate: a leaf may then be
 both a model block and a "data" shard, and the clip norm sums it over both
 axes. `full`, `like` and `copy_full_` read every layout: a DTensor, a
 tensor tagged with its model `Block`, or a DTensor so tagged.
+
+On JAX's 3-D ("data", "space", "model") mesh the two compose: DDP averages
+over the D S ranks of the rank's model coordinate, and with `fsdp` FSDP2
+runs HSDP on each rank's blocks over the ("space", "data") mesh of that
+coordinate (replicate "space", shard "data", the model dim excluded from the
+rule), so a leaf is summed over "data" and "model" by the clip norm, never
+over "space", whose ranks hold copies.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ from toycrystals_torch.parallel.mesh import (
     MODEL,
     PIPE,
     SPACE,
-    axis_group,
     axis_size,
     check_data_mesh,
     mesh_axes,
@@ -112,20 +118,45 @@ def fsdp_coverage(n: int, model: nn.Module, m: int = 1) -> float:
     return sh / max(tot, 1)
 
 
+# the HSDP meshes of a 3-D mesh (their ranks) -> the group of the D M ranks
+# that hold one copy of every piece: the space coordinate's (`write_group`)
+_WRITE_GROUPS: dict[tuple[int, ...], object] = {}
+
+
 def fsdp_mesh(mesh):
     """The mesh FSDP2 shards over: a ("data",) mesh itself; on ("data",
     "model"), the "data" sub-mesh of this rank's model coordinate; on
     ("data", "space"), the 2-D mesh (replicate "space", shard "data") of
-    the same ranks, built anew (a collective: every rank calls it)."""
-    if MODEL in mesh_axes(mesh):
+    the same ranks, and on ("data", "space", "model") that 2-D mesh of this
+    rank's model coordinate, each built anew (a collective: every rank
+    calls it)."""
+    axes = mesh_axes(mesh)
+    if MODEL in axes and SPACE not in axes:
         return mesh[AXIS]
-    if SPACE not in mesh_axes(mesh):
+    if SPACE not in axes:
         return mesh
     from torch.distributed.device_mesh import DeviceMesh
 
-    d, s = axis_size(mesh, AXIS), axis_size(mesh, SPACE)
-    return DeviceMesh(mesh.device_type, torch.arange(d * s).reshape(d, s).T,
-                      mesh_dim_names=(SPACE, AXIS))
+    d, s, m = axis_size(mesh, AXIS), axis_size(mesh, SPACE), axis_size(mesh, MODEL)
+    ranks = torch.arange(d * s * m).reshape(d, s, m)
+    if m == 1:
+        return DeviceMesh(mesh.device_type, ranks[..., 0].T, mesh_dim_names=(SPACE, AXIS))
+    root = DeviceMesh(mesh.device_type, ranks.permute(2, 1, 0),
+                      mesh_dim_names=(MODEL, SPACE, AXIS))
+    hsdp = root[SPACE, AXIS]
+    for j in range(s):  # every rank makes every group, in the same order
+        group = dist.new_group(ranks[:, j].flatten().tolist())
+        if j == mesh.get_local_rank(SPACE):
+            _WRITE_GROUPS[tuple(hsdp.mesh.flatten().tolist())] = group
+    return hsdp
+
+
+def write_group(t) -> object | None:
+    """For a DTensor on the HSDP mesh of a 3-D mesh's model coordinate, the
+    group of the ranks of this rank's space coordinate, which hold each
+    (data, model) piece of a leaf once; None (the whole process group) for
+    any other DTensor."""
+    return _WRITE_GROUPS.get(tuple(t.device_mesh.mesh.flatten().tolist()))
 
 
 def shard_params_fsdp(mesh, model: nn.Module) -> nn.Module:
@@ -266,9 +297,9 @@ def copy_full_(target: torch.Tensor, value: torch.Tensor) -> None:
 
 def reduce_replicated_grads(mesh, params: Iterable[torch.Tensor]) -> None:
     """Average the gradients of the parameters that FSDP2 leaves whole (plain
-    tensors among DTensors) in place: over the mesh, and on a ("data",
-    "model") mesh over the "data" group (the model ranks hold different
-    blocks)."""
+    tensors among DTensors) in place over `replica_group`: the mesh, or
+    with a "model" axis its "data" ranks (and "space" ones) of the rank's
+    model coordinate (the model ranks hold different blocks)."""
     if mesh is None or mesh.size() == 1:
         return
     group, n = replica_group(mesh)
@@ -298,8 +329,9 @@ def full_tensors(tensors: dict, tags: dict | None = None) -> dict:
 
 def place_state(mesh, model: nn.Module, state, fsdp: bool = False, n_micro: int = 1):
     """Place `model` and its `TrainState` on a ("data",), ("data", "space"),
-    ("data", "model"), ("data", "pipe") or ("data", "expert") mesh; returns
-    (the module to train through, the state). mesh=None passes both through.
+    ("data", "model"), ("data", "space", "model"), ("data", "pipe") or
+    ("data", "expert") mesh; returns (the module to train through, the
+    state). mesh=None passes both through.
 
     Every rank first takes rank 0's parameters, moments and EMA. Then:
 
@@ -316,6 +348,9 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False, n_micro: int 
       group of the rank's model coordinate; with `fsdp` (JAX's 2-D weight
       sharding) FSDP2 then shards those blocks over the "data" sub-mesh
       instead, and the moments and the EMA sit on the same 2-D shards;
+    - on a ("data", "space", "model") mesh, as on ("data", "model"), with
+      DDP over the D S ranks of the rank's model coordinate, or with `fsdp`
+      HSDP on the blocks over that coordinate's ("space", "data") mesh;
     - on a ("data", "pipe") mesh the FiLM prior runs as a pipeline of
       `n_micro` microbatches, each rank one stage with its blocks, their
       moments and EMA (parallel/pipeline.py `place_pipeline_state`); on a
@@ -357,7 +392,7 @@ def place_state(mesh, model: nn.Module, state, fsdp: bool = False, n_micro: int 
     state = dataclasses.replace(state, params=params,
                                 opt_state=dataclasses.replace(opt, mu=mu, nu=nu),
                                 ema_params=ema)
-    return (_ddp(model, axis_group(mesh, AXIS)) if model_axis and not fsdp else model), state
+    return (_ddp(model, replica_group(mesh)[0]) if model_axis and not fsdp else model), state
 
 
 def _ddp(model: nn.Module, group):

@@ -26,6 +26,15 @@ varying fastest as in JAX's `make_mesh_tp`: rank d M + m holds rows
 parallel/tensor.py shards. The model ranks of one data coordinate hold the
 same rows and draw the same noise (`row_generator` reads the data rank).
 
+`make_mesh_3d(D, S, M)` composes the two as JAX's `make_mesh_3d` does: a
+("data", "space", "model") mesh, "model" varying fastest, then "space": rank
+(d S + s) M + m holds rows [d B / D, (d + 1) B / D) of the batch, rows
+[s H / S, (s + 1) H / S) of the image height and block m of every weight
+that parallel/tensor.py shards. The model ranks of a (data, space)
+coordinate hold the same rows; the D S ranks of a model coordinate hold the
+same blocks, and they average a step's gradients and metrics together (the
+flattened "data_space" sub-mesh, `DATA_SPACE`).
+
 `make_mesh_pp(D, S)` and `make_mesh_ep(D, N)` lay them out as ("data",
 "pipe") and ("data", "expert") meshes, the second axis varying fastest as in
 JAX's `make_mesh_pp` / `make_mesh_ep`: rank d S + s runs stage s of the
@@ -50,7 +59,8 @@ SPACE = "space"
 MODEL = "model"
 PIPE = "pipe"
 EXPERT = "expert"
-DEFERRED = "ROADMAP.md queue 1, module 5: parallel axes"
+DATA_SPACE = "data_space"  # the D S ranks of a 3-D mesh's model coordinate
+UNOFFERED = "JAX's CLIs offer no such mesh"
 
 
 def make_mesh(n: int | None = None, device_type: str = "cuda"):
@@ -113,26 +123,51 @@ def make_mesh_ep(n_data: int, n_expert: int, device_type: str = "cuda"):
     return _make_mesh_2(n_data, n_expert, EXPERT, device_type)
 
 
+def make_mesh_3d(n_data: int, n_space: int, n_model: int, device_type: str = "cuda"):
+    """The ("data", "space", "model") mesh over all n_data * n_space *
+    n_model ranks of the process group, "model" varying fastest, then
+    "space" (JAX's `make_mesh_3d`), with its "data" and "space" dims also
+    flattened into the 1-D `DATA_SPACE` sub-mesh of each model coordinate
+    (a collective: every rank calls it)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (int(n_data), int(n_space), int(n_model))
+    need = shape[0] * shape[1] * shape[2]
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not dist.is_initialized() or need != world:
+        raise ValueError(f"asked for {need} devices, have {world} (a (data, space, model) "
+                         f"mesh of {' x '.join(map(str, shape))} spans every rank of a "
+                         f"process group)")
+    mesh = init_device_mesh(device_type, shape, mesh_dim_names=(AXIS, SPACE, MODEL))
+    # kept on the mesh: slicing a flattened dim from the root mesh is deprecated
+    mesh.flat_data_space = mesh[AXIS, SPACE]._flatten(DATA_SPACE)
+    return mesh
+
+
 def mesh_axes(mesh) -> tuple[str, ...]:
     return tuple(getattr(mesh, "mesh_dim_names", None) or ())
 
 
 def check_data_mesh(mesh, space: bool = False, model: bool = False, pipe: bool = False,
                     expert: bool = False) -> None:
-    """Only the ("data",) axis is ported, ("data", "space") where `space`
-    (the score model's sampling, serving and training), ("data", "model")
-    where `model` (those, and the VAE's and the prior's training), and
-    ("data", "pipe") and ("data", "expert") where `pipe` and `expert` (the
-    prior's step, epoch and placement); any other axis, or JAX's 3-D
-    ("data", "space", "model") mesh, raises."""
+    """The meshes a caller takes, as JAX's CLIs build them: ("data",)
+    always, ("data", "space") where `space` (the score model's sampling,
+    serving and training), ("data", "model") where `model` (those, and the
+    VAE's and the prior's training), the 3-D ("data", "space", "model")
+    where both (the score model's), and ("data", "pipe") and ("data",
+    "expert") where `pipe` and `expert` (the prior's step, epoch and
+    placement). Any other mesh raises: JAX's CLIs build none for that
+    caller (the VAE's and the prior's trainers take no --shard-space)."""
     names = mesh_axes(mesh)
     allowed = [(AXIS,)] + [(AXIS, a) for a, on in ((SPACE, space), (MODEL, model),
                                                    (PIPE, pipe), (EXPERT, expert)) if on]
+    if space and model:
+        allowed.append((AXIS, SPACE, MODEL))
     if names in allowed:
         return
-    ported = [str(a) for a in allowed]
-    raise NotImplementedError(f"a mesh with axes {names} is not ported yet ({DEFERRED}): "
-                              f"the ported axes here are {', '.join(ported)}")
+    taken = [str(a) for a in allowed]
+    raise NotImplementedError(f"a mesh with axes {names} is not taken here ({UNOFFERED} for "
+                              f"this path): the meshes taken here are {', '.join(taken)}")
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -155,17 +190,26 @@ def axis_group(mesh, axis: str):
     """The process group of this rank's line along `axis`: on a ("data",
     "model") mesh, `axis_group(mesh, AXIS)` holds the ranks with this rank's
     block of every weight (its gradient average), `axis_group(mesh, MODEL)`
-    the ranks that hold the blocks of this rank's rows."""
+    the ranks that hold the blocks of this rank's rows; on a 3-D mesh
+    `axis_group(mesh, DATA_SPACE)` holds the D S ranks with this rank's
+    blocks, ordered by data rank, then space rank."""
+    if axis == DATA_SPACE:
+        return mesh.flat_data_space.get_group()
     return mesh.get_group(axis) if mesh.ndim > 1 else mesh.get_group()
 
 
 def replica_group(mesh) -> tuple[object, int]:
-    """(group, size) over which a step's metrics are averaged: every rank of
-    the mesh, except that the model, pipe and expert ranks of a data
-    coordinate hold the same rows and compute the same loss, so a ("data",
-    "model"), ("data", "pipe") or ("data", "expert") mesh averages over
-    "data" only."""
-    if {MODEL, PIPE, EXPERT} & set(mesh_axes(mesh)):
+    """(group, size) over which a step's metrics and gradients are averaged,
+    and over which the parts of the images lie: every rank of the mesh,
+    except that the model, pipe and expert ranks of a data coordinate hold
+    the same rows and compute the same loss, so a ("data", "model"),
+    ("data", "pipe") or ("data", "expert") mesh averages over "data" only,
+    and a ("data", "space", "model") mesh over the D S ranks of the rank's
+    model coordinate (`DATA_SPACE`)."""
+    axes = set(mesh_axes(mesh))
+    if {SPACE, MODEL} <= axes:
+        return axis_group(mesh, DATA_SPACE), axis_size(mesh, AXIS) * axis_size(mesh, SPACE)
+    if {MODEL, PIPE, EXPERT} & axes:
         return axis_group(mesh, AXIS), axis_size(mesh, AXIS)
     return mesh_group(mesh), mesh.size()
 

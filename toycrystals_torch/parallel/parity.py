@@ -15,8 +15,9 @@ torch's defaults, as a CLI's process has them), "one_process": bool (no
 mesh even in a process group: a one-process reference in a spawned rank),
 "mesh": [D, S] (optional:
 a ("data", "space") mesh; [D, M, "model"] a ("data", "model") mesh, [D, S,
-"pipe"] a ("data", "pipe") mesh and [D, N, "expert"] a ("data", "expert")
-one; default a ("data",) mesh of every rank), "cases": [...]}; every
+"pipe"] a ("data", "pipe") mesh, [D, N, "expert"] a ("data", "expert")
+one and [D, S, M, "3d"] JAX's 3-D ("data", "space", "model") mesh; default
+a ("data",) mesh of every rank), "cases": [...]}; every
 case is a dict with "kind" and numpy inputs for the GLOBAL batch (injected
 draws included), of which each rank takes its rows (and, on a mesh with a
 space axis, its rows of the height of every 4-D [B, H, W, C] input); a case's
@@ -32,17 +33,18 @@ whole:
   rank's own shard or block of each parameter ("shards");
 - "epoch": `make_sde_train_epoch` on CondUNetTiny(**model) over images
   rendered from `lattice` (a LatticeConfig's fields) with the epoch's own
-  draws from `seed`; returns the mean loss, every step's gradients and the
-  parameters after;
+  draws from `seed`; returns the mean loss, the epoch's ms, every step's
+  gradients and the parameters after;
 - "space_grads": the gradients, on this rank, of the space axis's
   differentiable collectives (parallel/spatial.py) and of GroupNorm+SiLU
   under space (ops/groupnorm.py), each for the upstream gradient of this
   space rank given in the case (see `_space_grads`);
 - "attention" / "groupnorm": one SelfAttention2d(**model) or
   GroupNormSiLU(**model) on x [B, C, H, W]: the output, and the gradients
-  for the upstream gradient `cot`, of this rank's rows (on a model axis, x
-  enters as the rank's channel block, as in the U-Net, and the output, dx
-  and the gradients come back whole);
+  for the upstream gradient `cot`, of this rank's rows (a padded output's
+  with its two halo rows, whose `cot` rows are the padded plane's at the
+  same place; on a model axis, x enters as the rank's channel block, as in
+  the U-Net, and the output, dx and the gradients come back whole);
 - "full_params": the flax tree that parallel/tensor.py's `full_params`
   gathers from the rank's blocks of CondUNetTiny(**model);
 - "vae": one `make_vae_train_step` on CondVAE with injected (eps, keep),
@@ -352,9 +354,13 @@ def _epoch(mesh, case: dict, device) -> dict:
                                  dataset_seed=case["seed"], mesh=mesh,
                                  parameterization=case.get("param", "eps"))
     gen = torch.Generator(device=device).manual_seed(case["seed"])
+    _sync(device)
+    t0 = time.perf_counter()
     state, loss = epoch(state, gen)
-    return {"loss": float(loss), "grads": [_grads_np(module, g) for g in tx.seen],
-            "params": _np(state.params)}
+    loss = float(loss)
+    epoch_ms = (time.perf_counter() - t0) * 1e3
+    return {"loss": loss, "epoch_ms": epoch_ms,
+            "grads": [_grads_np(module, g) for g in tx.seen], "params": _np(state.params)}
 
 
 def _space_grads(mesh, case: dict, device) -> dict:
@@ -419,10 +425,14 @@ def _block(mesh, case: dict, device) -> dict:
         tp.shard_params(block, mesh)
         blk = tp.block_of(block.weight if cls is GroupNormSiLU else block.proj.weight)
         cs = slice(None) if blk is None else tp.take_block(torch.arange(x.shape[1]), blk)
+    cot = _t(case["cot"], device)
+    # a padded output's rows: this rank's and the halo row on each side
+    ys = hs if cot.shape[2] == x.shape[2] or hs.start is None else \
+        slice(hs.start, hs.stop + cot.shape[2] - x.shape[2])
     x = x[:, cs][:, :, hs].clone().requires_grad_(True)
     with spatial.dispatch_scope(mesh):
         y = block(x)
-        (y * _t(case["cot"], device)[:, cs][:, :, hs]).sum().backward()
+        (y * cot[:, cs][:, :, ys]).sum().backward()
         out, dx = (tp.whole(t, case["x"].shape[1]) for t in (y.detach(), x.grad))
     return {"out": out.cpu().numpy(), "dx": dx.cpu().numpy(),
             "grads": _grads_np(block, [p.grad for p in block.parameters()])}
@@ -827,6 +837,27 @@ def cli_images(fn, argv) -> dict:
     return {"x": run.x, "line": getattr(run, "line", None)}
 
 
+def setup_mesh_probe(calls) -> list:
+    """A rank's entry: the CLIs' `setup_mesh(shard, **kw)` for each (shard,
+    kw) of `calls` in turn (on the CPU), and of the mesh it builds the axis
+    names, this rank's coordinate on each, and the global ranks of its
+    `replica_group` in group order; or the message it exits with."""
+    from toycrystals_torch.parallel.mesh import axis_rank, mesh_axes, replica_group
+    from toycrystals_torch.scripts._common import setup_mesh
+
+    out = []
+    for shard, kw in calls:
+        try:
+            mesh = setup_mesh(shard, device=torch.device("cpu"), **kw)
+        except SystemExit as e:
+            out.append({"exit": str(e)})
+            continue
+        axes = mesh_axes(mesh)
+        out.append({"axes": list(axes), "coords": [axis_rank(mesh, a) for a in axes],
+                    "replicas": dist.get_process_group_ranks(replica_group(mesh)[0])})
+    return out
+
+
 def halo_probe(device_type: str) -> tuple[float, float, float, float]:
     """One rank of a (1, world) mesh: x [1, 1, 2, 3] filled with the rank;
     returns the (top, bottom) halo rows of the wrapped and of the clamped
@@ -886,6 +917,7 @@ def run_cases(spec: dict) -> list[dict]:
     from toycrystals_torch.parallel.mesh import (
         make_mesh,
         make_mesh_2d,
+        make_mesh_3d,
         make_mesh_ep,
         make_mesh_pp,
         make_mesh_tp,
@@ -905,6 +937,8 @@ def run_cases(spec: dict) -> list[dict]:
         if shape not in meshes:  # every rank builds the same meshes in the same order
             if not shape:
                 meshes[shape] = make_mesh(device_type=device.type)
+            elif shape[3:] == ("3d",):
+                meshes[shape] = make_mesh_3d(*shape[:3], device_type=device.type)
             elif shape[2:]:
                 make = {"model": make_mesh_tp, "pipe": make_mesh_pp,
                         "expert": make_mesh_ep}[shape[2]]

@@ -49,14 +49,12 @@ import torch
 import torch.distributed as dist
 
 from toycrystals_torch.parallel.mesh import (
-    AXIS,
     MODEL,
     SPACE,
-    axis_group,
     axis_rank,
     axis_size,
-    mesh_axes,
     mesh_group,
+    replica_group,
 )
 
 
@@ -276,16 +274,16 @@ def gather_space(x: torch.Tensor, shard: Shard, dim: int) -> torch.Tensor:
 def gather_image(mesh, x: torch.Tensor) -> torch.Tensor:
     """Every rank's part of a [b, h, W, ...] batch of images back to the
     whole [b D, h S, W, ...] on every rank: the batch in data-rank order,
-    the height in space-rank order. On a ("data", "model") mesh the model
-    ranks of a data coordinate hold the same images, so the gather runs over
-    "data" alone. mesh=None returns x."""
+    the height in space-rank order. The model ranks of a (data, space)
+    coordinate hold the same part, so on a mesh with a "model" axis the
+    gather runs over the D S ranks of the rank's model coordinate
+    (`replica_group`: "data" on a ("data", "model") mesh). mesh=None
+    returns x."""
     if mesh is None:
         return x
-    model = MODEL in mesh_axes(mesh)
-    n = axis_size(mesh, AXIS) if model else mesh.size()
+    group, n = replica_group(mesh)
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(),
-                    group=axis_group(mesh, AXIS) if model else mesh_group(mesh))
+    dist.all_gather(parts, x.contiguous(), group=group)
     s = axis_size(mesh, SPACE)
     rows = [torch.cat(parts[d * s:(d + 1) * s], dim=1) for d in range(n // s)]
     return torch.cat(rows, dim=0)

@@ -215,14 +215,16 @@ def sharded_tensor(t: torch.Tensor, blk: Block, host: bool = False):
     the whole leaf (once, whichever data ranks hold it) and loads into the
     views in place. Where `t` is also an FSDP2 DTensor (2-D weight sharding)
     the pieces are its local shard's, each at its offset along the "data"
-    dim too, and the ShardedTensor spans every rank."""
+    dim too, and the ShardedTensor spans every rank, or on a 3-D mesh the
+    ranks of this rank's space coordinate (`fsdp.write_group`: the space
+    ranks hold copies, and a ShardedTensor's pieces may not overlap)."""
     from torch.distributed._shard.sharded_tensor import (
         Shard,
         ShardMetadata,
         init_from_local_shards,
     )
 
-    from toycrystals_torch.parallel.fsdp import data_shard, local
+    from toycrystals_torch.parallel.fsdp import data_shard, local, write_group
 
     loc = local(t).detach()
     if host:
@@ -233,7 +235,7 @@ def sharded_tensor(t: torch.Tensor, blk: Block, host: bool = False):
     if cut is not None:  # the local shard's place over "data"
         d, r, n = cut
         size[d] *= n
-        offsets0[d], group = r * loc.shape[d], None  # None: the whole process group
+        offsets0[d], group = r * loc.shape[d], write_group(t)  # None: the whole group
     k = loc.shape[blk.dim] // blk.parts
     piece = size[blk.dim] // blk.parts
     place = f"rank:{dist.get_rank()}/{loc.device}"

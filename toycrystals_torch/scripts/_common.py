@@ -2,28 +2,28 @@
 device selection, the data mesh and its process group (--shard, --fsdp and
 the cluster flags), the (data, space) mesh of the score model's sampling,
 inpainting, serving and training CLIs (--shard-space), the (data, model)
-mesh of those and of the VAE and prior trainers (--shard-model),
-checkpoint-name resolution, a disk archive resident on the device, and the
-flags whose paths are not ported yet.
+mesh of those and of the VAE and prior trainers (--shard-model), the 3-D
+(data, space, model) mesh of the score model's CLIs (both flags),
+checkpoint-name resolution and a disk archive resident on the device.
 
 `--shard N` (with `--shard-space S`: N x S; with `--shard-model M`, and in
 the prior's trainer `--shard-pipe S` or `--shard-expert E`: N x M, N x S,
-N x E) with no cluster flags runs the CLI in that many spawned local ranks
-(`spawn_shards`), one per device
-(parallel/multihost.py); the cluster flags join a process group whose ranks
-were started elsewhere, one per device, and then the mesh must equal its
-size."""
+N x E; with `--shard-space S --shard-model M`: N x S x M) with no cluster
+flags runs the CLI in that many spawned local ranks (`spawn_shards`), one
+per device (parallel/multihost.py); the cluster flags join a process group
+whose ranks were started elsewhere, one per device, and then the mesh must
+equal its size."""
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 from pathlib import Path
 
 import torch
 
 from toycrystals_torch.data.datasets import load_archive
-from toycrystals_torch.parallel.mesh import DEFERRED as PARALLEL
 from toycrystals_torch.serve import resolve_device
 
 
@@ -90,8 +90,8 @@ def add_parallel_flags(p: argparse.ArgumentParser, train: bool = True,
                         "parallel/tensor.py); leaves whose channels do not divide by M stay "
                         "whole." + (" With --fsdp each rank's blocks are sharded over --shard "
                                     "too (2-D weight sharding)." if train else "")
-                        + (f" Not with --shard-space (JAX's 3-D mesh) yet ({PARALLEL})."
-                           if space else ""))
+                        + (" With --shard-space too, a 3-D data x space x model mesh of "
+                           "--shard x S x M ranks." if space else ""))
     if train:
         p.add_argument("--fsdp", action="store_true",
                        help="ZeRO-3 placement: with --shard N, also shard every weight, its "
@@ -126,30 +126,10 @@ def _run_rank(fn, argv) -> None:
     fn(argv)
 
 
-def check_model_axes(shard_space: int, shard_model: int) -> None:
-    """JAX's 3-D ("data", "space", "model") mesh is not ported yet: exit
-    naming its ROADMAP item."""
-    if shard_model > 1 and shard_space > 1:
-        raise SystemExit(f"--shard-model {shard_model} with --shard-space {shard_space} (the "
-                         f"3-D data x space x model mesh) is not ported yet ({PARALLEL})")
-
-
-def second_axis(args: argparse.Namespace) -> tuple[str, int]:
-    """The mesh's second axis that the flags ask for: ("space", S), ("model",
-    M), ("pipe", S) or ("expert", E), else ("", 1). The prior's trainer
-    refuses two of them together before it gets here; JAX's 3-D mesh
-    (`check_model_axes`) too."""
-    for axis in ("space", "model", "pipe", "expert"):
-        n = getattr(args, f"shard_{axis}", 0) or 0
-        if n > 1:
-            return axis, n
-    return "", 1
-
-
 def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
                  batch_sizes: tuple[int, ...] = (), sigterm_rank: int | None = None) -> bool:
     """--shard N > 1, or --shard N x --shard-space S, x --shard-model M, x
-    --shard-pipe S or x --shard-expert E > 1,
+    both, x --shard-pipe S or x --shard-expert E > 1,
     with no cluster flags and no process group yet: run `fn(argv)` (a CLI's
     module-level entry) in that many spawned local ranks on `cuda:0..`, or
     on the CPU under --device cpu, and return True once all finished; False
@@ -161,9 +141,11 @@ def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
     from toycrystals_torch.parallel.multihost import launch
 
     shard = getattr(args, "shard", 0)
-    check_model_axes(getattr(args, "shard_space", 0), getattr(args, "shard_model", 0))
-    axis, n_axis = second_axis(args)
-    ranks = max(1, shard) * n_axis
+    # the axes beside "data", in the mesh's order (space and model together:
+    # JAX's 3-D mesh; the prior's trainer refuses two of its axes before this)
+    axes = [(axis, n) for axis in ("space", "model", "pipe", "expert")
+            if (n := getattr(args, f"shard_{axis}", 0) or 0) > 1]
+    ranks = max(1, shard) * math.prod(n for _, n in axes)
     if ranks <= 1 or dist.is_initialized() or any(
             getattr(args, d, None) is not None for d in CLUSTER_DESTS):
         return False
@@ -177,11 +159,13 @@ def spawn_shards(args: argparse.Namespace, fn, argv: list[str] | None,
         if backend == "gloo":
             device_ids = [r % n_dev for r in range(ranks)]
         elif ranks > n_dev:
-            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible" if not axis
-                             else f"--shard {shard} x --shard-{axis} {n_axis} needs {ranks} "
-                                  f"devices, have {n_dev}")
-    print(f"data-parallel mesh: {shard} ranks on {device_type}" if not axis
-          else f"2-D mesh: {max(1, shard)} data x {n_axis} {axis} ranks on {device_type}")
+            raise SystemExit(f"--shard {shard} but only {n_dev} devices visible" if not axes
+                             else f"--shard {shard} x " + " x ".join(
+                                 f"--shard-{a} {n}" for a, n in axes)
+                             + f" needs {ranks} devices, have {n_dev}")
+    print(f"data-parallel mesh: {shard} ranks on {device_type}" if not axes
+          else f"{len(axes) + 1}-D mesh: {max(1, shard)} data x "
+               + " x ".join(f"{n} {a}" for a, n in axes) + f" ranks on {device_type}")
     try:
         launch(_run_rank, ranks, (fn, list(argv) if argv is not None else None),
                device_type=device_type, backend=backend, device_ids=device_ids,
@@ -201,22 +185,40 @@ def check_shard_batches(shard: int, *batch_sizes: int) -> None:
 
 def setup_mesh(shard: int, *batch_sizes: int, device: torch.device,
                shard_space: int = 0, shard_model: int = 0, shard_pipe: int = 0,
-               shard_expert: int = 0):
+               shard_expert: int = 0, img_size: int | None = None):
     """--shard N into the ("data",) mesh of this process group (None for
     one device). Every batch size must divide by N and the group must have
     exactly N ranks. --shard-space S > 1 (the score model's CLIs) makes the
     ("data", "space") mesh of N x S ranks (the caller checks the image size
     against S: parallel/spatial.py `check_stem_divisibility`), --shard-model
-    M > 1 the ("data", "model") mesh of N x M ranks, and the prior's
+    M > 1 the ("data", "model") mesh of N x M ranks, both JAX's 3-D ("data",
+    "space", "model") mesh of N x S x M ranks (JAX's checks and line: the
+    device count, then `img_size` against S where given), and the prior's
     --shard-pipe S / --shard-expert E the ("data", "pipe") / ("data",
-    "expert") mesh of N x S / N x E ranks. Space and model together (JAX's
-    3-D mesh) refuse, naming their ROADMAP item."""
+    "expert") mesh of N x S / N x E ranks."""
     from toycrystals_torch.parallel import mesh as pm
     from toycrystals_torch.parallel.multihost import process_count
+    from toycrystals_torch.parallel.spatial import check_spatial_divisibility
 
-    check_model_axes(shard_space, shard_model)
     check_shard_batches(shard, *batch_sizes)
     world = process_count()
+    if shard_space > 1 and shard_model > 1:
+        n_data = max(1, shard)
+        need = n_data * shard_space * shard_model
+        if need != world:
+            raise SystemExit(f"--shard {shard} x --shard-space {shard_space} x --shard-model "
+                             f"{shard_model} needs {need} devices, have {world} (one per rank)")
+        if img_size is not None:
+            try:
+                check_spatial_divisibility(img_size, shard_space)
+            except ValueError as e:
+                raise SystemExit(str(e)) from None
+        from toycrystals_torch.parallel.multihost import is_primary
+
+        if is_primary():
+            print(f"3-D mesh: {n_data} data x {shard_space} space x {shard_model} model "
+                  f"devices")
+        return pm.make_mesh_3d(n_data, shard_space, shard_model, torch.device(device).type)
     for axis, n, make in (("model", shard_model, pm.make_mesh_tp),
                           ("space", shard_space, pm.make_mesh_2d),
                           ("pipe", shard_pipe, pm.make_mesh_pp),
@@ -277,16 +279,6 @@ def place_state(mesh, model, state, fsdp: bool = False, what: str = "channel cou
         if ep > 1:
             print(ep_report(ep, model, model.n_experts))
     return _place(mesh, model, state, fsdp, n_micro)
-
-
-def refuse_deferred(p: argparse.ArgumentParser, args: argparse.Namespace,
-                    flags: dict[str, str]) -> None:
-    """SystemExit naming the ROADMAP item of the first flag in `flags`
-    (dest -> item) that was given a value other than its default."""
-    for dest, item in flags.items():
-        value = getattr(args, dest)
-        if value != p.get_default(dest):
-            raise SystemExit(f"--{dest.replace('_', '-')} {value} is not ported yet ({item})")
 
 
 def infer_score_ckpt_path(out_dir: str, ckpt: str) -> str:

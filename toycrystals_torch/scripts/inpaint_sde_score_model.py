@@ -24,8 +24,8 @@ line; --shard-space S also splits every image's height (and the sources'
 and masks') over S ranks (a --shard x S mesh, parallel/spatial.py);
 --shard-model M splits every weight's output channels over M ranks (a
 --shard x M mesh, parallel/tensor.py), each model rank inpainting its data
-rank's rows with its block of the weights. --shard-model with --shard-space
-(JAX's 3-D mesh) exits naming its ROADMAP item.
+rank's rows with its block of the weights. Both flags together inpaint on
+JAX's 3-D (data, space, model) mesh of --shard x S x M ranks.
 """
 
 from __future__ import annotations

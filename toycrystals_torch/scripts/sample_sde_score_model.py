@@ -27,9 +27,9 @@ max). --shard-space S also splits every image's height over S ranks (a
 s2d stems H/8 too. --shard-model M splits every weight's output channels
 over M ranks instead (a --shard x M mesh, parallel/tensor.py): the model
 ranks of each data rank sample the same rows, each with its block of the
-weights. --ckpt may name a --ckpt-format orbax directory of the port's
-trainer. --shard-model with --shard-space (JAX's 3-D mesh) raises, naming
-its ROADMAP item.
+weights. Both flags together sample on JAX's 3-D (data, space, model) mesh
+of --shard x S x M ranks. --ckpt may name a --ckpt-format orbax directory of
+the port's trainer.
 """
 
 from __future__ import annotations

@@ -38,7 +38,8 @@ of the pixels, not a matplotlib figure; the listen backlog is 128, not the
 stdlib's 5, which resets a burst of concurrent connections. --shard-model M
 serves on a --shard x M ("data", "model") mesh (parallel/tensor.py): every
 rank holds its block of the weights and runs every dispatch; with
---shard-space (JAX's 3-D mesh) it exits naming its ROADMAP item.
+--shard-space too it serves on JAX's 3-D (data, space, model) mesh of
+--shard x S x M ranks, rank 0 the one front rank.
 """
 
 from __future__ import annotations
@@ -258,9 +259,10 @@ def serve(argv: list[str] | None = None) -> int:
         return 0
     if mesh is not None:
         service.lead()
-        shape = service.stats["mesh"]
-        print(f"mesh: {shape[0]} data x " + (f"{shape[2]} model" if len(shape) > 2 else
-                                              f"{shape[1]} space") + " ranks; rank 0 serves")
+        shape = service.stats["mesh"]  # [D, S], or [D, S, M] with a model axis
+        axes = [f"{shape[0]} data"] + [f"{n} {a}" for a, n in zip(("space", "model"), shape[1:])
+                                       if n > 1 or a == "space" and len(shape) == 2]
+        print(f"mesh: {' x '.join(axes)} ranks; rank 0 serves")
     print(f"model: {service.describe()}")
     print(f"serving: sampler={service.sampler_name} steps={service.steps} "
           f"cfg={service.guidance_scale} buckets={list(service.buckets)} "

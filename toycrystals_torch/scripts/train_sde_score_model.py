@@ -44,8 +44,11 @@ moments and of the EMA, the ops of the U-Net gather and reduce channels
 forward and backward, and DDP averages over --shard; the msgpack checkpoint
 is gathered to the flax layout, so it is one process's. With --fsdp FSDP2
 shards each rank's blocks over --shard as well (JAX's 2-D weight sharding,
-parallel/fsdp.py). --shard-model with --shard-space (JAX's 3-D mesh) raises,
-naming its ROADMAP item.
+parallel/fsdp.py). --shard-space S with --shard-model M runs both at once on
+JAX's 3-D (data, space, model) mesh of --shard x S x M ranks: each rank its
+rows of the batch and of the height with its block of the weights, DDP over
+the --shard x S ranks of its block (with --fsdp, HSDP on the blocks: sharded
+over --shard, replicated over S).
 """
 
 from __future__ import annotations
@@ -312,7 +315,8 @@ def train(argv: list[str] | None = None) -> TrainRun:
     if args.clip_grad_norm is None:
         args.clip_grad_norm = float(rcfg.get("clip_grad_norm", 0.0))
     mesh = setup_mesh(args.shard, args.batch_size, device=device,
-                      shard_space=args.shard_space, shard_model=args.shard_model)
+                      shard_space=args.shard_space, shard_model=args.shard_model,
+                      img_size=args.img_size)
     if multihost and (args.fsdp or args.shard_model > 1) and not orbax_fmt:
         # msgpack saves gather the whole state to rank 0; the JAX trainer
         # refuses this across hosts, and so does the port

@@ -35,13 +35,15 @@ a title, which the card machine cannot, so this writes utils/figures.py's PNG
 of the pixels and takes no title. `raw_png_bytes` and `npy_bytes` give JAX's
 bytes.
 
-On a mesh (`mesh=`: the ("data",), ("data", "space") or ("data", "model")
-mesh of parallel/mesh.py, one rank per device) every rank holds the weights
+On a mesh (`mesh=`: the ("data",), ("data", "space"), ("data", "model") or
+("data", "space", "model") mesh of parallel/mesh.py, one rank per device)
+every rank holds the weights
 (on a model axis its block of them, parallel/tensor.py), the buckets round
 up to multiples of the data axis, and every request runs through
 `sample_chunked` at its bucket, as JAX's does: each rank samples its rows of
-the batch and of the image height (the model ranks of a data rank the same
-rows, each with its channels), and every rank returns the whole result. `sample` is then collective: every rank calls it with the same
+the batch and of the image height (the model ranks of a (data, space)
+coordinate the same rows, each with its channels), and every rank returns
+the whole result. `sample` is then collective: every rank calls it with the same
 arguments. A server puts one rank in front (`lead`, rank 0, with the
 `MicroBatcher` and the HTTP front end) and the others in `follow`: rank 0
 announces each dispatch's (n, seed, y_cat, y_cont) on the process group's

@@ -43,12 +43,15 @@ dispatch scope, where every channel collective has its adjoint, and the loss
 is the replicated output's, not summed over "model". DDP averages over the
 "data" group (FSDP2 under --fsdp, its reduce-scatter over the same group),
 and the whole leaves' gradients are then broadcast over "model" so that the
-replicas keep the same bits. The prior's step and epoch also take ("data",
-"pipe") and ("data", "expert") meshes (parallel/pipeline.py,
-parallel/expert.py), whose placed modules reduce their own gradients. A mesh
-with any other axis raises (ROADMAP.md queue 1, module 5), and so does a
-space axis in the other models' steps, or a model axis in the distillation
-step.
+replicas keep the same bits. The SDE step and epoch also take JAX's 3-D
+("data", "space", "model") mesh, which composes the two: x0 and eps cut by
+rows and by height, the blocks of the model axis, and DDP (or HSDP under
+--fsdp) over the D S ranks of the rank's model coordinate, which also
+average the metrics. The prior's step and epoch also take ("data", "pipe")
+and ("data", "expert") meshes (parallel/pipeline.py, parallel/expert.py),
+whose placed modules reduce their own gradients. A mesh with any other axis
+raises, as does a space axis in the other models' steps or a model axis in
+the distillation step: JAX's CLIs build no such mesh.
 """
 
 from __future__ import annotations
