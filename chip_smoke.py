@@ -138,15 +138,18 @@ result line:
    checkpoint stopped by SIGTERM while it samples: the request in flight
    answers 200 and the process exits 0.
 13. Export and the VAE trainer, at full width. Export: phase 10's checkpoint
-   at SDE-4 (CFG 1.5, the step loop unrolled into the graph; first the
-   service's dispatch against the sampler on its own generator, bit-equal),
-   phase 11's 4-step student and a 256x256 service at DPM-4 (4,096 tokens:
-   the flash op inside the graph), each at one small batch, exported by
-   toycrystals_torch/export.py, saved, reloaded and run: bit-equal to its live
-   service at the same seed, exactly 10 gn_silu launches per U-Net forward
-   through the artefact (and 1 flash launch per forward at 256x256), with the
-   export, save, load and call seconds, the graph's nodes and the file's
-   bytes; then the export CLI's --selftest on the student (bit-equal). The
+   at the served SDE-300 (CFG 1.5, t_end 0.005; first the service's dispatch
+   against the sampler on its own generator, bit-equal), phase 11's 4-step
+   student and a 256x256 service at DPM-50 (4,096 tokens: the flash op inside
+   the graph), each at one small batch, exported by
+   toycrystals_torch/export.py (the step loop one scan), saved, reloaded and
+   run: bit-equal to its live service at the same seed, exactly 10 gn_silu
+   launches per U-Net forward through the artefact (3,010 at SDE-300; 510
+   and 51 flash launches at DPM-50), with the export, save, load and call
+   seconds, the nodes of the graph and its step and the file's bytes; an
+   SDE-2 export of the same service, traced and saved only, has as many
+   nodes as SDE-300's; then the export CLI's --selftest on the student
+   (bit-equal). The
    VAE: 2 f32 CondVAE steps card against CPU on one rendered batch
    and injected draws (losses within 1e-5 relative, step-1 gradients leaf by
    leaf as phase 7; the parameters after Adam logged),
@@ -2304,9 +2307,10 @@ def phase_serving_rest(set_counts_to_zero, counts, card: str, params: dict,
 # checkpoint, of phase 11's student and of a 256x256 service, each bit-equal to
 # its live service; then train_vae at full width.
 EXPORT_BATCH = 4                    # images per exported dispatch
-EXPORT_SDE_STEPS = 4                # the SDE export's steps: its graph unrolls them (cut
-                                    # from 16, then 8, for phase 18's card time)
-EXPORT_HI_STEPS = 4                 # DPM steps of the 256x256 export (flash inside)
+EXPORT_SDE_STEPS = 300              # the served setting: SDE-300 at CFG 1.5, t_end 0.005
+EXPORT_TRACE_STEPS = 2              # an SDE-2 export of the same service, traced and saved
+                                    # only: its graph has as many nodes as SDE-300's
+EXPORT_HI_STEPS = 50                # DPM steps of the 256x256 export (flash inside)
 VAE_DIR = os.path.join(ROOT, "runs", "chip_smoke_vae")
 VAE_ITEMS, VAE_BATCH, VAE_Z = 12800, 128, 32  # the CLI's defaults but for the item count
 VAE_REL = 1e-5                      # VAE steps card vs CPU: each loss, relative
@@ -2321,7 +2325,7 @@ def _export_round_trip(name: str, svc, path: str, set_counts_to_zero, counts) ->
     t0 = time.perf_counter()
     ep = ex.export_service(svc, b)
     export_s = time.perf_counter() - t0
-    nodes, ops = len(ep.graph.nodes), ex.custom_ops(ep)
+    nodes, ops = ex.graph_nodes(ep), ex.custom_ops(ep)
     t0 = time.perf_counter()
     ex.save_exported(path, ep, ex.export_meta(svc, b, ep))
     save_s = time.perf_counter() - t0
@@ -2420,6 +2424,7 @@ def _vae_steps_card_vs_cpu(card: str) -> dict:
 def phase_export_vae(set_counts_to_zero, counts, card: str, params: dict,
                      student_ckpt: str) -> dict:
     """Export and the VAE trainer (module docstring, phase 13)."""
+    from toycrystals_torch import export as ex
     from toycrystals_torch.models.sde_score_model import sample_reverse_sde_euler_maruyama
     from toycrystals_torch.scripts import export_sde_score_model as export_cli
     from toycrystals_torch.serve import ScoreModelService
@@ -2429,7 +2434,7 @@ def phase_export_vae(set_counts_to_zero, counts, card: str, params: dict,
     out: dict = {"card": card}
     launches: dict = {}
 
-    # -- a. phase 10's checkpoint, reverse SDE at CFG 1.5 (unrolled EXPORT_SDE_STEPS)
+    # -- a. phase 10's checkpoint, reverse SDE at CFG 1.5: the served SDE-300
     svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, sampler="sde",
                                             steps=EXPORT_SDE_STEPS, guidance_scale=1.5,
                                             t_end=0.005, buckets=(EXPORT_BATCH,))
@@ -2451,6 +2456,25 @@ def phase_export_vae(set_counts_to_zero, counts, card: str, params: dict,
             or rec["custom_ops"] != ["toycrystals.gn_silu.default"]:
         raise AssertionError(f"export sde 64x64: {rec}")
     del svc
+    # the same service at SDE-2, traced and saved: the step loop is one scan,
+    # so the graph does not grow with the steps
+    svc = ScoreModelService.from_checkpoint(ckpt64, device=DEVICE, sampler="sde",
+                                            steps=EXPORT_TRACE_STEPS, guidance_scale=1.5,
+                                            t_end=0.005, buckets=(EXPORT_BATCH,))
+    t0 = time.perf_counter()
+    ep = ex.export_service(svc, EXPORT_BATCH)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.save_exported(os.path.join(VAE_DIR, "sde2.tcx"), ep, ex.export_meta(svc, EXPORT_BATCH, ep))
+    out["sde_64_trace"] = rec = dict(
+        steps=EXPORT_TRACE_STEPS, graph_nodes=ex.graph_nodes(ep), export_seconds=export_s,
+        save_seconds=time.perf_counter() - t0,
+        bytes=os.path.getsize(os.path.join(VAE_DIR, "sde2.tcx")))
+    log(f"export sde 64x64 at SDE-{EXPORT_TRACE_STEPS}, traced: " + json.dumps(rec))
+    if rec["graph_nodes"] != out["sde_64"]["graph_nodes"]:
+        raise AssertionError(f"SDE-{EXPORT_TRACE_STEPS} and SDE-{EXPORT_SDE_STEPS} graphs differ "
+                             f"in nodes: {rec['graph_nodes']} and {out['sde_64']['graph_nodes']}")
+    del svc, ep
 
     # -- b. phase 11's 4-step student (DDIM, guidance 0)
     svc = ScoreModelService.from_checkpoint(student_ckpt, device=DEVICE, buckets=(EXPORT_BATCH,))
@@ -2480,7 +2504,7 @@ def phase_export_vae(set_counts_to_zero, counts, card: str, params: dict,
             or "toycrystals.flash_sdpa_fwd.default" not in rec["custom_ops"]:
         raise AssertionError(f"export dpm 256x256: {rec}")
     del svc
-    for f in ("sde.tcx", "student.tcx", "hi.tcx", "cli.tcx"):
+    for f in ("sde.tcx", "sde2.tcx", "student.tcx", "hi.tcx", "cli.tcx"):
         os.remove(os.path.join(VAE_DIR, f))
     out.update(phase_vae(set_counts_to_zero, counts, card, launches))
     out["launches"] = launches

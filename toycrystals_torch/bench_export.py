@@ -1,22 +1,24 @@
 """Seconds and bytes of exporting a service's sampler against its step count.
 
-    python -m toycrystals_torch.bench_export [--device cuda|cpu] [--steps 4 16 64 ...]
-        [--sampler sde] [--base-ch 96] [--img-size 64] [--batch 4] [--dtype bfloat16]
-        [--out-dir runs/bench_export] [--json-out PATH]
+    python -m toycrystals_torch.bench_export [--device cuda|cpu] [--steps 4 16 64 300]
+        [--sampler sde|ode|dpm|ddim|rf] [--base-ch 96] [--img-size 64] [--batch 4]
+        [--dtype bfloat16] [--out-dir runs/bench_export] [--json-out PATH]
 
 For each step count, a `ScoreModelService` of a CondUNetTiny with random
 weights (flax's default init from --seed; stem none, emb_dim 128, CFG 1.5,
-t_end 0.005) is exported at --batch by toycrystals_torch/export.py, and
-times the host clock takes for each stage: `export_service` (the trace, its
-graph's node count beside it), `save_exported` (the file's bytes beside it),
-`load_exported` (reading the file and building the graph module), and the
-artefact's first and second call; then the live service's request at the
-same seed, and the largest difference between the two (0 when bit-equal).
-On a CUDA device the graph calls the port's custom ops, and the gn_silu and
-flash launches of one artefact call are counted. Prints one JSON line per
-step count, with the card's name and power limit as `nvidia-smi` gives them
-(on the CPU: the CPU's, no card). The sampler's Python step loop unrolls
-into the graph, so every stage grows with the steps.
+t_end 0.005; param fm for --sampler rf, else eps) is exported at --batch by
+toycrystals_torch/export.py, and times the host clock takes for each stage:
+`export_service` (the trace, the nodes of its graph and of the scan's step
+beside it), `save_exported` (the file's bytes beside it), `load_exported`
+(reading the file and building the graph module), and the artefact's first
+and second call; then the live service's request at the same seed, and the
+largest difference between the two (0 when bit-equal). On a CUDA device the
+graph calls the port's custom ops, and the gn_silu and flash launches of one
+artefact call are counted. Prints one JSON line per step count, with the
+card's name and power limit as `nvidia-smi` gives them (on the CPU: the
+CPU's, no card). The sampler's step loop is one `scan` in the graph, which
+holds one step: the nodes, the bytes and the export, save and load seconds
+are flat in the steps; the calls grow with them.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def run_one(args, steps: int, device: torch.device, out_dir: str) -> dict:
     from toycrystals_torch.utils.params import flax_from_torch_state_dict
 
     cfg = dict(n_types=4, y_cont_dim=4, base_ch=args.base_ch, emb_dim=128, cond_ch=8,
-               time_ch=8, img_size=args.img_size, dtype=args.dtype)
+               time_ch=8, img_size=args.img_size, dtype=args.dtype,
+               param="fm" if args.sampler == "rf" else "eps")
     net = CondUNetTiny(4, 4, base_ch=args.base_ch, emb_dim=128)
     params = flax_from_torch_state_dict(
         flax_default_init(net, np.random.default_rng(args.seed)).state_dict())
@@ -68,7 +71,7 @@ def run_one(args, steps: int, device: torch.device, out_dir: str) -> dict:
     t0 = time.perf_counter()
     ep = ex.export_service(svc, args.batch)
     rec["export_seconds"] = time.perf_counter() - t0
-    rec["graph_nodes"] = len(ep.graph.nodes)
+    rec["graph_nodes"] = ex.graph_nodes(ep)
     rec["custom_ops"] = ex.custom_ops(ep)
     t0 = time.perf_counter()
     ex.save_exported(path, ep, ex.export_meta(svc, args.batch, ep))
@@ -100,8 +103,8 @@ def run_one(args, steps: int, device: torch.device, out_dir: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--steps", type=int, nargs="+", default=[4, 16, 64])
-    ap.add_argument("--sampler", default="sde", choices=["sde", "ode", "dpm", "ddim"])
+    ap.add_argument("--steps", type=int, nargs="+", default=[4, 16, 64, 300])
+    ap.add_argument("--sampler", default="sde", choices=["sde", "ode", "dpm", "ddim", "rf"])
     ap.add_argument("--base-ch", type=int, default=96)
     ap.add_argument("--img-size", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)

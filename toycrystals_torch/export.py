@@ -3,7 +3,9 @@
 Counterpart of toycrystals_tpu/export.py. What is exported is the serving
 dispatch, `ScoreModelService.sampler_callable(batch)`, traced once by
 `torch.export` with the weights in the graph's state and the sampler, steps,
-guidance and t_end frozen:
+guidance and t_end frozen. The sampler's step loop is one `scan`
+(models/sde_score_model.py `run_steps`), so the graph holds one step,
+whatever the steps, as JAX's module holds one `lax.scan`:
 
     graph(y_cat int32[batch], y_cont float32[batch, D],
           x_init float32[batch, H, W, 1], z float32[noise_steps, batch, H, W, 1])
@@ -18,8 +20,9 @@ gives at that batch.
 
 File format (`save_exported` / `load_exported`): a magic line, a big-endian
 u64 length, a JSON meta block (sampler settings, shapes, platform, the
-custom ops the graph calls), then the bytes of `torch.export.save`. The write
-is atomic (tmp + rename).
+custom ops the graph calls, `"loop": "scan"`), then the bytes of
+`torch.export.save`, which hold no example inputs. The write is atomic (tmp +
+rename).
 
 Deliberate differences from the JAX export:
 
@@ -32,9 +35,9 @@ Deliberate differences from the JAX export:
   traces the plain versions and needs only torch.
 - One artefact is traced for one device: `platforms` takes one of "cuda" or
   "cpu", the device the service runs on. Multi-platform modules are JAX's.
-- JAX's module holds the step loop as one `lax.scan`; here the sampler's
-  Python loop unrolls into the graph, so the graph, the export time and the
-  file grow with the steps (PERF.md).
+- The export traces the one-device dispatch, as JAX's does; a service on a
+  mesh, or an export inside a mesh's dispatch scope (parallel/spatial.py),
+  raises.
 
 CLI: toycrystals_torch/scripts/export_sde_score_model.py.
 """
@@ -52,6 +55,7 @@ import torch
 from torch import nn
 
 from toycrystals_torch.models.sde_score_model import draw_sampler_noise
+from toycrystals_torch.parallel import spatial
 
 MAGIC = b"TOYCRYSTALS-TORCH-EXPORT-V1\n"
 PLATFORMS = ("cuda", "cpu")
@@ -84,46 +88,65 @@ def _platform(service, platforms: list[str] | None) -> str:
     return dev
 
 
+def _graphs(ep: torch.export.ExportedProgram) -> list[torch.fx.Graph]:
+    """The graph and every subgraph it calls: the scan's step."""
+    return [m.graph for m in ep.graph_module.modules() if isinstance(m, torch.fx.GraphModule)]
+
+
 def _drop_no_ops(ep: torch.export.ExportedProgram) -> None:
-    """Remove what the trace records for every `.to()` that changes nothing:
-    the `_assert_tensor_metadata` checks and the casts to the dtype a tensor
-    already has. They are a third of the nodes of an f32 step and cost time
-    in every later pass over the graph."""
-    g = ep.graph
-    for node in list(g.nodes):
-        if node.op != "call_function":
-            continue
-        if node.target is torch.ops.aten._assert_tensor_metadata.default:
-            g.erase_node(node)
-        elif (node.target is torch.ops.aten.to.dtype and len(node.args) == 2
-              and not node.kwargs and isinstance(node.args[0], torch.fx.Node)
-              and node.args[0].meta["val"].dtype == node.args[1]):
-            node.replace_all_uses_with(node.args[0])
-            g.erase_node(node)
-    ep.graph_module.recompile()
+    """Remove what the trace records for every `.to()` that changes nothing,
+    in the graph and in the scan's step: the `_assert_tensor_metadata` checks
+    and the casts to the dtype a tensor already has. They are a third of the
+    nodes of an f32 step and cost time in every later pass over the graph."""
+    for g in _graphs(ep):
+        for node in list(g.nodes):
+            if node.op != "call_function":
+                continue
+            if node.target is torch.ops.aten._assert_tensor_metadata.default:
+                g.erase_node(node)
+            elif (node.target is torch.ops.aten.to.dtype and len(node.args) == 2
+                  and not node.kwargs and isinstance(node.args[0], torch.fx.Node)
+                  and node.args[0].meta["val"].dtype == node.args[1]):
+                node.replace_all_uses_with(node.args[0])
+                g.erase_node(node)
+        g.owning_module.recompile()
 
 
 def export_service(service, batch: int,
                    platforms: list[str] | None = None) -> torch.export.ExportedProgram:
-    """Export `service`'s dispatch at one static batch. `platforms`: None
-    (the service's device) or one of ["cuda"], ["cpu"], matching it."""
+    """Export `service`'s dispatch at one static batch, its step loop as one
+    `scan`. `platforms`: None (the service's device) or one of ["cuda"],
+    ["cpu"], matching it. A service on a mesh, or a call inside a mesh's
+    dispatch scope, raises: the artefact is the one-device dispatch."""
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
     _platform(service, platforms)
-    b, s, dev = int(batch), service.img_size, service.device
+    if service.mesh is not None or spatial.current() is not None:
+        raise ValueError("an export traces the one-device dispatch; build the service "
+                         "without a mesh and export outside a mesh's dispatch scope")
+    b, dev = int(batch), service.device
     args = (torch.zeros((b,), dtype=torch.int32, device=dev),
             torch.zeros((b, service.y_cont_dim), dtype=torch.float32, device=dev),
             *service.draw_noise(b, torch.Generator(device=dev).manual_seed(0)))
     module = _Dispatch(service.model, service.sampler_callable(b))
-    with torch.no_grad():
+    # the fake-tensor cache's hits cost more than they save on this trace: a
+    # scan export takes a quarter to a third less time without it
+    with torch.no_grad(), torch._dynamo.config.patch(fake_tensor_cache_enabled=False):
         ep = torch.export.export(module, args, strict=False)
+    ep.example_inputs = None  # else torch.export.save writes them: z grows with the steps
     _drop_no_ops(ep)
     return ep
 
 
+def graph_nodes(ep: torch.export.ExportedProgram) -> int:
+    """Nodes of the graph and of the scan's step: the same at every step count."""
+    return sum(len(g.nodes) for g in _graphs(ep))
+
+
 def custom_ops(ep: torch.export.ExportedProgram) -> list[str]:
-    """The `toycrystals::` ops the graph calls, e.g. "toycrystals.gn_silu.default"."""
-    return sorted({str(n.target) for n in ep.graph.nodes
+    """The `toycrystals::` ops the graph and its step call, e.g.
+    "toycrystals.gn_silu.default"."""
+    return sorted({str(n.target) for g in _graphs(ep) for n in g.nodes
                    if n.op == "call_function" and str(n.target).startswith("toycrystals.")})
 
 
@@ -131,7 +154,8 @@ def export_meta(service, batch: int, exported: torch.export.ExportedProgram) -> 
     """The JSON meta block written before the graph's bytes."""
     return {
         "format": "toycrystals-torch-export",
-        "version": 1,
+        "version": 2,
+        "loop": "scan",
         "torch_version": torch.__version__,
         "platforms": [service.device.type],
         "batch": int(batch),
@@ -147,7 +171,7 @@ def export_meta(service, batch: int, exported: torch.export.ExportedProgram) -> 
         "distilled": bool(service.config.get("distilled")),
         "ckpt": service.ckpt_path,
         "custom_ops": custom_ops(exported),
-        "graph_nodes": len(exported.graph.nodes),
+        "graph_nodes": graph_nodes(exported),
         "calling_convention": (
             "graph(y_cat int32[batch], y_cont float32[batch,y_cont_dim], "
             "x_init float32[batch,img_size,img_size,1], "
@@ -186,6 +210,18 @@ def read_container(raw: bytes, name: str = "artefact") -> tuple[dict[str, Any], 
     return json.loads(raw[off:off + hlen].decode()), raw[off + hlen:]
 
 
+def _scan_steps(step, init, xs, additional_inputs):
+    """What a loaded graph's scan runs: its `step` once per slice of xs, in
+    order (a sampler's step returns its carry alone). torch 2.11's own eager
+    scan first runs the step once more on the first slice, to learn its
+    outputs' shapes: one more U-Net forward per call, which a sampler's
+    launch count would show."""
+    carry = tuple(init)
+    for i in range(xs[0].shape[0]):
+        carry = tuple(step(*carry, *(x.select(0, i) for x in xs), *additional_inputs))
+    return carry
+
+
 def load_exported(path: str | Path):
     """Read an artefact -> (fn, meta). `fn(y_cat, y_cont, seed)` draws the
     noise for `seed` on the artefact's device and runs the graph, returning
@@ -195,6 +231,10 @@ def load_exported(path: str | Path):
 
     meta, blob = read_container(Path(path).read_bytes(), str(path))
     module = torch.export.load(io.BytesIO(blob)).module()
+    for node in module.graph.nodes:
+        if node.op == "call_function" and node.target is torch.ops.higher_order.scan:
+            node.target = _scan_steps
+    module.recompile()
     device = torch.device(meta["platforms"][0])
     s = int(meta["img_size"])
     shape = (int(meta["batch"]), s, s, 1)

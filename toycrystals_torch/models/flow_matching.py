@@ -9,7 +9,8 @@ to t_end with Euler or Heun steps on a uniform grid taken through `shift_t`,
 guidance combined on the velocity exactly as on eps (one doubled batch per
 evaluation), then the x0 projection x0 = x - t v. Like the other samplers of
 the port, it draws its noise from the `torch.Generator` it is given, or takes
-it from `noise=`.
+it from `noise=`, and runs its steps through `run_steps` (one `scan` when
+exported).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from toycrystals_torch.models.sde_score_model import (
     _initial_x,
     _shape,
     predict_eps_cfg,
+    run_steps,
 )
 
 
@@ -77,14 +79,15 @@ def sample_rectified_flow(
         v = predict_eps_cfg(apply_fn, x, tb, y_cat, y_cont, gs, n_types)
         return _maybe_clip_x0_fm(v, x, tb.reshape(b, 1, 1, 1), clip_x0)
 
-    for i in range(n_steps):
-        t, t_next = ts[i], ts[i + 1]
+    def step(x, inputs):
+        t, t_next = inputs
         dt = t_next - t  # negative: towards the data
         v1 = velocity(x, t)
         if solver == "euler":
-            x = x + dt * v1
-        else:
-            v2 = velocity(x + dt * v1, t_next)
-            x = x + 0.5 * dt * (v1 + v2)
+            return x + dt * v1
+        v2 = velocity(x + dt * v1, t_next)
+        return x + 0.5 * dt * (v1 + v2)
+
+    x = run_steps(step, x, (ts[:-1], ts[1:]))
     x0 = x - ts[-1] * velocity(x, ts[-1])
     return ((x0 + 1.0) * 0.5).clamp(0.0, 1.0)

@@ -15,9 +15,12 @@ Counterpart of toycrystals_tpu/models/sde_score_model.py for serving and trainin
 - `VPSDE`, `eps_apply_from_v`, `predict_eps_cfg` and the samplers
   `sample_reverse_sde_euler_maruyama`, `sample_probability_flow_ode`,
   `sample_dpmpp_2m`, `sample_ddim` and the inpainting sampler
-  `sample_inpaint_reverse_sde`. The step loop is a Python loop. Each
-  sampler draws its noise from the `torch.Generator` it is given, or takes it
-  from `noise=`.
+  `sample_inpaint_reverse_sde`. Each sampler but inpainting is a prologue
+  (grid, initial x), one step function and an epilogue (the x0 projection);
+  `run_steps` drives the step as a Python loop, or as one `scan` while
+  torch.export traces it (export.py). Inpainting, which no export takes,
+  keeps its Python loop. Each sampler draws its noise from the
+  `torch.Generator` it is given, or takes it from `noise=`.
 - `auto_chunk` and `sample_chunked`: one big sampling batch as fixed-size
   calls of a sampler, pulled to the host as they finish; on a ("data",) or
   ("data", "space") mesh each rank samples its rows of the batch and of the
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._higher_order_ops import scan
 
 from toycrystals_torch.ops.attention import SelfAttention2d, gn_groups, linear
 from toycrystals_torch.ops.conv import CircularConv, Conv2d
@@ -464,6 +468,24 @@ def draw_sampler_noise(img_shape, n_z: int, generator: torch.Generator | None, d
     return x, z
 
 
+def run_steps(step: Callable, carry, xs: tuple):
+    """Drive a sampler's `step(carry, inputs) -> carry` over its steps: xs
+    holds each step's inputs along a leading dim (the grid's (t, t_next)
+    pairs, coefficients, the reverse SDE's z, which may be `StepDraws`).
+    Run eagerly it is a Python loop; while torch.export traces it, it is one
+    `scan`, so the exported graph holds the step once, as JAX's `lax.scan`
+    does. A loop of no steps (DDIM at one step) runs nothing."""
+    n = xs[0].shape[0]
+    if n == 0:
+        return carry
+    if torch.compiler.is_exporting():
+        carry, _ = scan(lambda c, inputs: (step(c, inputs), ()), carry, xs)
+        return carry
+    for i in range(n):
+        carry = step(carry, tuple(x[i] for x in xs))
+    return carry
+
+
 def sample_reverse_sde_euler_maruyama(
     apply_fn: ApplyFn, sde: VPSDE, y_cat: torch.Tensor, y_cont: torch.Tensor, img_shape,
     generator: torch.Generator | None = None, n_steps: int = 200,
@@ -481,15 +503,18 @@ def sample_reverse_sde_euler_maruyama(
     gs = float(guidance_scale)
     ts = _quadratic_grid(n_steps, t_end, dev)
     x = _initial_x(None if noise is None else noise[0], shape, generator, dev)
-    z_all = None
-    if noise is not None:
+    if noise is None:
+        z_all = StepDraws(n_steps, shape, generator, dev)
+    else:
         z_all = _noise_tensor(noise[1], dev)
         if tuple(z_all.shape) != (n_steps, *shape):
             raise ValueError(f"injected z has shape {tuple(z_all.shape)}, "
                              f"expected {(n_steps, *shape)}")
     b = shape[0]
-    for i in range(n_steps):
-        t, dt = ts[i], ts[i + 1] - ts[i]  # dt < 0
+
+    def step(x, inputs):
+        t, t_next, z = inputs
+        dt = t_next - t  # < 0
         tb = t.expand(b)
         beta_t = sde.beta(tb).reshape(b, 1, 1, 1)
         sigma_t = sde.sigma(tb).reshape(b, 1, 1, 1)
@@ -499,8 +524,9 @@ def sample_reverse_sde_euler_maruyama(
         eps_hat = _maybe_clip_eps(eps_hat, x, alpha_t, sigma_t, clip_x0)
         score = -eps_hat / sigma_t
         drift = (-0.5 * beta_t * x) - (beta_t * score)
-        z = z_all[i] if z_all is not None else randn(shape, generator, dev)
-        x = x + drift * dt + g * torch.sqrt(torch.abs(dt)) * z
+        return x + drift * dt + g * torch.sqrt(torch.abs(dt)) * z
+
+    x = run_steps(step, x, (ts[:-1], ts[1:], z_all))
     return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
 
 
@@ -529,12 +555,14 @@ def sample_probability_flow_ode(
         score = -eps_hat / sigma_t
         return -0.5 * beta_t * x - 0.5 * beta_t * score
 
-    for i in range(n_steps):
-        t, t_next = ts[i], ts[i + 1]
+    def step(x, inputs):
+        t, t_next = inputs
         dt = t_next - t
         d1 = drift(x, t.expand(b))
         d2 = drift(x + d1 * dt, t_next.expand(b))
-        x = x + 0.5 * (d1 + d2) * dt
+        return x + 0.5 * (d1 + d2) * dt
+
+    x = run_steps(step, x, (ts[:-1], ts[1:]))
     return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
 
 
@@ -602,19 +630,22 @@ def sample_dpmpp_2m(
         x0 = (x - s * eps) / a.clamp(min=1e-6)
         return x0.clamp(-1.0, 1.0) if clip_x0 else x0
 
-    m_prev = None
-    for i in range(n_steps):
-        t_cur, t_next = ts[i], ts[i + 1]
+    h = lam_grid[1:] - lam_grid[:-1]
+    # D_i = c_m m_i - c_prev m_{i-1}: (1, 0) at the first step, which has no
+    # m_{i-1} (its m_prev is zeros, so D is m_0 bit for bit)
+    inv_2r = 1.0 / (2.0 * (h[:-1] / h[1:]))
+    c_m, c_prev = torch.cat([h.new_ones(1), 1.0 + inv_2r]), torch.cat([h.new_zeros(1), inv_2r])
+
+    def step(carry, inputs):
+        x, m_prev = carry
+        t_cur, t_next, h_step, cm, cp = inputs
         m = x0_pred(x, t_cur)
-        h_step = lam_grid[i + 1] - lam_grid[i]
-        if i == 0:
-            d = m
-        else:
-            r = (lam_grid[i] - lam_grid[i - 1]) / h_step
-            d = (1.0 + 1.0 / (2.0 * r)) * m - (1.0 / (2.0 * r)) * m_prev
+        d = cm * m - cp * m_prev
         x = (sde.sigma(t_next) / sde.sigma(t_cur)) * x \
             - sde.alpha(t_next) * torch.expm1(-h_step) * d
-        m_prev = m
+        return x, m
+
+    x, _ = run_steps(step, (x, torch.zeros_like(x)), (ts[:-1], ts[1:], h, c_m, c_prev))
     return _x0_projection(apply_fn, sde, x, ts[-1], y_cat, y_cont, gs, n_types)
 
 
@@ -651,8 +682,9 @@ def sample_ddim(
             eps = (x - a * x0) / s
         return x0, eps
 
-    for i in range(n_steps - 1):
-        tb, tn = ts[i].expand(b), ts[i + 1].expand(b)
+    def step(x, inputs):
+        t, t_next = inputs
+        tb, tn = t.expand(b), t_next.expand(b)
         x0, eps = x0_eps(x, tb)
         a_n = sde.alpha(tn).reshape(b, 1, 1, 1)
         s_n = sde.sigma(tn).reshape(b, 1, 1, 1)
@@ -663,6 +695,10 @@ def sample_ddim(
             a_t = sde.alpha(tb).reshape(b, 1, 1, 1)
             s_t = sde.sigma(tb).reshape(b, 1, 1, 1)
             x = (a_n / a_t.clamp(min=1e-6)) * (x - s_t * eps) + s_n * eps
+        return x
+
+    # the last evaluation returns x0 itself; at one step there is no loop
+    x = run_steps(step, x, (ts[:-2], ts[1:-1]))
     x0, _ = x0_eps(x, ts[-2].expand(b))
     return ((x0 + 1.0) * 0.5).clamp(0.0, 1.0)
 

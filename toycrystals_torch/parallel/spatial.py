@@ -78,17 +78,25 @@ _SCOPE: contextvars.ContextVar[Shard | None] = contextvars.ContextVar("toycrysta
                                                                      default=None)
 
 
+# The three readers are constant for a trace: Dynamo, which traces the body of
+# an exported sampler's scan (export.py), cannot read a ContextVar, and calls a
+# function marked so once, at trace time, keeping what it returns. An export
+# traces the one-device dispatch and refuses to run inside a mesh scope, so
+# what it keeps is None.
+@torch.compiler.assume_constant_result
 def current() -> Shard | None:
     """The mesh of the dispatch running in this thread, or None."""
     return _SCOPE.get()
 
 
+@torch.compiler.assume_constant_result
 def current_space() -> Shard | None:
     """The dispatch's mesh when it shards the image height, else None."""
     s = _SCOPE.get()
     return s if s is not None and s.space > 1 else None
 
 
+@torch.compiler.assume_constant_result
 def current_model() -> Shard | None:
     """The dispatch's mesh when it shards the weights' channels, else None."""
     s = _SCOPE.get()
